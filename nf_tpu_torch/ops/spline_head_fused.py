@@ -1,0 +1,185 @@
+"""Kernel B: conditioner head product + RQ spline in one pass.
+
+Replaces ``nf_tpu/ops/spline_head_fused.py:_head_kernel`` (launcher
+``_make_op.fwd_impl``, :216). The bin-major conditioner head emits spline
+parameters as ``params = W @ h_t + b`` with rows param-major; this op
+computes that last product inside the kernel, per element, and feeds the
+sums straight into the spline, so the ``(2K+nd)*D`` parameter planes never
+reach device memory. The CUDA source is ``csrc/head_rqs_fwd.cu``; what
+bounds it on the H100 and what the design does about it is noted there.
+
+Beside the kernel:
+
+* :func:`head_rqs_plain`, the plain version (``torch.matmul`` for the head,
+  then ``splines_kernel.rqs_plain``). CPU tensors use it, and the tests and
+  ``chip_smoke.py`` hold the kernel against it;
+* :func:`fused_head_rqs`, the wrapper: CUDA -> the kernel or raise, CPU ->
+  the plain version;
+* ``fused_head_rqs.launches``, the count of kernel launches;
+* :func:`effective_head` and :func:`_build_d_list`, ported from the JAX
+  module (:329, :93).
+
+No backward kernel yet: a CUDA call that needs a gradient raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .splines import (
+    DEFAULT_MIN_BIN_HEIGHT,
+    DEFAULT_MIN_BIN_WIDTH,
+    DEFAULT_MIN_DERIVATIVE,
+    linear_tail_constant,
+)
+from .splines_kernel import NO_BACKWARD, SUPPORTED_BINS, rqs_plain
+
+
+def _dplanes(num_bins, tails):
+    """Number of derivative rows the effective head weight carries."""
+    return num_bins - 1 if tails == "linear" else num_bins
+
+
+def _build_d_list(d_in, x_like, tails, min_derivative):
+    """K+1 boundary-adjusted derivative planes from the effective rows:
+    linear pads both ends with the logit of slope 1, circular closes the
+    circle with plane 0 (reference ``splines.py:43-56``)."""
+    if tails == "linear":
+        edge = torch.full_like(x_like, linear_tail_constant(min_derivative))
+        return [edge] + list(d_in) + [edge]
+    return list(d_in) + [d_in[0]]
+
+
+def effective_head(weight, bias, *, num_bins, feats, tails, softmax_scale):
+    """Fold the width/height softmax scale into the head rows:
+    ``s*(W@h+b) == (s*W)@h + s*b`` (``spline_head_fused.py:329``)."""
+    K, D = num_bins, feats
+    if bias is None:
+        bias = torch.zeros(weight.shape[0], dtype=weight.dtype,
+                           device=weight.device)
+    if weight.shape[0] != (2 * K + _dplanes(K, tails)) * D:
+        raise ValueError(f"head has {weight.shape[0]} rows, expected "
+                         f"{(2 * K + _dplanes(K, tails)) * D}")
+    if softmax_scale == 1.0:
+        return weight, bias
+    wh_rows = 2 * K * D
+    w_eff = torch.cat([weight[:wh_rows] * softmax_scale, weight[wh_rows:]])
+    b_eff = torch.cat([bias[:wh_rows] * softmax_scale, bias[wh_rows:]])
+    return w_eff, b_eff
+
+
+def head_rqs_plain(x_t, h_t, head_weight, head_bias, tb, *, num_bins, tails,
+                   inverse, min_bin_width=DEFAULT_MIN_BIN_WIDTH,
+                   min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
+                   min_derivative=DEFAULT_MIN_DERIVATIVE):
+    """Plain version of kernel B: ``x_t`` (D, B), ``h_t`` (H, B), effective
+    head ``(2K+nd)*D x H`` and bias, ``tb`` (D,) -> ``(y, ld)`` (D, B)."""
+    K, D = num_bins, x_t.shape[0]
+    params = torch.matmul(head_weight, h_t) + head_bias[:, None]
+    planes = [params[p * D:(p + 1) * D] for p in range(2 * K
+                                                        + _dplanes(K, tails))]
+    d = _build_d_list(planes[2 * K:], x_t, tails, min_derivative)
+    return rqs_plain(x_t, planes[:K], planes[K:2 * K], d, tb.reshape(-1, 1),
+                     inverse=inverse, min_bin_width=min_bin_width,
+                     min_bin_height=min_bin_height,
+                     min_derivative=min_derivative)
+
+
+def _launch(x_t, h_t, w, b, tb, *, num_bins, tails, inverse, mbw, mbh, md):
+    from . import _build
+
+    lib = _build.load("head_rqs_fwd")
+    fn = lib.head_rqs_fwd_launch
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    D, B = x_t.shape
+    y = torch.empty((D, B), dtype=x_t.dtype, device=x_t.device)
+    ld = torch.empty_like(y)
+    err = fn(x_t.data_ptr(), x_t.stride(0), x_t.stride(1), h_t.data_ptr(),
+             w.data_ptr(), b.data_ptr(), tb.data_ptr(), D, B, h_t.shape[0],
+             num_bins, int(tails == "circular"), int(bool(inverse)),
+             linear_tail_constant(md), mbw, mbh, md, y.data_ptr(),
+             ld.data_ptr(), torch.cuda.current_stream(x_t.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"head_rqs_fwd kernel launch failed: CUDA error {err}")
+    fused_head_rqs.launches += 1
+    return y, ld
+
+
+def fused_head_rqs(
+    x_t,
+    h_t,
+    head_weight,
+    head_bias,
+    *,
+    num_bins,
+    tails="linear",
+    tail_bound=1.0,
+    inverse=False,
+    min_bin_width=DEFAULT_MIN_BIN_WIDTH,
+    min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
+    min_derivative=DEFAULT_MIN_DERIVATIVE,
+):
+    """Head product + unconstrained RQ spline (``spline_head_fused.py:279``).
+
+    ``x_t`` (D, B) feature-major inputs; ``h_t`` (H, B) transposed hidden
+    activations (``ResidualNet.features_transposed``); ``head_weight``
+    ((2K+nd)*D, H) the EFFECTIVE bin-major head rows (softmax scale folded
+    in, :func:`effective_head`); ``head_bias`` ((2K+nd)*D,) or None.
+    ``tails``: 'linear' or 'circular'. ``tail_bound``: scalar or (D,).
+    Returns ``(y (D, B), log_det (D, B))``.
+    """
+    if tails not in ("linear", "circular"):
+        raise ValueError(f"fused head takes homogeneous 'linear' or "
+                         f"'circular' tails, got {tails!r}")
+    D, B = x_t.shape
+    K = int(num_bins)
+    m = (2 * K + _dplanes(K, tails)) * D
+    if head_bias is None:
+        head_bias = torch.zeros(m, dtype=x_t.dtype, device=x_t.device)
+    if isinstance(tail_bound, torch.Tensor):
+        tb = torch.broadcast_to(tail_bound.reshape(-1), (D,))
+    else:  # a fill, not a host-to-device copy (which would sync the host)
+        tb = torch.full((D,), float(tail_bound), dtype=x_t.dtype,
+                        device=x_t.device)
+    kw = dict(num_bins=K, tails=tails, inverse=inverse)
+    if x_t.device.type == "cpu":
+        return head_rqs_plain(x_t, h_t, head_weight, head_bias, tb,
+                              min_bin_width=min_bin_width,
+                              min_bin_height=min_bin_height,
+                              min_derivative=min_derivative, **kw)
+    if x_t.device.type != "cuda":
+        raise ValueError(f"no fused head kernel for device {x_t.device}")
+    if K not in SUPPORTED_BINS:
+        raise ValueError(f"the fused head kernel is built for K in "
+                         f"{SUPPORTED_BINS}, got K={K}")
+    H = h_t.shape[0]
+    if (h_t.shape != (H, B) or head_weight.shape != (m, H)
+            or head_bias.shape != (m,)):
+        raise ValueError(
+            f"fused head shapes: x_t {tuple(x_t.shape)}, h_t "
+            f"{tuple(h_t.shape)}, weight {tuple(head_weight.shape)}, bias "
+            f"{tuple(head_bias.shape)}; expected weight ({m}, H), bias "
+            f"({m},) for K={K}, tails={tails!r}")
+    operands = (x_t, h_t, head_weight, head_bias, tb)
+    for t in operands:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the fused head kernel takes float32, got "
+                            f"{t.dtype}")
+        if t.device != x_t.device:
+            raise ValueError("all operands must be on the same CUDA device")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise NotImplementedError(NO_BACKWARD)
+    return _launch(x_t, h_t.contiguous(), head_weight.contiguous(),
+                   head_bias.contiguous(), tb.contiguous(),
+                   mbw=float(min_bin_width), mbh=float(min_bin_height),
+                   md=float(min_derivative), **kw)
+
+
+fused_head_rqs.launches = 0
