@@ -51,8 +51,9 @@ class NormalizingFlow(nn.Module):
         return log_q + self.q0.log_prob(z)
 
     def forward_kld(self, x, context=None):
-        """MLE loss value -E[log q(x)] (reference ``core.py:87``). Its
-        backward on CUDA arrives with the training slice."""
+        """MLE loss value -E[log q(x)] (reference ``core.py:87``). On CUDA
+        its backward runs through the spline kernels' backward kernels (C
+        and E)."""
         return -torch.mean(self.log_prob(x, context=context))
 
     def sample(self, num_samples=1, generator=None, context=None):

@@ -1,25 +1,32 @@
-"""Kernel B: conditioner head product + RQ spline in one pass.
+"""Kernels B and E: conditioner head product + RQ spline in one pass (B),
+and its fused backward (E).
 
-Replaces ``nf_tpu/ops/spline_head_fused.py:_head_kernel`` (launcher
-``_make_op.fwd_impl``, :216). The bin-major conditioner head emits spline
-parameters as ``params = W @ h_t + b`` with rows param-major; this op
-computes that last product inside the kernel, per element, and feeds the
-sums straight into the spline, so the ``(2K+nd)*D`` parameter planes never
-reach device memory. The CUDA source is ``csrc/head_rqs_fwd.cu``; what
-bounds it on the H100 and what the design does about it is noted there.
+Kernel B replaces ``nf_tpu/ops/spline_head_fused.py:_head_kernel``
+(launcher ``_make_op.fwd_impl``, :216). The bin-major conditioner head
+emits spline parameters as ``params = W @ h_t + b`` with rows param-major;
+kernel B computes that last product inside the kernel, per element, and
+feeds the sums straight into the spline, so the ``(2K+nd)*D`` parameter
+planes never reach device memory. Kernel E replaces ``_head_bwd_kernel``
+(launcher ``_make_op.bwd_impl``, :236): it recomputes the parameters, runs
+the analytic spline transpose, folds the cotangents into head rows and
+forms ``gx``, ``gh = W_eff^T @ gparams``, ``gW = gparams @ h_t^T`` and
+``gb`` in its own body. The CUDA sources are ``csrc/head_rqs_fwd.cu`` and
+``csrc/head_rqs_bwd.cu``; what bounds each on the H100 and what the design
+does about it is noted there.
 
-Beside the kernel:
+Beside the kernels:
 
-* :func:`head_rqs_plain`, the plain version (``torch.matmul`` for the head,
-  then ``splines_kernel.rqs_plain``). CPU tensors use it, and the tests and
-  ``chip_smoke.py`` hold the kernel against it;
-* :func:`fused_head_rqs`, the wrapper: CUDA -> the kernel or raise, CPU ->
-  the plain version;
-* ``fused_head_rqs.launches``, the count of kernel launches;
+* :func:`head_rqs_plain` and :func:`head_rqs_bwd_plain`, the plain
+  versions (``torch.matmul`` for the products, then
+  ``splines_kernel.rqs_plain`` / ``rqs_bwd_plain``). CPU tensors use
+  :func:`head_rqs_plain` with ordinary autograd, and the tests and
+  ``chip_smoke.py`` hold the kernels against both;
+* :func:`fused_head_rqs`, the wrapper: CUDA -> :class:`_HeadRQSFunction`
+  (kernel B forward, kernel E backward) or raise, CPU -> the plain version;
+* ``fused_head_rqs.launches`` and ``fused_head_rqs_bwd.launches``, the
+  counts of launches;
 * :func:`effective_head` and :func:`_build_d_list`, ported from the JAX
   module (:329, :93).
-
-No backward kernel yet: a CUDA call that needs a gradient raises.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .splines import (
     DEFAULT_MIN_BIN_HEIGHT,
@@ -34,7 +42,7 @@ from .splines import (
     DEFAULT_MIN_DERIVATIVE,
     linear_tail_constant,
 )
-from .splines_kernel import NO_BACKWARD, SUPPORTED_BINS, rqs_plain
+from .splines_kernel import SUPPORTED_BINS, rqs_bwd_plain, rqs_plain
 
 
 def _dplanes(num_bins, tails):
@@ -87,6 +95,36 @@ def head_rqs_plain(x_t, h_t, head_weight, head_bias, tb, *, num_bins, tails,
                      min_derivative=min_derivative)
 
 
+def head_rqs_bwd_plain(x_t, h_t, head_weight, head_bias, tb, cty, ctl, *,
+                       num_bins, tails, inverse,
+                       min_bin_width=DEFAULT_MIN_BIN_WIDTH,
+                       min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
+                       min_derivative=DEFAULT_MIN_DERIVATIVE):
+    """Plain version of kernel E: the operands of :func:`head_rqs_plain`
+    plus the cotangents ``cty``, ``ctl`` (D, B) of ``(y, ld)`` -> ``(gx (D,
+    B), gh (H, B), gW (M, H), gb (M,))`` (``spline_head_fused.py:129``).
+    The derivative cotangents fold into head rows: linear tails drop the
+    two synthesised edge planes, circular tails add ``gd[K]`` into row 0.
+    The tail bound gets no gradient."""
+    K, D = num_bins, x_t.shape[0]
+    nd = _dplanes(K, tails)
+    params = torch.matmul(head_weight, h_t) + head_bias[:, None]
+    planes = [params[p * D:(p + 1) * D] for p in range(2 * K + nd)]
+    d = _build_d_list(planes[2 * K:], x_t, tails, min_derivative)
+    gx, gw, gh, gd = rqs_bwd_plain(
+        x_t, planes[:K], planes[K:2 * K], d, tb.reshape(-1, 1), cty, ctl,
+        inverse=inverse, min_bin_width=min_bin_width,
+        min_bin_height=min_bin_height, min_derivative=min_derivative)
+    if tails == "linear":
+        gd_eff = [gd[j + 1] for j in range(nd)]
+    else:
+        gd_eff = [gd[0] + gd[K]] + [gd[j] for j in range(1, K)]
+    gparams = torch.cat([gw.reshape(K * D, -1), gh.reshape(K * D, -1)]
+                        + gd_eff)
+    return (gx, torch.matmul(head_weight.T, gparams),
+            torch.matmul(gparams, h_t.T), torch.sum(gparams, dim=1))
+
+
 def _launch(x_t, h_t, w, b, tb, *, num_bins, tails, inverse, mbw, mbh, md):
     from . import _build
 
@@ -110,6 +148,105 @@ def _launch(x_t, h_t, w, b, tb, *, num_bins, tails, inverse, mbw, mbh, md):
             f"head_rqs_fwd kernel launch failed: CUDA error {err}")
     fused_head_rqs.launches += 1
     return y, ld
+
+
+# kernel E's block of batch columns (csrc/head_rqs_bwd.cu kThreads, kChunk,
+# kTile) and the shared memory a block may use on the H100
+_E_THREADS, _E_CHUNK, _E_TILE = 256, 32, 32
+_MAX_SHARED_BYTES = 232448
+
+
+def kernel_e_shared_bytes(m, hidden):
+    """Dynamic shared memory of one block of kernel E: the block's
+    parameter cotangents (m, 256), a chunk of h_t (H, 33) and a tile of
+    W_eff (m, 32), float32."""
+    return 4 * (m * _E_THREADS + hidden * (_E_CHUNK + 1) + m * _E_TILE)
+
+
+def _launch_bwd(x_t, h_t, w, b, tb, cty, ctl, *, num_bins, tails, inverse,
+                mbw, mbh, md):
+    """Launch kernel E (two launches: the per-block pass, then the
+    fixed-order sum of the blocks' gW/gb partials) -> ``(gx, gh, gW,
+    gb)``."""
+    from . import _build
+
+    D, B = x_t.shape
+    H = h_t.shape[0]
+    m = w.shape[0]
+    smem = kernel_e_shared_bytes(m, H)
+    if smem > _MAX_SHARED_BYTES:
+        raise ValueError(f"kernel E needs {smem} bytes of shared memory per "
+                         f"block at {m} head rows and hidden {H}; the H100 "
+                         f"gives {_MAX_SHARED_BYTES}")
+    for t in (cty, ctl):
+        if t.dtype != torch.float32 or t.device != x_t.device:
+            raise TypeError(f"kernel E takes float32 cotangents on "
+                            f"{x_t.device}, got {t.dtype} on {t.device}")
+    lib = _build.load("head_rqs_bwd")
+    fn = lib.head_rqs_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 4
+                   + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+                   * 2
+                   + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 6)
+    fn.restype = ctypes.c_int
+    blocks = (B + _E_THREADS - 1) // _E_THREADS
+    gx = torch.empty((D, B), dtype=x_t.dtype, device=x_t.device)
+    gh = torch.empty((H, B), dtype=x_t.dtype, device=x_t.device)
+    gw = torch.empty((m, H), dtype=x_t.dtype, device=x_t.device)
+    gb = torch.empty((m,), dtype=x_t.dtype, device=x_t.device)
+    partials = torch.empty((max(blocks, 1), m * (H + 1)), dtype=x_t.dtype,
+                           device=x_t.device)
+    err = fn(x_t.data_ptr(), x_t.stride(0), x_t.stride(1), h_t.data_ptr(),
+             w.data_ptr(), b.data_ptr(), tb.data_ptr(),
+             cty.data_ptr(), cty.stride(0), cty.stride(1),
+             ctl.data_ptr(), ctl.stride(0), ctl.stride(1), D, B, H,
+             num_bins, int(tails == "circular"), int(bool(inverse)),
+             linear_tail_constant(md), mbw, mbh, md, gx.data_ptr(),
+             gh.data_ptr(), gw.data_ptr(), gb.data_ptr(),
+             partials.data_ptr(),
+             torch.cuda.current_stream(x_t.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"head_rqs_bwd kernel launch failed: CUDA error {err}")
+    fused_head_rqs_bwd.launches += 1
+    return gx, gh, gw, gb
+
+
+def fused_head_rqs_bwd(x_t, h_t, head_weight, head_bias, tb, cty, ctl, *,
+                       num_bins, tails, inverse,
+                       min_bin_width=DEFAULT_MIN_BIN_WIDTH,
+                       min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
+                       min_derivative=DEFAULT_MIN_DERIVATIVE):
+    """Kernel E on CUDA tensors (the operands of :func:`head_rqs_bwd_plain`)
+    -> ``(gx, gh, gW, gb)``: the backward :func:`fused_head_rqs` runs,
+    exposed for the parity checks."""
+    if x_t.device.type != "cuda":
+        raise ValueError(f"kernel E runs on CUDA tensors, got {x_t.device}")
+    return _launch_bwd(x_t, h_t.contiguous(), head_weight.contiguous(),
+                       head_bias.contiguous(), tb.contiguous(), cty, ctl,
+                       num_bins=num_bins, tails=tails, inverse=inverse,
+                       mbw=float(min_bin_width), mbh=float(min_bin_height),
+                       md=float(min_derivative))
+
+
+class _HeadRQSFunction(torch.autograd.Function):
+    """Kernel B forward, kernel E backward. The residuals are the inputs,
+    as in the JAX custom VJP (``spline_head_fused.py:263-276``); the tail
+    bound gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x_t, h_t, w, b, tb, kw):
+        ctx.save_for_backward(x_t, h_t, w, b, tb)
+        ctx.kw = kw
+        return _launch(x_t, h_t, w, b, tb, **kw)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, gld):
+        gx, gh, gw, gb = _launch_bwd(*ctx.saved_tensors, gy, gld, **ctx.kw)
+        return gx, gh, gw, gb, None, None
 
 
 def fused_head_rqs(
@@ -174,12 +311,12 @@ def fused_head_rqs(
                             f"{t.dtype}")
         if t.device != x_t.device:
             raise ValueError("all operands must be on the same CUDA device")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-        raise NotImplementedError(NO_BACKWARD)
-    return _launch(x_t, h_t.contiguous(), head_weight.contiguous(),
-                   head_bias.contiguous(), tb.contiguous(),
-                   mbw=float(min_bin_width), mbh=float(min_bin_height),
-                   md=float(min_derivative), **kw)
+    kw.update(mbw=float(min_bin_width), mbh=float(min_bin_height),
+              md=float(min_derivative))
+    return _HeadRQSFunction.apply(
+        x_t, h_t.contiguous(), head_weight.contiguous(),
+        head_bias.contiguous(), tb.contiguous(), kw)
 
 
 fused_head_rqs.launches = 0
+fused_head_rqs_bwd.launches = 0
