@@ -11,10 +11,13 @@ toolkit. Phases, one line each:
    process per source, all started together;
 3. parity: each kernel against its plain PyTorch version on the same CUDA
    inputs (kernels A and B: 1e-5 abs on outputs, 1e-4 abs on log-dets;
-   backward kernels C and E: 1e-4 abs on per-element gradients, 1e-4
-   relative to the largest magnitude on gradients summed over the batch),
-   then its time, the plain version's time and its roofline bound at the
-   shapes the serving path (A, B) or the training step (C, E) gives it;
+   backward kernels C, D and E: 1e-4 abs on per-element gradients, 1e-4
+   relative to the largest magnitude on gradients summed over the batch;
+   kernel D also against kernel C, and at x = ±tb against half of C's
+   x-gradient), then its time, the plain version's time and its roofline
+   bound at the shapes the serving path (A, B) or a training step (C, E:
+   ``build_nsf``'s; D: the circular NSF's) gives it; A and C also at the
+   circular NSF's shapes;
 4. gate: one coupling's transform half through kernel B and through the
    unfused feed, at B*D from 1024 to 65536 (where the fused-head gate
    belongs);
@@ -22,7 +25,8 @@ toolkit. Phases, one line each:
    hidden 128, 8 bins, 2 blocks) with seeded random weights answers
    ``log_prob`` and ``sample`` at B = 65536, checked against the same
    model on the CPU, against its own ``log_q``, and by a round trip; the
-   launch counts show kernels A and B ran on that path, and C and E not;
+   launch counts show kernels A and B ran on that path, and C, D and E
+   not;
 6. profile: one ``log_prob`` and one ``sample`` call under
    ``torch.profiler``: device busy and idle share, device time by kernel;
 7. training: the same model trained with ``make_forward_kld_step`` and
@@ -30,7 +34,19 @@ toolkit. Phases, one line each:
    B = 8192 (kernels B and E) and B = 2048 (A and C only), launches per
    step, 100 steps at B = 65536 whose loss falls, the ``skip_nonfinite``
    and ``accum_steps`` checks, ms per step and one step under the
-   profiler.
+   profiler;
+8. circular serving: ``build_circular_nsf`` at its defaults (the
+   normflows paper example: dim 2, K 12, MADE hidden 512, 10 bins) with
+   seeded random weights, ``log_prob`` and ``sample`` at B = 65536 against
+   the CPU, against ``log_q`` and by a round trip (the circular
+   coordinate modulo 2 pi); kernel A alone, 12 launches per ``log_prob``
+   and 24 per ``sample``; ms per call and a profile of each;
+9. circular training: the same model trained by ``make_reverse_kld_step``
+   on the Gauss-von Mises target with Adam(lr=5e-4) at B = 16384, once
+   with kernel C and once with kernel D as the backward: one step card
+   against CPU at B = 4096 on the same base draws, launches per step (A
+   24, C or D 24), 50 steps (ms per step, the loss), no host sync in a
+   step, and a profiled step.
 
 It then prints one JSON line on the kernels, the card's name and power
 limit as ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device":
@@ -62,6 +78,12 @@ TRAIN_TOL = 1e-3  # one step's gradients, card vs CPU, relative
 TRAIN_STEPS = 100
 LOSS_MARGIN = 0.1  # nats the last 10 losses' mean must lie below the first
 TIMING_REPS = 30
+CIRC_BATCH = 65536  # circular NSF serving
+CIRC_TRAIN_BATCH = 16384  # 2^14, the paper example's reverse-KLD batch
+CIRC_CHECK_BATCH = 4096  # one step, card against CPU
+CIRC_CPU_BATCH = 16384  # log_prob, card against CPU
+CIRC_STEPS = 50
+TIE_TOL = 1e-5  # kernel D at x = ±tb: half of kernel C's x-gradient
 
 # Published peaks (NVIDIA data sheets): memory bytes/s and float32
 # CUDA-core flop/s. The SXM part's are the default.
@@ -177,7 +199,8 @@ def phase_device():
 def phase_build():
     from nf_tpu_torch.ops import _build
 
-    names = ["rqs_fwd", "head_rqs_fwd", "rqs_bwd", "head_rqs_bwd"]
+    names = ["rqs_fwd", "head_rqs_fwd", "rqs_bwd", "head_rqs_bwd",
+             "rqs_bwd_autodiff"]
     t0 = time.perf_counter()
     _build.build(names)
     secs = time.perf_counter() - t0
@@ -338,6 +361,158 @@ def parity_kernel_e(dev):
     return worst, worst_sum, cases
 
 
+# the tail kinds of the circular NSF's feed: the derivative logits before
+# padding have K + extra planes; mixed is its own (circular, linear)
+D_TAILS = {"linear": ("linear", -1), "circular": ("circular", 0),
+           "mixed": (["circular", "linear"], 1)}
+
+
+def _path_operands(rng, K, tails, dev, batch=CIRC_TRAIN_BATCH):
+    """The circular NSF's spline operands: x (2, B), full k-major parameter
+    planes with the tail padding of ``tails``, tail bound (2, 1) (pi and
+    3, read with stride 0), cotangents (2, B); the first columns of x sit
+    exactly at ±tb."""
+    from nf_tpu_torch.ops import splines
+
+    tails_arg, extra = D_TAILS[tails]
+    x = _normal(rng, (2, batch), 2.0, dev)
+    tb = torch.tensor([[np.pi], [3.0]], device=dev)
+    x[:, :2] = torch.cat([tb, -tb], dim=1)
+    w, h = (_normal(rng, (K, 2, batch), 0.5, dev) for _ in range(2))
+    d = splines.pad_derivatives(_normal(rng, (K + extra, 2, batch), 0.5,
+                                        dev), tails_arg, 1e-3, axis=0)
+    cty, ctl = (_normal(rng, (2, batch), 1.0, dev) for _ in range(2))
+    return x, w, h, d, tb, cty, ctl
+
+
+def parity_kernel_d(dev):
+    """Kernel D against ``rqs_vjp_plain`` on two layouts, both directions,
+    K 4/8/10: the circular NSF's (full planes, per-feature tail bound,
+    linear/circular/mixed tails) and the CDF's of kernel C's parity
+    (stride-0 parameters, whose batch sums autograd forms through
+    ``fused_unconstrained_rqs`` under the autodiff mode). On the first
+    layout also D against kernel C: within G_TOL of the largest magnitude
+    away from x = ±tb, and half of C's x-gradient at it (JAX's tie)."""
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    rng = np.random.default_rng(SEED + 11)
+    worst = worst_sum = worst_dc = worst_tie = 0.0
+    cases = 0
+    for K in tk.SUPPORTED_BINS:
+        for inverse in (False, True):
+            for tails in D_TAILS:
+                ops = _path_operands(rng, K, tails, dev)
+                got = tk.rqs_bwd_autodiff(*ops, inverse=inverse)
+                want = tk.rqs_vjp_plain(*ops, inverse=inverse)
+                c = tk.rqs_bwd(*ops, inverse=inverse)
+                torch.cuda.synchronize()
+                worst = max(worst, *(max_err(a, b)
+                                     for a, b in zip(got, want)))
+                worst_dc = max(worst_dc, *(rel_err(a[..., 2:], b[..., 2:])
+                                           for a, b in zip(got, c)))
+                worst_tie = max(worst_tie, max_err(got[0][:, :2],
+                                                   0.5 * c[0][:, :2]))
+                cases += 1
+            batch = PARITY_BATCHES[1]
+            x = _normal(rng, (batch, 1), 2.0, dev)
+            cty, ctl = (_normal(rng, (batch, 1), 1.0, dev) for _ in range(2))
+            small = [_normal(rng, (1, 1, n), 0.5, dev) for n in (K, K, K + 1)]
+            views = [t.expand(batch, 1, t.shape[-1]).movedim(-1, 0)
+                     for t in small]
+            got = tk.rqs_bwd_autodiff(x, *views, 3.0, cty, ctl,
+                                      inverse=inverse)
+            want = tk.rqs_vjp_plain(x, *views, 3.0, cty, ctl,
+                                    inverse=inverse)
+            leaves = [t.clone().requires_grad_() for t in small]
+            tk.set_pallas_bwd_kernel("autodiff")
+            try:
+                y, ld = tk.fused_unconstrained_rqs(x, *leaves, 3.0,
+                                                   inverse=inverse)
+            finally:
+                tk.set_pallas_bwd_kernel("analytic")
+            torch.autograd.backward((y, ld), (cty, ctl))
+            torch.cuda.synchronize()
+            worst = max(worst, *(max_err(a, b) for a, b in zip(got, want)))
+            worst_sum = max(worst_sum, *(
+                rel_err(leaf.grad, p.sum(1).T[None])
+                for leaf, p in zip(leaves, want[1:])))
+            cases += 1
+    if not (worst_dc <= G_TOL and worst_tie <= TIE_TOL):
+        raise RuntimeError(f"kernel D against kernel C: {worst_dc:.3g} "
+                           f"relative away from ties (limit {G_TOL}), "
+                           f"{worst_tie:.3g} from half of C's gx at ±tb "
+                           f"(limit {TIE_TOL})")
+    print(f"phase parity rqs_bwd_autodiff vs rqs_bwd: {worst_dc:.3g} of "
+          f"the largest magnitude away from x = ±tb (limit {G_TOL}); gx "
+          f"at ±tb within {worst_tie:.3g} of half of C's (limit "
+          f"{TIE_TOL})", flush=True)
+    return worst, worst_sum, cases
+
+
+def _spline_bytes(x, planes, n_out):
+    """Bytes a spline kernel must move: x and the stored elements of its
+    parameter planes (a stride-0 broadcast is read once) in, ``n_out``
+    planes of x's size out."""
+    stored = sum(t.untyped_storage().nbytes() for t in planes)
+    return 4 * x.numel() * (1 + n_out) + stored
+
+
+def timing_kernel_d(dev, flush, peaks):
+    """At the reverse-KLD step's shapes: the backward of one autoregressive
+    layer's spline, x (2, 16384), full (K, 2, B) planes with K = 10 and
+    mixed tails, tail bound (2, 1), cotangents (2, B)."""
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    ops = _path_operands(np.random.default_rng(SEED + 12), 10, "mixed", dev)
+    x, w, h, d, tb, cty, ctl = ops
+    out = {}
+    for inverse in (False, True):
+        ms = device_ms(lambda: tk.rqs_bwd_autodiff(*ops, inverse=inverse),
+                       flush)
+        plain = device_ms(lambda: tk.rqs_vjp_plain(*ops, inverse=inverse),
+                          flush)
+        # x, cty, ctl, the planes and tb read; gx and 3K+1 planes written
+        nbytes = (_spline_bytes(x, (w, h, d, tb), 3 * 10 + 2)
+                  + 4 * 2 * x.numel())
+        ops_n = tk.rqs_vjp_ops_per_element(10, inverse) * x.numel()
+        out[inverse] = (ms, plain) + bound(nbytes, ops_n, peaks)
+    return out
+
+
+def timing_path_a_c(dev, flush, peaks):
+    """Kernels A and C at the circular NSF's shapes (those of
+    :func:`timing_kernel_d`): one printed line, both directions."""
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    x, w, h, d, tb, cty, ctl = _path_operands(
+        np.random.default_rng(SEED + 13), 10, "mixed", dev)
+    rows = []
+    for inverse in (False, True):
+        a_ms = device_ms(lambda: tk.rqs_fwd(x, w, h, d, tb,
+                                            inverse=inverse), flush)
+        a_plain = device_ms(lambda: tk.rqs_plain(x, w, h, d, tb,
+                                                 inverse=inverse), flush)
+        a_bound = bound(_spline_bytes(x, (w, h, d, tb), 2),
+                        tk.rqs_ops_per_element(10, inverse) * x.numel(),
+                        peaks)
+        c_ms = device_ms(lambda: tk.rqs_bwd(x, w, h, d, tb, cty, ctl,
+                                            inverse=inverse), flush)
+        c_plain = device_ms(lambda: tk.rqs_bwd_plain(
+            x, w, h, d, tb, cty, ctl, inverse=inverse), flush)
+        c_bound = bound(_spline_bytes(x, (w, h, d, tb), 3 * 10 + 2)
+                        + 4 * 2 * x.numel(),
+                        tk.rqs_bwd_ops_per_element(10, inverse) * x.numel(),
+                        peaks)
+        rows.append(f"{'inverse' if inverse else 'forward'}: A kernel_ms "
+                    f"{a_ms:.4f} plain_ms {a_plain:.4f} bound_ms "
+                    f"{a_bound[0]:.5f} ({a_bound[1]}); C kernel_ms "
+                    f"{c_ms:.4f} plain_ms {c_plain:.4f} bound_ms "
+                    f"{c_bound[0]:.5f} ({c_bound[1]})")
+    print(f"phase timing circular path shapes (x (2, {CIRC_TRAIN_BATCH}), "
+          f"K = 10 full planes, mixed tails, tb (2, 1)): "
+          + "; ".join(rows), flush=True)
+
+
 def timing_kernel_a(dev, flush, peaks):
     """At the serving path's shapes: the CDF of a dim-2 coupling, x (B, 1),
     (1, 1, K) parameters broadcast, scalar tail bound 3."""
@@ -490,7 +665,8 @@ def _counters():
     from nf_tpu_torch.ops import splines_kernel as tk
 
     return {"rqs_fwd": tk.rqs_fwd, "head_rqs_fwd": shf.fused_head_rqs,
-            "rqs_bwd": tk.rqs_bwd, "head_rqs_bwd": shf.fused_head_rqs_bwd}
+            "rqs_bwd": tk.rqs_bwd, "head_rqs_bwd": shf.fused_head_rqs_bwd,
+            "rqs_bwd_autodiff": tk.rqs_bwd_autodiff}
 
 
 def reset_counts():
@@ -638,8 +814,8 @@ def phase_training(dev):
     # 1. one step's loss and gradients, card against CPU; 2. launches
     cpu_model = copy.deepcopy(model).to("cpu")
     grad_errs, per_step = {}, {}
-    expect = {8192: (layers, layers, layers, layers),
-              2048: (2 * layers, 0, 2 * layers, 0)}
+    expect = {8192: (layers, layers, layers, layers, 0),
+              2048: (2 * layers, 0, 2 * layers, 0, 0)}
     for batch in (8192, 2048):
         x = pool[:batch]
         loss, grads, launches = _step_result(model, x)
@@ -653,11 +829,11 @@ def phase_training(dev):
                 f"gradients {worst:.3g} relative (limit {TRAIN_TOL})")
         per_step[batch] = launches
     _, _, per_step[BATCH] = _step_result(model, pool[:BATCH])
-    expect[BATCH] = (layers,) * 4
+    expect[BATCH] = (layers,) * 4 + (0,)
     for batch, want in expect.items():
         got = tuple(per_step[batch].values())
         if got != want:
-            raise RuntimeError(f"B={batch}: launches per step (A, B, C, E) "
+            raise RuntimeError(f"B={batch}: launches per step (A, B, C, E, D) "
                                f"{got}, expected {want}")
 
     # 4. guards: skip_nonfinite rolls a NaN batch back bitwise; accum
@@ -717,7 +893,7 @@ def phase_training(dev):
               f"B={b} loss diff {e[0]:.3g} (limit {MODEL_TOL}), gradients "
               f"{e[1]:.3g} relative (limit {TRAIN_TOL})"
               for b, e in grad_errs.items())
-          + f"; launches per step (A, B, C, E): "
+          + f"; launches per step (A, B, C, E, D): "
           + ", ".join(f"B={b} {tuple(c.values())}"
                       for b, c in per_step.items())
           + f"; skip_nonfinite: NaN batch rolled back bitwise ({len(after)} "
@@ -743,6 +919,221 @@ def phase_training(dev):
           + "; ".join(f"{n[:60]} {t:.3f} x{c}" for n, (t, c) in top[:10]),
           flush=True)
     return launches
+
+
+class GaussVonMises:
+    """The unnormalized Gauss-von Mises density on the cylinder (phi, z)
+    that the paper example fits (``examples/paper_example_nsf.py:22-36``):
+    a von Mises in phi (concentration 2) coupled to a Gaussian in z with
+    mean 0.8 sin(phi)."""
+
+    def log_prob(self, x):
+        phi, z = x[..., 0], x[..., 1]
+        return 2.0 * torch.cos(phi) - 0.5 * (z - 0.8 * torch.sin(phi)) ** 2
+
+
+def _counted(counts, label, fn):
+    """Run ``fn`` with every count at 0 before it; keep the counts after."""
+    reset_counts()
+    out = fn()
+    counts[label] = read_counts()
+    return out
+
+
+def _expect(counts, want, what):
+    """Fail unless each pass launched exactly the kernels of ``want``
+    ({label: {kernel: count}}; every other kernel 0 times)."""
+    for label, kernels in want.items():
+        got = counts[label]
+        expected = {k: kernels.get(k, 0) for k in got}
+        if got != expected:
+            raise RuntimeError(f"{what} {label}: launches {got}, expected "
+                               f"{expected}")
+
+
+def phase_circular_serving(dev):
+    """``build_circular_nsf`` at its defaults (the paper example: dim 2,
+    ind_circ (0,), K 12, MADE hidden 512, 10 bins) with seeded random
+    weights moved off the identity: ``log_prob`` and ``sample`` at
+    B = 65536. Returns the launches of the ``log_prob`` and ``sample``
+    passes together."""
+    import nf_tpu_torch as nt
+
+    layers = 12
+    model = nt.build_circular_nsf(seed=SEED)  # device None: cuda
+    perturb(model, SEED + 20)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    rng = np.random.default_rng(SEED + 21)
+    x = np.stack([rng.uniform(-np.pi, np.pi, CIRC_BATCH),
+                  rng.standard_normal(CIRC_BATCH) * 1.5], axis=1)
+    x = torch.from_numpy(x.astype(np.float32))
+    x_dev = x.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+
+    counts = {}
+    with torch.inference_mode():
+        lp = _counted(counts, "log_prob", lambda: model.log_prob(x_dev))
+        z, log_q = _counted(counts, "sample", lambda: model.sample(
+            CIRC_BATCH, generator=gen))
+        lp_s = model.log_prob(z)
+        z_back = model.inverse(x_dev)
+        x_back = model.forward(z_back)
+        torch.cuda.synchronize()
+    _expect(counts, {"log_prob": {"rqs_fwd": layers},
+                     "sample": {"rqs_fwd": 2 * layers}}, "circular serving")
+    with torch.inference_mode():
+        lp_cpu = cpu_model.log_prob(x[:CIRC_CPU_BATCH])
+    d = x_back.cpu() - x
+    d[:, 0] = torch.remainder(d[:, 0] + np.pi, 2 * np.pi) - np.pi
+    errs = {
+        f"log_prob cuda vs cpu (first {CIRC_CPU_BATCH})": max_err(
+            lp[:CIRC_CPU_BATCH].cpu(), lp_cpu),
+        "log_prob(sample) vs log_q": max_err(lp_s, log_q),
+        "forward(inverse(x)) vs x (phi mod 2 pi)": float(d.abs().max()),
+    }
+    for t in (lp, z, log_q, lp_s, x_back):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError("non-finite values on the circular serving "
+                               "path")
+    if z.shape != (CIRC_BATCH, 2) or lp.shape != (CIRC_BATCH,):
+        raise RuntimeError(f"shapes: sample {tuple(z.shape)}, log_prob "
+                           f"{tuple(lp.shape)}")
+    if float(z[:, 0].abs().max()) > np.pi:
+        raise RuntimeError("samples' circular coordinate left [-pi, pi]")
+    for k, v in errs.items():
+        if not v <= MODEL_TOL:
+            raise RuntimeError(f"circular serving: {k} max abs err {v:.3g} "
+                               f"> {MODEL_TOL}")
+    if max_err(lp, model.q0.log_prob(x_dev)) < 0.1:
+        raise RuntimeError("the perturbed circular model is still the "
+                           "identity")
+    with torch.inference_mode():
+        lp_ms = host_ms(lambda: model.log_prob(x_dev))
+        sample_ms = host_ms(lambda: model.sample(CIRC_BATCH, generator=gen))
+    print(f"phase circular serving: build_circular_nsf(dim=2, ind_circ=(0,),"
+          f" K={layers}, hidden=512, bins=10) B={CIRC_BATCH}; launches per "
+          f"pass {counts}; errors "
+          + ", ".join(f"{k} {v:.3g} (limit {MODEL_TOL})"
+                      for k, v in errs.items())
+          + f"; log_prob {lp_ms:.3f} ms/call ({CIRC_BATCH / lp_ms * 1e3:.4g} "
+          f"samples/s), sample {sample_ms:.3f} ms/call "
+          f"({CIRC_BATCH / sample_ms * 1e3:.4g} samples/s)", flush=True)
+    with torch.inference_mode():
+        for label, fn in (("log_prob", lambda: model.log_prob(x_dev)),
+                          ("sample", lambda: model.sample(
+                              CIRC_BATCH, generator=gen))):
+            print_profile(f"circular {label}", fn)
+    return {k: counts["log_prob"][k] + counts["sample"][k]
+            for k in counts["log_prob"]}
+
+
+def print_profile(label, fn):
+    wall, busy, top = profile_call(fn)
+    if not top:
+        raise RuntimeError("the profiler saw no device time")
+    print(f"phase profile {label}: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}; "
+          f"top kernels (device ms, count): "
+          + "; ".join(f"{n[:60]} {t:.3f} x{c}" for n, (t, c) in top[:10]),
+          flush=True)
+
+
+def _circular_step_result(model, z0, mode):
+    """One SGD step of ``make_reverse_kld_step`` on a copy of ``model``
+    whose base returns ``z0``: (loss, {name: gradient}, launches)."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    m = copy.deepcopy(model)
+    m.q0.sample = lambda n, generator=None: z0
+    opt = torch.optim.SGD(m.parameters(), lr=0.0)
+    step = nt.make_reverse_kld_step(opt, num_samples=z0.shape[0])
+    counts = {}
+    tk.set_pallas_bwd_kernel(mode)
+    try:
+        loss = _counted(counts, "step", lambda: step(
+            nt.init_train_state(m, opt), None))
+    finally:
+        tk.set_pallas_bwd_kernel("analytic")
+    return float(loss), {n: p.grad for n, p in m.named_parameters()}, \
+        counts["step"]
+
+
+def phase_circular_training(dev):
+    """The paper example's training: ``build_circular_nsf`` at its
+    defaults, the Gauss-von Mises target, ``make_reverse_kld_step`` with
+    Adam(lr=5e-4) at B = 16384, under each backward mode (kernel C, then
+    kernel D). Returns {mode: launches of its 50-step run}."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    layers = 12
+    base = nt.build_circular_nsf(seed=SEED, target=GaussVonMises())
+    perturb(base, SEED + 30)
+    cpu_base = copy.deepcopy(base).to("cpu")
+    rng = np.random.default_rng(SEED + 31)
+    z0 = np.stack([rng.uniform(-np.pi, np.pi, CIRC_CHECK_BATCH),
+                   rng.standard_normal(CIRC_CHECK_BATCH)], axis=1)
+    z0 = torch.from_numpy(z0.astype(np.float32))
+    bwd = {"analytic": "rqs_bwd", "autodiff": "rqs_bwd_autodiff"}
+    out = {}
+    for mode, kernel in bwd.items():
+        loss, grads, per_step = _circular_step_result(base, z0.to(dev), mode)
+        loss_cpu, grads_cpu, _ = _circular_step_result(cpu_base, z0, mode)
+        torch.cuda.synchronize()
+        grad_err = max(rel_err(grads[n].cpu(), grads_cpu[n]) for n in grads)
+        loss_err = abs(loss - loss_cpu)
+        if not (loss_err <= MODEL_TOL and grad_err <= TRAIN_TOL):
+            raise RuntimeError(
+                f"circular reverse KLD ({mode}), B={CIRC_CHECK_BATCH}: card "
+                f"vs CPU loss {loss} vs {loss_cpu}, gradients "
+                f"{grad_err:.3g} relative (limit {TRAIN_TOL})")
+        _expect({"step": per_step},
+                {"step": {"rqs_fwd": 2 * layers, kernel: 2 * layers}},
+                f"circular reverse-KLD ({mode})")
+
+        model = copy.deepcopy(base)
+        opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+        state = nt.init_train_state(model, opt)
+        step = nt.make_reverse_kld_step(opt, num_samples=CIRC_TRAIN_BATCH)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+        losses, times = [], []
+        tk.set_pallas_bwd_kernel(mode)
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            for _ in range(CIRC_STEPS):
+                t0 = time.perf_counter()
+                losses.append(step(state, gen))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[mode] = read_counts()
+            syncs = host_syncs(lambda: step(state, gen))
+            label = f"circular train_step ({mode})"
+            print_profile(label, lambda: step(state, gen))
+        finally:
+            tk.set_pallas_bwd_kernel("analytic")
+        losses = torch.stack(losses).cpu().numpy()
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"circular training ({mode}): non-finite "
+                               f"losses {losses}")
+        if syncs:
+            raise RuntimeError(f"circular training ({mode}): {len(syncs)} "
+                               f"host syncs in one step: {syncs[0][:200]}")
+        ms = float(np.median(times))
+        print(f"phase circular training ({mode}, backward {kernel}): "
+              f"build_circular_nsf defaults, GaussVonMises, Adam(lr=5e-4); "
+              f"card vs CPU one step at B={CIRC_CHECK_BATCH}: loss diff "
+              f"{loss_err:.3g} (limit {MODEL_TOL}), gradients "
+              f"{grad_err:.3g} relative (limit {TRAIN_TOL}); launches per "
+              f"step {per_step}; {CIRC_STEPS} steps at B={CIRC_TRAIN_BATCH}: "
+              f"loss {float(losses[0]):.4f} -> "
+              f"{float(losses[-10:].mean()):.4f} (mean of last 10), all "
+              f"finite; {ms:.3f} ms/step median "
+              f"({CIRC_TRAIN_BATCH / ms * 1e3:.4g} samples/s), min "
+              f"{min(times):.3f} max {max(times):.3f}; host syncs in one "
+              f"step {len(syncs)}", flush=True)
+    return out
 
 
 def host_syncs(fn):
@@ -788,21 +1179,26 @@ def main():
     flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device=dev)
 
     results = {}
-    for label, parity, timing, tols, source, replaces in (
+    # label, parity, timing, tolerances, source, replaces, the spline
+    # direction of its main path (the JSON line's times)
+    for label, parity, timing, tols, source, replaces, path_inverse in (
             ("rqs_fwd", parity_kernel_a, timing_kernel_a, (Y_TOL, LD_TOL),
              "nf_tpu_torch/csrc/rqs_fwd.cu",
-             "nf_tpu/ops/splines_pallas.py:209"),
+             "nf_tpu/ops/splines_pallas.py:209", False),
             ("head_rqs_fwd", parity_kernel_b, timing_kernel_b,
              (Y_TOL, LD_TOL), "nf_tpu_torch/csrc/head_rqs_fwd.cu",
-             "nf_tpu/ops/spline_head_fused.py:105"),
+             "nf_tpu/ops/spline_head_fused.py:105", False),
             ("rqs_bwd", parity_kernel_c, timing_kernel_c, (G_TOL, SUM_TOL),
              "nf_tpu_torch/csrc/rqs_bwd.cu",
-             "nf_tpu/ops/splines_pallas.py:399"),
+             "nf_tpu/ops/splines_pallas.py:399", False),
             ("head_rqs_bwd", parity_kernel_e, timing_kernel_e,
              (G_TOL, SUM_TOL), "nf_tpu_torch/csrc/head_rqs_bwd.cu",
-             "nf_tpu/ops/spline_head_fused.py:129")):
+             "nf_tpu/ops/spline_head_fused.py:129", False),
+            ("rqs_bwd_autodiff", parity_kernel_d, timing_kernel_d,
+             (G_TOL, SUM_TOL), "nf_tpu_torch/csrc/rqs_bwd_autodiff.cu",
+             "nf_tpu/ops/splines_pallas.py:220", True)):
         e1, e2, cases = parity(dev)
-        backward = label.endswith("bwd")
+        backward = label != "rqs_fwd" and label != "head_rqs_fwd"
         what = (("per-element gradients abs", "batch sums relative")
                 if backward else ("y abs", "ld abs"))
         if not (e1 <= tols[0] and e2 <= tols[1]):
@@ -810,8 +1206,9 @@ def main():
                                f"{what[0]} {e1:.3g} (limit {tols[0]}), "
                                f"{what[1]} {e2:.3g} (limit {tols[1]})")
         t = timing(dev, flush, peaks)
-        results[label] = dict(err=e1 if backward else max(e1, e2), t=t,
-                              source=source, replaces=replaces)
+        results[label] = dict(err=e1 if backward else max(e1, e2),
+                              t=t[path_inverse], source=source,
+                              replaces=replaces)
         (fms, fplain, fbound, fby), (ims, iplain, ibound, iby) = \
             t[False], t[True]
         print(f"phase parity {label}: {cases} cases, max err {what[0]} "
@@ -821,23 +1218,35 @@ def main():
               f"{iplain:.4f} bound_ms {ibound:.5f} ({iby}); bound = max(bytes "
               f"/ {peaks[0]:.3g} B/s, operations / {peaks[1]:.3g} flop/s)",
               flush=True)
+    timing_path_a_c(dev, flush, peaks)
 
-    serving = phase_serving(dev, flush)
-    training = phase_training(dev)
-    print(f"launches: serving {serving}; training ({TRAIN_STEPS} steps) "
-          f"{training}", flush=True)
+    # each main path, with the kernels it must launch
+    paths = {"build_nsf serving": (phase_serving(dev, flush),
+                                   ("rqs_fwd", "head_rqs_fwd")),
+             "build_nsf training": (phase_training(dev),
+                                    ("rqs_fwd", "head_rqs_fwd", "rqs_bwd",
+                                     "head_rqs_bwd"))}
+    paths["circular serving"] = (phase_circular_serving(dev), ("rqs_fwd",))
+    circular = phase_circular_training(dev)
+    paths["circular training (analytic)"] = (circular["analytic"],
+                                             ("rqs_fwd", "rqs_bwd"))
+    paths["circular training (autodiff)"] = (circular["autodiff"],
+                                             ("rqs_fwd", "rqs_bwd_autodiff"))
+    print("launches: " + "; ".join(f"{k} {v[0]}" for k, v in paths.items()),
+          flush=True)
+    for path, (counts, needed) in paths.items():
+        for label in needed:
+            if counts[label] == 0:
+                raise RuntimeError(f"{label} never ran on the {path} path")
     kernels = []
     for label, r in results.items():
-        n = serving[label] + training[label]
-        ms, plain, bound_ms, bound_by = r["t"][False]
+        ms, plain, bound_ms, bound_by = r["t"]
         kernels.append({
             "name": label, "route": "cuda", "source": r["source"],
-            "replaces": r["replaces"], "launches": n,
+            "replaces": r["replaces"],
+            "launches": sum(c[label] for c, _ in paths.values()),
             "max_abs_err": r["err"], "ms": ms, "plain_ms": plain,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
-        if training[label] == 0 or (serving[label] == 0
-                                    and not label.endswith("bwd")):
-            raise RuntimeError(f"{label} never ran on its path")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,12 @@
 The port's modules carry the reference's names, so a reference state dict
 (``{dotted name: array}``, as ``nf_tpu.compat_export.export_state_dict``
 emits it, or as a reference model's ``state_dict()`` holds it) maps onto
-``model.state_dict()`` key for key. One layout differs: a ResidualNet with
-a bin-major head orders its final layer's rows param-major (row
-``p*D + d``), the reference feature-major (row ``d*mult + p``); those rows
-are permuted on load.
+``model.state_dict()`` key for key. One layout differs: a ResidualNet or
+a MADE with a bin-major head orders its final layer's rows param-major
+(row ``p*D + d``), the reference feature-major (row ``d*mult + p``); those
+rows (weight, bias and, for a MADE, the ``mask`` and ``degrees`` buffers)
+are permuted on load. Every MADE mask comes from the state dict: a
+``permute_mask`` order drawn by the JAX package cannot be redrawn here.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .nets.made import MADE
 from .nets.resnet import ResidualNet
 
 
@@ -35,9 +38,10 @@ def load_reference_state_dict(model, state_dict):
     if missing or unused:
         raise KeyError(f"state dict does not match the model: missing "
                        f"{missing[:10]}, unused {unused[:10]}")
-    heads = {f"{name}.final_layer.": mod.bin_major_head
+    heads = {(f"{name}." if name else "") + "final_layer.":
+             mod.bin_major_head
              for name, mod in model.named_modules()
-             if isinstance(mod, ResidualNet)
+             if isinstance(mod, (ResidualNet, MADE))
              and mod.bin_major_head is not None}
     with torch.no_grad():
         for name, tensor in own.items():
@@ -48,5 +52,5 @@ def load_reference_state_dict(model, state_dict):
             if tuple(value.shape) != tuple(tensor.shape):
                 raise ValueError(f"{name}: shape {value.shape} in the state "
                                  f"dict, {tuple(tensor.shape)} in the model")
-            tensor.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+            tensor.copy_(torch.from_numpy(np.array(value)))
     return model

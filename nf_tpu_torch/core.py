@@ -1,10 +1,11 @@
-"""Model container (``nf_tpu/core.py:30-97``; reference
+"""Model container (``nf_tpu/core.py:30-145``; reference
 ``normflows/core.py``): a base distribution and a chain of flows."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 
 class NormalizingFlow(nn.Module):
@@ -64,3 +65,39 @@ class NormalizingFlow(nn.Module):
             z, log_det = flow.forward(z, context=context)
             log_q = log_q - log_det
         return z, log_q
+
+    def reverse_kld(self, num_samples=1, beta=1.0, score_fn=True,
+                    generator=None, context=None):
+        """Variational loss ``E_q[log q(x)] - beta * E_q[log p(x)]`` on
+        ``num_samples`` draws from the model, with the target ``self.p``
+        (reference ``core.py:104-131``; ``nf_tpu/core.py:123``).
+        ``generator`` lives on the model's device.
+
+        ``score_fn=False`` is sticking the landing (arXiv 1703.09194):
+        log q is recomputed through the inverse chain with the parameters
+        detached, so only the path through the samples carries their
+        gradient (the JAX package's ``stop_gradient_params``)."""
+        z, log_q = self.q0.forward(num_samples, generator=generator)
+        for flow in self.flows:
+            z, log_det = flow.forward(z, context=context)
+            log_q = log_q - log_det
+        if not score_fn:
+            detached = {name: t.detach() for name, t in
+                        self.named_parameters(prefix="model")}
+            log_q = functional_call(_LogProb(self), detached, (z, context),
+                                    strict=False)
+        log_p = self.p.log_prob(z, context=context) if context is not None \
+            else self.p.log_prob(z)
+        return torch.mean(log_q) - beta * torch.mean(log_p)
+
+
+class _LogProb(nn.Module):
+    """``model.log_prob`` as a module's ``forward``, so that
+    ``torch.func.functional_call`` can run it with other parameters."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x, context=None):
+        return self.model.log_prob(x, context=context)

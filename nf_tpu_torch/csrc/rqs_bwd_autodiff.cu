@@ -1,0 +1,53 @@
+// Kernel D: the autodiff backward of the unconstrained RQ spline (kernel
+// A), forward or inverse direction.
+//
+// Replaces nf_tpu/ops/splines_pallas.py:_rqs_bwd_kernel (:220), the
+// in-kernel jax.vjp of _rqs_math that _pallas_bwd_impl (:474) traces under
+// set_pallas_bwd_kernel("autodiff"). Same operands and outputs as kernel C
+// (rqs_bwd.cu), and the same launch (rqs_bwd_kernel.cuh); the per-element
+// math is the mechanical reverse-mode adjoint of rqs_vjp_math.cuh, which
+// differentiates the inverse through the sqrt root formula and splits
+// ties at the clip and at max(disc, 0) as JAX does, where kernel C's
+// analytic transpose passes the full slope.
+//
+// Design. The forward sweep keeps every intermediate the adjoint reads
+// (running maxima, exps and totals of both softmaxes, both knot vectors,
+// the selected values, the root's a, b, c, disc, sqrt(disc)), so the live
+// set is about twice kernel C's: (6K + ~40) floats per thread at K bins.
+// Registers, not bandwidth, decide how many threads an SM holds, and at
+// K = 10 ptxas may spill (chip_smoke.py's build phase prints it).
+//
+// Bound on the H100: the bytes are kernel C's, per element x, cty, ctl and
+// any parameter planes that are not stride-0 broadcasts read, gx and 3K+1
+// planes written; the operations are ~2.5x the forward's
+// (splines_kernel.rqs_vjp_ops_per_element), still below the f32 ridge of
+// ~20 flop/byte on full planes, so the stores and loads bound it.
+#include "rqs_bwd_kernel.cuh"
+#include "rqs_vjp_math.cuh"
+
+struct AutodiffMath {
+  template <int K, bool INVERSE>
+  __device__ static void apply(float x, float tb, const float (&uw)[K],
+                               const float (&uh)[K], const float (&ud)[K + 1],
+                               float cty, float ctl, float mbw, float mbh,
+                               float md, float& gx, float (&gw)[K],
+                               float (&gh)[K], float (&gd)[K + 1]) {
+    nf::rqs_vjp_element<K, INVERSE>(x, tb, uw, uh, ud, cty, ctl, mbw, mbh,
+                                    md, gx, gw, gh, gd);
+  }
+};
+
+// C interface for ctypes: the arguments of rqs_bwd_launch (rqs_bwd.cu);
+// see nf::rqs_bwd_dispatch.
+extern "C" int rqs_bwd_autodiff_launch(
+    const float* x, const float* uw, const float* uh, const float* ud,
+    const float* tb, const float* cty, const float* ctl, float tb_scalar,
+    const long long* strides, long long rows, long long cols, int num_bins,
+    int inverse, float min_bin_width, float min_bin_height,
+    float min_derivative, float* gx, float* gw, float* gh, float* gd,
+    void* stream) {
+  return nf::rqs_bwd_dispatch<AutodiffMath>(
+      x, uw, uh, ud, tb, cty, ctl, tb_scalar, strides, rows, cols, num_bins,
+      inverse, min_bin_width, min_bin_height, min_derivative, gx, gw, gh, gd,
+      stream);
+}

@@ -1,5 +1,5 @@
-from .base import BaseDistribution, DiagGaussian
+from .base import BaseDistribution, DiagGaussian, UniformGaussian
 from .target import Target, TwoMoons, rejection_sample
 
 __all__ = ["BaseDistribution", "DiagGaussian", "Target", "TwoMoons",
-           "rejection_sample"]
+           "UniformGaussian", "rejection_sample"]

@@ -1,5 +1,5 @@
-"""User-facing NSF coupling layer
-(``nf_tpu/flows/neural_spline/wrapper.py:60-107``; reference
+"""User-facing NSF layers: the coupling layer and the autoregressive ones
+(``nf_tpu/flows/neural_spline/wrapper.py:60-107,176-240``; reference
 ``normflows/flows/neural_spline/wrapper.py``).
 
 Direction convention (reference ``wrapper.py:79-85``): the flow's
@@ -16,6 +16,7 @@ from ...nets.resnet import ResidualNet
 from ...ops.splines import DEFAULT_MIN_DERIVATIVE, linear_tail_constant
 from ...utils.masks import create_alternating_binary_mask
 from ..base import Flow
+from .autoregressive import MaskedPiecewiseRationalQuadraticAutoregressive
 from .coupling import PiecewiseRationalQuadraticCoupling, split_mask
 
 
@@ -86,3 +87,58 @@ class CoupledRationalQuadraticSpline(Flow):
     def inverse(self, z, context=None):
         z, log_det = self.prqct.forward(z, context=context)
         return z, log_det.reshape(-1)
+
+
+class AutoregressiveRationalQuadraticSpline(Flow):
+    """NSF autoregressive layer with linear tails (reference
+    ``wrapper.py:186-244``). Its ``forward`` (latent -> data) is the
+    MADE spline's inverse: D sequential MADE passes."""
+
+    def __init__(self, num_input_channels, num_blocks, num_hidden_channels,
+                 num_context_channels=None, num_bins=8, tail_bound=3.0,
+                 activation=F.relu, dropout_probability=0.0,
+                 permute_mask=False, init_identity=True, bin_major_head=True,
+                 generator=None, dtype=torch.float32):
+        super().__init__()
+        self.mprqat = MaskedPiecewiseRationalQuadraticAutoregressive(
+            num_input_channels, num_hidden_channels,
+            context_features=num_context_channels, num_bins=num_bins,
+            tails="linear", tail_bound=tail_bound, num_blocks=num_blocks,
+            use_residual_blocks=True, random_mask=False,
+            permute_mask=permute_mask, activation=activation,
+            dropout_probability=dropout_probability,
+            init_identity=init_identity, bin_major_head=bin_major_head,
+            generator=generator, dtype=dtype)
+
+    def forward(self, z, context=None):
+        z, log_det = self.mprqat.inverse(z, context=context)
+        return z, log_det.reshape(-1)
+
+    def inverse(self, z, context=None):
+        z, log_det = self.mprqat.forward(z, context=context)
+        return z, log_det.reshape(-1)
+
+
+class CircularAutoregressiveRationalQuadraticSpline(
+        AutoregressiveRationalQuadraticSpline):
+    """Circular NSF autoregressive layer (reference ``wrapper.py:247-311``):
+    circular tails on the features in ``ind_circ``, linear on the rest,
+    and periodic-feature preprocessing in the MADE."""
+
+    def __init__(self, num_input_channels, num_blocks, num_hidden_channels,
+                 ind_circ, num_context_channels=None, num_bins=8,
+                 tail_bound=3.0, activation=F.relu, dropout_probability=0.0,
+                 permute_mask=True, init_identity=True, bin_major_head=True,
+                 generator=None, dtype=torch.float32):
+        Flow.__init__(self)
+        tails = ["circular" if i in ind_circ else "linear"
+                 for i in range(num_input_channels)]
+        self.mprqat = MaskedPiecewiseRationalQuadraticAutoregressive(
+            num_input_channels, num_hidden_channels,
+            context_features=num_context_channels, num_bins=num_bins,
+            tails=tails, tail_bound=tail_bound, num_blocks=num_blocks,
+            use_residual_blocks=True, random_mask=False,
+            permute_mask=permute_mask, activation=activation,
+            dropout_probability=dropout_probability,
+            init_identity=init_identity, bin_major_head=bin_major_head,
+            generator=generator, dtype=dtype)

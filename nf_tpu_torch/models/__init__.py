@@ -1,3 +1,3 @@
-from .builders import build_nsf
+from .builders import build_circular_nsf, build_nsf
 
-__all__ = ["build_nsf"]
+__all__ = ["build_circular_nsf", "build_nsf"]

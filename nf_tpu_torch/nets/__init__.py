@@ -1,4 +1,11 @@
+from .made import (
+    MADE,
+    MaskedFeedforwardBlock,
+    MaskedLinear,
+    MaskedResidualBlock,
+)
 from .mlp import Linear
 from .resnet import ResidualBlock, ResidualNet
 
-__all__ = ["Linear", "ResidualBlock", "ResidualNet"]
+__all__ = ["Linear", "MADE", "MaskedFeedforwardBlock", "MaskedLinear",
+           "MaskedResidualBlock", "ResidualBlock", "ResidualNet"]

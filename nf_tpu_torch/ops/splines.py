@@ -160,14 +160,6 @@ def identity_tail_spline(inputs, uw, uh, ud_padded, tb, inverse,
     return outputs, logabsdet
 
 
-def _tail_mask(tails, shape, device):
-    lin = torch.tensor([t == "linear" for t in tails], device=device)
-    circ = torch.tensor([t == "circular" for t in tails], device=device)
-    if not bool(torch.all(lin | circ)):
-        raise RuntimeError(f"{tails} tails are not implemented.")
-    return lin.reshape(shape), circ.reshape(shape)
-
-
 def pad_derivatives(ud, tails, min_derivative, axis):
     """The tail-type padding of the derivative logits to K+1 entries along
     ``axis`` (reference ``splines.py:43-56``): 'linear' pads both ends
@@ -185,19 +177,23 @@ def pad_derivatives(ud, tails, min_derivative, axis):
     if tails == "circular":
         return torch.cat([ud, first], dim=axis)
     if isinstance(tails, (list, tuple)):
+        if not set(tails) <= {"linear", "circular"}:
+            raise RuntimeError(f"{tails} tails are not implemented.")
+        # feature by feature, from the static list: no mask tensor to copy
+        # to the device, no device value read back
         ax = axis % ud.ndim
         feat_ax = ax - 1 if ax == ud.ndim - 1 else ax + 1
-        shape = [1] * ud.ndim
-        shape[feat_ax] = len(tails)
-        lin, circ = _tail_mask(tails, shape, ud.device)
-        last_sl = list(first_sl)
-        last_sl[axis] = slice(-1, None)
         mid_sl = list(first_sl)
         mid_sl[axis] = slice(1, -1)
-        last = ud[tuple(last_sl)]
-        new_first = torch.where(lin, constant, first)
-        new_last = torch.where(lin, constant, torch.where(circ, first, last))
-        return torch.cat([new_first, ud[tuple(mid_sl)], new_last], dim=axis)
+        edges = []
+        for i, tail in enumerate(tails):
+            f = first.narrow(feat_ax, i, 1)
+            edges.append(torch.full_like(f, constant) if tail == "linear"
+                         else f)
+        # linear: both ends at the slope-1 logit; circular: the last entry
+        # repeats the first
+        edge = torch.cat(edges, dim=feat_ax)
+        return torch.cat([edge, ud[tuple(mid_sl)], edge], dim=axis)
     raise RuntimeError(f"{tails} tails are not implemented.")
 
 

@@ -1,5 +1,6 @@
-"""Kernels A and C: the standalone unconstrained RQ spline, its value and
-log-det (A) and their analytic backward (C), in both spline directions.
+"""Kernels A, C and D: the standalone unconstrained RQ spline, its value
+and log-det (A), their analytic backward (C) and their autodiff backward
+(D), in both spline directions.
 
 Kernel A replaces ``nf_tpu/ops/splines_pallas.py:_rqs_kernel`` (launcher
 ``_pallas_impl``, :450); its CUDA source is ``csrc/rqs_fwd.cu``, its
@@ -20,7 +21,13 @@ Beside the kernels:
   :class:`_RQSFunction`, whose forward launches kernel A and whose
   backward launches kernel C (or the call raises); a CPU tensor runs
   :func:`rqs_plain`;
-* ``rqs_fwd.launches`` and ``rqs_bwd.launches``, the counts of launches.
+* kernel D (``csrc/rqs_bwd_autodiff.cu``, replaces ``_rqs_bwd_kernel``,
+  :220), the mechanical adjoint of ``_rqs_math`` that the JAX package
+  traces with ``jax.vjp`` under ``set_pallas_bwd_kernel("autodiff")``;
+  :func:`set_pallas_bwd_kernel` picks it here too, and
+  :func:`rqs_vjp_plain` is its plain version;
+* ``rqs_fwd.launches``, ``rqs_bwd.launches`` and
+  ``rqs_bwd_autodiff.launches``, the counts of launches.
 
 Both layouts of the JAX package enter here: :func:`fused_unconstrained_rqs`
 (bin-minor ``(..., K)``, ``splines_pallas.py:605``) and
@@ -82,18 +89,48 @@ def _knots(sizes, tb):
 
 def rqs_plain(x, w, h, d, tb, *, inverse, min_bin_width=DEFAULT_MIN_BIN_WIDTH,
               min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
-              min_derivative=DEFAULT_MIN_DERIVATIVE):
+              min_derivative=DEFAULT_MIN_DERIVATIVE, split_ties=False):
     """Plain PyTorch ``_rqs_math``: ``x`` and ``tb`` (...), ``w``/``h``
     (K, ...) and ``d`` (K+1, ...) planes (sequences or stacked tensors),
-    each plane broadcastable to ``x`` -> ``(y, log_det)`` shaped like x."""
+    each plane broadcastable to ``x`` -> ``(y, log_det)`` shaped like x.
+
+    The values do not depend on ``split_ties``; its autograd does. With
+    ``split_ties=True`` the clip into ``[-tb, tb]``, the floor of the
+    root's discriminant and the softplus take ``torch.minimum`` and
+    ``torch.maximum``, whose gradient at a tie is half on each side, as
+    JAX's (``jnp.clip``, ``jnp.maximum``, the JVP of ``jnp.logaddexp``);
+    ``torch.clamp`` passes all of it. That is kernel D's plain version
+    (:func:`rqs_vjp_plain`)."""
     K = len(w)
     if not isinstance(tb, torch.Tensor):
         tb = float(tb)  # a Python number: no host-to-device copy
+    if split_ties:
+        def scalar(v):  # filled on the device: no host-to-device copy
+            return torch.full((), v, dtype=x.dtype, device=x.device)
+
+        def clip(v):
+            lo = -tb if isinstance(tb, torch.Tensor) else scalar(-tb)
+            hi = tb if isinstance(tb, torch.Tensor) else scalar(tb)
+            return torch.minimum(torch.maximum(v, lo), hi)
+
+        def floor0(v):
+            return torch.maximum(v, scalar(0.0))
+
+        def soft(v):
+            return floor0(v) + torch.log1p(torch.exp(-torch.abs(v)))
+    else:
+        def clip(v):
+            return torch.clamp(v, -tb, tb)
+
+        def floor0(v):
+            return torch.clamp_min(v, 0.0)
+
+        soft = softplus
     widths, cumw = _knots(_softmax_terms([w[k] for k in range(K)],
                                          min_bin_width)[0], tb)
     heights, cumh = _knots(_softmax_terms([h[k] for k in range(K)],
                                           min_bin_height)[0], tb)
-    xin = torch.clamp(x, -tb, tb)
+    xin = clip(x)
     cref = cumh if inverse else cumw
     steps = ([torch.ones_like(xin, dtype=torch.bool)]
              + [xin >= cref[k] for k in range(1, K)]
@@ -110,8 +147,8 @@ def rqs_plain(x, w, h, d, tb, *, inverse, min_bin_width=DEFAULT_MIN_BIN_WIDTH,
     in_w = select(widths)
     in_ch = select(cumh[:K])
     in_h = select(heights)
-    in_d = min_derivative + softplus(select([d[k] for k in range(K)]))
-    in_dp1 = min_derivative + softplus(select([d[k + 1] for k in range(K)]))
+    in_d = min_derivative + soft(select([d[k] for k in range(K)]))
+    in_dp1 = min_derivative + soft(select([d[k + 1] for k in range(K)]))
     in_delta = in_h / in_w
     d_sum = in_d + in_dp1 - 2.0 * in_delta
 
@@ -120,7 +157,7 @@ def rqs_plain(x, w, h, d, tb, *, inverse, min_bin_width=DEFAULT_MIN_BIN_WIDTH,
         a = dy * d_sum + in_h * (in_delta - in_d)
         b = in_h * in_d - dy * d_sum
         c = -in_delta * dy
-        disc = torch.clamp_min(b * b - 4.0 * a * c, 0.0)
+        disc = floor0(b * b - 4.0 * a * c)
         root = (2.0 * c) / (-b - torch.sqrt(disc))
         y = root * in_w + in_cw
         t1mt = root * (1.0 - root)
@@ -290,6 +327,36 @@ def rqs_bwd_plain(x, w, h, d, tb, cty, ctl, *, inverse,
     return gx, gw, gh, torch.stack(gd)
 
 
+def rqs_vjp_plain(x, w, h, d, tb, cty, ctl, *, inverse,
+                  min_bin_width=DEFAULT_MIN_BIN_WIDTH,
+                  min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
+                  min_derivative=DEFAULT_MIN_DERIVATIVE):
+    """Kernel D's plain version, the counterpart of ``jax.vjp`` of
+    ``_rqs_math`` (``splines_pallas.py:220-238``): PyTorch's autograd
+    through :func:`rqs_plain` with ``split_ties=True``, so the inverse is
+    differentiated through the root formula and ties split as in JAX.
+    Operands and outputs as :func:`rqs_bwd_plain`: one gradient per element
+    (broadcast parameters are not summed here); the tail bound gets none."""
+    K = len(w)
+    leaves = [x.detach().requires_grad_()] + [
+        t.detach().expand(t.shape[0], *x.shape).requires_grad_()
+        for t in (w, h, d)]
+    if isinstance(tb, torch.Tensor):
+        tb = tb.detach()
+    with torch.enable_grad():
+        y, ld = rqs_plain(*leaves, tb, inverse=inverse,
+                          min_bin_width=min_bin_width,
+                          min_bin_height=min_bin_height,
+                          min_derivative=min_derivative, split_ties=True)
+        gx, gw, gh, gd = torch.autograd.grad(
+            (y, ld), leaves, (cty.expand(x.shape), ctl.expand(x.shape)),
+            allow_unused=True)
+    zeros = [torch.zeros((n,) + tuple(x.shape), dtype=x.dtype,
+                         device=x.device) for n in (K, K, K + 1)]
+    return (gx, *(g if g is not None else z
+                  for g, z in zip((gw, gh, gd), zeros)))
+
+
 # --- kernel wrappers ---------------------------------------------------------
 
 def _as_2d(x):
@@ -353,14 +420,16 @@ def _launch(x2, w, h, d, tb, inverse, mbw, mbh, md):
     return y, ld
 
 
-def _launch_bwd(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md):
-    """Launch kernel C on the operands of :func:`_launch` plus the (rows,
-    cols) cotangents (any strides) -> fresh contiguous ``gx`` (rows, cols),
-    ``gw``/``gh`` (K, rows, cols), ``gd`` (K+1, rows, cols)."""
+def _launch_bwd(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md,
+                mode="analytic"):
+    """Launch kernel C (``mode="analytic"``) or kernel D (``"autodiff"``)
+    on the operands of :func:`_launch` plus the (rows, cols) cotangents
+    (any strides) -> fresh contiguous ``gx`` (rows, cols), ``gw``/``gh``
+    (K, rows, cols), ``gd`` (K+1, rows, cols)."""
     from . import _build
 
-    lib = _build.load("rqs_bwd")
-    fn = lib.rqs_bwd_launch
+    name = _BWD_KERNELS[mode]
+    fn = getattr(_build.load(name), name + "_launch")
     fn.argtypes = ([ctypes.c_void_p] * 7
                    + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
@@ -368,7 +437,7 @@ def _launch_bwd(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md):
     fn.restype = ctypes.c_int
     for t in (cty, ctl):
         if t.dtype != torch.float32 or t.device != x2.device:
-            raise TypeError(f"kernel C takes float32 cotangents on "
+            raise TypeError(f"{name} takes float32 cotangents on "
                             f"{x2.device}, got {t.dtype} on {t.device}")
     rows, cols = x2.shape
     K = w.shape[0]
@@ -387,9 +456,25 @@ def _launch_bwd(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md):
              gh.data_ptr(), gd.data_ptr(),
              torch.cuda.current_stream(x2.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"rqs_bwd kernel launch failed: CUDA error {err}")
-    rqs_bwd.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _WRAPPERS[name].launches += 1
     return gx, gw, gh, gd
+
+
+def _bwd(mode, x, w, h, d, tb, cty, ctl, inverse, min_bin_width,
+         min_bin_height, min_derivative):
+    if x.device.type != "cuda":
+        raise ValueError(f"{_BWD_KERNELS[mode]} runs on CUDA tensors, got "
+                         f"{x.device}")
+    K = w.shape[0]
+    _check(x, (w, h, d), tb if isinstance(tb, torch.Tensor) else None, K)
+    x2, w3, h3, d3, tb = kernel_views(x, w, h, d, tb)
+    gx, gw, gh, gd = _launch_bwd(
+        x2, w3, h3, d3, tb, cty.reshape(x2.shape), ctl.reshape(x2.shape),
+        inverse, float(min_bin_width), float(min_bin_height),
+        float(min_derivative), mode)
+    return (gx.view(x.shape), gw.view(K, *x.shape), gh.view(K, *x.shape),
+            gd.view(K + 1, *x.shape))
 
 
 def rqs_bwd(x, w, h, d, tb, cty, ctl, *, inverse,
@@ -399,24 +484,29 @@ def rqs_bwd(x, w, h, d, tb, cty, ctl, *, inverse,
     """Kernel C on the operands of :func:`rqs_fwd` and the cotangents of
     its ``(y, log_det)`` -> ``(gx, gw, gh, gd)``, one gradient per element
     as :func:`rqs_bwd_plain` returns them. CUDA tensors only: this is the
-    backward :func:`rqs_fwd` runs, exposed for the parity checks."""
-    if x.device.type != "cuda":
-        raise ValueError(f"kernel C runs on CUDA tensors, got {x.device}")
-    K = w.shape[0]
-    _check(x, (w, h, d), tb if isinstance(tb, torch.Tensor) else None, K)
-    x2, w3, h3, d3, tb = kernel_views(x, w, h, d, tb)
-    gx, gw, gh, gd = _launch_bwd(
-        x2, w3, h3, d3, tb, cty.reshape(x2.shape), ctl.reshape(x2.shape),
-        inverse, float(min_bin_width), float(min_bin_height),
-        float(min_derivative))
-    return (gx.view(x.shape), gw.view(K, *x.shape), gh.view(K, *x.shape),
-            gd.view(K + 1, *x.shape))
+    backward :func:`rqs_fwd` runs by default, exposed for the parity
+    checks."""
+    return _bwd("analytic", x, w, h, d, tb, cty, ctl, inverse, min_bin_width,
+                min_bin_height, min_derivative)
+
+
+def rqs_bwd_autodiff(x, w, h, d, tb, cty, ctl, *, inverse,
+                     min_bin_width=DEFAULT_MIN_BIN_WIDTH,
+                     min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
+                     min_derivative=DEFAULT_MIN_DERIVATIVE):
+    """Kernel D, as :func:`rqs_bwd`, held against :func:`rqs_vjp_plain`:
+    the backward :func:`rqs_fwd` runs under
+    ``set_pallas_bwd_kernel("autodiff")``."""
+    return _bwd("autodiff", x, w, h, d, tb, cty, ctl, inverse, min_bin_width,
+                min_bin_height, min_derivative)
 
 
 class _RQSFunction(torch.autograd.Function):
-    """Kernel A forward, kernel C backward. The residuals are the inputs,
-    as in the JAX custom VJP (``splines_pallas.py:556-563``); the tail
-    bound gets no gradient."""
+    """Kernel A forward; kernel C backward, or kernel D under
+    ``set_pallas_bwd_kernel("autodiff")`` as it stood at the forward call
+    (the JAX package reads the switch when it traces). The residuals are
+    the inputs, as in the JAX custom VJP (``splines_pallas.py:556-563``);
+    the tail bound gets no gradient."""
 
     @staticmethod
     def forward(ctx, x2, w3, h3, d3, tb, opts):
@@ -424,6 +514,7 @@ class _RQSFunction(torch.autograd.Function):
         ctx.save_for_backward(x2, w3, h3, d3, tb_t)
         ctx.tb_scalar = None if tb_t is not None else tb
         ctx.opts = opts
+        ctx.mode = _BWD_MODE[0]
         return _launch(x2, w3, h3, d3, tb, *opts)
 
     @staticmethod
@@ -431,7 +522,8 @@ class _RQSFunction(torch.autograd.Function):
     def backward(ctx, gy, gld):
         x2, w3, h3, d3, tb_t = ctx.saved_tensors
         tb = tb_t if tb_t is not None else ctx.tb_scalar
-        gx, gw, gh, gd = _launch_bwd(x2, w3, h3, d3, tb, gy, gld, *ctx.opts)
+        gx, gw, gh, gd = _launch_bwd(x2, w3, h3, d3, tb, gy, gld, *ctx.opts,
+                                     ctx.mode)
         return gx, gw, gh, gd, None, None
 
 
@@ -489,6 +581,26 @@ def kernel_views(x, w, h, d, tb):
 
 rqs_fwd.launches = 0
 rqs_bwd.launches = 0
+rqs_bwd_autodiff.launches = 0
+# backward mode -> the csrc/<name>.cu that implements it, and its counter
+_BWD_KERNELS = {"analytic": "rqs_bwd", "autodiff": "rqs_bwd_autodiff"}
+_WRAPPERS = {"rqs_bwd": rqs_bwd, "rqs_bwd_autodiff": rqs_bwd_autodiff}
+_BWD_MODE = ["analytic"]
+
+
+def set_pallas_bwd_kernel(mode: str) -> None:
+    """Select the backward of :func:`rqs_fwd` on CUDA tensors, as the JAX
+    package's ``set_pallas_bwd_kernel`` (``splines_pallas.py:73``) does:
+    ``"analytic"`` (kernel C, the default) or ``"autodiff"`` (kernel D).
+    Read by each forward call; the CPU path's autograd does not change."""
+    if mode not in _BWD_KERNELS:
+        raise ValueError(f"unknown backward kernel mode: {mode!r}")
+    _BWD_MODE[0] = mode
+
+
+def get_pallas_bwd_kernel() -> str:
+    """The backward mode :func:`set_pallas_bwd_kernel` set."""
+    return _BWD_MODE[0]
 
 
 # --- the JAX package's two entry points --------------------------------------
@@ -535,6 +647,19 @@ def rqs_bwd_ops_per_element(num_bins, inverse):
     K = num_bins
     return (rqs_ops_per_element(K, inverse) + 8 + (80 if inverse else 70)
             + 3 * (K + 1) + 2 * 6 * K)
+
+
+def rqs_vjp_ops_per_element(num_bins, inverse):
+    """Arithmetic operations per element of kernel D, for the bound in
+    ``chip_smoke.py``: the forward sweep (the forward's count less its
+    log-det, which the adjoint only needs through dnum and denom), the
+    adjoint of the map (~75 forward, ~110 inverse, with the root's
+    quadratic), the softplus adjoints (4), the derivative scatter (2K),
+    and per softmax the knot and size adjoints (3K), the exp and max-chain
+    adjoints (4K) and the select adjoints (3K)."""
+    K = num_bins
+    return (rqs_ops_per_element(K, inverse) + (110 if inverse else 75) + 4
+            + 2 * K + 2 * 10 * K)
 
 
 def rqs_ops_per_element(num_bins, inverse):

@@ -1,5 +1,5 @@
-"""Training (``nf_tpu/parallel``). This slice ports the single-device
-forward-KLD step; meshes and the sharded steps arrive with the port's
+"""Training (``nf_tpu/parallel``): the single-device forward-KLD and
+reverse-KLD steps; meshes and the sharded steps arrive with the port's
 ``torch.distributed`` item."""
 
 from .train import (
@@ -7,9 +7,11 @@ from .train import (
     ema_model,
     init_train_state,
     make_forward_kld_step,
+    make_reverse_kld_step,
     model_of_state,
     reshape_for_accum,
 )
 
 __all__ = ["TrainState", "ema_model", "init_train_state",
-           "make_forward_kld_step", "model_of_state", "reshape_for_accum"]
+           "make_forward_kld_step", "make_reverse_kld_step",
+           "model_of_state", "reshape_for_accum"]

@@ -1,17 +1,19 @@
-"""Maximum-likelihood training step (``nf_tpu/parallel/train.py``), on one
-device.
+"""Training steps on one device (``nf_tpu/parallel/train.py``).
 
-:func:`make_forward_kld_step` builds ``step(state, batch) -> loss``: the
-forward KLD of the batch, its gradients, one ``torch.optim`` update, and
-optionally gradient accumulation over microbatches, an EMA of the
-parameters and a guard that discards a non-finite update. PyTorch updates
-in place, so the step mutates ``state`` and returns only the loss, a
-device tensor; nothing in it waits for the device.
+:func:`make_forward_kld_step` builds ``step(state, batch) -> loss``, the
+maximum-likelihood step: the forward KLD of the batch, its gradients, one
+``torch.optim`` update. :func:`make_reverse_kld_step` builds
+``step(state, generator) -> loss``, the variational step: the reverse KLD
+of samples the model draws from ``generator`` against its target. Both
+take gradient accumulation over microbatches, an EMA of the parameters
+and a guard that discards a non-finite update. PyTorch updates in place,
+so a step mutates ``state`` and returns only the loss, a device tensor;
+nothing in it waits for the device.
 
-Not ported yet: meshes, state shardings, donation, ``shard_batch`` and
-``make_reverse_kld_step`` (the ``parallel/`` item, on
-``torch.distributed``); keyed losses, ``post_update`` and carried buffers
-(the residual-flow slice). ``post_update`` and ``with_key`` raise.
+Not ported yet: meshes, state shardings, donation and ``shard_batch``
+(the ``parallel/`` item, on ``torch.distributed``); keyed losses,
+``post_update`` and carried buffers (the residual-flow slice). Those
+arguments raise.
 """
 
 from __future__ import annotations
@@ -144,6 +146,69 @@ def _default_loss(model, batch):
     return model.forward_kld(batch)
 
 
+def _no_post_update(post_update):
+    if post_update is not None:
+        raise NotImplementedError(
+            "post_update (e.g. update_lipschitz) arrives with the "
+            "residual-flow slice of the port")
+
+
+def _step_body(state, optimizer, loss_of, accum_steps, ema_decay,
+               skip_nonfinite):
+    """The update both steps share: ``loss_of(model, i)`` is microbatch
+    i's loss; their gradients are averaged over ``accum_steps`` before one
+    optimizer update, then the EMA and the non-finite guard."""
+    if state.optimizer is not optimizer:
+        raise ValueError("state.optimizer is not the optimizer this step "
+                         "was built with")
+    if ema_decay is not None and state.ema is None:
+        raise ValueError("ema_decay set but the state has no EMA slot: "
+                         "build it with init_train_state(..., "
+                         "with_ema=True)")
+    model = state.model
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    if skip_nonfinite:
+        _check_guardable(optimizer)
+    optimizer.zero_grad(set_to_none=True)
+    if accum_steps > 1:
+        loss = None
+        for i in range(accum_steps):
+            part = loss_of(model, i)
+            part.backward()
+            part = part.detach()
+            loss = part if loss is None else loss + part
+        inv = 1.0 / accum_steps
+        loss = loss * inv
+        with torch.no_grad():
+            for p in params:
+                if p.grad is not None:
+                    p.grad.mul_(inv)
+    else:
+        loss = loss_of(model, 0)
+        loss.backward()
+        loss = loss.detach()
+
+    ema = list(state.ema.parameters()) if ema_decay is not None else []
+    if skip_nonfinite:
+        ok = _all_finite(loss, [p.grad for p in params])
+        with torch.no_grad():
+            old_params = [p.detach().clone() for p in params + ema]
+            old_state = {k: v.clone() for k, v in
+                         _state_tensors(optimizer, params).items()}
+    optimizer.step()
+    if ema_decay is not None:
+        _ema_update(ema, list(model.parameters()), ema_decay)
+    if skip_nonfinite:
+        pairs = list(zip(params + ema, old_params))
+        for k, v in _state_tensors(optimizer, params).items():
+            old = old_state.get(k)
+            pairs.append((v, old if old is not None
+                          else torch.zeros_like(v)))
+        _guard_nonfinite(ok, pairs)
+    state.step += 1
+    return loss
+
+
 def make_forward_kld_step(optimizer, loss_fn: Optional[Callable] = None,
                           accum_steps: int = 1,
                           ema_decay: Optional[float] = None,
@@ -173,10 +238,7 @@ def make_forward_kld_step(optimizer, loss_fn: Optional[Callable] = None,
     without ``capturable=True`` on CUDA) is refused. The non-finite loss is
     still returned.
     """
-    if post_update is not None:
-        raise NotImplementedError(
-            "post_update (e.g. update_lipschitz) arrives with the "
-            "residual-flow slice of the port")
+    _no_post_update(post_update)
     if with_key:
         raise NotImplementedError(
             "keyed losses (stochastic log-det estimators) arrive with the "
@@ -185,54 +247,57 @@ def make_forward_kld_step(optimizer, loss_fn: Optional[Callable] = None,
         loss_fn = _default_loss
 
     def step(state: TrainState, batch):
-        if state.optimizer is not optimizer:
-            raise ValueError("state.optimizer is not the optimizer this "
-                             "step was built with")
-        if ema_decay is not None and state.ema is None:
-            raise ValueError("ema_decay set but the state has no EMA slot: "
-                             "build it with init_train_state(..., "
-                             "with_ema=True)")
-        model = state.model
-        params = [p for g in optimizer.param_groups for p in g["params"]]
-        if skip_nonfinite:
-            _check_guardable(optimizer)
-        optimizer.zero_grad(set_to_none=True)
-        if accum_steps > 1:
-            loss = None
-            for i in range(accum_steps):
-                part = loss_fn(model, _microbatch(batch, i))
-                part.backward()
-                part = part.detach()
-                loss = part if loss is None else loss + part
-            inv = 1.0 / accum_steps
-            loss = loss * inv
-            with torch.no_grad():
-                for p in params:
-                    if p.grad is not None:
-                        p.grad.mul_(inv)
-        else:
-            loss = loss_fn(model, batch)
-            loss.backward()
-            loss = loss.detach()
+        def loss_of(model, i):
+            return loss_fn(model, _microbatch(batch, i)
+                           if accum_steps > 1 else batch)
 
-        ema = list(state.ema.parameters()) if ema_decay is not None else []
-        if skip_nonfinite:
-            ok = _all_finite(loss, [p.grad for p in params])
-            with torch.no_grad():
-                old_params = [p.detach().clone() for p in params + ema]
-                old_state = {k: v.clone() for k, v in
-                             _state_tensors(optimizer, params).items()}
-        optimizer.step()
-        if ema_decay is not None:
-            _ema_update(ema, list(model.parameters()), ema_decay)
-        if skip_nonfinite:
-            pairs = list(zip(params + ema, old_params))
-            for k, v in _state_tensors(optimizer, params).items():
-                old = old_state.get(k)
-                pairs.append((v, old if old is not None
-                              else torch.zeros_like(v)))
-            _guard_nonfinite(ok, pairs)
-        state.step += 1
-        return loss
+        return _step_body(state, optimizer, loss_of, accum_steps, ema_decay,
+                          skip_nonfinite)
+
+    return step
+
+
+def make_reverse_kld_step(optimizer, num_samples: int, beta_schedule=None,
+                          score_fn: bool = True, accum_steps: int = 1,
+                          ema_decay: Optional[float] = None,
+                          skip_nonfinite: bool = False, mesh=None,
+                          donate: bool = False, post_update=None):
+    """Build ``step(state, generator) -> loss`` (``train.py:308``, on one
+    device): the model draws ``num_samples`` samples from ``generator`` (a
+    ``torch.Generator`` on the model's device) and the loss is
+    ``model.reverse_kld`` against its target ``model.p``, at ``beta =
+    beta_schedule(state.step)`` (default 1), with ``score_fn`` as there.
+    ``state.optimizer`` must be ``optimizer``.
+
+    ``accum_steps > 1``: ``accum_steps`` sequential draws of
+    ``num_samples / accum_steps`` samples each from the same generator,
+    their losses and gradients averaged before one update: the same count
+    of samples per step at less activation memory. ``ema_decay`` and
+    ``skip_nonfinite`` as in :func:`make_forward_kld_step`.
+
+    ``mesh``, ``donate`` and ``post_update`` raise: the sharded step
+    arrives with the port's ``torch.distributed`` item, ``post_update``
+    with the residual-flow slice.
+    """
+    _no_post_update(post_update)
+    if mesh is not None or donate:
+        raise NotImplementedError(
+            "meshes and donation arrive with the port's torch.distributed "
+            "item; this step runs on one device")
+    if num_samples % accum_steps != 0:
+        raise ValueError(f"num_samples {num_samples} must divide over "
+                         f"{accum_steps} accum steps")
+    micro = num_samples // accum_steps
+    if beta_schedule is None:
+        def beta_schedule(step):
+            return 1.0
+
+    def step(state: TrainState, generator):
+        beta = beta_schedule(state.step)
+        return _step_body(
+            state, optimizer,
+            lambda model, i: model.reverse_kld(
+                micro, beta=beta, score_fn=score_fn, generator=generator),
+            accum_steps, ema_decay, skip_nonfinite)
 
     return step

@@ -1,4 +1,5 @@
 from .masks import create_alternating_binary_mask
-from .nn import softplus, sum_except_batch
+from .nn import PeriodicFeaturesElementwise, softplus, sum_except_batch
 
-__all__ = ["create_alternating_binary_mask", "softplus", "sum_except_batch"]
+__all__ = ["PeriodicFeaturesElementwise", "create_alternating_binary_mask",
+           "softplus", "sum_except_batch"]

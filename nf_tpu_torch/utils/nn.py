@@ -2,7 +2,9 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch import nn
 
 
 def sum_except_batch(x, num_batch_dims=1):
@@ -18,3 +20,50 @@ def softplus(x):
     port and the JAX package agree to rounding; the CUDA kernels use the
     same form (``csrc/rqs_math.cuh``)."""
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def complement_indices(ndim, ind):
+    """``(ind, the other indices, the inverse of the permutation ind +
+    other)`` as int lists (``nf_tpu/utils/nn.py:29``)."""
+    ind = [int(i) for i in np.asarray(ind).reshape(-1)]
+    other = [i for i in range(ndim) if i not in ind]
+    inv_perm = [0] * ndim
+    for i, p in enumerate(ind + other):
+        inv_perm[p] = i
+    return ind, other, inv_perm
+
+
+class PeriodicFeaturesElementwise(nn.Module):
+    """Replace the circular coordinates f with ``w1*sin(s*f) + w2*cos(s*f)``
+    elementwise (``nf_tpu/utils/nn.py:39-80``; reference
+    ``utils/nn.py:64-131``). The parameter ``weights`` (len(ind), 2), the
+    optional ``bias`` and the buffers ``scale``, ``ind``, ``ind_`` and
+    ``inv_perm`` carry the reference's names."""
+
+    def __init__(self, ndim, ind, scale=1.0, bias=False, activation=None,
+                 dtype=torch.float32):
+        super().__init__()
+        ind_a, other, inv_perm = complement_indices(ndim, ind)
+        self.ndim = ndim
+        self.activation = activation
+        self.weights = nn.Parameter(torch.ones((len(ind_a), 2), dtype=dtype))
+        self.bias = (nn.Parameter(torch.zeros(len(ind_a), dtype=dtype))
+                     if bias else None)
+        scale = torch.broadcast_to(torch.as_tensor(scale, dtype=dtype),
+                                   (len(ind_a),)).clone()
+        self.register_buffer("scale", scale)
+        self.register_buffer("ind", torch.tensor(ind_a, dtype=torch.int64))
+        self.register_buffer("ind_", torch.tensor(other, dtype=torch.int64))
+        self.register_buffer("inv_perm",
+                             torch.tensor(inv_perm, dtype=torch.int64))
+
+    def forward(self, inputs):
+        x = inputs[..., self.ind] * self.scale
+        x = (self.weights[:, 0] * torch.sin(x)
+             + self.weights[:, 1] * torch.cos(x))
+        if self.bias is not None:
+            x = x + self.bias
+        if self.activation is not None:
+            x = self.activation(x)
+        out = torch.cat([x, inputs[..., self.ind_]], dim=-1)
+        return out[..., self.inv_perm]

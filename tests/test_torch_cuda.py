@@ -11,7 +11,8 @@ Without a card every test skips. Tolerances: 1e-5 abs on spline outputs
 and 1e-4 abs on log-dets and per-element gradients (the JAX package's bar
 for its kernels); 1e-4 relative to the largest magnitude on gradients
 summed over the batch (kernel E's gW and gb), which the kernel sums in
-another order than ``torch.matmul``; 1e-3 abs on a whole model's
+another order than ``torch.matmul``, and on kernel D against kernel C
+(the same gradients by other arithmetic); 1e-3 abs on a whole model's
 log-density and 1e-3 relative on its gradients, where the card's matrix
 products sum in another order than the CPU's.
 """
@@ -129,6 +130,93 @@ def test_kernel_a_gradients_run_kernel_c(cuda, inverse):
         _rel_close(a.grad, b.grad, SUM_TOL)
 
 
+def _d_operands(rng, K, cuda, B=70001):
+    """The circular NSF's layout: x (2, B) with ties at ±tb in its first
+    columns, full parameter planes, a per-feature tail bound (2, 1)."""
+    x = _normal(rng, (2, B), 2.0).to(cuda)
+    tb = torch.tensor([[np.pi], [3.0]], device=cuda)
+    x[:, :2] = torch.cat([tb, -tb], dim=1)
+    w, h = (_normal(rng, (K, 2, B), 0.5).to(cuda) for _ in range(2))
+    d = _normal(rng, (K + 1, 2, B), 0.5).to(cuda)
+    cty, ctl = (_normal(rng, (2, B)).to(cuda) for _ in range(2))
+    return x, w, h, d, tb, cty, ctl
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("K", tk.SUPPORTED_BINS)
+def test_kernel_d_matches_plain_and_kernel_c(cuda, K, inverse):
+    """Kernel D against its plain version (1e-4 abs per element); against
+    kernel C (the same gradients by other arithmetic) within 1e-4 of the
+    largest magnitude away from the ties, and at x = ±tb half of C's
+    x-gradient, as in JAX."""
+    ops = _d_operands(np.random.default_rng(40 + K), K, cuda)
+    got = tk.rqs_bwd_autodiff(*ops, inverse=inverse)
+    want = tk.rqs_vjp_plain(*ops, inverse=inverse)
+    c = tk.rqs_bwd(*ops, inverse=inverse)
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g, p, atol=G_TOL, rtol=0)
+    for g, p in zip(got, c):
+        _rel_close(g[..., 2:], p[..., 2:], G_TOL)
+    torch.testing.assert_close(got[0][:, :2], 0.5 * c[0][:, :2], atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_kernel_d_is_deterministic(cuda):
+    ops = _d_operands(np.random.default_rng(5), 10, cuda)
+    first = tk.rqs_bwd_autodiff(*ops, inverse=True)
+    second = tk.rqs_bwd_autodiff(*ops, inverse=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["analytic", "autodiff"])
+def test_reverse_kld_step_on_cuda_matches_cpu(cuda, mode):
+    """One ``make_reverse_kld_step`` with SGD on the circular NSF (K = 2,
+    hidden 16, 4 bins), card against CPU on the same base draws, under
+    each backward mode: the two layers' inverse (two MADE passes each)
+    launch kernel A 4 times, and kernel C or D 4 times in the backward."""
+    cpu_model = nt.build_circular_nsf(K=2, hidden=16, num_bins=4,
+                                      device="cpu")
+    rng = np.random.default_rng(6)
+    with torch.no_grad():
+        for p in cpu_model.parameters():
+            p.add_(_normal(rng, tuple(p.shape), 0.2))
+    gpu_model = nt.build_circular_nsf(K=2, hidden=16, num_bins=4)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    z0 = _normal(rng, (3000, 2))
+    z0[:, 0] = torch.rand(3000, generator=torch.Generator().manual_seed(
+        0)) * 2 * np.pi - np.pi
+    losses = []
+    tk.set_pallas_bwd_kernel(mode)
+    try:
+        for model in (cpu_model, gpu_model):
+            model.p = _GaussVonMises()
+            dev = next(model.parameters()).device
+            model.q0.sample = lambda n, generator=None, z=z0.to(dev): z
+            opt = torch.optim.SGD(model.parameters(), lr=0.05)
+            step = nt.make_reverse_kld_step(opt, num_samples=3000)
+            for c in (tk.rqs_fwd, tk.rqs_bwd, tk.rqs_bwd_autodiff):
+                c.launches = 0
+            losses.append(step(nt.init_train_state(model, opt), None))
+    finally:
+        tk.set_pallas_bwd_kernel("analytic")
+    launched = (tk.rqs_bwd.launches, tk.rqs_bwd_autodiff.launches)
+    assert tk.rqs_fwd.launches == 4
+    assert launched == ((4, 0) if mode == "analytic" else (0, 4))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(losses[1].cpu(), losses[0], atol=MODEL_TOL,
+                               rtol=0)
+    for p, q in zip(gpu_model.parameters(), cpu_model.parameters()):
+        _rel_close(p.grad.cpu(), q.grad, MODEL_TOL)
+
+
+class _GaussVonMises:
+    def log_prob(self, x):
+        phi, z = x[..., 0], x[..., 1]
+        return 2.0 * torch.cos(phi) - 0.5 * (z - 0.8 * torch.sin(phi)) ** 2
+
+
 def test_kernel_a_refuses_unbuilt_bin_counts(cuda):
     x = torch.zeros(16, device=cuda)
     w = torch.zeros(5, 16, device=cuda)
@@ -183,16 +271,21 @@ def test_kernel_e_matches_plain(cuda, K, tails, inverse):
 
 
 def test_kernel_backwards_are_once_differentiable(cuda):
-    """Kernels C and E have no backward of their own: a second derivative
-    through them raises instead of coming out wrong."""
+    """Kernels C, D and E have no backward of their own: a second
+    derivative through them raises instead of coming out wrong."""
     K, B = 4, 64
     x = torch.randn(1, B, device=cuda, requires_grad=True)
     w = torch.zeros(K, 1, B, device=cuda, requires_grad=True)
     d = torch.zeros(K + 1, 1, B, device=cuda)
-    y, _ = tk.rqs_fwd(x, w, w, d, 1.0, inverse=False)
-    (g,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        g.sum().backward()
+    for mode in ("analytic", "autodiff"):
+        tk.set_pallas_bwd_kernel(mode)
+        try:
+            y, _ = tk.rqs_fwd(x, w, w, d, 1.0, inverse=False)
+        finally:
+            tk.set_pallas_bwd_kernel("analytic")
+        (g,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+        with pytest.raises(RuntimeError, match="once_differentiable"):
+            g.sum().backward()
     m = 3 * K - 1
     h_t = torch.randn(16, B, device=cuda, requires_grad=True)
     y, _ = tshf.fused_head_rqs(x, h_t, torch.zeros(m, 16, device=cuda), None,
