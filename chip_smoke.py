@@ -17,7 +17,10 @@ toolkit. Phases, one line each:
    x-gradient), then its time, the plain version's time and its roofline
    bound at the shapes the serving path (A, B) or a training step (C, E:
    ``build_nsf``'s; D: the circular NSF's) gives it; A and C also at the
-   circular NSF's shapes;
+   circular NSF's shapes, E also at D = 4 and at hidden 512; and, where
+   kernel E's gx differs from its plain version's by more than 1e-4, E
+   against the plain version summed in the kernel's order and both against
+   the plain version in float64 (which of the two moved);
 4. gate: one coupling's transform half through kernel B and through the
    unfused feed, at B*D from 1024 to 65536 (where the fused-head gate
    belongs);
@@ -198,9 +201,13 @@ def phase_device():
 
 def phase_build():
     from nf_tpu_torch.ops import _build
+    from nf_tpu_torch.ops.splines_kernel import SUPPORTED_BINS
 
-    names = ["rqs_fwd", "head_rqs_fwd", "rqs_bwd", "head_rqs_bwd",
-             "rqs_bwd_autodiff"]
+    # kernel E as one library per bin count, so its instantiations build
+    # in parallel
+    names = (["rqs_fwd", "head_rqs_fwd", "rqs_bwd"]
+             + [f"head_rqs_bwd@{k}" for k in SUPPORTED_BINS]
+             + ["rqs_bwd_autodiff"])
     t0 = time.perf_counter()
     _build.build(names)
     secs = time.perf_counter() - t0
@@ -214,7 +221,7 @@ def phase_build():
                   if "spill" in line and " 0 bytes spill stores" not in line]
         notes.append(f"{n}: max {max(regs) if regs else '?'} registers, "
                      f"{len(spills)} instantiations spilling")
-    print(f"phase build: {len(names)} kernels in {secs:.1f} s "
+    print(f"phase build: {len(names)} libraries in {secs:.1f} s "
           f"(sm_90a; {'; '.join(notes)})", flush=True)
 
 
@@ -359,6 +366,72 @@ def parity_kernel_e(dev):
                                     rel_err(gb, pb))
                     cases += 1
     return worst, worst_sum, cases
+
+
+# kernel E's cases where gx against head_rqs_bwd_plain came out above
+# G_TOL on the card, drawn as tests/test_torch_cuda.py draws them:
+# (K, D, H, B, strided)
+E_YARDSTICK_CASES = ([(4, 1, HIDDEN, BATCH, True)]
+                     + [(k, 1, 512, 257, False) for k in (4, 8, 10)])
+
+
+def yardstick_kernel_e(dev):
+    """Where kernel E's gx differs from ``head_rqs_bwd_plain``'s, which of
+    the two moved: both against the plain version summed in the kernel's
+    order (``head_rqs_bwd_plain_in_kernel_order``, which the kernel must
+    match within G_TOL and SUM_TOL) and against the plain version in
+    float64. One printed line."""
+    from nf_tpu_torch.ops import spline_head_fused as shf
+
+    worst = dict(plain=0.0, order=0.0, order_sum=0.0, k64=0.0, p64=0.0)
+    cases = over = 0
+    for K, d, hidden, batch, strided in E_YARDSTICK_CASES:
+        for tails in ("linear", "circular"):
+            for inverse in (False, True):
+                rng = np.random.default_rng(30 + K)
+                x_t, cty = (_normal(rng, (batch, d), s, dev).T if strided
+                            else _normal(rng, (d, batch), s, dev)
+                            for s in (2.0, 1.0))
+                h_t = _normal(rng, (hidden, batch), 1.0, dev)
+                m = (2 * K + (K - 1 if tails == "linear" else K)) * d
+                w = _normal(rng, (m, hidden), 0.3 / np.sqrt(hidden), dev)
+                b = _normal(rng, (m,), 0.1, dev)
+                ctl = _normal(rng, (d, batch), 1.0, dev)
+                tb = torch.tensor([1.5, 2.0, 2.5, 3.0][:d], device=dev)
+                ops = (x_t, h_t, w, b, tb, cty, ctl)
+                kw = dict(num_bins=K, tails=tails, inverse=inverse)
+                got = shf.fused_head_rqs_bwd(*ops, **kw)
+                plain = shf.head_rqs_bwd_plain(*ops, **kw)
+                order = shf.head_rqs_bwd_plain_in_kernel_order(*ops, **kw)
+                p64 = shf.head_rqs_bwd_plain(*(t.double() for t in ops),
+                                             **kw)
+                torch.cuda.synchronize()
+                over += max_err(got[0], plain[0]) > G_TOL
+                worst["plain"] = max(worst["plain"], max_err(got[0], plain[0]))
+                worst["order"] = max(worst["order"], max_err(got[0], order[0]),
+                                     max_err(got[1], order[1]))
+                worst["order_sum"] = max(worst["order_sum"],
+                                         rel_err(got[2], order[2]),
+                                         rel_err(got[3], order[3]))
+                worst["k64"] = max(worst["k64"],
+                                   max_err(got[0].double(), p64[0]))
+                worst["p64"] = max(worst["p64"],
+                                   max_err(plain[0].double(), p64[0]))
+                cases += 1
+    if not (worst["order"] <= G_TOL and worst["order_sum"] <= SUM_TOL):
+        raise RuntimeError(f"head_rqs_bwd disagrees with its plain version "
+                           f"summed in its order: {worst['order']:.3g} "
+                           f"per element (limit {G_TOL}), "
+                           f"{worst['order_sum']:.3g} on batch sums (limit "
+                           f"{SUM_TOL})")
+    print(f"phase yardstick head_rqs_bwd: {cases} cases (K, D, H, B: "
+          f"{E_YARDSTICK_CASES}, both tails and directions), largest gx "
+          f"difference: kernel vs plain {worst['plain']:.3g} ({over} cases "
+          f"over {G_TOL}); kernel vs plain "
+          f"summed in the kernel's order {worst['order']:.3g} (gx and gh; gW "
+          f"and gb {worst['order_sum']:.3g} relative); against the plain "
+          f"version in float64: kernel {worst['k64']:.3g}, plain "
+          f"{worst['p64']:.3g}", flush=True)
 
 
 # the tail kinds of the circular NSF's feed: the derivative logits before
@@ -594,20 +667,20 @@ def timing_kernel_c(dev, flush, peaks):
     return out
 
 
-def timing_kernel_e(dev, flush, peaks):
+def timing_kernel_e(dev, flush, peaks, d=1, hidden=HIDDEN):
     """At the training step's shapes: the backward of a dim-2 coupling's
     transform half, x_t (1, B) (a transposed view), h_t (128, B), linear
-    tails, cotangents (1, B)."""
+    tails, cotangents (1, B). ``d`` and ``hidden`` give another coupling's
+    (dim 2d, or another trunk width)."""
     from nf_tpu_torch.ops import spline_head_fused as shf
     from nf_tpu_torch.ops import splines_kernel as tk
 
     rng = np.random.default_rng(SEED + 9)
-    d = 1
     x_t = _normal(rng, (BATCH, d), 1.5, dev).T
-    h_t = _normal(rng, (HIDDEN, BATCH), 1.0, dev)
+    h_t = _normal(rng, (hidden, BATCH), 1.0, dev)
     cty, ctl = (_normal(rng, (d, BATCH), 1.0, dev) for _ in range(2))
     m = (3 * K_BINS - 1) * d
-    w = _normal(rng, (m, HIDDEN), 0.3 / np.sqrt(HIDDEN), dev)
+    w = _normal(rng, (m, hidden), 0.3 / np.sqrt(hidden), dev)
     b = _normal(rng, (m,), 0.1, dev)
     tb = torch.full((d,), 3.0, device=dev)
     out = {}
@@ -618,13 +691,34 @@ def timing_kernel_e(dev, flush, peaks):
         plain = device_ms(lambda: shf.head_rqs_bwd_plain(
             x_t, h_t, w, b, tb, cty, ctl, **kw), flush)
         # read: x_t, cty, ctl, h_t, W_eff, b, tb; written: gx, gh, gW, gb
-        nbytes = 4 * (3 * d * BATCH + HIDDEN * BATCH + m * HIDDEN + m + d
-                      + d * BATCH + HIDDEN * BATCH + m * HIDDEN + m)
+        nbytes = 4 * (3 * d * BATCH + hidden * BATCH + m * hidden + m + d
+                      + d * BATCH + hidden * BATCH + m * hidden + m)
         # the recompute, gh and gW products (2*m*H each per column), gb,
         # and the spline backward per element
-        ops = (3 * 2 * m * HIDDEN * BATCH + m * BATCH
+        ops = (3 * 2 * m * hidden * BATCH + m * BATCH
                + tk.rqs_bwd_ops_per_element(K_BINS, inverse) * d * BATCH)
         out[inverse] = (ms, plain) + bound(nbytes, ops, peaks)
+    return out
+
+
+# kernel E's other layouts: a dim-8 build_nsf coupling (D = 4; gh, then gW,
+# on all warps) and a trunk of width 512 (W_eff staged in 4 tiles)
+E_OTHER_SHAPES = ((4, HIDDEN), (1, 512))
+
+
+def timing_kernel_e_other(dev, flush, peaks):
+    """Kernel E at :data:`E_OTHER_SHAPES`, B = 65536, K = 8, linear tails:
+    one printed line, both spline directions; returns the times."""
+    out = {}
+    for d, hidden in E_OTHER_SHAPES:
+        out[d, hidden] = timing_kernel_e(dev, flush, peaks, d, hidden)
+    print("phase timing head_rqs_bwd other shapes (B = 65536, K = 8, "
+          "linear): " + "; ".join(
+              f"D = {d}, H = {h}: " + ", ".join(
+                  f"{'inverse' if inv else 'forward'} kernel_ms {t[0]:.4f} "
+                  f"plain_ms {t[1]:.4f} bound_ms {t[2]:.5f} ({t[3]})"
+                  for inv, t in ts.items())
+              for (d, h), ts in out.items()), flush=True)
     return out
 
 
@@ -1218,6 +1312,8 @@ def main():
               f"{iplain:.4f} bound_ms {ibound:.5f} ({iby}); bound = max(bytes "
               f"/ {peaks[0]:.3g} B/s, operations / {peaks[1]:.3g} flop/s)",
               flush=True)
+    timing_kernel_e_other(dev, flush, peaks)
+    yardstick_kernel_e(dev)
     timing_path_a_c(dev, flush, peaks)
 
     # each main path, with the kernels it must launch

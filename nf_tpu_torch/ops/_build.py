@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` is compiled at first use with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, and loaded
-with ``ctypes``. The library's file name carries a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is reused.
-Output goes to ``nf_tpu_torch/_build/`` (listed in ``.gitignore``).
+with ``ctypes``. A library named ``<name>@<bins>`` is the same source
+built with ``-DNF_BINS=<bins>``, so that a source with many
+instantiations (kernel E's) builds as one library per bin count, all at
+once. The library's file name carries a hash of the sources and flags,
+so an edited source is rebuilt and an unchanged one is reused. Output
+goes to ``nf_tpu_torch/_build/`` (listed in ``.gitignore``).
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on machines with no ``nvcc``.
@@ -48,19 +51,26 @@ def _nvcc():
                        "are built at first use and need the CUDA toolkit")
 
 
+def _flags(name):
+    """The source of library ``name`` and the flags it is built with."""
+    source, _, bins = name.partition("@")
+    return source, NVCC_FLAGS + ((f"-DNF_BINS={int(bins)}",) if bins else ())
+
+
 def _sources(name):
     """The ``.cu`` file and every header of ``csrc/``, in a fixed order."""
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    return [os.path.join(CSRC, name + ".cu")] + [
+    return [os.path.join(CSRC, _flags(name)[0] + ".cu")] + [
         os.path.join(CSRC, h) for h in headers]
 
 
 def _lib_path(name):
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(_flags(name)[1]).encode())
     for path in _sources(name):
         with open(path, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+    return os.path.join(BUILD_DIR, f"{name.replace('@', '-k')}-"
+                        f"{h.hexdigest()[:12]}.so")
 
 
 def _start(name):
@@ -71,8 +81,9 @@ def _start(name):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{target}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-           os.path.join(CSRC, name + ".cu")]
+    source, flags = _flags(name)
+    cmd = [_nvcc(), *flags, "-I", CSRC, "-o", tmp,
+           os.path.join(CSRC, source + ".cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, target, tmp
@@ -83,7 +94,7 @@ def _finish(name, started):
     out, _ = proc.communicate()
     BUILD_LOGS[name] = out
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+        raise RuntimeError(f"nvcc failed for {name} "
                            f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, target)
 
@@ -98,7 +109,7 @@ def build(names):
 
 
 def load(name):
-    """The ``ctypes`` handle of ``csrc/<name>.cu``, built if needed."""
+    """The ``ctypes`` handle of library ``name``, built if needed."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:

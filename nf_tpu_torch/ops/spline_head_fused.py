@@ -21,6 +21,8 @@ Beside the kernels:
   ``splines_kernel.rqs_plain`` / ``rqs_bwd_plain``). CPU tensors use
   :func:`head_rqs_plain` with ordinary autograd, and the tests and
   ``chip_smoke.py`` hold the kernels against both;
+  :func:`head_rqs_bwd_plain_in_kernel_order` sums the head product in the
+  kernels' order;
 * :func:`fused_head_rqs`, the wrapper: CUDA -> :class:`_HeadRQSFunction`
   (kernel B forward, kernel E backward) or raise, CPU -> the plain version;
 * ``fused_head_rqs.launches`` and ``fused_head_rqs_bwd.launches``, the
@@ -125,6 +127,29 @@ def head_rqs_bwd_plain(x_t, h_t, head_weight, head_bias, tb, cty, ctl, *,
             torch.matmul(gparams, h_t.T), torch.sum(gparams, dim=1))
 
 
+def head_rqs_bwd_plain_in_kernel_order(x_t, h_t, head_weight, head_bias, tb,
+                                       cty, ctl, **kw):
+    """:func:`head_rqs_bwd_plain` with the head product summed as kernels B
+    and E sum it: j ascending from 0, one rounding per step as ``fmaf``
+    gives (the product of two float32 is exact in float64), then the bias.
+    The spline's derivatives carry a rounding of the parameters into gx,
+    so where ``torch.matmul``'s order moves gx past the 1e-4 bar this is
+    the yardstick that tells the kernel's arithmetic from its order. The
+    parameters go through :func:`head_rqs_bwd_plain` as its ``h_t`` under
+    an identity head, whose product is exact."""
+    m = head_weight.shape[0]
+    acc = torch.zeros((m, h_t.shape[1]), dtype=h_t.dtype, device=h_t.device)
+    for j in range(h_t.shape[0]):
+        acc = (acc.double() + head_weight[:, j, None].double()
+               * h_t[j].double()).to(h_t.dtype)
+    eye = torch.eye(m, dtype=h_t.dtype, device=h_t.device)
+    gx, gparams, _, gb = head_rqs_bwd_plain(
+        x_t, acc + head_bias[:, None], eye, torch.zeros_like(head_bias), tb,
+        cty, ctl, **kw)
+    return (gx, torch.matmul(head_weight.T, gparams),
+            torch.matmul(gparams, h_t.T), gb)
+
+
 def _launch(x_t, h_t, w, b, tb, *, num_bins, tails, inverse, mbw, mbh, md):
     from . import _build
 
@@ -150,39 +175,68 @@ def _launch(x_t, h_t, w, b, tb, *, num_bins, tails, inverse, mbw, mbh, md):
     return y, ld
 
 
-# kernel E's block of batch columns (csrc/head_rqs_bwd.cu kThreads, kChunk,
-# kTile) and the shared memory a block may use on the H100
-_E_THREADS, _E_CHUNK, _E_TILE = 256, 32, 32
+# kernel E's layout (csrc/head_rqs_bwd.cu kThreads, kColPad, kJ, kG,
+# kChunk, kRowPad, kTileM, kTileJ) and the shared memory a block may use
+# on the H100
+_E_THREADS, _E_COL_PAD, _E_WTILE, _E_GH_ROWS = 256, 4, 128, 16
+_E_CHUNK, _E_ROW_PAD, _E_TILE_M, _E_TILE_J = 32, 4, 24, 32
 _MAX_SHARED_BYTES = 232448
 
 
-def kernel_e_shared_bytes(m, hidden):
-    """Dynamic shared memory of one block of kernel E: the block's
-    parameter cotangents (m, 256), a chunk of h_t (H, 33) and a tile of
-    W_eff (m, 32), float32."""
-    return 4 * (m * _E_THREADS + hidden * (_E_CHUNK + 1) + m * _E_TILE)
+def kernel_e_shared_bytes(m, feats, hidden):
+    """Dynamic shared memory of one block of kernel E at ``m`` head rows
+    over ``feats`` features, float32: the block's parameter cotangents (m
+    rounded up to 24, 256 + 4), the staged W_eff tile (rows, feats, P
+    rounded up to 4; rows = hidden rounded up to 16, at most 128) and the
+    chunks of h_t (hidden rounded up to 32, 32 + 4), two where they fit and
+    else one. At one feature and hidden <= 128 the tile and the chunks sit
+    side by side (gW and gh run at once on separate warps); otherwise they
+    share one region."""
+    pp = (m // feats + 3) // 4 * 4
+    rows = min(_E_WTILE, -(-hidden // _E_GH_ROWS) * _E_GH_ROWS)
+    split = feats == 1 and hidden <= _E_WTILE
+
+    def total(buffers):
+        w = rows * feats * pp
+        h = (buffers * -(-hidden // _E_TILE_J) * _E_TILE_J
+             * (_E_CHUNK + _E_ROW_PAD))
+        return 4 * (-(-m // _E_TILE_M) * _E_TILE_M
+                    * (_E_THREADS + _E_COL_PAD)
+                    + (w + h if split else max(w, h)))
+
+    return total(2) if total(2) <= _MAX_SHARED_BYTES else total(1)
 
 
 def _launch_bwd(x_t, h_t, w, b, tb, cty, ctl, *, num_bins, tails, inverse,
                 mbw, mbh, md):
     """Launch kernel E (two launches: the per-block pass, then the
     fixed-order sum of the blocks' gW/gb partials) -> ``(gx, gh, gW,
-    gb)``."""
+    gb)``. Raises on a shape, type or device the kernel does not take."""
     from . import _build
 
     D, B = x_t.shape
     H = h_t.shape[0]
     m = w.shape[0]
-    smem = kernel_e_shared_bytes(m, H)
+    if num_bins not in SUPPORTED_BINS:
+        raise ValueError(f"kernel E is built for K in {SUPPORTED_BINS}, got "
+                         f"K={num_bins}")
+    shapes = (h_t.shape, w.shape, b.shape, tb.shape, cty.shape, ctl.shape)
+    want = ((H, B), (m, H), (m,), (D,), (D, B), (D, B))
+    if m != (2 * num_bins + _dplanes(num_bins, tails)) * D or shapes != want:
+        raise ValueError(f"kernel E shapes: x_t {tuple(x_t.shape)}, then "
+                         f"{[tuple(s) for s in shapes]}; expected {want} with "
+                         f"m = (2K + nd) * D for K={num_bins}, "
+                         f"tails={tails!r}")
+    smem = kernel_e_shared_bytes(m, D, H)
     if smem > _MAX_SHARED_BYTES:
         raise ValueError(f"kernel E needs {smem} bytes of shared memory per "
-                         f"block at {m} head rows and hidden {H}; the H100 "
-                         f"gives {_MAX_SHARED_BYTES}")
-    for t in (cty, ctl):
+                         f"block at {m} head rows over {D} features and "
+                         f"hidden {H}; the H100 gives {_MAX_SHARED_BYTES}")
+    for t in (x_t, h_t, w, b, tb, cty, ctl):
         if t.dtype != torch.float32 or t.device != x_t.device:
-            raise TypeError(f"kernel E takes float32 cotangents on "
+            raise TypeError(f"kernel E takes float32 operands on "
                             f"{x_t.device}, got {t.dtype} on {t.device}")
-    lib = _build.load("head_rqs_bwd")
+    lib = _build.load(f"head_rqs_bwd@{num_bins}")
     fn = lib.head_rqs_bwd_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 4
