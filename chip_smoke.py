@@ -16,11 +16,13 @@ toolkit. Phases, one line each:
    kernel D also against kernel C, and at x = ±tb against half of C's
    x-gradient), then its time, the plain version's time and its roofline
    bound at the shapes the serving path (A, B) or a training step (C, E:
-   ``build_nsf``'s; D: the circular NSF's) gives it; A and C also at the
-   circular NSF's shapes, E also at D = 4 and at hidden 512; and, where
+   ``build_nsf``'s; D: the circular NSF's) gives it; A also at a dim-8
+   CDF, at B = 2048 and at the circular NSF's serving shape, A and C at
+   its training shapes, B and E also at D = 4 and at hidden 512; where
    kernel E's gx differs from its plain version's by more than 1e-4, E
    against the plain version summed in the kernel's order and both against
-   the plain version in float64 (which of the two moved);
+   the plain version in float64 (which of the two moved); and the launch
+   floor, the time of an empty launch measured the same way;
 4. gate: one coupling's transform half through kernel B and through the
    unfused feed, at B*D from 1024 to 65536 (where the fused-head gate
    belongs);
@@ -231,45 +233,59 @@ def _normal(rng, shape, scale, dev):
 
 
 def parity_kernel_a(dev):
-    """Both entries of kernel A: the unconditional CDF's broadcast
-    parameters (stride 0 over the batch) and full k-major planes with a
-    per-feature tail bound, both directions."""
+    """Both entries of kernel A, both directions: the unconditional CDF's
+    broadcast parameters (stride 0 over the batch) with a float and with a
+    per-feature tail bound, at D = 1 and 4 (the shared-parameter path) and
+    at one column past its limit (the per-element path); and full k-major
+    planes with a per-feature tail bound (the per-element path)."""
     from nf_tpu_torch.ops import splines_kernel as tk
 
     rng = np.random.default_rng(SEED)
     worst_y = worst_ld = 0.0
     cases = 0
+
+    def check(got, want):
+        nonlocal worst_y, worst_ld, cases
+        torch.cuda.synchronize()
+        worst_y = max(worst_y, max_err(got[0], want[0]))
+        worst_ld = max(worst_ld, max_err(got[1], want[1]))
+        cases += 1
+
     for batch in PARITY_BATCHES:
-        for d in (1, 4):
+        for d in (1, 4, tk.SHARED_PARAM_MAX_COLS + 1):
             x = _normal(rng, (batch, d), 2.0, dev)
             uw, uh = (_normal(rng, (1, d, K_BINS), 0.5, dev)
                       for _ in range(2))
             ud = _normal(rng, (1, d, K_BINS + 1), 0.5, dev)
-            planes = _normal(rng, (3 * K_BINS + 1, d, batch), 0.5, dev)
-            tb = torch.linspace(1.5, 3.0, d, device=dev)[:, None]
+            views = [t.expand(batch, d, t.shape[-1]).movedim(-1, 0)
+                     for t in (uw, uh, ud)]
+            tb_cols = torch.linspace(1.5, 3.0, d, device=dev)[None]
             for inverse in (False, True):
-                y, ld = tk.fused_unconstrained_rqs(x, uw, uh, ud, 3.0,
-                                                   inverse=inverse)
-                views = [t.expand(batch, d, t.shape[-1]).movedim(-1, 0)
-                         for t in (uw, uh, ud)]
-                yp, lp = tk.rqs_plain(x, *views, 3.0, inverse=inverse)
+                for tb, tb_plain in ((3.0, 3.0),
+                                     (tb_cols, tb_cols.expand(batch, d))):
+                    check(tk.fused_unconstrained_rqs(x, uw, uh, ud, tb,
+                                                     inverse=inverse),
+                          tk.rqs_plain(x, *views, tb_plain, inverse=inverse))
+                if d > 4:
+                    continue
+                planes = _normal(rng, (3 * K_BINS + 1, d, batch), 0.5, dev)
                 w, h, dd = (planes[:K_BINS], planes[K_BINS:2 * K_BINS],
                             planes[2 * K_BINS:])
-                xt = x.T
-                y2, l2 = tk.rqs_fwd(xt, w, h, dd, tb, inverse=inverse)
-                y2p, l2p = tk.rqs_plain(xt, w, h, dd, tb, inverse=inverse)
-                torch.cuda.synchronize()
-                worst_y = max(worst_y, max_err(y, yp), max_err(y2, y2p))
-                worst_ld = max(worst_ld, max_err(ld, lp), max_err(l2, l2p))
-                cases += 2
+                tb = tb_cols.T
+                check(tk.rqs_fwd(x.T, w, h, dd, tb, inverse=inverse),
+                      tk.rqs_plain(x.T, w, h, dd, tb, inverse=inverse))
     return worst_y, worst_ld, cases
 
 
 def parity_kernel_b(dev):
+    """Kernel B against ``head_rqs_plain`` (the returned errors), and
+    against the plain version that sums the head product in B's order,
+    which kernel E's recompute repeats (printed; it must agree within the
+    same bars, and has so far agreed to the bit)."""
     from nf_tpu_torch.ops import spline_head_fused as shf
 
     rng = np.random.default_rng(SEED + 1)
-    worst_y = worst_ld = 0.0
+    worst_y = worst_ld = order = 0.0
     cases = 0
     for batch in PARITY_BATCHES:
         for d in (1, 4):
@@ -285,10 +301,20 @@ def parity_kernel_b(dev):
                     y, ld = shf.fused_head_rqs(x_t, h_t, w, b,
                                                tail_bound=tb, **kw)
                     yp, lp = shf.head_rqs_plain(x_t, h_t, w, b, tb, **kw)
+                    yo, lo = shf.head_rqs_plain_in_kernel_order(
+                        x_t, h_t, w, b, tb, **kw)
                     torch.cuda.synchronize()
                     worst_y = max(worst_y, max_err(y, yp))
                     worst_ld = max(worst_ld, max_err(ld, lp))
+                    order = max(order, max_err(y, yo), max_err(ld, lo))
                     cases += 1
+    if not order <= Y_TOL:
+        raise RuntimeError(f"head_rqs_fwd disagrees with its plain version "
+                           f"summed in its order by {order:.3g} (limit "
+                           f"{Y_TOL})")
+    print(f"phase parity head_rqs_fwd vs plain summed in its order: "
+          f"{cases} cases, largest difference of y and ld {order:.3g}",
+          flush=True)
     return worst_y, worst_ld, cases
 
 
@@ -586,17 +612,18 @@ def timing_path_a_c(dev, flush, peaks):
           + "; ".join(rows), flush=True)
 
 
-def timing_kernel_a(dev, flush, peaks):
+def timing_kernel_a(dev, flush, peaks, d=1, batch=BATCH):
     """At the serving path's shapes: the CDF of a dim-2 coupling, x (B, 1),
-    (1, 1, K) parameters broadcast, scalar tail bound 3."""
+    (1, 1, K) parameters broadcast, scalar tail bound 3. ``d`` and
+    ``batch`` give another CDF's (dim 2d, or another batch)."""
     from nf_tpu_torch.ops import splines, splines_kernel as tk
 
     rng = np.random.default_rng(SEED + 2)
-    x = _normal(rng, (BATCH, 1), 1.5, dev)
-    uw, uh = (_normal(rng, (1, 1, K_BINS), 0.5, dev) for _ in range(2))
-    ud = splines.pad_derivatives(_normal(rng, (1, 1, K_BINS - 1), 0.5, dev),
+    x = _normal(rng, (batch, d), 1.5, dev)
+    uw, uh = (_normal(rng, (1, d, K_BINS), 0.5, dev) for _ in range(2))
+    ud = splines.pad_derivatives(_normal(rng, (1, d, K_BINS - 1), 0.5, dev),
                                  "linear", 1e-3, axis=-1)
-    views = [t.expand(BATCH, 1, t.shape[-1]).movedim(-1, 0)
+    views = [t.expand(batch, d, t.shape[-1]).movedim(-1, 0)
              for t in (uw, uh, ud)]
     out = {}
     for inverse in (False, True):
@@ -604,24 +631,79 @@ def timing_kernel_a(dev, flush, peaks):
             x, uw, uh, ud, 3.0, inverse=inverse), flush)
         plain = device_ms(lambda: tk.rqs_plain(
             x, *views, 3.0, inverse=inverse), flush)
-        nbytes = 4 * (3 * BATCH + uw.numel() + uh.numel() + ud.numel())
-        ops = tk.rqs_ops_per_element(K_BINS, inverse) * BATCH
+        nbytes = 4 * (3 * x.numel() + uw.numel() + uh.numel() + ud.numel())
+        # the parameters are shared down each column: their softmaxes,
+        # knots and softplus are work per column, not per element
+        ops = tk.rqs_shared_ops(K_BINS, inverse, d, x.numel())
         out[inverse] = (ms, plain) + bound(nbytes, ops, peaks)
     return out
 
 
-def timing_kernel_b(dev, flush, peaks):
+def timing_kernel_a_circular(dev, flush, peaks, batch=CIRC_BATCH):
+    """Kernel A alone at the circular NSF's serving shapes: x (2, B), full
+    K = 10 planes, mixed tails, tail bound (2, 1)."""
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    x, w, h, d, tb, _, _ = _path_operands(np.random.default_rng(SEED + 14),
+                                          10, "mixed", dev, batch)
+    out = {}
+    for inverse in (False, True):
+        ms = device_ms(lambda: tk.rqs_fwd(x, w, h, d, tb, inverse=inverse),
+                       flush)
+        plain = device_ms(lambda: tk.rqs_plain(x, w, h, d, tb,
+                                               inverse=inverse), flush)
+        out[inverse] = (ms, plain) + bound(
+            _spline_bytes(x, (w, h, d, tb), 2),
+            tk.rqs_ops_per_element(10, inverse) * x.numel(), peaks)
+    return out
+
+
+def _timing_row(label, t):
+    return f"{label}: " + ", ".join(
+        f"{'inverse' if inv else 'forward'} kernel_ms {v[0]:.4f} plain_ms "
+        f"{v[1]:.4f} bound_ms {v[2]:.5f} ({v[3]})" for inv, v in t.items())
+
+
+def timing_kernel_a_other(dev, flush, peaks):
+    """Kernel A at the CDF of a dim-8 coupling (x (65536, 4)), at the CDF
+    of a training step below the fused-head gate (x (2048, 1)) and at the
+    circular NSF's serving shape (x (2, 65536)): one printed line."""
+    out = {"CDF x (65536, 4)": timing_kernel_a(dev, flush, peaks, d=4),
+           "CDF x (2048, 1)": timing_kernel_a(dev, flush, peaks,
+                                              batch=2048),
+           f"circular x (2, {CIRC_BATCH})": timing_kernel_a_circular(
+               dev, flush, peaks)}
+    print("phase timing rqs_fwd other shapes (K = 8 linear CDFs with "
+          "(1, D, K) parameters and tail bound 3; K = 10 circular full "
+          "planes, mixed tails, tb (2, 1)): "
+          + "; ".join(_timing_row(k, v) for k, v in out.items()),
+          flush=True)
+    return out
+
+
+def launch_floor(flush):
+    """``device_ms`` of an empty launch (``torch.cuda._sleep(0)``), timed as
+    every kernel is: the part of a small kernel's time that no design of
+    it can remove."""
+    ms = device_ms(lambda: torch.cuda._sleep(0), flush)
+    print(f"phase launch floor: device_ms of an empty launch "
+          f"(torch.cuda._sleep(0)) {ms:.4f}", flush=True)
+    return ms
+
+
+def timing_kernel_b(dev, flush, peaks, d=1, hidden=HIDDEN):
     """At the serving path's shapes: the transform half of a dim-2
-    coupling, x_t (1, B) (a transposed view), h_t (128, B), linear tails."""
+    coupling, x_t (1, B) (a transposed view), h_t (128, B), linear tails.
+    ``d`` and ``hidden`` give another coupling's (dim 2d, or another trunk
+    width)."""
     from nf_tpu_torch.ops import spline_head_fused as shf
     from nf_tpu_torch.ops import splines_kernel as tk
 
     rng = np.random.default_rng(SEED + 3)
-    d = 1
     x_t = _normal(rng, (BATCH, d), 1.5, dev).T
-    h_t = _normal(rng, (HIDDEN, BATCH), 1.0, dev)
+    h_t = _normal(rng, (hidden, BATCH), 1.0, dev)
     m = (3 * K_BINS - 1) * d
-    w = _normal(rng, (m, HIDDEN), 0.3 / np.sqrt(HIDDEN), dev)
+    w = _normal(rng, (m, hidden), 0.3 / np.sqrt(hidden), dev)
     b = _normal(rng, (m,), 0.1, dev)
     tb = torch.full((d,), 3.0, device=dev)
     out = {}
@@ -631,11 +713,22 @@ def timing_kernel_b(dev, flush, peaks):
             x_t, h_t, w, b, tail_bound=3.0, **kw), flush)
         plain = device_ms(lambda: shf.head_rqs_plain(
             x_t, h_t, w, b, tb, **kw), flush)
-        nbytes = 4 * (d * BATCH + HIDDEN * BATCH + m * HIDDEN + m + d
+        nbytes = 4 * (d * BATCH + hidden * BATCH + m * hidden + m + d
                       + 2 * d * BATCH)
-        ops = (2 * m * HIDDEN * BATCH
+        ops = (2 * m * hidden * BATCH
                + tk.rqs_ops_per_element(K_BINS, inverse) * d * BATCH)
         out[inverse] = (ms, plain) + bound(nbytes, ops, peaks)
+    return out
+
+
+def timing_kernel_b_other(dev, flush, peaks):
+    """Kernel B at the other shapes of :data:`E_OTHER_SHAPES` (D = 4 and
+    hidden 512), B = 65536, K = 8, linear tails: one printed line."""
+    out = {(d, h): timing_kernel_b(dev, flush, peaks, d, h)
+           for d, h in E_OTHER_SHAPES}
+    print("phase timing head_rqs_fwd other shapes (B = 65536, K = 8, "
+          "linear): " + "; ".join(_timing_row(f"D = {d}, H = {h}", t)
+                                  for (d, h), t in out.items()), flush=True)
     return out
 
 
@@ -709,16 +802,11 @@ E_OTHER_SHAPES = ((4, HIDDEN), (1, 512))
 def timing_kernel_e_other(dev, flush, peaks):
     """Kernel E at :data:`E_OTHER_SHAPES`, B = 65536, K = 8, linear tails:
     one printed line, both spline directions; returns the times."""
-    out = {}
-    for d, hidden in E_OTHER_SHAPES:
-        out[d, hidden] = timing_kernel_e(dev, flush, peaks, d, hidden)
+    out = {(d, h): timing_kernel_e(dev, flush, peaks, d, h)
+           for d, h in E_OTHER_SHAPES}
     print("phase timing head_rqs_bwd other shapes (B = 65536, K = 8, "
-          "linear): " + "; ".join(
-              f"D = {d}, H = {h}: " + ", ".join(
-                  f"{'inverse' if inv else 'forward'} kernel_ms {t[0]:.4f} "
-                  f"plain_ms {t[1]:.4f} bound_ms {t[2]:.5f} ({t[3]})"
-                  for inv, t in ts.items())
-              for (d, h), ts in out.items()), flush=True)
+          "linear): " + "; ".join(_timing_row(f"D = {d}, H = {h}", t)
+                                  for (d, h), t in out.items()), flush=True)
     return out
 
 
@@ -1312,9 +1400,12 @@ def main():
               f"{iplain:.4f} bound_ms {ibound:.5f} ({iby}); bound = max(bytes "
               f"/ {peaks[0]:.3g} B/s, operations / {peaks[1]:.3g} flop/s)",
               flush=True)
+    timing_kernel_a_other(dev, flush, peaks)
+    timing_kernel_b_other(dev, flush, peaks)
     timing_kernel_e_other(dev, flush, peaks)
     yardstick_kernel_e(dev)
     timing_path_a_c(dev, flush, peaks)
+    launch_floor(flush)
 
     # each main path, with the kernels it must launch
     paths = {"build_nsf serving": (phase_serving(dev, flush),

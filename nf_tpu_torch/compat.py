@@ -43,14 +43,17 @@ def load_reference_state_dict(model, state_dict):
              for name, mod in model.named_modules()
              if isinstance(mod, (ResidualNet, MADE))
              and mod.bin_major_head is not None}
-    with torch.no_grad():
-        for name, tensor in own.items():
-            value = np.asarray(state_dict[name])
-            head = heads.get(name[:name.rfind(".") + 1])
-            if head is not None:
-                value = _head_to_bin_major(value, head)
-            if tuple(value.shape) != tuple(tensor.shape):
-                raise ValueError(f"{name}: shape {value.shape} in the state "
-                                 f"dict, {tuple(tensor.shape)} in the model")
-            tensor.copy_(torch.from_numpy(np.array(value)))
+    converted = {}
+    for name, tensor in own.items():
+        value = np.asarray(state_dict[name])
+        head = heads.get(name[:name.rfind(".") + 1])
+        if head is not None:
+            value = _head_to_bin_major(value, head)
+        if tuple(value.shape) != tuple(tensor.shape):
+            raise ValueError(f"{name}: shape {value.shape} in the state "
+                             f"dict, {tuple(tensor.shape)} in the model")
+        converted[name] = torch.from_numpy(np.array(value))
+    # through load_state_dict, so that a MADE layer's numpy copy of its
+    # degrees follows the loaded buffer
+    model.load_state_dict(converted)
     return model

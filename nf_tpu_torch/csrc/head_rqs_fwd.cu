@@ -7,20 +7,51 @@
 // (linear tails: constant edge logits of slope 1; circular: plane 0 closes
 // the circle), then the spline of rqs_math.cuh with a per-feature tb.
 //
-// Design. One thread per (d, b) element. A block is 256 consecutive b of
-// one d (blockIdx.y = d), so a warp shares d and spans 32 consecutive b:
-// its loads of h_t[j, b] are coalesced, and the rows p*D + d of W_eff it
-// needs are the same for all its threads. The block stages those P = 2K+nd
-// rows in shared memory, 32 columns of H at a time, and every thread reads
-// them as broadcasts. Each thread keeps its P parameter sums in registers;
-// the parameter planes never exist in device memory. The product is
-// computed here, not by a library call.
-//
 // Bound on the H100: per element it reads H floats of h_t and does
-// 2*P*H flops. At D = 1, H = 128, K = 8 (P = 23) that is 512 bytes against
-// 5888 flops, ~11.5 flop/byte: below the f32 CUDA-core ridge (67 TFLOP/s
-// over 3.35 TB/s = 20 flop/byte), so reading h_t bounds it. The design
-// reads h_t once per feature d and nothing else of size B*H.
+// 2*P*H flops (P = 2K + nd parameters). At D = 1, H = 128, K = 8 (P = 23)
+// that is 512 bytes against 5888 flops, ~11.5 flop/byte: below the f32
+// CUDA-core ridge (67 TFLOP/s over 3.35 TB/s = 20 flop/byte), so reading
+// h_t bounds it. Two things stand between the kernel and that bound:
+//   * the FMAs take more than half of it, and an SM issues only 4
+//     warp-wide FMAs per clock while a warp's 16-byte load from shared
+//     memory takes it more than one clock even as a broadcast, so the
+//     product must not load a weight per FMA;
+//   * at ~1 us of latency, 3.35 TB/s needs ~25 KB of h_t in flight on
+//     each SM, more than registers hold.
+//
+// Design. A block of kThreads threads owns kBlockCols consecutive batch
+// columns of one feature d (blockIdx.y = d), a warp kWarpCols of them. A
+// lane pair owns 4 consecutive columns; lane 2q + half sums the parameters
+// [half*PH, half*PH + PH) of all 4 (PP = P rounded up to 8, PH = PP/2).
+//   0. W_eff's rows p*D + d are staged in shared memory by 4-byte cp.async
+//      copies that transpose them to w_s[j][PP], kJ columns of H per tile
+//      in two buffers: a tile's copies join the commit group of its first
+//      h_t stage, so no thread waits on them alone, and a block barrier at
+//      the tile's first stage publishes it.
+//   1. Each warp streams its own columns of h_t through a ring of kS
+//      stages in shared memory, kR rows each, filled by cp.async with
+//      kS - 1 stages in flight (16-byte copies when every row of h_t starts
+//      on 16 bytes, else 4-byte ones; columns past B are zero-filled). No
+//      other warp reads them, so a warp barrier publishes a stage and frees
+//      the slot the next copy reuses, and no warp waits for the slowest of
+//      the block at every stage.
+//   2. Per row j a thread reads PH/4 float4 of W_eff (the pair's two
+//      addresses, each shared by 16 lanes) and one float4 of h_t (4
+//      columns, shared with its pair), and does 4*PH FMAs: 12 per 16-byte
+//      load at K = 8. Each (column, parameter) sums j ascending from 0
+//      with fmaf(w, h, acc), the order of the previous designs, which
+//      kernel E's recompute repeats (head_rqs_bwd.cu).
+//   3. The pair swaps halves by shuffles, so each thread holds all P
+//      parameters of 2 columns; + bias, then the spline (nf::rqs_element),
+//      the two columns' chains side by side. Its operands (x, tb and the
+//      bias, copied beside W_eff with the first stage) are loaded before
+//      the product, so their latency is not paid after it.
+// The parameter planes never reach device memory, and the product is
+// computed here, not by a library call. What is left above the bound
+// (PERF.md): reading h_t itself runs below the card's peak, and the
+// spline at the end and the part of the product that the loads do not
+// hide are latency-bound at the ~8 warps per SM that B = 65536 gives.
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -29,87 +60,253 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 32;  // columns of H staged per step
+constexpr int kThreads = 128;             // threads per block
+constexpr int kWarpCols = 64;             // batch columns per warp
+constexpr int kBlockCols = kThreads / 32 * kWarpCols;
+constexpr int kJ = 128;                   // columns of H per W_eff tile
+constexpr int kR = 16;                    // rows of h_t per ring stage
+constexpr int kS = 3;                     // stages in the ring
+static_assert(kJ == kThreads, "a W_eff tile is one copy per thread per p");
+static_assert(kJ % kR == 0, "a stage never straddles two W_eff tiles");
+static_assert(kWarpCols == 2 * 32, "a lane pair owns 4 columns");
+static_assert((kR * kWarpCols / 4) % 32 == 0,
+              "a stage is whole 16-byte copies for every lane");
+
+__host__ __device__ constexpr int padded_params(int p) {
+  return (p + 7) / 8 * 8;
+}
+
+// dynamic shared memory of one block: two W_eff tiles, the bias and the
+// h_t ring
+__host__ __device__ constexpr size_t shared_bytes(int pp) {
+  return sizeof(float) * (static_cast<size_t>(2 * kJ + 1) * pp
+                          + static_cast<size_t>(kS) * kR * kBlockCols);
+}
+
+// acc[c][p] = fmaf(w_row[p], h[c], acc[c][p]) for PH weights of one
+// column j of W_eff (PH/4 float4 broadcasts) and 4 columns of h
+template <int PH>
+__device__ __forceinline__ void fma_row(const float* w_row, const float4 hq,
+                                        float (&acc)[4][PH]) {
+  const float4* wq = reinterpret_cast<const float4*>(w_row);
+  const float hv[4] = {hq.x, hq.y, hq.z, hq.w};
+#pragma unroll
+  for (int q = 0; q < PH / 4; ++q) {
+    const float4 wv = wq[q];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[c][4 * q] = fmaf(wv.x, hv[c], acc[c][4 * q]);
+      acc[c][4 * q + 1] = fmaf(wv.y, hv[c], acc[c][4 * q + 1]);
+      acc[c][4 * q + 2] = fmaf(wv.z, hv[c], acc[c][4 * q + 2]);
+      acc[c][4 * q + 3] = fmaf(wv.w, hv[c], acc[c][4 * q + 3]);
+    }
+  }
+}
 
 template <int K, bool CIRCULAR, bool INVERSE>
-__global__ void head_rqs_fwd_kernel(
+__global__ void __launch_bounds__(kThreads, 3) head_rqs_fwd_kernel(
     const float* __restrict__ x_t, long long x_rs, long long x_cs,
     const float* __restrict__ h_t, const float* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ tb, int D,
-    long long B, int H, float edge, float min_bin_width,
+    long long B, int H, bool quads, float edge, float min_bin_width,
     float min_bin_height, float min_derivative, float* __restrict__ y,
     float* __restrict__ ld) {
   constexpr int ND = CIRCULAR ? K : K - 1;
   constexpr int P = 2 * K + ND;
-  __shared__ float w_tile[P][kTile];
+  constexpr int PP = padded_params(P);
+  constexpr int PH = PP / 2;
+  extern __shared__ __align__(16) float smem[];
+  float* w_s = smem;               // [2][kJ][PP]
+  float* b_s = w_s + 2 * kJ * PP;  // [PP]
+  float* h_s = b_s + PP;           // [warps][kS][kR][kWarpCols]
 
   const int d = blockIdx.y;
-  const long long b =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const bool active = b < B;
+  const int tid = threadIdx.x;
+  const int half = tid & 1;  // which half of the parameters
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // the warp's first column, and this thread's first spline column
+  const long long bw =
+      static_cast<long long>(blockIdx.x) * kBlockCols + warp * kWarpCols;
+  const long long bq = bw + 2 * lane;
+  float* h_w = h_s + warp * (kS * kR * kWarpCols);
 
-  float acc[P];
+  // 3.'s operands: a column past B reads column B - 1 and stores nothing
+  float xv[2];
 #pragma unroll
-  for (int p = 0; p < P; ++p) acc[p] = 0.0f;
+  for (int c = 0; c < 2; ++c) {
+    const long long b = min(bq + c, B - 1);
+    xv[c] = x_t[d * x_rs + b * x_cs];
+  }
+  const float t = tb[d];
 
-  for (int j0 = 0; j0 < H; j0 += kTile) {
-    const int tile = min(kTile, H - j0);
-    for (int e = threadIdx.x; e < P * kTile; e += blockDim.x) {
-      const int p = e / kTile;
-      const int j = e - p * kTile;
-      w_tile[p][j] = (j < tile)
-          ? w[static_cast<long long>(p * D + d) * H + j0 + j] : 0.0f;
-    }
-    __syncthreads();
-    if (active) {
-      const float* hp = h_t + static_cast<long long>(j0) * B + b;
+  // 0. W_eff columns [j0, j0 + kJ) of feature d -> tile buffer (j0 / kJ)
+  // % 2, zero past H and P. Thread tid copies column j0 + tid: the reads
+  // of a row coalesce.
+  auto stage_w = [&](int j0) {
+    float* dst = w_s + ((j0 / kJ) & 1) * (kJ * PP) + tid * PP;
+    const bool col = j0 + tid < H;
 #pragma unroll 4
-      for (int j = 0; j < tile; ++j) {
-        const float hv = hp[static_cast<long long>(j) * B];
-#pragma unroll
-        for (int p = 0; p < P; ++p) acc[p] = fmaf(w_tile[p][j], hv, acc[p]);
-      }
+    for (int p = 0; p < PP; ++p) {
+      const bool in = col && p < P;
+      const float* src =
+          w + (in ? static_cast<long long>(p * D + d) * H + j0 + tid : 0);
+      __pipeline_memcpy_async(dst + p, src, 4, in ? 0 : 4);
     }
-    __syncthreads();
-  }
-  if (!active) return;
+  };
+  // 1. rows [s*kR, s*kR + kR) of the warp's columns of h_t -> its ring
+  // slot s % kS, then the W_eff tile they start; one commit per call, empty
+  // past H. The bias and W_eff come by cp.async too, so no warp waits on a
+  // load before its first stage is in flight (x and tb go to registers
+  // that only 3. reads).
+  const int stages = (H + kR - 1) / kR;
+  auto stage_h = [&](int s) {
+    if (s < stages) {
+      const int j = s * kR;
+      float* dst = h_w + (s % kS) * (kR * kWarpCols);
+      if (quads) {
+        constexpr int kQ = kWarpCols / 4;  // 16-byte chunks per row
+#pragma unroll
+        for (int it = 0; it < kR * kQ / 32; ++it) {
+          const int e = it * 32 + lane;
+          const int r = e / kQ;
+          const int c = 4 * (e % kQ);
+          const bool in = j + r < H && bw + c < B;
+          const float* src =
+              h_t + (in ? static_cast<long long>(j + r) * B + bw + c : 0);
+          __pipeline_memcpy_async(dst + r * kWarpCols + c, src, 16,
+                                  in ? 0 : 16);
+        }
+      } else {
+#pragma unroll 1
+        for (int it = 0; it < kR * kWarpCols / 32; ++it) {
+          const int e = it * 32 + lane;
+          const int r = e / kWarpCols;
+          const int c = e % kWarpCols;
+          const bool in = j + r < H && bw + c < B;
+          const float* src =
+              h_t + (in ? static_cast<long long>(j + r) * B + bw + c : 0);
+          __pipeline_memcpy_async(dst + r * kWarpCols + c, src, 4,
+                                  in ? 0 : 4);
+        }
+      }
+      if (j % kJ == 0) stage_w(j);
+    }
+    __pipeline_commit();
+  };
 
-  float uw[K], uh[K], ud[K + 1];
+  // 2. the head product, j ascending
+  float acc[4][PH];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    uw[k] = acc[k] + bias[k * D + d];
-    uh[k] = acc[K + k] + bias[(K + k) * D + d];
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int p = 0; p < PH; ++p) acc[c][p] = 0.0f;
+  if (tid < PP) {  // the bias, with the first stage
+    const bool in = tid < P;
+    __pipeline_memcpy_async(b_s + tid, bias + (in ? tid * D + d : 0), 4,
+                            in ? 0 : 4);
   }
-  if (CIRCULAR) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) ud[k] = acc[2 * K + k] + bias[(2 * K + k) * D + d];
-    ud[K] = ud[0];
-  } else {
-    ud[0] = edge;
-    ud[K] = edge;
+  for (int s = 0; s < kS - 1; ++s) stage_h(s);
+  for (int s = 0; s < stages; ++s) {
+    const int j = s * kR;
+    __pipeline_wait_prior(kS - 2);
+    // the warp's stage s is in place and its stage s - 1 slot is free; at a
+    // tile's first stage every thread's copies of the tile are in place,
+    // and every warp has left the tile whose buffer the next tile reuses
+    if (j % kJ == 0)
+      __syncthreads();
+    else
+      __syncwarp();
+    stage_h(s + kS - 1);
+    const float* ws =
+        w_s + ((j / kJ) & 1) * (kJ * PP) + (j % kJ) * PP + half * PH;
+    const float* hs = h_w + (s % kS) * (kR * kWarpCols) + 4 * (lane >> 1);
+    if (j + kR <= H) {
 #pragma unroll
-    for (int k = 0; k < K - 1; ++k)
-      ud[k + 1] = acc[2 * K + k] + bias[(2 * K + k) * D + d];
+      for (int u = 0; u < kR; ++u)
+        fma_row<PH>(ws + u * PP,
+                    *reinterpret_cast<const float4*>(hs + u * kWarpCols),
+                    acc);
+    } else {
+      for (int u = 0; u < H - j; ++u)
+        fma_row<PH>(ws + u * PP,
+                    *reinterpret_cast<const float4*>(hs + u * kWarpCols),
+                    acc);
+    }
   }
 
-  float yv, lv;
-  nf::rqs_element<K, INVERSE>(x_t[d * x_rs + b * x_cs], tb[d], uw, uh, ud,
-                              min_bin_width, min_bin_height, min_derivative,
-                              yv, lv);
-  y[d * B + b] = yv;
-  ld[d * B + b] = lv;
+  // 3. the pair swaps halves: this thread keeps columns 2*half and
+  // 2*half + 1 of the pair's 4 and takes the other half of their
+  // parameters
+  float pr[2][PP];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int i = 0; i < PH; ++i) {
+      const float own = half ? acc[2 + c][i] : acc[c][i];
+      const float other = __shfl_xor_sync(
+          0xffffffffu, half ? acc[c][i] : acc[2 + c][i], 1);
+      pr[c][i] = half ? other : own;
+      pr[c][PH + i] = half ? own : other;
+    }
+  }
+  // bias and spline; the columns' chains are independent, so the compiler
+  // interleaves them
+  float uw[2][K], uh[2][K], ud[2][K + 1], yv[2], lv[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      uw[c][k] = pr[c][k] + b_s[k];
+      uh[c][k] = pr[c][K + k] + b_s[K + k];
+    }
+    if (CIRCULAR) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) ud[c][k] = pr[c][2 * K + k] + b_s[2 * K + k];
+      ud[c][K] = ud[c][0];
+    } else {
+      ud[c][0] = edge;
+      ud[c][K] = edge;
+#pragma unroll
+      for (int k = 0; k < K - 1; ++k)
+        ud[c][k + 1] = pr[c][2 * K + k] + b_s[2 * K + k];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+    nf::rqs_element<K, INVERSE>(xv[c], t, uw[c], uh[c], ud[c], min_bin_width,
+                                min_bin_height, min_derivative, yv[c], lv[c]);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const long long b = bq + c;
+    if (b < B) {
+      y[d * B + b] = yv[c];
+      ld[d * B + b] = lv[c];
+    }
+  }
 }
 
 template <int K, bool CIRCULAR, bool INVERSE>
-void launch(const float* x_t, long long x_rs, long long x_cs,
-            const float* h_t, const float* w, const float* bias,
-            const float* tb, int D, long long B, int H, float edge, float mbw,
-            float mbh, float md, float* y, float* ld, cudaStream_t stream) {
-  dim3 grid(static_cast<unsigned>((B + kThreads - 1) / kThreads),
+int launch(const float* x_t, long long x_rs, long long x_cs,
+           const float* h_t, const float* w, const float* bias,
+           const float* tb, int D, long long B, int H, float edge, float mbw,
+           float mbh, float md, float* y, float* ld, cudaStream_t stream) {
+  constexpr int P = 2 * K + (CIRCULAR ? K : K - 1);
+  constexpr size_t smem = shared_bytes(padded_params(P));
+  auto kernel = head_rqs_fwd_kernel<K, CIRCULAR, INVERSE>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool quads =
+      B % 4 == 0 && reinterpret_cast<std::uintptr_t>(h_t) % 16 == 0;
+  dim3 grid(static_cast<unsigned>((B + kBlockCols - 1) / kBlockCols),
             static_cast<unsigned>(D));
-  head_rqs_fwd_kernel<K, CIRCULAR, INVERSE><<<grid, kThreads, 0, stream>>>(
-      x_t, x_rs, x_cs, h_t, w, bias, tb, D, B, H, edge, mbw, mbh, md, y, ld);
+  kernel<<<grid, kThreads, smem, stream>>>(x_t, x_rs, x_cs, h_t, w, bias, tb,
+                                           D, B, H, quads, edge, mbw, mbh,
+                                           md, y, ld);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -117,8 +314,8 @@ void launch(const float* x_t, long long x_rs, long long x_cs,
 // C interface for ctypes. x_t (D, B) with strides (x_rs, x_cs); h_t (H, B),
 // w (P*D, H), bias (P*D,), tb (D,) contiguous; y, ld (D, B) contiguous.
 // `edge` is the linear-tail derivative logit log(exp(1 - min_d) - 1).
-// Returns cudaGetLastError() after the launch; -1 for a bin count that has
-// no instantiation.
+// Returns the CUDA error of the launch (0 if none); -1 for a bin count that
+// has no instantiation.
 extern "C" int head_rqs_fwd_launch(
     const float* x_t, long long x_rs, long long x_cs, const float* h_t,
     const float* w, const float* bias, const float* tb, int D, long long B,
@@ -128,27 +325,23 @@ extern "C" int head_rqs_fwd_launch(
   if (B == 0 || D == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NF_HEAD_LAUNCH(KK, CC, II)                                          \
-  launch<KK, CC, II>(x_t, x_rs, x_cs, h_t, w, bias, tb, D, B, H, edge,      \
-                     min_bin_width, min_bin_height, min_derivative, y, ld,  \
-                     st)
+  return launch<KK, CC, II>(x_t, x_rs, x_cs, h_t, w, bias, tb, D, B, H,     \
+                            edge, min_bin_width, min_bin_height,            \
+                            min_derivative, y, ld, st)
 #define NF_HEAD_CASE(KK)                                                    \
   case KK:                                                                  \
     if (circular) {                                                         \
       if (inverse) NF_HEAD_LAUNCH(KK, true, true);                          \
-      else NF_HEAD_LAUNCH(KK, true, false);                                 \
-    } else {                                                                \
-      if (inverse) NF_HEAD_LAUNCH(KK, false, true);                         \
-      else NF_HEAD_LAUNCH(KK, false, false);                                \
+      NF_HEAD_LAUNCH(KK, true, false);                                      \
     }                                                                       \
-    break;
+    if (inverse) NF_HEAD_LAUNCH(KK, false, true);                           \
+    NF_HEAD_LAUNCH(KK, false, false);
   switch (num_bins) {
     NF_HEAD_CASE(4)
     NF_HEAD_CASE(8)
     NF_HEAD_CASE(10)
-    default:
-      return -1;
   }
 #undef NF_HEAD_CASE
 #undef NF_HEAD_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return -1;
 }

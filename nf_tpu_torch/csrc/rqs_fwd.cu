@@ -4,9 +4,9 @@
 // :450). Same function: per element x with tail bound tb, K width logits,
 // K height logits and K+1 tail-padded derivative logits -> (y, log|det|).
 //
-// Design. One thread per element; the math is rqs_math.cuh. Elements form
-// a (rows, cols) grid and every operand is addressed through its own
-// strides, so the three callers run without materialising anything:
+// Elements form a (rows, cols) grid and every operand is addressed through
+// its own strides, so the three callers run without materialising
+// anything:
 //   * bin-minor parameters (rows, cols, K): bin stride 1;
 //   * bin-major planes (K, rows, cols): bin stride rows*cols;
 //   * the unconditional CDF's per-feature parameters broadcast over the
@@ -14,12 +14,30 @@
 // The ragged edge is masked in the kernel (no padding, unlike the TPU's
 // (32, 128) blocks). A null tb pointer means the scalar tb_scalar.
 //
-// Bound on the H100: the work per element is ~30 loads of parameters and
-// ~250 flops of f32 math. With materialised parameters (3K+3 reads and 2
-// writes per element) it is memory bound; on the serving path the
-// parameters are stride-0 broadcasts that stay in L1/L2, so per element it
-// moves x, y and ld only (12 bytes): at B = 65536 that is under a
-// microsecond of HBM time, and the launch itself dominates.
+// Bound on the H100: per element ~30 parameter loads and ~250 flops of f32
+// math. With full parameter planes (3K+3 reads and 2 writes per element) it
+// is memory bound; with the CDF's stride-0 parameters it moves x, y and ld
+// only (12 bytes per element): at B = 65536 under a microsecond of HBM
+// time, and the operations take a few hundred nanoseconds, so there the
+// launch itself and the latency of one element's chain dominate.
+//
+// Design: two paths, both kernel A.
+//   * Per element (any strides): one thread per element loads its 3K+1
+//     parameters and runs rqs_math.cuh's rqs_element.
+//   * Shared parameters: when w, h and d have row stride 0, tb is a float
+//     or has row stride 0 too (the knots depend on it), and there are at
+//     most kMaxSharedCols columns (the CDF's call), every element of a
+//     column has the same knots. Each block first computes, once per
+//     column and into shared memory, the widths and their knots, the
+//     heights and theirs (normalized_sizes, knots) and min_derivative +
+//     softplus(d_k) for k = 0..K, each kind on warps of its own; then
+//     each thread finds its bin by the same >= compares against the
+//     search side's interior knots and reads the bin's six values by
+//     index. rqs_element sums the selected
+//     values onto 0.0f through masks, which gives that one value, and
+//     computes the same functions in the same order, so both paths give
+//     the same bits. Each element's x and tail bound are loaded before
+//     the prologue, so their latency overlaps the prologue's.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -27,6 +45,10 @@
 #include "rqs_math.cuh"
 
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxSharedCols = 64;  // columns the shared path's tables hold
+static_assert(kThreads > 64, "the shared path's tables take three warps");
 
 struct Strides {
   // element (r, c) of x at r*x[0] + c*x[1]; bin k of that element's width
@@ -46,7 +68,7 @@ __global__ void rqs_fwd_kernel(const float* __restrict__ x,
                                float min_derivative, float* __restrict__ y,
                                float* __restrict__ ld) {
   const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= rows * cols) return;
   const long long r = i / cols;
   const long long c = i - r * cols;
@@ -73,15 +95,88 @@ __global__ void rqs_fwd_kernel(const float* __restrict__ x,
 }
 
 template <int K, bool INVERSE>
+__global__ void __launch_bounds__(kThreads) rqs_fwd_shared_kernel(
+    const float* __restrict__ x, const float* __restrict__ uw,
+    const float* __restrict__ uh, const float* __restrict__ ud,
+    const float* __restrict__ tb, float tb_scalar, Strides s,
+    long long rows, long long cols, float min_bin_width,
+    float min_bin_height, float min_derivative, float* __restrict__ y,
+    float* __restrict__ ld) {
+  // per column: each bin's left knots (cw, ch) and sizes (w, h), and the
+  // derivatives at the K + 1 knots
+  __shared__ float s_cw[kMaxSharedCols][K], s_w[kMaxSharedCols][K],
+      s_ch[kMaxSharedCols][K], s_h[kMaxSharedCols][K],
+      s_d[kMaxSharedCols][K + 1];
+  const int ncols = static_cast<int>(cols);
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const bool active = i < rows * cols;
+  const long long r = i / cols;
+  const int c = static_cast<int>(i - r * cols);
+  auto tail = [&](int cc) { return tb ? tb[cc * s.tb[1]] : tb_scalar; };
+  const float xv = active ? x[r * s.x[0] + c * s.x[1]] : 0.0f;
+  const float t = active ? tail(c) : 0.0f;
+
+  // the column tables: warp 0 the widths, warp 1 the heights (a column per
+  // lane), the other warps the derivatives (a column and knot per thread).
+  // The three kinds run on separate warps, so that no warp waits for the
+  // loads of one kind and then for those of another.
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const bool wid = warp == 0;
+    for (int cc = threadIdx.x & 31; cc < ncols; cc += 32) {
+      const float* u = wid ? uw + cc * s.w[2] : uh + cc * s.h[2];
+      const long long bin_stride = wid ? s.w[0] : s.h[0];
+      float logits[K], sizes[K], cum[K + 1];
+#pragma unroll
+      for (int k = 0; k < K; ++k) logits[k] = u[k * bin_stride];
+      nf::normalized_sizes<K>(logits, wid ? min_bin_width : min_bin_height,
+                              sizes);
+      nf::knots<K>(sizes, tail(cc), cum);
+      float* sz = wid ? s_w[cc] : s_h[cc];
+      float* cm = wid ? s_cw[cc] : s_ch[cc];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        sz[k] = sizes[k];
+        cm[k] = cum[k];
+      }
+    }
+  } else {
+    for (int e = threadIdx.x - 64; e < ncols * (K + 1); e += kThreads - 64) {
+      const int cc = e / (K + 1);
+      const int k = e - cc * (K + 1);
+      s_d[cc][k] =
+          min_derivative + nf::softplus(ud[cc * s.d[2] + k * s.d[0]]);
+    }
+  }
+  __syncthreads();
+  if (!active) return;
+
+  const float xin = fminf(fmaxf(xv, -t), t);
+  const float* cref = INVERSE ? s_ch[c] : s_cw[c];
+  int bin = 0;  // the one k with xin >= cref[k] and not xin >= cref[k + 1]
+#pragma unroll
+  for (int k = 1; k < K; ++k) bin += xin >= cref[k] ? 1 : 0;
+  float yv, lv;
+  nf::rqs_map<INVERSE>(xv, t, xin, s_cw[c][bin], s_w[c][bin], s_ch[c][bin],
+                       s_h[c][bin], s_d[c][bin], s_d[c][bin + 1], yv, lv);
+  y[i] = yv;
+  ld[i] = lv;
+}
+
+template <int K, bool INVERSE>
 void launch(const float* x, const float* uw, const float* uh, const float* ud,
             const float* tb, float tb_scalar, const Strides& s,
             long long rows, long long cols, float mbw, float mbh, float md,
             float* y, float* ld, cudaStream_t stream) {
-  const int threads = 256;
   const long long n = rows * cols;
-  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-  rqs_fwd_kernel<K, INVERSE><<<blocks, threads, 0, stream>>>(
-      x, uw, uh, ud, tb, tb_scalar, s, rows, cols, mbw, mbh, md, y, ld);
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  const bool shared = cols <= kMaxSharedCols && s.w[1] == 0 &&
+                      s.h[1] == 0 && s.d[1] == 0 && (!tb || s.tb[0] == 0);
+  auto kernel = shared ? rqs_fwd_shared_kernel<K, INVERSE>
+                       : rqs_fwd_kernel<K, INVERSE>;
+  kernel<<<blocks, kThreads, 0, stream>>>(x, uw, uh, ud, tb, tb_scalar, s,
+                                          rows, cols, mbw, mbh, md, y, ld);
 }
 
 }  // namespace

@@ -64,6 +64,52 @@ __device__ __forceinline__ void knots(float (&sizes)[K], float tb,
   for (int k = 0; k < K; ++k) sizes[k] = cum[k + 1] - cum[k];
 }
 
+// The RQ map of one element once its bin is chosen: x, its tail bound tb
+// and xin = x clipped into [-tb, tb]; the bin's left knots in_cw, in_ch,
+// its width in_w and height in_h, and the derivatives at its two ends,
+// in_d and in_dp1 (min_derivative + softplus of the logits) -> (y,
+// log|det|), the identity outside [-tb, tb].
+template <bool INVERSE>
+__device__ __forceinline__ void rqs_map(float x, float tb, float xin,
+                                        float in_cw, float in_w, float in_ch,
+                                        float in_h, float in_d, float in_dp1,
+                                        float& y, float& ld) {
+  const float in_delta = in_h / in_w;
+  const float d_sum = in_d + in_dp1 - 2.0f * in_delta;
+
+  float out, l;
+  if (INVERSE) {
+    const float dy = xin - in_ch;
+    const float a = dy * d_sum + in_h * (in_delta - in_d);
+    const float b = in_h * in_d - dy * d_sum;
+    const float c = -in_delta * dy;
+    const float disc = fmaxf(b * b - 4.0f * a * c, 0.0f);
+    const float root = (2.0f * c) / (-b - sqrtf(disc));
+    out = root * in_w + in_cw;
+    const float t1mt = root * (1.0f - root);
+    const float denom = in_delta + d_sum * t1mt;
+    const float dnum =
+        in_delta * in_delta *
+        (in_dp1 * root * root + 2.0f * in_delta * t1mt +
+         in_d * (1.0f - root) * (1.0f - root));
+    l = -(logf(dnum) - 2.0f * logf(denom));
+  } else {
+    const float theta = (xin - in_cw) / in_w;
+    const float t1mt = theta * (1.0f - theta);
+    const float numer = in_h * (in_delta * theta * theta + in_d * t1mt);
+    const float denom = in_delta + d_sum * t1mt;
+    out = in_ch + numer / denom;
+    const float dnum =
+        in_delta * in_delta *
+        (in_dp1 * theta * theta + 2.0f * in_delta * t1mt +
+         in_d * (1.0f - theta) * (1.0f - theta));
+    l = logf(dnum) - 2.0f * logf(denom);
+  }
+  const bool inside = (x >= -tb) && (x <= tb);
+  y = inside ? out : x;
+  ld = inside ? l : 0.0f;
+}
+
 // One element: x and its tail bound tb, K width and K height logits, K+1
 // tail-padded derivative logits -> (y, log|det|).
 template <int K, bool INVERSE>
@@ -103,42 +149,9 @@ __device__ __forceinline__ void rqs_element(float x, float tb,
       d1_raw += ud[k + 1];
     }
   }
-  const float in_d = min_derivative + softplus(d0_raw);
-  const float in_dp1 = min_derivative + softplus(d1_raw);
-  const float in_delta = in_h / in_w;
-  const float d_sum = in_d + in_dp1 - 2.0f * in_delta;
-
-  float out, l;
-  if (INVERSE) {
-    const float dy = xin - in_ch;
-    const float a = dy * d_sum + in_h * (in_delta - in_d);
-    const float b = in_h * in_d - dy * d_sum;
-    const float c = -in_delta * dy;
-    const float disc = fmaxf(b * b - 4.0f * a * c, 0.0f);
-    const float root = (2.0f * c) / (-b - sqrtf(disc));
-    out = root * in_w + in_cw;
-    const float t1mt = root * (1.0f - root);
-    const float denom = in_delta + d_sum * t1mt;
-    const float dnum =
-        in_delta * in_delta *
-        (in_dp1 * root * root + 2.0f * in_delta * t1mt +
-         in_d * (1.0f - root) * (1.0f - root));
-    l = -(logf(dnum) - 2.0f * logf(denom));
-  } else {
-    const float theta = (xin - in_cw) / in_w;
-    const float t1mt = theta * (1.0f - theta);
-    const float numer = in_h * (in_delta * theta * theta + in_d * t1mt);
-    const float denom = in_delta + d_sum * t1mt;
-    out = in_ch + numer / denom;
-    const float dnum =
-        in_delta * in_delta *
-        (in_dp1 * theta * theta + 2.0f * in_delta * t1mt +
-         in_d * (1.0f - theta) * (1.0f - theta));
-    l = logf(dnum) - 2.0f * logf(denom);
-  }
-  const bool inside = (x >= -tb) && (x <= tb);
-  y = inside ? out : x;
-  ld = inside ? l : 0.0f;
+  rqs_map<INVERSE>(x, tb, xin, in_cw, in_w, in_ch, in_h,
+                   min_derivative + softplus(d0_raw),
+                   min_derivative + softplus(d1_raw), y, ld);
 }
 
 }  // namespace nf

@@ -54,7 +54,10 @@ def _output_degrees(in_degrees, out_features, autoregressive_features,
 
 class MaskedLinear(Linear):
     """Dense layer with a fixed autoregressive 0/1 mask (reference
-    ``made.py:19-81``); buffers ``mask`` (out, in) and ``degrees`` (out,)."""
+    ``made.py:19-81``); buffers ``mask`` (out, in) and ``degrees`` (out,),
+    and ``out_degrees``, a numpy copy of the degrees that reads the same on
+    any device (``meta`` included): taken at construction, and again from
+    every state dict loaded into the layer."""
 
     def __init__(self, in_degrees, out_features, autoregressive_features,
                  random_mask=False, is_output=False, bias=True,
@@ -78,8 +81,15 @@ class MaskedLinear(Linear):
                          generator=generator, dtype=dtype)
         self.register_buffer("mask", torch.from_numpy(mask.astype(
             np.float32)).to(dtype))
+        self.out_degrees = np.asarray(out_degrees, np.int64)
         self.register_buffer("degrees", torch.from_numpy(
-            np.asarray(out_degrees, np.int64)))
+            self.out_degrees.copy()))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+        degrees = state_dict.get(prefix + "degrees")
+        if degrees is not None and not degrees.is_meta:
+            self.out_degrees = degrees.detach().cpu().numpy().astype(np.int64)
 
     def forward(self, x):
         y = torch.matmul(x, (self.weight * self.mask).T)
@@ -121,7 +131,7 @@ class MaskedFeedforwardBlock(nn.Module):
 
     @property
     def out_degrees(self):
-        return self.linear.degrees.numpy()
+        return self.linear.out_degrees
 
     def forward(self, inputs, context=None):
         return self.activation(self.linear(inputs))
@@ -146,10 +156,10 @@ class MaskedResidualBlock(nn.Module):
         features = len(in_degrees)
         l0 = MaskedLinear(in_degrees, features, autoregressive_features,
                           generator=generator, dtype=dtype)
-        l1 = MaskedLinear(l0.degrees.numpy(), features,
+        l1 = MaskedLinear(l0.out_degrees, features,
                           autoregressive_features, generator=generator,
                           dtype=dtype)
-        if not np.all(l1.degrees.numpy() >= in_degrees):
+        if not np.all(l1.out_degrees >= in_degrees):
             raise RuntimeError(
                 "In a masked residual block, the output degrees can't be"
                 " less than the corresponding input degrees.")
@@ -167,7 +177,7 @@ class MaskedResidualBlock(nn.Module):
 
     @property
     def out_degrees(self):
-        return self.linear_layers[1].degrees.numpy()
+        return self.linear_layers[1].out_degrees
 
     def forward(self, inputs, context=None):
         temps = self.activation(inputs)
@@ -216,7 +226,7 @@ class MADE(nn.Module):
         block = (MaskedResidualBlock if use_residual_blocks
                  else MaskedFeedforwardBlock)
         blocks = []
-        prev = self.initial_layer.degrees.numpy()
+        prev = self.initial_layer.out_degrees
         for _ in range(num_blocks):
             blk = block(prev, features, context_features=context_features,
                         random_mask=random_mask, activation=activation,

@@ -21,7 +21,8 @@ Beside the kernels:
   ``splines_kernel.rqs_plain`` / ``rqs_bwd_plain``). CPU tensors use
   :func:`head_rqs_plain` with ordinary autograd, and the tests and
   ``chip_smoke.py`` hold the kernels against both;
-  :func:`head_rqs_bwd_plain_in_kernel_order` sums the head product in the
+  :func:`head_rqs_plain_in_kernel_order` and
+  :func:`head_rqs_bwd_plain_in_kernel_order` sum the head product in the
   kernels' order;
 * :func:`fused_head_rqs`, the wrapper: CUDA -> :class:`_HeadRQSFunction`
   (kernel B forward, kernel E backward) or raise, CPU -> the plain version;
@@ -127,24 +128,58 @@ def head_rqs_bwd_plain(x_t, h_t, head_weight, head_bias, tb, cty, ctl, *,
             torch.matmul(gparams, h_t.T), torch.sum(gparams, dim=1))
 
 
-def head_rqs_bwd_plain_in_kernel_order(x_t, h_t, head_weight, head_bias, tb,
-                                       cty, ctl, **kw):
-    """:func:`head_rqs_bwd_plain` with the head product summed as kernels B
-    and E sum it: j ascending from 0, one rounding per step as ``fmaf``
-    gives (the product of two float32 is exact in float64), then the bias.
-    The spline's derivatives carry a rounding of the parameters into gx,
-    so where ``torch.matmul``'s order moves gx past the 1e-4 bar this is
-    the yardstick that tells the kernel's arithmetic from its order. The
-    parameters go through :func:`head_rqs_bwd_plain` as its ``h_t`` under
-    an identity head, whose product is exact."""
+def fmaf(a, b, c):
+    """float32 ``fmaf(a, b, c)`` elementwise: ``a * b + c`` rounded once.
+    The product of two float32 is exact in float64; the sum is rounded to
+    float64 first, and where that lands exactly halfway between two
+    float32 its error term (TwoSum) says which way the exact sum lies, so
+    the float32 result is the single rounding ``fmaf`` gives."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    e = (c - (s - (s - c))) + (p - (s - c))  # s + e == p + c exactly
+    r = s.float()
+    rd = r.double()
+    toward = torch.where(s > rd, torch.inf, -torch.inf).float()
+    r2 = torch.nextafter(r, toward)
+    tie = (s != rd) & (s - rd == r2.double() - s)
+    fixed = torch.where(e > 0, torch.maximum(r, r2),
+                        torch.where(e < 0, torch.minimum(r, r2), r))
+    return torch.where(tie, fixed, r)
+
+
+def _params_in_kernel_order(h_t, head_weight, head_bias):
+    """``head_weight @ h_t + head_bias[:, None]`` summed as kernels B and E
+    sum it: j ascending from 0 with :func:`fmaf`, then the bias; and the
+    identity head under which the plain versions take these parameters as
+    their ``h_t`` (its product is exact)."""
     m = head_weight.shape[0]
     acc = torch.zeros((m, h_t.shape[1]), dtype=h_t.dtype, device=h_t.device)
     for j in range(h_t.shape[0]):
-        acc = (acc.double() + head_weight[:, j, None].double()
-               * h_t[j].double()).to(h_t.dtype)
+        acc = fmaf(head_weight[:, j, None], h_t[j], acc)
     eye = torch.eye(m, dtype=h_t.dtype, device=h_t.device)
+    return acc + head_bias[:, None], eye, torch.zeros_like(head_bias)
+
+
+def head_rqs_plain_in_kernel_order(x_t, h_t, head_weight, head_bias, tb,
+                                   **kw):
+    """:func:`head_rqs_plain` with the head product summed in kernel B's
+    order (:func:`_params_in_kernel_order`): the yardstick that holds B's
+    bits, which kernel E's recompute repeats, apart from the order in which
+    ``torch.matmul`` sums."""
+    return head_rqs_plain(
+        x_t, *_params_in_kernel_order(h_t, head_weight, head_bias), tb, **kw)
+
+
+def head_rqs_bwd_plain_in_kernel_order(x_t, h_t, head_weight, head_bias, tb,
+                                       cty, ctl, **kw):
+    """:func:`head_rqs_bwd_plain` with the head product summed as kernels B
+    and E sum it (:func:`_params_in_kernel_order`). The spline's
+    derivatives carry a rounding of the parameters into gx, so where
+    ``torch.matmul``'s order moves gx past the 1e-4 bar this is the
+    yardstick that tells the kernel's arithmetic from its order."""
     gx, gparams, _, gb = head_rqs_bwd_plain(
-        x_t, acc + head_bias[:, None], eye, torch.zeros_like(head_bias), tb,
+        x_t, *_params_in_kernel_order(h_t, head_weight, head_bias), tb,
         cty, ctl, **kw)
     return (gx, torch.matmul(head_weight.T, gparams),
             torch.matmul(gparams, h_t.T), gb)

@@ -54,6 +54,9 @@ from .splines import (
 )
 
 SUPPORTED_BINS = (4, 8, 10)  # the K values the CUDA sources instantiate
+# kernel A takes its shared-parameter path (csrc/rqs_fwd.cu kMaxSharedCols)
+# for at most this many columns
+SHARED_PARAM_MAX_COLS = 64
 
 
 # --- plain versions ----------------------------------------------------------
@@ -670,3 +673,16 @@ def rqs_ops_per_element(num_bins, inverse):
     map with its log-det (~30 forward, ~40 inverse with the root)."""
     K = num_bins
     return 2 * 5 * K + 2 * 3 * K + K + 6 * 2 * K + 8 + (40 if inverse else 30)
+
+
+def rqs_shared_ops(num_bins, inverse, cols, elements):
+    """Arithmetic operations of the spline when every element of a column
+    shares its parameters (kernel A's shared-parameter path), for the bound
+    in ``chip_smoke.py``: per column the two floored softmaxes and knot sums
+    (8K each) and K + 1 softplus (4 each); per element the clip (2), K - 1
+    bin-search compares and the RQ map with its log-det. The six selects
+    are indexed reads there, not operations."""
+    K = num_bins
+    per_col = 2 * 8 * K + 4 * (K + 1)
+    per_elem = 2 + (K - 1) + (40 if inverse else 30)
+    return per_col * cols + per_elem * elements

@@ -143,6 +143,46 @@ def test_made_matches_jax(bin_major, permute, preprocessing):
     _close(got, want)
 
 
+@pytest.mark.parametrize("residual", [True, False])
+def test_made_out_degrees_on_meta_match_jax(residual):
+    """``out_degrees`` of both block kinds reads its construction-time copy,
+    so it works once the model is on a device whose buffers cannot be read
+    (``meta``), and equals the JAX MADE's block degrees."""
+    kw = dict(features=3, hidden_features=16, num_blocks=2,
+              output_multiplier=5, use_residual_blocks=residual)
+    jmade = JMADE.create(jax.random.PRNGKey(0), **kw)
+    tmade = MADE(**kw).to("meta")
+    assert tmade.initial_layer.degrees.device.type == "meta"
+    assert len(tmade.blocks) == len(jmade.blocks) == 2
+    for tblk, jblk in zip(tmade.blocks, jmade.blocks):
+        np.testing.assert_array_equal(tblk.out_degrees,
+                                      np.asarray(jblk.degrees))
+
+
+@pytest.mark.parametrize("loader", ["load_state_dict", "compat"])
+def test_made_out_degrees_follow_a_loaded_state_dict(loader):
+    """A random-mask MADE loaded with another MADE's state dict (by
+    ``load_state_dict``, or by ``compat.load_reference_state_dict``, which
+    writes the ``degrees`` buffers) reports that MADE's degrees from
+    ``out_degrees``, not its own construction-time ones."""
+    kw = dict(features=3, hidden_features=16, num_blocks=2,
+              output_multiplier=5, use_residual_blocks=False,
+              random_mask=True)
+    src = MADE(generator=torch.Generator().manual_seed(1), **kw)
+    dst = MADE(generator=torch.Generator().manual_seed(2), **kw)
+    assert any((s.out_degrees != d.out_degrees).any()
+               for s, d in zip(src.blocks, dst.blocks))
+    if loader == "compat":
+        nt.load_reference_state_dict(
+            dst, {k: v.numpy() for k, v in src.state_dict().items()})
+    else:
+        dst.load_state_dict(src.state_dict())
+    for s, d in zip(src.blocks, dst.blocks):
+        np.testing.assert_array_equal(d.out_degrees, s.out_degrees)
+        np.testing.assert_array_equal(d.out_degrees,
+                                      d.linear.degrees.numpy())
+
+
 def test_made_is_autoregressive_with_a_permuted_order():
     """The port's own MADE (input order drawn from a torch generator):
     feature d's output rows depend only on features of lower degree."""

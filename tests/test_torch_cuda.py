@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import nf_tpu_torch as nt
+from nf_tpu_torch.nets.made import MADE
 from nf_tpu_torch.ops import spline_head_fused as tshf
 from nf_tpu_torch.ops import splines_kernel as tk
 
@@ -60,25 +61,70 @@ def test_kernel_a_matches_plain(cuda, K, inverse):
     torch.testing.assert_close(ld, lp, atol=LD_TOL, rtol=0)
 
 
-@pytest.mark.parametrize("tb_kind", ["float", "one_element_tensor"])
+def _tail_bound(kind, B, D, cuda):
+    """A tail bound of ``kind`` for x (B, D) as the kernel takes it, and the
+    same broadcast to x for the plain version: a float, a one-element
+    tensor, one per feature (row stride 0, the shared path's), or one per
+    row (the per-element path's)."""
+    if kind == "float":
+        return 3.0, 3.0
+    if kind == "one_element_tensor":
+        tb = torch.full((1, 1), 3.0, device=cuda)
+    elif kind == "per_feature":
+        tb = torch.linspace(1.5, 3.0, D, device=cuda)[None]
+    else:
+        tb = torch.linspace(1.5, 3.0, B, device=cuda)[:, None]
+    return tb, tb.expand(B, D)
+
+
+@pytest.mark.parametrize("params", ["per_feature", "per_row"])
+@pytest.mark.parametrize("tb_kind", ["float", "one_element_tensor",
+                                     "per_feature", "per_row"])
+@pytest.mark.parametrize("B", [1, 255, 257, 65536 + 77])
+@pytest.mark.parametrize("D", [1, 4, tk.SHARED_PARAM_MAX_COLS + 1])
 @pytest.mark.parametrize("inverse", [False, True])
-def test_kernel_a_broadcast_parameters(cuda, inverse, tb_kind):
+def test_kernel_a_broadcast_parameters(cuda, inverse, D, B, tb_kind, params):
     """The unconditional CDF's call: (1, D, K) parameters, stride 0 over the
-    batch, a transposed input; the tail bound as a float or as a
-    one-element CUDA tensor (read in the kernel with stride 0)."""
+    batch (kernel A's shared-parameter path up to SHARED_PARAM_MAX_COLS
+    columns when the tail bound is shared by the rows too), a transposed
+    input;
+    also (B, 1, K) parameters shared by the columns but not the rows, and
+    a tail bound per row (both the per-element path)."""
     rng = np.random.default_rng(1)
-    K, D, B = 8, 2, 5000
+    K = 8
     x = _normal(rng, (D, B), 2.0).to(cuda).T
+    lead = (1, D) if params == "per_feature" else (B, 1)
+    uw, uh = (_normal(rng, lead + (K,), 0.5).to(cuda) for _ in range(2))
+    ud = _normal(rng, lead + (K + 1,), 0.5).to(cuda)
+    tb, tb_plain = _tail_bound(tb_kind, B, D, cuda)
+    y, ld = tk.fused_unconstrained_rqs(x, uw, uh, ud, tb, inverse=inverse)
+    w, h, d = (t.expand(B, D, t.shape[-1]).movedim(-1, 0)
+               for t in (uw, uh, ud))
+    yp, lp = tk.rqs_plain(x, w, h, d, tb_plain, inverse=inverse)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yp, atol=Y_TOL, rtol=0)
+    torch.testing.assert_close(ld, lp, atol=LD_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("D", [1, 4])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_kernel_a_shared_parameters_are_bitwise_plain(cuda, inverse, D):
+    """At the CDF's shapes (x (65536, D), (1, D, K) parameters, tail bound
+    3) the shared-parameter path computes each column's knots and
+    derivatives once, with the same functions in the same order, and
+    reads the selected bin's values by index where the per-element path
+    sums masked values onto 0: the same bits as the plain version."""
+    rng = np.random.default_rng(7)
+    K, B = 8, 65536
+    x = _normal(rng, (B, D), 2.0).to(cuda)
     uw, uh = (_normal(rng, (1, D, K), 0.5).to(cuda) for _ in range(2))
     ud = _normal(rng, (1, D, K + 1), 0.5).to(cuda)
-    tb = 3.0 if tb_kind == "float" else torch.full((1, 1), 3.0, device=cuda)
-    y, ld = tk.fused_unconstrained_rqs(x, uw, uh, ud, tb, inverse=inverse)
+    y, ld = tk.fused_unconstrained_rqs(x, uw, uh, ud, 3.0, inverse=inverse)
     w, h, d = (t.expand(B, D, t.shape[-1]).movedim(-1, 0)
                for t in (uw, uh, ud))
     yp, lp = tk.rqs_plain(x, w, h, d, 3.0, inverse=inverse)
     torch.cuda.synchronize()
-    torch.testing.assert_close(y, yp, atol=Y_TOL, rtol=0)
-    torch.testing.assert_close(ld, lp, atol=LD_TOL, rtol=0)
+    assert torch.equal(y, yp) and torch.equal(ld, lp)
 
 
 def _on_grid(t, step):
@@ -229,37 +275,81 @@ def test_kernel_a_refuses_unbuilt_bin_counts(cuda):
         tk.rqs_fwd(x, w, w, d, 1.0, inverse=False)
 
 
-@pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("tails", ["linear", "circular"])
-@pytest.mark.parametrize("K", tk.SUPPORTED_BINS)
-def test_kernel_b_matches_plain(cuda, K, tails, inverse):
-    rng = np.random.default_rng(K)
-    D, B, H = 4, 65536 + 77, 128
-    m = (2 * K + (K - 1 if tails == "linear" else K)) * D
-    x_t = _normal(rng, (D, B), 2.0).to(cuda)
-    h_t = _normal(rng, (H, B)).to(cuda)
-    w = _normal(rng, (m, H), 0.3 / np.sqrt(H)).to(cuda)
-    b = _normal(rng, (m,), 0.1).to(cuda)
-    tb = torch.tensor([1.5, 2.0, 2.5, 3.0], device=cuda)
-    kw = dict(num_bins=K, tails=tails, inverse=inverse)
-    y, ld = tshf.fused_head_rqs(x_t, h_t, w, b, tail_bound=tb, **kw)
-    yp, lp = tshf.head_rqs_plain(x_t, h_t, w, b, tb, **kw)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(y, yp, atol=Y_TOL, rtol=0)
-    torch.testing.assert_close(ld, lp, atol=LD_TOL, rtol=0)
-
-
-# kernel E's shapes: (D, H, B, strided), where strided takes x_t and cty as
-# transposed (B, D) views, the layout a coupling passes. The first is the
-# parity layout of the other kernels; the rest are the edges of E's tiling:
-# H below, at and above its 128-column W_eff tile and not a multiple of 16,
-# B of one column and one either side of its 256-column block, and, at
-# K = 10 with circular tails and D = 4, its most head rows (M = 120).
+# kernels B's and E's shapes: (D, H, B, strided), where strided takes x_t
+# and cty as transposed (B, D) views, the layout a coupling passes. The
+# first is the parity layout of the other kernels, the second the path's
+# (build_nsf's couplings); the rest are the edges of the tilings: H below,
+# at and above the 128-column W_eff tile and not a multiple of 8 or 16, B
+# of one column and odd counts either side of a block's 256 columns, and,
+# at K = 10 with circular tails and D = 4, the most head rows (M = 120).
 E_SHAPES = [(4, 128, 65536 + 77, False), (1, 128, 65536, True),
             (1, 16, 1, False), (4, 100, 255, True), (1, 512, 257, False),
             (4, 512, 65536 + 77, True)]
 E_COMBOS = [(K, tails, inverse) for K in tk.SUPPORTED_BINS
             for tails in ("linear", "circular") for inverse in (False, True)]
+
+
+def _b_operands(cuda, K, tails, shape, draw, offset=0):
+    """Kernel B's operands at ``shape`` (those of :func:`_e_operands`
+    without the cotangents); h_t begins ``offset`` floats into its
+    buffer."""
+    x_t, h_t, w, b, tb, _, _ = _e_operands(cuda, K, tails, shape, draw)
+    if offset:
+        buf = torch.empty(h_t.numel() + offset, device=cuda)
+        shifted = buf[offset:].view(h_t.shape)
+        shifted.copy_(h_t)
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+        h_t = shifted
+    return x_t, h_t, w, b, tb
+
+
+def _b_close(got, want, y_tol=Y_TOL, ld_tol=LD_TOL):
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], atol=y_tol, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=ld_tol, rtol=0)
+
+
+@pytest.mark.parametrize("K, tails, inverse, shape, draw", [
+    (K, tails, inverse, shape, draw) for shape in E_SHAPES
+    for K, tails, inverse in E_COMBOS for draw in ("normal", "grid")])
+def test_kernel_b_matches_plain(cuda, K, tails, inverse, shape, draw):
+    """Kernel B against head_rqs_plain (torch.matmul's head product) at
+    the bars of the JAX package's kernels; the grid draws make the head
+    product exact in any order."""
+    x_t, h_t, w, b, tb = _b_operands(cuda, K, tails, shape, draw)
+    kw = dict(num_bins=K, tails=tails, inverse=inverse)
+    _b_close(tshf.fused_head_rqs(x_t, h_t, w, b, tail_bound=tb, **kw),
+             tshf.head_rqs_plain(x_t, h_t, w, b, tb, **kw))
+
+
+@pytest.mark.parametrize("K, tails, inverse, shape", [
+    (K, tails, inverse, shape) for shape in E_SHAPES
+    for K, tails, inverse in E_COMBOS])
+def test_kernel_b_is_bitwise_plain_summed_in_its_order(cuda, K, tails,
+                                                       inverse, shape):
+    """Under normal draws kernel B's y and ld are the bits of the plain
+    version whose head product is summed in B's order (j ascending, one
+    fmaf per step, then the bias): kernel E's recompute repeats that
+    order, so this is what keeps E's parameters B's."""
+    x_t, h_t, w, b, tb = _b_operands(cuda, K, tails, shape, "normal")
+    kw = dict(num_bins=K, tails=tails, inverse=inverse)
+    _b_close(tshf.fused_head_rqs(x_t, h_t, w, b, tail_bound=tb, **kw),
+             tshf.head_rqs_plain_in_kernel_order(x_t, h_t, w, b, tb, **kw),
+             0.0, 0.0)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_kernel_b_takes_h_t_off_16_bytes(cuda, offset):
+    """A contiguous h_t whose storage begins ``offset`` floats into its
+    buffer (the wrapper does not copy it), at the path's shape and at an
+    odd B."""
+    for shape in (E_SHAPES[1], (1, 128, 4097, True)):
+        x_t, h_t, w, b, tb = _b_operands(cuda, 8, "linear", shape, "normal",
+                                         offset)
+        kw = dict(num_bins=8, tails="linear", inverse=False)
+        _b_close(tshf.fused_head_rqs(x_t, h_t, w, b, tail_bound=tb, **kw),
+                 tshf.head_rqs_plain_in_kernel_order(x_t, h_t, w, b, tb,
+                                                     **kw), 0.0, 0.0)
 # The cases where gx under normal draws differs from head_rqs_bwd_plain's
 # by more than G_TOL on the H100 (up to 9e-4): the plain version's
 # torch.matmul sums the head product in another order than the kernel
@@ -425,6 +515,19 @@ def test_training_step_on_cuda_matches_cpu(cuda, batch):
         _rel_close(p.grad.cpu(), q.grad, MODEL_TOL)
         torch.testing.assert_close(p.detach().cpu(), q.detach(),
                                    atol=MODEL_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("residual", [True, False])
+def test_made_out_degrees_on_cuda(cuda, residual):
+    """``out_degrees`` of a MADE's blocks on the card: the degrees its
+    buffers hold, as numpy arrays."""
+    made = MADE(3, 16, num_blocks=2, output_multiplier=5,
+                use_residual_blocks=residual).to(cuda)
+    assert made.initial_layer.degrees.device.type == "cuda"
+    for blk in made.blocks:
+        last = blk.linear_layers[1] if residual else blk.linear
+        np.testing.assert_array_equal(blk.out_degrees,
+                                      last.degrees.cpu().numpy())
 
 
 def test_model_on_cuda_matches_cpu_and_runs_both_kernels(cuda):

@@ -7,6 +7,8 @@ B = 300 so the batch is not a multiple of any block. Tolerances are that
 file's: 1e-5 abs on outputs, 1e-4 abs on log-dets.
 """
 
+from fractions import Fraction
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -54,6 +56,58 @@ def test_plain_fused_head_matches_pallas(tails, inverse, tb_kind):
         tails=tails, tail_bound=torch.as_tensor(tb), inverse=inverse)
     _close(yt, yj, Y_TOL)
     _close(lt, lj, LD_TOL)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("tails", ["linear", "circular"])
+@pytest.mark.parametrize("K_", [4, 8])
+def test_plain_in_kernel_order_matches_pallas(K_, tails, inverse):
+    """The plain forward that sums the head product in kernel B's order
+    (the card tests' bitwise yardstick for kernel B) holds the same bars
+    against the Pallas kernel."""
+    x_t, h_t, w, b = _mk(5, tails, num_bins=K_)
+    tb = np.asarray([1.5, 2.0, 2.5, 3.0], np.float32)
+    yj, lj = jshf.fused_head_rqs(
+        jnp.asarray(x_t), jnp.asarray(h_t), jnp.asarray(w), jnp.asarray(b),
+        num_bins=K_, tails=tails, tail_bound=jnp.asarray(tb),
+        inverse=inverse, interpret=True)
+    yt, lt = tshf.head_rqs_plain_in_kernel_order(
+        *(torch.from_numpy(a) for a in (x_t, h_t, w, b, tb)), num_bins=K_,
+        tails=tails, inverse=inverse)
+    _close(yt, yj, Y_TOL)
+    _close(lt, lj, LD_TOL)
+
+
+def _round_f32(q):
+    """The float32 nearest the rational ``q``, ties to even."""
+    r = np.float32(float(q))
+    cands = [np.nextafter(r, np.float32(-np.inf)), r,
+             np.nextafter(r, np.float32(np.inf))]
+    dist = [abs(Fraction(float(c)) - q) for c in cands]
+    best = min(dist)
+    ties = [c for c, dd in zip(cands, dist) if dd == best]
+    return min(ties, key=lambda c: int(c.view(np.int32)) & 1)
+
+
+def test_fmaf_rounds_once():
+    """The order-summed yardstick's ``fmaf``: a sum whose float64 rounding
+    lands halfway between two float32 (1 + 2^-23 + 2^-24 (1 - 2^-46),
+    which rounding twice sends to 1 + 2^-22), and random draws, against
+    the exact sum rounded once."""
+    a = torch.tensor([2.0 ** -24 * (1 + 2.0 ** -23)])
+    b = torch.tensor([1 - 2.0 ** -23])
+    c = torch.tensor([1 + 2.0 ** -23])
+    assert float((a.double() * b.double() + c.double()).float()) == \
+        1 + 2.0 ** -22
+    assert float(tshf.fmaf(a, b, c)) == 1 + 2.0 ** -23
+    rng = np.random.default_rng(0)
+    x, y, z = (rng.standard_normal(400).astype(np.float32)
+               * np.float32(2.0) ** rng.integers(-30, 30, 400)
+               .astype(np.float32) for _ in range(3))
+    got = tshf.fmaf(*(torch.from_numpy(v) for v in (x, y, z))).numpy()
+    want = [_round_f32(Fraction(float(p)) * Fraction(float(q))
+                       + Fraction(float(r))) for p, q, r in zip(x, y, z)]
+    np.testing.assert_array_equal(got, np.asarray(want, np.float32))
 
 
 @pytest.mark.parametrize("tails", ["linear", "circular"])

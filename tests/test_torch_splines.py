@@ -8,6 +8,9 @@ splines). Tolerances are the JAX package's own bar
 (``tests/test_fused_head.py``): 1e-5 abs on outputs, 1e-4 abs on log-dets.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -215,6 +218,17 @@ def test_kernel_views_address_every_layout(layout):
     torch.testing.assert_close(
         got_tb, torch.broadcast_to(tb, x.shape).reshape(rows, cols),
         rtol=0, atol=0)
+
+
+def test_shared_parameter_column_limit_matches_the_cuda_source():
+    """``SHARED_PARAM_MAX_COLS``, which the card tests and ``chip_smoke.py``
+    use to reach both sides of kernel A's shared-parameter path, equals the
+    ``kMaxSharedCols`` the launcher of ``csrc/rqs_fwd.cu`` tests."""
+    src = (Path(tk.__file__).parent.parent / "csrc" / "rqs_fwd.cu") \
+        .read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kMaxSharedCols"]) == tk.SHARED_PARAM_MAX_COLS
+    assert "cols <= kMaxSharedCols" in src
 
 
 def test_wrapper_rejects_other_devices():
