@@ -201,15 +201,20 @@ def phase_device():
     return name
 
 
-def phase_build():
-    from nf_tpu_torch.ops import _build
+def kernel_libraries():
+    """Every library of the port's kernels; kernel E as one library per bin
+    count, so that its instantiations build in parallel."""
     from nf_tpu_torch.ops.splines_kernel import SUPPORTED_BINS
 
-    # kernel E as one library per bin count, so its instantiations build
-    # in parallel
-    names = (["rqs_fwd", "head_rqs_fwd", "rqs_bwd"]
-             + [f"head_rqs_bwd@{k}" for k in SUPPORTED_BINS]
-             + ["rqs_bwd_autodiff"])
+    return (["rqs_fwd", "head_rqs_fwd", "rqs_bwd"]
+            + [f"head_rqs_bwd@{k}" for k in SUPPORTED_BINS]
+            + ["rqs_bwd_autodiff"])
+
+
+def phase_build():
+    from nf_tpu_torch.ops import _build
+
+    names = kernel_libraries()
     t0 = time.perf_counter()
     _build.build(names)
     secs = time.perf_counter() - t0
@@ -225,6 +230,44 @@ def phase_build():
                      f"{len(spills)} instantiations spilling")
     print(f"phase build: {len(names)} libraries in {secs:.1f} s "
           f"(sm_90a; {'; '.join(notes)})", flush=True)
+    for n in ("rqs_bwd", "rqs_bwd_autodiff"):
+        print(f"phase build {n} by kernel (K, direction: registers, bytes "
+              f"spilled): " + "; ".join(
+                  f"{kernel} " + ", ".join(
+                      f"K{k}{'i' if inv else 'f'} {regs}"
+                      + (f" +{spill}" if spill else "")
+                      for k, inv, regs, spill in rows)
+                  for kernel, rows in ptxas_kernels(
+                      _build.BUILD_LOGS.get(n, "")).items()), flush=True)
+
+
+def ptxas_kernels(log):
+    """``nvcc -Xptxas -v`` output -> {kernel: [(K, inverse, registers,
+    spill-store bytes)]}, by the kernel's name and its template arguments
+    in the mangled symbol."""
+    import re
+
+    out, entry, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            name = re.search(r"\d+(rqs_\w+?)I", entry)
+            k = re.search(r"Li(\d+)E", entry)
+            inv = re.search(r"Lb([01])E", entry)
+            out.setdefault(name.group(1) if name else entry, []).append(
+                (int(k.group(1)) if k else 0, bool(inv and inv.group(1) ==
+                                                     "1"),
+                 int(m.group(1)), spill))
+            entry = None
+    return {n: sorted(rows) for n, rows in out.items()}
 
 
 def _normal(rng, shape, scale, dev):
@@ -359,7 +402,68 @@ def parity_kernel_c(dev):
                     rel_err(leaf.grad, p.sum(1).T[None])
                     for leaf, p in zip(leaves, want[1:])))
                 cases += 2
-    return worst, worst_sum, cases
+    e_gx, e_sum, n = parity_kernel_c_shared(dev)
+    return max(worst, e_gx), max(worst_sum, e_sum), cases + n
+
+
+def parity_kernel_c_shared(dev):
+    """Kernel C's shared-parameter path (the CDF's backward) at the
+    CDF's layout, (K, 1, D) parameters, a float and a per-column tail bound,
+    K 4/8/10, D 1/4/64, both directions, B = 65613 (ragged), the first two
+    rows at ±tb: gx against ``rqs_bwd_plain``'s (G_TOL), the row sums
+    against the float64 sums of its planes per column and against
+    ``rqs_bwd_shared_plain`` (SUM_TOL of the largest magnitude); a second
+    call must give the same bits. One printed line; returns the worst gx
+    and sum errors and the count of cases."""
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    rng = np.random.default_rng(SEED + 16)
+    batch = PARITY_BATCHES[1]
+    worst = dict(gx=0.0, sums=0.0, shared_plain=0.0)
+    cases = 0
+    for K in tk.SUPPORTED_BINS:
+        for d in (1, 4, tk.SHARED_PARAM_MAX_COLS):
+            x = _normal(rng, (batch, d), 2.0, dev)
+            cty, ctl = (_normal(rng, (batch, d), 1.0, dev) for _ in range(2))
+            small = [_normal(rng, (n, 1, d), 0.5, dev) for n in (K, K, K + 1)]
+            views = [t.expand(t.shape[0], batch, d) for t in small]
+            for tb in (3.0, torch.linspace(1.5, 3.0, d, device=dev)[None]):
+                x[:2] = (torch.tensor([[1.0], [-1.0]], device=dev) * tb)
+                tb_plain = tb.expand(batch, d) if torch.is_tensor(tb) else tb
+                for inverse in (False, True):
+                    got = tk.rqs_bwd_shared(x, *small, tb, cty, ctl,
+                                            inverse=inverse)
+                    again = tk.rqs_bwd_shared(x, *small, tb, cty, ctl,
+                                              inverse=inverse)
+                    want = tk.rqs_bwd_plain(x, *views, tb_plain, cty, ctl,
+                                            inverse=inverse)
+                    shared = tk.rqs_bwd_shared_plain(x, *small, tb, cty, ctl,
+                                                     inverse=inverse)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise RuntimeError("rqs_bwd's shared-parameter path "
+                                           "gave other bits on a second call")
+                    worst["gx"] = max(worst["gx"], max_err(got[0], want[0]))
+                    for g, p, q in zip(got[1:], want[1:], shared[1:]):
+                        sums = p.double().sum(1, keepdim=True)
+                        worst["sums"] = max(worst["sums"],
+                                            rel_err(g.double(), sums))
+                        worst["shared_plain"] = max(worst["shared_plain"],
+                                                    rel_err(g, q))
+                    cases += 1
+    if not worst["shared_plain"] <= SUM_TOL:
+        raise RuntimeError(f"rqs_bwd's shared-parameter path disagrees with "
+                           f"rqs_bwd_shared_plain by "
+                           f"{worst['shared_plain']:.3g} relative (limit "
+                           f"{SUM_TOL})")
+    print(f"phase parity rqs_bwd shared-parameter path: {cases} cases "
+          f"(K 4/8/10, D 1/4/{tk.SHARED_PARAM_MAX_COLS}, B {batch}, two tail "
+          f"bounds, both directions); gx vs rqs_bwd_plain {worst['gx']:.3g} "
+          f"abs (limit {G_TOL}); row sums vs the float64 sums of its planes "
+          f"{worst['sums']:.3g}, vs rqs_bwd_shared_plain "
+          f"{worst['shared_plain']:.3g} relative (limit {SUM_TOL}); two calls "
+          f"bitwise equal", flush=True)
+    return worst["gx"], max(worst["sums"], worst["shared_plain"]), cases
 
 
 def parity_kernel_e(dev):
@@ -732,32 +836,111 @@ def timing_kernel_b_other(dev, flush, peaks):
     return out
 
 
-def timing_kernel_c(dev, flush, peaks):
+def _cdf_operands(rng, dev, batch=BATCH, d=1):
+    """The backward operands of a coupling's CDF: x (B, D), (1, D, K)
+    widths and heights, (1, D, K-1) derivatives (linear tails, before the
+    padding), cotangents (B, D); the tail bound is 3."""
+    x = _normal(rng, (batch, d), 1.5, dev)
+    cty, ctl = (_normal(rng, (batch, d), 1.0, dev) for _ in range(2))
+    uw, uh = (_normal(rng, (1, d, K_BINS), 0.5, dev) for _ in range(2))
+    ud = _normal(rng, (1, d, K_BINS - 1), 0.5, dev)
+    return x, uw, uh, ud, cty, ctl
+
+
+def timing_kernel_c(dev, flush, peaks, shared=True):
     """At the training step's shapes: the backward of a dim-2 coupling's
     CDF, x (B, 1), (1, 1, K) parameters broadcast, tail bound 3,
-    cotangents (B, 1)."""
+    cotangents (B, 1). ``shared``: kernel C's shared-parameter path (the
+    one the step runs: gx and the row sums), else its per-element path
+    (gx and 3K+1 planes)."""
     from nf_tpu_torch.ops import splines, splines_kernel as tk
 
     rng = np.random.default_rng(SEED + 8)
-    x = _normal(rng, (BATCH, 1), 1.5, dev)
-    cty, ctl = (_normal(rng, (BATCH, 1), 1.0, dev) for _ in range(2))
-    uw, uh = (_normal(rng, (1, 1, K_BINS), 0.5, dev) for _ in range(2))
-    ud = splines.pad_derivatives(_normal(rng, (1, 1, K_BINS - 1), 0.5, dev),
-                                 "linear", 1e-3, axis=-1)
-    views = [t.expand(BATCH, 1, t.shape[-1]).movedim(-1, 0)
-             for t in (uw, uh, ud)]
+    x, uw, uh, ud, cty, ctl = _cdf_operands(rng, dev)
+    ud = splines.pad_derivatives(ud, "linear", 1e-3, axis=-1)
+    small = [t.movedim(-1, 0) for t in (uw, uh, ud)]
+    views = [t.expand(t.shape[0], BATCH, 1) for t in small]
+    params = 4 * (uw.numel() + uh.numel() + ud.numel())
     out = {}
     for inverse in (False, True):
-        ms = device_ms(lambda: tk.rqs_bwd(x, *views, 3.0, cty, ctl,
-                                          inverse=inverse), flush)
-        plain = device_ms(lambda: tk.rqs_bwd_plain(x, *views, 3.0, cty, ctl,
-                                                   inverse=inverse), flush)
-        # x, cty, ctl and the parameters read; gx and 3K+1 planes written
-        nbytes = 4 * (3 * BATCH + uw.numel() + uh.numel() + ud.numel()
-                      + (3 * K_BINS + 2) * BATCH)
-        ops = tk.rqs_bwd_ops_per_element(K_BINS, inverse) * BATCH
+        if shared:
+            ms = device_ms(lambda: tk.rqs_bwd_shared(
+                x, *small, 3.0, cty, ctl, inverse=inverse), flush)
+            plain = device_ms(lambda: tk.rqs_bwd_shared_plain(
+                x, *small, 3.0, cty, ctl, inverse=inverse), flush)
+            # x, cty, ctl and the parameters read; gx and the sums written
+            nbytes = 4 * 4 * BATCH + 2 * params
+            ops = tk.rqs_bwd_shared_ops(K_BINS, inverse, 1, BATCH)
+        else:
+            ms = device_ms(lambda: tk.rqs_bwd(x, *views, 3.0, cty, ctl,
+                                              inverse=inverse), flush)
+            plain = device_ms(lambda: tk.rqs_bwd_plain(
+                x, *views, 3.0, cty, ctl, inverse=inverse), flush)
+            # x, cty, ctl and the parameters read; gx and 3K+1 planes
+            nbytes = 4 * (3 + 3 * K_BINS + 2) * BATCH + params
+            ops = tk.rqs_bwd_ops_per_element(K_BINS, inverse) * BATCH
         out[inverse] = (ms, plain) + bound(nbytes, ops, peaks)
     return out
+
+
+def cdf_backward(dev, splines_mod, inverse, batch=BATCH):
+    """A function that runs the backward of a coupling's CDF as autograd
+    runs it in a training step: ``unconstrained_rational_quadratic_spline``
+    of ``splines_mod`` (the tree's, or an older checkout's) at x (B, 1),
+    K = 8, linear tails, tail bound 3, then ``torch.autograd.grad`` of
+    (y, ld) into x and the three parameter leaves."""
+    x, uw, uh, ud, cty, ctl = _cdf_operands(np.random.default_rng(SEED + 15),
+                                            dev, batch)
+    leaves = [t.requires_grad_() for t in (x, uw, uh, ud)]
+    y, ld = splines_mod.unconstrained_rational_quadratic_spline(
+        *leaves, inverse=inverse, tails="linear", tail_bound=3.0)
+    return lambda: torch.autograd.grad((y, ld), leaves, (cty, ctl),
+                                       retain_graph=True)
+
+
+def device_kernels(fn):
+    """The kernels (and memsets and copies) one call of ``fn`` runs on the
+    card, from ``torch.profiler``: [(name, device us)]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.end - e.time_range.start)
+            for e in prof.events() if str(e.device_type).endswith("CUDA")]
+
+
+def _kernel_list(kernels):
+    return ", ".join(f"{n[:48]} {us:.2f} us" for n, us in kernels)
+
+
+def timing_cdf_backward(dev, flush, peaks):
+    """The CDF's backward as autograd runs it (:func:`cdf_backward`), both
+    directions: device ms, the kernels it launches and its bound (x, cty
+    and ctl read, gx written: 16 bytes per element, and the parameters and
+    their gradients). Fails if it launches more than two kernels. One
+    printed line."""
+    from nf_tpu_torch.ops import splines, splines_kernel as tk
+
+    rows = []
+    for inverse in (False, True):
+        fn = cdf_backward(dev, splines, inverse)
+        ms = device_ms(fn, flush)
+        names = device_kernels(fn)
+        bound_ms, by = bound(
+            16 * BATCH + 8 * (3 * K_BINS - 1),
+            tk.rqs_bwd_shared_ops(K_BINS, inverse, 1, BATCH), peaks)
+        if len(names) > 2:
+            raise RuntimeError(f"the CDF's backward launched {len(names)} "
+                               f"kernels: {names}")
+        rows.append(f"{'inverse' if inverse else 'forward'} device_ms "
+                    f"{ms:.4f}, {len(names)} kernels ({_kernel_list(names)}"
+                    f" by the profiler), bound_ms {bound_ms:.5f} ({by})")
+    print(f"phase timing cdf backward (torch.autograd.grad of a CDF's "
+          f"(y, ld) into x and its parameters; x ({BATCH}, 1), K = "
+          f"{K_BINS}, linear tails, tb 3): " + "; ".join(rows), flush=True)
 
 
 def timing_kernel_e(dev, flush, peaks, d=1, hidden=HIDDEN):
@@ -1097,6 +1280,7 @@ def phase_training(dev):
           f"{' (' + syncs[0][:120] + ')' if syncs else ''}; wall "
           f"{wall:.3f} ms, device busy "
           f"{busy:.3f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}; "
+          f"kernel launches per step {sum(c for _, (_, c) in top)}; "
           f"top kernels (device ms, count): "
           + "; ".join(f"{n[:60]} {t:.3f} x{c}" for n, (t, c) in top[:10]),
           flush=True)
@@ -1347,7 +1531,204 @@ def _train_tensors(state):
     return out
 
 
-def main():
+def load_checkout(root):
+    """``root``/nf_tpu_torch, the package of another checkout (the parent
+    commit's, unpacked by ``git archive``), imported as ``nf_tpu_torch_old``
+    beside the tree's: its kernels build from its own sources into its own
+    build directory."""
+    import importlib.util
+    import os
+
+    pkg = os.path.join(os.path.abspath(root), "nf_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "nf_tpu_torch_old", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["nf_tpu_torch_old"] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# variants of the full-plane backward launch (csrc/rqs_bwd_kernel.cuh),
+# built from the tree's sources: label -> -D definitions
+BWD_VARIANTS = {"loads and stores only": ("NF_BWD_PHASES=1",),
+                "math without stores": ("NF_BWD_PHASES=2",),
+                "128-thread blocks": ("NF_BWD_THREADS=128",),
+                "64-thread blocks": ("NF_BWD_THREADS=64",),
+                "two elements per thread, 128-thread blocks": (
+                    "NF_BWD_THREADS=128", "NF_BWD_ELEMS=2"),
+                "two elements per thread, 64-thread blocks": (
+                    "NF_BWD_THREADS=64", "NF_BWD_ELEMS=2"),
+                "four elements per thread, 32-thread blocks": (
+                    "NF_BWD_THREADS=32", "NF_BWD_ELEMS=4")}
+
+
+# variants of kernel C's shared-parameter path (csrc/rqs_bwd.cu)
+SHARED_VARIANTS = {"ordinary launch of the sum": ("NF_BWD_SHARED_PDL=0",),
+                   "a shuffle tree per slot": (
+                       "NF_BWD_SHARED_BUTTERFLY=0",)}
+
+
+def build_variants(builds):
+    """The tree's ``csrc/<source>.cu`` built once per (source, label,
+    -D definitions) of ``builds``, all nvcc processes at once, into the
+    build directory: {(source, label): ctypes library}."""
+    import ctypes
+    import os
+
+    from nf_tpu_torch.ops import _build
+
+    out_dir = os.path.join(_build.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for src, label, defs in builds:
+        out = os.path.join(out_dir, f"{src}-{'-'.join(defs)}.so")
+        procs[src, label] = (out, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defs),
+             "-I", _build.CSRC, "-o", out,
+             os.path.join(_build.CSRC, src + ".cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the variant {key}:\n{log}")
+        libs[key] = ctypes.CDLL(out)
+    return libs
+
+
+def _with_library(build_mod, name, lib, fn):
+    """``fn()`` with ``build_mod``'s library ``name`` replaced by ``lib``."""
+    tree_lib = build_mod.load(name)
+    build_mod._LIBS[name] = lib
+    try:
+        return fn()
+    finally:
+        build_mod._LIBS[name] = tree_lib
+
+
+def _in_turns(label, versions, measure, order=("old", "new", "new", "old")):
+    """``measure(version)`` -> (forward ms, inverse ms), taken in ``order``;
+    one printed line, and the medians of each version's turns."""
+    got = [(v, measure(v)) for v in order]
+    print(f"turns {label}: " + "; ".join(
+        f"{v} {f:.5f} / {i:.5f}" for v, (f, i) in got)
+        + " (forward / inverse ms)", flush=True)
+    return {v: tuple(float(np.median([t[j] for u, t in got if u == v]))
+                     for j in range(2)) for v in versions}
+
+
+def _step_profile(nt_mod, pool):
+    """One ``build_nsf`` forward-KLD step of the package ``nt_mod`` at
+    B = 65536 under ``torch.profiler``: (device busy ms, kernel launches)."""
+    torch.manual_seed(SEED)
+    model = nt_mod.build_nsf(dim=2, K=8, hidden=HIDDEN, num_bins=K_BINS,
+                             num_blocks=2, tail_bound=3.0)
+    perturb(model, SEED)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    state = nt_mod.init_train_state(model, opt)
+    step = nt_mod.make_forward_kld_step(opt)
+    step(state, pool)
+    _, busy, top = profile_call(lambda: step(state, pool))
+    return busy, float(sum(c for _, (_, c) in top))
+
+
+def phase_turns(dev, flush, old_root):
+    """The tree's kernels C and D and the CDF's backward against another
+    checkout's (``old_root``), in turns (old, new, new, old) in this one
+    process, each time taken as ``device_ms`` takes it: the CDF's backward
+    as autograd runs it (and the kernels it launches), D and C's
+    per-element path at the circular NSF's reverse-KLD shape, C's
+    per-element path at the CDF, the ``build_nsf`` step's device busy ms
+    and kernel launches; then variants against the tree's, in turns (tree,
+    variant, variant, tree): of the shared path (other rows per block,
+    :data:`SHARED_VARIANTS`) on the CDF's backward, and of the full-plane
+    launch (:data:`BWD_VARIANTS`) at the circular NSF's shape; and the
+    launch floor."""
+    import importlib
+
+    import nf_tpu_torch as nt
+    from nf_tpu_torch.ops import _build, splines
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    old = load_checkout(old_root)
+    importlib.import_module("nf_tpu_torch_old.ops._build").build(
+        kernel_libraries())
+    pkgs = {"new": (nt, splines, tk),
+            "old": (old, importlib.import_module(
+                "nf_tpu_torch_old.ops.splines"), importlib.import_module(
+                "nf_tpu_torch_old.ops.splines_kernel"))}
+    both = (False, True)
+
+    fns = {v: [cdf_backward(dev, pkgs[v][1], inv) for inv in both]
+           for v in pkgs}
+    for v in pkgs:
+        print(f"turns cdf backward kernels ({v}): "
+              + "; ".join(_kernel_list(device_kernels(f)) for f in fns[v]),
+              flush=True)
+    _in_turns("cdf backward (x (65536, 1), K = 8, linear, tb 3)", pkgs,
+              lambda v: tuple(device_ms(f, flush) for f in fns[v]))
+    libs = build_variants(
+        [("rqs_bwd", label, defs) for label, defs in SHARED_VARIANTS.items()]
+        + [(src, label, defs) for src in ("rqs_bwd_autodiff", "rqs_bwd")
+           for label, defs in BWD_VARIANTS.items()])
+    tree_rows = tk.SHARED_BWD_ROWS_PER_BLOCK
+
+    def cdf_times(rows=tree_rows):
+        tk.SHARED_BWD_ROWS_PER_BLOCK = rows
+        try:
+            return tuple(device_ms(f, flush) for f in fns["new"])
+        finally:
+            tk.SHARED_BWD_ROWS_PER_BLOCK = tree_rows
+    turn = ("tree", "variant", "variant", "tree")
+    for rows in (256, 1024):
+        _in_turns(f"cdf backward, shared path with {rows} rows per block "
+                  f"(tree {tree_rows})", turn[:2],
+                  lambda v, rows=rows: cdf_times(
+                      rows if v == "variant" else tree_rows), turn)
+    for label in SHARED_VARIANTS:
+        _in_turns(f"cdf backward, shared path, {label}", turn[:2],
+                  lambda v, label=label: cdf_times() if v == "tree" else
+                  _with_library(_build, "rqs_bwd", libs["rqs_bwd", label],
+                                cdf_times), turn)
+
+    ops = _path_operands(np.random.default_rng(SEED + 12), 10, "mixed", dev)
+    _in_turns("rqs_bwd_autodiff (x (2, 16384), K = 10, mixed)", pkgs,
+              lambda v: tuple(device_ms(lambda: pkgs[v][2].rqs_bwd_autodiff(
+                  *ops, inverse=inv), flush) for inv in both))
+    _in_turns("rqs_bwd per-element (x (2, 16384), K = 10, mixed)", pkgs,
+              lambda v: tuple(device_ms(lambda: pkgs[v][2].rqs_bwd(
+                  *ops, inverse=inv), flush) for inv in both))
+    x, uw, uh, ud, cty, ctl = _cdf_operands(np.random.default_rng(SEED + 8),
+                                            dev)
+    ud = splines.pad_derivatives(ud, "linear", 1e-3, axis=-1)
+    views = [t.movedim(-1, 0).expand(t.shape[-1], BATCH, 1)
+             for t in (uw, uh, ud)]
+    _in_turns("rqs_bwd per-element at the CDF (x (65536, 1), stride-0 "
+              "views)", pkgs,
+              lambda v: tuple(device_ms(lambda: pkgs[v][2].rqs_bwd(
+                  x, *views, 3.0, cty, ctl, inverse=inv), flush)
+                  for inv in both))
+    pool = nt.TwoMoons().sample(BATCH, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 10))
+    _in_turns("build_nsf step (B = 65536): device busy ms / kernel "
+              "launches", pkgs, lambda v: _step_profile(pkgs[v][0], pool))
+
+    for name, call in (("rqs_bwd_autodiff", tk.rqs_bwd_autodiff),
+                       ("rqs_bwd", tk.rqs_bwd)):
+        for label in BWD_VARIANTS:
+            def measure(v, name=name, label=label, call=call):
+                def run():
+                    return tuple(device_ms(lambda: call(*ops, inverse=inv),
+                                           flush) for inv in both)
+                return run() if v == "tree" else _with_library(
+                    _build, name, libs[name, label], run)
+            _in_turns(f"{name} {label} (x (2, 16384), K = 10, mixed)",
+                      turn[:2], measure, turn)
+    launch_floor(flush)
+
+
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port runs on an "
               "NVIDIA GPU", file=sys.stderr)
@@ -1359,6 +1740,13 @@ def main():
     phase_build()
     peaks = peaks_for(name)
     flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device=dev)
+    if argv[:1] == ["--turns"] and len(argv) == 2:
+        phase_turns(dev, flush, argv[1])
+        print(nvidia_smi_line())
+        return 0
+    if argv:
+        print("usage: chip_smoke.py [--turns OLD_CHECKOUT]", file=sys.stderr)
+        return 2
 
     results = {}
     # label, parity, timing, tolerances, source, replaces, the spline
@@ -1400,6 +1788,11 @@ def main():
               f"{iplain:.4f} bound_ms {ibound:.5f} ({iby}); bound = max(bytes "
               f"/ {peaks[0]:.3g} B/s, operations / {peaks[1]:.3g} flop/s)",
               flush=True)
+    print("phase timing rqs_bwd per-element path at the CDF: "
+          + _timing_row(f"x ({BATCH}, 1), (K, {BATCH}, 1) stride-0 views",
+                        timing_kernel_c(dev, flush, peaks, shared=False)),
+          flush=True)
+    timing_cdf_backward(dev, flush, peaks)
     timing_kernel_a_other(dev, flush, peaks)
     timing_kernel_b_other(dev, flush, peaks)
     timing_kernel_e_other(dev, flush, peaks)
@@ -1443,4 +1836,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

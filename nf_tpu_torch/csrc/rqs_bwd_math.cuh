@@ -1,6 +1,6 @@
 // Per-element analytic backward of the unconstrained rational-quadratic
-// spline with identity tails, shared by kernel C (rqs_bwd.cu) and kernel E
-// (head_rqs_bwd.cu).
+// spline with identity tails, shared by kernel C (rqs_bwd.cu, both of its
+// paths) and kernel E (head_rqs_bwd.cu).
 //
 // A line-by-line reading of nf_tpu/ops/splines_pallas.py:_rqs_bwd_math
 // (:241-396) for ONE element held in registers, with the K-long bin loops
@@ -81,6 +81,89 @@ __device__ __forceinline__ void logits_grad(float g_cum, float g_size,
   for (int j = 0; j < K; ++j) out[j] = inside ? sm[j] * (gsm[j] - S) : 0.0f;
 }
 
+// The middle of _rqs_bwd_math for one element whose bin is chosen: its
+// clipped input xin, the bin's left knots cw, ch, width wd, height hh and
+// end derivatives d0, d1 (min_derivative + softplus of the logits), and
+// the cotangents (cty, ctl) of (y, log|det|) -> the cotangents of xin and
+// of the six selected values. Kernel C's shared-parameter path
+// (rqs_bwd.cu) sums the last six per (column, bin); rqs_bwd_element
+// scatters them to the logits of its own element.
+template <bool INVERSE>
+__device__ __forceinline__ void rqs_bwd_map(float xin, float cw, float wd,
+                                            float ch, float hh, float d0,
+                                            float d1, float cty, float ctl,
+                                            float& g_x_in, float& g_cw,
+                                            float& g_wd, float& g_ch,
+                                            float& g_hh, float& g_d0,
+                                            float& g_d1) {
+  const float delta = hh / wd;
+  const float s = d0 + d1 - 2.0f * delta;
+
+  float theta, u = 0.0f;
+  if (INVERSE) {
+    const float dy = xin - ch;
+    const float a = dy * s + hh * (delta - d0);
+    const float b = hh * d0 - dy * s;
+    const float c2 = -delta * dy;
+    const float disc = fmaxf(b * b - 4.0f * a * c2, 0.0f);
+    theta = (2.0f * c2) / (-b - sqrtf(disc));
+    u = dy;  // = numer/denom at the root, by the defining equation
+  } else {
+    theta = (xin - cw) / wd;
+  }
+
+  const float t = theta * (1.0f - theta);
+  const float om = 1.0f - theta;
+  const float dtdth = 1.0f - 2.0f * theta;
+  const float denom = delta + s * t;
+  const float inv_denom = 1.0f / denom;
+  if (!INVERSE) u = hh * (delta * theta * theta + d0 * t) * inv_denom;
+  const float dnum =
+      delta * delta * (d1 * theta * theta + 2.0f * delta * t + d0 * om * om);
+  const float inv_dnum = 1.0f / dnum;
+  const float J = dnum * inv_denom * inv_denom;
+
+  const float u_th = wd * J;
+  const float u_delta = (hh * theta * theta - u * (1.0f - 2.0f * t)) * inv_denom;
+  const float u_d0 = t * (hh - u) * inv_denom;
+  const float u_d1 = -u * t * inv_denom;
+  const float u_hh = u / hh;
+  const float denom_th = s * dtdth;
+  const float dnum_th = delta * delta *
+                        (2.0f * d1 * theta + 2.0f * delta * dtdth -
+                         2.0f * d0 * om);
+  const float ld_th = dnum_th * inv_dnum - 2.0f * denom_th * inv_denom;
+  const float ld_delta = 2.0f / delta + 2.0f * delta * delta * t * inv_dnum -
+                         2.0f * (1.0f - 2.0f * t) * inv_denom;
+  const float ld_d0 = delta * delta * om * om * inv_dnum - 2.0f * t * inv_denom;
+  const float ld_d1 =
+      delta * delta * theta * theta * inv_dnum - 2.0f * t * inv_denom;
+
+  float g_delta;
+  if (INVERSE) {
+    const float A = cty * wd - ctl * ld_th;
+    const float inv_uth = 1.0f / u_th;
+    g_x_in = A * inv_uth;
+    g_delta = -A * u_delta * inv_uth - ctl * ld_delta;
+    g_d0 = -A * u_d0 * inv_uth - ctl * ld_d0;
+    g_d1 = -A * u_d1 * inv_uth - ctl * ld_d1;
+    g_hh = -A * u_hh * inv_uth + g_delta / wd;
+    g_ch = -g_x_in;
+    g_cw = cty;
+    g_wd = cty * theta - g_delta * delta / wd;
+  } else {
+    const float g_th = cty * u_th + ctl * ld_th;
+    g_delta = cty * u_delta + ctl * ld_delta;
+    g_d0 = cty * u_d0 + ctl * ld_d0;
+    g_d1 = cty * u_d1 + ctl * ld_d1;
+    g_hh = cty * u_hh + g_delta / wd;
+    g_wd = -(g_th * theta + g_delta * delta) / wd;
+    g_x_in = g_th / wd;
+    g_cw = -g_x_in;
+    g_ch = cty;
+  }
+}
+
 // One element: the operands of rqs_element and the cotangents (cty, ctl)
 // of (y, log|det|) -> gx and the K, K and K+1 logit cotangents.
 template <int K, bool INVERSE>
@@ -129,72 +212,9 @@ __device__ __forceinline__ void rqs_bwd_element(
   const float d1 = min_derivative + softplus(draw1);
   const float sig0 = sigmoid(draw0);
   const float sig1 = sigmoid(draw1);
-  const float delta = hh / wd;
-  const float s = d0 + d1 - 2.0f * delta;
-
-  float theta, u = 0.0f;
-  if (INVERSE) {
-    const float dy = xin - ch;
-    const float a = dy * s + hh * (delta - d0);
-    const float b = hh * d0 - dy * s;
-    const float c2 = -delta * dy;
-    const float disc = fmaxf(b * b - 4.0f * a * c2, 0.0f);
-    theta = (2.0f * c2) / (-b - sqrtf(disc));
-    u = dy;  // = numer/denom at the root, by the defining equation
-  } else {
-    theta = (xin - cw) / wd;
-  }
-
-  const float t = theta * (1.0f - theta);
-  const float om = 1.0f - theta;
-  const float dtdth = 1.0f - 2.0f * theta;
-  const float denom = delta + s * t;
-  const float inv_denom = 1.0f / denom;
-  if (!INVERSE) u = hh * (delta * theta * theta + d0 * t) * inv_denom;
-  const float dnum =
-      delta * delta * (d1 * theta * theta + 2.0f * delta * t + d0 * om * om);
-  const float inv_dnum = 1.0f / dnum;
-  const float J = dnum * inv_denom * inv_denom;
-
-  const float u_th = wd * J;
-  const float u_delta = (hh * theta * theta - u * (1.0f - 2.0f * t)) * inv_denom;
-  const float u_d0 = t * (hh - u) * inv_denom;
-  const float u_d1 = -u * t * inv_denom;
-  const float u_hh = u / hh;
-  const float denom_th = s * dtdth;
-  const float dnum_th = delta * delta *
-                        (2.0f * d1 * theta + 2.0f * delta * dtdth -
-                         2.0f * d0 * om);
-  const float ld_th = dnum_th * inv_dnum - 2.0f * denom_th * inv_denom;
-  const float ld_delta = 2.0f / delta + 2.0f * delta * delta * t * inv_dnum -
-                         2.0f * (1.0f - 2.0f * t) * inv_denom;
-  const float ld_d0 = delta * delta * om * om * inv_dnum - 2.0f * t * inv_denom;
-  const float ld_d1 =
-      delta * delta * theta * theta * inv_dnum - 2.0f * t * inv_denom;
-
-  float g_x_in, g_delta, g_d0, g_d1, g_hh, g_ch, g_cw, g_wd;
-  if (INVERSE) {
-    const float A = cty * wd - ctl * ld_th;
-    const float inv_uth = 1.0f / u_th;
-    g_x_in = A * inv_uth;
-    g_delta = -A * u_delta * inv_uth - ctl * ld_delta;
-    g_d0 = -A * u_d0 * inv_uth - ctl * ld_d0;
-    g_d1 = -A * u_d1 * inv_uth - ctl * ld_d1;
-    g_hh = -A * u_hh * inv_uth + g_delta / wd;
-    g_ch = -g_x_in;
-    g_cw = cty;
-    g_wd = cty * theta - g_delta * delta / wd;
-  } else {
-    const float g_th = cty * u_th + ctl * ld_th;
-    g_delta = cty * u_delta + ctl * ld_delta;
-    g_d0 = cty * u_d0 + ctl * ld_d0;
-    g_d1 = cty * u_d1 + ctl * ld_d1;
-    g_hh = cty * u_hh + g_delta / wd;
-    g_wd = -(g_th * theta + g_delta * delta) / wd;
-    g_x_in = g_th / wd;
-    g_cw = -g_x_in;
-    g_ch = cty;
-  }
+  float g_x_in, g_cw, g_wd, g_ch, g_hh, g_d0, g_d1;
+  rqs_bwd_map<INVERSE>(xin, cw, wd, ch, hh, d0, d1, cty, ctl, g_x_in, g_cw,
+                       g_wd, g_ch, g_hh, g_d0, g_d1);
 
   const bool inside = (x >= -tb) && (x <= tb);
   const float gsp0 = g_d0 * sig0;

@@ -14,7 +14,8 @@ Beside the kernels:
 
 * :func:`rqs_plain` and :func:`rqs_bwd_plain`, the plain PyTorch versions:
   ports of ``splines_pallas._rqs_math`` and ``_rqs_bwd_math`` on
-  ``(K, ...)`` planes. CPU tensors use :func:`rqs_plain` (with ordinary
+  ``(K, ...)`` planes (and :func:`rqs_bwd_shared_plain`, kernel C's
+  shared-parameter path). CPU tensors use :func:`rqs_plain` (with ordinary
   autograd), and the tests and ``chip_smoke.py`` hold the kernels against
   both;
 * :func:`rqs_fwd`, the wrapper: a CUDA tensor goes through
@@ -33,10 +34,15 @@ Both layouts of the JAX package enter here: :func:`fused_unconstrained_rqs`
 (bin-minor ``(..., K)``, ``splines_pallas.py:605``) and
 :func:`fused_unconstrained_rqs_kmajor` (bin-major ``(K, ...)``, :644). They
 hand the kernels strided views, so broadcast parameters (stride 0) and
-transposed inputs are never copied. Kernel C writes its parameter
-cotangents into fresh contiguous ``(K, rows, cols)`` planes; where a
-parameter was broadcast, autograd's ``expand`` backward sums them, as XLA
-sums the transpose of the JAX package's broadcast.
+transposed inputs are never copied. The parameters enter
+:class:`_RQSFunction` in their broadcastable shape, and its backward
+returns their gradients in that shape, summed over what was broadcast, as
+XLA sums the transpose of the JAX package's broadcast: where every row
+shares them (the unconditional CDF), kernel C's shared-parameter path
+sums inside the kernel (:func:`rqs_bwd_shared`, plain version
+:func:`rqs_bwd_shared_plain`); elsewhere kernel C or D writes one gradient
+per element into fresh ``(K, rows, cols)`` planes, reduced with
+``sum_to_size`` where a parameter was broadcast.
 """
 
 from __future__ import annotations
@@ -57,6 +63,11 @@ SUPPORTED_BINS = (4, 8, 10)  # the K values the CUDA sources instantiate
 # kernel A takes its shared-parameter path (csrc/rqs_fwd.cu kMaxSharedCols)
 # for at most this many columns
 SHARED_PARAM_MAX_COLS = 64
+# kernel C's shared-parameter path: the rows each block of its first launch
+# takes, and the cotangents it sums per (column, bin): g_cw, g_wd, g_ch,
+# g_hh, g_d0, g_d1 (csrc/rqs_bwd.cu kSlots)
+SHARED_BWD_ROWS_PER_BLOCK = 512
+SHARED_BWD_SLOTS = 6
 
 
 # --- plain versions ----------------------------------------------------------
@@ -184,55 +195,14 @@ def rqs_plain(x, w, h, d, tb, *, inverse, min_bin_width=DEFAULT_MIN_BIN_WIDTH,
     return torch.where(inside, y, x), torch.where(inside, ld, 0.0)
 
 
-def rqs_bwd_plain(x, w, h, d, tb, cty, ctl, *, inverse,
-                  min_bin_width=DEFAULT_MIN_BIN_WIDTH,
-                  min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
-                  min_derivative=DEFAULT_MIN_DERIVATIVE):
-    """Plain PyTorch ``_rqs_bwd_math`` (``splines_pallas.py:241``): the
-    operands of :func:`rqs_plain` plus the cotangents ``cty``, ``ctl`` of
-    ``(y, log_det)`` -> ``(gx, gw (K, *x.shape), gh (K, ...), gd (K+1,
-    ...))``, one gradient per element (broadcast parameters are not summed
-    here). The tail bound gets none. Recompute, then the hand-derived
-    transpose: ``du/dtheta = wd * J``; the inverse differentiates the root
-    implicitly through the forward equation; the softmax gradients go
-    through the pinned knots from the bin-search step planes."""
-    K = len(w)
-    if not isinstance(tb, torch.Tensor):
-        tb = float(tb)
-    sz_w, exps_w, inv_tw, c_w = _softmax_terms([w[k] for k in range(K)],
-                                               min_bin_width)
-    sz_h, exps_h, inv_th, c_h = _softmax_terms([h[k] for k in range(K)],
-                                               min_bin_height)
-    sw = [e * inv_tw for e in exps_w]
-    sh = [e * inv_th for e in exps_h]
-    widths, cumw = _knots(sz_w, tb)
-    heights, cumh = _knots(sz_h, tb)
-
-    xin = torch.clamp(x, -tb, tb)
-    cref = cumh if inverse else cumw
-    steps_b = ([torch.ones_like(xin, dtype=torch.bool)]
-               + [xin >= cref[k] for k in range(1, K)]
-               + [torch.zeros_like(xin, dtype=torch.bool)])
-    masks = [steps_b[k] & ~steps_b[k + 1] for k in range(K)]
-    steps = [s.to(x.dtype) for s in steps_b]
-    maskf = [m.to(x.dtype) for m in masks]
-
-    def select(rows):
-        out = torch.where(masks[0], rows[0], 0.0)
-        for k in range(1, K):
-            out = out + torch.where(masks[k], rows[k], 0.0)
-        return out
-
-    cw = select(cumw[:K])
-    wd = select(widths)
-    ch = select(cumh[:K])
-    hh = select(heights)
-    draw0 = select([d[k] for k in range(K)])
-    draw1 = select([d[k + 1] for k in range(K)])
-    d0 = min_derivative + softplus(draw0)
-    d1 = min_derivative + softplus(draw1)
-    sig0 = torch.sigmoid(draw0)
-    sig1 = torch.sigmoid(draw1)
+def _map_cotangents(xin, cw, wd, ch, hh, d0, d1, cty, ctl, inverse):
+    """The middle of ``_rqs_bwd_math``: an element's clipped input, its
+    bin's left knots, width, height and end derivatives, and the
+    cotangents of ``(y, log_det)`` -> ``(g_x_in, g_cw, g_wd, g_ch, g_hh,
+    g_d0, g_d1)``, the cotangents of the clipped input and of the six
+    selected values (``csrc/rqs_bwd_math.cuh`` ``rqs_bwd_map``).
+    ``du/dtheta = wd * J``; the inverse differentiates the root implicitly
+    through the forward equation."""
     delta = hh / wd
     s = d0 + d1 - 2.0 * delta
 
@@ -296,6 +266,61 @@ def rqs_bwd_plain(x, w, h, d, tb, cty, ctl, *, inverse,
         g_cw = -g_x_in
         g_ch = cty
 
+    return g_x_in, g_cw, g_wd, g_ch, g_hh, g_d0, g_d1
+
+
+def rqs_bwd_plain(x, w, h, d, tb, cty, ctl, *, inverse,
+                  min_bin_width=DEFAULT_MIN_BIN_WIDTH,
+                  min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
+                  min_derivative=DEFAULT_MIN_DERIVATIVE):
+    """Plain PyTorch ``_rqs_bwd_math`` (``splines_pallas.py:241``): the
+    operands of :func:`rqs_plain` plus the cotangents ``cty``, ``ctl`` of
+    ``(y, log_det)`` -> ``(gx, gw (K, *x.shape), gh (K, ...), gd (K+1,
+    ...))``, one gradient per element (broadcast parameters are not summed
+    here). The tail bound gets none. Recompute, then the hand-derived
+    transpose: ``du/dtheta = wd * J``; the inverse differentiates the root
+    implicitly through the forward equation; the softmax gradients go
+    through the pinned knots from the bin-search step planes."""
+    K = len(w)
+    if not isinstance(tb, torch.Tensor):
+        tb = float(tb)
+    sz_w, exps_w, inv_tw, c_w = _softmax_terms([w[k] for k in range(K)],
+                                               min_bin_width)
+    sz_h, exps_h, inv_th, c_h = _softmax_terms([h[k] for k in range(K)],
+                                               min_bin_height)
+    sw = [e * inv_tw for e in exps_w]
+    sh = [e * inv_th for e in exps_h]
+    widths, cumw = _knots(sz_w, tb)
+    heights, cumh = _knots(sz_h, tb)
+
+    xin = torch.clamp(x, -tb, tb)
+    cref = cumh if inverse else cumw
+    steps_b = ([torch.ones_like(xin, dtype=torch.bool)]
+               + [xin >= cref[k] for k in range(1, K)]
+               + [torch.zeros_like(xin, dtype=torch.bool)])
+    masks = [steps_b[k] & ~steps_b[k + 1] for k in range(K)]
+    steps = [s.to(x.dtype) for s in steps_b]
+    maskf = [m.to(x.dtype) for m in masks]
+
+    def select(rows):
+        out = torch.where(masks[0], rows[0], 0.0)
+        for k in range(1, K):
+            out = out + torch.where(masks[k], rows[k], 0.0)
+        return out
+
+    cw = select(cumw[:K])
+    wd = select(widths)
+    ch = select(cumh[:K])
+    hh = select(heights)
+    draw0 = select([d[k] for k in range(K)])
+    draw1 = select([d[k + 1] for k in range(K)])
+    d0 = min_derivative + softplus(draw0)
+    d1 = min_derivative + softplus(draw1)
+    sig0 = torch.sigmoid(draw0)
+    sig1 = torch.sigmoid(draw1)
+    g_x_in, g_cw, g_wd, g_ch, g_hh, g_d0, g_d1 = _map_cotangents(
+        xin, cw, wd, ch, hh, d0, d1, cty, ctl, inverse)
+
     inside = (x >= -tb) & (x <= tb)
 
     def zero_out(v):  # identity tail: parameters get no gradient outside
@@ -328,6 +353,107 @@ def rqs_bwd_plain(x, w, h, d, tb, cty, ctl, *, inverse,
     gh = logits_grad(g_ch, g_hh, sh, c_h)
     gx = torch.where(inside, g_x_in, cty)
     return gx, gw, gh, torch.stack(gd)
+
+
+def _row_shared(t, shape):
+    """``t`` broadcast to ``shape`` and cut to its first row (``shape[-2]``):
+    a ValueError unless every row of it is the same (row stride 0, or one
+    row)."""
+    full = t.expand(shape)
+    if shape[-2] != 1 and full.stride(-2) != 0:
+        raise ValueError(f"{tuple(t.shape)} is not shared by the rows of "
+                         f"{tuple(shape)}")
+    return full.narrow(-2, 0, 1)
+
+
+def _logits_grad_sums(g_cum, g_size, sm, c, span):
+    """``logits_grad`` of :func:`rqs_bwd_plain` summed over a column's
+    elements (``csrc/rqs_bwd.cu`` ``logits_grad_sums``): ``g_cum[b]`` and
+    ``g_size[b]`` sum the cotangents of the selected knot and size over the
+    elements in bin ``b``. Element by element, bin ``b`` gives ``gsm[j] =
+    span*c * ([j < b] g_cum + [j == b] g_size - [b == K-1] g_size)``; summed,
+    ``gsm[j] = span*c * (sum_{b > j} g_cum[b] + g_size[j] - g_size[K-1])``
+    for ``j < K-1``, and 0 for the pinned last size."""
+    K = len(sm)
+    sc = span * c
+    gsm = [None] * (K - 1) + [torch.zeros_like(g_cum[0])]
+    suffix = torch.zeros_like(g_cum[0])
+    for j in range(K - 2, -1, -1):
+        suffix = suffix + g_cum[j + 1]
+        gsm[j] = sc * ((suffix + g_size[j]) - g_size[K - 1])
+    S = sm[0] * gsm[0]
+    for j in range(1, K - 1):
+        S = S + sm[j] * gsm[j]
+    return torch.stack([sm[j] * (gsm[j] - S) for j in range(K)])
+
+
+def rqs_bwd_shared_plain(x, w, h, d, tb, cty, ctl, *, inverse,
+                         min_bin_width=DEFAULT_MIN_BIN_WIDTH,
+                         min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
+                         min_derivative=DEFAULT_MIN_DERIVATIVE):
+    """Kernel C's shared-parameter path in plain PyTorch, in the kernel's
+    order. ``x`` (rows, cols); ``w``, ``h`` (K, ...) and ``d`` (K+1, ...)
+    broadcastable to ``(planes, rows, cols)`` and the same for every row
+    (the unconditional CDF's parameters, (K, 1, cols) or expanded with row
+    stride 0); ``tb`` a float or a tensor shared by the rows; cotangents
+    broadcastable to ``x``. Returns ``gx`` (rows, cols) and the parameter
+    cotangents summed over the rows: ``gw``, ``gh`` (K, 1, cols), ``gd``
+    (K+1, 1, cols).
+
+    Per column the knots, sizes and derivatives once; per element the bin
+    and the cotangents of its six selected values (:func:`_map_cotangents`,
+    nothing outside ``[-tb, tb]``); their sum per (column, bin); then per
+    column the softmax/knot transposes (:func:`_logits_grad_sums`) and the
+    derivatives' sigmoids. The sums equal those of :func:`rqs_bwd_plain`'s
+    planes over the rows up to rounding."""
+    if x.ndim != 2:
+        raise ValueError(f"x must be (rows, cols), got {tuple(x.shape)}")
+    rows, cols = x.shape
+    K = w.shape[0]
+    wc, hc = (_row_shared(t, (K, rows, cols)) for t in (w, h))
+    dc = _row_shared(d, (K + 1, rows, cols))
+    if isinstance(tb, torch.Tensor):
+        tb = _row_shared(tb, (rows, cols))
+    else:
+        tb = float(tb)
+    sz_w, exps_w, inv_tw, c_w = _softmax_terms(list(wc), min_bin_width)
+    sz_h, exps_h, inv_th, c_h = _softmax_terms(list(hc), min_bin_height)
+    widths, cumw = _knots(sz_w, tb)
+    heights, cumh = _knots(sz_h, tb)
+    derivs = [min_derivative + softplus(dc[k]) for k in range(K + 1)]
+
+    xin = torch.clamp(x, -tb, tb)
+    cref = cumh if inverse else cumw
+    bins = torch.zeros(x.shape, dtype=torch.long, device=x.device)
+    for k in range(1, K):
+        bins = bins + (xin >= cref[k]).long()
+
+    def take(table):  # the element's bin's entry of a column table
+        t = torch.stack([v if isinstance(v, torch.Tensor) else torch.full(
+            (1, cols), v, dtype=x.dtype, device=x.device) for v in table])
+        return torch.gather(t.expand(len(table), rows, cols), 0,
+                            bins[None])[0]
+
+    g_x_in, *g = _map_cotangents(
+        xin, take(cumw[:K]), take(widths), take(cumh[:K]), take(heights),
+        take(derivs[:K]), take(derivs[1:]), cty, ctl, inverse)
+    inside = (x >= -tb) & (x <= tb)
+    # (6, K, 1, cols): the six cotangents summed per (column, bin)
+    sums = torch.stack([
+        torch.zeros((K, rows, cols), dtype=x.dtype, device=x.device)
+        .scatter_(0, bins[None], torch.where(inside, v, 0.0)[None])
+        .sum(1, keepdim=True) for v in g])
+    span = 2.0 * tb
+    gw = _logits_grad_sums(sums[0], sums[1], [e * inv_tw for e in exps_w],
+                           c_w, span)
+    gh = _logits_grad_sums(sums[2], sums[3], [e * inv_th for e in exps_h],
+                           c_h, span)
+    g_d0, g_d1 = sums[4], sums[5]
+    gd = ([g_d0[0]] + [g_d0[k] + g_d1[k - 1] for k in range(1, K)]
+          + [g_d1[K - 1]])
+    gd = torch.stack([torch.sigmoid(dc[k]) * gd[k] for k in range(K + 1)])
+    gx = torch.where(inside, g_x_in, cty)
+    return gx, gw, gh, gd
 
 
 def rqs_vjp_plain(x, w, h, d, tb, cty, ctl, *, inverse,
@@ -464,6 +590,63 @@ def _launch_bwd(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md,
     return gx, gw, gh, gd
 
 
+def _launch_bwd_shared(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md):
+    """Launch kernel C's shared-parameter path on the operands of
+    :func:`_launch_bwd` (parameters and tail bound with row stride 0, at
+    most ``SHARED_PARAM_MAX_COLS`` columns) -> fresh ``gx`` (rows, cols) and
+    the parameter cotangents summed over the rows, ``gw``/``gh`` (K, 1,
+    cols) and ``gd`` (K+1, 1, cols). Two launches (the blocks, then the
+    fixed-order sum of their partials), counted as one call of kernel C."""
+    from . import _build
+
+    fn = _build.load("rqs_bwd").rqs_bwd_shared_launch
+    fn.argtypes = ([ctypes.c_void_p] * 7
+                   + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_float] * 3 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 6)
+    fn.restype = ctypes.c_int
+    for t in (cty, ctl):
+        if t.dtype != torch.float32 or t.device != x2.device:
+            raise TypeError(f"rqs_bwd takes float32 cotangents on "
+                            f"{x2.device}, got {t.dtype} on {t.device}")
+    rows, cols = x2.shape
+    K = w.shape[0]
+    tb_t = tb if isinstance(tb, torch.Tensor) else None
+    tb_scalar = 0.0 if tb_t is not None else float(tb)
+    strides = (ctypes.c_longlong * 17)(
+        *kernel_strides(x2, w, h, d, tb_t), *cty.stride(), *ctl.stride())
+    chunks = -(-rows // SHARED_BWD_ROWS_PER_BLOCK)
+    opts = dict(dtype=x2.dtype, device=x2.device)
+    gx = torch.empty((rows, cols), **opts)
+    gw = torch.empty((K, 1, cols), **opts)
+    gh = torch.empty_like(gw)
+    gd = torch.empty((K + 1, 1, cols), **opts)
+    work = torch.empty(cols * chunks * SHARED_BWD_SLOTS * K, **opts)
+    err = fn(x2.data_ptr(), w.data_ptr(), h.data_ptr(), d.data_ptr(),
+             tb_t.data_ptr() if tb_t is not None else None, cty.data_ptr(),
+             ctl.data_ptr(), tb_scalar, strides, rows, cols, K,
+             int(bool(inverse)), mbw, mbh, md, SHARED_BWD_ROWS_PER_BLOCK,
+             gx.data_ptr(), gw.data_ptr(), gh.data_ptr(), gd.data_ptr(),
+             work.data_ptr(),
+             torch.cuda.current_stream(x2.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rqs_bwd shared-parameter launch failed: "
+                           f"error {err}")
+    rqs_bwd.launches += 1
+    return gx, gw, gh, gd
+
+
+def _shares_rows(x2, planes, tb):
+    """Whether kernel C's shared-parameter path takes these kernel views
+    (any of them expanded): every parameter plane and the tail bound the
+    same for all rows, at most ``SHARED_PARAM_MAX_COLS`` columns."""
+    rows, cols = x2.shape
+    tbs = (tb,) if isinstance(tb, torch.Tensor) else ()
+    return cols <= SHARED_PARAM_MAX_COLS and (rows == 1 or all(
+        t.shape[-2] == 1 or t.stride(-2) == 0 for t in planes + tbs))
+
+
 def _bwd(mode, x, w, h, d, tb, cty, ctl, inverse, min_bin_width,
          min_bin_height, min_derivative):
     if x.device.type != "cuda":
@@ -504,12 +687,48 @@ def rqs_bwd_autodiff(x, w, h, d, tb, cty, ctl, *, inverse,
                 min_bin_height, min_derivative)
 
 
+def rqs_bwd_shared(x, w, h, d, tb, cty, ctl, *, inverse,
+                   min_bin_width=DEFAULT_MIN_BIN_WIDTH,
+                   min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
+                   min_derivative=DEFAULT_MIN_DERIVATIVE):
+    """Kernel C's shared-parameter path, the backward :func:`rqs_fwd` runs
+    for the unconditional CDF: the operands of :func:`rqs_bwd` with
+    parameters (and a tensor tail bound) that every row shares, (K, 1,
+    cols) or expanded with row stride 0, and at most
+    ``SHARED_PARAM_MAX_COLS`` columns -> ``gx`` shaped like ``x`` and the
+    parameter cotangents summed over the rows, ``gw``/``gh`` (K, 1, cols)
+    and ``gd`` (K+1, 1, cols), as :func:`rqs_bwd_shared_plain` returns
+    them. CUDA tensors only; other operands raise."""
+    if x.device.type != "cuda":
+        raise ValueError(f"rqs_bwd runs on CUDA tensors, got {x.device}")
+    K = w.shape[0]
+    _check(x, (w, h, d), tb if isinstance(tb, torch.Tensor) else None, K)
+    x2, w3, h3, d3, tb = kernel_views(x, w, h, d, tb)
+    if not _shares_rows(x2, (w3, h3, d3), tb):
+        raise ValueError(
+            f"the shared-parameter path takes at most "
+            f"{SHARED_PARAM_MAX_COLS} columns and parameters the same for "
+            f"every row; got x {tuple(x.shape)}, w {tuple(w.shape)}")
+    gx, gw, gh, gd = _launch_bwd_shared(
+        x2, w3, h3, d3, tb, cty.expand(x.shape).reshape(x2.shape),
+        ctl.expand(x.shape).reshape(x2.shape), inverse,
+        float(min_bin_width), float(min_bin_height), float(min_derivative))
+    return gx.view(x.shape), gw, gh, gd
+
+
 class _RQSFunction(torch.autograd.Function):
     """Kernel A forward; kernel C backward, or kernel D under
     ``set_pallas_bwd_kernel("autodiff")`` as it stood at the forward call
     (the JAX package reads the switch when it traces). The residuals are
     the inputs, as in the JAX custom VJP (``splines_pallas.py:556-563``);
-    the tail bound gets no gradient."""
+    the tail bound gets no gradient.
+
+    The parameters come in their broadcastable shape (:func:`param_views`)
+    and are expanded here, so the backward returns gradients of that
+    shape: kernel C's shared-parameter path's row sums where every row
+    shares the parameters, else the per-element planes, reduced with
+    ``sum_to_size`` where a parameter was broadcast (autograd's expand
+    backward no longer sees the expansion)."""
 
     @staticmethod
     def forward(ctx, x2, w3, h3, d3, tb, opts):
@@ -518,16 +737,34 @@ class _RQSFunction(torch.autograd.Function):
         ctx.tb_scalar = None if tb_t is not None else tb
         ctx.opts = opts
         ctx.mode = _BWD_MODE[0]
-        return _launch(x2, w3, h3, d3, tb, *opts)
+        return _launch(x2, *_expand(x2, (w3, h3, d3)), tb, *opts)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gy, gld):
         x2, w3, h3, d3, tb_t = ctx.saved_tensors
         tb = tb_t if tb_t is not None else ctx.tb_scalar
-        gx, gw, gh, gd = _launch_bwd(x2, w3, h3, d3, tb, gy, gld, *ctx.opts,
+        planes = (w3, h3, d3)
+        views = _expand(x2, planes)
+        if ctx.mode == "analytic" and _shares_rows(x2, planes, tb):
+            gx, *grads = _launch_bwd_shared(x2, *views, tb, gy, gld,
+                                            *ctx.opts)
+        else:
+            gx, *grads = _launch_bwd(x2, *views, tb, gy, gld, *ctx.opts,
                                      ctx.mode)
-        return gx, gw, gh, gd, None, None
+        return (gx, *param_grads(grads, planes), None, None)
+
+
+def param_grads(grads, planes):
+    """The backward's parameter gradients: each of ``grads`` (per-element
+    (P, rows, cols) planes, or row sums (P, 1, cols)) summed to the shape
+    of its broadcastable parameter view in ``planes`` (no copy where the
+    shapes agree)."""
+    return tuple(g.sum_to_size(t.shape) for g, t in zip(grads, planes))
+
+
+def _expand(x2, planes):
+    return tuple(t.expand(t.shape[0], *x2.shape) for t in planes)
 
 
 def rqs_fwd(x, w, h, d, tb, *, inverse,
@@ -555,11 +792,46 @@ def rqs_fwd(x, w, h, d, tb, *, inverse,
         # with stride 0 on the card (reading it back would sync the host)
         tb = float(tb) if tb.device.type == "cpu" else tb.reshape(())
     _check(x, (w, h, d), tb if isinstance(tb, torch.Tensor) else None, K)
-    x2, w3, h3, d3, tb = kernel_views(x, w, h, d, tb)
     y, ld = _RQSFunction.apply(
-        x2, w3, h3, d3, tb, (bool(inverse), float(min_bin_width),
-                             float(min_bin_height), float(min_derivative)))
+        _as_2d(x), *param_views(x, w, h, d), _tb_view(x, tb),
+        (bool(inverse), float(min_bin_width), float(min_bin_height),
+         float(min_derivative)))
     return y.view(x.shape), ld.view(x.shape)
+
+
+def param_views(x, w, h, d):
+    """``w``, ``h`` and ``d`` as (planes, r, c) views, none of them copied
+    or expanded: r is 1 or rows and c is 1 or cols, the dims of ``x`` as
+    (rows, cols) (a 1D ``x`` is one row), with leading 1s added where a
+    parameter has fewer dims than ``x``. Raises ValueError unless each
+    broadcasts to (planes, rows, cols)."""
+    rows_cols = _as_2d(x).shape
+    out = []
+    for t in (w, h, d):
+        lead = x.ndim + 1 - t.ndim
+        if lead >= 0:
+            t = t.reshape(t.shape[:1] + (1,) * lead + t.shape[1:])
+            if x.ndim == 1:
+                t = t[:, None]
+        if lead < 0 or torch.broadcast_shapes(
+                t.shape[1:], rows_cols) != rows_cols:
+            raise ValueError(f"spline parameters {tuple(w.shape)} do not "
+                             f"broadcast to (K, {tuple(x.shape)})")
+        out.append(t)
+    return tuple(out)
+
+
+def _tb_view(x, tb):
+    """A tensor ``tb`` broadcast to ``x`` as (rows, cols); a float stays a
+    float."""
+    if not isinstance(tb, torch.Tensor):
+        return tb
+    try:
+        tb = tb.expand(x.shape)
+    except RuntimeError as e:
+        raise ValueError(f"tail bound {tuple(tb.shape)} does not broadcast "
+                         f"to {tuple(x.shape)}") from e
+    return tb[None] if x.ndim == 1 else tb
 
 
 def kernel_views(x, w, h, d, tb):
@@ -568,18 +840,7 @@ def kernel_views(x, w, h, d, tb):
     ``expand`` (stride 0 where a parameter is shared); a tensor ``tb`` as
     (rows, cols) (a float stays a float)."""
     x2 = _as_2d(x)
-    try:
-        w3, h3, d3 = (t.expand(t.shape[0], *x.shape) for t in (w, h, d))
-        if isinstance(tb, torch.Tensor):
-            tb = tb.expand(x.shape)
-    except RuntimeError as e:
-        raise ValueError(f"spline parameters {tuple(w.shape)} do not "
-                         f"broadcast to (K, {tuple(x.shape)})") from e
-    if x.ndim == 1:
-        w3, h3, d3 = w3[:, None], h3[:, None], d3[:, None]
-        if isinstance(tb, torch.Tensor):
-            tb = tb[None]
-    return x2, w3, h3, d3, tb
+    return (x2, *_expand(x2, param_views(x, w, h, d)), _tb_view(x, tb))
 
 
 rqs_fwd.launches = 0
@@ -616,12 +877,16 @@ def fused_unconstrained_rqs(
 ):
     """Bin-MINOR entry (``splines_pallas.py:605``): widths/heights
     ``(..., K)`` and padded derivatives ``(..., K+1)``, broadcastable to
-    ``inputs.shape + (K,)``."""
-    K = unnormalized_widths.shape[-1]
-    shape = tuple(inputs.shape)
-    w = unnormalized_widths.expand(*shape, K).movedim(-1, 0)
-    h = unnormalized_heights.expand(*shape, K).movedim(-1, 0)
-    d = padded_derivatives.expand(*shape, K + 1).movedim(-1, 0)
+    ``inputs.shape + (K,)``. They reach :func:`rqs_fwd` unexpanded, so the
+    unconditional CDF's (1, D, K) parameters take kernel C's
+    shared-parameter path in the backward."""
+    def bin_major(t):  # (..., P) -> (P, ...), broadcastable to inputs
+        t = t.reshape((1,) * max(inputs.ndim + 1 - t.ndim, 0) + t.shape)
+        return t.movedim(-1, 0)
+
+    w, h, d = (bin_major(t) for t in (unnormalized_widths,
+                                      unnormalized_heights,
+                                      padded_derivatives))
     return rqs_fwd(inputs, w, h, d, tail_bound, inverse=inverse,
                    min_bin_width=min_bin_width, min_bin_height=min_bin_height,
                    min_derivative=min_derivative)
@@ -685,4 +950,18 @@ def rqs_shared_ops(num_bins, inverse, cols, elements):
     K = num_bins
     per_col = 2 * 8 * K + 4 * (K + 1)
     per_elem = 2 + (K - 1) + (40 if inverse else 30)
+    return per_col * cols + per_elem * elements
+
+
+def rqs_bwd_shared_ops(num_bins, inverse, cols, elements):
+    """Arithmetic operations of kernel C's shared-parameter path, for the
+    bound in ``chip_smoke.py``: per column the two floored softmaxes and
+    knot sums (8K each), K + 1 softplus and sigmoids (4 each), and the two
+    transposes of the summed cotangents (~6K each); per element the clip
+    (2), K - 1 bin-search compares, the recompute of the map (~30 forward,
+    ~40 inverse), its partials and cotangents (~70 forward, ~80 inverse)
+    and the six additions into the (column, bin) sums."""
+    K = num_bins
+    per_col = 2 * 8 * K + 8 * (K + 1) + 2 * 6 * K
+    per_elem = 2 + (K - 1) + (120 if inverse else 100) + 6
     return per_col * cols + per_elem * elements

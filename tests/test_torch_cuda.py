@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import nf_tpu_torch as nt
+from nf_tpu_torch import ops as tops
 from nf_tpu_torch.nets.made import MADE
 from nf_tpu_torch.ops import spline_head_fused as tshf
 from nf_tpu_torch.ops import splines_kernel as tk
@@ -157,8 +158,8 @@ def test_kernel_c_matches_plain(cuda, K, inverse):
 def test_kernel_a_gradients_run_kernel_c(cuda, inverse):
     """The unconditional CDF's call under autograd: stride-0 parameters,
     a transposed input, a cotangent of ``ld.sum()`` (stride 0). Kernel C
-    runs once, and autograd's sum of its planes matches the plain
-    version's autograd."""
+    runs once (its shared-parameter path, which sums over the batch
+    itself), and the gradients match the plain version's autograd."""
     rng = np.random.default_rng(2)
     K, D, B = 8, 2, 5000
     x0 = _normal(rng, (D, B), 2.0).to(cuda)
@@ -178,6 +179,156 @@ def test_kernel_a_gradients_run_kernel_c(cuda, inverse):
                                rtol=0)
     for a, b in zip(leaves[1:], ref[1:]):
         _rel_close(a.grad, b.grad, SUM_TOL)
+
+
+def _cdf_operands(rng, K, D, B, cuda, tb_kind="float"):
+    """The unconditional CDF's backward operands: x (B, D) with rows 0 and
+    1 at ±tb, (K, 1, D) and (K+1, 1, D) parameters, cotangents (B, D), a
+    float or per-column tail bound."""
+    tb = (3.0 if tb_kind == "float"
+          else torch.linspace(1.5, 3.0, D, device=cuda)[None])
+    x = _normal(rng, (B, D), 2.0).to(cuda)
+    x[:2] = (torch.tensor([[1.0], [-1.0]], device=cuda) * tb)[:B]
+    w, h = (_normal(rng, (K, 1, D), 0.5).to(cuda) for _ in range(2))
+    d = _normal(rng, (K + 1, 1, D), 0.5).to(cuda)
+    cty, ctl = (_normal(rng, (B, D)).to(cuda) for _ in range(2))
+    return x, w, h, d, tb, cty, ctl
+
+
+def _summed_planes(x, w, h, d, tb, cty, ctl, inverse):
+    """``rqs_bwd_plain`` on the expanded parameters: gx, and the planes
+    summed over the rows in float64."""
+    B, D = x.shape
+    planes = [t.expand(t.shape[0], B, D) for t in (w, h, d)]
+    tb_p = tb.expand(B, D) if isinstance(tb, torch.Tensor) else tb
+    px, *p = tk.rqs_bwd_plain(x, *planes, tb_p, cty, ctl, inverse=inverse)
+    return px, [t.double().sum(1, keepdim=True) for t in p]
+
+
+@pytest.mark.parametrize("tb_kind", ["float", "per_column"])
+@pytest.mark.parametrize("B", [1, 255, 257, 65536, 65536 + 77])
+@pytest.mark.parametrize("D", [1, 4, tk.SHARED_PARAM_MAX_COLS])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("K", tk.SUPPORTED_BINS)
+def test_kernel_c_shared_path_matches_plain(cuda, K, inverse, D, B, tb_kind):
+    """Kernel C's shared-parameter path: gx within 1e-4 abs of
+    ``rqs_bwd_shared_plain``'s and of ``rqs_bwd_plain``'s, the row sums
+    within 1e-4 of the largest magnitude of both the shared plain version
+    and the float64 sums of ``rqs_bwd_plain``'s planes."""
+    ops = _cdf_operands(np.random.default_rng(K + D + B), K, D, B, cuda,
+                        tb_kind)
+    got = tk.rqs_bwd_shared(*ops, inverse=inverse)
+    want = tk.rqs_bwd_shared_plain(*ops, inverse=inverse)
+    px, sums = _summed_planes(*ops, inverse)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], atol=G_TOL, rtol=0)
+    torch.testing.assert_close(got[0], px, atol=G_TOL, rtol=0)
+    for g, p, s in zip(got[1:], want[1:], sums):
+        assert g.shape == s.shape
+        _rel_close(g, p, SUM_TOL)
+        _rel_close(g.double(), s, SUM_TOL)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_kernel_c_shared_path_is_deterministic(cuda, inverse):
+    """The sums are taken in an order the launch fixes (no atomics): two
+    runs give the same bits; gx is the per-element path's, bit for bit."""
+    ops = _cdf_operands(np.random.default_rng(9), 8, 4, 65536 + 77, cuda)
+    first = tk.rqs_bwd_shared(*ops, inverse=inverse)
+    second = tk.rqs_bwd_shared(*ops, inverse=inverse)
+    x, w, h, d = ops[:4]
+    per_element = tk.rqs_bwd(x, *(t.expand(t.shape[0], *x.shape)
+                                  for t in (w, h, d)), *ops[4:],
+                             inverse=inverse)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert torch.equal(first[0], per_element[0])
+
+
+def _device_kernels(fn):
+    """The kernels (and memsets and copies) ``fn`` runs on the card, by
+    name, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if str(e.device_type).endswith("CUDA")]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cdf_backward_launches_at_most_two_kernels(cuda, inverse):
+    """The unconditional CDF's backward as autograd runs it (x (65536, 1),
+    K = 8, linear tails, tail bound 3): kernel C's shared path, its two
+    launches and nothing else, where it was kernel C plus a reduction per
+    parameter. gx within 1e-4 abs of ``rqs_bwd_plain``'s, the parameter
+    gradients within 1e-4 of the largest magnitude of the float64 sums of
+    its planes (the derivatives' through the linear padding)."""
+    rng = np.random.default_rng(11)
+    K, B = 8, 65536
+    x = _normal(rng, (B, 1), 1.5).to(cuda).requires_grad_()
+    uw, uh = (_normal(rng, (1, 1, K), 0.5).to(cuda).requires_grad_()
+              for _ in range(2))
+    ud = _normal(rng, (1, 1, K - 1), 0.5).to(cuda).requires_grad_()
+    cty, ctl = (_normal(rng, (B, 1)).to(cuda) for _ in range(2))
+    leaves = (x, uw, uh, ud)
+    y, ld = tops.unconstrained_rational_quadratic_spline(
+        x, uw, uh, ud, inverse=inverse, tails="linear", tail_bound=3.0)
+    grads = []
+    names = _device_kernels(lambda: grads.extend(torch.autograd.grad(
+        (y, ld), leaves, (cty, ctl), retain_graph=True)))
+    assert 1 <= len(names) <= 2, names
+    d_pad = tops.splines.pad_derivatives(ud.detach(), "linear", 1e-3,
+                                         axis=-1)
+    px, sums = _summed_planes(x.detach(), *(t.detach().movedim(-1, 0)
+                                            for t in (uw, uh, d_pad)),
+                              3.0, cty, ctl, inverse)
+    torch.testing.assert_close(grads[0], px, atol=G_TOL, rtol=0)
+    sums[2] = sums[2][1:-1]  # the linear padding's edges are constants
+    for g, p in zip(grads[1:], sums):
+        assert g.shape == p.movedim(0, -1).shape
+        _rel_close(g.double(), p.movedim(0, -1), SUM_TOL)
+
+
+@pytest.mark.parametrize("case", ["65_columns", "per_row_tail_bound",
+                                  "per_row_parameters"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_kernel_c_per_element_path_sums_what_was_broadcast(cuda, inverse,
+                                                           case):
+    """Where the shared path does not apply (more than
+    ``SHARED_PARAM_MAX_COLS`` columns, a tail bound or parameters that vary
+    down the rows), the backward runs kernel C's per-element path once and
+    sums its planes to each parameter's shape: gx within 1e-4 abs of
+    ``rqs_bwd_plain``'s, the parameter gradients within 1e-4 of the largest
+    magnitude of the float64 sums of its planes."""
+    rng = np.random.default_rng(12)
+    K, B = 8, 4099
+    D = tk.SHARED_PARAM_MAX_COLS + 1 if case == "65_columns" else 4
+    lead = (B, 1) if case == "per_row_parameters" else (1, D)
+    x = _normal(rng, (B, D), 2.0).to(cuda).requires_grad_()
+    params = [_normal(rng, lead + (n,), 0.5).to(cuda).requires_grad_()
+              for n in (K, K, K + 1)]
+    tb = (torch.linspace(1.5, 3.0, B, device=cuda)[:, None]
+          if case == "per_row_tail_bound" else 3.0)
+    cty, ctl = (_normal(rng, (B, D)).to(cuda) for _ in range(2))
+    y, ld = tk.fused_unconstrained_rqs(x, *params, tb, inverse=inverse)
+    tk.rqs_bwd.launches = 0
+    grads = torch.autograd.grad((y, ld), [x] + params, (cty, ctl))
+    assert tk.rqs_bwd.launches == 1
+    small = [p.detach().movedim(-1, 0) for p in params]
+    with pytest.raises(ValueError, match="shared-parameter path"):
+        tk.rqs_bwd_shared(x.detach(), *small, tb, cty, ctl, inverse=inverse)
+    planes = [t.expand(t.shape[0], B, D) for t in small]
+    tb_p = tb.expand(B, D) if isinstance(tb, torch.Tensor) else tb
+    px, *p = tk.rqs_bwd_plain(x.detach(), *planes, tb_p, cty, ctl,
+                              inverse=inverse)
+    torch.testing.assert_close(grads[0], px, atol=G_TOL, rtol=0)
+    for g, q, par in zip(grads[1:], p, params):
+        want = q.double().movedim(0, -1).sum_to_size(par.shape)
+        assert g.shape == par.shape
+        _rel_close(g.double(), want, SUM_TOL)
 
 
 def _d_operands(rng, K, cuda, B=70001):
