@@ -22,7 +22,12 @@ toolkit. Phases, one line each:
    kernel E's gx differs from its plain version's by more than 1e-4, E
    against the plain version summed in the kernel's order and both against
    the plain version in float64 (which of the two moved); and the launch
-   floor, the time of an empty launch measured the same way;
+   floor, the time of an empty launch measured the same way. Kernel C at
+   the CDF runs its shared-parameter path (row sums held against the
+   float64 sums of the plain planes, two calls bitwise equal); its
+   per-element path there has a line of its own, and so has the CDF's
+   backward as autograd runs it (device ms, the kernels it launches by the
+   profiler, at most two);
 4. gate: one coupling's transform half through kernel B and through the
    unfused feed, at B*D from 1024 to 65536 (where the fused-head gate
    belongs);
@@ -39,7 +44,7 @@ toolkit. Phases, one line each:
    B = 8192 (kernels B and E) and B = 2048 (A and C only), launches per
    step, 100 steps at B = 65536 whose loss falls, the ``skip_nonfinite``
    and ``accum_steps`` checks, ms per step and one step under the
-   profiler;
+   profiler (device busy ms and kernel launches per step);
 8. circular serving: ``build_circular_nsf`` at its defaults (the
    normflows paper example: dim 2, K 12, MADE hidden 512, 10 bins) with
    seeded random weights, ``log_prob`` and ``sample`` at B = 65536 against
@@ -57,6 +62,13 @@ It then prints one JSON line on the kernels, the card's name and power
 limit as ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device":
 ...}``. A failed phase raises and the script exits non-zero; without CUDA
 it exits 1 before printing any result.
+
+    python3 chip_smoke.py --turns OLD
+
+times kernels C and D, the CDF's backward and the ``build_nsf`` step of
+this tree against the ``nf_tpu_torch/`` under the directory OLD (another
+checkout), in turns in one process, then variants of the backward
+kernels' launch against the tree's (:func:`phase_turns`).
 """
 
 from __future__ import annotations
@@ -1553,7 +1565,7 @@ def load_checkout(root):
 # built from the tree's sources: label -> -D definitions
 BWD_VARIANTS = {"loads and stores only": ("NF_BWD_PHASES=1",),
                 "math without stores": ("NF_BWD_PHASES=2",),
-                "128-thread blocks": ("NF_BWD_THREADS=128",),
+                "256-thread blocks": ("NF_BWD_THREADS=256",),
                 "64-thread blocks": ("NF_BWD_THREADS=64",),
                 "two elements per thread, 128-thread blocks": (
                     "NF_BWD_THREADS=128", "NF_BWD_ELEMS=2"),

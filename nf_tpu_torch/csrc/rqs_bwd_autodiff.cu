@@ -22,6 +22,14 @@
 // planes written; the operations are ~2.5x the forward's
 // (splines_kernel.rqs_vjp_ops_per_element), still below the f32 ridge of
 // ~20 flop/byte on full planes, so the stores and loads bound it.
+//
+// Where the time goes at the circular NSF's reverse-KLD shape (x (2,
+// 16384), K = 10; chip_smoke.py --turns, variants of rqs_bwd_kernel.cuh):
+// the launch with its loads and stores alone takes ~0.77x of the whole,
+// the math without the stores ~0.97x. One wave of one element per thread
+// leaves each thread's chain to run after its 34 loads arrive; two or four
+// elements per thread lengthen that chain (1.2x and 1.8x), and block sizes
+// of 64 to 256 threads move it by about 1%.
 #include "rqs_bwd_kernel.cuh"
 #include "rqs_vjp_math.cuh"
 

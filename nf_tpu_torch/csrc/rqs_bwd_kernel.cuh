@@ -23,7 +23,7 @@
 // --turns builds and times them beside the tree's kernel):
 // NF_BWD_PHASES=1 keeps the loads and the stores and drops the math,
 // NF_BWD_PHASES=2 keeps the loads and the math and drops the stores;
-// NF_BWD_THREADS sets the block size (256), NF_BWD_ELEMS the elements a
+// NF_BWD_THREADS sets the block size (128), NF_BWD_ELEMS the elements a
 // thread takes (1).
 #pragma once
 
@@ -32,8 +32,10 @@
 #ifndef NF_BWD_PHASES
 #define NF_BWD_PHASES 0
 #endif
+// 128: at the circular NSF's 32768 elements, 256 blocks reach all 132 SMs
+// in one wave, where 128 blocks of 256 threads reach 128 of them
 #ifndef NF_BWD_THREADS
-#define NF_BWD_THREADS 256
+#define NF_BWD_THREADS 128
 #endif
 #ifndef NF_BWD_ELEMS
 #define NF_BWD_ELEMS 1

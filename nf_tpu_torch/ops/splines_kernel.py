@@ -549,6 +549,28 @@ def _launch(x2, w, h, d, tb, inverse, mbw, mbh, md):
     return y, ld
 
 
+# the C entry points' arguments up to min_derivative: x, w, h, d, tb, cty,
+# ctl, tb_scalar, the strides, rows, cols, K, inverse and the three minima
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 7
+                 + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)]
+                 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                 + [ctypes.c_float] * 3)
+
+
+def _bwd_operands(name, x2, w, h, d, tb, cty, ctl):
+    """Checks the cotangents; returns ``(tb tensor or None, tb scalar, the
+    17 strides)`` of a backward launch."""
+    for t in (cty, ctl):
+        if t.dtype != torch.float32 or t.device != x2.device:
+            raise TypeError(f"{name} takes float32 cotangents on "
+                            f"{x2.device}, got {t.dtype} on {t.device}")
+    tb_t = tb if isinstance(tb, torch.Tensor) else None
+    tb_scalar = 0.0 if tb_t is not None else float(tb)
+    strides = (ctypes.c_longlong * 17)(
+        *kernel_strides(x2, w, h, d, tb_t), *cty.stride(), *ctl.stride())
+    return tb_t, tb_scalar, strides
+
+
 def _launch_bwd(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md,
                 mode="analytic"):
     """Launch kernel C (``mode="analytic"``) or kernel D (``"autodiff"``)
@@ -559,21 +581,11 @@ def _launch_bwd(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md,
 
     name = _BWD_KERNELS[mode]
     fn = getattr(_build.load(name), name + "_launch")
-    fn.argtypes = ([ctypes.c_void_p] * 7
-                   + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 5)
+    fn.argtypes = _BWD_ARGTYPES + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
-    for t in (cty, ctl):
-        if t.dtype != torch.float32 or t.device != x2.device:
-            raise TypeError(f"{name} takes float32 cotangents on "
-                            f"{x2.device}, got {t.dtype} on {t.device}")
     rows, cols = x2.shape
     K = w.shape[0]
-    tb_t = tb if isinstance(tb, torch.Tensor) else None
-    tb_scalar = 0.0 if tb_t is not None else float(tb)
-    strides = (ctypes.c_longlong * 17)(
-        *kernel_strides(x2, w, h, d, tb_t), *cty.stride(), *ctl.stride())
+    tb_t, tb_scalar, strides = _bwd_operands(name, x2, w, h, d, tb, cty, ctl)
     gx = torch.empty((rows, cols), dtype=x2.dtype, device=x2.device)
     gw = torch.empty((K, rows, cols), dtype=x2.dtype, device=x2.device)
     gh = torch.empty_like(gw)
@@ -600,22 +612,12 @@ def _launch_bwd_shared(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md):
     from . import _build
 
     fn = _build.load("rqs_bwd").rqs_bwd_shared_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7
-                   + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_float] * 3 + [ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 6)
+    fn.argtypes = _BWD_ARGTYPES + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
     fn.restype = ctypes.c_int
-    for t in (cty, ctl):
-        if t.dtype != torch.float32 or t.device != x2.device:
-            raise TypeError(f"rqs_bwd takes float32 cotangents on "
-                            f"{x2.device}, got {t.dtype} on {t.device}")
     rows, cols = x2.shape
     K = w.shape[0]
-    tb_t = tb if isinstance(tb, torch.Tensor) else None
-    tb_scalar = 0.0 if tb_t is not None else float(tb)
-    strides = (ctypes.c_longlong * 17)(
-        *kernel_strides(x2, w, h, d, tb_t), *cty.stride(), *ctl.stride())
+    tb_t, tb_scalar, strides = _bwd_operands("rqs_bwd", x2, w, h, d, tb, cty,
+                                             ctl)
     chunks = -(-rows // SHARED_BWD_ROWS_PER_BLOCK)
     opts = dict(dtype=x2.dtype, device=x2.device)
     gx = torch.empty((rows, cols), **opts)
@@ -710,9 +712,9 @@ def rqs_bwd_shared(x, w, h, d, tb, cty, ctl, *, inverse,
             f"{SHARED_PARAM_MAX_COLS} columns and parameters the same for "
             f"every row; got x {tuple(x.shape)}, w {tuple(w.shape)}")
     gx, gw, gh, gd = _launch_bwd_shared(
-        x2, w3, h3, d3, tb, cty.expand(x.shape).reshape(x2.shape),
-        ctl.expand(x.shape).reshape(x2.shape), inverse,
-        float(min_bin_width), float(min_bin_height), float(min_derivative))
+        x2, w3, h3, d3, tb, cty.reshape(x2.shape), ctl.reshape(x2.shape),
+        inverse, float(min_bin_width), float(min_bin_height),
+        float(min_derivative))
     return gx.view(x.shape), gw, gh, gd
 
 
