@@ -8,19 +8,19 @@
 // One thread per element (NF_BWD_ELEMS below). Inputs are read through
 // the same strides as kernel A (bin-minor, bin-major, transposed, stride-0
 // broadcast parameters), and the cotangents through their own, since
-// autograd hands in expanded or transposed views. Outputs are written to fresh contiguous
-// (K, rows, cols) planes, never through the input views: a parameter
-// broadcast with stride 0 would have every thread of the batch writing the
-// same address. Where a parameter was broadcast, the autograd function
-// around the kernels sums its planes (splines_kernel._RQSFunction), as XLA
-// sums the transpose of the JAX package's broadcast; the unconditional
-// CDF's case, where every row shares the parameters, has a path of its own
-// in kernel C that sums inside the kernel (rqs_bwd.cu). The stores of a
-// warp cover 32 consecutive floats of each plane, so they coalesce into
-// full 128-byte lines.
+// autograd hands in expanded or transposed views. Outputs are written to
+// fresh contiguous (K, rows, cols) planes, never through the input views:
+// a parameter broadcast with stride 0 would have every thread of the batch
+// writing the same address. Where a parameter was broadcast, the autograd
+// function around the kernels sums its planes (splines_kernel.
+// _RQSFunction), as XLA sums the transpose of the JAX package's broadcast;
+// the unconditional CDF's case, where every row shares the parameters, has
+// a path of its own in kernel C that sums inside the kernel (rqs_bwd.cu).
+// The stores of a warp cover 32 consecutive floats of each plane, so they
+// coalesce into full 128-byte lines.
 //
-// Variants, to see where the time goes (the build sets neither; chip_smoke
-// --turns builds and times them beside the tree's kernel):
+// Variants, to see where the time goes (the build sets none of them;
+// chip_smoke.py --turns builds and times them beside the tree's kernel):
 // NF_BWD_PHASES=1 keeps the loads and the stores and drops the math,
 // NF_BWD_PHASES=2 keeps the loads and the math and drops the stores;
 // NF_BWD_THREADS sets the block size (128), NF_BWD_ELEMS the elements a

@@ -649,6 +649,16 @@ def _shares_rows(x2, planes, tb):
         t.shape[-2] == 1 or t.stride(-2) == 0 for t in planes + tbs))
 
 
+def _sums_in_kernel(x2, planes, tb):
+    """Whether :class:`_RQSFunction`'s backward takes kernel C's
+    shared-parameter path for its unexpanded parameter views: only where
+    its own expand broadcast every parameter down the rows. A view the
+    caller expanded to full size (row stride 0) needs one gradient per
+    row, which autograd's expand backward then sums."""
+    return (all(t.shape[-2] == 1 for t in planes)
+            and _shares_rows(x2, planes, tb))
+
+
 def _bwd(mode, x, w, h, d, tb, cty, ctl, inverse, min_bin_width,
          min_bin_height, min_derivative):
     if x.device.type != "cuda":
@@ -748,7 +758,7 @@ class _RQSFunction(torch.autograd.Function):
         tb = tb_t if tb_t is not None else ctx.tb_scalar
         planes = (w3, h3, d3)
         views = _expand(x2, planes)
-        if ctx.mode == "analytic" and _shares_rows(x2, planes, tb):
+        if ctx.mode == "analytic" and _sums_in_kernel(x2, planes, tb):
             gx, *grads = _launch_bwd_shared(x2, *views, tb, gy, gld,
                                             *ctx.opts)
         else:

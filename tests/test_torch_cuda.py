@@ -331,6 +331,27 @@ def test_kernel_c_per_element_path_sums_what_was_broadcast(cuda, inverse,
         _rel_close(g.double(), want, SUM_TOL)
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+def test_kernel_c_gradients_through_a_callers_expanded_view(cuda, inverse):
+    """Parameters the caller expanded itself (full size, row stride 0)
+    reach ``rqs_fwd`` as they are: the backward gives that view one
+    gradient per row (kernel C's per-element path), and autograd's expand
+    backward sums them into the (1, D, K) leaves."""
+    rng = np.random.default_rng(13)
+    K, D, B = 8, 2, 5000
+    x = _normal(rng, (B, D), 2.0).to(cuda)
+    leaves = [_normal(rng, (1, D, n), 0.5).to(cuda).requires_grad_()
+              for n in (K, K, K + 1)]
+    cty, ctl = (_normal(rng, (B, D)).to(cuda) for _ in range(2))
+    views = [t.expand(B, D, t.shape[-1]).movedim(-1, 0) for t in leaves]
+    y, ld = tk.rqs_fwd(x, *views, 3.0, inverse=inverse)
+    grads = torch.autograd.grad((y, ld), leaves, (cty, ctl))
+    px, sums = _summed_planes(x, *(t.detach().movedim(-1, 0)
+                                   for t in leaves), 3.0, cty, ctl, inverse)
+    for g, p in zip(grads, sums):
+        _rel_close(g.double(), p.movedim(0, -1), SUM_TOL)
+
+
 def _d_operands(rng, K, cuda, B=70001):
     """The circular NSF's layout: x (2, B) with ties at ±tb in its first
     columns, full parameter planes, a per-feature tail bound (2, 1)."""

@@ -214,8 +214,26 @@ def test_shared_path_is_taken_where_every_row_shares_the_parameters(
     elif tb == "per_row":
         tb = torch.ones((x_shape[0], 1))
     x2, *expanded, tb2 = tk.kernel_views(x, *leaves, tb)
-    assert tk._shares_rows(x2, tk.param_views(x, *leaves), tb2) is shared
+    views = tk.param_views(x, *leaves)
+    assert tk._shares_rows(x2, views, tb2) is shared
     assert tk._shares_rows(x2, tuple(expanded), tb2) is shared
+    assert tk._sums_in_kernel(x2, views, tb2) is shared
+
+
+def test_function_gives_a_callers_expanded_view_one_gradient_per_row():
+    """A caller may hand ``rqs_fwd`` parameters it expanded itself (full
+    size, row stride 0). The kernel could sum over their rows, but the
+    Function's backward must return one gradient per row for such a view
+    (autograd's expand backward then sums them), so it does not take the
+    shared-parameter path there."""
+    K, rows, cols = 4, 6, 3
+    x = torch.zeros(rows, cols)
+    leaves = [torch.zeros(1, cols, n) for n in (K, K, K + 1)]
+    views = tk.param_views(x, *(t.expand(rows, cols, t.shape[-1])
+                                .movedim(-1, 0) for t in leaves))
+    assert all(v.shape[1] == rows and v.stride(1) == 0 for v in views)
+    assert tk._shares_rows(x, views, 1.0)
+    assert not tk._sums_in_kernel(x, views, 1.0)
 
 
 def test_shared_path_constants_match_the_cuda_source():
