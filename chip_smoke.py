@@ -62,13 +62,6 @@ It then prints one JSON line on the kernels, the card's name and power
 limit as ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device":
 ...}``. A failed phase raises and the script exits non-zero; without CUDA
 it exits 1 before printing any result.
-
-    python3 chip_smoke.py --turns OLD
-
-times kernels C and D, the CDF's backward and the ``build_nsf`` step of
-this tree against the ``nf_tpu_torch/`` under the directory OLD (another
-checkout), in turns in one process, then variants of the backward
-kernels' launch against the tree's (:func:`phase_turns`).
 """
 
 from __future__ import annotations
@@ -213,20 +206,15 @@ def phase_device():
     return name
 
 
-def kernel_libraries():
-    """Every library of the port's kernels; kernel E as one library per bin
-    count, so that its instantiations build in parallel."""
-    from nf_tpu_torch.ops.splines_kernel import SUPPORTED_BINS
-
-    return (["rqs_fwd", "head_rqs_fwd", "rqs_bwd"]
-            + [f"head_rqs_bwd@{k}" for k in SUPPORTED_BINS]
-            + ["rqs_bwd_autodiff"])
-
-
 def phase_build():
     from nf_tpu_torch.ops import _build
+    from nf_tpu_torch.ops.splines_kernel import SUPPORTED_BINS
 
-    names = kernel_libraries()
+    # kernel E as one library per bin count, so its instantiations build
+    # in parallel
+    names = (["rqs_fwd", "head_rqs_fwd", "rqs_bwd"]
+             + [f"head_rqs_bwd@{k}" for k in SUPPORTED_BINS]
+             + ["rqs_bwd_autodiff"])
     t0 = time.perf_counter()
     _build.build(names)
     secs = time.perf_counter() - t0
@@ -895,16 +883,18 @@ def timing_kernel_c(dev, flush, peaks, shared=True):
     return out
 
 
-def cdf_backward(dev, splines_mod, inverse, batch=BATCH):
+def cdf_backward(dev, inverse, batch=BATCH):
     """A function that runs the backward of a coupling's CDF as autograd
     runs it in a training step: ``unconstrained_rational_quadratic_spline``
-    of ``splines_mod`` (the tree's, or an older checkout's) at x (B, 1),
-    K = 8, linear tails, tail bound 3, then ``torch.autograd.grad`` of
-    (y, ld) into x and the three parameter leaves."""
+    at x (B, 1), K = 8, linear tails, tail bound 3, then
+    ``torch.autograd.grad`` of (y, ld) into x and the three parameter
+    leaves."""
+    from nf_tpu_torch.ops import splines
+
     x, uw, uh, ud, cty, ctl = _cdf_operands(np.random.default_rng(SEED + 15),
                                             dev, batch)
     leaves = [t.requires_grad_() for t in (x, uw, uh, ud)]
-    y, ld = splines_mod.unconstrained_rational_quadratic_spline(
+    y, ld = splines.unconstrained_rational_quadratic_spline(
         *leaves, inverse=inverse, tails="linear", tail_bound=3.0)
     return lambda: torch.autograd.grad((y, ld), leaves, (cty, ctl),
                                        retain_graph=True)
@@ -934,11 +924,11 @@ def timing_cdf_backward(dev, flush, peaks):
     and ctl read, gx written: 16 bytes per element, and the parameters and
     their gradients). Fails if it launches more than two kernels. One
     printed line."""
-    from nf_tpu_torch.ops import splines, splines_kernel as tk
+    from nf_tpu_torch.ops import splines_kernel as tk
 
     rows = []
     for inverse in (False, True):
-        fn = cdf_backward(dev, splines, inverse)
+        fn = cdf_backward(dev, inverse)
         ms = device_ms(fn, flush)
         names = device_kernels(fn)
         bound_ms, by = bound(
@@ -1543,204 +1533,7 @@ def _train_tensors(state):
     return out
 
 
-def load_checkout(root):
-    """``root``/nf_tpu_torch, the package of another checkout (the parent
-    commit's, unpacked by ``git archive``), imported as ``nf_tpu_torch_old``
-    beside the tree's: its kernels build from its own sources into its own
-    build directory."""
-    import importlib.util
-    import os
-
-    pkg = os.path.join(os.path.abspath(root), "nf_tpu_torch")
-    spec = importlib.util.spec_from_file_location(
-        "nf_tpu_torch_old", os.path.join(pkg, "__init__.py"),
-        submodule_search_locations=[pkg])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules["nf_tpu_torch_old"] = mod
-    spec.loader.exec_module(mod)
-    return mod
-
-
-# variants of the full-plane backward launch (csrc/rqs_bwd_kernel.cuh),
-# built from the tree's sources: label -> -D definitions
-BWD_VARIANTS = {"loads and stores only": ("NF_BWD_PHASES=1",),
-                "math without stores": ("NF_BWD_PHASES=2",),
-                "256-thread blocks": ("NF_BWD_THREADS=256",),
-                "64-thread blocks": ("NF_BWD_THREADS=64",),
-                "two elements per thread, 128-thread blocks": (
-                    "NF_BWD_THREADS=128", "NF_BWD_ELEMS=2"),
-                "two elements per thread, 64-thread blocks": (
-                    "NF_BWD_THREADS=64", "NF_BWD_ELEMS=2"),
-                "four elements per thread, 32-thread blocks": (
-                    "NF_BWD_THREADS=32", "NF_BWD_ELEMS=4")}
-
-
-# variants of kernel C's shared-parameter path (csrc/rqs_bwd.cu)
-SHARED_VARIANTS = {"ordinary launch of the sum": ("NF_BWD_SHARED_PDL=0",),
-                   "a shuffle tree per slot": (
-                       "NF_BWD_SHARED_BUTTERFLY=0",)}
-
-
-def build_variants(builds):
-    """The tree's ``csrc/<source>.cu`` built once per (source, label,
-    -D definitions) of ``builds``, all nvcc processes at once, into the
-    build directory: {(source, label): ctypes library}."""
-    import ctypes
-    import os
-
-    from nf_tpu_torch.ops import _build
-
-    out_dir = os.path.join(_build.BUILD_DIR, "variants")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for src, label, defs in builds:
-        out = os.path.join(out_dir, f"{src}-{'-'.join(defs)}.so")
-        procs[src, label] = (out, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defs),
-             "-I", _build.CSRC, "-o", out,
-             os.path.join(_build.CSRC, src + ".cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for key, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the variant {key}:\n{log}")
-        libs[key] = ctypes.CDLL(out)
-    return libs
-
-
-def _with_library(build_mod, name, lib, fn):
-    """``fn()`` with ``build_mod``'s library ``name`` replaced by ``lib``."""
-    tree_lib = build_mod.load(name)
-    build_mod._LIBS[name] = lib
-    try:
-        return fn()
-    finally:
-        build_mod._LIBS[name] = tree_lib
-
-
-def _in_turns(label, versions, measure, order=("old", "new", "new", "old")):
-    """``measure(version)`` -> (forward ms, inverse ms), taken in ``order``;
-    one printed line, and the medians of each version's turns."""
-    got = [(v, measure(v)) for v in order]
-    print(f"turns {label}: " + "; ".join(
-        f"{v} {f:.5f} / {i:.5f}" for v, (f, i) in got)
-        + " (forward / inverse ms)", flush=True)
-    return {v: tuple(float(np.median([t[j] for u, t in got if u == v]))
-                     for j in range(2)) for v in versions}
-
-
-def _step_profile(nt_mod, pool):
-    """One ``build_nsf`` forward-KLD step of the package ``nt_mod`` at
-    B = 65536 under ``torch.profiler``: (device busy ms, kernel launches)."""
-    torch.manual_seed(SEED)
-    model = nt_mod.build_nsf(dim=2, K=8, hidden=HIDDEN, num_bins=K_BINS,
-                             num_blocks=2, tail_bound=3.0)
-    perturb(model, SEED)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
-    state = nt_mod.init_train_state(model, opt)
-    step = nt_mod.make_forward_kld_step(opt)
-    step(state, pool)
-    _, busy, top = profile_call(lambda: step(state, pool))
-    return busy, float(sum(c for _, (_, c) in top))
-
-
-def phase_turns(dev, flush, old_root):
-    """The tree's kernels C and D and the CDF's backward against another
-    checkout's (``old_root``), in turns (old, new, new, old) in this one
-    process, each time taken as ``device_ms`` takes it: the CDF's backward
-    as autograd runs it (and the kernels it launches), D and C's
-    per-element path at the circular NSF's reverse-KLD shape, C's
-    per-element path at the CDF, the ``build_nsf`` step's device busy ms
-    and kernel launches; then variants against the tree's, in turns (tree,
-    variant, variant, tree): of the shared path (other rows per block,
-    :data:`SHARED_VARIANTS`) on the CDF's backward, and of the full-plane
-    launch (:data:`BWD_VARIANTS`) at the circular NSF's shape; and the
-    launch floor."""
-    import importlib
-
-    import nf_tpu_torch as nt
-    from nf_tpu_torch.ops import _build, splines
-    from nf_tpu_torch.ops import splines_kernel as tk
-
-    old = load_checkout(old_root)
-    importlib.import_module("nf_tpu_torch_old.ops._build").build(
-        kernel_libraries())
-    pkgs = {"new": (nt, splines, tk),
-            "old": (old, importlib.import_module(
-                "nf_tpu_torch_old.ops.splines"), importlib.import_module(
-                "nf_tpu_torch_old.ops.splines_kernel"))}
-    both = (False, True)
-
-    fns = {v: [cdf_backward(dev, pkgs[v][1], inv) for inv in both]
-           for v in pkgs}
-    for v in pkgs:
-        print(f"turns cdf backward kernels ({v}): "
-              + "; ".join(_kernel_list(device_kernels(f)) for f in fns[v]),
-              flush=True)
-    _in_turns("cdf backward (x (65536, 1), K = 8, linear, tb 3)", pkgs,
-              lambda v: tuple(device_ms(f, flush) for f in fns[v]))
-    libs = build_variants(
-        [("rqs_bwd", label, defs) for label, defs in SHARED_VARIANTS.items()]
-        + [(src, label, defs) for src in ("rqs_bwd_autodiff", "rqs_bwd")
-           for label, defs in BWD_VARIANTS.items()])
-    tree_rows = tk.SHARED_BWD_ROWS_PER_BLOCK
-
-    def cdf_times(rows=tree_rows):
-        tk.SHARED_BWD_ROWS_PER_BLOCK = rows
-        try:
-            return tuple(device_ms(f, flush) for f in fns["new"])
-        finally:
-            tk.SHARED_BWD_ROWS_PER_BLOCK = tree_rows
-    turn = ("tree", "variant", "variant", "tree")
-    for rows in (256, 1024):
-        _in_turns(f"cdf backward, shared path with {rows} rows per block "
-                  f"(tree {tree_rows})", turn[:2],
-                  lambda v, rows=rows: cdf_times(
-                      rows if v == "variant" else tree_rows), turn)
-    for label in SHARED_VARIANTS:
-        _in_turns(f"cdf backward, shared path, {label}", turn[:2],
-                  lambda v, label=label: cdf_times() if v == "tree" else
-                  _with_library(_build, "rqs_bwd", libs["rqs_bwd", label],
-                                cdf_times), turn)
-
-    ops = _path_operands(np.random.default_rng(SEED + 12), 10, "mixed", dev)
-    _in_turns("rqs_bwd_autodiff (x (2, 16384), K = 10, mixed)", pkgs,
-              lambda v: tuple(device_ms(lambda: pkgs[v][2].rqs_bwd_autodiff(
-                  *ops, inverse=inv), flush) for inv in both))
-    _in_turns("rqs_bwd per-element (x (2, 16384), K = 10, mixed)", pkgs,
-              lambda v: tuple(device_ms(lambda: pkgs[v][2].rqs_bwd(
-                  *ops, inverse=inv), flush) for inv in both))
-    x, uw, uh, ud, cty, ctl = _cdf_operands(np.random.default_rng(SEED + 8),
-                                            dev)
-    ud = splines.pad_derivatives(ud, "linear", 1e-3, axis=-1)
-    views = [t.movedim(-1, 0).expand(t.shape[-1], BATCH, 1)
-             for t in (uw, uh, ud)]
-    _in_turns("rqs_bwd per-element at the CDF (x (65536, 1), stride-0 "
-              "views)", pkgs,
-              lambda v: tuple(device_ms(lambda: pkgs[v][2].rqs_bwd(
-                  x, *views, 3.0, cty, ctl, inverse=inv), flush)
-                  for inv in both))
-    pool = nt.TwoMoons().sample(BATCH, generator=torch.Generator(
-        device=dev).manual_seed(SEED + 10))
-    _in_turns("build_nsf step (B = 65536): device busy ms / kernel "
-              "launches", pkgs, lambda v: _step_profile(pkgs[v][0], pool))
-
-    for name, call in (("rqs_bwd_autodiff", tk.rqs_bwd_autodiff),
-                       ("rqs_bwd", tk.rqs_bwd)):
-        for label in BWD_VARIANTS:
-            def measure(v, name=name, label=label, call=call):
-                def run():
-                    return tuple(device_ms(lambda: call(*ops, inverse=inv),
-                                           flush) for inv in both)
-                return run() if v == "tree" else _with_library(
-                    _build, name, libs[name, label], run)
-            _in_turns(f"{name} {label} (x (2, 16384), K = 10, mixed)",
-                      turn[:2], measure, turn)
-    launch_floor(flush)
-
-
-def main(argv):
+def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port runs on an "
               "NVIDIA GPU", file=sys.stderr)
@@ -1752,13 +1545,6 @@ def main(argv):
     phase_build()
     peaks = peaks_for(name)
     flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device=dev)
-    if argv[:1] == ["--turns"] and len(argv) == 2:
-        phase_turns(dev, flush, argv[1])
-        print(nvidia_smi_line())
-        return 0
-    if argv:
-        print("usage: chip_smoke.py [--turns OLD_CHECKOUT]", file=sys.stderr)
-        return 2
 
     results = {}
     # label, parity, timing, tolerances, source, replaces, the spline
@@ -1848,4 +1634,4 @@ def main(argv):
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

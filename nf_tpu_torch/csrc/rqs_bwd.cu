@@ -28,7 +28,7 @@
 //   the path sums those six per (column, bin) and maps the 6K sums to the
 //   logits once per column. Two launches, counted as one call of kernel C:
 //     1. rqs_bwd_shared_blocks, grid (chunks, cols): a block takes
-//        rows_per_block rows of one column. Its first warps compute the
+//        kRowsPerBlock rows of one column. Its first warps compute the
 //        column's knots, sizes and derivatives into shared memory (as
 //        kernel A's shared path does); then each thread, per element,
 //        finds the bin by the same >= compares, reads the six values by
@@ -90,17 +90,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSharedCols = 64;
 // per (column, bin): g_cw, g_wd, g_ch, g_hh, g_d0, g_d1
 constexpr int kSlots = 6;
+// the rows a block of the first launch takes (mirrored by
+// splines_kernel.SHARED_BWD_ROWS_PER_BLOCK, which sizes the workspace):
+// 256 and 1024 were slower on the H100 (PERF.md, PR 7)
+constexpr long long kRowsPerBlock = 512;
 static_assert(kThreads >= 64 + 11, "the tables take warps 0, 1 and 2");
-// 1: the sum's launch is programmatic (it may start before the blocks'
-// launch ends); chip_smoke.py --turns times 0 beside it
-#ifndef NF_BWD_SHARED_PDL
-#define NF_BWD_SHARED_PDL 1
-#endif
-// 1: the blocks sum their slots over a warp by halving (warp_halve); 0: by
-// a shuffle tree per slot (a variant that chip_smoke.py --turns times)
-#ifndef NF_BWD_SHARED_BUTTERFLY
-#define NF_BWD_SHARED_BUTTERFLY 1
-#endif
 
 // The warp's sums of N values per lane, in a fixed order and with about N
 // shuffles where a tree per value takes 5N: at each offset o (16, 8, ...),
@@ -149,8 +143,8 @@ __global__ void __launch_bounds__(kThreads) rqs_bwd_shared_blocks(
     const float* __restrict__ tb, float tb_scalar,
     const float* __restrict__ cty, const float* __restrict__ ctl,
     nf::BwdStrides s, long long rows, long long cols, float min_bin_width,
-    float min_bin_height, float min_derivative, long long rows_per_block,
-    float* __restrict__ gx, float* __restrict__ work) {
+    float min_bin_height, float min_derivative, float* __restrict__ gx,
+    float* __restrict__ work) {
   // the column's bins: left knots (cw, ch), sizes (w, h), and the
   // derivatives at the K + 1 knots
   __shared__ float s_cw[K], s_w[K], s_ch[K], s_h[K], s_d[K + 1];
@@ -159,8 +153,8 @@ __global__ void __launch_bounds__(kThreads) rqs_bwd_shared_blocks(
   asm volatile("griddepcontrol.launch_dependents;");
   const int c = blockIdx.y;
   const int tid = threadIdx.x;
-  const long long r_end = min(rows, (blockIdx.x + 1) * rows_per_block);
-  long long r = blockIdx.x * rows_per_block + tid;
+  const long long r_end = min(rows, (blockIdx.x + 1) * kRowsPerBlock);
+  long long r = blockIdx.x * kRowsPerBlock + tid;
   const float t = tb ? tb[c * s.tb[1]] : tb_scalar;
 
   // the first element's operands, loaded before the tables so that their
@@ -233,7 +227,6 @@ __global__ void __launch_bounds__(kThreads) rqs_bwd_shared_blocks(
   }
 
   const int lane = tid & 31, warp = tid >> 5;
-#if NF_BWD_SHARED_BUTTERFLY
   constexpr int kLeft = halving_left(kSlots * K, 16);
   constexpr int kStop = halving_stop(kSlots * K, 16);
   int base = 0;
@@ -242,18 +235,6 @@ __global__ void __launch_bounds__(kThreads) rqs_bwd_shared_blocks(
 #pragma unroll
     for (int i = 0; i < kLeft; ++i) s_part[warp][base + i] = acc[i];
   }
-#else
-#pragma unroll
-  for (int j = 0; j < kSlots * K; ++j) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int j = 0; j < kSlots * K; ++j) s_part[warp][j] = acc[j];
-  }
-#endif
   __syncthreads();
   if (tid < kSlots * K) {
     float v = s_part[0][tid];
@@ -380,17 +361,17 @@ __global__ void __launch_bounds__(kThreads) rqs_bwd_shared_sum(
 
 template <int K, bool INVERSE>
 cudaError_t launch_shared(const float* x, const float* uw, const float* uh,
-                   const float* ud, const float* tb, float tb_scalar,
-                   const float* cty, const float* ctl,
-                   const nf::BwdStrides& s, long long rows, long long cols,
-                   float mbw, float mbh, float md, long long rows_per_block,
-                   float* gx, float* gw, float* gh, float* gd, float* work,
-                   cudaStream_t stream) {
-  const long long chunks = (rows + rows_per_block - 1) / rows_per_block;
+                          const float* ud, const float* tb, float tb_scalar,
+                          const float* cty, const float* ctl,
+                          const nf::BwdStrides& s, long long rows,
+                          long long cols, float mbw, float mbh, float md,
+                          float* gx, float* gw, float* gh, float* gd,
+                          float* work, cudaStream_t stream) {
+  const long long chunks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   const dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(cols));
   rqs_bwd_shared_blocks<K, INVERSE><<<grid, kThreads, 0, stream>>>(
       x, uw, uh, ud, tb, tb_scalar, cty, ctl, s, rows, cols, mbw, mbh, md,
-      rows_per_block, gx, work);
+      gx, work);
   // a programmatic dependent launch: the sum's blocks may start while the
   // first launch runs, and wait for it with griddepcontrol.wait
   cudaLaunchConfig_t cfg = {};
@@ -399,7 +380,7 @@ cudaError_t launch_shared(const float* x, const float* uw, const float* uh,
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = NF_BWD_SHARED_PDL;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaGetLastError();
@@ -414,23 +395,24 @@ cudaError_t launch_shared(const float* x, const float* uw, const float* uh,
 // C interface for ctypes: the shared-parameter path. The operands and
 // strides are rqs_bwd_launch's; gw and gh are (K, cols), gd (K+1, cols),
 // contiguous, the sums over the rows; `work` holds
-// cols * ceil(rows / rows_per_block) * 6K floats. Returns
+// cols * ceil(rows / kRowsPerBlock) * 6K floats. Returns
 // cudaGetLastError() after the launches; -1 for a bin count that has no
 // instantiation, -2 for operands the path does not take (more than
 // kMaxSharedCols columns, a parameter or tail bound that varies down the
-// rows, rows_per_block < 1).
+// rows). With no rows it launches nothing and writes nothing: the sums of
+// an empty batch, zeros, are the caller's.
 extern "C" int rqs_bwd_shared_launch(
     const float* x, const float* uw, const float* uh, const float* ud,
     const float* tb, const float* cty, const float* ctl, float tb_scalar,
     const long long* strides, long long rows, long long cols, int num_bins,
     int inverse, float min_bin_width, float min_bin_height,
-    float min_derivative, long long rows_per_block, float* gx, float* gw,
-    float* gh, float* gd, float* work, void* stream) {
+    float min_derivative, float* gx, float* gw, float* gh, float* gd,
+    float* work, void* stream) {
   const nf::BwdStrides s = nf::bwd_strides(strides);
   const bool rows_share =
       rows == 1 ||
       (s.w[1] == 0 && s.h[1] == 0 && s.d[1] == 0 && (!tb || s.tb[0] == 0));
-  if (cols > kMaxSharedCols || rows_per_block < 1 || !rows_share) return -2;
+  if (cols > kMaxSharedCols || !rows_share) return -2;
   if (rows * cols == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NF_RQS_BWD_SHARED_CASE(KK)                                          \
@@ -438,13 +420,11 @@ extern "C" int rqs_bwd_shared_launch(
     err = inverse ? launch_shared<KK, true>(                                \
                         x, uw, uh, ud, tb, tb_scalar, cty, ctl, s, rows,    \
                         cols, min_bin_width, min_bin_height,                \
-                        min_derivative, rows_per_block, gx, gw, gh, gd,     \
-                        work, st)                                           \
+                        min_derivative, gx, gw, gh, gd, work, st)           \
                   : launch_shared<KK, false>(                               \
                         x, uw, uh, ud, tb, tb_scalar, cty, ctl, s, rows,    \
                         cols, min_bin_width, min_bin_height,                \
-                        min_derivative, rows_per_block, gx, gw, gh, gd,     \
-                        work, st);                                          \
+                        min_derivative, gx, gw, gh, gd, work, st);          \
     break;
   cudaError_t err;
   switch (num_bins) {

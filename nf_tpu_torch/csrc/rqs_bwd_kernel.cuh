@@ -5,41 +5,22 @@
 // and it comes in as a policy type whose `apply<K, INVERSE>` has the
 // signature of nf::rqs_bwd_element.
 //
-// One thread per element (NF_BWD_ELEMS below). Inputs are read through
-// the same strides as kernel A (bin-minor, bin-major, transposed, stride-0
-// broadcast parameters), and the cotangents through their own, since
-// autograd hands in expanded or transposed views. Outputs are written to
-// fresh contiguous (K, rows, cols) planes, never through the input views:
-// a parameter broadcast with stride 0 would have every thread of the batch
-// writing the same address. Where a parameter was broadcast, the autograd
-// function around the kernels sums its planes (splines_kernel.
+// One thread per element, in blocks of kBwdThreads. Inputs are read
+// through the same strides as kernel A (bin-minor, bin-major, transposed,
+// stride-0 broadcast parameters), and the cotangents through their own,
+// since autograd hands in expanded or transposed views. Outputs are written
+// to fresh contiguous (K, rows, cols) planes, never through the input
+// views: a parameter broadcast with stride 0 would have every thread of the
+// batch writing the same address. Where a parameter was broadcast, the
+// autograd function around the kernels sums its planes (splines_kernel.
 // _RQSFunction), as XLA sums the transpose of the JAX package's broadcast;
 // the unconditional CDF's case, where every row shares the parameters, has
 // a path of its own in kernel C that sums inside the kernel (rqs_bwd.cu).
 // The stores of a warp cover 32 consecutive floats of each plane, so they
 // coalesce into full 128-byte lines.
-//
-// Variants, to see where the time goes (the build sets none of them;
-// chip_smoke.py --turns builds and times them beside the tree's kernel):
-// NF_BWD_PHASES=1 keeps the loads and the stores and drops the math,
-// NF_BWD_PHASES=2 keeps the loads and the math and drops the stores;
-// NF_BWD_THREADS sets the block size (128), NF_BWD_ELEMS the elements a
-// thread takes (1).
 #pragma once
 
 #include <cuda_runtime.h>
-
-#ifndef NF_BWD_PHASES
-#define NF_BWD_PHASES 0
-#endif
-// 128: at the circular NSF's 32768 elements, 256 blocks reach all 132 SMs
-// in one wave, where 128 blocks of 256 threads reach 128 of them
-#ifndef NF_BWD_THREADS
-#define NF_BWD_THREADS 128
-#endif
-#ifndef NF_BWD_ELEMS
-#define NF_BWD_ELEMS 1
-#endif
 
 namespace nf {
 
@@ -62,42 +43,10 @@ inline BwdStrides bwd_strides(const long long* p) {
   return s;
 }
 
-// One element's operands: its K width, K height and K+1 derivative logits,
-// tail bound, x and the two cotangents.
-template <int K>
-struct BwdOperands {
-  float w[K], h[K], d[K + 1], t, x, cty, ctl;
-};
+// 128: at the circular NSF's 32768 elements, 256 blocks reach all 132 SMs
+// in one wave, where 128 blocks of 256 threads reach 128 of them
+constexpr int kBwdThreads = 128;
 
-template <int K>
-__device__ __forceinline__ void load_operands(
-    const float* __restrict__ x, const float* __restrict__ uw,
-    const float* __restrict__ uh, const float* __restrict__ ud,
-    const float* __restrict__ tb, float tb_scalar,
-    const float* __restrict__ cty, const float* __restrict__ ctl,
-    const BwdStrides& s, long long cols, long long i, BwdOperands<K>& o) {
-  const long long r = i / cols;
-  const long long c = i - r * cols;
-  const long long ow = r * s.w[1] + c * s.w[2];
-  const long long oh = r * s.h[1] + c * s.h[2];
-  const long long od = r * s.d[1] + c * s.d[2];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    o.w[k] = uw[ow + k * s.w[0]];
-    o.h[k] = uh[oh + k * s.h[0]];
-  }
-#pragma unroll
-  for (int k = 0; k < K + 1; ++k) o.d[k] = ud[od + k * s.d[0]];
-  o.t = tb ? tb[r * s.tb[0] + c * s.tb[1]] : tb_scalar;
-  o.x = x[r * s.x[0] + c * s.x[1]];
-  o.cty = cty[r * s.cty[0] + c * s.cty[1]];
-  o.ctl = ctl[r * s.ctl[0] + c * s.ctl[1]];
-}
-
-// A block takes NF_BWD_ELEMS runs of blockDim.x consecutive elements; a
-// thread loads the operands of all of its elements before it computes the
-// first, so that with more than one the later loads are in flight during
-// the earlier elements' math.
 template <class Math, int K, bool INVERSE>
 __global__ void rqs_bwd_kernel(const float* __restrict__ x,
                                const float* __restrict__ uw,
@@ -112,58 +61,40 @@ __global__ void rqs_bwd_kernel(const float* __restrict__ x,
                                float* __restrict__ gw, float* __restrict__ gh,
                                float* __restrict__ gd) {
   const long long n = rows * cols;
-  const long long first =
-      static_cast<long long>(blockIdx.x) * blockDim.x * NF_BWD_ELEMS +
-      threadIdx.x;
-  BwdOperands<K> op[NF_BWD_ELEMS];
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long r = i / cols;
+  const long long c = i - r * cols;
+
+  float w[K], h[K], d[K + 1];
+  const long long ow = r * s.w[1] + c * s.w[2];
+  const long long oh = r * s.h[1] + c * s.h[2];
+  const long long od = r * s.d[1] + c * s.d[2];
 #pragma unroll
-  for (int e = 0; e < NF_BWD_ELEMS; ++e) {
-    const long long i = first + e * static_cast<long long>(blockDim.x);
-    if (i < n)
-      load_operands<K>(x, uw, uh, ud, tb, tb_scalar, cty, ctl, s, cols, i,
-                       op[e]);
+  for (int k = 0; k < K; ++k) {
+    w[k] = uw[ow + k * s.w[0]];
+    h[k] = uh[oh + k * s.h[0]];
   }
 #pragma unroll
-  for (int e = 0; e < NF_BWD_ELEMS; ++e) {
-    const long long i = first + e * static_cast<long long>(blockDim.x);
-    if (i >= n) continue;
-    const BwdOperands<K>& o = op[e];
-    float gxv, gwv[K], ghv[K], gdv[K + 1];
-#if NF_BWD_PHASES == 1
-    // loads and stores only: each output plane gets an input plane
-    gxv = o.x + o.t + o.cty + o.ctl;
+  for (int k = 0; k < K + 1; ++k) d[k] = ud[od + k * s.d[0]];
+  const float t = tb ? tb[r * s.tb[0] + c * s.tb[1]] : tb_scalar;
+  const float xv = x[r * s.x[0] + c * s.x[1]];
+  const float cy = cty[r * s.cty[0] + c * s.cty[1]];
+  const float cl = ctl[r * s.ctl[0] + c * s.ctl[1]];
+
+  float gxv, gwv[K], ghv[K], gdv[K + 1];
+  Math::template apply<K, INVERSE>(xv, t, w, h, d, cy, cl, min_bin_width,
+                                   min_bin_height, min_derivative, gxv, gwv,
+                                   ghv, gdv);
+  gx[i] = gxv;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      gwv[k] = o.w[k];
-      ghv[k] = o.h[k];
-    }
-#pragma unroll
-    for (int k = 0; k < K + 1; ++k) gdv[k] = o.d[k];
-#else
-    Math::template apply<K, INVERSE>(o.x, o.t, o.w, o.h, o.d, o.cty, o.ctl,
-                                     min_bin_width, min_bin_height,
-                                     min_derivative, gxv, gwv, ghv, gdv);
-#endif
-#if NF_BWD_PHASES == 2
-    // the math without its stores: one store, never taken, that depends on
-    // every output, so that none of the math can be dropped or sunk into it
-    float all = gxv;
-#pragma unroll
-    for (int k = 0; k < K; ++k) all += gwv[k] + ghv[k];
-#pragma unroll
-    for (int k = 0; k < K + 1; ++k) all += gdv[k];
-    if (all == 1.2345e-30f) gx[i] = all;
-#else
-    gx[i] = gxv;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      gw[k * n + i] = gwv[k];
-      gh[k * n + i] = ghv[k];
-    }
-#pragma unroll
-    for (int k = 0; k < K + 1; ++k) gd[k * n + i] = gdv[k];
-#endif
+  for (int k = 0; k < K; ++k) {
+    gw[k * n + i] = gwv[k];
+    gh[k * n + i] = ghv[k];
   }
+#pragma unroll
+  for (int k = 0; k < K + 1; ++k) gd[k * n + i] = gdv[k];
 }
 
 template <class Math, int K, bool INVERSE>
@@ -173,11 +104,10 @@ void rqs_bwd_launch_k(const float* x, const float* uw, const float* uh,
                       const BwdStrides& s, long long rows, long long cols,
                       float mbw, float mbh, float md, float* gx, float* gw,
                       float* gh, float* gd, cudaStream_t stream) {
-  const long long per_block = NF_BWD_THREADS * NF_BWD_ELEMS;
   const long long n = rows * cols;
-  const unsigned blocks = static_cast<unsigned>((n + per_block - 1) /
-                                                per_block);
-  rqs_bwd_kernel<Math, K, INVERSE><<<blocks, NF_BWD_THREADS, 0, stream>>>(
+  const unsigned blocks =
+      static_cast<unsigned>((n + kBwdThreads - 1) / kBwdThreads);
+  rqs_bwd_kernel<Math, K, INVERSE><<<blocks, kBwdThreads, 0, stream>>>(
       x, uw, uh, ud, tb, tb_scalar, cty, ctl, s, rows, cols, mbw, mbh, md,
       gx, gw, gh, gd);
 }

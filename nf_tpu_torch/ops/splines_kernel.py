@@ -64,8 +64,8 @@ SUPPORTED_BINS = (4, 8, 10)  # the K values the CUDA sources instantiate
 # for at most this many columns
 SHARED_PARAM_MAX_COLS = 64
 # kernel C's shared-parameter path: the rows each block of its first launch
-# takes, and the cotangents it sums per (column, bin): g_cw, g_wd, g_ch,
-# g_hh, g_d0, g_d1 (csrc/rqs_bwd.cu kSlots)
+# takes (csrc/rqs_bwd.cu kRowsPerBlock), and the cotangents it sums per
+# (column, bin): g_cw, g_wd, g_ch, g_hh, g_d0, g_d1 (kSlots)
 SHARED_BWD_ROWS_PER_BLOCK = 512
 SHARED_BWD_SLOTS = 6
 
@@ -358,7 +358,9 @@ def rqs_bwd_plain(x, w, h, d, tb, cty, ctl, *, inverse,
 def _row_shared(t, shape):
     """``t`` broadcast to ``shape`` and cut to its first row (``shape[-2]``):
     a ValueError unless every row of it is the same (row stride 0, or one
-    row)."""
+    row). With no rows, ``t`` broadcast to one."""
+    if shape[-2] == 0:
+        return t.expand(*shape[:-2], 1, shape[-1])
     full = t.expand(shape)
     if shape[-2] != 1 and full.stride(-2) != 0:
         raise ValueError(f"{tuple(t.shape)} is not shared by the rows of "
@@ -608,11 +610,12 @@ def _launch_bwd_shared(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md):
     most ``SHARED_PARAM_MAX_COLS`` columns) -> fresh ``gx`` (rows, cols) and
     the parameter cotangents summed over the rows, ``gw``/``gh`` (K, 1,
     cols) and ``gd`` (K+1, 1, cols). Two launches (the blocks, then the
-    fixed-order sum of their partials), counted as one call of kernel C."""
+    fixed-order sum of their partials), counted as one call of kernel C.
+    With no rows it launches nothing: the sums are zeros."""
     from . import _build
 
     fn = _build.load("rqs_bwd").rqs_bwd_shared_launch
-    fn.argtypes = _BWD_ARGTYPES + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
+    fn.argtypes = _BWD_ARGTYPES + [ctypes.c_void_p] * 6
     fn.restype = ctypes.c_int
     rows, cols = x2.shape
     K = w.shape[0]
@@ -621,16 +624,18 @@ def _launch_bwd_shared(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md):
     chunks = -(-rows // SHARED_BWD_ROWS_PER_BLOCK)
     opts = dict(dtype=x2.dtype, device=x2.device)
     gx = torch.empty((rows, cols), **opts)
-    gw = torch.empty((K, 1, cols), **opts)
-    gh = torch.empty_like(gw)
-    gd = torch.empty((K + 1, 1, cols), **opts)
+    sums = torch.empty if rows else torch.zeros
+    gw = sums((K, 1, cols), **opts)
+    gh = sums((K, 1, cols), **opts)
+    gd = sums((K + 1, 1, cols), **opts)
+    if not rows:
+        return gx, gw, gh, gd
     work = torch.empty(cols * chunks * SHARED_BWD_SLOTS * K, **opts)
     err = fn(x2.data_ptr(), w.data_ptr(), h.data_ptr(), d.data_ptr(),
              tb_t.data_ptr() if tb_t is not None else None, cty.data_ptr(),
              ctl.data_ptr(), tb_scalar, strides, rows, cols, K,
-             int(bool(inverse)), mbw, mbh, md, SHARED_BWD_ROWS_PER_BLOCK,
-             gx.data_ptr(), gw.data_ptr(), gh.data_ptr(), gd.data_ptr(),
-             work.data_ptr(),
+             int(bool(inverse)), mbw, mbh, md, gx.data_ptr(), gw.data_ptr(),
+             gh.data_ptr(), gd.data_ptr(), work.data_ptr(),
              torch.cuda.current_stream(x2.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rqs_bwd shared-parameter launch failed: "

@@ -245,6 +245,38 @@ def test_kernel_c_shared_path_is_deterministic(cuda, inverse):
     assert torch.equal(first[0], per_element[0])
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+def test_kernel_c_shared_path_with_no_rows_gives_zero_sums(cuda, inverse):
+    """An empty batch, x (0, D): the shared path launches nothing and its
+    sums are zeros, both from ``rqs_bwd_shared`` and as the CDF's
+    backward through autograd. The allocator's free blocks of the sums'
+    size are filled with NaN first, so sums left unwritten would show."""
+
+    def poison():  # 64 freed 512-byte blocks of NaN
+        [torch.full((128,), float("nan"), device=cuda) for _ in range(64)]
+
+    K, D = 8, 4
+    ops = _cdf_operands(np.random.default_rng(14), K, D, 0, cuda)
+    poison()
+    tk.rqs_bwd.launches = 0
+    gx, *sums = tk.rqs_bwd_shared(*ops, inverse=inverse)
+    assert gx.shape == (0, D)
+    for g, n in zip(sums, (K, K, K + 1)):
+        assert g.shape == (n, 1, D)
+        assert torch.equal(g, torch.zeros_like(g))
+    assert tk.rqs_bwd.launches == 0
+    x = ops[0].clone().requires_grad_()
+    leaves = [_normal(np.random.default_rng(15), (1, D, n), 0.5)
+              .to(cuda).requires_grad_() for n in (K, K, K - 1)]
+    y, ld = tops.unconstrained_rational_quadratic_spline(
+        x, *leaves, inverse=inverse, tails="linear", tail_bound=3.0)
+    poison()
+    grads = torch.autograd.grad((y, ld), leaves, (ops[5], ops[6]))
+    for g, leaf in zip(grads, leaves):
+        assert g.shape == leaf.shape
+        assert torch.equal(g, torch.zeros_like(g))
+
+
 def _device_kernels(fn):
     """The kernels (and memsets and copies) ``fn`` runs on the card, by
     name, from ``torch.profiler``."""

@@ -126,6 +126,32 @@ def test_shared_plain_matches_summed_planes(K, D, inverse, tb_kind):
         _rel_close(got, p.double().sum(1, keepdim=True))
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("tb_kind", ["float", "per_column"])
+def test_shared_plain_with_no_rows_gives_zero_sums(inverse, tb_kind):
+    """An empty batch, x (0, D): the sums are zeros in the parameters'
+    shape, as JAX's batch sums over no rows are."""
+    K, D = 8, 4
+    x, uw, uh, ud, tb, cty, ctl = _operands(K, D, tb_kind, seed=5)
+    x, cty, ctl = x[:0], cty[:0], ctl[:0]
+
+    def spline(x_, w_, h_, d_):
+        return jsp.unconstrained_rational_quadratic_spline(
+            x_, w_, h_, d_, inverse=inverse, tails="linear",
+            tail_bound=jnp.asarray(tb))
+
+    want = jax.vjp(spline, *(jnp.asarray(a) for a in (x, uw, uh, ud)))[1](
+        (jnp.asarray(cty), jnp.asarray(ctl)))
+    (gx, gw, gh, _), _, g_ud = _shared_plain(x, uw, uh, ud, tb, cty, ctl,
+                                             inverse)
+    assert gx.shape == (0, D)
+    for got, w in zip((gw.movedim(0, -1), gh.movedim(0, -1), g_ud),
+                      want[1:]):
+        assert got.shape == w.shape
+        assert not np.any(np.asarray(w))
+        assert not torch.any(got)
+
+
 def test_shared_plain_refuses_parameters_that_vary_down_the_rows():
     K, rows, cols = 4, 5, 2
     x = torch.zeros(rows, cols)
@@ -244,6 +270,8 @@ def test_shared_path_constants_match_the_cuda_source():
     src = open(os.path.join(os.path.dirname(tk.__file__), os.pardir, "csrc",
                             "rqs_bwd.cu")).read()
     assert f"constexpr int kSlots = {tk.SHARED_BWD_SLOTS};" in src
+    assert (f"constexpr long long kRowsPerBlock = "
+            f"{tk.SHARED_BWD_ROWS_PER_BLOCK};" in src)
     assert (f"constexpr int kMaxSharedCols = {tk.SHARED_PARAM_MAX_COLS};"
             in src)
 
