@@ -56,7 +56,31 @@ toolkit. Phases, one line each:
    with kernel C and once with kernel D as the backward: one step card
    against CPU at B = 4096 on the same base draws, launches per step (A
    24, C or D 24), 50 steps (ms per step, the loss), no host sync in a
-   step, and a profiled step.
+   step, and a profiled step;
+10. graphs: the same two models served and trained as CUDA graphs
+    (``nf_tpu_torch.serving``; the steps ``make_forward_kld_step`` and
+    ``make_reverse_kld_step`` capture on CUDA, their ``.eager`` do not):
+    ``compile_log_prob`` and ``compile_sampler`` of each model at
+    B = 65536 (graph against eager: log_prob within 1e-6 abs, the
+    sampler bitwise for the same seed), ``compile_log_prob_buckets`` at
+    ragged sizes (1, 1000, 40000; the ladder's memory against one
+    graph's), the ``build_nsf`` forward-KLD step at B = 65536 and the
+    circular reverse-KLD step at B = 16384 under C and under D, each
+    with Adam(capturable=True), five captured steps against five eager
+    ones (loss and parameters within 1e-5 abs); for each path wall ms per
+    call or step (median of 10 synchronised calls, eager and graph in
+    turns), one profiled replay (device busy, idle share, the port
+    kernels it launched by name, which must be the path's) and its host
+    syncs (must be 0); the captured step's programmatic edges (kernel
+    C's shared-parameter sum, one per CDF); ``build_nsf`` with every
+    ``LULinear`` cached; the fused-head gate with both ways captured;
+11. mixed: the circular NSF with ``mixed_precision=True`` (bf16 MADEs)
+    under graphs against the same weights in f32 (log_prob within 0.05
+    abs plus 0.05 relative, the JAX package's bar; round trips within
+    0.02), ms per call and per reverse-KLD step against f32 in turns;
+    ``build_nsf(mixed_precision=True)`` at B = 65536, whose log_prob is
+    the f32 model's bitwise (its couplings take the fused head with the
+    f32 trunk).
 
 It then prints one JSON line on the kernels, the card's name and power
 limit as ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device":
@@ -1042,7 +1066,12 @@ def reset_counts():
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in _counters().items()}
+    """Every kernel's launches counted since the last reset: the eager
+    launches, and each graph's at its capture (a replay adds nothing; the
+    profiled replays show what it launched)."""
+    from nf_tpu_torch.ops import launch_counts
+
+    return launch_counts()
 
 
 def perturb(model, seed):
@@ -1156,7 +1185,7 @@ def _step_result(model, batch):
 
     m = copy.deepcopy(model)
     opt = torch.optim.Adam(m.parameters(), lr=1e-3)
-    step = nt.make_forward_kld_step(opt)
+    step = nt.make_forward_kld_step(opt).eager
     reset_counts()
     loss = step(nt.init_train_state(m, opt), batch)
     launches = read_counts()
@@ -1208,7 +1237,7 @@ def phase_training(dev):
     opt = torch.optim.Adam(gm.parameters(), lr=1e-3, capturable=True)
     gstate = nt.init_train_state(gm, opt, with_ema=True)
     guarded = nt.make_forward_kld_step(opt, ema_decay=0.99,
-                                       skip_nonfinite=True)
+                                       skip_nonfinite=True).eager
     x = pool[:8192]
     guarded(gstate, x)
     before = [t.clone() for t in _train_tensors(gstate)]
@@ -1226,7 +1255,7 @@ def phase_training(dev):
     full, accum = copy.deepcopy(model), copy.deepcopy(model)
     for m, xb, k in ((full, x, 1), (accum, nt.reshape_for_accum(x, 2), 2)):
         opt = torch.optim.SGD(m.parameters(), lr=0.0)
-        nt.make_forward_kld_step(opt, accum_steps=k)(
+        nt.make_forward_kld_step(opt, accum_steps=k).eager(
             nt.init_train_state(m, opt), xb)
     accum_err = max(rel_err(a.grad, b.grad) for a, b in
                     zip(accum.parameters(), full.parameters()))
@@ -1237,7 +1266,7 @@ def phase_training(dev):
     # 3. and 5.: it trains; ms per step
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
     state = nt.init_train_state(model, opt)
-    step = nt.make_forward_kld_step(opt)
+    step = nt.make_forward_kld_step(opt).eager
     losses, times = [], []
     torch.cuda.synchronize()
     reset_counts()
@@ -1415,7 +1444,7 @@ def _circular_step_result(model, z0, mode):
     m = copy.deepcopy(model)
     m.q0.sample = lambda n, generator=None: z0
     opt = torch.optim.SGD(m.parameters(), lr=0.0)
-    step = nt.make_reverse_kld_step(opt, num_samples=z0.shape[0])
+    step = nt.make_reverse_kld_step(opt, num_samples=z0.shape[0]).eager
     counts = {}
     tk.set_pallas_bwd_kernel(mode)
     try:
@@ -1463,7 +1492,8 @@ def phase_circular_training(dev):
         model = copy.deepcopy(base)
         opt = torch.optim.Adam(model.parameters(), lr=5e-4)
         state = nt.init_train_state(model, opt)
-        step = nt.make_reverse_kld_step(opt, num_samples=CIRC_TRAIN_BATCH)
+        step = nt.make_reverse_kld_step(
+            opt, num_samples=CIRC_TRAIN_BATCH).eager
         gen = torch.Generator(device=dev).manual_seed(SEED + 32)
         losses, times = [], []
         tk.set_pallas_bwd_kernel(mode)
@@ -1531,6 +1561,510 @@ def _train_tensors(state):
     if state.ema is not None:
         out += list(state.ema.parameters())
     return out
+
+
+# --- CUDA graphs (nf_tpu_torch.serving, the captured steps) and bf16 --------
+
+GRAPH_TOL = 1e-6  # graph against eager, serving: abs
+STEP_TOL = 1e-5  # graph against eager, loss and parameters after the steps
+GRAPH_STEPS = 5
+RAGGED = (1, 1000, 40000)
+MIXED_LP_TOL = 0.05  # bf16 against f32 log_prob: abs, plus as much relative
+MIXED_RT_TOL = 0.02  # bf16 round trips, abs
+# the port kernels a graph may launch, by the names the profiler reports
+# (C's shared path is two launches, rqs_bwd_shared_blocks and _sum; E's is
+# head_rqs_bwd_kernel and reduce_partials)
+PATH_KERNELS = {"build_nsf serving": ("rqs_fwd", "head_rqs_fwd"),
+                "build_nsf step": ("rqs_fwd", "head_rqs_fwd", "rqs_bwd",
+                                   "head_rqs_bwd"),
+                "circular serving": ("rqs_fwd",),
+                "circular step (analytic)": ("rqs_fwd", "rqs_bwd"),
+                "circular step (autodiff)": ("rqs_fwd", "rqs_bwd_autodiff")}
+
+
+def kernel_of(name):
+    """The port kernel a profiled device function belongs to, or None."""
+    if "head_rqs_fwd_kernel" in name:
+        return "head_rqs_fwd"
+    if "head_rqs_bwd_kernel" in name or "reduce_partials" in name:
+        return "head_rqs_bwd"
+    if "AutodiffMath" in name:
+        return "rqs_bwd_autodiff"
+    if "rqs_bwd" in name:
+        return "rqs_bwd"
+    if "rqs_fwd" in name:
+        return "rqs_fwd"
+    return None
+
+
+def replay_report(fn, path):
+    """One profiled call of ``fn`` (a replay): wall and busy ms, the idle
+    share, the device launches of each port kernel by the profiler, all
+    device launches, host syncs of another call. Fails unless the call
+    launched every kernel of ``PATH_KERNELS[path]``, no other port kernel,
+    and synchronised nothing."""
+    syncs = host_syncs(fn)
+    wall, busy, top = profile_call(fn)
+    ours = {}
+    for name, (_, count) in top:
+        k = kernel_of(name)
+        if k is not None:
+            ours[k] = ours.get(k, 0) + count
+    if set(ours) != set(PATH_KERNELS[path]):
+        raise RuntimeError(f"{path}: the profiled replay launched port "
+                           f"kernels {ours}, expected "
+                           f"{PATH_KERNELS[path]}")
+    if syncs:
+        raise RuntimeError(f"{path}: {len(syncs)} host syncs in a replay: "
+                           f"{syncs[0][:200]}")
+    return dict(wall=wall, busy=busy, idle=1 - busy / wall, kernels=ours,
+                launches=sum(c for _, (_, c) in top), syncs=len(syncs),
+                top=top)
+
+
+def _report_text(r):
+    return (f"profiled replay: wall {r['wall']:.3f} ms, device busy "
+            f"{r['busy']:.3f} ms, idle {r['idle']:.1%}, {r['launches']} "
+            f"device launches, port kernels by the profiler {r['kernels']}, "
+            f"host syncs {r['syncs']}; top: "
+            + "; ".join(f"{n[:44]} {t:.3f} x{c}"
+                        for n, (t, c) in r["top"][:5]))
+
+
+def in_turns(eager, graph, reps=10):
+    """Wall ms (median of ``reps`` synchronised calls) of ``eager`` and
+    ``graph`` in turns: eager, graph, graph, eager."""
+    e1 = host_ms(eager, reps)
+    g1 = host_ms(graph, reps)
+    g2 = host_ms(graph, reps)
+    e2 = host_ms(eager, reps)
+    return (e1, e2), (g1, g2)
+
+
+def _turns_text(t, what="call"):
+    (e1, e2), (g1, g2) = t
+    return (f"wall ms per {what} (median of 10, in turns eager, graph, "
+            f"graph, eager): eager {e1:.3f} / {e2:.3f}, graph {g1:.3f} / "
+            f"{g2:.3f}")
+
+
+def _circular_model(mixed=False):
+    """``build_circular_nsf`` at its defaults, perturbed as in the
+    circular serving phase; ``mixed`` the same weights with bf16 MADEs."""
+    import nf_tpu_torch as nt
+
+    model = nt.build_circular_nsf(seed=SEED)
+    perturb(model, SEED + 20)
+    if not mixed:
+        return model
+    f32 = model.state_dict()
+    mp = nt.build_circular_nsf(seed=SEED, mixed_precision=True)
+    mp.load_state_dict({k: f32[k.replace(".net.", ".")]
+                        for k in mp.state_dict()})
+    return mp
+
+
+def _nsf_model(mixed=False):
+    import nf_tpu_torch as nt
+
+    model = nt.build_nsf(dim=2, K=8, hidden=HIDDEN, num_bins=K_BINS,
+                         num_blocks=2, tail_bound=3.0,
+                         mixed_precision=mixed)
+    perturb(model, SEED)
+    return model
+
+
+def _expect_launches(got, want, what):
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise RuntimeError(f"{what}: the capture counted {got}, expected "
+                           f"{full}")
+
+
+def serving_graphs(label, model, x, batch, per_pass, path):
+    """``compile_log_prob`` and ``compile_sampler`` of ``model`` at
+    ``batch`` against eager calls: log_prob within GRAPH_TOL, the sampler
+    bitwise; times in turns; a profiled replay of each. ``per_pass``: the
+    launches the log_prob capture must count (the sampler's: twice A for
+    the circular NSF, as its eager pass)."""
+    import nf_tpu_torch as nt
+
+    out = {}
+    lp_fn = nt.compile_log_prob(model, (batch, 2))
+    _expect_launches(lp_fn.launches, per_pass, f"{label} log_prob graph")
+    with torch.inference_mode():
+        lp_eager = model.log_prob(x)
+    lp_err = max_err(lp_fn(x), lp_eager)
+    if not lp_err <= GRAPH_TOL:
+        raise RuntimeError(f"{label} log_prob: graph vs eager {lp_err:.3g} "
+                           f"> {GRAPH_TOL}")
+
+    def eager_lp():
+        with torch.inference_mode():
+            return model.log_prob(x)
+
+    out["log_prob"] = dict(err=lp_err, turns=in_turns(eager_lp,
+                                                      lambda: lp_fn(x)),
+                           report=replay_report(lambda: lp_fn(x), path),
+                           launches=lp_fn.launches)
+    sampler = nt.compile_sampler(model, batch)
+    for seed in (SEED, SEED + 1):
+        z, log_q = sampler(seed)
+        with torch.inference_mode():
+            ze, lqe = model.sample(batch, generator=torch.Generator(
+                "cuda").manual_seed(seed))
+        if not (torch.equal(z, ze) and torch.equal(log_q, lqe)):
+            raise RuntimeError(f"{label} sample: the graph's draws for seed "
+                               f"{seed} differ from eager "
+                               f"({max_err(z, ze):.3g})")
+    gen = torch.Generator("cuda").manual_seed(SEED)
+
+    def eager_sample():
+        with torch.inference_mode():
+            return model.sample(batch, generator=gen)
+
+    out["sample"] = dict(err=0.0, turns=in_turns(eager_sample,
+                                                 lambda: sampler(SEED)),
+                         report=replay_report(lambda: sampler(SEED), path),
+                         launches=sampler.launches)
+    for what, r in out.items():
+        err = "bitwise" if what == "sample" else f"{r['err']:.3g}"
+        print(f"phase graphs {label} {what} (B = {batch}): graph vs eager "
+              f"{err}; "
+              f"capture counted {r['launches']}; "
+              + _turns_text(r["turns"]) + "; " + _report_text(r["report"]),
+              flush=True)
+    return out
+
+
+def _memory_of(build):
+    """(result, peak bytes allocated while ``build`` ran, bytes reserved
+    after it), both above what was in use before."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    out = build()
+    torch.cuda.synchronize()
+    return (out, torch.cuda.max_memory_allocated() - alloc0,
+            torch.cuda.memory_reserved() - res0)
+
+
+def bucket_graphs(label, model, batch):
+    """``compile_log_prob_buckets`` up to ``batch`` at the ragged sizes:
+    each against eager on the same padded bucket (GRAPH_TOL) and on the
+    request (MODEL_TOL); wall ms per request, graph and eager; the
+    ladder's memory against one graph's."""
+    import nf_tpu_torch as nt
+
+    ladder, peak, reserved = _memory_of(
+        lambda: nt.compile_log_prob_buckets(model, batch, (2,)))
+    one, peak1, reserved1 = _memory_of(
+        lambda: nt.compile_log_prob(model, (batch, 2)))
+    del one
+    rng = np.random.default_rng(SEED + 40)
+    rows = []
+    for n in RAGGED:
+        x = _normal(rng, (n, 2), 1.5, "cuda")
+        b = next(b for b in ladder.buckets if b >= n)
+        padded = torch.cat([x, x[-1:].expand(b - n, 2)])
+        with torch.inference_mode():
+            want = model.log_prob(padded)[:n]
+            plain = model.log_prob(x)
+        got = ladder(x)
+        err, err_req = max_err(got, want), max_err(got, plain)
+        if got.shape != (n,) or not (err <= GRAPH_TOL
+                                     and err_req <= MODEL_TOL):
+            raise RuntimeError(f"{label} buckets n={n}: shape "
+                               f"{tuple(got.shape)}, vs eager on bucket "
+                               f"{b} {err:.3g}, on the request {err_req:.3g}")
+
+        def eager():
+            with torch.inference_mode():
+                return model.log_prob(x)
+
+        t = in_turns(eager, lambda: ladder(x))
+        rows.append(f"n={n} (bucket {b}): vs eager {err:.3g}, vs eager "
+                    f"on the request {err_req:.3g}; " + _turns_text(t))
+    print(f"phase graphs {label} buckets ({len(ladder.buckets)} buckets "
+          f"up to {batch}): " + "; ".join(rows)
+          + f"; memory: ladder peak {peak / 2**20:.1f} MiB allocated while "
+          f"capturing, {reserved / 2**20:.1f} MiB reserved after; one "
+          f"graph at {batch}: peak {peak1 / 2**20:.1f} MiB, "
+          f"{reserved1 / 2**20:.1f} MiB reserved", flush=True)
+    return ladder
+
+
+def step_graphs(label, base, make_step, args_of, path, opt_kw, mode=None):
+    """A captured step against the eager step on twin copies of ``base``:
+    GRAPH_STEPS steps each on the same inputs (``args_of(i, which)``), the
+    loss every step and the parameters after within STEP_TOL; then wall
+    ms per step in turns and a profiled replay."""
+    from nf_tpu_torch.ops import splines_kernel as tk
+    import nf_tpu_torch as nt
+
+    models = [copy.deepcopy(base) for _ in range(2)]
+    opts = [torch.optim.Adam(m.parameters(), capturable=True, **opt_kw)
+            for m in models]
+    states = [nt.init_train_state(m, o) for m, o in zip(models, opts)]
+    graphed = make_step(opts[0])
+    eager = make_step(opts[1]).eager
+    if mode is not None:
+        tk.set_pallas_bwd_kernel(mode)
+    try:
+        loss_err = 0.0
+        for i in range(GRAPH_STEPS):
+            lg = graphed(states[0], *args_of(i, 0))
+            le = eager(states[1], *args_of(i, 1))
+            loss_err = max(loss_err, max_err(lg, le))
+        param_err = max(max_err(p.detach(), q.detach()) for p, q in
+                        zip(models[0].parameters(), models[1].parameters()))
+        if not (loss_err <= STEP_TOL and param_err <= STEP_TOL):
+            raise RuntimeError(f"{label}: graph vs eager over "
+                               f"{GRAPH_STEPS} steps: loss {loss_err:.3g}, "
+                               f"parameters {param_err:.3g} (limit "
+                               f"{STEP_TOL})")
+        i = [GRAPH_STEPS]
+
+        def run(step, state, which):
+            def call():
+                i[0] += 1
+                return step(state, *args_of(i[0], which))
+            return call
+
+        t = in_turns(run(eager, states[1], 1), run(graphed, states[0], 0))
+        report = replay_report(run(graphed, states[0], 0), path)
+    finally:
+        tk.set_pallas_bwd_kernel("analytic")
+    print(f"phase graphs {label}: graph vs eager after {GRAPH_STEPS} "
+          f"steps: loss {loss_err:.3g}, parameters {param_err:.3g} (limit "
+          f"{STEP_TOL}); capture counted {graphed.launches}; "
+          + _turns_text(t, "step") + "; " + _report_text(report),
+          flush=True)
+    return dict(turns=t, report=report, launches=graphed.launches,
+                err=(loss_err, param_err))
+
+
+def gate_graphs(model, dev, flush):
+    """The fused-head gate under graphs: one coupling's transform half,
+    fused (kernel B) and unfused (``torch.matmul`` head, kernel A), each
+    captured as a graph at each B*D; device ms of a replay."""
+    from nf_tpu_torch._graphs import capture, warm_up
+    from nf_tpu_torch.flows.neural_spline.feed import FusedFeed
+
+    prqct = model.flows[0].prqct
+    net = prqct.transform_net
+    rng = np.random.default_rng(SEED + 5)
+    rows = []
+    for batch in (1024, 2048, 4096, 8192, 16384, 65536):
+        x = _normal(rng, (batch, 2), 1.5, dev)
+        id_split, t_split = prqct._split(x)
+        times = {}
+        for way, run in (
+                ("fused", lambda: prqct._coupling_transform(
+                    t_split, FusedFeed(net.features_transposed(id_split)),
+                    False)),
+                ("unfused", lambda: prqct._coupling_transform(
+                    t_split, net(id_split), False))):
+            with torch.no_grad():
+                warm_up(run, dev, 2)
+                graph, _, _ = capture(run, dev)
+            times[way] = device_ms(graph.replay, flush)
+        rows.append(f"B*D={batch}: fused {times['fused']:.4f} ms, unfused "
+                    f"{times['unfused']:.4f} ms")
+    print("phase graphs gate (one coupling's transform half as a graph, "
+          "device ms of a replay): " + "; ".join(rows), flush=True)
+
+
+def programmatic_edges(model, batch):
+    """Capture one eager forward-KLD step of ``model`` with the graph kept:
+    its edges by type (kernel C's shared-parameter sum is a programmatic
+    dependent launch, one per coupling's CDF)."""
+    from nf_tpu_torch._graphs import capture, dependency_types, warm_up
+    import nf_tpu_torch as nt
+
+    m = copy.deepcopy(model)
+    opt = torch.optim.Adam(m.parameters(), lr=1e-3, capturable=True)
+    state = nt.init_train_state(m, opt)
+    eager = nt.make_forward_kld_step(opt).eager
+    warm_up(lambda: eager(state, batch), batch.device, 2)
+    graph, _, launches = capture(lambda: eager(state, batch), batch.device,
+                                 keep_graph=True)
+    return dependency_types(graph), launches
+
+
+def phase_graphs(dev, flush):
+    """Serving and the training steps as CUDA graphs at full width against
+    eager. Returns {path: launches counted from the start of the phase}."""
+    import nf_tpu_torch as nt
+
+    paths = {}
+    # build_nsf serving, the LU cache, the ragged ladder, the gate
+    reset_counts()
+    model = _nsf_model()
+    x = _normal(np.random.default_rng(SEED + 4), (BATCH, 2), 1.5, dev)
+    serving_graphs("build_nsf", model, x, BATCH,
+                   {"rqs_fwd": 8, "head_rqs_fwd": 8}, "build_nsf serving")
+    cached = copy.deepcopy(model)
+    for flow in cached.flows:
+        if hasattr(flow, "linear"):
+            flow.linear = flow.linear.with_cache()
+    fn, fc = (nt.compile_log_prob(m, (BATCH, 2)) for m in (model, cached))
+    cache_err = max_err(fc(x), fn(x))
+    (u1, u2), (c1, c2) = in_turns(lambda: fn(x), lambda: fc(x))
+    print(f"phase graphs build_nsf LU cache (with_cache on every "
+          f"LULinear): log_prob vs uncached {cache_err:.3g}; graph wall "
+          f"ms per call (in turns) uncached {u1:.3f} / {u2:.3f}, cached "
+          f"{c1:.3f} / {c2:.3f}; device ms uncached "
+          f"{device_ms(lambda: fn(x), flush):.4f}, cached "
+          f"{device_ms(lambda: fc(x), flush):.4f}", flush=True)
+    if not cache_err <= MODEL_TOL:
+        raise RuntimeError(f"LU cache: log_prob moved by {cache_err:.3g}")
+    del fn, fc
+    bucket_graphs("build_nsf", model, BATCH)
+    gate_graphs(model, dev, flush)
+    paths["build_nsf serving"] = read_counts()
+
+    # build_nsf forward-KLD step, Adam(capturable=True)
+    reset_counts()
+    target = nt.TwoMoons()
+    pool = target.sample(40 * BATCH, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 10))
+
+    def batch_of(i, which):
+        return (pool[(i % 40) * BATCH:(i % 40 + 1) * BATCH],)
+
+    step = step_graphs("build_nsf forward-KLD step", model,
+                       nt.make_forward_kld_step, batch_of,
+                       "build_nsf step", dict(lr=1e-3))
+    _expect_launches(step["launches"], {"rqs_fwd": 8, "head_rqs_fwd": 8,
+                                        "rqs_bwd": 8, "head_rqs_bwd": 8},
+                     "build_nsf step graph")
+    edges, _ = programmatic_edges(model, pool[:BATCH])
+    if edges["programmatic"] != 8:
+        raise RuntimeError(f"kernel C's programmatic launches: the captured "
+                           f"step's edges {edges}, expected 8 programmatic")
+    print(f"phase graphs kernel C programmatic launch under capture: the "
+          f"step graph's edges {edges} (one programmatic edge per CDF "
+          f"backward, 8 expected)", flush=True)
+    paths["build_nsf step"] = read_counts()
+
+    # circular NSF serving and its reverse-KLD step under C and D
+    reset_counts()
+    circ = _circular_model()
+    rng = np.random.default_rng(SEED + 21)
+    xc = np.stack([rng.uniform(-np.pi, np.pi, CIRC_BATCH),
+                   rng.standard_normal(CIRC_BATCH) * 1.5], axis=1)
+    xc = torch.from_numpy(xc.astype(np.float32)).to(dev)
+    serving_graphs("circular", circ, xc, CIRC_BATCH, {"rqs_fwd": 12},
+                   "circular serving")
+    bucket_graphs("circular", circ, CIRC_BATCH)
+    paths["circular serving"] = read_counts()
+    circ.p = GaussVonMises()
+    for mode, kernel in (("analytic", "rqs_bwd"),
+                         ("autodiff", "rqs_bwd_autodiff")):
+        reset_counts()
+        gens = [torch.Generator(device=dev).manual_seed(SEED + 32)
+                for _ in range(2)]
+        step = step_graphs(
+            f"circular reverse-KLD step ({mode}, B = {CIRC_TRAIN_BATCH})",
+            circ, lambda opt: nt.make_reverse_kld_step(
+                opt, num_samples=CIRC_TRAIN_BATCH),
+            lambda i, which: (gens[which],),
+            f"circular step ({mode})", dict(lr=5e-4), mode)
+        _expect_launches(step["launches"], {"rqs_fwd": 24, kernel: 24},
+                         f"circular step graph ({mode})")
+        paths[f"circular step ({mode})"] = read_counts()
+    return paths
+
+
+def phase_mixed(dev, flush):
+    """``mixed_precision=True``: the circular NSF under graphs against the
+    same weights in f32 (log_prob within MIXED_LP_TOL abs plus as much
+    relative, the JAX package's bar; round trips within MIXED_RT_TOL), ms
+    per call and per reverse-KLD step against the f32 graphs in turns;
+    ``build_nsf`` at B = 65536, whose couplings take the fused head with
+    the f32 trunk: log_prob bitwise the f32 model's."""
+    import nf_tpu_torch as nt
+
+    f32, mp = _circular_model(), _circular_model(mixed=True)
+    rng = np.random.default_rng(SEED + 21)
+    xc = np.stack([rng.uniform(-np.pi, np.pi, CIRC_BATCH),
+                   rng.standard_normal(CIRC_BATCH) * 1.5], axis=1)
+    xc = torch.from_numpy(xc.astype(np.float32)).to(dev)
+    lp32_fn = nt.compile_log_prob(f32, (CIRC_BATCH, 2))
+    lp_fn = nt.compile_log_prob(mp, (CIRC_BATCH, 2))
+    lp32, lp = lp32_fn(xc), lp_fn(xc)
+    with torch.inference_mode():
+        eager_err = max_err(lp, mp.log_prob(xc))
+        x_back = mp.forward(mp.inverse(xc))
+    d = x_back - xc
+    d[:, 0] = torch.remainder(d[:, 0] + np.pi, 2 * np.pi) - np.pi
+    rt = float(d.abs().max())
+    diff = (lp - lp32).abs()
+    lp_abs = float(diff.max())
+    beyond = float((diff > MIXED_LP_TOL).float().mean())
+    within = bool((diff <= MIXED_LP_TOL + MIXED_LP_TOL * lp32.abs()).all())
+    if not (within and rt <= MIXED_RT_TOL and eager_err <= GRAPH_TOL):
+        raise RuntimeError(f"mixed precision circular: log_prob vs f32 max "
+                           f"{lp_abs:.3g} (within abs+rel "
+                           f"{MIXED_LP_TOL}: {within}), round trip "
+                           f"{rt:.3g} (limit {MIXED_RT_TOL}), graph vs "
+                           f"eager {eager_err:.3g}")
+    s32, smp = (nt.compile_sampler(m, CIRC_BATCH) for m in (f32, mp))
+    t_lp = in_turns(lambda: lp32_fn(xc), lambda: lp_fn(xc))
+    t_s = in_turns(lambda: s32(SEED), lambda: smp(SEED))
+    dev_lp = (device_ms(lambda: lp32_fn(xc), flush),
+              device_ms(lambda: lp_fn(xc), flush))
+    report = replay_report(lambda: lp_fn(xc), "circular serving")
+    mp.p = f32.p = GaussVonMises()
+    gens = [torch.Generator(device=dev).manual_seed(SEED + 33)
+            for _ in range(2)]
+    steps = []
+    for m, g in ((f32, gens[0]), (mp, gens[1])):
+        opt = torch.optim.Adam(m.parameters(), lr=5e-4, capturable=True)
+        st = nt.init_train_state(m, opt)
+        step = nt.make_reverse_kld_step(opt, num_samples=CIRC_TRAIN_BATCH)
+        steps.append(lambda step=step, st=st, g=g: step(st, g))
+        for _ in range(3):  # two eager warm-up steps, then the capture
+            steps[-1]()
+    t_step = in_turns(*steps)
+    step_report = replay_report(steps[1], "circular step (analytic)")
+    (a1, a2), (b1, b2) = t_lp
+    (c1, c2), (d1, d2) = t_s
+    (e1, e2), (f1, f2) = t_step
+    print(f"phase mixed circular (bf16 MADEs, graphs, B = {CIRC_BATCH}): "
+          f"log_prob vs f32 max abs {lp_abs:.3g}, {beyond:.2%} of rows "
+          f"beyond {MIXED_LP_TOL} abs, all within {MIXED_LP_TOL} abs + "
+          f"{MIXED_LP_TOL} relative; round trip {rt:.3g} (limit "
+          f"{MIXED_RT_TOL}); graph vs eager {eager_err:.3g}; wall ms (in "
+          f"turns f32, bf16, bf16, f32): log_prob f32 {a1:.3f} / {a2:.3f}, "
+          f"bf16 {b1:.3f} / {b2:.3f}; sample f32 {c1:.3f} / {c2:.3f}, bf16 "
+          f"{d1:.3f} / {d2:.3f}; reverse-KLD step (B = {CIRC_TRAIN_BATCH}) "
+          f"f32 {e1:.3f} / {e2:.3f}, bf16 {f1:.3f} / {f2:.3f}; device ms "
+          f"log_prob f32 {dev_lp[0]:.4f}, bf16 {dev_lp[1]:.4f}; bf16 "
+          f"log_prob " + _report_text(report) + "; bf16 step "
+          + _report_text(step_report), flush=True)
+
+    n32, nmp = _nsf_model(), _nsf_model(mixed=True)
+    x = _normal(np.random.default_rng(SEED + 4), (BATCH, 2), 1.5, dev)
+    fn32, fnmp = (nt.compile_log_prob(m, (BATCH, 2)) for m in (n32, nmp))
+    same = torch.equal(fnmp(x), fn32(x))
+    with torch.inference_mode():
+        same_eager = torch.equal(nmp.log_prob(x), n32.log_prob(x))
+    if not (same and same_eager):
+        raise RuntimeError("build_nsf(mixed_precision=True) at B = 65536: "
+                           "log_prob differs from the f32 model's; its "
+                           "couplings should take the fused head with the "
+                           "f32 trunk")
+    (g1, g2), (h1, h2) = in_turns(lambda: fn32(x), lambda: fnmp(x))
+    print(f"phase mixed build_nsf (mixed_precision=True, B = {BATCH}): "
+          f"log_prob bitwise the f32 model's, eager and graph (the fused "
+          f"head keeps the f32 trunk); graph wall ms f32 {g1:.3f} / "
+          f"{g2:.3f}, mixed {h1:.3f} / {h2:.3f}", flush=True)
 
 
 def main():
@@ -1610,6 +2144,10 @@ def main():
                                              ("rqs_fwd", "rqs_bwd"))
     paths["circular training (autodiff)"] = (circular["autodiff"],
                                              ("rqs_fwd", "rqs_bwd_autodiff"))
+    graph_paths = phase_graphs(dev, flush)
+    for path, counts in graph_paths.items():
+        paths[f"graphs: {path}"] = (counts, PATH_KERNELS[path])
+    phase_mixed(dev, flush)
     print("launches: " + "; ".join(f"{k} {v[0]}" for k, v in paths.items()),
           flush=True)
     for path, (counts, needed) in paths.items():

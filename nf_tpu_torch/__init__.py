@@ -10,7 +10,11 @@ plain PyTorch versions of the kernels and is reached by asking for it
 ``parallel.make_reverse_kld_step`` (variational, against the model's
 target); on CUDA their backward goes through the kernels' backward
 kernels, the analytic ones or, under
-``ops.splines_kernel.set_pallas_bwd_kernel("autodiff")``, kernel D.
+``ops.splines_kernel.set_pallas_bwd_kernel("autodiff")``, kernel D. On
+CUDA each step, and each served function of :mod:`nf_tpu_torch.serving`
+(``compile_log_prob``, ``compile_sampler``, ``compile_log_prob_buckets``),
+runs as one CUDA graph per batch shape. ``mixed_precision=True`` on the
+builders runs the conditioners in bfloat16 (``nets.MixedPrecision``).
 """
 
 from ._device import resolve_device
@@ -18,6 +22,7 @@ from .compat import load_reference_state_dict
 from .core import NormalizingFlow
 from .distributions import TwoMoons
 from .models import build_circular_nsf, build_nsf
+from .nets import MixedPrecision
 from .parallel import (
     TrainState,
     ema_model,
@@ -27,9 +32,17 @@ from .parallel import (
     model_of_state,
     reshape_for_accum,
 )
+from .serving import (
+    BucketedFn,
+    CompiledFn,
+    compile_log_prob,
+    compile_log_prob_buckets,
+    compile_sampler,
+)
 
-__all__ = ["NormalizingFlow", "TrainState", "TwoMoons", "build_circular_nsf",
-           "build_nsf", "ema_model", "init_train_state",
-           "load_reference_state_dict", "make_forward_kld_step",
-           "make_reverse_kld_step", "model_of_state", "reshape_for_accum",
-           "resolve_device"]
+__all__ = ["BucketedFn", "CompiledFn", "MixedPrecision", "NormalizingFlow",
+           "TrainState", "TwoMoons", "build_circular_nsf", "build_nsf",
+           "compile_log_prob", "compile_log_prob_buckets", "compile_sampler",
+           "ema_model", "init_train_state", "load_reference_state_dict",
+           "make_forward_kld_step", "make_reverse_kld_step",
+           "model_of_state", "reshape_for_accum", "resolve_device"]

@@ -9,6 +9,8 @@ a MADE with a bin-major head orders its final layer's rows param-major
 rows (weight, bias and, for a MADE, the ``mask`` and ``degrees`` buffers)
 are permuted on load. Every MADE mask comes from the state dict: a
 ``permute_mask`` order drawn by the JAX package cannot be redrawn here.
+A conditioner wrapped in ``MixedPrecision`` holds its net under ``net.``,
+a level the reference names do not have; those keys are mapped across.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from .nets.made import MADE
+from .nets.precision import MixedPrecision
 from .nets.resnet import ResidualNet
 
 
@@ -28,13 +31,30 @@ def _head_to_bin_major(arr, head):
         .reshape(arr.shape)
 
 
+def _reference_names(model, own):
+    """``{own key: reference key}``: a :class:`MixedPrecision` wrapper's
+    ``net.`` level is not in the reference's names, as the JAX exporter
+    passes through the wrapper (``nf_tpu/compat_export.py:377``)."""
+    wrapped = [f"{name}." if name else "" for name, mod in
+               model.named_modules() if isinstance(mod, MixedPrecision)]
+    names = {}
+    for key in own:
+        ref = key
+        for prefix in sorted(wrapped, key=len, reverse=True):
+            if ref.startswith(prefix + "net."):
+                ref = prefix + ref[len(prefix) + 4:]
+        names[key] = ref
+    return names
+
+
 def load_reference_state_dict(model, state_dict):
     """Copy ``state_dict`` into ``model`` in place and return ``model``.
     Raises ``KeyError`` on missing or unused keys and ``ValueError`` on a
     shape mismatch."""
     own = model.state_dict()
-    missing = sorted(set(own) - set(state_dict))
-    unused = sorted(set(state_dict) - set(own))
+    names = _reference_names(model, own)
+    missing = sorted(set(names.values()) - set(state_dict))
+    unused = sorted(set(state_dict) - set(names.values()))
     if missing or unused:
         raise KeyError(f"state dict does not match the model: missing "
                        f"{missing[:10]}, unused {unused[:10]}")
@@ -45,13 +65,14 @@ def load_reference_state_dict(model, state_dict):
              and mod.bin_major_head is not None}
     converted = {}
     for name, tensor in own.items():
-        value = np.asarray(state_dict[name])
+        value = np.asarray(state_dict[names[name]])
         head = heads.get(name[:name.rfind(".") + 1])
         if head is not None:
             value = _head_to_bin_major(value, head)
         if tuple(value.shape) != tuple(tensor.shape):
-            raise ValueError(f"{name}: shape {value.shape} in the state "
-                             f"dict, {tuple(tensor.shape)} in the model")
+            raise ValueError(f"{names[name]}: shape {value.shape} in the "
+                             f"state dict, {tuple(tensor.shape)} in the "
+                             f"model")
         converted[name] = torch.from_numpy(np.array(value))
     # through load_state_dict, so that a MADE layer's numpy copy of its
     # degrees follows the loaded buffer

@@ -3,6 +3,7 @@ reference ``normflows/flows/mixing.py``)."""
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -38,10 +39,15 @@ class _RandomPermutation(_Permutation):
         super().__init__(torch.randperm(features, generator=generator), dim)
 
 
+_CACHE = ("cache_weight", "cache_inverse", "cache_logabsdet")
+
+
 class LULinear(Flow):
     """``y = L U x + b`` with unit-diagonal L and ``diag(U) = softplus(raw)
     + eps`` (reference ``mixing.py:368-532``); the inverse is two
-    triangular solves and the log-det is ``sum(log diag(U))``."""
+    triangular solves and the log-det is ``sum(log diag(U))``.
+    :meth:`with_cache` returns a copy that keeps the weight, its inverse
+    and the log-det precomputed."""
 
     def __init__(self, features, eps=1e-3, dtype=torch.float32):
         super().__init__()
@@ -60,6 +66,9 @@ class LULinear(Flow):
                              persistent=False)
         self.features = features
         self.eps = eps
+        # with_cache's weight, inverse and log-det; None when not cached
+        for name in _CACHE:
+            self.register_buffer(name, None, persistent=False)
 
     @property
     def upper_diag(self):
@@ -81,20 +90,55 @@ class LULinear(Flow):
     def logabsdet(self):
         return torch.sum(torch.log(self.upper_diag))
 
+    def with_cache(self):
+        """A new layer whose weight ``L U``, its inverse (two triangular
+        solves against the identity) and log-det are computed once, for
+        serving (``mixing.py:299``); ``self`` is unchanged. The cache is
+        computed without gradient and is not part of the state dict;
+        training goes on through the uncached layer."""
+        new = copy.deepcopy(self)
+        with torch.no_grad():
+            lower, upper = self._create_lower_upper()
+            eye = torch.eye(self.features, dtype=lower.dtype,
+                            device=lower.device)
+            l_inv = torch.linalg.solve_triangular(lower, eye, upper=False,
+                                                  unitriangular=True)
+            new.cache_weight = lower @ upper
+            new.cache_inverse = torch.linalg.solve_triangular(upper, l_inv,
+                                                              upper=True)
+            new.cache_logabsdet = self.logabsdet()
+        return new
+
+    def without_cache(self):
+        """A new layer without the cache (``mixing.py:310``); ``self`` is
+        unchanged."""
+        new = copy.deepcopy(self)
+        for name in _CACHE:
+            setattr(new, name, None)
+        return new
+
     def forward(self, z, context=None):
-        lower, upper = self._create_lower_upper()
-        out = (z @ upper.T) @ lower.T + self.bias
-        ld = self.logabsdet()
+        if self.cache_weight is not None:
+            out = z @ self.cache_weight.T + self.bias
+            ld = self.cache_logabsdet
+        else:
+            lower, upper = self._create_lower_upper()
+            out = (z @ upper.T) @ lower.T + self.bias
+            ld = self.logabsdet()
         return out, torch.broadcast_to(ld, (z.shape[0],)).to(z.dtype)
 
     def inverse(self, z, context=None):
-        lower, upper = self._create_lower_upper()
-        rhs = (z - self.bias).T
-        sol = torch.linalg.solve_triangular(lower, rhs, upper=False,
-                                            unitriangular=True)
-        sol = torch.linalg.solve_triangular(upper, sol, upper=True)
-        ld = -self.logabsdet()
-        return sol.T, torch.broadcast_to(ld, (z.shape[0],)).to(z.dtype)
+        if self.cache_inverse is not None:
+            out = (z - self.bias) @ self.cache_inverse.T
+            ld = -self.cache_logabsdet
+        else:
+            lower, upper = self._create_lower_upper()
+            rhs = (z - self.bias).T
+            sol = torch.linalg.solve_triangular(lower, rhs, upper=False,
+                                                unitriangular=True)
+            out = torch.linalg.solve_triangular(upper, sol, upper=True).T
+            ld = -self.logabsdet()
+        return out, torch.broadcast_to(ld, (z.shape[0],)).to(z.dtype)
 
 
 class LULinearPermute(Flow):

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ...nets.made import MADE
+from ...nets.precision import MixedPrecision
 from ...ops import rational_quadratic_spline, splines
 from ...ops import unconstrained_rational_quadratic_spline
 from ...utils.nn import PeriodicFeaturesElementwise, sum_except_batch
@@ -31,7 +32,9 @@ class MaskedPiecewiseRationalQuadraticAutoregressive(Autoregressive):
     through periodic-feature preprocessing (reference
     ``neural_spline/autoregressive.py:17-134``). ``tails``: None (the
     spline on [0, 1], no tails), 'linear', 'circular', or a per-feature
-    list of those two; ``tail_bound`` a float or one per feature."""
+    list of those two; ``tail_bound`` a float or one per feature.
+    ``mixed_precision=True`` runs the MADE in bfloat16
+    (:class:`~nf_tpu_torch.nets.MixedPrecision`)."""
 
     def __init__(self, features, hidden_features, context_features=None,
                  num_bins=10, tails=None, tail_bound=1.0, num_blocks=2,
@@ -41,7 +44,8 @@ class MaskedPiecewiseRationalQuadraticAutoregressive(Autoregressive):
                  min_bin_width=splines.DEFAULT_MIN_BIN_WIDTH,
                  min_bin_height=splines.DEFAULT_MIN_BIN_HEIGHT,
                  min_derivative=splines.DEFAULT_MIN_DERIVATIVE,
-                 bin_major_head=False, generator=None, dtype=torch.float32):
+                 mixed_precision=False, bin_major_head=False, generator=None,
+                 dtype=torch.float32):
         if tails == "linear":
             mult = num_bins * 3 - 1
         elif tails == "circular":
@@ -81,6 +85,8 @@ class MaskedPiecewiseRationalQuadraticAutoregressive(Autoregressive):
                 made.final_layer.weight.zero_()
                 made.final_layer.bias.fill_(
                     splines.linear_tail_constant(min_derivative))
+        if mixed_precision:
+            made = MixedPrecision(made)
         super().__init__(made)
 
         tb_arr = _tail_bound_tensor(tail_bound)

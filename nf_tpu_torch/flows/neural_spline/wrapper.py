@@ -12,6 +12,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...nets.precision import MixedPrecision
 from ...nets.resnet import ResidualNet
 from ...ops.splines import DEFAULT_MIN_DERIVATIVE, linear_tail_constant
 from ...utils.masks import create_alternating_binary_mask
@@ -51,13 +52,16 @@ def _head_splits(mask, num_bins, tails):
 
 class CoupledRationalQuadraticSpline(Flow):
     """NSF coupling layer with a ResidualNet conditioner
-    (reference ``wrapper.py:14-85``)."""
+    (reference ``wrapper.py:14-85``). ``mixed_precision=True`` wraps the
+    conditioner in :class:`~nf_tpu_torch.nets.MixedPrecision` (bfloat16
+    products; the fused head's trunk stays float32, as in the JAX
+    package)."""
 
     def __init__(self, num_input_channels, num_blocks, num_hidden_channels,
                  num_context_channels=None, num_bins=8, tails="linear",
                  tail_bound=3.0, activation=F.relu, reverse_mask=False,
-                 init_identity=True, bin_major_head=True, generator=None,
-                 dtype=torch.float32):
+                 init_identity=True, mixed_precision=False,
+                 bin_major_head=True, generator=None, dtype=torch.float32):
         super().__init__()
         mask = np.asarray(create_alternating_binary_mask(
             num_input_channels, even=reverse_mask))
@@ -72,6 +76,8 @@ class CoupledRationalQuadraticSpline(Flow):
                 bin_major_head=head, generator=generator, dtype=dtype)
             if init_identity:
                 net = _identity_init_resnet(net)
+            if mixed_precision:
+                net = MixedPrecision(net)
             return net
 
         self.prqct = PiecewiseRationalQuadraticCoupling(
@@ -97,8 +103,9 @@ class AutoregressiveRationalQuadraticSpline(Flow):
     def __init__(self, num_input_channels, num_blocks, num_hidden_channels,
                  num_context_channels=None, num_bins=8, tail_bound=3.0,
                  activation=F.relu, dropout_probability=0.0,
-                 permute_mask=False, init_identity=True, bin_major_head=True,
-                 generator=None, dtype=torch.float32):
+                 permute_mask=False, init_identity=True,
+                 mixed_precision=False, bin_major_head=True, generator=None,
+                 dtype=torch.float32):
         super().__init__()
         self.mprqat = MaskedPiecewiseRationalQuadraticAutoregressive(
             num_input_channels, num_hidden_channels,
@@ -107,8 +114,8 @@ class AutoregressiveRationalQuadraticSpline(Flow):
             use_residual_blocks=True, random_mask=False,
             permute_mask=permute_mask, activation=activation,
             dropout_probability=dropout_probability,
-            init_identity=init_identity, bin_major_head=bin_major_head,
-            generator=generator, dtype=dtype)
+            init_identity=init_identity, mixed_precision=mixed_precision,
+            bin_major_head=bin_major_head, generator=generator, dtype=dtype)
 
     def forward(self, z, context=None):
         z, log_det = self.mprqat.inverse(z, context=context)
@@ -128,8 +135,9 @@ class CircularAutoregressiveRationalQuadraticSpline(
     def __init__(self, num_input_channels, num_blocks, num_hidden_channels,
                  ind_circ, num_context_channels=None, num_bins=8,
                  tail_bound=3.0, activation=F.relu, dropout_probability=0.0,
-                 permute_mask=True, init_identity=True, bin_major_head=True,
-                 generator=None, dtype=torch.float32):
+                 permute_mask=True, init_identity=True,
+                 mixed_precision=False, bin_major_head=True, generator=None,
+                 dtype=torch.float32):
         Flow.__init__(self)
         tails = ["circular" if i in ind_circ else "linear"
                  for i in range(num_input_channels)]
@@ -140,5 +148,5 @@ class CircularAutoregressiveRationalQuadraticSpline(
             use_residual_blocks=True, random_mask=False,
             permute_mask=permute_mask, activation=activation,
             dropout_probability=dropout_probability,
-            init_identity=init_identity, bin_major_head=bin_major_head,
-            generator=generator, dtype=dtype)
+            init_identity=init_identity, mixed_precision=mixed_precision,
+            bin_major_head=bin_major_head, generator=generator, dtype=dtype)

@@ -5,7 +5,9 @@ from .made import (
     MaskedResidualBlock,
 )
 from .mlp import Linear
+from .precision import MixedPrecision
 from .resnet import ResidualBlock, ResidualNet
 
 __all__ = ["Linear", "MADE", "MaskedFeedforwardBlock", "MaskedLinear",
-           "MaskedResidualBlock", "ResidualBlock", "ResidualNet"]
+           "MaskedResidualBlock", "MixedPrecision", "ResidualBlock",
+           "ResidualNet"]

@@ -109,10 +109,24 @@ def build(names):
 
 
 def load(name):
-    """The ``ctypes`` handle of library ``name``, built if needed."""
+    """The ``ctypes`` handle of library ``name``, built if needed.
+
+    Building and loading run ``nvcc`` and initialise the library's CUDA
+    runtime, which a stream capture may not record: a CUDA graph
+    (``nf_tpu_torch.serving``, the captured training steps) loads every
+    library it needs in its eager warm-up calls, and a library first
+    asked for while the current stream is capturing raises."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
+            import torch
+
+            if (torch.cuda.is_available()
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError(
+                    f"CUDA library {name} is not loaded and the stream is "
+                    f"capturing a graph: the warm-up calls before the "
+                    f"capture must run the path that loads it")
             build([name])
             lib = ctypes.CDLL(_lib_path(name))
             _LIBS[name] = lib

@@ -27,7 +27,8 @@ Beside the kernels:
 * :func:`fused_head_rqs`, the wrapper: CUDA -> :class:`_HeadRQSFunction`
   (kernel B forward, kernel E backward) or raise, CPU -> the plain version;
 * ``fused_head_rqs.launches`` and ``fused_head_rqs_bwd.launches``, the
-  counts of launches;
+  counts of launches, kept on the host (a CUDA graph adds to them once,
+  at its capture);
 * :func:`effective_head` and :func:`_build_d_list`, ported from the JAX
   module (:329, :93).
 """

@@ -28,7 +28,9 @@ Beside the kernels:
   :func:`set_pallas_bwd_kernel` picks it here too, and
   :func:`rqs_vjp_plain` is its plain version;
 * ``rqs_fwd.launches``, ``rqs_bwd.launches`` and
-  ``rqs_bwd_autodiff.launches``, the counts of launches.
+  ``rqs_bwd_autodiff.launches``, the counts of launches, kept on the host
+  (a CUDA graph adds to them once, at its capture; ``ops.launch_counts``
+  reads all five kernels' counts).
 
 Both layouts of the JAX package enter here: :func:`fused_unconstrained_rqs`
 (bin-minor ``(..., K)``, ``splines_pallas.py:605``) and

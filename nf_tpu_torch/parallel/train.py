@@ -10,6 +10,30 @@ and a guard that discards a non-finite update. PyTorch updates in place,
 so a step mutates ``state`` and returns only the loss, a device tensor;
 nothing in it waits for the device.
 
+On CUDA a step is one CUDA graph per batch shape, as the JAX package's
+steps are one ``jax.jit`` executable each (``train.py:283-296,416-419``):
+the first two calls at a shape are eager steps on a side stream (they build the kernels and create the optimizer's state), the
+next one captures the whole step (forward, backward through the spline
+kernels, ``optimizer.step()``, the EMA, the non-finite guard, the
+accumulation loop) and replays it once, and every later call copies its
+batch into the graph's input and replays. A captured step needs:
+
+* an optimizer whose state lives on the device: Adam and its kin built
+  with ``capturable=True`` (others are refused);
+* the optimizer's hyperparameters as they were at the capture: ``lr``
+  and the rest of each ``param_group`` are baked into the graph, and a
+  change raises (a tensor ``lr`` the graph reads may change in place);
+* the backward kernel mode (``set_pallas_bwd_kernel``) of the capture; a
+  change raises;
+* for the reverse step, the generator of its first call, registered with
+  the graph (another one raises); ``beta_schedule(state.step)`` is
+  written into a device scalar before each replay.
+
+A capture that fails raises; nothing runs eagerly in its place. On the
+CPU the steps are eager. ``step.eager`` is the uncaptured step, and
+``step.launches`` the kernel launches of one replay, counted at the last
+capture.
+
 Not ported yet: meshes, state shardings, donation and ``shard_batch``
 (the ``parallel/`` item, on ``torch.distributed``); keyed losses,
 ``post_update`` and carried buffers (the residual-flow slice). Those
@@ -24,6 +48,9 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+
+from .._graphs import WARMUP_CALLS, capture, warm_up
+from ..ops.splines_kernel import get_pallas_bwd_kernel
 
 _NO_EMA = ("state has no EMA params: build it with init_train_state(..., "
            "with_ema=True) and a step factory with ema_decay set")
@@ -237,6 +264,10 @@ def make_forward_kld_step(optimizer, loss_fn: Optional[Callable] = None,
     momentum SGD start from. An optimizer with host-side state (Adam
     without ``capturable=True`` on CUDA) is refused. The non-finite loss is
     still returned.
+
+    On CUDA the step runs as one CUDA graph per batch shape after two
+    eager calls at that shape (the module's notes say what a captured
+    step needs).
     """
     _no_post_update(post_update)
     if with_key:
@@ -246,7 +277,7 @@ def make_forward_kld_step(optimizer, loss_fn: Optional[Callable] = None,
     if loss_fn is None:
         loss_fn = _default_loss
 
-    def step(state: TrainState, batch):
+    def eager(state: TrainState, batch):
         def loss_of(model, i):
             return loss_fn(model, _microbatch(batch, i)
                            if accum_steps > 1 else batch)
@@ -254,7 +285,7 @@ def make_forward_kld_step(optimizer, loss_fn: Optional[Callable] = None,
         return _step_body(state, optimizer, loss_of, accum_steps, ema_decay,
                           skip_nonfinite)
 
-    return step
+    return _ForwardStep(optimizer, eager)
 
 
 def make_reverse_kld_step(optimizer, num_samples: int, beta_schedule=None,
@@ -278,6 +309,10 @@ def make_reverse_kld_step(optimizer, num_samples: int, beta_schedule=None,
     ``mesh``, ``donate`` and ``post_update`` raise: the sharded step
     arrives with the port's ``torch.distributed`` item, ``post_update``
     with the residual-flow slice.
+
+    On CUDA the step runs as one CUDA graph after two eager calls; every
+    call must pass the generator of the first (the graph draws from it,
+    registered at the capture).
     """
     _no_post_update(post_update)
     if mesh is not None or donate:
@@ -292,12 +327,205 @@ def make_reverse_kld_step(optimizer, num_samples: int, beta_schedule=None,
         def beta_schedule(step):
             return 1.0
 
-    def step(state: TrainState, generator):
-        beta = beta_schedule(state.step)
+    def eager(state: TrainState, generator, beta=None):
+        if beta is None:
+            beta = beta_schedule(state.step)
         return _step_body(
             state, optimizer,
             lambda model, i: model.reverse_kld(
                 micro, beta=beta, score_fn=score_fn, generator=generator),
             accum_steps, ema_decay, skip_nonfinite)
 
-    return step
+    return _ReverseStep(optimizer, eager, beta_schedule)
+
+
+# --- captured steps -----------------------------------------------------------
+
+def _check_capturable(optimizer):
+    """A captured ``optimizer.step()`` must keep the optimizer's state on
+    the device: Adam and its kin only with ``capturable=True``."""
+    for group in optimizer.param_groups:
+        if "capturable" in group and not group["capturable"]:
+            raise ValueError(
+                f"a captured step keeps the optimizer's state on the "
+                f"device, and this {type(optimizer).__name__} keeps its "
+                f"step count on the host: build it with capturable=True")
+
+
+def _hyperparameters(optimizer):
+    """Every param_group's settings and parameters, as a captured step
+    bakes them in."""
+    return [({k: v for k, v in g.items() if k != "params"},
+             [id(p) for p in g["params"]]) for g in optimizer.param_groups]
+
+
+def _same(a, b):
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return a is b
+    return type(a) is type(b) and a == b
+
+
+def _same_hyperparameters(a, b):
+    return len(a) == len(b) and all(
+        ids_a == ids_b and set(ga) == set(gb)
+        and all(_same(ga[k], gb[k]) for k in ga)
+        for (ga, ids_a), (gb, ids_b) in zip(a, b))
+
+
+class _Graph:
+    """One captured step: the graph, its static inputs and loss, and what
+    it was captured with."""
+
+    def __init__(self, state, generator=None):
+        self.model, self.ema = state.model, state.ema
+        self.generator = generator
+        self.calls = 0  # eager warm-up steps taken
+        self.graph = None
+        self.inputs = []
+        self.batch = None
+        self.loss = None
+        self.launches = {}
+        self.mode = None
+        self.hyper = None
+        self.beta = None
+
+
+class _GraphedStep:
+    """A training step that runs on CUDA as one CUDA graph per batch shape
+    (the module's notes); on the CPU, and as ``eager``, the uncaptured
+    step."""
+
+    def __init__(self, optimizer, eager):
+        self.optimizer = optimizer
+        self.eager = eager
+        self.graphs = {}
+        self._last = None
+
+    @property
+    def launches(self):
+        """``{kernel: launches}`` of one replay of the last captured
+        graph, counted at its capture (empty before a capture)."""
+        return dict(self._last.launches) if self._last is not None else {}
+
+    # per step kind: the graph's key, a new graph, its inputs and body
+    def _key(self, args):
+        raise NotImplementedError()
+
+    def _new(self, state, args):
+        return _Graph(state)
+
+    def _load(self, entry, state, args, first):
+        raise NotImplementedError()
+
+    def _captured(self, entry, state):
+        raise NotImplementedError()
+
+    def __call__(self, state, *args):
+        device = next(state.model.parameters()).device
+        if device.type != "cuda":
+            return self.eager(state, *args)
+        key = self._key(args)
+        entry = self.graphs.get(key)
+        if entry is None:
+            _check_capturable(self.optimizer)
+            entry = self.graphs[key] = self._new(state, args)
+        self._check(entry, state, args)
+        if entry.graph is None and entry.calls < WARMUP_CALLS:
+            entry.calls += 1
+            return warm_up(lambda: self.eager(state, *args), device, 1)
+        if entry.graph is None:
+            entry.mode = get_pallas_bwd_kernel()
+            entry.hyper = _hyperparameters(self.optimizer)
+            self._load(entry, state, args, first=True)
+            entry.graph, entry.loss, entry.launches = capture(
+                lambda: self._captured(entry, state), device,
+                generators=(entry.generator,)
+                if entry.generator is not None else ())
+            self._last = entry
+        else:
+            if get_pallas_bwd_kernel() != entry.mode:
+                raise RuntimeError(
+                    f"the step was captured with the {entry.mode!r} "
+                    f"backward kernel and the mode is now "
+                    f"{get_pallas_bwd_kernel()!r}: build a new step for it")
+            if not _same_hyperparameters(_hyperparameters(self.optimizer),
+                                         entry.hyper):
+                raise RuntimeError(
+                    "the optimizer's param_groups changed since the step "
+                    "was captured (their values are baked into the graph); "
+                    "build a new step, or give the optimizer a tensor lr "
+                    "and change it in place")
+            self._load(entry, state, args, first=False)
+            state.step += 1
+        entry.graph.replay()
+        return entry.loss.clone()
+
+    def _check(self, entry, state, args):
+        if state.model is not entry.model or state.ema is not entry.ema:
+            raise ValueError("this step was captured for another state's "
+                             "model; build a new step for this state")
+
+
+def _batch_tensors(batch):
+    parts = batch if isinstance(batch, (tuple, list)) else (batch,)
+    if not all(isinstance(t, torch.Tensor) for t in parts):
+        raise TypeError("a captured step takes a tensor batch or a tuple "
+                        "of tensors")
+    return parts
+
+
+class _ForwardStep(_GraphedStep):
+    """``step(state, batch)``: a graph per batch shape, whose input the
+    batch is copied into."""
+
+    def _key(self, args):
+        return tuple((tuple(t.shape), t.dtype, t.device)
+                     for t in _batch_tensors(args[0]))
+
+    def _load(self, entry, state, args, first):
+        parts = _batch_tensors(args[0])
+        if first:
+            entry.inputs = [t.clone() for t in parts]
+            batch = args[0]
+            entry.batch = (type(batch)(entry.inputs)
+                           if isinstance(batch, (tuple, list))
+                           else entry.inputs[0])
+        else:
+            for dst, src in zip(entry.inputs, parts):
+                dst.copy_(src)
+
+    def _captured(self, entry, state):
+        return self.eager(state, entry.batch)
+
+
+class _ReverseStep(_GraphedStep):
+    """``step(state, generator)``: one graph, registered with the
+    generator of the first call; ``beta`` a device scalar written before
+    each replay."""
+
+    def __init__(self, optimizer, eager, beta_schedule):
+        super().__init__(optimizer, eager)
+        self.beta_schedule = beta_schedule
+
+    def _key(self, args):
+        return ()
+
+    def _new(self, state, args):
+        return _Graph(state, generator=args[0])
+
+    def _check(self, entry, state, args):
+        super()._check(entry, state, args)
+        if args[0] is not entry.generator:
+            raise ValueError("this step draws from the generator of its "
+                             "first call, registered with its graph; pass "
+                             "that generator, or build a new step")
+
+    def _load(self, entry, state, args, first):
+        if first:
+            entry.beta = torch.empty(
+                (), dtype=torch.float32,
+                device=next(state.model.parameters()).device)
+        entry.beta.fill_(self.beta_schedule(state.step))
+
+    def _captured(self, entry, state):
+        return self.eager(state, entry.generator, beta=entry.beta)

@@ -17,6 +17,8 @@ log-density and 1e-3 relative on its gradients, where the card's matrix
 products sum in another order than the CPU's.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -754,3 +756,283 @@ def test_model_on_cuda_matches_cpu_and_runs_both_kernels(cuda):
     assert tshf.fused_head_rqs.launches == 2
     assert tk.rqs_bwd.launches == tshf.fused_head_rqs_bwd.launches == 0
     torch.testing.assert_close(lp.cpu(), want, atol=MODEL_TOL, rtol=0)
+
+
+# --- CUDA graphs: serving and the captured steps ------------------------------
+# A replay runs the launches of its capture on the same inputs, so graph and
+# eager agree to 1e-6 (serving; bitwise for the sampler) and 1e-5 (losses and
+# parameters after five training steps).
+
+GRAPH_TOL, STEP_TOL = 1e-6, 1e-5
+GRAPH_SMALL = dict(dim=2, K=2, hidden=16, num_bins=4)
+
+
+def _perturbed(build, seed=0, **kw):
+    model = build(**kw)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(_normal(rng, tuple(p.shape), 0.2).to(p.device))
+    return model
+
+
+def _eager_log_prob(model, x):
+    with torch.no_grad():
+        return model.log_prob(x)
+
+
+def test_compiled_log_prob_graph_matches_eager(cuda):
+    """B*D = 6000 takes kernels A and B; the capture counted 2 of each;
+    a result the caller holds is not overwritten by the next call."""
+    model = _perturbed(nt.build_nsf, **GRAPH_SMALL)
+    rng = np.random.default_rng(1)
+    x1, x2 = (_normal(rng, (6000, 2), 1.5).to(cuda) for _ in range(2))
+    fn = nt.compile_log_prob(model, (6000, 2))
+    want = {k: 0 for k in tops.launch_counts()}
+    want.update(rqs_fwd=2, head_rqs_fwd=2)
+    assert fn.launches == want
+    held = fn(x1)
+    again = fn(x2)
+    torch.testing.assert_close(held, _eager_log_prob(model, x1),
+                               atol=GRAPH_TOL, rtol=0)
+    torch.testing.assert_close(again, _eager_log_prob(model, x2),
+                               atol=GRAPH_TOL, rtol=0)
+    assert held.data_ptr() != again.data_ptr()
+
+
+@pytest.mark.parametrize("build", ["nsf", "circular"])
+def test_compiled_sampler_is_bitwise_the_eager_sampler(cuda, build):
+    model = (_perturbed(nt.build_nsf, **GRAPH_SMALL) if build == "nsf"
+             else _perturbed(nt.build_circular_nsf, K=2, hidden=16,
+                             num_bins=4))
+    fn = nt.compile_sampler(model, 5000)
+    for seed in (0, 7, 0):
+        z, log_q = fn(seed)
+        with torch.no_grad():
+            z_e, log_q_e = model.sample(5000, generator=torch.Generator(
+                "cuda").manual_seed(seed))
+        assert torch.equal(z, z_e) and torch.equal(log_q, log_q_e)
+
+
+def test_bucketed_graphs_match_eager_at_ragged_sizes(cuda):
+    """Each request against the eager model on the same padded bucket (the
+    same kernels), and against the eager model on the request itself."""
+    model = _perturbed(nt.build_nsf, **GRAPH_SMALL)
+    fn = nt.compile_log_prob_buckets(model, 5000, (2,))
+    assert fn.buckets[-1] == 5000 and len(fn.buckets) == 14
+    rng = np.random.default_rng(2)
+    for n in (1, 1000, 3000, 5000):
+        x = _normal(rng, (n, 2), 1.5).to(cuda)
+        b = next(b for b in fn.buckets if b >= n)
+        padded = torch.cat([x, x[-1:].expand(b - n, 2)])
+        got = fn(x)
+        assert got.shape == (n,)
+        torch.testing.assert_close(got, _eager_log_prob(model, padded)[:n],
+                                   atol=GRAPH_TOL, rtol=0)
+        torch.testing.assert_close(got, _eager_log_prob(model, x),
+                                   atol=MODEL_TOL, rtol=0)
+    with pytest.raises(ValueError, match="largest bucket"):
+        fn(torch.zeros(5001, 2, device=cuda))
+
+
+def test_with_model_on_cuda_keeps_the_old_handles_weights(cuda):
+    a = _perturbed(nt.build_nsf, 0, **GRAPH_SMALL)
+    b = _perturbed(nt.build_nsf, 1, **GRAPH_SMALL)
+    x = _normal(np.random.default_rng(3), (6000, 2), 1.5).to(cuda)
+    fa = nt.compile_log_prob(a, (6000, 2))
+    fb = fa.with_model(b)
+    for _ in range(2):
+        torch.testing.assert_close(fb(x), _eager_log_prob(b, x),
+                                   atol=GRAPH_TOL, rtol=0)
+        torch.testing.assert_close(fa(x), _eager_log_prob(a, x),
+                                   atol=GRAPH_TOL, rtol=0)
+    with torch.no_grad():
+        want = a.log_prob(x)
+        for p in a.parameters():
+            p.add_(0.5)  # training the original in place changes no handle
+    torch.testing.assert_close(fa(x), want, atol=GRAPH_TOL, rtol=0)
+
+
+def test_load_refuses_to_build_while_capturing(cuda):
+    """A library first asked for inside a capture raises: the warm-up
+    calls must load it."""
+    from nf_tpu_torch.ops import _build
+
+    x = torch.zeros(16, device=cuda)
+    w = torch.zeros(4, 16, device=cuda)
+    d = torch.zeros(5, 16, device=cuda)
+    tk.rqs_fwd(x, w, w, d, 3.0, inverse=False)  # built and loaded
+    lib = _build._LIBS.pop("rqs_fwd")
+    try:
+        with pytest.raises(RuntimeError, match="not loaded"):
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                tk.rqs_fwd(x, w, w, d, 3.0, inverse=False)
+    finally:
+        _build._LIBS["rqs_fwd"] = lib
+
+
+def _adam(model, **kw):
+    return torch.optim.Adam(model.parameters(), lr=1e-3, capturable=True,
+                            **kw)
+
+
+@pytest.mark.parametrize("options", [
+    {}, dict(ema_decay=0.9, skip_nonfinite=True, accum_steps=2)],
+    ids=["plain", "ema_guard_accum"])
+def test_captured_forward_steps_match_eager(cuda, options):
+    """Five steps at B = 6000 (kernels A and B forward, C and E backward):
+    two eager warm-up steps, the capture (replayed once), two replays."""
+    base = _perturbed(nt.build_nsf, **GRAPH_SMALL)
+    models = [copy.deepcopy(base) for _ in range(2)]
+    opts = [_adam(m) for m in models]
+    ema = "ema_decay" in options
+    states = [nt.init_train_state(m, o, with_ema=ema)
+              for m, o in zip(models, opts)]
+    graphed = nt.make_forward_kld_step(opts[0], **options)
+    eager = nt.make_forward_kld_step(opts[1], **options).eager
+    rng = np.random.default_rng(4)
+    k = options.get("accum_steps", 1)
+    for i in range(5):
+        x = _normal(rng, (6000, 2), 1.5).to(cuda)
+        xb = nt.reshape_for_accum(x, k) if k > 1 else x
+        lg, le = graphed(states[0], xb), eager(states[1], xb)
+        torch.testing.assert_close(lg, le, atol=STEP_TOL, rtol=0)
+    assert states[0].step == states[1].step == 5
+    for p, q in zip(_train_params(states[0]), _train_params(states[1])):
+        torch.testing.assert_close(p, q, atol=STEP_TOL, rtol=0)
+    # two couplings per microbatch; a microbatch of 3000 rows is below the
+    # fused-head gate (B*D >= 4096), so its transform halves take A and C
+    fused = 6000 // k >= 4096
+    per = 2 * k
+    want = {k_: 0 for k_ in tops.launch_counts()}
+    want.update(rqs_fwd=per * (1 if fused else 2),
+                rqs_bwd=per * (1 if fused else 2),
+                head_rqs_fwd=per if fused else 0,
+                head_rqs_bwd=per if fused else 0)
+    assert graphed.launches == want
+
+
+def _train_params(state):
+    out = [p.detach() for p in state.model.parameters()]
+    if state.ema is not None:
+        out += list(state.ema.parameters())
+    return out
+
+
+@pytest.mark.parametrize("mode", ["analytic", "autodiff"])
+def test_captured_reverse_steps_match_eager(cuda, mode):
+    """Five reverse-KLD steps of the circular NSF with a beta schedule, the
+    graph's generator and the eager one seeded alike."""
+    base = _perturbed(nt.build_circular_nsf, K=2, hidden=16, num_bins=4)
+    base.p = _GaussVonMises()
+    models = [copy.deepcopy(base) for _ in range(2)]
+    opts = [_adam(m) for m in models]
+    states = [nt.init_train_state(m, o) for m, o in zip(models, opts)]
+    kw = dict(num_samples=3000, beta_schedule=lambda s: min(1.0, 0.3 + 0.2 * s))
+    graphed = nt.make_reverse_kld_step(opts[0], **kw)
+    eager = nt.make_reverse_kld_step(opts[1], **kw).eager
+    gens = [torch.Generator("cuda").manual_seed(5) for _ in range(2)]
+    tk.set_pallas_bwd_kernel(mode)
+    try:
+        for _ in range(5):
+            lg, le = graphed(states[0], gens[0]), eager(states[1], gens[1])
+            torch.testing.assert_close(lg, le, atol=STEP_TOL, rtol=0)
+    finally:
+        tk.set_pallas_bwd_kernel("analytic")
+    for p, q in zip(models[0].parameters(), models[1].parameters()):
+        torch.testing.assert_close(p, q, atol=STEP_TOL, rtol=0)
+    kernel = "rqs_bwd" if mode == "analytic" else "rqs_bwd_autodiff"
+    assert graphed.launches["rqs_fwd"] == 4 and graphed.launches[kernel] == 4
+
+
+def _captured_step(cuda):
+    model = _perturbed(nt.build_circular_nsf, K=2, hidden=16, num_bins=4)
+    model.p = _GaussVonMises()
+    opt = _adam(model)
+    state = nt.init_train_state(model, opt)
+    step = nt.make_reverse_kld_step(opt, num_samples=1000)
+    gen = torch.Generator("cuda").manual_seed(0)
+    for _ in range(3):  # two eager warm-up steps, then the capture
+        step(state, gen)
+    return step, state, opt, gen
+
+
+def test_captured_step_refuses_a_host_side_optimizer(cuda):
+    model = _perturbed(nt.build_nsf, **GRAPH_SMALL)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    step = nt.make_forward_kld_step(opt)
+    with pytest.raises(ValueError, match="capturable=True"):
+        step(nt.init_train_state(model, opt), torch.zeros(100, 2,
+                                                          device=cuda))
+
+
+def test_captured_step_raises_on_a_changed_lr(cuda):
+    step, state, opt, gen = _captured_step(cuda)
+    opt.param_groups[0]["lr"] = 1e-4
+    with pytest.raises(RuntimeError, match="param_groups changed"):
+        step(state, gen)
+
+
+def test_captured_step_raises_on_a_changed_backward_mode(cuda):
+    step, state, _, gen = _captured_step(cuda)
+    tk.set_pallas_bwd_kernel("autodiff")
+    try:
+        with pytest.raises(RuntimeError, match="backward kernel"):
+            step(state, gen)
+    finally:
+        tk.set_pallas_bwd_kernel("analytic")
+
+
+def test_captured_step_raises_on_another_generator(cuda):
+    step, state, _, _ = _captured_step(cuda)
+    with pytest.raises(ValueError, match="generator"):
+        step(state, torch.Generator("cuda").manual_seed(0))
+
+
+def test_kernel_c_programmatic_edge_survives_capture(cuda):
+    """Kernel C's shared-parameter sum is a programmatic dependent launch;
+    stream capture keeps it as a programmatic edge (one per CDF backward:
+    two couplings)."""
+    from nf_tpu_torch import _graphs
+
+    model = _perturbed(nt.build_nsf, **GRAPH_SMALL)
+    opt = _adam(model)
+    state = nt.init_train_state(model, opt)
+    step = nt.make_forward_kld_step(opt)
+    x = _normal(np.random.default_rng(6), (6000, 2), 1.5).to(cuda)
+    _graphs.warm_up(lambda: step.eager(state, x), cuda, 2)
+    graph, _, launches = _graphs.capture(lambda: step.eager(state, x), cuda,
+                                         keep_graph=True)
+    assert launches["rqs_bwd"] == 2
+    assert _graphs.dependency_types(graph)["programmatic"] == 2
+
+
+@pytest.mark.parametrize("build", ["nsf", "circular"])
+def test_mixed_precision_on_cuda(cuda, build):
+    """bf16 conditioners on the card: the circular NSF's bf16 MADEs within
+    0.05 of the same model's bf16 on the CPU (the plain path), not its f32
+    model's values, and its graph equal to eager; ``build_nsf``'s
+    couplings at B*D >= 4096 take kernel B with the f32 trunk, so its
+    log_prob is the f32 model's, bitwise. How far bf16 lies from f32 is
+    held at the JAX package's bar on the CPU against JAX
+    (``test_torch_mixed_precision.py``) and at full size by
+    ``chip_smoke.py``."""
+    kw = (GRAPH_SMALL if build == "nsf"
+          else dict(K=2, hidden=64, num_bins=4))
+    make = nt.build_nsf if build == "nsf" else nt.build_circular_nsf
+    mixed = _perturbed(make, mixed_precision=True, **kw)
+    f32 = make(**kw)
+    f32.load_state_dict({k.replace(".net.", "."): v
+                         for k, v in mixed.state_dict().items()})
+    x = _normal(np.random.default_rng(7), (6000, 2), 1.5).to(cuda)
+    lp = _eager_log_prob(mixed, x)
+    lp32 = _eager_log_prob(f32, x)
+    if build == "nsf":
+        assert torch.equal(lp, lp32)
+        return
+    cpu = copy.deepcopy(mixed).to("cpu")
+    torch.testing.assert_close(lp.cpu(), _eager_log_prob(cpu, x.cpu()),
+                               atol=0.05, rtol=0)
+    assert not torch.equal(lp, lp32)
+    torch.testing.assert_close(nt.compile_log_prob(mixed, (6000, 2))(x), lp,
+                               atol=GRAPH_TOL, rtol=0)
