@@ -1051,24 +1051,15 @@ def phase_gate(model, dev, flush):
           + "; ".join(rows), flush=True)
 
 
-def _counters():
-    from nf_tpu_torch.ops import spline_head_fused as shf
-    from nf_tpu_torch.ops import splines_kernel as tk
-
-    return {"rqs_fwd": tk.rqs_fwd, "head_rqs_fwd": shf.fused_head_rqs,
-            "rqs_bwd": tk.rqs_bwd, "head_rqs_bwd": shf.fused_head_rqs_bwd,
-            "rqs_bwd_autodiff": tk.rqs_bwd_autodiff}
-
-
 def reset_counts():
-    for fn in _counters().values():
-        fn.launches = 0
+    from nf_tpu_torch.ops import reset_launch_counts
+
+    reset_launch_counts()
 
 
 def read_counts():
-    """Every kernel's launches counted since the last reset: the eager
-    launches, and each graph's at its capture (a replay adds nothing; the
-    profiled replays show what it launched)."""
+    """Every kernel's launches counted since the last reset (a CUDA graph
+    counts its launches once, at its capture; a replay adds nothing)."""
     from nf_tpu_torch.ops import launch_counts
 
     return launch_counts()
@@ -1879,11 +1870,37 @@ def gate_graphs(model, dev, flush):
           "device ms of a replay): " + "; ".join(rows), flush=True)
 
 
+def dependency_types(graph):
+    """``{"default": n, "programmatic": m}``: the edges of ``graph`` (a
+    ``torch.cuda.CUDAGraph`` built with ``keep_graph=True``) by the type
+    of their dependency, read with the driver's ``cuGraphGetEdges_v2``. A
+    programmatic edge is what stream capture makes of a launch with
+    ``cudaLaunchAttributeProgrammaticStreamSerialization`` (kernel C's
+    shared-parameter sum, ``csrc/rqs_bwd.cu``)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    err = cu.cuGraphGetEdges_v2(raw, None, None, None, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetEdges_v2 failed: CUresult {err}")
+    nodes = (ctypes.c_void_p * n.value)
+    # CUgraphEdgeData: from_port, to_port, type, reserved[5]
+    data = (ctypes.c_uint8 * (8 * n.value))()
+    err = cu.cuGraphGetEdges_v2(raw, nodes(), nodes(), data, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetEdges_v2 failed: CUresult {err}")
+    kinds = [data[8 * i + 2] for i in range(n.value)]
+    return {"default": kinds.count(0), "programmatic": kinds.count(1)}
+
+
 def programmatic_edges(model, batch):
-    """Capture one eager forward-KLD step of ``model`` with the graph kept:
-    its edges by type (kernel C's shared-parameter sum is a programmatic
-    dependent launch, one per coupling's CDF)."""
-    from nf_tpu_torch._graphs import capture, dependency_types, warm_up
+    """Capture one eager forward-KLD step of ``model`` after two warm-up
+    steps, with the graph kept: its edges by type (kernel C's
+    shared-parameter sum is a programmatic dependent launch, one per
+    coupling's CDF)."""
+    from nf_tpu_torch._graphs import warm_up
     import nf_tpu_torch as nt
 
     m = copy.deepcopy(model)
@@ -1891,23 +1908,33 @@ def programmatic_edges(model, batch):
     state = nt.init_train_state(m, opt)
     eager = nt.make_forward_kld_step(opt).eager
     warm_up(lambda: eager(state, batch), batch.device, 2)
-    graph, _, launches = capture(lambda: eager(state, batch), batch.device,
-                                 keep_graph=True)
-    return dependency_types(graph), launches
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.device(batch.device), torch.cuda.graph(graph):
+        eager(state, batch)
+    return dependency_types(graph)
+
+
+def _captured_counts(served):
+    """The launches of one replay of each graph of ``serving_graphs``
+    (its log_prob and its sampler), summed by kernel."""
+    lp, smp = served["log_prob"]["launches"], served["sample"]["launches"]
+    return {k: lp[k] + smp[k] for k in lp}
 
 
 def phase_graphs(dev, flush):
     """Serving and the training steps as CUDA graphs at full width against
-    eager. Returns {path: launches counted from the start of the phase}."""
+    eager. Returns {path: launches of one replay of each of its graphs},
+    counted at their captures (the profiled replays show what the device
+    ran)."""
     import nf_tpu_torch as nt
 
     paths = {}
     # build_nsf serving, the LU cache, the ragged ladder, the gate
-    reset_counts()
     model = _nsf_model()
     x = _normal(np.random.default_rng(SEED + 4), (BATCH, 2), 1.5, dev)
-    serving_graphs("build_nsf", model, x, BATCH,
-                   {"rqs_fwd": 8, "head_rqs_fwd": 8}, "build_nsf serving")
+    paths["build_nsf serving"] = _captured_counts(serving_graphs(
+        "build_nsf", model, x, BATCH, {"rqs_fwd": 8, "head_rqs_fwd": 8},
+        "build_nsf serving"))
     cached = copy.deepcopy(model)
     for flow in cached.flows:
         if hasattr(flow, "linear"):
@@ -1926,10 +1953,8 @@ def phase_graphs(dev, flush):
     del fn, fc
     bucket_graphs("build_nsf", model, BATCH)
     gate_graphs(model, dev, flush)
-    paths["build_nsf serving"] = read_counts()
 
     # build_nsf forward-KLD step, Adam(capturable=True)
-    reset_counts()
     target = nt.TwoMoons()
     pool = target.sample(40 * BATCH, generator=torch.Generator(
         device=dev).manual_seed(SEED + 10))
@@ -1943,30 +1968,28 @@ def phase_graphs(dev, flush):
     _expect_launches(step["launches"], {"rqs_fwd": 8, "head_rqs_fwd": 8,
                                         "rqs_bwd": 8, "head_rqs_bwd": 8},
                      "build_nsf step graph")
-    edges, _ = programmatic_edges(model, pool[:BATCH])
+    paths["build_nsf step"] = step["launches"]
+    edges = programmatic_edges(model, pool[:BATCH])
     if edges["programmatic"] != 8:
         raise RuntimeError(f"kernel C's programmatic launches: the captured "
                            f"step's edges {edges}, expected 8 programmatic")
     print(f"phase graphs kernel C programmatic launch under capture: the "
           f"step graph's edges {edges} (one programmatic edge per CDF "
           f"backward, 8 expected)", flush=True)
-    paths["build_nsf step"] = read_counts()
 
     # circular NSF serving and its reverse-KLD step under C and D
-    reset_counts()
     circ = _circular_model()
     rng = np.random.default_rng(SEED + 21)
     xc = np.stack([rng.uniform(-np.pi, np.pi, CIRC_BATCH),
                    rng.standard_normal(CIRC_BATCH) * 1.5], axis=1)
     xc = torch.from_numpy(xc.astype(np.float32)).to(dev)
-    serving_graphs("circular", circ, xc, CIRC_BATCH, {"rqs_fwd": 12},
-                   "circular serving")
+    paths["circular serving"] = _captured_counts(serving_graphs(
+        "circular", circ, xc, CIRC_BATCH, {"rqs_fwd": 12},
+        "circular serving"))
     bucket_graphs("circular", circ, CIRC_BATCH)
-    paths["circular serving"] = read_counts()
     circ.p = GaussVonMises()
     for mode, kernel in (("analytic", "rqs_bwd"),
                          ("autodiff", "rqs_bwd_autodiff")):
-        reset_counts()
         gens = [torch.Generator(device=dev).manual_seed(SEED + 32)
                 for _ in range(2)]
         step = step_graphs(
@@ -1977,7 +2000,7 @@ def phase_graphs(dev, flush):
             f"circular step ({mode})", dict(lr=5e-4), mode)
         _expect_launches(step["launches"], {"rqs_fwd": 24, kernel: 24},
                          f"circular step graph ({mode})")
-        paths[f"circular step ({mode})"] = read_counts()
+        paths[f"circular step ({mode})"] = step["launches"]
     return paths
 
 
@@ -2144,6 +2167,7 @@ def main():
                                              ("rqs_fwd", "rqs_bwd"))
     paths["circular training (autodiff)"] = (circular["autodiff"],
                                              ("rqs_fwd", "rqs_bwd_autodiff"))
+    # a graph path's counts are its captures': what one replay launches
     graph_paths = phase_graphs(dev, flush)
     for path, counts in graph_paths.items():
         paths[f"graphs: {path}"] = (counts, PATH_KERNELS[path])

@@ -49,7 +49,7 @@ def warm_up(run, device, calls):
     return out
 
 
-def capture(run, device, pool=None, generators=(), keep_graph=False):
+def capture(run, device, pool=None, generators=()):
     """Capture one call of ``run()`` -> ``(graph, its result, launches)``.
     The result's tensors are the graph's static outputs, rewritten by each
     replay; ``launches`` is ``{kernel: launches recorded in the capture}``
@@ -57,10 +57,8 @@ def capture(run, device, pool=None, generators=(), keep_graph=False):
     ``generators`` are CUDA generators the captured work draws from: each
     is registered with the graph, and a replay draws from its seed and
     offset as they stand then (and advances the offset as eager calls
-    would). ``pool`` is a memory pool shared with other graphs;
-    ``keep_graph`` keeps the captured graph readable
-    (:func:`dependency_types`)."""
-    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+    would). ``pool`` is a memory pool shared with other graphs."""
+    graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
     before = launch_counts()
@@ -69,27 +67,3 @@ def capture(run, device, pool=None, generators=(), keep_graph=False):
     after = launch_counts()
     return graph, out, {k: after[k] - before[k] for k in after}
 
-
-def dependency_types(graph):
-    """``{"default": n, "programmatic": m}``: the edges of ``graph`` (a
-    ``torch.cuda.CUDAGraph`` built with ``keep_graph=True``) by the type
-    of their dependency, read with the driver's ``cuGraphGetEdges_v2``. A
-    programmatic edge is what stream capture makes of a launch with
-    ``cudaLaunchAttributeProgrammaticStreamSerialization`` (kernel C's
-    shared-parameter sum, ``csrc/rqs_bwd.cu``)."""
-    import ctypes
-
-    cu = ctypes.CDLL("libcuda.so.1")
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    err = cu.cuGraphGetEdges_v2(raw, None, None, None, ctypes.byref(n))
-    if err:
-        raise RuntimeError(f"cuGraphGetEdges_v2 failed: CUresult {err}")
-    nodes = (ctypes.c_void_p * n.value)
-    # CUgraphEdgeData: from_port, to_port, type, reserved[5]
-    data = (ctypes.c_uint8 * (8 * n.value))()
-    err = cu.cuGraphGetEdges_v2(raw, nodes(), nodes(), data, ctypes.byref(n))
-    if err:
-        raise RuntimeError(f"cuGraphGetEdges_v2 failed: CUresult {err}")
-    kinds = [data[8 * i + 2] for i in range(n.value)]
-    return {"default": kinds.count(0), "programmatic": kinds.count(1)}

@@ -5,27 +5,37 @@ from .splines import (
 )
 
 
-def launch_counts():
-    """``{kernel: launches recorded so far}`` for the five CUDA kernels,
-    by the name of their source in ``csrc/``: kernel A ``rqs_fwd``, B
-    ``head_rqs_fwd``, C ``rqs_bwd``, D ``rqs_bwd_autodiff``, E
-    ``head_rqs_bwd``. Each wrapper adds one where it launches its kernel
-    (C's shared-parameter path and E, two launches each, count one). The
-    counts are kept on the host: a CUDA graph records a launch once, at
-    its capture, and its replays add nothing; a captured function carries
-    the counts of its capture instead (``launches``)."""
+def _counted_wrappers():
+    """``{kernel: wrapper}`` for the five CUDA kernels, by the name of
+    their source in ``csrc/``: kernel A ``rqs_fwd``, B ``head_rqs_fwd``, C
+    ``rqs_bwd``, D ``rqs_bwd_autodiff``, E ``head_rqs_bwd``. Each wrapper
+    adds one to its ``launches`` where it launches its kernel (C's
+    shared-parameter path and E, two launches each, count one)."""
     from .spline_head_fused import fused_head_rqs, fused_head_rqs_bwd
     from .splines_kernel import rqs_bwd, rqs_bwd_autodiff, rqs_fwd
 
-    return {"rqs_fwd": rqs_fwd.launches,
-            "head_rqs_fwd": fused_head_rqs.launches,
-            "rqs_bwd": rqs_bwd.launches,
-            "head_rqs_bwd": fused_head_rqs_bwd.launches,
-            "rqs_bwd_autodiff": rqs_bwd_autodiff.launches}
+    return {"rqs_fwd": rqs_fwd, "head_rqs_fwd": fused_head_rqs,
+            "rqs_bwd": rqs_bwd, "head_rqs_bwd": fused_head_rqs_bwd,
+            "rqs_bwd_autodiff": rqs_bwd_autodiff}
+
+
+def launch_counts():
+    """``{kernel: launches recorded so far}`` for the five CUDA kernels.
+    The counts are kept on the host: a CUDA graph records a launch once,
+    at its capture, and its replays add nothing; a captured function
+    carries the counts of its capture instead (``launches``)."""
+    return {k: fn.launches for k, fn in _counted_wrappers().items()}
+
+
+def reset_launch_counts():
+    """Set every kernel's launch count to 0."""
+    for fn in _counted_wrappers().values():
+        fn.launches = 0
 
 
 __all__ = [
     "launch_counts",
+    "reset_launch_counts",
     "rational_quadratic_spline",
     "unconstrained_rational_quadratic_spline",
     "unconstrained_rational_quadratic_spline_kmajor",

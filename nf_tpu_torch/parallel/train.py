@@ -23,6 +23,10 @@ batch into the graph's input and replays. A captured step needs:
 * the optimizer's hyperparameters as they were at the capture: ``lr``
   and the rest of each ``param_group`` are baked into the graph, and a
   change raises (a tensor ``lr`` the graph reads may change in place);
+* the optimizer's state tensors of the capture: the graph updates them
+  at their addresses, so replacing them (``optimizer.load_state_dict``)
+  raises; to resume from a checkpoint, load it before the first call or
+  build a new step;
 * the backward kernel mode (``set_pallas_bwd_kernel``) of the capture; a
   change raises;
 * for the reverse step, the generator of its first call, registered with
@@ -359,6 +363,21 @@ def _hyperparameters(optimizer):
              [id(p) for p in g["params"]]) for g in optimizer.param_groups]
 
 
+def _optimizer_state(optimizer):
+    """``[(id of param, key, tensor)]``: every tensor of the optimizer's
+    state, which a captured ``optimizer.step()`` updates at its address."""
+    return [(id(p), k, v) for g in optimizer.param_groups
+            for p in g["params"]
+            for k, v in optimizer.state.get(p, {}).items()
+            if torch.is_tensor(v)]
+
+
+def _same_state(a, b):
+    return len(a) == len(b) and all(
+        pa == pb and ka == kb and va is vb
+        for (pa, ka, va), (pb, kb, vb) in zip(a, b))
+
+
 def _same(a, b):
     if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
         return a is b
@@ -387,6 +406,7 @@ class _Graph:
         self.launches = {}
         self.mode = None
         self.hyper = None
+        self.opt_state = None  # the state tensors the graph updates
         self.beta = None
 
 
@@ -441,6 +461,7 @@ class _GraphedStep:
                 lambda: self._captured(entry, state), device,
                 generators=(entry.generator,)
                 if entry.generator is not None else ())
+            entry.opt_state = _optimizer_state(self.optimizer)
             self._last = entry
         else:
             if get_pallas_bwd_kernel() != entry.mode:
@@ -455,6 +476,13 @@ class _GraphedStep:
                     "was captured (their values are baked into the graph); "
                     "build a new step, or give the optimizer a tensor lr "
                     "and change it in place")
+            if not _same_state(_optimizer_state(self.optimizer),
+                               entry.opt_state):
+                raise RuntimeError(
+                    "the optimizer's state tensors were replaced since the "
+                    "step was captured (load_state_dict makes new ones, "
+                    "and the graph updates the old ones at their "
+                    "addresses); build a new step")
             self._load(entry, state, args, first=False)
             state.step += 1
         entry.graph.replay()

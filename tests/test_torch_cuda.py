@@ -989,22 +989,46 @@ def test_captured_step_raises_on_another_generator(cuda):
         step(state, torch.Generator("cuda").manual_seed(0))
 
 
+def test_captured_step_raises_on_a_loaded_optimizer_state(cuda):
+    """``load_state_dict`` gives the optimizer new state tensors; the graph
+    would go on updating the old ones."""
+    step, state, opt, gen = _captured_step(cuda)
+    opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+    with pytest.raises(RuntimeError, match="state tensors were replaced"):
+        step(state, gen)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repository root, as a module."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def test_kernel_c_programmatic_edge_survives_capture(cuda):
     """Kernel C's shared-parameter sum is a programmatic dependent launch;
     stream capture keeps it as a programmatic edge (one per CDF backward:
     two couplings)."""
-    from nf_tpu_torch import _graphs
+    from nf_tpu_torch._graphs import warm_up
 
+    dependency_types = _chip_smoke().dependency_types
     model = _perturbed(nt.build_nsf, **GRAPH_SMALL)
     opt = _adam(model)
     state = nt.init_train_state(model, opt)
     step = nt.make_forward_kld_step(opt)
     x = _normal(np.random.default_rng(6), (6000, 2), 1.5).to(cuda)
-    _graphs.warm_up(lambda: step.eager(state, x), cuda, 2)
-    graph, _, launches = _graphs.capture(lambda: step.eager(state, x), cuda,
-                                         keep_graph=True)
-    assert launches["rqs_bwd"] == 2
-    assert _graphs.dependency_types(graph)["programmatic"] == 2
+    warm_up(lambda: step.eager(state, x), cuda, 2)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = tops.launch_counts()["rqs_bwd"]
+    with torch.cuda.graph(graph):
+        step.eager(state, x)
+    assert tops.launch_counts()["rqs_bwd"] - before == 2
+    assert dependency_types(graph)["programmatic"] == 2
 
 
 @pytest.mark.parametrize("build", ["nsf", "circular"])
