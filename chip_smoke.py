@@ -80,9 +80,34 @@ toolkit. Phases, one line each:
     0.02), ms per call and per reverse-KLD step against f32 in turns;
     ``build_nsf(mixed_precision=True)`` at B = 65536, whose log_prob is
     the f32 model's bitwise (its couplings take the fused head with the
-    f32 trunk).
+    f32 trunk);
+12. conditional: kernels B and E at H = 64 (``build_conditional_nsf``'s
+    trunk, half a W_eff tile) against their plain versions at B = 65536
+    and a ragged B, with their times and bounds; ``build_conditional_nsf``
+    at its defaults (dim 2, context 4, K 4, hidden 64, 8 bins), perturbed,
+    on contexts drawn as ``examples/conditional_flow.py`` draws them:
+    ``log_prob`` and ``sample`` at B = 65536 against the CPU, against
+    ``log_q`` and by a round trip, A and B once per coupling per pass;
+    the forward-KLD step on ``ConditionalDiagGaussianTarget`` samples with
+    Adam(3e-3): one step card against CPU at B = 8192 (A, B, C, E) and
+    2048 (A and C), launches per step, 50 eager steps at B = 65536 whose
+    loss falls; then ``compile_log_prob`` and ``compile_sampler`` with a
+    context, the bucket ladder with a context and the captured step on
+    ``(x, context)``, each against eager, timed in turns and profiled;
+13. realnvp: ``build_realnvp`` at its defaults (K 64, MLPs [2, 64, 64,
+    2]) with TwoModes, set by ``init_from_samples(512)``: serving at
+    B = 65536 against the CPU, ``scan=True`` against ``scan=False``
+    bitwise, the annealed reverse-KLD step of ``examples/real_nvp.py`` at
+    B = 16384 with Adam(1e-4, the reference notebook's rate at K = 64)
+    eager against graph, and ``bench.py``'s recipe (K 16,
+    hidden [128, 128], B = 65536, forward + inverse + log-det round trip)
+    as one graph, in samples/s; no port kernel launched;
+14. maf: ``build_maf`` at its defaults (K 8, MADE hidden 64): serving at
+    B = 65536 against the CPU and the forward-KLD step on TwoMoons eager
+    against graph; no port kernel launched.
 
-It then prints one JSON line on the kernels, the card's name and power
+It then prints the whole run's wall time, one JSON line on the kernels
+(their launches summed over every path above), the card's name and power
 limit as ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device":
 ...}``. A failed phase raises and the script exits non-zero; without CUDA
 it exits 1 before printing any result.
@@ -1065,14 +1090,14 @@ def read_counts():
     return launch_counts()
 
 
-def perturb(model, seed):
+def perturb(model, seed, size=0.5):
     """Move every weight off the identity init: linear weights by
-    N(0, (0.5/sqrt(fan_in))²), every other float array by N(0, 0.5²)."""
+    N(0, (size/sqrt(fan_in))²), every other float array by N(0, size²)."""
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            scale = 0.5 / np.sqrt(p.shape[1]) if (
-                p.ndim == 2 and name.endswith("weight")) else 0.5
+            scale = size / np.sqrt(p.shape[1]) if (
+                p.ndim == 2 and name.endswith("weight")) else size
             noise = rng.standard_normal(tuple(p.shape)) * scale
             p.add_(torch.from_numpy(noise.astype(np.float32)).to(p.device))
 
@@ -1570,7 +1595,12 @@ PATH_KERNELS = {"build_nsf serving": ("rqs_fwd", "head_rqs_fwd"),
                                    "head_rqs_bwd"),
                 "circular serving": ("rqs_fwd",),
                 "circular step (analytic)": ("rqs_fwd", "rqs_bwd"),
-                "circular step (autodiff)": ("rqs_fwd", "rqs_bwd_autodiff")}
+                "circular step (autodiff)": ("rqs_fwd", "rqs_bwd_autodiff"),
+                "conditional serving": ("rqs_fwd", "head_rqs_fwd"),
+                "conditional step": ("rqs_fwd", "head_rqs_fwd", "rqs_bwd",
+                                     "head_rqs_bwd"),
+                "realnvp serving": (), "realnvp step": (),
+                "maf serving": (), "maf step": ()}
 
 
 def kernel_of(name):
@@ -1588,33 +1618,44 @@ def kernel_of(name):
     return None
 
 
-def replay_report(fn, path):
+def replay_report(fn, path, tries=3):
     """One profiled call of ``fn`` (a replay): wall and busy ms, the idle
     share, the device launches of each port kernel by the profiler, all
     device launches, host syncs of another call. Fails unless the call
     launched every kernel of ``PATH_KERNELS[path]``, no other port kernel,
-    and synchronised nothing."""
+    and synchronised nothing. A replay runs the launches of its capture
+    every time, so a profile that misses them is the profiler's: once
+    (PR 9) it recorded no port kernel of a replay whose capture counted
+    them, and the profile is taken again, up to ``tries`` times; the
+    report says how many it took."""
     syncs = host_syncs(fn)
-    wall, busy, top = profile_call(fn)
-    ours = {}
-    for name, (_, count) in top:
-        k = kernel_of(name)
-        if k is not None:
-            ours[k] = ours.get(k, 0) + count
-    if set(ours) != set(PATH_KERNELS[path]):
-        raise RuntimeError(f"{path}: the profiled replay launched port "
+    for attempt in range(1, tries + 1):
+        wall, busy, top = profile_call(fn)
+        ours = {}
+        for name, (_, count) in top:
+            k = kernel_of(name)
+            if k is not None:
+                ours[k] = ours.get(k, 0) + count
+        if set(ours) == set(PATH_KERNELS[path]):
+            break
+    else:
+        raise RuntimeError(f"{path}: {tries} profiled replays launched port "
                            f"kernels {ours}, expected "
-                           f"{PATH_KERNELS[path]}")
+                           f"{PATH_KERNELS[path]}; the last saw "
+                           f"{len(top)} kernels: "
+                           + "; ".join(n[:48] for n, _ in top[:8]))
     if syncs:
         raise RuntimeError(f"{path}: {len(syncs)} host syncs in a replay: "
                            f"{syncs[0][:200]}")
     return dict(wall=wall, busy=busy, idle=1 - busy / wall, kernels=ours,
                 launches=sum(c for _, (_, c) in top), syncs=len(syncs),
-                top=top)
+                top=top, profiles=attempt)
 
 
 def _report_text(r):
-    return (f"profiled replay: wall {r['wall']:.3f} ms, device busy "
+    again = (f" (profiled {r['profiles']} times: the earlier profiles "
+             f"missed the port kernels)" if r["profiles"] > 1 else "")
+    return (f"profiled replay{again}: wall {r['wall']:.3f} ms, device busy "
             f"{r['busy']:.3f} ms, idle {r['idle']:.1%}, {r['launches']} "
             f"device launches, port kernels by the profiler {r['kernels']}, "
             f"host syncs {r['syncs']}; top: "
@@ -1672,38 +1713,40 @@ def _expect_launches(got, want, what):
                            f"{full}")
 
 
-def serving_graphs(label, model, x, batch, per_pass, path):
+def serving_graphs(label, model, x, batch, per_pass, path, context=None):
     """``compile_log_prob`` and ``compile_sampler`` of ``model`` at
     ``batch`` against eager calls: log_prob within GRAPH_TOL, the sampler
     bitwise; times in turns; a profiled replay of each. ``per_pass``: the
     launches the log_prob capture must count (the sampler's: twice A for
-    the circular NSF, as its eager pass)."""
+    the circular NSF, as its eager pass). ``context``: a conditional
+    model's, an input of both graphs."""
     import nf_tpu_torch as nt
 
+    ctx = () if context is None else (context,)
+    ctx_kw = {} if context is None else dict(context=context)
+    ctx_shape = None if context is None else tuple(context.shape)
     out = {}
-    lp_fn = nt.compile_log_prob(model, (batch, 2))
+    lp_fn = nt.compile_log_prob(model, (batch, 2), context_shape=ctx_shape)
     _expect_launches(lp_fn.launches, per_pass, f"{label} log_prob graph")
-    with torch.inference_mode():
-        lp_eager = model.log_prob(x)
-    lp_err = max_err(lp_fn(x), lp_eager)
-    if not lp_err <= GRAPH_TOL:
-        raise RuntimeError(f"{label} log_prob: graph vs eager {lp_err:.3g} "
-                           f"> {GRAPH_TOL}")
 
     def eager_lp():
         with torch.inference_mode():
-            return model.log_prob(x)
+            return model.log_prob(x, **ctx_kw)
 
-    out["log_prob"] = dict(err=lp_err, turns=in_turns(eager_lp,
-                                                      lambda: lp_fn(x)),
-                           report=replay_report(lambda: lp_fn(x), path),
-                           launches=lp_fn.launches)
-    sampler = nt.compile_sampler(model, batch)
+    lp_err = max_err(lp_fn(x, *ctx), eager_lp())
+    if not lp_err <= GRAPH_TOL:
+        raise RuntimeError(f"{label} log_prob: graph vs eager {lp_err:.3g} "
+                           f"> {GRAPH_TOL}")
+    out["log_prob"] = dict(err=lp_err, turns=in_turns(
+        eager_lp, lambda: lp_fn(x, *ctx)),
+        report=replay_report(lambda: lp_fn(x, *ctx), path),
+        launches=lp_fn.launches)
+    sampler = nt.compile_sampler(model, batch, context_shape=ctx_shape)
     for seed in (SEED, SEED + 1):
-        z, log_q = sampler(seed)
+        z, log_q = sampler(seed, *ctx)
         with torch.inference_mode():
             ze, lqe = model.sample(batch, generator=torch.Generator(
-                "cuda").manual_seed(seed))
+                "cuda").manual_seed(seed), **ctx_kw)
         if not (torch.equal(z, ze) and torch.equal(log_q, lqe)):
             raise RuntimeError(f"{label} sample: the graph's draws for seed "
                                f"{seed} differ from eager "
@@ -1712,12 +1755,12 @@ def serving_graphs(label, model, x, batch, per_pass, path):
 
     def eager_sample():
         with torch.inference_mode():
-            return model.sample(batch, generator=gen)
+            return model.sample(batch, generator=gen, **ctx_kw)
 
-    out["sample"] = dict(err=0.0, turns=in_turns(eager_sample,
-                                                 lambda: sampler(SEED)),
-                         report=replay_report(lambda: sampler(SEED), path),
-                         launches=sampler.launches)
+    out["sample"] = dict(err=0.0, turns=in_turns(
+        eager_sample, lambda: sampler(SEED, *ctx)),
+        report=replay_report(lambda: sampler(SEED, *ctx), path),
+        launches=sampler.launches)
     for what, r in out.items():
         err = "bitwise" if what == "sample" else f"{r['err']:.3g}"
         print(f"phase graphs {label} {what} (B = {batch}): graph vs eager "
@@ -1744,28 +1787,35 @@ def _memory_of(build):
             torch.cuda.memory_reserved() - res0)
 
 
-def bucket_graphs(label, model, batch):
+def bucket_graphs(label, model, batch, context=None):
     """``compile_log_prob_buckets`` up to ``batch`` at the ragged sizes:
     each against eager on the same padded bucket (GRAPH_TOL) and on the
     request (MODEL_TOL); wall ms per request, graph and eager; the
-    ladder's memory against one graph's."""
+    ladder's memory against one graph's. ``context``: ``batch`` rows of a
+    conditional model's context, padded as ``x`` is."""
     import nf_tpu_torch as nt
 
+    row = None if context is None else tuple(context.shape[1:])
     ladder, peak, reserved = _memory_of(
-        lambda: nt.compile_log_prob_buckets(model, batch, (2,)))
+        lambda: nt.compile_log_prob_buckets(model, batch, (2,),
+                                            context_shape=row))
     one, peak1, reserved1 = _memory_of(
-        lambda: nt.compile_log_prob(model, (batch, 2)))
+        lambda: nt.compile_log_prob(
+            model, (batch, 2),
+            context_shape=None if row is None else (batch,) + row))
     del one
     rng = np.random.default_rng(SEED + 40)
     rows = []
     for n in RAGGED:
         x = _normal(rng, (n, 2), 1.5, "cuda")
+        ctx = () if context is None else (context[:n],)
         b = next(b for b in ladder.buckets if b >= n)
-        padded = torch.cat([x, x[-1:].expand(b - n, 2)])
+        padded = [torch.cat([t, t[-1:].expand(b - n, *t.shape[1:])])
+                  for t in (x,) + ctx]
         with torch.inference_mode():
-            want = model.log_prob(padded)[:n]
-            plain = model.log_prob(x)
-        got = ladder(x)
+            want = model.log_prob(*padded)[:n]
+            plain = model.log_prob(x, *ctx)
+        got = ladder(x, *ctx)
         err, err_req = max_err(got, want), max_err(got, plain)
         if got.shape != (n,) or not (err <= GRAPH_TOL
                                      and err_req <= MODEL_TOL):
@@ -1775,9 +1825,9 @@ def bucket_graphs(label, model, batch):
 
         def eager():
             with torch.inference_mode():
-                return model.log_prob(x)
+                return model.log_prob(x, *ctx)
 
-        t = in_turns(eager, lambda: ladder(x))
+        t = in_turns(eager, lambda: ladder(x, *ctx))
         rows.append(f"n={n} (bucket {b}): vs eager {err:.3g}, vs eager "
                     f"on the request {err_req:.3g}; " + _turns_text(t))
     print(f"phase graphs {label} buckets ({len(ladder.buckets)} buckets "
@@ -1806,16 +1856,18 @@ def step_graphs(label, base, make_step, args_of, path, opt_kw, mode=None):
     if mode is not None:
         tk.set_pallas_bwd_kernel(mode)
     try:
-        loss_err = 0.0
+        loss_err, finite = 0.0, True
         for i in range(GRAPH_STEPS):
             lg = graphed(states[0], *args_of(i, 0))
             le = eager(states[1], *args_of(i, 1))
             loss_err = max(loss_err, max_err(lg, le))
+            finite = finite and bool(torch.isfinite(lg) & torch.isfinite(le))
         param_err = max(max_err(p.detach(), q.detach()) for p, q in
                         zip(models[0].parameters(), models[1].parameters()))
-        if not (loss_err <= STEP_TOL and param_err <= STEP_TOL):
+        if not (finite and loss_err <= STEP_TOL and param_err <= STEP_TOL):
             raise RuntimeError(f"{label}: graph vs eager over "
-                               f"{GRAPH_STEPS} steps: loss {loss_err:.3g}, "
+                               f"{GRAPH_STEPS} steps: loss {loss_err:.3g} "
+                               f"(all finite: {finite}), "
                                f"parameters {param_err:.3g} (limit "
                                f"{STEP_TOL})")
         i = [GRAPH_STEPS]
@@ -2090,6 +2142,385 @@ def phase_mixed(dev, flush):
           f"{g2:.3f}, mixed {h1:.3f} / {h2:.3f}", flush=True)
 
 
+# --- the conditional NSF, RealNVP and MAF (phases 12-14) --------------------
+
+COND_HIDDEN, COND_LAYERS = 64, 4  # build_conditional_nsf's defaults
+COND_STEPS = 50
+COND_LR = 3e-3  # examples/conditional_flow.py
+CPU_ROWS = BATCH  # rows of a full-size batch held against the CPU
+RNVP_TRAIN_BATCH = 16384
+RNVP_ANNEAL = 1000  # examples/real_nvp.py: half of its 2000 iterations
+# the reference notebook's rate at K = 64 (examples/real_nvp.py takes 1e-3
+# at K = 16); at 1e-3 Adam's first step, which moves every weight of the
+# perturbed K = 64 model by ~1e-3, sends the samples to 1e11 by layer 112
+RNVP_LR = 1e-4
+BENCH_K, BENCH_HIDDEN = 16, 128  # bench.py's recipe
+
+
+def cond_contexts(gen, n):
+    """Contexts as ``examples/conditional_flow.py:24-28`` draws them: a
+    mean U(-1, 1)² and a std 0.5 + U(0, 1)², on ``gen``'s device."""
+    u = torch.rand((n, 4), generator=gen, device=gen.device)
+    return torch.cat([2.0 * u[:, :2] - 1.0, 0.5 + u[:, 2:]], dim=1)
+
+
+def parity_b_e_hidden(dev, hidden=COND_HIDDEN):
+    """Kernels B and E at a conditional coupling's shapes: D = 1, H =
+    ``hidden`` (half of the first 128-column W_eff tile at 64), K = 8,
+    linear tails, tail bound 3, x_t and cty as transposed (B, 1) views, at
+    B = 65536 and a ragged B, both spline directions. B against
+    ``head_rqs_plain`` (y, ld abs), E against ``head_rqs_bwd_plain`` (gx,
+    gh abs; gW, gb relative to their largest magnitude). Returns
+    {"y", "ld", "grad", "sums"}: the largest errors, and the case count."""
+    from nf_tpu_torch.ops import spline_head_fused as shf
+
+    rng = np.random.default_rng(SEED + 51)
+    worst = dict(y=0.0, ld=0.0, grad=0.0, sums=0.0)
+    cases = 0
+    m = 3 * K_BINS - 1
+    for batch in PARITY_BATCHES:
+        x_t = _normal(rng, (batch, 1), 2.0, dev).T
+        cty = _normal(rng, (batch, 1), 1.0, dev).T
+        ctl = _normal(rng, (1, batch), 1.0, dev)
+        h_t = _normal(rng, (hidden, batch), 1.0, dev)
+        w = _normal(rng, (m, hidden), 0.3 / np.sqrt(hidden), dev)
+        b = _normal(rng, (m,), 0.1, dev)
+        tb = torch.full((1,), 3.0, device=dev)
+        for inverse in (False, True):
+            kw = dict(num_bins=K_BINS, tails="linear", inverse=inverse)
+            y, ld = shf.fused_head_rqs(x_t, h_t, w, b, tail_bound=tb, **kw)
+            yp, lp = shf.head_rqs_plain(x_t, h_t, w, b, tb, **kw)
+            gx, gh, gw, gb = shf.fused_head_rqs_bwd(x_t, h_t, w, b, tb, cty,
+                                                    ctl, **kw)
+            px, ph, pw, pb = shf.head_rqs_bwd_plain(x_t, h_t, w, b, tb, cty,
+                                                    ctl, **kw)
+            torch.cuda.synchronize()
+            worst["y"] = max(worst["y"], max_err(y, yp))
+            worst["ld"] = max(worst["ld"], max_err(ld, lp))
+            worst["grad"] = max(worst["grad"], max_err(gx, px),
+                                max_err(gh, ph))
+            worst["sums"] = max(worst["sums"], rel_err(gw, pw),
+                                rel_err(gb, pb))
+            cases += 1
+    return worst, cases
+
+
+def _batch_cpu(batch):
+    return tuple(t.cpu() for t in batch)
+
+
+def phase_conditional(dev, flush, peaks):
+    """``build_conditional_nsf`` at its defaults (dim 2, context 4, K 4,
+    hidden 64, 8 bins, 2 blocks), perturbed, on contexts drawn as the
+    example draws them: kernels B and E at H = 64, serving and the
+    forward-KLD step eagerly (card against CPU, launches per pass and per
+    step, 50 steps whose loss falls), then under graphs. Returns {path:
+    launches}."""
+    import nf_tpu_torch as nt
+
+    worst, cases = parity_b_e_hidden(dev)
+    limits = dict(y=Y_TOL, ld=LD_TOL, grad=G_TOL, sums=SUM_TOL)
+    if not all(worst[k] <= limits[k] for k in limits):
+        raise RuntimeError(f"kernels B and E at H = {COND_HIDDEN} disagree "
+                           f"with their plain versions: {worst} (limits "
+                           f"{limits})")
+    t_b = timing_kernel_b(dev, flush, peaks, 1, COND_HIDDEN)
+    t_e = timing_kernel_e(dev, flush, peaks, 1, COND_HIDDEN)
+    print(f"phase conditional kernels at H = {COND_HIDDEN} (D = 1, K = "
+          f"{K_BINS}, linear, B = {PARITY_BATCHES}): {cases} cases, B vs "
+          f"head_rqs_plain y {worst['y']:.3g} (limit {Y_TOL}), ld "
+          f"{worst['ld']:.3g} (limit {LD_TOL}); E vs head_rqs_bwd_plain "
+          f"gx, gh {worst['grad']:.3g} (limit {G_TOL}), gW, gb "
+          f"{worst['sums']:.3g} relative (limit {SUM_TOL}); timing at B = "
+          f"{BATCH}: " + _timing_row("head_rqs_fwd", t_b) + "; "
+          + _timing_row("head_rqs_bwd", t_e), flush=True)
+
+    layers = COND_LAYERS
+    model = nt.build_conditional_nsf(
+        seed=SEED, target=nt.ConditionalDiagGaussianTarget())
+    perturb(model, SEED + 50)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 52)
+    ctx = cond_contexts(gen, BATCH)
+    x = model.p.sample(BATCH, generator=gen, context=ctx)
+    counts = {}
+    with torch.inference_mode():
+        lp = _counted(counts, "log_prob", lambda: model.log_prob(
+            x, context=ctx))
+        z, log_q = _counted(counts, "sample", lambda: model.sample(
+            BATCH, generator=gen, context=ctx))
+        lp_s = model.log_prob(z, context=ctx)
+        z_back = model.inverse(model.forward(z, context=ctx), context=ctx)
+        torch.cuda.synchronize()
+        identity = model.q0.log_prob(x)
+    per_pass = {"rqs_fwd": layers, "head_rqs_fwd": layers}
+    _expect(counts, {"log_prob": per_pass, "sample": per_pass},
+            "conditional serving")
+    with torch.inference_mode():
+        lp_cpu = cpu_model.log_prob(x[:CPU_ROWS].cpu(),
+                                    context=ctx[:CPU_ROWS].cpu())
+    errs = {f"log_prob cuda vs cpu (first {CPU_ROWS})": max_err(
+                lp[:CPU_ROWS].cpu(), lp_cpu),
+            "log_prob(sample) vs log_q": max_err(lp_s, log_q),
+            "inverse(forward(z)) vs z": max_err(z_back, z)}
+    for t in (lp, z, log_q, lp_s):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError("non-finite values on the conditional "
+                               "serving path")
+    if z.shape != (BATCH, 2) or lp.shape != (BATCH,):
+        raise RuntimeError(f"shapes: sample {tuple(z.shape)}, log_prob "
+                           f"{tuple(lp.shape)}")
+    for k, v in errs.items():
+        if not v <= MODEL_TOL:
+            raise RuntimeError(f"conditional serving: {k} {v:.3g} > "
+                               f"{MODEL_TOL}")
+    if max_err(lp, identity) < 0.1:
+        raise RuntimeError("the perturbed conditional model is still the "
+                           "identity")
+    with torch.inference_mode():
+        lp_ms = host_ms(lambda: model.log_prob(x, context=ctx))
+        sample_ms = host_ms(lambda: model.sample(BATCH, generator=gen,
+                                                 context=ctx))
+    print(f"phase conditional serving: build_conditional_nsf defaults "
+          f"(dim 2, context 4, K={layers}, hidden={COND_HIDDEN}, "
+          f"bins={K_BINS}) B={BATCH}; launches per pass {counts}; errors "
+          + ", ".join(f"{k} {v:.3g} (limit {MODEL_TOL})"
+                      for k, v in errs.items())
+          + f"; eager log_prob {lp_ms:.3f} ms/call, sample {sample_ms:.3f} "
+          f"ms/call", flush=True)
+    serving = {k: counts["log_prob"][k] + counts["sample"][k]
+               for k in counts["log_prob"]}
+
+    # the forward-KLD step: one step card against CPU, launches per step
+    grad_errs, per_step = {}, {}
+    expect = {8192: dict(rqs_fwd=layers, head_rqs_fwd=layers,
+                         rqs_bwd=layers, head_rqs_bwd=layers),
+              2048: dict(rqs_fwd=2 * layers, rqs_bwd=2 * layers)}
+    for batch in (8192, 2048):
+        c = cond_contexts(gen, batch)
+        xb = (model.p.sample(batch, generator=gen, context=c), c)
+        loss, grads, launches = _step_result(model, xb)
+        loss_cpu, grads_cpu, _ = _step_result(cpu_model, _batch_cpu(xb))
+        worst_g = max(rel_err(grads[n].cpu(), grads_cpu[n]) for n in grads)
+        grad_errs[batch] = (abs(loss - loss_cpu), worst_g)
+        if not (abs(loss - loss_cpu) <= MODEL_TOL and worst_g <= TRAIN_TOL):
+            raise RuntimeError(
+                f"conditional step B={batch}: card vs CPU loss {loss} vs "
+                f"{loss_cpu}, gradients {worst_g:.3g} relative (limit "
+                f"{TRAIN_TOL})")
+        per_step[batch] = launches
+    _expect(per_step, expect, "conditional forward-KLD step")
+
+    # 50 eager steps at B = 65536 whose loss falls
+    cs = cond_contexts(gen, COND_STEPS * BATCH)
+    xs = model.p.sample(COND_STEPS * BATCH, generator=gen, context=cs)
+    batches = [(xs[i * BATCH:(i + 1) * BATCH], cs[i * BATCH:(i + 1) * BATCH])
+               for i in range(COND_STEPS)]
+    trained = copy.deepcopy(model)
+    opt = torch.optim.Adam(trained.parameters(), lr=COND_LR, capturable=True)
+    state = nt.init_train_state(trained, opt)
+    step = nt.make_forward_kld_step(opt).eager
+    losses, times = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    for b in batches:
+        t0 = time.perf_counter()
+        losses.append(step(state, b))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    training = read_counts()
+    losses = torch.stack(losses).cpu().numpy()
+    first, last = float(losses[0]), float(losses[-10:].mean())
+    if not np.isfinite(losses).all() or not last <= first - LOSS_MARGIN:
+        raise RuntimeError(f"conditional training: losses {losses[:3]} ... "
+                           f"{losses[-3:]}, want all finite and the last "
+                           f"10's mean {LOSS_MARGIN} below the first")
+    _expect({"run": training}, {"run": {
+        k: COND_STEPS * v for k, v in expect[8192].items()}},
+        "conditional training")
+    ms = float(np.median(times))
+    print(f"phase conditional training: Adam(lr={COND_LR}, capturable), "
+          f"ConditionalDiagGaussianTarget; card vs CPU one step: "
+          + "; ".join(f"B={b} loss diff {e[0]:.3g} (limit {MODEL_TOL}), "
+                      f"gradients {e[1]:.3g} relative (limit {TRAIN_TOL})"
+                      for b, e in grad_errs.items())
+          + f"; launches per step {per_step}; {COND_STEPS} eager steps at "
+          f"B={BATCH}: loss {first:.4f} -> {last:.4f} (mean of last 10), "
+          f"all finite, {ms:.3f} ms/step median", flush=True)
+
+    # under graphs
+    out = {"conditional serving": (serving, PATH_KERNELS[
+        "conditional serving"]),
+        "conditional training": (training, PATH_KERNELS["conditional step"])}
+    served = serving_graphs("conditional", model, x, BATCH, per_pass,
+                            "conditional serving", context=ctx)
+    out["graphs: conditional serving"] = (_captured_counts(served),
+                                          PATH_KERNELS["conditional serving"])
+    bucket_graphs("conditional", model, BATCH, context=ctx)
+    captured = step_graphs(
+        "conditional forward-KLD step (x, context)", model,
+        nt.make_forward_kld_step, lambda i, which: (batches[i % COND_STEPS],),
+        "conditional step", dict(lr=COND_LR))
+    _expect_launches(captured["launches"], expect[8192],
+                     "conditional step graph")
+    out["graphs: conditional step"] = (captured["launches"],
+                                       PATH_KERNELS["conditional step"])
+    return out
+
+
+def _kernel_free_checks(label, model, x, cpu_rows=CPU_ROWS, gen=None):
+    """A model that runs no port kernel, at B = len(x): ``log_prob`` and
+    ``sample`` eagerly, card against CPU on the first ``cpu_rows`` rows,
+    ``log_prob(sample)`` against ``log_q``, a round trip, no port kernel
+    launched; returns the eager ms per call."""
+    counts = {}
+    batch = x.shape[0]
+    cpu_model = copy.deepcopy(model).to("cpu")
+    with torch.inference_mode():
+        lp = _counted(counts, "log_prob", lambda: model.log_prob(x))
+        z, log_q = _counted(counts, "sample", lambda: model.sample(
+            batch, generator=gen))
+        lp_s = model.log_prob(z)
+        x_back = model.forward(model.inverse(x))
+        lp_cpu = cpu_model.log_prob(x[:cpu_rows].cpu())
+        lq_cpu = cpu_model.log_prob(z[:cpu_rows].cpu())
+    _expect(counts, {"log_prob": {}, "sample": {}}, f"{label} serving")
+    errs = {f"log_prob cuda vs cpu (first {cpu_rows})": max_err(
+                lp[:cpu_rows].cpu(), lp_cpu),
+            f"log_q of samples vs cpu log_prob (first {cpu_rows})": max_err(
+                log_q[:cpu_rows].cpu(), lq_cpu),
+            "log_prob(sample) vs log_q": max_err(lp_s, log_q),
+            "forward(inverse(x)) vs x": max_err(x_back, x)}
+    for t in (lp, z, log_q, lp_s, x_back):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"non-finite values on the {label} path")
+    for k, v in errs.items():
+        if not v <= MODEL_TOL:
+            raise RuntimeError(f"{label}: {k} {v:.3g} > {MODEL_TOL}")
+    with torch.inference_mode():
+        lp_ms = host_ms(lambda: model.log_prob(x))
+        sample_ms = host_ms(lambda: model.sample(batch, generator=gen))
+    print(f"phase {label} serving (B = {batch}): launches per pass "
+          f"{counts}; errors " + ", ".join(
+              f"{k} {v:.3g} (limit {MODEL_TOL})" for k, v in errs.items())
+          + f"; eager log_prob {lp_ms:.3f} ms/call, sample {sample_ms:.3f} "
+          f"ms/call", flush=True)
+    return {k: counts["log_prob"][k] + counts["sample"][k]
+            for k in counts["log_prob"]}
+
+
+def phase_realnvp(dev, flush):
+    """``build_realnvp`` at its defaults (dim 2, K 64, MLPs [2, 64, 64,
+    2]) with the TwoModes target, perturbed and then set by
+    ``init_from_samples(512)``: serving against the CPU, ``scan=True``
+    against ``scan=False`` bitwise, the annealed reverse-KLD step of
+    ``examples/real_nvp.py`` eager against graph, and ``bench.py``'s
+    round trip (K 16, hidden [128, 128], B = 65536) as one graph. No port
+    kernel runs. Returns {path: launches}."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch._graphs import capture, warm_up
+
+    def built(scan=False, **kw):
+        m = nt.build_realnvp(seed=SEED, target=nt.TwoModes(), scan=scan,
+                             **kw)
+        perturb(m, SEED + 60, size=0.1)
+        return m.init_from_samples(512, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 61))
+
+    model = built()
+    x = _normal(np.random.default_rng(SEED + 62), (BATCH, 2), 1.5, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 63)
+    serving = _kernel_free_checks("realnvp", model, x, gen=gen)
+    scanned = nt.load_reference_state_dict(
+        nt.build_realnvp(target=nt.TwoModes(), scan=True),
+        {k: v.cpu().numpy() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        same = torch.equal(model.log_prob(x), scanned.log_prob(x))
+        a = model.sample(BATCH, generator=torch.Generator(
+            device=dev).manual_seed(SEED))
+        b = scanned.sample(BATCH, generator=torch.Generator(
+            device=dev).manual_seed(SEED))
+    if not (same and torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+        raise RuntimeError("realnvp: scan=True differs from scan=False")
+    print("phase realnvp scan: scan=True loaded from the unrolled model's "
+          "reference-named state dict; log_prob and sample bitwise equal "
+          "to scan=False", flush=True)
+
+    out = {"realnvp serving": (serving, ())}
+    served = serving_graphs("realnvp", model, x, BATCH, {},
+                            "realnvp serving")
+    out["graphs: realnvp serving"] = (_captured_counts(served), ())
+    gens = [torch.Generator(device=dev).manual_seed(SEED + 64)
+            for _ in range(2)]
+    step = step_graphs(
+        f"realnvp annealed reverse-KLD step (B = {RNVP_TRAIN_BATCH})", model,
+        lambda opt: nt.make_reverse_kld_step(
+            opt, num_samples=RNVP_TRAIN_BATCH,
+            beta_schedule=lambda t: min(1.0, 0.01 + t / RNVP_ANNEAL)),
+        lambda i, which: (gens[which],), "realnvp step", dict(lr=RNVP_LR))
+    _expect_launches(step["launches"], {}, "realnvp step graph")
+    out["graphs: realnvp step"] = (step["launches"], ())
+
+    bench = built(K=BENCH_K, hidden=[BENCH_HIDDEN, BENCH_HIDDEN])
+    xb = _normal(np.random.default_rng(SEED + 65), (BATCH, 2), 1.0, dev)
+
+    def roundtrip():
+        z, ld_f = bench.forward_and_log_det(xb)
+        x2, ld_i = bench.inverse_and_log_det(z)
+        return x2, ld_f + ld_i
+
+    with torch.no_grad():
+        warm_up(roundtrip, dev, 2)
+        graph, (x2, ld), launches = capture(roundtrip, dev)
+        graph.replay()
+        torch.cuda.synchronize()
+        rt, ld_sum = max_err(x2, xb), float(ld.abs().max())
+
+    def eager():
+        with torch.no_grad():
+            return roundtrip()
+
+    _expect_launches(launches, {}, "bench round trip graph")
+    if not (rt <= ROUND_TRIP_TOL and ld_sum <= ROUND_TRIP_TOL):
+        raise RuntimeError(f"bench round trip: x {rt:.3g}, log-dets "
+                           f"{ld_sum:.3g} (limit {ROUND_TRIP_TOL})")
+    t = in_turns(eager, graph.replay)
+    dev_ms = device_ms(graph.replay, flush)
+    g = min(t[1])
+    print(f"phase realnvp bench recipe (build_realnvp K={BENCH_K}, hidden "
+          f"[{BENCH_HIDDEN}, {BENCH_HIDDEN}], B = {BATCH}, forward + "
+          f"inverse + log-det round trip): x back {rt:.3g}, |ld_f + ld_i| "
+          f"{ld_sum:.3g}; " + _turns_text(t, "round trip")
+          + f"; graph {BATCH / g * 1e3:.4g} samples/s (best graph median), "
+          f"device {dev_ms:.4f} ms per replay", flush=True)
+    return out
+
+
+def phase_maf(dev, flush):
+    """``build_maf`` at its defaults (dim 2, K 8, MADE hidden 64, 2
+    blocks), perturbed: serving against the CPU, and the forward-KLD step
+    on TwoMoons at B = 65536 eager against graph. No port kernel runs.
+    Returns {path: launches}."""
+    import nf_tpu_torch as nt
+
+    model = nt.build_maf(seed=SEED)
+    perturb(model, SEED + 70, size=0.1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    pool = nt.TwoMoons().sample(20 * BATCH, generator=gen)
+    x = pool[:BATCH]
+    out = {"maf serving": (_kernel_free_checks("maf", model, x, gen=gen),
+                           ())}
+    served = serving_graphs("maf", model, x, BATCH, {}, "maf serving")
+    out["graphs: maf serving"] = (_captured_counts(served), ())
+    step = step_graphs(
+        "maf forward-KLD step (TwoMoons)", model, nt.make_forward_kld_step,
+        lambda i, which: (pool[(i % 20) * BATCH:(i % 20 + 1) * BATCH],),
+        "maf step", dict(lr=1e-3))
+    _expect_launches(step["launches"], {}, "maf step graph")
+    out["graphs: maf step"] = (step["launches"], ())
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port runs on an "
@@ -2097,6 +2528,7 @@ def main():
         return 1
     import nf_tpu_torch  # noqa: F401  (fails outside the repository)
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = phase_device()
     phase_build()
@@ -2172,12 +2604,21 @@ def main():
     for path, counts in graph_paths.items():
         paths[f"graphs: {path}"] = (counts, PATH_KERNELS[path])
     phase_mixed(dev, flush)
+    t_new = time.perf_counter()
+    paths.update(phase_conditional(dev, flush, peaks))
+    paths.update(phase_realnvp(dev, flush))
+    paths.update(phase_maf(dev, flush))
+    print(f"phase timing new phases (conditional, realnvp, maf): "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
     print("launches: " + "; ".join(f"{k} {v[0]}" for k, v in paths.items()),
           flush=True)
     for path, (counts, needed) in paths.items():
         for label in needed:
             if counts[label] == 0:
                 raise RuntimeError(f"{label} never ran on the {path} path")
+        if not needed and any(counts.values()):
+            raise RuntimeError(f"the {path} path launched port kernels: "
+                               f"{counts}")
     kernels = []
     for label, r in results.items():
         ms, plain, bound_ms, bound_by = r["t"]
@@ -2187,6 +2628,8 @@ def main():
             "launches": sum(c[label] for c, _ in paths.values()),
             "max_abs_err": r["err"], "ms": ms, "plain_ms": plain,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    print(f"phase total: {time.perf_counter() - t_start:.1f} s wall, the "
+          f"build included", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

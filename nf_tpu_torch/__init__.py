@@ -13,15 +13,25 @@ kernels, the analytic ones or, under
 ``ops.splines_kernel.set_pallas_bwd_kernel("autodiff")``, kernel D. On
 CUDA each step, and each served function of :mod:`nf_tpu_torch.serving`
 (``compile_log_prob``, ``compile_sampler``, ``compile_log_prob_buckets``),
-runs as one CUDA graph per batch shape. ``mixed_precision=True`` on the
-builders runs the conditioners in bfloat16 (``nets.MixedPrecision``).
+runs as one CUDA graph per batch shape; a conditional model's served
+functions take the context as a second input (``context_shape``).
+``mixed_precision=True`` on the builders runs the conditioners in
+bfloat16 (``nets.MixedPrecision``). Builders: ``build_nsf``,
+``build_circular_nsf``, ``build_conditional_nsf`` (the spline kernels),
+``build_realnvp`` and ``build_maf`` (plain products, no kernel).
 """
 
 from ._device import resolve_device
 from .compat import load_reference_state_dict
-from .core import NormalizingFlow
-from .distributions import TwoMoons
-from .models import build_circular_nsf, build_nsf
+from .core import ConditionalNormalizingFlow, NormalizingFlow
+from .distributions import ConditionalDiagGaussianTarget, TwoModes, TwoMoons
+from .models import (
+    build_circular_nsf,
+    build_conditional_nsf,
+    build_maf,
+    build_nsf,
+    build_realnvp,
+)
 from .nets import MixedPrecision
 from .parallel import (
     TrainState,
@@ -40,8 +50,11 @@ from .serving import (
     compile_sampler,
 )
 
-__all__ = ["BucketedFn", "CompiledFn", "MixedPrecision", "NormalizingFlow",
-           "TrainState", "TwoMoons", "build_circular_nsf", "build_nsf",
+__all__ = ["BucketedFn", "CompiledFn", "ConditionalDiagGaussianTarget",
+           "ConditionalNormalizingFlow", "MixedPrecision", "NormalizingFlow",
+           "TrainState", "TwoModes", "TwoMoons", "build_circular_nsf",
+           "build_conditional_nsf", "build_maf", "build_nsf",
+           "build_realnvp",
            "compile_log_prob", "compile_log_prob_buckets", "compile_sampler",
            "ema_model", "init_train_state", "load_reference_state_dict",
            "make_forward_kld_step", "make_reverse_kld_step",

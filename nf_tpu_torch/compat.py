@@ -11,6 +11,10 @@ are permuted on load. Every MADE mask comes from the state dict: a
 ``permute_mask`` order drawn by the JAX package cannot be redrawn here.
 A conditioner wrapped in ``MixedPrecision`` holds its net under ``net.``,
 a level the reference names do not have; those keys are mapped across.
+The layers of a ``Scanned`` (and of a plain ``Composite``) in the
+container's chain carry flat indices in the reference's names, as the
+JAX exporter writes them (``nf_tpu/compat_export.py:278-299``): unit j's
+layer m of a ``scan=True`` RealNVP loads from ``flows.{4j + m}.``.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .flows.base import Scanned, open_composites
 from .nets.made import MADE
 from .nets.precision import MixedPrecision
 from .nets.resnet import ResidualNet
@@ -31,18 +36,39 @@ def _head_to_bin_major(arr, head):
         .reshape(arr.shape)
 
 
+def _flat_prefixes(model):
+    """``{own prefix: reference prefix}`` of the container's layers: the
+    layers of a ``Scanned`` or a plain ``Composite`` at flat indices."""
+    flows = getattr(model, "flows", None)
+    if not isinstance(flows, torch.nn.ModuleList):
+        return {}
+    path = {id(m): name for name, m in model.named_modules()}
+    out = {}
+    for flow in flows:
+        layers = flow.layers() if isinstance(flow, Scanned) \
+            else open_composites(flow)
+        for layer in layers:
+            out[path[id(layer)] + "."] = f"flows.{len(out)}."
+    return out
+
+
 def _reference_names(model, own):
     """``{own key: reference key}``: a :class:`MixedPrecision` wrapper's
     ``net.`` level is not in the reference's names, as the JAX exporter
-    passes through the wrapper (``nf_tpu/compat_export.py:377``)."""
+    passes through the wrapper (``nf_tpu/compat_export.py:377``), and the
+    container's layers take flat indices (:func:`_flat_prefixes`)."""
     wrapped = [f"{name}." if name else "" for name, mod in
                model.named_modules() if isinstance(mod, MixedPrecision)]
+    flat = _flat_prefixes(model)
     names = {}
     for key in own:
         ref = key
         for prefix in sorted(wrapped, key=len, reverse=True):
             if ref.startswith(prefix + "net."):
                 ref = prefix + ref[len(prefix) + 4:]
+        prefix = next((p for p in flat if ref.startswith(p)), None)
+        if prefix is not None:
+            ref = flat[prefix] + ref[len(prefix):]
         names[key] = ref
     return names
 

@@ -1,9 +1,11 @@
 """Base distributions (``nf_tpu/distributions/base.py``; reference
 ``normflows/distributions/base.py``).
 
-``forward(num_samples, generator=None) -> (z, log_p)`` samples with log
-density; ``log_prob(z)`` evaluates it. Randomness comes from an explicit
-``torch.Generator`` on the distribution's device.
+``forward(num_samples, generator=None, context=None) -> (z, log_p)``
+samples with log density; ``log_prob(z, context=None)`` evaluates it. The
+unconditional bases ignore ``context``, as the JAX package's do
+(``nf_tpu/distributions/base.py:27-33``). Randomness comes from an
+explicit ``torch.Generator`` on the distribution's device.
 """
 
 from __future__ import annotations
@@ -21,14 +23,15 @@ _LOG2PI = math.log(2 * math.pi)
 class BaseDistribution(nn.Module):
     """Abstract base distribution (reference ``distributions/base.py:8``)."""
 
-    def forward(self, num_samples=1, generator=None):
+    def forward(self, num_samples=1, generator=None, context=None):
         raise NotImplementedError
 
-    def log_prob(self, z):
+    def log_prob(self, z, context=None):
         raise NotImplementedError
 
-    def sample(self, num_samples=1, generator=None):
-        z, _ = self.forward(num_samples, generator=generator)
+    def sample(self, num_samples=1, generator=None, context=None):
+        z, _ = self.forward(num_samples, generator=generator,
+                            context=context)
         return z
 
 
@@ -51,18 +54,59 @@ class DiagGaussian(BaseDistribution):
             self.register_buffer("loc", loc)
             self.register_buffer("log_scale", log_scale)
 
-    def forward(self, num_samples=1, generator=None):
+    def forward(self, num_samples=1, generator=None, context=None):
         eps = torch.randn((num_samples,) + self.shape, generator=generator,
                           dtype=self.loc.dtype, device=self.loc.device)
-        z = self.loc + torch.exp(self.log_scale) * eps
-        log_p = -0.5 * self.d * _LOG2PI - torch.sum(
-            self.log_scale + 0.5 * eps ** 2, dim=tuple(range(1, eps.ndim)))
-        return z, log_p
+        return _gaussian_sample(self.loc, self.log_scale, eps)
 
-    def log_prob(self, z):
-        eps = (z - self.loc) / torch.exp(self.log_scale)
-        return -0.5 * self.d * _LOG2PI - torch.sum(
-            self.log_scale + 0.5 * eps ** 2, dim=tuple(range(1, z.ndim)))
+    def log_prob(self, z, context=None):
+        return _gaussian_log_prob(self.loc, self.log_scale, z)
+
+
+def _gaussian_sample(loc, log_scale, eps):
+    """``(loc + exp(log_scale) * eps, its log density)``."""
+    z = loc + torch.exp(log_scale) * eps
+    d = math.prod(eps.shape[1:])
+    log_p = -0.5 * d * _LOG2PI - torch.sum(
+        log_scale + 0.5 * eps ** 2, dim=tuple(range(1, eps.ndim)))
+    return z, log_p
+
+
+def _gaussian_log_prob(loc, log_scale, z):
+    eps = (z - loc) / torch.exp(log_scale)
+    d = math.prod(z.shape[1:])
+    return -0.5 * d * _LOG2PI - torch.sum(
+        log_scale + 0.5 * eps ** 2, dim=tuple(range(1, z.ndim)))
+
+
+class ConditionalDiagGaussian(BaseDistribution):
+    """Diagonal Gaussian whose mean and log-scale come from a context
+    encoder (``nf_tpu/distributions/base.py:95-127``; reference
+    ``base.py:106-155``): ``context_encoder(context)`` gives ``(B, 2d)``,
+    the mean its first half and the log-scale its second. A draw takes as
+    many samples as the context has rows."""
+
+    def __init__(self, shape, context_encoder):
+        super().__init__()
+        if isinstance(shape, int):
+            shape = (shape,)
+        self.shape = tuple(shape)
+        self.context_encoder = context_encoder
+
+    def _params(self, context):
+        out = self.context_encoder(context)
+        split = out.shape[-1] // 2
+        return out[..., :split], out[..., split:]
+
+    def forward(self, num_samples=1, generator=None, context=None):
+        mean, log_scale = self._params(context)
+        eps = torch.randn((num_samples,) + self.shape, generator=generator,
+                          dtype=mean.dtype, device=mean.device)
+        return _gaussian_sample(mean, log_scale, eps)
+
+    def log_prob(self, z, context=None):
+        mean, log_scale = self._params(context)
+        return _gaussian_log_prob(mean, log_scale, z)
 
 
 class UniformGaussian(BaseDistribution):
@@ -84,11 +128,11 @@ class UniformGaussian(BaseDistribution):
         self.register_buffer("inv_perm",
                              torch.tensor(inv_perm, dtype=torch.int64))
 
-    def forward(self, num_samples=1, generator=None):
+    def forward(self, num_samples=1, generator=None, context=None):
         z = self.sample(num_samples, generator=generator)
         return z, self.log_prob(z)
 
-    def sample(self, num_samples=1, generator=None):
+    def sample(self, num_samples=1, generator=None, context=None):
         kw = dict(generator=generator, dtype=self.scale.dtype,
                   device=self.scale.device)
         eps_u = torch.rand((num_samples, self.ind.shape[0]), **kw) - 0.5
@@ -96,7 +140,7 @@ class UniformGaussian(BaseDistribution):
         z = torch.cat([eps_u, eps_g], dim=-1)[..., self.inv_perm]
         return self.scale * z
 
-    def log_prob(self, z):
+    def log_prob(self, z, context=None):
         log_p_u = torch.broadcast_to(-torch.log(self.scale[self.ind]),
                                      (z.shape[0], self.ind.shape[0]))
         sc = self.scale[self.ind_]

@@ -1,5 +1,5 @@
-"""Analytic 2D target densities and rejection sampling
-(``nf_tpu/distributions/target.py:23-75``; reference
+"""Analytic target densities and rejection sampling
+(``nf_tpu/distributions/target.py:23-75,140-156``; reference
 ``normflows/distributions/target.py``).
 
 The JAX package runs its sampler as a ``lax.while_loop`` over fixed-size
@@ -10,6 +10,8 @@ explicit ``torch.Generator``, and the samples live on its device.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -73,3 +75,25 @@ class TwoMoons(Target):
         return (-0.5 * ((norm - 2) / 0.2) ** 2
                 - 0.5 * ((a - 2) / 0.3) ** 2
                 + torch.log1p(torch.exp(-4 * a / 0.09)))
+
+
+class ConditionalDiagGaussian(Target):
+    """Gaussian target whose context is ``[mean, std]``, ``(B, 2d)``
+    (``nf_tpu/distributions/target.py:140-156``; reference
+    ``target.py:199-225``). The package exports it as
+    ``ConditionalDiagGaussianTarget``, the JAX package's name."""
+
+    def log_prob(self, z, context=None):
+        d = z.shape[-1]
+        loc, scale = context[:, :d], context[:, d:]
+        return -0.5 * d * math.log(2 * math.pi) - torch.sum(
+            torch.log(scale) + 0.5 * ((z - loc) / scale) ** 2, dim=-1)
+
+    def sample(self, num_samples=1, generator=None, context=None):
+        """``num_samples`` draws, row i at ``context[i]``; the generator
+        lives on the context's device."""
+        d = context.shape[-1] // 2
+        loc, scale = context[:, :d], context[:, d:]
+        eps = torch.randn((num_samples, d), generator=generator,
+                          dtype=context.dtype, device=context.device)
+        return loc + scale * eps

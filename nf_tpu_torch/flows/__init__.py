@@ -1,6 +1,7 @@
-from .autoregressive import Autoregressive
-from .base import Composite, Flow, Reverse
-from .mixing import LULinear, LULinearPermute
+from .affine import AffineConstFlow, MaskedAffineFlow
+from .autoregressive import Autoregressive, MaskedAffineAutoregressive
+from .base import Composite, Flow, Reverse, Scanned
+from .mixing import LULinear, LULinearPermute, Permute
 from .neural_spline import (
     AutoregressiveRationalQuadraticSpline,
     CircularAutoregressiveRationalQuadraticSpline,
@@ -9,9 +10,12 @@ from .neural_spline import (
     PiecewiseRationalQuadraticCDF,
     PiecewiseRationalQuadraticCoupling,
 )
+from .normalization import ActNorm
 from .periodic import PeriodicShift, PeriodicWrap
 
 __all__ = [
+    "ActNorm",
+    "AffineConstFlow",
     "Autoregressive",
     "AutoregressiveRationalQuadraticSpline",
     "CircularAutoregressiveRationalQuadraticSpline",
@@ -20,10 +24,14 @@ __all__ = [
     "Flow",
     "LULinear",
     "LULinearPermute",
+    "MaskedAffineAutoregressive",
+    "MaskedAffineFlow",
     "MaskedPiecewiseRationalQuadraticAutoregressive",
     "PeriodicShift",
     "PeriodicWrap",
+    "Permute",
     "PiecewiseRationalQuadraticCDF",
     "PiecewiseRationalQuadraticCoupling",
     "Reverse",
+    "Scanned",
 ]

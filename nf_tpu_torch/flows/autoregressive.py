@@ -1,5 +1,6 @@
 """Autoregressive flows (``nf_tpu/flows/autoregressive.py``; reference
-``normflows/flows/affine/autoregressive.py``).
+``normflows/flows/affine/autoregressive.py``): the base class, and the
+masked affine autoregressive flow (MAF).
 
 Forward is one pass of the autoregressive net; the inverse is D sequential
 passes, each fixing one more feature (the MAF asymmetry, reference
@@ -12,7 +13,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
+from ..nets.made import MADE
+from ..nets.precision import MixedPrecision
 from .base import Flow
 
 
@@ -43,3 +47,57 @@ class Autoregressive(Flow):
             params = self.autoregressive_net(outputs, context)
             outputs, logabsdet = self._elementwise_inverse(inputs, params)
         return outputs, logabsdet
+
+
+class MaskedAffineAutoregressive(Autoregressive):
+    """Masked affine autoregressive flow (MAF, arXiv 1705.07057;
+    ``nf_tpu/flows/autoregressive.py:54-113``; reference
+    ``autoregressive.py:50-128``): a MADE with two outputs per feature
+    gives the scale ``sigmoid(s + 2) + 1e-3`` and the shift. ``forward``
+    (latent -> data, the sampling direction) is one MADE pass; ``inverse``
+    (the density direction) is D passes. With the bin-major head (the
+    default) the MADE emits ``(2*D, B)`` rows param-major, so the scale
+    and shift are contiguous ``(D, B)`` planes."""
+
+    def __init__(self, features, hidden_features, context_features=None,
+                 num_blocks=2, use_residual_blocks=True, random_mask=False,
+                 activation=F.relu, dropout_probability=0.0,
+                 use_batch_norm=False, mixed_precision=False,
+                 bin_major_head=True, generator=None, dtype=torch.float32):
+        if use_batch_norm:
+            raise NotImplementedError(
+                "MADE batch norm is not ported: the JAX package's builders "
+                "make MADEs without it")
+        made = MADE(features, hidden_features,
+                    context_features=context_features, num_blocks=num_blocks,
+                    output_multiplier=2,
+                    use_residual_blocks=use_residual_blocks,
+                    random_mask=random_mask, activation=activation,
+                    dropout_probability=dropout_probability,
+                    bin_major_head=bin_major_head, generator=generator,
+                    dtype=dtype)
+        super().__init__(MixedPrecision(made) if mixed_precision else made)
+        self.features = features
+
+    def _scale_shift(self, params):
+        if self.autoregressive_net.bin_major_head is not None:
+            p = params.reshape(2, self.features, -1)
+            unconstrained_scale, shift = p[0], p[1]
+        else:
+            p = params.reshape(-1, self.features, 2)
+            unconstrained_scale, shift = p[..., 0], p[..., 1]
+        return torch.sigmoid(unconstrained_scale + 2.0) + 1e-3, shift
+
+    def _elementwise_forward(self, inputs, autoregressive_params):
+        scale, shift = self._scale_shift(autoregressive_params)
+        if self.autoregressive_net.bin_major_head is not None:
+            return (scale * inputs.T + shift).T, \
+                torch.sum(torch.log(scale), dim=0)
+        return scale * inputs + shift, torch.sum(torch.log(scale), dim=1)
+
+    def _elementwise_inverse(self, inputs, autoregressive_params):
+        scale, shift = self._scale_shift(autoregressive_params)
+        if self.autoregressive_net.bin_major_head is not None:
+            return ((inputs.T - shift) / scale).T, \
+                -torch.sum(torch.log(scale), dim=0)
+        return (inputs - shift) / scale, -torch.sum(torch.log(scale), dim=1)

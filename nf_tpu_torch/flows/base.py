@@ -3,7 +3,11 @@
 
 Every layer is an ``nn.Module`` whose ``forward(z)`` and ``inverse(z)``
 return ``(z', log_det)`` with a per-sample ``log_det`` of shape ``(B,)``.
-``forward`` maps latent -> data.
+``forward`` maps latent -> data. ``init_data_forward`` and
+``init_data_inverse`` are the data-dependent initialisation pass
+(``nf_tpu/flows/base.py:46-53``): a layer with such state (``ActNorm``)
+sets it in place from the batch it is given, then transforms it; every
+other layer only transforms it.
 """
 
 from __future__ import annotations
@@ -26,6 +30,12 @@ class Flow(nn.Module):
     def inverse(self, z, context=None):
         raise NotImplementedError("This flow has no algebraic inverse.")
 
+    def init_data_forward(self, z, context=None):
+        return self.forward(z, context=context)
+
+    def init_data_inverse(self, z, context=None):
+        return self.inverse(z, context=context)
+
 
 class Reverse(Flow):
     """Swap a layer's forward and inverse (reference ``flows/base.py:27``)."""
@@ -40,6 +50,12 @@ class Reverse(Flow):
     def inverse(self, z, context=None):
         return self.flow.forward(z, context=context)
 
+    def init_data_forward(self, z, context=None):
+        return self.flow.init_data_inverse(z, context=context)
+
+    def init_data_inverse(self, z, context=None):
+        return self.flow.init_data_forward(z, context=context)
+
 
 class Composite(Flow):
     """Sequential composition of flows (reference ``flows/base.py:48``)."""
@@ -49,15 +65,84 @@ class Composite(Flow):
         self.flows = nn.ModuleList(flows)
 
     def forward(self, z, context=None):
-        log_det_tot = zero_log_det_like_z(z)
-        for flow in self.flows:
-            z, log_det = flow.forward(z, context=context)
-            log_det_tot = log_det_tot + log_det
-        return z, log_det_tot
+        return _run(self.flows, "forward", z, context)
 
     def inverse(self, z, context=None):
-        log_det_tot = zero_log_det_like_z(z)
-        for flow in reversed(self.flows):
-            z, log_det = flow.inverse(z, context=context)
-            log_det_tot = log_det_tot + log_det
-        return z, log_det_tot
+        return _run(list(reversed(self.flows)), "inverse", z, context)
+
+    def init_data_forward(self, z, context=None):
+        return _run(self.flows, "init_data_forward", z, context)
+
+    def init_data_inverse(self, z, context=None):
+        return _run(list(reversed(self.flows)), "init_data_inverse", z,
+                    context)
+
+
+def _run(flows, method, z, context):
+    """``method`` of each flow in turn, the log-dets summed from zero."""
+    log_det_tot = zero_log_det_like_z(z)
+    for flow in flows:
+        z, log_det = getattr(flow, method)(z, context=context)
+        log_det_tot = log_det_tot + log_det
+    return z, log_det_tot
+
+
+def _signature(module):
+    return ([type(m) for m in module.modules()],
+            [(n, tuple(t.shape), t.dtype) for n, t in
+             module.state_dict().items()])
+
+
+class Scanned(Flow):
+    """K structurally identical units run one after the other
+    (``nf_tpu/flows/base.py:129-218``). The JAX package stacks their
+    parameters and runs one traced body under ``lax.scan`` to save
+    compile time; PyTorch compiles nothing, so here the units stay
+    separate modules (``units``) and run in a Python loop. The JAX
+    exporter flattens a ``Scanned`` into per-layer names, and
+    ``compat.load_reference_state_dict`` maps those onto ``units``.
+
+    :meth:`layers` is the units' layers in order, a plain ``Composite``
+    unit opened into its flows: the loop, the data-dependent pass and
+    the model container (``core.NormalizingFlow``) all run those layers
+    with one running log-det sum, so a ``scan=True`` model computes
+    exactly what the unrolled model does and agrees with it bitwise.
+    ``remat=True`` (``jax.checkpoint`` of the body) arrives with the Glow
+    slice and raises."""
+
+    def __init__(self, flows, remat=False):
+        super().__init__()
+        if remat:
+            raise NotImplementedError(
+                "Scanned(remat=True) arrives with the Glow slice of the port")
+        flows = list(flows)
+        if len({repr(_signature(f)) for f in flows}) != 1:
+            raise ValueError("Scanned requires structurally identical flows.")
+        self.units = nn.ModuleList(flows)
+
+    def layers(self):
+        """Every layer of every unit in order (plain ``Composite`` units,
+        and plain ``Composite``s inside them, opened)."""
+        out = []
+        for unit in self.units:
+            out += open_composites(unit)
+        return out
+
+    def forward(self, z, context=None):
+        return _run(self.layers(), "forward", z, context)
+
+    def inverse(self, z, context=None):
+        return _run(self.layers()[::-1], "inverse", z, context)
+
+    def init_data_forward(self, z, context=None):
+        return _run(self.layers(), "init_data_forward", z, context)
+
+    def init_data_inverse(self, z, context=None):
+        return _run(self.layers()[::-1], "init_data_inverse", z, context)
+
+
+def open_composites(layer):
+    """``[layer]``, or a plain ``Composite``'s flows, opened in turn."""
+    if type(layer) is Composite:
+        return [f for sub in layer.flows for f in open_composites(sub)]
+    return [layer]

@@ -1,5 +1,6 @@
-"""Mixing layers of the NSF stack (``nf_tpu/flows/mixing.py:204-365``;
-reference ``normflows/flows/mixing.py``)."""
+"""Mixing layers (``nf_tpu/flows/mixing.py:29-68,204-365``; reference
+``normflows/flows/mixing.py``): the channel permutation of the MAF stack
+and the LU mixing of the NSF stack."""
 
 from __future__ import annotations
 
@@ -11,6 +12,39 @@ from torch import nn
 
 from ..utils.nn import softplus
 from .base import Flow
+
+
+class Permute(Flow):
+    """Channel permutation, a fixed random ``"shuffle"`` (drawn from
+    ``generator``) or ``"swap"`` of the halves (``mixing.py:29-68``;
+    reference ``mixing.py:9-54``). A shuffle keeps the buffers ``perm``
+    and ``inv_perm``, the names the JAX exporter writes."""
+
+    def __init__(self, num_channels, mode="shuffle", generator=None):
+        super().__init__()
+        if mode not in ("shuffle", "swap"):
+            raise NotImplementedError(f"The mode {mode} is not implemented.")
+        perm = inv_perm = None
+        if mode == "shuffle":
+            perm = torch.randperm(num_channels, generator=generator)
+            inv_perm = torch.argsort(perm)
+        self.register_buffer("perm", perm)
+        self.register_buffer("inv_perm", inv_perm)
+        self.num_channels = num_channels
+        self.mode = mode
+
+    def _permute(self, z, perm, first):
+        if self.mode == "shuffle":
+            z = torch.index_select(z, 1, perm)
+        else:
+            z = torch.cat([z[:, first:], z[:, :first]], dim=1)
+        return z, torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
+
+    def forward(self, z, context=None):
+        return self._permute(z, self.perm, self.num_channels // 2)
+
+    def inverse(self, z, context=None):
+        return self._permute(z, self.inv_perm, (self.num_channels + 1) // 2)
 
 
 class _Permutation(Flow):

@@ -1,3 +1,10 @@
-from .builders import build_circular_nsf, build_nsf
+from .builders import (
+    build_circular_nsf,
+    build_conditional_nsf,
+    build_maf,
+    build_nsf,
+    build_realnvp,
+)
 
-__all__ = ["build_circular_nsf", "build_nsf"]
+__all__ = ["build_circular_nsf", "build_conditional_nsf", "build_maf",
+           "build_nsf", "build_realnvp"]

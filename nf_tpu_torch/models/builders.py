@@ -1,5 +1,9 @@
-"""Model builders (``nf_tpu/models/builders.py``): :func:`build_nsf` and
-:func:`build_circular_nsf`."""
+"""Model builders (``nf_tpu/models/builders.py``): :func:`build_realnvp`,
+:func:`build_nsf`, :func:`build_circular_nsf`,
+:func:`build_conditional_nsf` and :func:`build_maf`.
+
+Weights are drawn on the host from ``torch.Generator().manual_seed(seed)``
+and moved to ``device`` (None: CUDA, raising if it is absent)."""
 
 from __future__ import annotations
 
@@ -10,6 +14,45 @@ from .. import core
 from .. import distributions as dist
 from .. import flows as nff
 from .._device import resolve_device
+from ..nets import MLP, MixedPrecision
+from ..utils.masks import create_alternating_binary_mask
+
+
+def build_realnvp(dim=2, K=64, hidden=None, target=None,
+                  trainable_base=False, scan=False, mixed_precision=False,
+                  device=None, seed=0):
+    """Real NVP: K pairs of a ``MaskedAffineFlow`` (alternating masks,
+    ``s`` and ``t`` MLPs ``[dim, *hidden, dim]`` with zero-init last
+    layers) and an ``ActNorm`` (``builders.py:24-57``; reference
+    ``examples/real_nvp.ipynb`` cell 2). ``hidden`` defaults to
+    ``[32 dim, 32 dim]`` and the target to ``TwoModes``. Every layer
+    starts as the identity; ``init_from_samples`` sets the ActNorms.
+
+    ``scan=True`` groups the K/2 units (even-mask coupling, ActNorm,
+    odd-mask coupling, ActNorm) into one ``Scanned`` (K must be even); it
+    computes what ``scan=False`` does, bitwise, and loads the same
+    export. ``mixed_precision=True`` runs ``s`` and ``t`` in bfloat16
+    (:class:`~nf_tpu_torch.nets.MixedPrecision`)."""
+    if scan and K % 2 != 0:
+        raise ValueError("scan=True needs an even K")
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    hidden = hidden or [dim * 32, dim * 32]
+    layers = [dim] + list(hidden) + [dim]
+    flows = []
+    for i in range(K):
+        b = create_alternating_binary_mask(dim, even=(i % 2 == 0))
+        s = MLP(layers, init_zeros=True, generator=gen)
+        t = MLP(layers, init_zeros=True, generator=gen)
+        if mixed_precision:
+            s, t = MixedPrecision(s), MixedPrecision(t)
+        flows += [nff.MaskedAffineFlow(b, t=t, s=s), nff.ActNorm(dim)]
+    if scan:
+        flows = [nff.Scanned([nff.Composite(flows[4 * i:4 * i + 4])
+                              for i in range(K // 2)])]
+    q0 = dist.DiagGaussian(dim, trainable=trainable_base)
+    return core.NormalizingFlow(q0, flows, p=target or dist.TwoModes()) \
+        .to(dev)
 
 
 def build_nsf(dim=2, K=8, hidden=128, num_bins=8, num_blocks=2,
@@ -18,9 +61,7 @@ def build_nsf(dim=2, K=8, hidden=128, num_bins=8, num_blocks=2,
     """Coupled RQ-spline NSF with LULinearPermute mixing
     (``builders.py:76``; reference NSF recipes, e.g. ``comparison.ipynb``).
 
-    Weights are drawn on the host from ``torch.Generator().manual_seed(seed)``
-    and moved to ``device`` (None: CUDA, raising if it is absent). The
-    splines start as the identity, as in the JAX package.
+    The splines start as the identity, as in the JAX package.
     ``mixed_precision=True`` runs the conditioners in bfloat16
     (:class:`~nf_tpu_torch.nets.MixedPrecision`); where a coupling takes
     the fused head (kernel B) its trunk stays float32, as in the JAX
@@ -73,4 +114,48 @@ def build_circular_nsf(dim=2, ind_circ=(0,), K=12, hidden=512, num_bins=10,
         for _ in range(K)]
     flows.append(nff.PeriodicWrap(ind_circ, bound=np.pi))
     q0 = dist.UniformGaussian(dim, ind=ind_circ, scale=scale)
+    return core.NormalizingFlow(q0, flows, p=target).to(dev)
+
+
+def build_conditional_nsf(dim=2, context_size=4, K=4, hidden=64, num_bins=8,
+                          num_blocks=2, target=None, device=None, seed=0,
+                          mixed_precision=False):
+    """Conditional coupled RQ-spline NSF q(x | c) (``builders.py:123-139``;
+    reference ``examples/conditional_flow.ipynb``): K couplings whose
+    ResidualNet conditioners take the context (concatenated to the
+    trunk's input and gating every block), each followed by an
+    ``LULinearPermute``, over a fixed ``DiagGaussian`` base. On CUDA a
+    coupling at B*D >= 4096 takes kernels B (its conditional half) and A
+    (its unconditional CDF), as ``build_nsf``'s do. The splines start as
+    the identity."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    flows = []
+    for i in range(K):
+        flows.append(nff.CoupledRationalQuadraticSpline(
+            num_input_channels=dim, num_blocks=num_blocks,
+            num_hidden_channels=hidden, num_context_channels=context_size,
+            num_bins=num_bins, reverse_mask=(i % 2 == 1),
+            mixed_precision=mixed_precision, generator=gen))
+        flows.append(nff.LULinearPermute(dim, generator=gen))
+    q0 = dist.DiagGaussian(dim, trainable=False)
+    return core.ConditionalNormalizingFlow(q0, flows, p=target).to(dev)
+
+
+def build_maf(dim=2, K=8, hidden=64, num_blocks=2, target=None, device=None,
+              seed=0, mixed_precision=False):
+    """Masked autoregressive flow: K ``MaskedAffineAutoregressive`` layers
+    (MADE with ``num_blocks`` residual blocks of ``hidden`` units, a
+    bin-major head), each followed by a random ``Permute``, over a fixed
+    ``DiagGaussian`` base (``builders.py:142-153``). No kernel runs: a
+    MAF layer is products and elementwise glue."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    flows = []
+    for _ in range(K):
+        flows.append(nff.MaskedAffineAutoregressive(
+            dim, hidden, num_blocks=num_blocks,
+            mixed_precision=mixed_precision, generator=gen))
+        flows.append(nff.Permute(dim, generator=gen))
+    q0 = dist.DiagGaussian(dim, trainable=False)
     return core.NormalizingFlow(q0, flows, p=target).to(dev)

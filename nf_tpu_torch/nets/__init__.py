@@ -4,10 +4,10 @@ from .made import (
     MaskedLinear,
     MaskedResidualBlock,
 )
-from .mlp import Linear
+from .mlp import MLP, Linear
 from .precision import MixedPrecision
 from .resnet import ResidualBlock, ResidualNet
 
-__all__ = ["Linear", "MADE", "MaskedFeedforwardBlock", "MaskedLinear",
+__all__ = ["Linear", "MADE", "MLP", "MaskedFeedforwardBlock", "MaskedLinear",
            "MaskedResidualBlock", "MixedPrecision", "ResidualBlock",
            "ResidualNet"]

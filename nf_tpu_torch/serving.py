@@ -13,30 +13,36 @@ is one launch of the graph: no Python runs per layer and nothing waits
 for the device.
 
 * :func:`compile_log_prob` -- ``fn(x) -> log_prob`` at a fixed batch
-  shape;
+  shape, ``fn(x, context)`` with ``context_shape``;
 * :func:`compile_sampler` -- ``fn(seed) -> (z, log_q)`` at a fixed
-  ``num_samples``: the graph draws from a CUDA generator of its own,
-  reseeded with ``seed`` before each replay, so a seed gives, bitwise, the
-  draws of ``model.sample(num_samples,
-  generator=torch.Generator("cuda").manual_seed(seed))``;
+  ``num_samples``, ``fn(seed, context)`` with ``context_shape``: the
+  graph draws from a CUDA generator of its own, reseeded with ``seed``
+  before each replay, so a seed gives, bitwise, the draws of
+  ``model.sample(num_samples, generator=torch.Generator("cuda")
+  .manual_seed(seed), context=context)``;
 * :func:`compile_log_prob_buckets` -- a power-of-two ladder of
-  ``log_prob`` graphs (:class:`BucketedFn`): a request of ``n`` rows is
-  padded with its last row to the smallest bucket that holds it, and
-  exactly ``n`` results come back.
+  ``log_prob`` graphs (:class:`BucketedFn`): a request of ``n`` rows (and
+  its context, with ``context_shape``) is padded with its last row to the
+  smallest bucket that holds it, and exactly ``n`` results come back.
+
+A context is an input like ``x``: copied into the graph's static input
+before each replay, never baked into the graph.
 
 Each handle (:class:`CompiledFn`) is bound to the weights it was compiled
 or rebound with (:meth:`CompiledFn.with_model`): the graphs read a copy of
 the model made at compile time, and a handle copies its own weights into
 that copy before it replays when another handle replayed since. Training
-the original model in place changes no handle.
+the original model in place (or setting its ActNorms with
+``init_from_data``) changes no handle; ``with_model`` rebinds one to the
+new weights without a recapture.
 
 The CPU, which the caller asks for by putting the model there, runs the
 eager function on the bound weights (the tests' path). On CUDA a capture
 that fails raises; nothing runs eagerly in its place.
 
-Not ported yet, each raising ``NotImplementedError``: conditional and
-class-conditional models (``context_shape``, ``class_cond``, and the
-``temperature`` only their containers take; ROADMAP queue 1 items 5-6),
+Not ported yet, each raising ``NotImplementedError``: class-conditional
+models (``class_cond``, and the ``temperature`` only the image and
+class-conditional containers take; ROADMAP queue 1 item 6),
 ``typed_key`` (a JAX key flavour; the port takes an integer seed), XLA's
 ``cost_analysis``, ``flops`` and ``memory_analysis``, and the StableHLO
 artifacts ``export_sampler``, ``export_log_prob`` and ``load_exported``
@@ -53,9 +59,8 @@ import torch
 
 from ._graphs import WARMUP_CALLS, capture, warm_up
 
-_NO_CONDITIONAL = ("context_shape and class_cond arrive with the port's "
-                   "conditional and class-conditional models (ROADMAP "
-                   "queue 1 items 5-6)")
+_NO_CLASS_COND = ("class_cond arrives with the port's class-conditional "
+                  "models (ROADMAP queue 1 item 6)")
 _NO_TEMPERATURE = ("temperature is taken only by the image and "
                    "class-conditional containers, which arrive with "
                    "ROADMAP queue 1 item 6")
@@ -156,8 +161,9 @@ def _take(out, rows, fresh):
 class _Executable:
     """``fn(model, *inputs)`` at fixed input shapes on the model of
     ``weights``: on CUDA one captured graph, on the CPU the eager call.
-    ``seeded``: the single argument is an integer seed for the
-    executable's own generator, which ``fn`` draws from."""
+    ``seeded``: the first argument is an integer seed for the
+    executable's own generator, and ``fn(model, generator, *inputs)``
+    draws from it."""
 
     def __init__(self, weights, fn, input_shapes=(), dtype=torch.float32,
                  seeded=False, pool=None):
@@ -178,28 +184,33 @@ class _Executable:
                     (self.generator,) if seeded else ())
 
     def _run(self):
-        if self.seeded:
-            return self.fn(self.weights.model, self.generator)
-        return self.fn(self.weights.model, *self.inputs)
+        gen = (self.generator,) if self.seeded else ()
+        return self.fn(self.weights.model, *gen, *self.inputs)
 
     def __call__(self, params, *args, exact=True):
-        """Run on the weights ``params``. ``args``: the seed, or one tensor
-        per input (``exact=False``: as many rows as the input holds or
-        fewer, padded with the last row, and as many rows returned)."""
+        """Run on the weights ``params``. ``args``: the seed if seeded,
+        then one tensor per input (``exact=False``: every input with as
+        many rows as the first or fewer, padded with its last row, and as
+        many rows returned)."""
+        inputs = args
         if self.seeded:
-            (seed,) = args
+            seed, *inputs = args
             if isinstance(seed, bool) or not isinstance(seed, int):
                 raise TypeError(f"the sampler takes an integer seed, got "
                                 f"{type(seed).__name__}")
-        elif len(args) != len(self.inputs):
+        if len(inputs) != len(self.inputs):
             raise TypeError(f"expected {len(self.inputs)} inputs, got "
-                            f"{len(args)}")
+                            f"{len(inputs)}")
+        rows = None if exact else inputs[0].shape[0]
+        if rows is not None and any(t.shape[0] != rows for t in inputs):
+            raise ValueError(f"every input needs the rows of the first "
+                             f"({rows}), got "
+                             f"{[tuple(t.shape) for t in inputs]}")
         self.weights.load(params)
-        rows = None if exact or self.seeded else args[0].shape[0]
         if self.seeded:
             self.generator.manual_seed(seed)
-        else:
-            for dst, src in zip(self.inputs, args):
+        with torch.no_grad():
+            for dst, src in zip(self.inputs, inputs):
                 _fill(dst, src, exact)
         if self.graph is None:
             with torch.no_grad():
@@ -251,9 +262,9 @@ def _bound(executable, model):
     return CompiledFn(executable, params)
 
 
-def _no_conditional(context_shape, class_cond):
-    if context_shape is not None or class_cond:
-        raise NotImplementedError(_NO_CONDITIONAL)
+def _no_class_cond(class_cond):
+    if class_cond:
+        raise NotImplementedError(_NO_CLASS_COND)
 
 
 def compile_sampler(model, num_samples: int,
@@ -262,23 +273,36 @@ def compile_sampler(model, num_samples: int,
                     class_cond: bool = False, dtype=torch.float32,
                     typed_key: bool = False) -> CompiledFn:
     """Compile ``model.sample(num_samples)``: ``fn(seed) -> (z, log_q)``
-    (``serving.py:133``). ``seed`` (an integer) reseeds the graph's own
-    generator before each call, so a seed gives the draws of an eager
-    ``model.sample`` with a generator freshly seeded with it."""
-    _no_conditional(context_shape, class_cond)
+    (``serving.py:133``), or with ``context_shape`` (the whole context's
+    shape, ``dtype``) ``fn(seed, context)``. ``seed`` (an integer) reseeds
+    the graph's own generator before each call, so a seed gives the draws
+    of an eager ``model.sample`` with a generator freshly seeded with it.
+    The conditional containers sample at temperature 1: ``temperature``
+    with ``context_shape`` raises ``ValueError``, as in the JAX
+    package."""
+    _no_class_cond(class_cond)
+    if temperature is not None and context_shape is not None:
+        raise ValueError(
+            "temperature is not supported together with context_shape: "
+            "conditional containers sample at temperature 1")
     if temperature is not None:
         raise NotImplementedError(_NO_TEMPERATURE)
     if typed_key:
         raise NotImplementedError(_NO_TYPED_KEY)
-    del dtype  # the dtype of a context, which no ported model takes
     exe = _Executable(
         _Weights(model),
-        lambda m, gen: m.sample(num_samples, generator=gen), seeded=True)
+        lambda m, gen, *context: m.sample(num_samples, gen, *context),
+        _context_shapes(context_shape), dtype, seeded=True)
     return _bound(exe, model)
 
 
-def _log_prob(model, x):
-    return model.log_prob(x)
+def _log_prob(model, x, *context):
+    return model.log_prob(x, *context)
+
+
+def _context_shapes(context_shape):
+    """The static input shapes a context adds: none, or its own."""
+    return [] if context_shape is None else [tuple(context_shape)]
 
 
 def compile_log_prob(model, batch_shape: Tuple[int, ...],
@@ -286,20 +310,23 @@ def compile_log_prob(model, batch_shape: Tuple[int, ...],
                      class_cond: bool = False,
                      dtype=torch.float32) -> CompiledFn:
     """Compile ``model.log_prob`` at a fixed batch shape: ``fn(x) ->
-    log_prob`` (``serving.py:184``); ``x`` must have ``batch_shape`` and
-    ``dtype``."""
-    _no_conditional(context_shape, class_cond)
-    exe = _Executable(_Weights(model), _log_prob, (tuple(batch_shape),),
+    log_prob`` (``serving.py:184``), or with ``context_shape`` (the whole
+    context's shape) ``fn(x, context)``; ``x`` must have ``batch_shape``,
+    the context ``context_shape``, both ``dtype``."""
+    _no_class_cond(class_cond)
+    exe = _Executable(_Weights(model), _log_prob,
+                      [tuple(batch_shape)] + _context_shapes(context_shape),
                       dtype)
     return _bound(exe, model)
 
 
 class BucketedFn:
     """Ragged requests over a ladder of fixed-batch compiled functions
-    (``serving.py:197``): a request of ``n`` rows is padded with its last
-    row to the smallest bucket ``>= n``, and exactly ``n`` results come
-    back; a request above the largest bucket raises. The padding is
-    written straight into the bucket's static input."""
+    (``serving.py:197``): a request of ``n`` rows, ``fn(x, *extras)``, is
+    padded with its last row to the smallest bucket ``>= n``, each extra
+    array (a context) likewise, and exactly ``n`` results come back; a
+    request above the largest bucket raises. The padding is written
+    straight into the bucket's static inputs."""
 
     def __init__(self, fns, buckets):
         self._fns = dict(zip(buckets, fns))
@@ -322,14 +349,12 @@ class BucketedFn:
                          f"{self._buckets[-1]}")
 
     def __call__(self, x, *extras):
-        if extras:
-            raise NotImplementedError(_NO_CONDITIONAL)
         if not isinstance(x, torch.Tensor) or x.ndim == 0:
             raise TypeError("expected a batch of rows")
         if x.shape[0] == 0:
             raise ValueError("an empty request has no row to pad with")
         fn = self._fns[self._bucket_for(x.shape[0])]
-        return fn._compiled(fn._params, x, exact=False)
+        return fn._compiled(fn._params, x, *extras, exact=False)
 
     def with_model(self, model):
         """Every bucket rebound to ``model``'s weights at once (the buckets
@@ -348,11 +373,13 @@ def compile_log_prob_buckets(model, max_batch: int,
                              dtype=torch.float32) -> BucketedFn:
     """Compile a power-of-two ladder of ``log_prob`` functions up to
     ``max_batch`` (or the given ``buckets``) and serve any request size by
-    pad-to-bucket (``serving.py:240``). On CUDA every bucket's graph reads
+    pad-to-bucket (``serving.py:240``). ``feature_shape`` is the shape of
+    one row of ``x``, ``context_shape`` that of one row of the context a
+    conditional model takes. On CUDA every bucket's graph reads
     one copy of the weights and draws its scratch memory from one pool,
     captured largest first so that the smaller ones reuse its memory; the
     results a call returns are copies, so no later call overwrites them."""
-    _no_conditional(context_shape, class_cond)
+    _no_class_cond(class_cond)
     if buckets is None:
         b, buckets = 1, []
         while b < max_batch:
@@ -362,8 +389,9 @@ def compile_log_prob_buckets(model, max_batch: int,
     weights = _Weights(model)
     pool = (torch.cuda.graph_pool_handle()
             if weights.device.type == "cuda" else None)
-    exes = {b: _Executable(weights, _log_prob,
-                           ((b,) + tuple(feature_shape),), dtype, pool=pool)
+    rows = [tuple(feature_shape)] + _context_shapes(context_shape)
+    exes = {b: _Executable(weights, _log_prob, [(b,) + r for r in rows],
+                           dtype, pool=pool)
             for b in sorted(buckets, reverse=True)}
     params = weights.bind(model)
     weights.holder = params

@@ -488,9 +488,12 @@ def test_kernel_a_refuses_unbuilt_bin_counts(cuda):
 # at and above the 128-column W_eff tile and not a multiple of 8 or 16, B
 # of one column and odd counts either side of a block's 256 columns, and,
 # at K = 10 with circular tails and D = 4, the most head rows (M = 120).
+# The last two are build_conditional_nsf's couplings: H = 64, half of
+# the first W_eff tile, at the path's B and at a ragged one.
 E_SHAPES = [(4, 128, 65536 + 77, False), (1, 128, 65536, True),
             (1, 16, 1, False), (4, 100, 255, True), (1, 512, 257, False),
-            (4, 512, 65536 + 77, True)]
+            (4, 512, 65536 + 77, True), (1, 64, 65536, True),
+            (1, 64, 65536 + 77, True)]
 E_COMBOS = [(K, tails, inverse) for K in tk.SUPPORTED_BINS
             for tails in ("linear", "circular") for inverse in (False, True)]
 
@@ -557,7 +560,8 @@ def test_kernel_b_takes_h_t_off_16_bytes(cuda, offset):
                  tshf.head_rqs_plain_in_kernel_order(x_t, h_t, w, b, tb,
                                                      **kw), 0.0, 0.0)
 # The cases where gx under normal draws differs from head_rqs_bwd_plain's
-# by more than G_TOL on the H100 (up to 9e-4): the plain version's
+# by more than G_TOL on the H100 (up to 9e-4; at H = 64, K = 4, linear
+# tails up to 4.6e-4): the plain version's
 # torch.matmul sums the head product in another order than the kernel
 # (kernel B's, j ascending), and the spline's derivatives carry that
 # rounding of the parameters into gx; against float64 both are further
@@ -569,7 +573,9 @@ E_ORDER_CASES = ([(4, t, i, E_SHAPES[1]) for t in ("linear", "circular")
                   for i in (False, True)]
                  + [(8, "circular", i, E_SHAPES[4]) for i in (False, True)]
                  + [(10, "linear", i, E_SHAPES[4]) for i in (False, True)]
-                 + [(10, "circular", True, E_SHAPES[4])])
+                 + [(10, "circular", True, E_SHAPES[4])]
+                 + [(4, "linear", i, s) for s in E_SHAPES[6:8]
+                    for i in (False, True)])
 
 
 def _e_operands(cuda, K, tails, shape, draw):
@@ -1060,3 +1066,154 @@ def test_mixed_precision_on_cuda(cuda, build):
     assert not torch.equal(lp, lp32)
     torch.testing.assert_close(nt.compile_log_prob(mixed, (6000, 2))(x), lp,
                                atol=GRAPH_TOL, rtol=0)
+
+
+# --- the conditional NSF, RealNVP and MAF ------------------------------------
+
+COND_SMALL = dict(K=2, hidden=64, num_bins=4)
+
+
+def _contexts(rng, n, cuda):
+    """``examples/conditional_flow.py``'s contexts: mean U(-1, 1), std
+    U(0.5, 1.5)."""
+    mu = rng.uniform(-1, 1, (n, 2))
+    sigma = rng.uniform(0.5, 1.5, (n, 2))
+    return torch.from_numpy(np.concatenate([mu, sigma], 1)
+                            .astype(np.float32)).to(cuda)
+
+
+def test_conditional_model_on_cuda_matches_cpu_and_runs_a_and_b(cuda):
+    """The context-gated trunk at hidden 64 feeds kernel B (B*D = 6000)
+    and the CDF kernel A, and the card agrees with the CPU."""
+    model = _perturbed(nt.build_conditional_nsf, **COND_SMALL)
+    cpu = copy.deepcopy(model).to("cpu")
+    rng = np.random.default_rng(11)
+    x = _normal(rng, (6000, 2), 1.5).to(cuda)
+    ctx = _contexts(rng, 6000, cuda)
+    tops.reset_launch_counts()
+    lp = _eager_log_prob_ctx(model, x, ctx)
+    torch.cuda.synchronize()
+    counts = tops.launch_counts()
+    assert counts["rqs_fwd"] == 2 and counts["head_rqs_fwd"] == 2
+    assert counts["rqs_bwd"] == counts["head_rqs_bwd"] == 0
+    torch.testing.assert_close(
+        lp.cpu(), _eager_log_prob_ctx(cpu, x.cpu(), ctx.cpu()),
+        atol=MODEL_TOL, rtol=0)
+
+
+def _eager_log_prob_ctx(model, x, ctx):
+    with torch.no_grad():
+        return model.log_prob(x, context=ctx)
+
+
+def test_served_log_prob_reads_a_new_context_each_replay(cuda):
+    model = _perturbed(nt.build_conditional_nsf, **COND_SMALL)
+    rng = np.random.default_rng(12)
+    x = _normal(rng, (6000, 2), 1.5).to(cuda)
+    fn = nt.compile_log_prob(model, (6000, 2), context_shape=(6000, 4))
+    assert fn.launches["head_rqs_fwd"] == 2
+    outs = []
+    for _ in range(3):
+        ctx = _contexts(rng, 6000, cuda)
+        got = fn(x, ctx)
+        torch.testing.assert_close(got, _eager_log_prob_ctx(model, x, ctx),
+                                   atol=GRAPH_TOL, rtol=0)
+        outs.append(got)
+    assert not torch.equal(outs[0], outs[1])
+    sampler = nt.compile_sampler(model, 6000, context_shape=(6000, 4))
+    for seed in (0, 3):
+        z, log_q = sampler(seed, ctx)
+        with torch.no_grad():
+            ze, lqe = model.sample(6000, generator=torch.Generator("cuda")
+                                   .manual_seed(seed), context=ctx)
+        assert torch.equal(z, ze) and torch.equal(log_q, lqe)
+    buckets = nt.compile_log_prob_buckets(model, 6000, (2,),
+                                          context_shape=(4,))
+    for n in (1, 1000, 5000):
+        b = next(b for b in buckets.buckets if b >= n)
+        xp = torch.cat([x[:n], x[n - 1:n].expand(b - n, 2)])
+        cp = torch.cat([ctx[:n], ctx[n - 1:n].expand(b - n, 4)])
+        torch.testing.assert_close(
+            buckets(x[:n], ctx[:n]), _eager_log_prob_ctx(model, xp, cp)[:n],
+            atol=GRAPH_TOL, rtol=0)
+
+
+def test_captured_step_on_a_context_batch_matches_eager(cuda):
+    """Five forward-KLD steps on ``(x, context)``, B = 6000: A and B
+    forward, C and E backward, graph against eager."""
+    base = _perturbed(nt.build_conditional_nsf, **COND_SMALL)
+    models = [copy.deepcopy(base) for _ in range(2)]
+    opts = [_adam(m) for m in models]
+    states = [nt.init_train_state(m, o) for m, o in zip(models, opts)]
+    graphed = nt.make_forward_kld_step(opts[0])
+    eager = nt.make_forward_kld_step(opts[1]).eager
+    rng = np.random.default_rng(13)
+    for _ in range(5):
+        ctx = _contexts(rng, 6000, cuda)
+        x = ctx[:, :2] + ctx[:, 2:] * _normal(rng, (6000, 2)).to(cuda)
+        lg, le = graphed(states[0], (x, ctx)), eager(states[1], (x, ctx))
+        torch.testing.assert_close(lg, le, atol=STEP_TOL, rtol=0)
+    for p, q in zip(models[0].parameters(), models[1].parameters()):
+        torch.testing.assert_close(p, q, atol=STEP_TOL, rtol=0)
+    want = {k: 0 for k in tops.launch_counts()}
+    want.update(rqs_fwd=2, head_rqs_fwd=2, rqs_bwd=2, head_rqs_bwd=2)
+    assert graphed.launches == want
+
+
+def test_actnorm_init_after_capture_is_seen_by_the_replay(cuda):
+    """``init_from_data`` sets the ActNorms in place: a step captured
+    before it computes its loss on the new values, and a served function
+    rebound with ``with_model`` answers with them, with no recapture."""
+    model = nt.build_realnvp(K=4, hidden=[16, 16])
+    rng = np.random.default_rng(14)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".s." in name or ".t." in name:
+                p.add_(_normal(rng, tuple(p.shape), 0.2).to(cuda))
+    x = _normal(rng, (4096, 2), 1.5).to(cuda) + 3.0
+    fn = nt.compile_log_prob(model, (4096, 2))
+    opt = _adam(model)
+    state = nt.init_train_state(model, opt)
+    step = nt.make_forward_kld_step(opt)
+    for _ in range(3):  # two warm-up steps, then the capture
+        step(state, x)
+    graph = step.graphs[next(iter(step.graphs))].graph
+    model.init_from_data(x)
+    assert float(model.flows[1].data_dep_init_done) == 1.0
+    with torch.no_grad():
+        want = model.forward_kld(x)
+    torch.testing.assert_close(step(state, x), want, atol=STEP_TOL, rtol=0)
+    assert step.graphs[next(iter(step.graphs))].graph is graph
+    rebound = fn.with_model(model)
+    torch.testing.assert_close(rebound(x), _eager_log_prob(model, x),
+                               atol=GRAPH_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("build", ["realnvp", "realnvp_scan", "maf"])
+def test_kernel_free_models_serve_as_graphs(cuda, build):
+    """RealNVP (unrolled and scanned, bitwise alike) and MAF on the card:
+    graph against eager, card against CPU, and no port kernel in the
+    capture."""
+    model = (nt.build_maf(K=2, hidden=16) if build == "maf" else
+             nt.build_realnvp(K=4, hidden=[16, 16],
+                              scan=build == "realnvp_scan"))
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        # small noise: a MAF's scales sigmoid(s + 2) + 1e-3 stay away
+        # from 1e-3, and the log-densities of order 10
+        for p in model.parameters():
+            p.add_(_normal(rng, tuple(p.shape), 0.05).to(cuda))
+    x = _normal(np.random.default_rng(15), (6000, 2), 1.5).to(cuda)
+    fn = nt.compile_log_prob(model, (6000, 2))
+    assert not any(fn.launches.values())
+    lp = _eager_log_prob(model, x)
+    torch.testing.assert_close(fn(x), lp, atol=GRAPH_TOL, rtol=0)
+    cpu = copy.deepcopy(model).to("cpu")
+    torch.testing.assert_close(lp.cpu(), _eager_log_prob(cpu, x.cpu()),
+                               atol=MODEL_TOL, rtol=0)
+    sampler = nt.compile_sampler(model, 6000)
+    z, log_q = sampler(5)
+    with torch.no_grad():
+        ze, lqe = model.sample(6000, generator=torch.Generator("cuda")
+                               .manual_seed(5))
+    assert torch.equal(z, ze) and torch.equal(log_q, lqe)

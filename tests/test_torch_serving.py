@@ -177,24 +177,18 @@ def test_sampler_draws_as_the_eager_sampler_from_the_same_seed():
 
 
 @pytest.mark.parametrize("call", [
-    lambda m: nt.compile_log_prob(m, (4, 2), context_shape=(4, 3)),
     lambda m: nt.compile_log_prob(m, (4, 2), class_cond=True),
-    lambda m: nt.compile_sampler(m, 4, context_shape=(4, 3)),
     lambda m: nt.compile_sampler(m, 4, class_cond=True),
     lambda m: nt.compile_sampler(m, 4, temperature=0.7),
     lambda m: nt.compile_sampler(m, 4, typed_key=True),
-    lambda m: nt.compile_log_prob_buckets(m, 4, (2,), context_shape=(3,)),
-    lambda m: nt.compile_log_prob_buckets(m, 4, (2,))(
-        torch.zeros(2, 2), torch.zeros(2, 3)),
     lambda m: nt.compile_log_prob(m, (4, 2)).cost_analysis(),
     lambda m: nt.compile_log_prob(m, (4, 2)).flops(),
     lambda m: nt.compile_log_prob(m, (4, 2)).memory_analysis(),
     lambda m: serving.export_sampler(m, 4),
     lambda m: serving.export_log_prob(m, (4, 2)),
     lambda m: serving.load_exported(b""),
-], ids=["log_prob_context", "log_prob_class_cond", "sampler_context",
-        "sampler_class_cond", "temperature", "typed_key", "buckets_context",
-        "buckets_extras", "cost_analysis", "flops", "memory_analysis",
+], ids=["log_prob_class_cond", "sampler_class_cond", "temperature",
+        "typed_key", "cost_analysis", "flops", "memory_analysis",
         "export_sampler", "export_log_prob", "load_exported"])
 def test_what_is_not_ported_raises(call):
     _, tmodel = _pair()
