@@ -104,7 +104,28 @@ toolkit. Phases, one line each:
     as one graph, in samples/s; no port kernel launched;
 14. maf: ``build_maf`` at its defaults (K 8, MADE hidden 64): serving at
     B = 65536 against the CPU and the forward-KLD step on TwoMoons eager
-    against graph; no port kernel launched.
+    against graph; no port kernel launched;
+15. image_nsf: kernels A and C on the image coupling's 4D views (the
+    conditioner's (P, B, C, H, W) planes collapsed to (P, B*C, H*W)
+    without a copy) at both levels' shapes, B = 256 and 64, against their
+    plain versions, with their times and bounds; the image models' largest
+    convolutions as the port runs them (float32, deterministic) against
+    TF32 forwards and cuDNN's default backward; ``build_image_nsf`` at its
+    defaults (3 x 32 x 32, L 2, K 4, hidden 64, 8 bins), perturbed, its
+    ActNorms set by ``init_from_data`` on ``procedural_image_classes(0,
+    256)`` through Scale and Jitter: ``log_prob`` and bits/dim at
+    B = 256 against the CPU on 16 images (1e-4 relative to |log p|,
+    bits/dim 1e-4), ``sample(256, temperature=0.7)`` against the tempered
+    model's ``log_prob``, a round trip through the latents, A 8 times per
+    pass; the forward-KLD step at B = 64 (Adam 1e-3) card against CPU on
+    16 images, A and C 8 times per step; then ``compile_log_prob``,
+    ``compile_sampler`` (tempered) and the captured step against eager,
+    timed in turns and profiled (A in every replay, C in the step's);
+16. glow: ``build_glow_multiscale`` at its defaults (L 3, K 16, hidden
+    256, class-conditional), perturbed and set by ``init_from_data``:
+    the same gates at B = 128 with labels (``class_cond``: the graphs
+    take ``y``; the sampler at T = 0.7), the step on ``(x, y)``; no port
+    kernel launched.
 
 It then prints the whole run's wall time, one JSON line on the kernels
 (their launches summed over every path above), the card's name and power
@@ -1600,7 +1621,10 @@ PATH_KERNELS = {"build_nsf serving": ("rqs_fwd", "head_rqs_fwd"),
                 "conditional step": ("rqs_fwd", "head_rqs_fwd", "rqs_bwd",
                                      "head_rqs_bwd"),
                 "realnvp serving": (), "realnvp step": (),
-                "maf serving": (), "maf step": ()}
+                "maf serving": (), "maf step": (),
+                "image_nsf serving": ("rqs_fwd",),
+                "image_nsf step": ("rqs_fwd", "rqs_bwd"),
+                "glow serving": (), "glow step": ()}
 
 
 def kernel_of(name):
@@ -2521,6 +2545,489 @@ def phase_maf(dev, flush):
     return out
 
 
+# --- the image stack (phases 15 and 16) ---------------------------------
+
+IMG_BATCH = 256  # serving: log_prob, bits/dim and sample
+IMG_STEP_BATCH = 64  # the forward-KLD step (examples/image_nsf.py)
+IMG_CPU_ROWS = 16  # images held against the CPU
+IMG_LR = 1e-3  # examples/image_nsf.py, examples/glow.py
+IMG_TEMPERATURE = 0.7
+GLOW_BATCH = 128
+# the perturbation of the image models' weights (``perturb``'s size): the
+# untrained models' sampling direction amplifies (a Glow coupling divides
+# by sigmoid(s + 2), 16 times per level), and at 0.1 their T = 0.7
+# samples leave float32 (image NSF, |z| ~ 300 before the Logit) or turn
+# NaN (Glow); at these sizes the samples stay within |z| < 8 and
+# log_prob still moves by hundreds of nats from the unperturbed model's
+IMG_PERTURB = 0.02
+GLOW_PERTURB = 0.01
+# image log-densities are ~1e3-1e4 nats: a whole model's log_prob is held
+# relative to max(|log p|, 1), the JAX package's bar; pixels and bits/dim
+# abs
+IMG_REL_TOL = 1e-4
+BPD_TOL = 1e-4
+# the image NSF's couplings at its defaults: (transformed channels, side)
+# per level, and their count
+IMG_LEVELS = ((6, 16), (12, 8))
+IMG_COUPLINGS = 8
+
+
+def image_batch(n, seed, dev):
+    """``procedural_image_classes(seed, n)`` as the image recipes feed it
+    (``examples/image_nsf.py``): pixels / 255, ``Scale`` (255/256), then
+    ``Jitter`` (U(0, 1/256) from a generator seeded with ``seed``); with
+    its labels (int64), both on ``dev``."""
+    from nf_tpu_torch.data import procedural_image_classes
+    from nf_tpu_torch.utils.preprocessing import Jitter, Scale
+
+    imgs, y = procedural_image_classes(seed, n)
+    x = torch.from_numpy(imgs).to(dev, torch.float32) / 255.0
+    x = Jitter()(Scale()(x), generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    return x, torch.from_numpy(y).long().to(dev)
+
+
+def rel_model_err(a, b):
+    """max |a - b| over max(max |b|, 1): a whole image model's bar."""
+    return max_err(a, b) / max(float(b.abs().max()), 1.0)
+
+
+def _image_operands(rng, batch, ct, side, dev, scale=0.5):
+    """Kernel A's and C's operands at one image coupling's shapes, made as
+    the bin-major feed makes them: x (B, C, H, W) ~ N(0, 1.5²) (some past
+    the tail bound 3); a conditioner output (B, C*P, H, W) ~ N(0,
+    ``scale``²) viewed as (P, B, C, H, W) planes, widths and heights
+    multiplied by the softmax scale 1/sqrt(64), the derivatives padded for
+    linear tails (K + 1 contiguous planes); cotangents (B, C, H, W) ~
+    N(0, 1). At ``scale`` 0.5 (the repo's parity draws, ROADMAP §3) the
+    gradients are O(1) and held abs; at 1 some reach O(1e3)."""
+    from nf_tpu_torch.ops import splines
+
+    K = K_BINS
+    x = _normal(rng, (batch, ct, side, side), 1.5, dev)
+    out = _normal(rng, (batch, ct * (3 * K - 1), side, side), scale, dev)
+    p = out.reshape(batch, ct, -1, side, side).permute(2, 0, 1, 3, 4)
+    soft = 1.0 / np.sqrt(64)
+    w, h = p[:K] * soft, p[K:2 * K] * soft
+    d = splines.pad_derivatives(p[2 * K:], "linear", 1e-3, axis=0)
+    cty, ctl = (_normal(rng, x.shape, 1.0, dev) for _ in range(2))
+    return x, w, h, d, cty, ctl
+
+
+def elementwise_rel_err(a, b):
+    """max over elements of |a - b| / max(|b|, 1)."""
+    return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+
+
+def parity_image_kernels(dev, flush, peaks):
+    """Kernels A and C on the image coupling's 4D views at both levels'
+    shapes, at B = 256 (serving) and 64 (the step), both spline
+    directions, with conditioner outputs at N(0, 0.5²) and N(0, 1): A
+    against ``rqs_plain`` (y, ld abs), C against ``rqs_bwd_plain``
+    (every gradient abs at 0.5; at 1, where gradients reach O(1e3) and
+    two float32 roundings of them differ by more than 1e-4, per element
+    relative to max(|g|, 1)); the views are the planes' own storage (same
+    addresses, no copy). Then kernel_ms, plain_ms and bound_ms, A at
+    B = 256 and C at B = 64, at N(0, 1)."""
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    rng = np.random.default_rng(SEED + 80)
+    worst = dict(y=0.0, ld=0.0, grad=0.0, grad_rel=0.0)
+    cases = 0
+    rows = {}
+    for batch in (IMG_BATCH, IMG_STEP_BATCH):
+        for ct, side in IMG_LEVELS:
+            for scale in (0.5, 1.0):
+                x, w, h, d, cty, ctl = _image_operands(rng, batch, ct, side,
+                                                       dev, scale)
+                views = tk.param_views(x, w, h, d)
+                rows_cols = (batch * ct, side * side)
+                if not all(v.shape[1:] == rows_cols
+                           and v.data_ptr() == t.data_ptr()
+                           for v, t in zip(views, (w, h, d))):
+                    raise RuntimeError(
+                        f"image planes at {tuple(x.shape)}: param_views "
+                        f"gave {[tuple(v.shape) for v in views]}, not "
+                        f"views of the planes")
+                for inverse in (False, True):
+                    y, ld = tk.rqs_fwd(x, w, h, d, 3.0, inverse=inverse)
+                    yp, lp = tk.rqs_plain(x, w, h, d, 3.0, inverse=inverse)
+                    got = tk.rqs_bwd(x, w, h, d, 3.0, cty, ctl,
+                                     inverse=inverse)
+                    want = tk.rqs_bwd_plain(x, w, h, d, 3.0, cty, ctl,
+                                            inverse=inverse)
+                    torch.cuda.synchronize()
+                    worst["y"] = max(worst["y"], max_err(y, yp))
+                    worst["ld"] = max(worst["ld"], max_err(ld, lp))
+                    key = "grad" if scale == 0.5 else "grad_rel"
+                    err = max_err if scale == 0.5 else elementwise_rel_err
+                    worst[key] = max(worst[key], *(
+                        err(a, b) for a, b in zip(got, want)))
+                    cases += 1
+            label = (f"{'A' if batch == IMG_BATCH else 'C'} x "
+                     f"({batch}, {ct}, {side}, {side}) = "
+                     f"({batch * ct}, {side * side})")
+            t = {}
+            for inverse in (False, True):
+                if batch == IMG_BATCH:
+                    ms = device_ms(lambda: tk.rqs_fwd(
+                        x, w, h, d, 3.0, inverse=inverse), flush)
+                    plain = device_ms(lambda: tk.rqs_plain(
+                        x, w, h, d, 3.0, inverse=inverse), flush)
+                    b = bound(_spline_bytes(x, (w, h, d), 2),
+                              tk.rqs_ops_per_element(K_BINS, inverse)
+                              * x.numel(), peaks)
+                else:
+                    ms = device_ms(lambda: tk.rqs_bwd(
+                        x, w, h, d, 3.0, cty, ctl, inverse=inverse), flush)
+                    plain = device_ms(lambda: tk.rqs_bwd_plain(
+                        x, w, h, d, 3.0, cty, ctl, inverse=inverse), flush)
+                    b = bound(_spline_bytes(x, (w, h, d), 3 * K_BINS + 2)
+                              + 4 * 2 * x.numel(),
+                              tk.rqs_bwd_ops_per_element(K_BINS, inverse)
+                              * x.numel(), peaks)
+                t[inverse] = (ms, plain) + b
+            rows[label] = t
+    limits = dict(y=Y_TOL, ld=LD_TOL, grad=G_TOL, grad_rel=G_TOL)
+    if not all(worst[k] <= limits[k] for k in limits):
+        raise RuntimeError(f"kernels A and C on the image views disagree "
+                           f"with their plain versions: {worst} (limits "
+                           f"{limits})")
+    print(f"phase image kernels (K = {K_BINS}, linear, tail bound 3, the "
+          f"(P, B, C, H, W) planes collapsed to (P, B*C, H*W) views, same "
+          f"addresses): {cases} cases, A vs rqs_plain y {worst['y']:.3g} "
+          f"(limit {Y_TOL}), ld {worst['ld']:.3g} (limit {LD_TOL}); C vs "
+          f"rqs_bwd_plain {worst['grad']:.3g} abs at N(0, 0.5²) logits, "
+          f"{worst['grad_rel']:.3g} per element relative to max(|g|, 1) "
+          f"at N(0, 1) (limit {G_TOL}); "
+          + "; ".join(_timing_row(k, v) for k, v in rows.items()),
+          flush=True)
+
+
+def conv_times(dev, flush):
+    """Device ms of the image models' largest convolutions as the port
+    runs them (``conv2d``: float32, deterministic algorithms) against
+    PyTorch's defaults: the forward in TF32 (``allow_tf32`` True), with
+    each one's largest difference from float64; and the backward (input,
+    weight and bias gradients) in float32 by cuDNN's deterministic
+    algorithms against its default choice. Layers: the image NSF's 3x3
+    64 -> 64 at level 1 (B = 256, 16 x 16) and Glow's 3x3 6 -> 256, 1x1
+    256 -> 256 and 3x3 256 -> 12 at its largest level (B = 128,
+    16 x 16)."""
+    import contextlib
+
+    import torch.nn.functional as F
+
+    from nf_tpu_torch.nets.cnn import conv2d
+
+    rng = np.random.default_rng(SEED + 81)
+    layers = (("image NSF 3x3 64->64", (IMG_BATCH, 64, 16, 16), 64, 3),
+              ("Glow 3x3 6->256", (GLOW_BATCH, 6, 16, 16), 256, 3),
+              ("Glow 1x1 256->256", (GLOW_BATCH, 256, 16, 16), 256, 1),
+              ("Glow 3x3 256->12", (GLOW_BATCH, 256, 16, 16), 12, 3))
+
+    @contextlib.contextmanager
+    def cudnn(tf32, deterministic):
+        c = torch.backends.cudnn
+        before = c.allow_tf32, c.deterministic
+        c.allow_tf32, c.deterministic = tf32, deterministic
+        try:
+            yield
+        finally:
+            c.allow_tf32, c.deterministic = before
+
+    def tf32(x, w, b):
+        with cudnn(True, False):
+            return F.conv2d(x, w, b, padding=w.shape[-1] // 2)
+
+    def backward(x, w, g, deterministic):
+        with cudnn(False, deterministic):
+            p = w.shape[-1] // 2
+            return torch.ops.aten.convolution_backward(
+                g, x, w, [w.shape[0]], [1, 1], [p, p], [1, 1], False,
+                [0, 0], 1, [True, True, True])
+
+    rows = []
+    for label, shape, out_ch, k in layers:
+        x = _normal(rng, shape, 1.0, dev)
+        fan_in = shape[1] * k * k
+        w = _normal(rng, (out_ch, shape[1], k, k), 1 / np.sqrt(fan_in), dev)
+        b = _normal(rng, (out_ch,), 0.1, dev)
+        g = _normal(rng, (shape[0], out_ch) + shape[2:], 1.0, dev)
+        with torch.no_grad():
+            f32 = conv2d(x, w, b)
+            want = F.conv2d(x.double(), w.double(), b.double(),
+                            padding=k // 2)
+            diff = (max_err(tf32(x, w, b).double(), want),
+                    max_err(f32.double(), want))
+            ms = device_ms(lambda: conv2d(x, w, b), flush)
+            ms_tf32 = device_ms(lambda: tf32(x, w, b), flush)
+            bwd = [device_ms(lambda: backward(x, w, g, det), flush)
+                   for det in (True, False)]
+        rows.append(f"{label} x {shape}: forward float32 {ms:.4f} ms, "
+                    f"TF32 {ms_tf32:.4f} ms (vs float64: TF32 "
+                    f"{diff[0]:.3g}, float32 {diff[1]:.3g}); backward "
+                    f"float32 deterministic {bwd[0]:.4f} ms, cuDNN's "
+                    f"default {bwd[1]:.4f} ms")
+    print("phase image convs (device ms after the flush): "
+          + "; ".join(rows), flush=True)
+
+
+def image_graphs(label, model, x, y, per_pass, path):
+    """``compile_log_prob`` and ``compile_sampler`` of an image model at
+    ``len(x)`` (with labels ``y`` when the model is class-conditional)
+    against eager calls: log_prob within GRAPH_TOL relative to max(|log
+    p|, 1) and bits/dim from it within BPD_TOL, the tempered sampler (and
+    its labels) bitwise; times in turns; a profiled replay of each.
+    Returns {"log_prob": ..., "sample": ...}."""
+    import nf_tpu_torch as nt
+    from types import SimpleNamespace
+
+    from nf_tpu_torch.utils.eval import bits_per_dim
+
+    cc = y is not None
+    ys = (y,) if cc else ()
+    batch = x.shape[0]
+    out = {}
+    lp_fn = nt.compile_log_prob(model, tuple(x.shape), class_cond=cc)
+    _expect_launches(lp_fn.launches, per_pass, f"{label} log_prob graph")
+
+    def eager_lp():
+        with torch.inference_mode():
+            return model.log_prob(x, *ys)
+
+    lp_err = rel_model_err(lp_fn(x, *ys), eager_lp())
+    with torch.inference_mode():
+        bpd = bits_per_dim(model, x, y)
+    bpd_graph = bits_per_dim(SimpleNamespace(log_prob=lp_fn), x, y)
+    bpd_err = max_err(bpd_graph, bpd)
+    if not (lp_err <= GRAPH_TOL and bpd_err <= BPD_TOL):
+        raise RuntimeError(f"{label} log_prob: graph vs eager {lp_err:.3g} "
+                           f"relative (limit {GRAPH_TOL}), bits/dim "
+                           f"{bpd_err:.3g} (limit {BPD_TOL})")
+    out["log_prob"] = dict(
+        err=f"{lp_err:.3g} relative, bits/dim {bpd_err:.3g} (mean "
+            f"{float(bpd.mean()):.4f})",
+        turns=in_turns(eager_lp, lambda: lp_fn(x, *ys)),
+        report=replay_report(lambda: lp_fn(x, *ys), path),
+        launches=lp_fn.launches)
+    sampler = nt.compile_sampler(model, batch, temperature=IMG_TEMPERATURE,
+                                 class_cond=cc)
+    for seed in (SEED, SEED + 1):
+        z, log_q = sampler(seed, *ys)
+        with torch.inference_mode():
+            ze, lqe = model.sample(batch, generator=torch.Generator(
+                "cuda").manual_seed(seed), y=y, temperature=IMG_TEMPERATURE)
+        if not (torch.equal(z, ze) and torch.equal(log_q, lqe)):
+            raise RuntimeError(f"{label} sample: the graph's draws for seed "
+                               f"{seed} differ from eager "
+                               f"({max_err(z, ze):.3g})")
+    gen = torch.Generator("cuda").manual_seed(SEED)
+
+    def eager_sample():
+        with torch.inference_mode():
+            return model.sample(batch, generator=gen, y=y,
+                                temperature=IMG_TEMPERATURE)
+
+    out["sample"] = dict(err="bitwise", turns=in_turns(
+        eager_sample, lambda: sampler(SEED, *ys)),
+        report=replay_report(lambda: sampler(SEED, *ys), path),
+        launches=sampler.launches)
+    for what, r in out.items():
+        print(f"phase graphs {label} {what} (B = {batch}"
+              + (f", T = {IMG_TEMPERATURE}" if what == "sample" else "")
+              + f"): graph vs eager {r['err']}; capture counted "
+              f"{r['launches']}; " + _turns_text(r["turns"]) + "; "
+              + _report_text(r["report"]), flush=True)
+    return out
+
+
+def image_checks(label, model, x, y, per_pass):
+    """An image model at B = len(x), eagerly: ``log_prob`` and bits/dim,
+    card against CPU on IMG_CPU_ROWS images (IMG_REL_TOL relative,
+    BPD_TOL abs), the tempered ``sample`` against the tempered model's
+    ``log_prob`` (IMG_REL_TOL relative), a round trip through the
+    latents (pixels and log-dets), finite values of the right shapes, the
+    kernels each pass launched (``per_pass``); the model must not be the
+    identity. Returns the eager passes' launches and ms per call."""
+    from nf_tpu_torch.utils.eval import bits_per_dim
+
+    batch = x.shape[0]
+    ys = (y,) if y is not None else ()
+    cpu_model = copy.deepcopy(model).to("cpu")
+    rows = IMG_CPU_ROWS
+    counts = {}
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 83)
+    with torch.inference_mode():
+        lp = _counted(counts, "log_prob", lambda: model.log_prob(x, *ys))
+        bpd = bits_per_dim(model, x, y)
+        z, log_q = _counted(counts, "sample", lambda: model.sample(
+            batch, generator=gen, y=y, temperature=IMG_TEMPERATURE))
+        lp_s = model.set_temperature(IMG_TEMPERATURE).log_prob(z, *ys)
+        latents, ld_inv = model.inverse_and_log_det(x)
+        x_back, ld_fwd = model.forward_and_log_det(latents)
+        cpu_ys = tuple(t[:rows].cpu() for t in ys)
+        lp_cpu = cpu_model.log_prob(x[:rows].cpu(), *cpu_ys)
+        bpd_cpu = bits_per_dim(cpu_model, x[:rows].cpu(),
+                               cpu_ys[0] if cpu_ys else None)
+    _expect(counts, {"log_prob": per_pass, "sample": per_pass},
+            f"{label} serving")
+    errs = {f"log_prob cuda vs cpu (first {rows}, relative)": (
+                rel_model_err(lp[:rows].cpu(), lp_cpu), IMG_REL_TOL),
+            f"bits/dim cuda vs cpu (first {rows})": (
+                max_err(bpd[:rows].cpu(), bpd_cpu), BPD_TOL),
+            f"log_prob(sample) vs log_q at T = {IMG_TEMPERATURE} "
+            f"(relative)": (rel_model_err(lp_s, log_q), IMG_REL_TOL),
+            "forward(inverse(x)) vs x": (max_err(x_back, x),
+                                         ROUND_TRIP_TOL),
+            "ld_inverse + ld_forward (relative)": (
+                max_err(ld_inv + ld_fwd, torch.zeros_like(ld_inv))
+                / max(float(ld_inv.abs().max()), 1.0), IMG_REL_TOL)}
+    for t in (lp, bpd, z, log_q, lp_s, x_back):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"non-finite values on the {label} path")
+    if z.shape != x.shape or lp.shape != (batch,):
+        raise RuntimeError(f"{label} shapes: sample {tuple(z.shape)}, "
+                           f"log_prob {tuple(lp.shape)}")
+    for k, (v, lim) in errs.items():
+        if not v <= lim:
+            raise RuntimeError(f"{label}: {k} {v:.3g} > {lim}")
+    with torch.inference_mode():
+        lp_ms = host_ms(lambda: model.log_prob(x, *ys))
+        sample_ms = host_ms(lambda: model.sample(
+            batch, generator=gen, y=y, temperature=IMG_TEMPERATURE))
+    print(f"phase {label} serving (B = {batch}): launches per pass "
+          f"{counts}; bits/dim mean {float(bpd.mean()):.4f}; errors "
+          + ", ".join(f"{k} {v:.3g} (limit {lim})"
+                      for k, (v, lim) in errs.items())
+          + f"; eager log_prob {lp_ms:.3f} ms/call, sample {sample_ms:.3f} "
+          f"ms/call", flush=True)
+    return {k: counts["log_prob"][k] + counts["sample"][k]
+            for k in counts["log_prob"]}
+
+
+def image_step_check(label, model, batch, want):
+    """One Adam step of ``make_forward_kld_step``, card against CPU on the
+    first IMG_CPU_ROWS rows of ``batch`` (a tensor or ``(x, y)``): loss
+    within IMG_REL_TOL relative; gradients, each relative to its largest
+    magnitude, within TRAIN_TOL or within twice the CPU's own float32
+    error (its gradients against the same step in float64 on the CPU),
+    whichever is larger: the deep image models, their ActNorms set from
+    smooth procedural images, amplify rounding in the backward, so at
+    Glow's defaults float32 gradients lie ~2e-2 from float64 on either
+    device. The card step at the full batch launches ``want``. Returns
+    its launches."""
+    def head(b, n):
+        return tuple(t[:n] for t in b) if isinstance(b, tuple) else b[:n]
+
+    def cpu(b, dtype=torch.float32):
+        def one(t):
+            return t.cpu().to(dtype) if t.is_floating_point() else t.cpu()
+        return tuple(one(t) for t in b) if isinstance(b, tuple) else one(b)
+
+    _, _, launches = _step_result(model, batch)
+    _expect({"step": launches}, {"step": want}, f"{label} step")
+    small = head(batch, IMG_CPU_ROWS)
+    loss, grads, _ = _step_result(model, small)
+    loss_cpu, grads_cpu, _ = _step_result(copy.deepcopy(model).to("cpu"),
+                                          cpu(small))
+    _, grads64, _ = _step_result(
+        copy.deepcopy(model).to("cpu", torch.float64),
+        cpu(small, torch.float64))
+    loss_err = abs(loss - loss_cpu) / max(abs(loss_cpu), 1.0)
+    grad_err = max(rel_err(grads[n].cpu(), grads_cpu[n]) for n in grads)
+    f32_err = max(rel_err(grads_cpu[n].double(), grads64[n])
+                  for n in grads)
+    limit = max(TRAIN_TOL, 2 * f32_err)
+    if not (loss_err <= IMG_REL_TOL and grad_err <= limit):
+        raise RuntimeError(f"{label} step, card vs CPU: loss {loss} vs "
+                           f"{loss_cpu} ({loss_err:.3g} relative), "
+                           f"gradients {grad_err:.3g} relative (limit "
+                           f"{limit:.3g}: the CPU's float32 is {f32_err:.3g}"
+                           f" from float64)")
+    print(f"phase {label} step: card vs CPU on {IMG_CPU_ROWS} rows: loss "
+          f"{loss:.4f} ({loss_err:.3g} relative, limit {IMG_REL_TOL}), "
+          f"gradients {grad_err:.3g} relative (limit {limit:.3g}: "
+          f"TRAIN_TOL {TRAIN_TOL}, or twice the CPU float32 step's "
+          f"{f32_err:.3g} from float64); launches per step at the full "
+          f"batch {launches}", flush=True)
+    return launches
+
+
+def phase_image_nsf(dev, flush, peaks):
+    """``build_image_nsf`` at its defaults (3 x 32 x 32, L 2, K 4, hidden
+    64, 8 bins, linear tails, tail bound 3), seed 0, perturbed, its
+    ActNorms set by ``init_from_data`` on ``procedural_image_classes(0,
+    256)`` through Scale and Jitter: kernels A and C on the 4D views,
+    the convolutions in float32 and TF32, serving at B = 256 and the
+    forward-KLD step at B = 64 (Adam 1e-3), eagerly (card against CPU,
+    launches per pass and step) and as CUDA graphs. Returns {path:
+    (launches, kernels it must launch)}."""
+    import nf_tpu_torch as nt
+
+    t0 = time.perf_counter()
+    parity_image_kernels(dev, flush, peaks)
+    conv_times(dev, flush)
+    model = nt.build_image_nsf(seed=SEED)
+    perturb(model, SEED + 84, size=IMG_PERTURB)
+    x, _ = image_batch(IMG_BATCH, SEED, dev)
+    model.init_from_data(x)
+    per_pass = {"rqs_fwd": IMG_COUPLINGS}
+    serving = image_checks("image_nsf", model, x, None, per_pass)
+    xs = [image_batch(IMG_STEP_BATCH, SEED + 1 + i, dev)[0]
+          for i in range(GRAPH_STEPS + 30)]
+    per_step = {"rqs_fwd": IMG_COUPLINGS, "rqs_bwd": IMG_COUPLINGS}
+    training = image_step_check("image_nsf", model, xs[0], per_step)
+    out = {"image_nsf serving": (serving, PATH_KERNELS["image_nsf serving"]),
+           "image_nsf training": (training,
+                                  PATH_KERNELS["image_nsf step"])}
+    served = image_graphs("image_nsf", model, x, None, per_pass,
+                          "image_nsf serving")
+    out["graphs: image_nsf serving"] = (_captured_counts(served),
+                                        PATH_KERNELS["image_nsf serving"])
+    step = step_graphs(
+        f"image_nsf forward-KLD step (B = {IMG_STEP_BATCH})", model,
+        nt.make_forward_kld_step, lambda i, which: (xs[i % len(xs)],),
+        "image_nsf step", dict(lr=IMG_LR))
+    _expect_launches(step["launches"], per_step, "image_nsf step graph")
+    out["graphs: image_nsf step"] = (step["launches"],
+                                     PATH_KERNELS["image_nsf step"])
+    print(f"phase image_nsf: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def phase_glow(dev, flush):
+    """``build_glow_multiscale`` at its defaults (3 x 32 x 32, L 3, K 16,
+    hidden 256, class-conditional), seed 0, perturbed, its ActNorms set
+    by ``init_from_data`` on 256 procedural images with their labels:
+    serving at B = 128 (labels, the sampler at T = 0.7) and the
+    forward-KLD step on ``(x, y)`` at B = 128 (Adam 1e-3), eagerly and
+    as CUDA graphs; no port kernel may launch. Returns {path: (launches,
+    ())}."""
+    import nf_tpu_torch as nt
+
+    t0 = time.perf_counter()
+    model = nt.build_glow_multiscale(seed=SEED)
+    perturb(model, SEED + 90, size=GLOW_PERTURB)
+    model.init_from_data(*image_batch(IMG_BATCH, SEED + 91, dev))
+    x, y = image_batch(GLOW_BATCH, SEED + 92, dev)
+    serving = image_checks("glow", model, x, y, {})
+    batches = [image_batch(GLOW_BATCH, SEED + 93 + i, dev)
+               for i in range(GRAPH_STEPS + 30)]
+    training = image_step_check("glow", model, batches[0], {})
+    out = {"glow serving": (serving, ()), "glow training": (training, ())}
+    served = image_graphs("glow", model, x, y, {}, "glow serving")
+    out["graphs: glow serving"] = (_captured_counts(served), ())
+    step = step_graphs(
+        f"glow forward-KLD step on (x, y) (B = {GLOW_BATCH})", model,
+        nt.make_forward_kld_step, lambda i, which: (batches[i % len(
+            batches)],), "glow step", dict(lr=IMG_LR))
+    _expect_launches(step["launches"], {}, "glow step graph")
+    out["graphs: glow step"] = (step["launches"], ())
+    print(f"phase glow: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port runs on an "
@@ -2608,7 +3115,12 @@ def main():
     paths.update(phase_conditional(dev, flush, peaks))
     paths.update(phase_realnvp(dev, flush))
     paths.update(phase_maf(dev, flush))
-    print(f"phase timing new phases (conditional, realnvp, maf): "
+    print(f"phase timing phases 12-14 (conditional, realnvp, maf): "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
+    t_new = time.perf_counter()
+    paths.update(phase_image_nsf(dev, flush, peaks))
+    paths.update(phase_glow(dev, flush))
+    print(f"phase timing phases 15-16 (image_nsf, glow): "
           f"{time.perf_counter() - t_new:.1f} s", flush=True)
     print("launches: " + "; ".join(f"{k} {v[0]}" for k, v in paths.items()),
           flush=True)

@@ -17,17 +17,29 @@ runs as one CUDA graph per batch shape; a conditional model's served
 functions take the context as a second input (``context_shape``).
 ``mixed_precision=True`` on the builders runs the conditioners in
 bfloat16 (``nets.MixedPrecision``). Builders: ``build_nsf``,
-``build_circular_nsf``, ``build_conditional_nsf`` (the spline kernels),
-``build_realnvp`` and ``build_maf`` (plain products, no kernel).
+``build_circular_nsf``, ``build_conditional_nsf`` and the image model
+``build_image_nsf`` (the spline kernels), ``build_realnvp``, ``build_maf``
+and ``build_glow_multiscale`` (plain products and convolutions, no
+kernel). The image models are ``MultiscaleFlow``s; a class-conditional
+one's served functions take the labels as a second input
+(``class_cond``), and its sampler a ``temperature``.
 """
 
+from . import data, transforms, utils
 from ._device import resolve_device
 from .compat import load_reference_state_dict
-from .core import ConditionalNormalizingFlow, NormalizingFlow
+from .core import (
+    ClassCondFlow,
+    ConditionalNormalizingFlow,
+    MultiscaleFlow,
+    NormalizingFlow,
+)
 from .distributions import ConditionalDiagGaussianTarget, TwoModes, TwoMoons
 from .models import (
     build_circular_nsf,
     build_conditional_nsf,
+    build_glow_multiscale,
+    build_image_nsf,
     build_maf,
     build_nsf,
     build_realnvp,
@@ -50,11 +62,13 @@ from .serving import (
     compile_sampler,
 )
 
-__all__ = ["BucketedFn", "CompiledFn", "ConditionalDiagGaussianTarget",
-           "ConditionalNormalizingFlow", "MixedPrecision", "NormalizingFlow",
+__all__ = ["BucketedFn", "ClassCondFlow", "CompiledFn",
+           "ConditionalDiagGaussianTarget", "ConditionalNormalizingFlow",
+           "MixedPrecision", "MultiscaleFlow", "NormalizingFlow",
            "TrainState", "TwoModes", "TwoMoons", "build_circular_nsf",
-           "build_conditional_nsf", "build_maf", "build_nsf",
-           "build_realnvp",
+           "build_conditional_nsf", "build_glow_multiscale",
+           "build_image_nsf", "build_maf", "build_nsf", "build_realnvp",
+           "data", "transforms", "utils",
            "compile_log_prob", "compile_log_prob_buckets", "compile_sampler",
            "ema_model", "init_train_state", "load_reference_state_dict",
            "make_forward_kld_step", "make_reverse_kld_step",

@@ -14,7 +14,15 @@ a level the reference names do not have; those keys are mapped across.
 The layers of a ``Scanned`` (and of a plain ``Composite``) in the
 container's chain carry flat indices in the reference's names, as the
 JAX exporter writes them (``nf_tpu/compat_export.py:278-299``): unit j's
-layer m of a ``scan=True`` RealNVP loads from ``flows.{4j + m}.``.
+layer m of a ``scan=True`` RealNVP loads from ``flows.{4j + m}.``, and a
+``scan=True`` Glow's block j of level i from ``flows.{i}.{j}.``. The
+image models' other names are the reference's as they stand: a
+multiscale model's ``q0.{i}.``, ``flows.{i}.{j}.`` and ``merges.{i}.``,
+the LU 1x1 convolution's ``L``, ``U``, ``log_S``, ``P``, ``sign_S`` and
+``eye``, a ``GlowBlock``'s ``flows.0.flows.1.param_map.net.{0,2,4}.``
+(its coupling block's coupling, whose ``ConvNet2d`` keeps the
+reference's ``nn.Sequential`` indices), then ``flows.1.`` (the 1x1
+convolution) and ``flows.2.`` (the ActNorm).
 """
 
 from __future__ import annotations
@@ -38,17 +46,26 @@ def _head_to_bin_major(arr, head):
 
 def _flat_prefixes(model):
     """``{own prefix: reference prefix}`` of the container's layers: the
-    layers of a ``Scanned`` or a plain ``Composite`` at flat indices."""
+    layers of a ``Scanned`` or a plain ``Composite`` at flat indices,
+    ``flows.{j}.`` in a flat container and ``flows.{i}.{j}.`` in level i
+    of a ``MultiscaleFlow`` (``nf_tpu/compat_export.py:306-315``)."""
     flows = getattr(model, "flows", None)
     if not isinstance(flows, torch.nn.ModuleList):
         return {}
+    levels = ([(f"flows.{i}.", level) for i, level in enumerate(flows)]
+              if len(flows) and all(isinstance(f, torch.nn.ModuleList)
+                                    for f in flows)
+              else [("flows.", flows)])
     path = {id(m): name for name, m in model.named_modules()}
     out = {}
-    for flow in flows:
-        layers = flow.layers() if isinstance(flow, Scanned) \
-            else open_composites(flow)
-        for layer in layers:
-            out[path[id(layer)] + "."] = f"flows.{len(out)}."
+    for base, level in levels:
+        count = 0
+        for flow in level:
+            layers = flow.layers() if isinstance(flow, Scanned) \
+                else open_composites(flow)
+            for layer in layers:
+                out[path[id(layer)] + "."] = f"{base}{count}."
+                count += 1
     return out
 
 

@@ -1,6 +1,8 @@
-"""Model containers (``nf_tpu/core.py:30-243``; reference
-``normflows/core.py``): a base distribution and a chain of flows, and the
-conditional variant that threads a context through both."""
+"""Model containers (``nf_tpu/core.py:30-433``; reference
+``normflows/core.py``): a base distribution and a chain of flows, the
+conditional variant that threads a context through both, the
+class-conditional flow whose labels condition only the base, and the
+multiscale image flow."""
 
 from __future__ import annotations
 
@@ -9,7 +11,8 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from .flows.base import Scanned
+from .distributions.base import replace
+from .flows.base import open_scanned
 
 
 class NormalizingFlow(nn.Module):
@@ -27,11 +30,9 @@ class NormalizingFlow(nn.Module):
         self.p = p
 
     def chain(self):
-        """The layers latent -> data, each ``Scanned`` opened."""
-        out = []
-        for flow in self.flows:
-            out += flow.layers() if isinstance(flow, Scanned) else [flow]
-        return out
+        """The layers latent -> data, each ``Scanned`` opened (but one
+        with ``remat=True``, :func:`~nf_tpu_torch.flows.base.open_scanned`)."""
+        return open_scanned(self.flows)
 
     # the base's draws and density; the conditional container passes the
     # context on (the JAX package's NormalizingFlow does not)
@@ -177,6 +178,199 @@ class ConditionalNormalizingFlow(NormalizingFlow):
 
     def _target_log_prob(self, z, context):
         return self.p.log_prob(z, context=context)
+
+
+class ClassCondFlow(nn.Module):
+    """Labels condition only the base distribution, Glow-style
+    (``nf_tpu/core.py:245-288``; reference ``core.py:369-452``)."""
+
+    def __init__(self, q0, flows):
+        super().__init__()
+        self.q0 = q0
+        self.flows = nn.ModuleList(flows)
+
+    def log_prob(self, x, y):
+        log_q = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        z = x
+        for flow in reversed(open_scanned(self.flows)):
+            z, log_det = flow.inverse(z)
+            log_q = log_q + log_det
+        return log_q + self.q0.log_prob(z, y)
+
+    def forward_kld(self, x, y):
+        return -torch.mean(self.log_prob(x, y))
+
+    def sample(self, num_samples=1, generator=None, y=None,
+               temperature=None):
+        """Samples and their log q; ``temperature`` tempers the base
+        (``with_temperature``), a path the reference's ClassCondFlow
+        lacks and the JAX package adds for serving."""
+        q0 = (self.q0.with_temperature(temperature)
+              if temperature is not None else self.q0)
+        z, log_q = q0.forward(num_samples, generator, y=y)
+        for flow in open_scanned(self.flows):
+            z, log_det = flow.forward(z)
+            log_q = log_q - log_det
+        return z, log_q
+
+    def init_from_data(self, x, y=None):
+        """Set the ActNorm layers from a data batch along the density
+        direction, in place; returns the model."""
+        with torch.no_grad():
+            z = x
+            for flow in reversed(open_scanned(self.flows)):
+                z, _ = flow.init_data_inverse(z)
+        return self
+
+
+class MultiscaleFlow(nn.Module):
+    """The RealNVP/Glow multiscale architecture (``nf_tpu/core.py:
+    291-433``; reference ``core.py:455-653``): ``q0[i]`` the base of level
+    i, ``flows[i]`` its layers (latent -> data), ``merges[i - 1]`` joining
+    level i's latent to what the levels below made, and an optional
+    data ``transform`` last (``Logit``). With ``class_cond`` every base
+    takes the labels ``y``. A ``Scanned`` in a level runs opened into its
+    layers (but with ``remat=True``), as in :class:`NormalizingFlow`."""
+
+    def __init__(self, q0, flows, merges, transform=None, class_cond=True):
+        super().__init__()
+        self.q0 = nn.ModuleList(q0)
+        self.flows = nn.ModuleList([nn.ModuleList(f) for f in flows])
+        self.merges = nn.ModuleList(merges)
+        self.transform = transform
+        self.class_cond = class_cond
+
+    @property
+    def num_levels(self):
+        return len(self.q0)
+
+    def _level(self, i):
+        return open_scanned(self.flows[i])
+
+    def forward_kld(self, x, y=None):
+        """(reference ``core.py:480``)"""
+        return -torch.mean(self.log_prob(x, y))
+
+    def forward_and_log_det(self, z):
+        """Latents per level -> x (reference ``core.py:504``)."""
+        log_det = torch.zeros(z[0].shape[0], dtype=z[0].dtype,
+                              device=z[0].device)
+        z_ = None
+        for i in range(self.num_levels):
+            if i == 0:
+                z_ = z[0]
+            else:
+                z_, ld = self.merges[i - 1].forward([z_, z[i]])
+                log_det = log_det + ld
+            for flow in self._level(i):
+                z_, ld = flow.forward(z_)
+                log_det = log_det + ld
+        if self.transform is not None:
+            z_, ld = self.transform.forward(z_)
+            log_det = log_det + ld
+        return z_, log_det
+
+    def inverse_and_log_det(self, x):
+        """x -> latents per level (reference ``core.py:528``)."""
+        log_det = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        if self.transform is not None:
+            x, ld = self.transform.inverse(x)
+            log_det = log_det + ld
+        z = [None] * self.num_levels
+        for i in range(self.num_levels - 1, -1, -1):
+            for flow in reversed(self._level(i)):
+                x, ld = flow.inverse(x)
+                log_det = log_det + ld
+            if i == 0:
+                z[i] = x
+            else:
+                [x, z[i]], ld = self.merges[i - 1].inverse(x)
+                log_det = log_det + ld
+        return z, log_det
+
+    def sample(self, num_samples=1, generator=None, y=None,
+               temperature=None):
+        """Samples and their log q, every base at ``temperature`` when
+        given (reference ``core.py:553-586``). A class-conditional model
+        without ``y`` draws one label per sample from ``generator`` and
+        gives it to every level, as the JAX package does (the reference
+        draws one per level, mixing classes across scales)."""
+        model = (self.set_temperature(temperature)
+                 if temperature is not None else self)
+        if model.class_cond and y is None:
+            y = torch.randint(0, model.q0[0].num_classes, (num_samples,),
+                              generator=generator,
+                              device=model.q0[0].loc.device)
+        z = log_q = None
+        for i in range(model.num_levels):
+            if model.class_cond:
+                z_, log_q_ = model.q0[i].forward(num_samples, generator,
+                                                 y=y)
+            else:
+                z_, log_q_ = model.q0[i].forward(num_samples, generator)
+            if i == 0:
+                z, log_q = z_, log_q_
+            else:
+                log_q = log_q + log_q_
+                z, log_det = model.merges[i - 1].forward([z, z_])
+                log_q = log_q - log_det
+            for flow in model._level(i):
+                z, log_det = flow.forward(z)
+                log_q = log_q - log_det
+        if model.transform is not None:
+            z, log_det = model.transform.forward(z)
+            log_q = log_q - log_det
+        return z, log_q
+
+    def log_prob(self, x, y=None):
+        """(reference ``core.py:588``)"""
+        log_q = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        z = x
+        if self.transform is not None:
+            z, log_det = self.transform.inverse(z)
+            log_q = log_q + log_det
+        for i in range(self.num_levels - 1, -1, -1):
+            for flow in reversed(self._level(i)):
+                z, log_det = flow.inverse(z)
+                log_q = log_q + log_det
+            if i > 0:
+                [z, z_], log_det = self.merges[i - 1].inverse(z)
+                log_q = log_q + log_det
+            else:
+                z_ = z
+            if self.class_cond:
+                log_q = log_q + self.q0[i].log_prob(z_, y)
+            else:
+                log_q = log_q + self.q0[i].log_prob(z_)
+        return log_q
+
+    def set_temperature(self, temperature):
+        """A copy whose bases sample at ``temperature`` (reference
+        ``core.py:634-647``), sharing every tensor with this model: a
+        graph captured through it reads this model's weights."""
+        new = replace(self, _modules=dict(self._modules))
+        new.q0 = nn.ModuleList([q.with_temperature(temperature)
+                                for q in self.q0])
+        return new
+
+    def reset_temperature(self):
+        return self.set_temperature(None)
+
+    def init_from_data(self, x, y=None):
+        """Set every ActNorm from a data batch along the density
+        direction, through the merges, in place; returns the model. The
+        flags are read here only: the forward and inverse passes never
+        wait for the device."""
+        with torch.no_grad():
+            z = x
+            if self.transform is not None:
+                z, _ = self.transform.inverse(z)
+            for i in range(self.num_levels - 1, -1, -1):
+                for flow in reversed(self._level(i)):
+                    z, _ = flow.init_data_inverse(z)
+                if i > 0:
+                    [z, _], _ = self.merges[i - 1].inverse(z)
+        return self
 
 
 class _LogProb(nn.Module):

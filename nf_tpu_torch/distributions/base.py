@@ -4,18 +4,23 @@
 ``forward(num_samples, generator=None, context=None) -> (z, log_p)``
 samples with log density; ``log_prob(z, context=None)`` evaluates it. The
 unconditional bases ignore ``context``, as the JAX package's do
-(``nf_tpu/distributions/base.py:27-33``). Randomness comes from an
-explicit ``torch.Generator`` on the distribution's device.
+(``nf_tpu/distributions/base.py:27-33``); the class-conditional image
+bases take labels ``y`` in its place. Randomness comes from an explicit
+``torch.Generator`` on the distribution's device. A base with a
+``temperature`` samples at it; :meth:`BaseDistribution.with_temperature`
+gives a copy at another one that shares the tensors (the JAX package's
+``temperature`` is a static field, set the same way).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
 from torch import nn
 
-from ..utils.nn import complement_indices
+from ..utils.nn import complement_indices, one_hot
 
 _LOG2PI = math.log(2 * math.pi)
 
@@ -30,9 +35,29 @@ class BaseDistribution(nn.Module):
         raise NotImplementedError
 
     def sample(self, num_samples=1, generator=None, context=None):
-        z, _ = self.forward(num_samples, generator=generator,
-                            context=context)
+        z, _ = self.forward(num_samples, generator, context)
         return z
+
+    def with_temperature(self, temperature):
+        """A copy of this distribution that samples at ``temperature`` (its
+        log-scale raised by ``log(temperature)``), sharing every tensor
+        (``base.py:37``); raises where the distribution has no temperature
+        (``temperature=None``: the untempered distribution)."""
+        if "temperature" not in self.__dict__:
+            raise NotImplementedError(
+                "This distribution does not support temperature annealed "
+                "sampling")
+        return replace(self, temperature=temperature)
+
+
+def replace(module, **attrs):
+    """A shallow copy of ``module`` with plain attributes ``attrs`` set:
+    it shares every parameter, buffer and submodule, so a graph captured
+    through the copy reads the original's tensors."""
+    new = copy.copy(module)
+    for name, value in attrs.items():
+        setattr(new, name, value)
+    return new
 
 
 class DiagGaussian(BaseDistribution):
@@ -147,3 +172,116 @@ class UniformGaussian(BaseDistribution):
         log_p_g = (-0.5 * _LOG2PI - torch.log(sc)
                    - 0.5 * (z[..., self.ind_] / sc) ** 2)
         return torch.sum(log_p_u, -1) + torch.sum(log_p_g, -1)
+
+
+class ClassCondDiagGaussian(BaseDistribution):
+    """Class-conditional diagonal Gaussian (``base.py:215-269``; reference
+    ``base.py:273-344``): ``loc`` and ``log_scale`` (``*shape``,
+    num_classes), one column per class, selected by the labels ``y``
+    (integers (B,) or one-hot (B, num_classes)). Without ``y`` a draw
+    takes its labels uniformly from ``generator`` first."""
+
+    def __init__(self, shape, num_classes, dtype=torch.float32):
+        super().__init__()
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        self.shape = shape
+        self.num_classes = num_classes
+        self.temperature = None
+        self.loc = nn.Parameter(torch.zeros(shape + (num_classes,),
+                                            dtype=dtype))
+        self.log_scale = nn.Parameter(torch.zeros(shape + (num_classes,),
+                                                  dtype=dtype))
+
+    def _params(self, y):
+        yt = one_hot(y, self.num_classes, self.loc.dtype).T
+        perm = (len(self.shape),) + tuple(range(len(self.shape)))
+        loc = (self.loc @ yt).permute(perm)
+        log_scale = (self.log_scale @ yt).permute(perm)
+        if self.temperature is not None:
+            log_scale = log_scale + math.log(self.temperature)
+        return loc, log_scale
+
+    def forward(self, num_samples=1, generator=None, y=None):
+        if y is None:
+            y = _draw_labels(num_samples, self.num_classes, generator,
+                             self.loc.device)
+        num_samples = y.shape[0]
+        loc, log_scale = self._params(y)
+        eps = torch.randn((num_samples,) + self.shape, generator=generator,
+                          dtype=self.loc.dtype, device=self.loc.device)
+        return _gaussian_sample(loc, log_scale, eps)
+
+    def log_prob(self, z, y=None):
+        loc, log_scale = self._params(y)
+        return _gaussian_log_prob(loc, log_scale, z)
+
+
+def _draw_labels(num_samples, num_classes, generator, device):
+    return torch.randint(0, num_classes, (num_samples,), generator=generator,
+                         device=device)
+
+
+class GlowBase(BaseDistribution):
+    """Glow's base (``base.py:272-346``; reference ``base.py:347-471``): a
+    Gaussian per channel, its mean ``loc * exp(3 loc_logs)`` and
+    log-scale ``log_scale * exp(3 log_scale_logs)`` (``logscale_factor``
+    3), with, given ``num_classes``, per-class offsets ``loc_cc`` and
+    ``log_scale_cc`` selected by the labels ``y``."""
+
+    def __init__(self, shape, num_classes=None, logscale_factor=3.0,
+                 dtype=torch.float32):
+        super().__init__()
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        self.shape = shape
+        self.num_classes = num_classes
+        self.logscale_factor = logscale_factor
+        self.temperature = None
+        pshape = (1, shape[0]) + (1,) * (len(shape) - 1)
+        for name in ("loc", "loc_logs", "log_scale", "log_scale_logs"):
+            setattr(self, name, nn.Parameter(torch.zeros(pshape,
+                                                         dtype=dtype)))
+        for name in ("loc_cc", "log_scale_cc"):
+            self.register_parameter(name, nn.Parameter(torch.zeros(
+                num_classes, shape[0], dtype=dtype))
+                if num_classes is not None else None)
+
+    @property
+    def class_cond(self):
+        return self.num_classes is not None
+
+    def _params(self, y):
+        loc = self.loc * torch.exp(self.loc_logs * self.logscale_factor)
+        log_scale = self.log_scale * torch.exp(
+            self.log_scale_logs * self.logscale_factor)
+        if self.class_cond:
+            y = one_hot(y, self.num_classes, self.loc.dtype)
+            cshape = (y.shape[0], self.shape[0]) + (1,) * (len(self.shape)
+                                                           - 1)
+            loc = loc + (y @ self.loc_cc).reshape(cshape)
+            log_scale = log_scale + (y @ self.log_scale_cc).reshape(cshape)
+        if self.temperature is not None:
+            log_scale = log_scale + math.log(self.temperature)
+        return loc, log_scale
+
+    def _log_p(self, log_scale, sq):
+        d = math.prod(self.shape)
+        num_pix = math.prod(self.shape[1:])
+        dims = tuple(range(1, len(self.shape) + 1))
+        return (-0.5 * d * _LOG2PI - num_pix * torch.sum(log_scale, dim=dims)
+                - 0.5 * torch.sum(sq, dim=dims))
+
+    def forward(self, num_samples=1, generator=None, y=None):
+        if self.class_cond:
+            if y is None:
+                y = _draw_labels(num_samples, self.num_classes, generator,
+                                 self.loc.device)
+            num_samples = y.shape[0]
+        loc, log_scale = self._params(y)
+        eps = torch.randn((num_samples,) + self.shape, generator=generator,
+                          dtype=self.loc.dtype, device=self.loc.device)
+        z = loc + torch.exp(log_scale) * eps
+        return z, self._log_p(log_scale, eps ** 2)
+
+    def log_prob(self, z, y=None):
+        loc, log_scale = self._params(y)
+        return self._log_p(log_scale, ((z - loc) / torch.exp(log_scale)) ** 2)

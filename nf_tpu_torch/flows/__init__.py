@@ -1,7 +1,14 @@
-from .affine import AffineConstFlow, MaskedAffineFlow
+from .affine import (
+    AffineConstFlow,
+    AffineCoupling,
+    AffineCouplingBlock,
+    CCAffineConst,
+    MaskedAffineFlow,
+)
 from .autoregressive import Autoregressive, MaskedAffineAutoregressive
 from .base import Composite, Flow, Reverse, Scanned
-from .mixing import LULinear, LULinearPermute, Permute
+from .glow import GlowBlock
+from .mixing import Invertible1x1Conv, LULinear, LULinearPermute, Permute
 from .neural_spline import (
     AutoregressiveRationalQuadraticSpline,
     CircularAutoregressiveRationalQuadraticSpline,
@@ -12,21 +19,28 @@ from .neural_spline import (
 )
 from .normalization import ActNorm
 from .periodic import PeriodicShift, PeriodicWrap
+from .reshape import Merge, Split, Squeeze
 
 __all__ = [
     "ActNorm",
     "AffineConstFlow",
+    "AffineCoupling",
+    "AffineCouplingBlock",
     "Autoregressive",
     "AutoregressiveRationalQuadraticSpline",
+    "CCAffineConst",
     "CircularAutoregressiveRationalQuadraticSpline",
     "Composite",
     "CoupledRationalQuadraticSpline",
     "Flow",
+    "GlowBlock",
+    "Invertible1x1Conv",
     "LULinear",
     "LULinearPermute",
     "MaskedAffineAutoregressive",
     "MaskedAffineFlow",
     "MaskedPiecewiseRationalQuadraticAutoregressive",
+    "Merge",
     "PeriodicShift",
     "PeriodicWrap",
     "Permute",
@@ -34,4 +48,6 @@ __all__ = [
     "PiecewiseRationalQuadraticCoupling",
     "Reverse",
     "Scanned",
+    "Split",
+    "Squeeze",
 ]

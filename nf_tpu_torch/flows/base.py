@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def zero_log_det_like_z(z):
@@ -104,21 +105,25 @@ class Scanned(Flow):
 
     :meth:`layers` is the units' layers in order, a plain ``Composite``
     unit opened into its flows: the loop, the data-dependent pass and
-    the model container (``core.NormalizingFlow``) all run those layers
+    the model containers (:func:`open_scanned`) all run those layers
     with one running log-det sum, so a ``scan=True`` model computes
     exactly what the unrolled model does and agrees with it bitwise.
-    ``remat=True`` (``jax.checkpoint`` of the body) arrives with the Glow
-    slice and raises."""
+
+    ``remat=True`` (the JAX package's ``jax.checkpoint`` of the scan
+    body) runs each unit under ``torch.utils.checkpoint`` when autograd
+    records: its activations are recomputed in the backward instead of
+    kept, memory traded for a second forward. The containers then run the
+    ``Scanned`` itself, unit by unit, each unit's log-det summed from
+    zero and added to the running sum (the same numbers to rounding); the
+    data-dependent pass runs the layers, as without ``remat``."""
 
     def __init__(self, flows, remat=False):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "Scanned(remat=True) arrives with the Glow slice of the port")
         flows = list(flows)
         if len({repr(_signature(f)) for f in flows}) != 1:
             raise ValueError("Scanned requires structurally identical flows.")
         self.units = nn.ModuleList(flows)
+        self.remat = remat
 
     def layers(self):
         """Every layer of every unit in order (plain ``Composite`` units,
@@ -128,10 +133,26 @@ class Scanned(Flow):
             out += open_composites(unit)
         return out
 
+    def _remat(self, method, z, context):
+        units = list(self.units)
+        if method == "inverse":
+            units.reverse()
+        log_det_tot = zero_log_det_like_z(z)
+        for unit in units:
+            z, log_det = checkpoint(getattr(unit, method), z, context,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+            log_det_tot = log_det_tot + log_det
+        return z, log_det_tot
+
     def forward(self, z, context=None):
+        if self.remat and torch.is_grad_enabled():
+            return self._remat("forward", z, context)
         return _run(self.layers(), "forward", z, context)
 
     def inverse(self, z, context=None):
+        if self.remat and torch.is_grad_enabled():
+            return self._remat("inverse", z, context)
         return _run(self.layers()[::-1], "inverse", z, context)
 
     def init_data_forward(self, z, context=None):
@@ -139,6 +160,16 @@ class Scanned(Flow):
 
     def init_data_inverse(self, z, context=None):
         return _run(self.layers()[::-1], "init_data_inverse", z, context)
+
+
+def open_scanned(flows):
+    """``flows`` with every ``Scanned`` opened into its layers, but one
+    with ``remat=True``, which runs itself (its units checkpointed)."""
+    out = []
+    for flow in flows:
+        opened = isinstance(flow, Scanned) and not flow.remat
+        out += flow.layers() if opened else [flow]
+    return out
 
 
 def open_composites(layer):

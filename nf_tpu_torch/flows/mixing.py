@@ -1,6 +1,6 @@
-"""Mixing layers (``nf_tpu/flows/mixing.py:29-68,204-365``; reference
-``normflows/flows/mixing.py``): the channel permutation of the MAF stack
-and the LU mixing of the NSF stack."""
+"""Mixing layers (``nf_tpu/flows/mixing.py:29-160,204-365``; reference
+``normflows/flows/mixing.py``): the channel permutation of the MAF stack,
+Glow's invertible 1x1 convolution and the LU mixing of the NSF stack."""
 
 from __future__ import annotations
 
@@ -45,6 +45,84 @@ class Permute(Flow):
 
     def inverse(self, z, context=None):
         return self._permute(z, self.inv_perm, (self.num_channels + 1) // 2)
+
+
+def _random_orthogonal(num_channels, generator):
+    """A random rotation drawn from ``generator`` (float64), the
+    reference's initialisation (``mixing.py:70-84``): a model loaded from
+    the JAX package takes its weights from the bridge instead."""
+    q, _ = torch.linalg.qr(torch.randn(num_channels, num_channels,
+                                       generator=generator,
+                                       dtype=torch.float64))
+    return q
+
+
+class Invertible1x1Conv(Flow):
+    """Glow's invertible 1x1 convolution on NCHW tensors
+    (``mixing.py:97-160``; reference ``mixing.py:57-133``). As in the
+    reference, ``forward`` (the sampling direction) applies ``W^-1`` and
+    ``inverse`` applies ``W``; the log-det is ``log |det W|`` per pixel
+    times H*W.
+
+    ``use_lu=True`` keeps ``W = P L U`` as the parameters ``L``, ``U`` and
+    ``log_S`` with the buffers ``P``, ``sign_S`` and ``eye`` (the
+    reference's names): ``W^-1`` is two triangular solves and ``log |det
+    W| = sum(log_S)``. ``use_lu=False`` keeps ``W`` itself, inverted and
+    its determinant taken by ``torch.linalg``. The channel mixing is one
+    product, ``einsum("oi,bihw->bohw")``, in float32 as every product of
+    the port."""
+
+    def __init__(self, num_channels, use_lu=False, generator=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.num_channels = num_channels
+        self.use_lu = use_lu
+        q = _random_orthogonal(num_channels, generator)
+        if use_lu:
+            p, lower, upper = torch.linalg.lu(q)
+            s = torch.diagonal(upper)
+            self.L = nn.Parameter(torch.tril(lower, -1).to(dtype))
+            self.U = nn.Parameter(torch.triu(upper, 1).to(dtype))
+            self.log_S = nn.Parameter(torch.log(torch.abs(s)).to(dtype))
+            self.register_buffer("P", p.to(dtype))
+            self.register_buffer("sign_S", torch.sign(s).to(dtype))
+            self.register_buffer("eye", torch.eye(num_channels,
+                                                  dtype=dtype))
+        else:
+            self.W = nn.Parameter(q.to(dtype))
+
+    def _assemble_w(self, inverse):
+        eye = self.eye
+        lower = torch.tril(self.L, -1) + eye
+        upper = torch.triu(self.U, 1) + torch.diag(
+            self.sign_S * torch.exp(self.log_S))
+        if inverse:
+            l_inv = torch.linalg.solve_triangular(lower, eye, upper=False,
+                                                  unitriangular=True)
+            u_inv = torch.linalg.solve_triangular(upper, eye, upper=True)
+            return u_inv @ l_inv @ self.P.T
+        return self.P @ lower @ upper
+
+    def _mix(self, z, inverse):
+        if self.use_lu:
+            w = self._assemble_w(inverse)
+            log_det = torch.sum(self.log_S)
+        else:
+            # inv_ex: no check of the factorisation's status, which
+            # would wait for the device
+            w = torch.linalg.inv_ex(self.W).inverse if inverse else self.W
+            log_det = torch.linalg.slogdet(self.W)[1]
+        if inverse:
+            log_det = -log_det
+        z_ = torch.einsum("oi,bihw->bohw", w, z)
+        log_det = log_det * (z.shape[2] * z.shape[3])
+        return z_, torch.broadcast_to(log_det, (z.shape[0],)).to(z.dtype)
+
+    def forward(self, z, context=None):
+        return self._mix(z, inverse=True)
+
+    def inverse(self, z, context=None):
+        return self._mix(z, inverse=False)
 
 
 class _Permutation(Flow):

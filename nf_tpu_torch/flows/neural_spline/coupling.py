@@ -2,8 +2,12 @@
 reference ``normflows/flows/neural_spline/coupling.py``).
 
 The identity/transform split uses index buffers named as the reference
-names them (``identity_features``, ``transform_features``). Only 2D
-inputs are ported: the 4D (image) feed raises until the image slice.
+names them (``identity_features``, ``transform_features``), on 2D
+``(B, D)`` inputs and on 4D ``(B, C, H, W)`` images (the channels split).
+An image coupling feeds the spline bin-major: its conditioner's ``(B,
+C*P, H, W)`` output viewed as ``(P, B, C, H, W)`` planes, which kernel A
+(and kernel C in the backward) takes as ``(B*C, H*W)`` views with no
+copy.
 """
 
 from __future__ import annotations
@@ -25,11 +29,8 @@ from .feed import (
     fused_head_wanted,
     homogeneous_tails,
     kmajor_spline_feed,
+    slice_ud_planes,
 )
-
-_NO_4D = ("4D (image) inputs arrive with the image slice of the port; "
-          "this slice runs 2D inputs")
-
 
 def split_mask(mask):
     """(identity_features, transform_features): ``mask[i] > 0`` means
@@ -44,8 +45,9 @@ def split_mask(mask):
 
 
 class Coupling(Flow):
-    """Mask-indexed coupling on ``(B, D)`` inputs (reference
-    ``coupling.py:16-140``); the conditioner sees the identity features."""
+    """Mask-indexed coupling on ``(B, D)`` inputs or ``(B, C, H, W)``
+    images, split along axis 1 (reference ``coupling.py:16-140``); the
+    conditioner sees the identity features."""
 
     def __init__(self, mask, transform_net, unconditional_transform=None):
         super().__init__()
@@ -68,8 +70,8 @@ class Coupling(Flow):
         return self.transform_net(identity_split, context)
 
     def _split(self, inputs):
-        if inputs.ndim != 2:
-            raise NotImplementedError(_NO_4D)
+        if inputs.ndim not in (2, 4):
+            raise ValueError("Inputs must be a 2D or a 4D tensor.")
         return (inputs[:, self.identity_features],
                 inputs[:, self.transform_features])
 
@@ -103,6 +105,15 @@ class Coupling(Flow):
         logabsdet = logabsdet + logabsdet_split
         return self._scatter(inputs, identity_split, transform_split), \
             logabsdet
+
+
+def _reshape_params(inputs, transform_params):
+    """``(B, C*P, H, W) -> (B, C, H, W, P)`` or ``(B, D*P) -> (B, D, P)``,
+    bin-minor (reference ``coupling.py:150-160``)."""
+    if inputs.ndim == 4:
+        b, c, h, w = inputs.shape
+        return transform_params.reshape(b, c, -1, h, w).permute(0, 1, 3, 4, 2)
+    return transform_params.reshape(inputs.shape[0], inputs.shape[1], -1)
 
 
 def _tail_bound_tensor(tail_bound):
@@ -148,13 +159,15 @@ class PiecewiseRationalQuadraticCDF(Flow):
         self.min_derivative = min_derivative
 
     def _spline(self, inputs, inverse):
-        if inputs.ndim != 2:
-            raise NotImplementedError(_NO_4D)
         uw = self.unnormalized_widths[None]
         uh = self.unnormalized_heights[None]
         ud = self.unnormalized_derivatives[None]
         tb = self.tail_bound_arr if self.tail_bound_arr is not None \
             else self.tail_bound
+        if (self.tail_bound_arr is not None
+                and self.tail_bound_arr.ndim == 1 and inputs.ndim > 2):
+            # per-channel bounds align to the channel axis of an image
+            tb = tb.reshape((1, -1) + (1,) * (inputs.ndim - 2))
         kw = dict(inverse=inverse, min_bin_width=self.min_bin_width,
                   min_bin_height=self.min_bin_height,
                   min_derivative=self.min_derivative)
@@ -217,7 +230,8 @@ class PiecewiseRationalQuadraticCoupling(Coupling):
                 min_derivative=min_derivative, dtype=dtype)
         super().__init__(mask, transform_net, unconditional)
 
-        hidden = getattr(transform_net, "hidden_features", None)
+        hidden = (getattr(transform_net, "hidden_features", None)
+                  or getattr(transform_net, "hidden_channels", None))
         self.softmax_scale = 1.0 / math.sqrt(hidden) if hidden else 1.0
         self.register_buffer("tail_bound_arr", tb_t, persistent=False)
         self.tail_bound = 1.0 if tb_arr is not None else float(tail_bound)
@@ -239,6 +253,9 @@ class PiecewiseRationalQuadraticCoupling(Coupling):
         ud = transform_params[..., 2 * K:]
         tb = self.tail_bound_arr if self.tail_bound_arr is not None \
             else self.tail_bound
+        if self.tail_bound_arr is not None and inputs.ndim > 2:
+            # per-feature bounds align to the channel axis of an image
+            tb = tb.reshape((1, -1) + (1,) * (inputs.ndim - 2))
         if self.tails is None:
             return ops.rational_quadratic_spline(
                 inputs, uw, uh, ud, **self._spline_kw(inverse))
@@ -271,6 +288,8 @@ class PiecewiseRationalQuadraticCoupling(Coupling):
             return fused_head_spline_feed(
                 inputs, transform_params.h_t, self.transform_net, **feed_kw)
         homo = homogeneous_tails(self.tails)
+        if inputs.ndim == 4 and homo is not None:
+            return self._image_feed(inputs, transform_params, homo, inverse)
         mixed = (isinstance(self.tails, tuple)
                  and set(self.tails) <= {"linear", "circular"})
         net_bin_major = getattr(self.transform_net, "bin_major_head", None)
@@ -282,9 +301,30 @@ class PiecewiseRationalQuadraticCoupling(Coupling):
             if homo is not None or mixed:
                 return kmajor_spline_feed(inputs, p, **feed_kw)
             transform_params = torch.permute(p, (2, 1, 0)).reshape(b, -1)
-        params = transform_params.reshape(inputs.shape[0], inputs.shape[1],
-                                          -1)
+        params = _reshape_params(inputs, transform_params)
         outputs, logabsdet = self._piecewise_cdf(inputs, params, inverse)
+        return outputs, sum_except_batch(logabsdet)
+
+    def _image_feed(self, inputs, transform_params, homo, inverse):
+        """The bin-major image feed (``coupling.py:398-421``): the
+        conditioner's ``(B, C*P, H, W)`` output viewed as ``(P, B, C, H,
+        W)`` planes (channel c's parameter p at channel c*P + p), so each
+        plane is H*W-contiguous runs and no element-wise transpose to the
+        kernel's layout is needed; widths and heights scaled by the
+        softmax scale, the derivatives padded for the tails."""
+        b, c, h, w = inputs.shape
+        p = transform_params.reshape(b, c, -1, h, w).permute(2, 0, 1, 3, 4)
+        K = self.num_bins
+        tb = self.tail_bound_arr if self.tail_bound_arr is not None \
+            else self.tail_bound
+        if self.tail_bound_arr is not None:
+            tb = tb.reshape(1, -1, 1, 1)  # per-channel bounds
+        outputs, logabsdet = \
+            splines.unconstrained_rational_quadratic_spline_kmajor(
+                inputs, p[:K] * self.softmax_scale,
+                p[K:2 * K] * self.softmax_scale,
+                slice_ud_planes(p[2 * K:], K, homo), tails=homo,
+                tail_bound=tb, **self._spline_kw(inverse))
         return outputs, sum_except_batch(logabsdet)
 
     def _coupling_transform_forward(self, inputs, transform_params):

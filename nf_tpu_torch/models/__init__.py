@@ -1,10 +1,13 @@
 from .builders import (
     build_circular_nsf,
     build_conditional_nsf,
+    build_glow_multiscale,
+    build_image_nsf,
     build_maf,
     build_nsf,
     build_realnvp,
 )
 
-__all__ = ["build_circular_nsf", "build_conditional_nsf", "build_maf",
+__all__ = ["build_circular_nsf", "build_conditional_nsf",
+           "build_glow_multiscale", "build_image_nsf", "build_maf",
            "build_nsf", "build_realnvp"]

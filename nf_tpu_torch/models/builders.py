@@ -1,6 +1,7 @@
 """Model builders (``nf_tpu/models/builders.py``): :func:`build_realnvp`,
 :func:`build_nsf`, :func:`build_circular_nsf`,
-:func:`build_conditional_nsf` and :func:`build_maf`.
+:func:`build_conditional_nsf`, :func:`build_maf`, and the image models
+:func:`build_image_nsf` and :func:`build_glow_multiscale`.
 
 Weights are drawn on the host from ``torch.Generator().manual_seed(seed)``
 and moved to ``device`` (None: CUDA, raising if it is absent)."""
@@ -14,7 +15,8 @@ from .. import core
 from .. import distributions as dist
 from .. import flows as nff
 from .._device import resolve_device
-from ..nets import MLP, MixedPrecision
+from ..nets import MLP, ConvResidualNet, MixedPrecision
+from ..transforms import Logit
 from ..utils.masks import create_alternating_binary_mask
 
 
@@ -159,3 +161,106 @@ def build_maf(dim=2, K=8, hidden=64, num_blocks=2, target=None, device=None,
         flows.append(nff.Permute(dim, generator=gen))
     q0 = dist.DiagGaussian(dim, trainable=False)
     return core.NormalizingFlow(q0, flows, p=target).to(dev)
+
+
+def _image_levels(input_shape, L):
+    """Per level i: the channels its layers see and the shape of its
+    base's latent (``builders.py:209-232``)."""
+    C, H, W = input_shape
+    out = []
+    for i in range(L):
+        ch = C * 2 ** (L + 1 - i)
+        if i > 0:
+            latent = (C * 2 ** (L - i), H // 2 ** (L - i), W // 2 ** (L - i))
+        else:
+            latent = (C * 2 ** (L + 1), H // 2 ** L, W // 2 ** L)
+        out.append((ch, latent))
+    return out
+
+
+def _image_base(latent, class_cond, num_classes):
+    if class_cond:
+        return dist.ClassCondDiagGaussian(latent, num_classes)
+    return dist.GlowBase(latent)
+
+
+def build_image_nsf(input_shape=(3, 32, 32), L=2, K=4, hidden_channels=64,
+                    num_bins=8, tail_bound=3.0, num_classes=10,
+                    class_cond=False, num_blocks=2, logit_alpha=0.05,
+                    mixed_precision=False, device=None, seed=0):
+    """Multiscale neural-spline flow on images (``builders.py:176-238``):
+    per level, K x [ActNorm, LU 1x1 convolution, RQ-spline channel
+    coupling (linear tails) with a ``ConvResidualNet`` conditioner], then
+    a ``Squeeze``; a ``Merge`` joins each level's latent to the next,
+    under a ``Logit(logit_alpha)`` data transform. The bases are
+    ``GlowBase`` or, with ``class_cond``, ``ClassCondDiagGaussian``.
+
+    On CUDA every coupling's spline runs kernel A, and its backward kernel
+    C, on the bin-major image feed: the conditioner's output viewed as
+    ``(B*C/2, H*W)`` planes. ``mixed_precision=True`` runs the
+    conditioners in bfloat16."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    q0, flows, merges = [], [], []
+
+    def net_fn(in_ch, out_ch):
+        net = ConvResidualNet(in_ch, out_ch, hidden_channels,
+                              num_blocks=num_blocks, generator=gen)
+        return MixedPrecision(net) if mixed_precision else net
+
+    for i, (ch, latent) in enumerate(_image_levels(input_shape, L)):
+        level = []
+        for j in range(K):
+            # a {-1, 1} channel mask: the channels at +1 are transformed
+            mask = create_alternating_binary_mask(ch, even=(j % 2 == 0)) \
+                * 2.0 - 1.0
+            level += [nff.ActNorm((ch, 1, 1)),
+                      nff.Invertible1x1Conv(ch, use_lu=True, generator=gen),
+                      nff.PiecewiseRationalQuadraticCoupling(
+                          mask, net_fn, num_bins=num_bins, tails="linear",
+                          tail_bound=tail_bound)]
+        level.append(nff.Squeeze())
+        flows.append(level)
+        if i > 0:
+            merges.append(nff.Merge())
+        q0.append(_image_base(latent, class_cond, num_classes))
+    return core.MultiscaleFlow(q0, flows, merges,
+                               transform=Logit(alpha=logit_alpha),
+                               class_cond=class_cond).to(dev)
+
+
+def build_glow_multiscale(input_shape=(3, 32, 32), L=3, K=16,
+                          hidden_channels=256, num_classes=10,
+                          class_cond=True, split_mode="channel", scale=True,
+                          use_lu=True, logit_alpha=0.05, scan=False,
+                          remat=False, mixed_precision=False, device=None,
+                          seed=0):
+    """Multiscale Glow (``builders.py:241-278``; reference
+    ``examples/glow.ipynb`` cell 2: L 3, K 16, hidden 256, a
+    class-conditional base, a Logit transform): per level K
+    ``GlowBlock``s, then a ``Squeeze``. No kernel of the port runs: Glow
+    is convolutions, 1x1 mixing products and elementwise glue.
+
+    ``scan=True`` groups each level's K blocks into one ``Scanned``; it
+    computes what ``scan=False`` does, bitwise, and loads the same
+    export. ``remat=True`` (with ``scan``) recomputes each block's
+    activations in the backward (``torch.utils.checkpoint``).
+    ``mixed_precision=True`` runs the conditioners in bfloat16."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    q0, flows, merges = [], [], []
+    for i, (ch, latent) in enumerate(_image_levels(input_shape, L)):
+        blocks = [nff.GlowBlock(ch, hidden_channels, scale=scale,
+                                split_mode=split_mode, use_lu=use_lu,
+                                mixed_precision=mixed_precision,
+                                generator=gen)
+                  for _ in range(K)]
+        level = [nff.Scanned(blocks, remat=remat)] if scan else blocks
+        level.append(nff.Squeeze())
+        flows.append(level)
+        if i > 0:
+            merges.append(nff.Merge())
+        q0.append(_image_base(latent, class_cond, num_classes))
+    return core.MultiscaleFlow(q0, flows, merges,
+                               transform=Logit(alpha=logit_alpha),
+                               class_cond=class_cond).to(dev)

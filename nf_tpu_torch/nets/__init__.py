@@ -1,3 +1,4 @@
+from .cnn import Conv2d, ConvNet2d
 from .made import (
     MADE,
     MaskedFeedforwardBlock,
@@ -6,8 +7,14 @@ from .made import (
 )
 from .mlp import MLP, Linear
 from .precision import MixedPrecision
-from .resnet import ResidualBlock, ResidualNet
+from .resnet import (
+    ConvResidualBlock,
+    ConvResidualNet,
+    ResidualBlock,
+    ResidualNet,
+)
 
-__all__ = ["Linear", "MADE", "MLP", "MaskedFeedforwardBlock", "MaskedLinear",
+__all__ = ["Conv2d", "ConvNet2d", "ConvResidualBlock", "ConvResidualNet",
+           "Linear", "MADE", "MLP", "MaskedFeedforwardBlock", "MaskedLinear",
            "MaskedResidualBlock", "MixedPrecision", "ResidualBlock",
            "ResidualNet"]

@@ -1,13 +1,15 @@
-"""Residual MLP conditioner (``nf_tpu/nets/resnet.py:59,130``; reference
-``normflows/nets/resnet.py``).
+"""Residual conditioners (``nf_tpu/nets/resnet.py:59,130,214,258``;
+reference ``normflows/nets/resnet.py``): the MLP ``ResidualNet`` and the
+convolutional ``ConvResidualNet`` of the image NSF.
 
 Pre-activation residual blocks with optional GLU-style context gating
 (``h * sigmoid(W_ctx c)``). Module and parameter names follow the
-reference (``initial_layer``, ``blocks.i.linear_layers.j``,
-``context_layer``, ``final_layer``) so reference state dicts load by name
-(``nf_tpu_torch.compat``). Batch norm and dropout are not ported: the
-JAX package's builders make these nets without batch norm, and its
-dropout needs a training-step key the serving path never passes.
+reference (``initial_layer``, ``blocks.i.linear_layers.j`` or
+``blocks.i.conv_layers.j``, ``context_layer``, ``final_layer``) so
+reference state dicts load by name (``nf_tpu_torch.compat``). Batch norm
+and dropout are not ported: the JAX package's builders make these nets
+without batch norm, and its dropout needs a training-step key the serving
+path never passes.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .cnn import Conv2d
 from .mlp import Linear
 
 
@@ -32,12 +35,7 @@ class ResidualBlock(nn.Module):
         self.linear_layers = nn.ModuleList([
             Linear(features, features, generator=generator, dtype=dtype),
             Linear(features, features, generator=generator, dtype=dtype)])
-        # the reference's zero_initialization: the block starts near the
-        # identity, its second layer drawn from U(-1e-3, 1e-3)
-        with torch.no_grad():
-            for p in self.linear_layers[1].parameters():
-                u = torch.rand(p.shape, generator=generator, dtype=dtype)
-                p.copy_((2.0 * u - 1.0) * 1e-3)
+        _small_uniform(self.linear_layers[1], generator, dtype)
         self.context_layer = (
             Linear(context_features, features, generator=generator,
                    dtype=dtype)
@@ -125,3 +123,73 @@ class ResidualNet(nn.Module):
         for block in self.blocks:
             temps_t = block.call_transposed(temps_t, context_t)
         return temps_t
+
+
+def _small_uniform(module, generator, dtype):
+    """The reference's zero_initialization: ``module``'s parameters drawn
+    from U(-1e-3, 1e-3), so a residual block starts near the identity."""
+    with torch.no_grad():
+        for p in module.parameters():
+            u = torch.rand(p.shape, generator=generator, dtype=dtype)
+            p.copy_((2.0 * u - 1.0) * 1e-3)
+
+
+class ConvResidualBlock(nn.Module):
+    """Pre-activation convolutional residual block (``resnet.py:214-255``;
+    reference ``resnet.py:107-156``): two 3x3 convolutions, the second
+    near zero at init, and an optional 1x1 context gate."""
+
+    def __init__(self, channels, context_channels=None,
+                 activation: Callable = F.relu, generator=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.activation = activation
+        self.conv_layers = nn.ModuleList([
+            Conv2d(channels, channels, 3, generator=generator, dtype=dtype)
+            for _ in range(2)])
+        _small_uniform(self.conv_layers[1], generator, dtype)
+        self.context_layer = (
+            Conv2d(context_channels, channels, 1, generator=generator,
+                   dtype=dtype)
+            if context_channels is not None else None)
+
+    def forward(self, inputs, context=None):
+        temps = self.activation(inputs)
+        temps = self.conv_layers[0](temps)
+        temps = self.activation(temps)
+        temps = self.conv_layers[1](temps)
+        if context is not None and self.context_layer is not None:
+            temps = temps * torch.sigmoid(self.context_layer(context))
+        return inputs + temps
+
+
+class ConvResidualNet(nn.Module):
+    """The image NSF's conditioner (``resnet.py:258-300``; reference
+    ``resnet.py:159-209``): a 1x1 convolution to ``hidden_channels``,
+    ``num_blocks`` residual blocks, a 1x1 convolution out. The coupling
+    reads ``hidden_channels`` for its softmax scale."""
+
+    def __init__(self, in_channels, out_channels, hidden_channels,
+                 context_channels=None, num_blocks=2,
+                 activation: Callable = F.relu, generator=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.hidden_channels = hidden_channels
+        self.context_channels = context_channels
+        self.initial_layer = Conv2d(in_channels + (context_channels or 0),
+                                    hidden_channels, 1, generator=generator,
+                                    dtype=dtype)
+        self.blocks = nn.ModuleList([
+            ConvResidualBlock(hidden_channels, context_channels, activation,
+                              generator=generator, dtype=dtype)
+            for _ in range(num_blocks)])
+        self.final_layer = Conv2d(hidden_channels, out_channels, 1,
+                                  generator=generator, dtype=dtype)
+
+    def forward(self, inputs, context=None):
+        temps = inputs if context is None else torch.cat([inputs, context],
+                                                         dim=1)
+        temps = self.initial_layer(temps)
+        for block in self.blocks:
+            temps = block(temps, context=context)
+        return self.final_layer(temps)

@@ -36,7 +36,12 @@ Both layouts of the JAX package enter here: :func:`fused_unconstrained_rqs`
 (bin-minor ``(..., K)``, ``splines_pallas.py:605``) and
 :func:`fused_unconstrained_rqs_kmajor` (bin-major ``(K, ...)``, :644). They
 hand the kernels strided views, so broadcast parameters (stride 0) and
-transposed inputs are never copied. The parameters enter
+transposed inputs are never copied. An image ``(B, C, H, W)`` reaches the
+kernels as ``(B*C, H*W)`` views (:func:`image_split`): the image
+coupling's bin-major planes are a permuted view of its conditioner's
+``(B, C*P, H, W)`` output, strides ``(H*W, C*P*H*W, P*H*W, W, 1)``, whose
+(B, C) and (H, W) each merge into one axis; what cannot be viewed so
+raises, and nothing is copied. The parameters enter
 :class:`_RQSFunction` in their broadcastable shape, and its backward
 returns their gradients in that shape, summed over what was broadcast, as
 XLA sums the transpose of the JAX package's broadcast: where every row
@@ -50,6 +55,7 @@ per element into fresh ``(K, rows, cols)`` planes, reduced with
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -492,14 +498,74 @@ def rqs_vjp_plain(x, w, h, d, tb, cty, ctl, *, inverse,
 
 # --- kernel wrappers ---------------------------------------------------------
 
-def _as_2d(x):
+def _as_2d(x, split=None):
+    """``x`` as the (rows, cols) view the kernels take: a 1D ``x`` is one
+    row, a 4D image ``x`` merges its first ``split`` dims into the rows and
+    the rest into the columns (:func:`image_split`). Raises ValueError
+    where that needs a copy."""
     if x.ndim == 2:
         return x
     if x.ndim == 1:
         return x[None]
-    raise NotImplementedError(
-        f"the CUDA spline kernel takes 1D or 2D inputs, got {x.ndim}D "
-        "(the 4D image feed arrives with the image slice)")
+    if x.ndim != 4 or split is None:
+        raise NotImplementedError(
+            f"the CUDA spline kernel takes 1D, 2D or 4D inputs, got "
+            f"{x.ndim}D")
+    return _merged(x, (), x.shape, split)
+
+
+def _merged(t, lead, shape, split):
+    """``t`` (``lead`` dims, then four dims broadcastable to ``shape``) as a
+    (``*lead``, r, c) view: its first ``split`` of the four dims merged
+    into r and the rest into c, each side either ``shape``'s dims (r the
+    rows) or all of size 1 (a broadcast). Raises ValueError where that is
+    not a view of ``t``."""
+    n = len(lead)
+    dims = tuple(t.shape[n:])
+    if len(dims) > 4:
+        raise ValueError(f"{len(dims)} dims where a 4D input takes at most "
+                         f"4")
+    dims = (1,) * (4 - len(dims)) + dims
+    sides = []
+    for part, full in ((dims[:split], shape[:split]),
+                       (dims[split:], shape[split:])):
+        if tuple(part) == tuple(full):
+            sides.append(math.prod(full))
+        elif all(v == 1 for v in part):
+            sides.append(1)
+        else:
+            raise ValueError(f"dims {dims} do not broadcast to {tuple(shape)}"
+                             f" as ({split}, {4 - split}) halves")
+    try:
+        return t.reshape(tuple(lead) + dims).view(tuple(lead) + tuple(sides))
+    except RuntimeError as e:
+        raise ValueError(f"a tensor of shape {tuple(t.shape)} and strides "
+                         f"{t.stride()} cannot be viewed as {sides} without "
+                         f"a copy") from e
+
+
+def image_split(x, w, h, d, tb=None):
+    """How a 4D ``x`` (B, C, H, W) is collapsed for the kernels, the same
+    way for every operand and never by a copy: 2, rows B*C and columns
+    H*W (the image coupling's bin-major planes, the permuted ``(P, B, C,
+    H, W)`` view of its conditioner's output, whose (B, C) merge into one
+    axis of stride P*H*W), else 1, rows B and columns C*H*W (parameters
+    shared over the batch, as a ``PiecewiseRationalQuadraticCDF``'s).
+    Raises ValueError when neither gives views."""
+    errors = []
+    for split in (2, 1):
+        try:
+            _as_2d(x, split)
+            for t in (w, h, d):
+                _merged(t, t.shape[:1], x.shape, split)
+            if isinstance(tb, torch.Tensor):
+                _merged(tb.expand(x.shape), (), x.shape, split)
+            return split
+        except ValueError as e:
+            errors.append(str(e))
+    raise ValueError("the 4D spline operands cannot be collapsed to the "
+                     "kernel's (rows, cols) views without a copy: "
+                     + "; ".join(errors))
 
 
 def kernel_strides(x, w, h, d, tb):
@@ -790,11 +856,13 @@ def rqs_fwd(x, w, h, d, tb, *, inverse,
             min_bin_width=DEFAULT_MIN_BIN_WIDTH,
             min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
             min_derivative=DEFAULT_MIN_DERIVATIVE):
-    """Kernel A: ``x`` (rows, cols) or (n,); ``w``/``h`` (K, *x.shape) and
-    ``d`` (K+1, *x.shape), any strides (``.expand`` views included);
-    ``tb`` a float or a tensor broadcastable to ``x``. Returns
-    ``(y, log_det)`` shaped like ``x``. CUDA -> kernel A, differentiable
-    through kernel C; CPU -> :func:`rqs_plain`."""
+    """Kernel A: ``x`` (rows, cols), (n,) or an image (B, C, H, W);
+    ``w``/``h`` (K, *x.shape) and ``d`` (K+1, *x.shape), any strides
+    (``.expand`` views included; for an image, strides that collapse to
+    the kernel's 2D views, :func:`image_split`); ``tb`` a float or a
+    tensor broadcastable to ``x``. Returns ``(y, log_det)`` shaped like
+    ``x``. CUDA -> kernel A, differentiable through kernel C; CPU ->
+    :func:`rqs_plain`."""
     kw = dict(inverse=inverse, min_bin_width=min_bin_width,
               min_bin_height=min_bin_height, min_derivative=min_derivative)
     if x.device.type == "cpu":
@@ -811,19 +879,26 @@ def rqs_fwd(x, w, h, d, tb, *, inverse,
         # with stride 0 on the card (reading it back would sync the host)
         tb = float(tb) if tb.device.type == "cpu" else tb.reshape(())
     _check(x, (w, h, d), tb if isinstance(tb, torch.Tensor) else None, K)
+    x2, planes, tb2 = _views(x, w, h, d, tb)
     y, ld = _RQSFunction.apply(
-        _as_2d(x), *param_views(x, w, h, d), _tb_view(x, tb),
+        x2, *planes, tb2,
         (bool(inverse), float(min_bin_width), float(min_bin_height),
          float(min_derivative)))
     return y.view(x.shape), ld.view(x.shape)
 
 
-def param_views(x, w, h, d):
+def param_views(x, w, h, d, split=None):
     """``w``, ``h`` and ``d`` as (planes, r, c) views, none of them copied
     or expanded: r is 1 or rows and c is 1 or cols, the dims of ``x`` as
-    (rows, cols) (a 1D ``x`` is one row), with leading 1s added where a
-    parameter has fewer dims than ``x``. Raises ValueError unless each
-    broadcasts to (planes, rows, cols)."""
+    (rows, cols) (a 1D ``x`` is one row; a 4D ``x`` collapses as
+    :func:`image_split` says, or at ``split``), with leading 1s added
+    where a parameter has fewer dims than ``x``. Raises ValueError unless
+    each broadcasts to (planes, rows, cols) as a view."""
+    if x.ndim == 4:
+        if split is None:
+            split = image_split(x, w, h, d)
+        return tuple(_merged(t, t.shape[:1], x.shape, split)
+                     for t in (w, h, d))
     rows_cols = _as_2d(x).shape
     out = []
     for t in (w, h, d):
@@ -840,7 +915,7 @@ def param_views(x, w, h, d):
     return tuple(out)
 
 
-def _tb_view(x, tb):
+def _tb_view(x, tb, split=None):
     """A tensor ``tb`` broadcast to ``x`` as (rows, cols); a float stays a
     float."""
     if not isinstance(tb, torch.Tensor):
@@ -850,6 +925,8 @@ def _tb_view(x, tb):
     except RuntimeError as e:
         raise ValueError(f"tail bound {tuple(tb.shape)} does not broadcast "
                          f"to {tuple(x.shape)}") from e
+    if x.ndim == 4:
+        return _merged(tb, (), x.shape, split)
     return tb[None] if x.ndim == 1 else tb
 
 
@@ -857,9 +934,18 @@ def kernel_views(x, w, h, d, tb):
     """The views kernel A is launched on, none of them copied: ``x`` as
     (rows, cols); ``w``/``h``/``d`` as (planes, rows, cols), broadcast with
     ``expand`` (stride 0 where a parameter is shared); a tensor ``tb`` as
-    (rows, cols) (a float stays a float)."""
-    x2 = _as_2d(x)
-    return (x2, *_expand(x2, param_views(x, w, h, d)), _tb_view(x, tb))
+    (rows, cols) (a float stays a float). A 4D ``x`` collapses as
+    :func:`image_split` says."""
+    x2, planes, tb2 = _views(x, w, h, d, tb)
+    return (x2, *_expand(x2, planes), tb2)
+
+
+def _views(x, w, h, d, tb):
+    """``(x2, (w3, h3, d3) unexpanded, tb2)``: the operands as the kernels
+    take them (:func:`kernel_views` before its expand)."""
+    split = image_split(x, w, h, d, tb) if x.ndim == 4 else None
+    return (_as_2d(x, split), param_views(x, w, h, d, split),
+            _tb_view(x, tb, split))
 
 
 rqs_fwd.launches = 0

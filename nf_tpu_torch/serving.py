@@ -13,20 +13,24 @@ is one launch of the graph: no Python runs per layer and nothing waits
 for the device.
 
 * :func:`compile_log_prob` -- ``fn(x) -> log_prob`` at a fixed batch
-  shape, ``fn(x, context)`` with ``context_shape``;
+  shape, ``fn(x, context)`` with ``context_shape``, ``fn(x, y)`` with
+  ``class_cond`` (integer labels, one per row);
 * :func:`compile_sampler` -- ``fn(seed) -> (z, log_q)`` at a fixed
-  ``num_samples``, ``fn(seed, context)`` with ``context_shape``: the
-  graph draws from a CUDA generator of its own, reseeded with ``seed``
-  before each replay, so a seed gives, bitwise, the draws of
-  ``model.sample(num_samples, generator=torch.Generator("cuda")
-  .manual_seed(seed), context=context)``;
+  ``num_samples``, ``fn(seed, context)`` with ``context_shape``,
+  ``fn(seed, y)`` with ``class_cond``: the graph draws from a CUDA
+  generator of its own, reseeded with ``seed`` before each replay, so a
+  seed gives, bitwise, the draws of ``model.sample(num_samples,
+  generator=torch.Generator("cuda").manual_seed(seed), ...)`` (a
+  class-conditional model sampled without ``class_cond`` draws its labels
+  from that generator too); ``temperature`` is baked into the graph, as
+  the JAX package bakes it into its executable;
 * :func:`compile_log_prob_buckets` -- a power-of-two ladder of
   ``log_prob`` graphs (:class:`BucketedFn`): a request of ``n`` rows (and
-  its context, with ``context_shape``) is padded with its last row to the
-  smallest bucket that holds it, and exactly ``n`` results come back.
+  its context or labels) is padded with its last row to the smallest
+  bucket that holds it, and exactly ``n`` results come back.
 
-A context is an input like ``x``: copied into the graph's static input
-before each replay, never baked into the graph.
+A context or a label vector is an input like ``x``: copied into the
+graph's static input before each replay, never baked into the graph.
 
 Each handle (:class:`CompiledFn`) is bound to the weights it was compiled
 or rebound with (:meth:`CompiledFn.with_model`): the graphs read a copy of
@@ -40,10 +44,8 @@ The CPU, which the caller asks for by putting the model there, runs the
 eager function on the bound weights (the tests' path). On CUDA a capture
 that fails raises; nothing runs eagerly in its place.
 
-Not ported yet, each raising ``NotImplementedError``: class-conditional
-models (``class_cond``, and the ``temperature`` only the image and
-class-conditional containers take; ROADMAP queue 1 item 6),
-``typed_key`` (a JAX key flavour; the port takes an integer seed), XLA's
+Not ported yet, each raising ``NotImplementedError``: ``typed_key`` (a
+JAX key flavour; the port takes an integer seed), XLA's
 ``cost_analysis``, ``flops`` and ``memory_analysis``, and the StableHLO
 artifacts ``export_sampler``, ``export_log_prob`` and ``load_exported``
 (ROADMAP queue 1 item 9).
@@ -59,11 +61,6 @@ import torch
 
 from ._graphs import WARMUP_CALLS, capture, warm_up
 
-_NO_CLASS_COND = ("class_cond arrives with the port's class-conditional "
-                  "models (ROADMAP queue 1 item 6)")
-_NO_TEMPERATURE = ("temperature is taken only by the image and "
-                   "class-conditional containers, which arrive with "
-                   "ROADMAP queue 1 item 6")
 _NO_TYPED_KEY = ("typed_key selects a JAX key flavour; the port's sampler "
                  "takes an integer seed")
 _NO_XLA = ("cost_analysis, flops and memory_analysis are XLA's; the "
@@ -136,7 +133,8 @@ def _fill(dst, src, exact):
     and its last row fills the rest (``jnp.pad(mode="edge")``)."""
     if not isinstance(src, torch.Tensor):
         raise TypeError(f"expected a tensor, got {type(src).__name__}")
-    if src.dtype != dst.dtype:
+    labels = not (src.is_floating_point() or dst.is_floating_point())
+    if src.dtype != dst.dtype and not labels:
         raise TypeError(f"compiled for {dst.dtype} inputs, got {src.dtype}")
     n = src.shape[0] if src.ndim else 0
     if (src.shape[1:] != dst.shape[1:] or not 0 < n <= dst.shape[0]
@@ -161,19 +159,19 @@ def _take(out, rows, fresh):
 class _Executable:
     """``fn(model, *inputs)`` at fixed input shapes on the model of
     ``weights``: on CUDA one captured graph, on the CPU the eager call.
-    ``seeded``: the first argument is an integer seed for the
-    executable's own generator, and ``fn(model, generator, *inputs)``
-    draws from it."""
+    ``specs``: ``(shape, dtype)`` of each input (labels: an integer
+    dtype, and any integer labels are taken). ``seeded``: the first
+    argument is an integer seed for the executable's own generator, and
+    ``fn(model, generator, *inputs)`` draws from it."""
 
-    def __init__(self, weights, fn, input_shapes=(), dtype=torch.float32,
-                 seeded=False, pool=None):
+    def __init__(self, weights, fn, specs=(), seeded=False, pool=None):
         self.weights = weights
         self.fn = fn
         self.seeded = seeded
         dev = weights.device
         self.generator = torch.Generator(device=dev) if seeded else None
-        self.inputs = [torch.zeros(s, dtype=dtype, device=dev)
-                       for s in input_shapes]
+        self.inputs = [torch.zeros(s, dtype=dt, device=dev)
+                       for s, dt in specs]
         self.graph = None
         self.launches = {}
         if dev.type == "cuda":
@@ -262,9 +260,16 @@ def _bound(executable, model):
     return CompiledFn(executable, params)
 
 
-def _no_class_cond(class_cond):
-    if class_cond:
-        raise NotImplementedError(_NO_CLASS_COND)
+def _labels(n):
+    """The spec of a label vector for ``n`` rows."""
+    return ((n,), torch.int64)
+
+
+def _exclusive(class_cond, context_shape):
+    if class_cond and context_shape is not None:
+        raise ValueError("class_cond and context_shape are exclusive: "
+                         "labels condition the base, a context threads "
+                         "through the layers")
 
 
 def compile_sampler(model, num_samples: int,
@@ -273,26 +278,33 @@ def compile_sampler(model, num_samples: int,
                     class_cond: bool = False, dtype=torch.float32,
                     typed_key: bool = False) -> CompiledFn:
     """Compile ``model.sample(num_samples)``: ``fn(seed) -> (z, log_q)``
-    (``serving.py:133``), or with ``context_shape`` (the whole context's
-    shape, ``dtype``) ``fn(seed, context)``. ``seed`` (an integer) reseeds
-    the graph's own generator before each call, so a seed gives the draws
-    of an eager ``model.sample`` with a generator freshly seeded with it.
-    The conditional containers sample at temperature 1: ``temperature``
-    with ``context_shape`` raises ``ValueError``, as in the JAX
-    package."""
-    _no_class_cond(class_cond)
+    (``serving.py:133``), with ``context_shape`` (the whole context's
+    shape, ``dtype``) ``fn(seed, context)``, with ``class_cond`` ``fn(seed,
+    y)``, ``y`` ``num_samples`` integer labels. ``seed`` (an integer)
+    reseeds the graph's own generator before each call, so a seed gives
+    the draws of an eager ``model.sample`` with a generator freshly seeded
+    with it. ``temperature`` (the image and class-conditional containers
+    take it) is baked into the graph. ``temperature`` or ``class_cond``
+    with ``context_shape`` raises ``ValueError``, as in the JAX package:
+    the conditional containers sample at temperature 1 and take no
+    labels."""
+    _exclusive(class_cond, context_shape)
     if temperature is not None and context_shape is not None:
         raise ValueError(
             "temperature is not supported together with context_shape: "
             "conditional containers sample at temperature 1")
-    if temperature is not None:
-        raise NotImplementedError(_NO_TEMPERATURE)
     if typed_key:
         raise NotImplementedError(_NO_TYPED_KEY)
-    exe = _Executable(
-        _Weights(model),
-        lambda m, gen, *context: m.sample(num_samples, gen, *context),
-        _context_shapes(context_shape), dtype, seeded=True)
+    kw = {} if temperature is None else dict(temperature=temperature)
+    if class_cond:
+        def fn(m, gen, y):
+            return m.sample(num_samples, gen, y=y, **kw)
+        specs = [_labels(num_samples)]
+    else:
+        def fn(m, gen, *context):
+            return m.sample(num_samples, gen, *context, **kw)
+        specs = _context_specs(context_shape, dtype)
+    exe = _Executable(_Weights(model), fn, specs, seeded=True)
     return _bound(exe, model)
 
 
@@ -300,9 +312,9 @@ def _log_prob(model, x, *context):
     return model.log_prob(x, *context)
 
 
-def _context_shapes(context_shape):
-    """The static input shapes a context adds: none, or its own."""
-    return [] if context_shape is None else [tuple(context_shape)]
+def _context_specs(context_shape, dtype):
+    """The static inputs a context adds: none, or its own."""
+    return [] if context_shape is None else [(tuple(context_shape), dtype)]
 
 
 def compile_log_prob(model, batch_shape: Tuple[int, ...],
@@ -310,13 +322,15 @@ def compile_log_prob(model, batch_shape: Tuple[int, ...],
                      class_cond: bool = False,
                      dtype=torch.float32) -> CompiledFn:
     """Compile ``model.log_prob`` at a fixed batch shape: ``fn(x) ->
-    log_prob`` (``serving.py:184``), or with ``context_shape`` (the whole
-    context's shape) ``fn(x, context)``; ``x`` must have ``batch_shape``,
-    the context ``context_shape``, both ``dtype``."""
-    _no_class_cond(class_cond)
+    log_prob`` (``serving.py:184``), with ``context_shape`` (the whole
+    context's shape) ``fn(x, context)``, with ``class_cond`` ``fn(x, y)``
+    (integer labels, one per row); ``x`` must have ``batch_shape``, the
+    context ``context_shape``, both ``dtype``."""
+    _exclusive(class_cond, context_shape)
+    extra = ([_labels(batch_shape[0])] if class_cond
+             else _context_specs(context_shape, dtype))
     exe = _Executable(_Weights(model), _log_prob,
-                      [tuple(batch_shape)] + _context_shapes(context_shape),
-                      dtype)
+                      [(tuple(batch_shape), dtype)] + extra)
     return _bound(exe, model)
 
 
@@ -375,11 +389,12 @@ def compile_log_prob_buckets(model, max_batch: int,
     ``max_batch`` (or the given ``buckets``) and serve any request size by
     pad-to-bucket (``serving.py:240``). ``feature_shape`` is the shape of
     one row of ``x``, ``context_shape`` that of one row of the context a
-    conditional model takes. On CUDA every bucket's graph reads
+    conditional model takes; ``class_cond`` adds a label per row. On CUDA
+    every bucket's graph reads
     one copy of the weights and draws its scratch memory from one pool,
     captured largest first so that the smaller ones reuse its memory; the
     results a call returns are copies, so no later call overwrites them."""
-    _no_class_cond(class_cond)
+    _exclusive(class_cond, context_shape)
     if buckets is None:
         b, buckets = 1, []
         while b < max_batch:
@@ -389,9 +404,11 @@ def compile_log_prob_buckets(model, max_batch: int,
     weights = _Weights(model)
     pool = (torch.cuda.graph_pool_handle()
             if weights.device.type == "cuda" else None)
-    rows = [tuple(feature_shape)] + _context_shapes(context_shape)
-    exes = {b: _Executable(weights, _log_prob, [(b,) + r for r in rows],
-                           dtype, pool=pool)
+    rows = [(tuple(feature_shape), dtype)] + (
+        [((), torch.int64)] if class_cond
+        else _context_specs(context_shape, dtype))
+    exes = {b: _Executable(weights, _log_prob,
+                           [((b,) + r, dt) for r, dt in rows], pool=pool)
             for b in sorted(buckets, reverse=True)}
     params = weights.bind(model)
     weights.holder = params

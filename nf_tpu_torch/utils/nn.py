@@ -14,6 +14,16 @@ def sum_except_batch(x, num_batch_dims=1):
     return torch.sum(x, dim=dims) if dims else x
 
 
+def one_hot(y, num_classes, dtype):
+    """Integer labels (B,) as one-hot (B, num_classes) rows of ``dtype``
+    (by comparison: no range check that would wait for the device); a
+    one-hot (B, num_classes) input unchanged."""
+    if y.ndim == 1:
+        classes = torch.arange(num_classes, device=y.device)
+        return (y[:, None] == classes).to(dtype)
+    return y
+
+
 def softplus(x):
     """``log(1 + exp(x))`` in the form ``jax.nn.softplus`` evaluates it
     (``max(x, 0) + log1p(exp(-|x|))``), with no threshold cut-over, so the

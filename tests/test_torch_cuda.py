@@ -1217,3 +1217,270 @@ def test_kernel_free_models_serve_as_graphs(cuda, build):
         ze, lqe = model.sample(6000, generator=torch.Generator("cuda")
                                .manual_seed(5))
     assert torch.equal(z, ze) and torch.equal(log_q, lqe)
+
+
+# --- the image stack: kernels A and C on 4D views, the image models ---------
+
+# build_image_nsf's couplings at its defaults: (transformed channels, side)
+IMG_LEVELS = ((6, 16), (12, 8))
+IMG_REL_TOL = 1e-4  # a whole image model against the CPU, relative
+
+
+def _image_planes(rng, batch, ct, side, cuda, K=8):
+    """x (B, C, H, W) and a conditioner output (B, C*P, H, W) ~ N(0,
+    0.5²) with its bin-major (P, B, C, H, W) view, as the image coupling
+    makes them."""
+    x = _normal(rng, (batch, ct, side, side), 1.5).to(cuda)
+    out = _normal(rng, (batch, ct * (3 * K - 1), side, side), 0.5).to(cuda)
+    return x, out
+
+
+def _image_spline(x, out, inverse, K=8):
+    """The image coupling's spline on ``out``'s bin-major view."""
+    from nf_tpu_torch.ops import splines
+
+    b, c, h, w = x.shape
+    p = out.reshape(b, c, -1, h, w).permute(2, 0, 1, 3, 4)
+    return splines.unconstrained_rational_quadratic_spline_kmajor(
+        x, p[:K] / 8, p[K:2 * K] / 8, p[2 * K:], inverse=inverse,
+        tails="linear", tail_bound=3.0)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("batch", [256, 64, 3])
+@pytest.mark.parametrize("level", [0, 1])
+def test_kernels_a_and_c_on_image_views_match_plain(cuda, level, batch,
+                                                    inverse):
+    """The image coupling's (P, B, C, H, W) planes reach kernel A as
+    (P, B*C, H*W) views of the conditioner's output (no copy); A and C
+    match their plain versions there, and autograd through the coupling's
+    feed (kernel C, then the view, the scaling, the padding and the
+    permute) gives the conditioner's output ``rqs_bwd_plain``'s
+    gradients in its own (B, C*P, H, W) layout."""
+    from nf_tpu_torch.ops import splines
+
+    ct, side = IMG_LEVELS[level]
+    rng = np.random.default_rng(100 + 10 * level + batch)
+    x, out = _image_planes(rng, batch, ct, side, cuda)
+    p = out.reshape(batch, ct, -1, side, side).permute(2, 0, 1, 3, 4)
+    w, h = p[:8] / 8, p[8:16] / 8
+    d = splines.pad_derivatives(p[16:], "linear", 1e-3, axis=0)
+    views = tk.param_views(x, w, h, d)
+    assert all(v.shape[1:] == (batch * ct, side * side)
+               and v.data_ptr() == t.data_ptr()
+               for v, t in zip(views, (w, h, d)))
+    y, ld = tk.rqs_fwd(x, w, h, d, 3.0, inverse=inverse)
+    yp, lp = tk.rqs_plain(x, w, h, d, 3.0, inverse=inverse)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yp, atol=Y_TOL, rtol=0)
+    torch.testing.assert_close(ld, lp, atol=LD_TOL, rtol=0)
+    cty, ctl = (_normal(rng, x.shape).to(cuda) for _ in range(2))
+    got = tk.rqs_bwd(x, w, h, d, 3.0, cty, ctl, inverse=inverse)
+    gx, gw, gh, gd = tk.rqs_bwd_plain(x, w, h, d, 3.0, cty, ctl,
+                                      inverse=inverse)
+    for a, b in zip(got, (gx, gw, gh, gd)):
+        torch.testing.assert_close(a, b, atol=G_TOL, rtol=0)
+    leaf = out.detach().clone().requires_grad_()
+    xs = x.detach().clone().requires_grad_()
+    tops.reset_launch_counts()
+    y, ld = _image_spline(xs, leaf, inverse)
+    torch.autograd.backward((y, ld), (cty, ctl))
+    counts = tops.launch_counts()
+    assert counts["rqs_fwd"] == 1 and counts["rqs_bwd"] == 1
+    # the linear tails' padded end planes are constants: no gradient
+    planes = torch.cat([gw / 8, gh / 8, gd[1:-1]])
+    want = planes.permute(1, 2, 0, 3, 4).reshape(out.shape)
+    torch.testing.assert_close(leaf.grad, want, atol=G_TOL, rtol=0)
+    torch.testing.assert_close(xs.grad, gx, atol=G_TOL, rtol=0)
+
+
+def _image_model(build, cuda, batch=16, seed=0, **kw):
+    """An image model at its defaults (``build``: "image_nsf" or "glow"),
+    every parameter moved by N(0, s²) (s 0.02 and 0.01: larger noise
+    sends the untrained models' samples out of float32), its ActNorms set
+    from procedural images; with a batch of those images and labels."""
+    if build == "image_nsf":
+        model, size = nt.build_image_nsf(**kw), 0.02
+    else:
+        model, size = nt.build_glow_multiscale(**kw), 0.01
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(_normal(rng, tuple(p.shape), size).to(cuda))
+    from nf_tpu_torch.utils.preprocessing import Jitter, Scale
+
+    imgs, y = nt.data.procedural_image_classes(seed, 4 * batch)
+    x = Jitter()(Scale()(torch.from_numpy(imgs).to(cuda).float() / 255),
+                 generator=torch.Generator(cuda).manual_seed(seed))
+    y = torch.from_numpy(y).long().to(cuda)
+    model.init_from_data(x, y if build == "glow" else None)
+    return model, x[:batch], y[:batch]
+
+
+@pytest.mark.parametrize("build", ["image_nsf", "glow"])
+def test_image_models_on_cuda_match_cpu(cuda, build):
+    model, x, y = _image_model(build, cuda)
+    ys = (y,) if build == "glow" else ()
+    tops.reset_launch_counts()
+    with torch.no_grad():
+        lp = model.log_prob(x, *ys)
+    counts = tops.launch_counts()
+    assert counts["rqs_fwd"] == (8 if build == "image_nsf" else 0)
+    cpu = copy.deepcopy(model).to("cpu")
+    with torch.no_grad():
+        want = cpu.log_prob(x.cpu(), *(v.cpu() for v in ys))
+    _rel_close(lp.cpu(), want, IMG_REL_TOL)
+
+
+@pytest.mark.parametrize("build", ["image_nsf", "glow"])
+def test_image_models_serve_and_train_as_graphs(cuda, build):
+    """log_prob graph against eager (same kernels: equal), the tempered
+    sampler bitwise for a seed (with labels, and drawing its own), five
+    captured steps against eager (bitwise: deterministic convolutions),
+    and the captures' launches."""
+    model, x, y = _image_model(build, cuda)
+    cc = build == "glow"
+    ys = (y,) if cc else ()
+    fn = nt.compile_log_prob(model, tuple(x.shape), class_cond=cc)
+    with torch.no_grad():
+        want = model.log_prob(x, *ys)
+    _rel_close(fn(x, *ys), want, GRAPH_TOL)
+    per = 8 if build == "image_nsf" else 0
+    expect = {k: 0 for k in tops.launch_counts()}
+    assert fn.launches == dict(expect, rqs_fwd=per)
+    samplers = [(nt.compile_sampler(model, 16, temperature=0.7,
+                                    class_cond=cc), ys)]
+    if cc:
+        samplers.append((nt.compile_sampler(model, 16, temperature=0.7),
+                         ()))
+    for sampler, labels in samplers:
+        for seed in (0, 7):
+            z, log_q = sampler(seed, *labels)
+            with torch.no_grad():
+                ze, lqe = model.sample(
+                    16, torch.Generator("cuda").manual_seed(seed),
+                    y=labels[0] if labels else None, temperature=0.7)
+            assert torch.equal(z, ze) and torch.equal(log_q, lqe)
+    models = [copy.deepcopy(model) for _ in range(2)]
+    opts = [_adam(m) for m in models]
+    states = [nt.init_train_state(m, o) for m, o in zip(models, opts)]
+    graphed = nt.make_forward_kld_step(opts[0])
+    eager = nt.make_forward_kld_step(opts[1]).eager
+    batch = (x, y) if cc else x
+    for _ in range(5):
+        lg, le = graphed(states[0], batch), eager(states[1], batch)
+        torch.testing.assert_close(lg, le, atol=STEP_TOL, rtol=0)
+    for p, q in zip(models[0].parameters(), models[1].parameters()):
+        torch.testing.assert_close(p, q, atol=STEP_TOL, rtol=0)
+    assert graphed.launches == dict(expect, rqs_fwd=per, rqs_bwd=per)
+
+
+def test_image_step_under_kernel_d_matches_kernel_c(cuda):
+    """One image-NSF step's gradients with kernel D as the spline's
+    backward against kernel C's, 8 launches of each."""
+    model, x, _ = _image_model("image_nsf", cuda)
+    grads = {}
+    try:
+        for mode in ("analytic", "autodiff"):
+            tk.set_pallas_bwd_kernel(mode)
+            m = copy.deepcopy(model)
+            tops.reset_launch_counts()
+            m.forward_kld(x).backward()
+            counts = tops.launch_counts()
+            assert counts[{"analytic": "rqs_bwd",
+                           "autodiff": "rqs_bwd_autodiff"}[mode]] == 8
+            grads[mode] = [p.grad for p in m.parameters()]
+    finally:
+        tk.set_pallas_bwd_kernel("analytic")
+    for a, b in zip(grads["autodiff"], grads["analytic"]):
+        _rel_close(a, b, SUM_TOL)
+
+
+def test_convs_compute_float32_and_deterministically_with_tf32_allowed(
+        cuda):
+    """With ``torch.backends.cudnn.allow_tf32`` True (PyTorch's default)
+    the conditioners' convolutions, forward and backward, stay within
+    float32 rounding of float64 (TF32 would be ~1e-3 off), two backward
+    passes agree bitwise, and the flags are left as they were."""
+    from nf_tpu_torch.nets import ConvNet2d, ConvResidualNet
+
+    gen = torch.Generator().manual_seed(3)
+    nets = [(ConvResidualNet(6, 138, 64, generator=gen), (32, 6, 16, 16)),
+            (ConvNet2d((6, 256, 256, 12), (3, 1, 3), init_zeros=False,
+                       generator=gen), (16, 6, 16, 16))]
+    rng = np.random.default_rng(16)
+    before = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for net, shape in nets:
+            net = net.to(cuda)
+            x = _normal(rng, shape).to(cuda)
+            g = _normal(rng, net(x).shape).to(cuda)
+            runs = []
+            for dtype in (torch.float32, torch.float32, torch.float64):
+                m = copy.deepcopy(net).to(dtype)
+                out = m(x.to(dtype))
+                (out * g.to(dtype)).sum().backward()
+                runs.append([out.detach()] + [p.grad for p in
+                                              m.parameters()])
+            for a, b in zip(runs[0], runs[1]):
+                assert torch.equal(a, b)
+            for a, b in zip(runs[0], runs[2]):
+                _rel_close(a.double().cpu(), b.cpu(), 1e-5)
+            assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cudnn.deterministic = before
+    assert (torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic) == before
+
+
+def test_remat_step_matches_the_unrolled_step(cuda):
+    """``scan=True, remat=True`` Glow: one eager step's loss and gradients
+    against the unrolled model's, at less peak memory."""
+    model, x, y = _image_model("glow", cuda, batch=32)
+    remat = nt.load_reference_state_dict(
+        nt.build_glow_multiscale(scan=True, remat=True),
+        {k: v.cpu().numpy() for k, v in model.state_dict().items()})
+    out = []
+    for m in (model, remat):
+        m = copy.deepcopy(m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = m.forward_kld(x, y)
+        loss.backward()
+        torch.cuda.synchronize()
+        out.append((loss.detach(), [p.grad for p in m.parameters()],
+                    torch.cuda.max_memory_allocated() - base))
+    _rel_close(out[1][0].cpu(), out[0][0].cpu(), 1e-6)
+    for a, b in zip(out[1][1], out[0][1]):
+        _rel_close(a.cpu(), b.cpu(), 1e-5)
+    assert out[1][2] < out[0][2]
+
+
+@pytest.mark.parametrize("build", ["image_nsf", "glow"])
+def test_mixed_precision_image_models_on_cuda(cuda, build):
+    """bf16 conditioners (cuDNN's bf16 convolutions) within the JAX
+    package's bar of the same weights in float32 (0.05 abs + 0.05
+    relative), the graph equal to eager, and a step's float32 gradients
+    finite."""
+    f32, x, y = _image_model(build, cuda, batch=8)
+    make = nt.build_image_nsf if build == "image_nsf" \
+        else nt.build_glow_multiscale
+    mixed = nt.load_reference_state_dict(
+        make(mixed_precision=True),
+        {k: v.cpu().numpy() for k, v in f32.state_dict().items()})
+    ys = (y,) if build == "glow" else ()
+    with torch.no_grad():
+        lp, lp32 = mixed.log_prob(x, *ys), f32.log_prob(x, *ys)
+    torch.testing.assert_close(lp, lp32, atol=0.05, rtol=0.05)
+    assert not torch.equal(lp, lp32)
+    fn = nt.compile_log_prob(mixed, tuple(x.shape),
+                             class_cond=build == "glow")
+    torch.testing.assert_close(fn(x, *ys), lp, atol=0, rtol=0)
+    mixed.forward_kld(x, *ys).backward()
+    grads = [p.grad for p in mixed.parameters() if p.grad is not None]
+    assert grads and all(g.dtype == torch.float32
+                         and bool(torch.isfinite(g).all()) for g in grads)

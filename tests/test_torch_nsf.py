@@ -186,7 +186,13 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_image_inputs_wait_for_their_slice():
+    """The image slice has arrived: a coupling splits 2D and 4D inputs
+    (``test_torch_image`` holds the 4D path against JAX) and refuses any
+    other rank, as the JAX package's does."""
     _, tmodel, _ = _pair(2)
-    with pytest.raises(NotImplementedError, match="image slice"):
-        tmodel.flows[0].prqct.forward(torch.zeros(4, 2, 3, 3))
+    with pytest.raises(ValueError, match="2D or a 4D"):
+        tmodel.flows[0].prqct.forward(torch.zeros(4, 2, 3))
+    identity, transform = tmodel.flows[0].prqct._split(
+        torch.zeros(4, 2, 3, 3))
+    assert identity.shape == transform.shape == (4, 1, 3, 3)
 

@@ -177,9 +177,6 @@ def test_sampler_draws_as_the_eager_sampler_from_the_same_seed():
 
 
 @pytest.mark.parametrize("call", [
-    lambda m: nt.compile_log_prob(m, (4, 2), class_cond=True),
-    lambda m: nt.compile_sampler(m, 4, class_cond=True),
-    lambda m: nt.compile_sampler(m, 4, temperature=0.7),
     lambda m: nt.compile_sampler(m, 4, typed_key=True),
     lambda m: nt.compile_log_prob(m, (4, 2)).cost_analysis(),
     lambda m: nt.compile_log_prob(m, (4, 2)).flops(),
@@ -187,8 +184,7 @@ def test_sampler_draws_as_the_eager_sampler_from_the_same_seed():
     lambda m: serving.export_sampler(m, 4),
     lambda m: serving.export_log_prob(m, (4, 2)),
     lambda m: serving.load_exported(b""),
-], ids=["log_prob_class_cond", "sampler_class_cond", "temperature",
-        "typed_key", "cost_analysis", "flops", "memory_analysis",
+], ids=["typed_key", "cost_analysis", "flops", "memory_analysis",
         "export_sampler", "export_log_prob", "load_exported"])
 def test_what_is_not_ported_raises(call):
     _, tmodel = _pair()
