@@ -125,7 +125,46 @@ toolkit. Phases, one line each:
     256, class-conditional), perturbed and set by ``init_from_data``:
     the same gates at B = 128 with labels (``class_cond``: the graphs
     take ``y``; the sampler at T = 0.7), the step on ``(x, y)``; no port
-    kernel launched.
+    kernel launched;
+17. circular_coupled: ``build_circular_nsf``'s arguments with the
+    ``CircularCoupledRationalQuadraticSpline`` in place of the
+    autoregressive layer (dim 2, ind_circ [0], K 12, one block of hidden
+    512, 10 bins, tail bounds (pi, 3), masks alternating, ``PeriodicWrap``,
+    a ``UniformGaussian`` base of scale (2 pi, 1)), perturbed: kernels B
+    and E alone at an angle-transforming layer's real operands (circular
+    tails, H 512, K 10, D 1, B = 65536) against their plain versions,
+    their times, bounds, registers and spills; ``log_prob`` and
+    ``sample`` at B = 65536 against the CPU (1e-3, or twice the CPU's own
+    float32 error against float64), against ``log_q`` and by a round trip
+    (the angle modulo 2 pi), A and B 12 per pass, 6 of the B launches at
+    circular tails; the reverse-KLD step on the Gauss-von Mises target
+    (Adam 5e-4, B = 16384): one step card against CPU at B = 4096, A, B,
+    C, E 12 per step (B and E 6 each at circular tails); serving and the
+    step as graphs against eager, in turns and profiled;
+18. residual: ``build_residual`` at its defaults (K 16, LipschitzMLP
+    [2, 128, 128, 128, 2], L 0.9, ActNorm), perturbed, power iterations
+    advanced 200 steps, ActNorms set by ``init_from_data`` on two moons,
+    served under the exact 2D log-det (``set_exact_logdet``): ``log_prob``
+    and ``sample`` at B = 65536 against the CPU (4096 rows, the sample as
+    the push-forward of the same base draws), against ``log_q`` and by a
+    round trip, the fixed point's iterations per layer and the eager
+    loop's host syncs; both as graphs (the fixed point a masked fixed
+    count, ``flows.residual.FIXED_POINT_GRAPH_ITERATIONS``; fails if any
+    layer's flag says it stopped unconverged); the forward-KLD step with
+    ``with_key`` and ``post_update=update_lipschitz(m, 50)`` (Adam 3e-4,
+    weight decay 1e-5, B = 512 on two moons): one step card against CPU
+    on injected probes, five captured steps against five eager (loss,
+    parameters, u and v within 1e-5); one eager reverse-KLD step on
+    TwoModes, card against CPU at B = 1024, its gradient through the
+    implicit VJP; an iResBlock over a LipschitzCNN on (8, 4, 8, 8)
+    inputs, its exact-trace ``log_prob`` card against CPU; no port kernel
+    launched;
+19. planar_radial: ``build_planar_stack`` and ``build_radial_stack`` at
+    their defaults (dim 2, K 16) with TwoModes, perturbed: ``sample`` at
+    B = 65536 against the CPU's push-forward of the same base draws and
+    as a graph (bitwise eager), the annealed reverse-KLD step of
+    ``examples/comparison_plan_rad_aff.py`` (Adam 5e-3 / 3e-3, B = 512)
+    eager against graph; no port kernel launched.
 
 It then prints the whole run's wall time, one JSON line on the kernels
 (their launches summed over every path above), the card's name and power
@@ -1119,7 +1158,7 @@ def perturb(model, seed, size=0.5):
         for name, p in model.named_parameters():
             scale = size / np.sqrt(p.shape[1]) if (
                 p.ndim == 2 and name.endswith("weight")) else size
-            noise = rng.standard_normal(tuple(p.shape)) * scale
+            noise = np.asarray(rng.standard_normal(tuple(p.shape)) * scale)
             p.add_(torch.from_numpy(noise.astype(np.float32)).to(p.device))
 
 
@@ -1417,6 +1456,8 @@ def phase_circular_serving(dev):
                      "sample": {"rqs_fwd": 2 * layers}}, "circular serving")
     with torch.inference_mode():
         lp_cpu = cpu_model.log_prob(x[:CIRC_CPU_BATCH])
+        lp_64 = copy.deepcopy(cpu_model).double().log_prob(
+            x[:CIRC_CPU_BATCH].double())
     d = x_back.cpu() - x
     d[:, 0] = torch.remainder(d[:, 0] + np.pi, 2 * np.pi) - np.pi
     errs = {
@@ -1624,7 +1665,13 @@ PATH_KERNELS = {"build_nsf serving": ("rqs_fwd", "head_rqs_fwd"),
                 "maf serving": (), "maf step": (),
                 "image_nsf serving": ("rqs_fwd",),
                 "image_nsf step": ("rqs_fwd", "rqs_bwd"),
-                "glow serving": (), "glow step": ()}
+                "glow serving": (), "glow step": (),
+                "circular_coupled serving": ("rqs_fwd", "head_rqs_fwd"),
+                "circular_coupled step": ("rqs_fwd", "head_rqs_fwd",
+                                          "rqs_bwd", "head_rqs_bwd"),
+                "residual serving": (), "residual step": (),
+                "planar serving": (), "planar step": (),
+                "radial serving": (), "radial step": ()}
 
 
 def kernel_of(name):
@@ -1764,7 +1811,7 @@ def serving_graphs(label, model, x, batch, per_pass, path, context=None):
     out["log_prob"] = dict(err=lp_err, turns=in_turns(
         eager_lp, lambda: lp_fn(x, *ctx)),
         report=replay_report(lambda: lp_fn(x, *ctx), path),
-        launches=lp_fn.launches)
+        launches=lp_fn.launches, fn=lp_fn)
     sampler = nt.compile_sampler(model, batch, context_shape=ctx_shape)
     for seed in (SEED, SEED + 1):
         z, log_q = sampler(seed, *ctx)
@@ -1784,7 +1831,7 @@ def serving_graphs(label, model, x, batch, per_pass, path, context=None):
     out["sample"] = dict(err=0.0, turns=in_turns(
         eager_sample, lambda: sampler(SEED, *ctx)),
         report=replay_report(lambda: sampler(SEED, *ctx), path),
-        launches=sampler.launches)
+        launches=sampler.launches, fn=sampler)
     for what, r in out.items():
         err = "bitwise" if what == "sample" else f"{r['err']:.3g}"
         print(f"phase graphs {label} {what} (B = {batch}): graph vs eager "
@@ -1866,8 +1913,9 @@ def bucket_graphs(label, model, batch, context=None):
 def step_graphs(label, base, make_step, args_of, path, opt_kw, mode=None):
     """A captured step against the eager step on twin copies of ``base``:
     GRAPH_STEPS steps each on the same inputs (``args_of(i, which)``), the
-    loss every step and the parameters after within STEP_TOL; then wall
-    ms per step in turns and a profiled replay."""
+    loss every step and the parameters and float buffers (a residual
+    flow's power-iteration vectors) after within STEP_TOL; then wall ms
+    per step in turns and a profiled replay."""
     from nf_tpu_torch.ops import splines_kernel as tk
     import nf_tpu_torch as nt
 
@@ -1888,6 +1936,10 @@ def step_graphs(label, base, make_step, args_of, path, opt_kw, mode=None):
             finite = finite and bool(torch.isfinite(lg) & torch.isfinite(le))
         param_err = max(max_err(p.detach(), q.detach()) for p, q in
                         zip(models[0].parameters(), models[1].parameters()))
+        param_err = max([param_err] + [
+            max_err(p, q) for p, q in zip(models[0].buffers(),
+                                          models[1].buffers())
+            if p.is_floating_point()])
         if not (finite and loss_err <= STEP_TOL and param_err <= STEP_TOL):
             raise RuntimeError(f"{label}: graph vs eager over "
                                f"{GRAPH_STEPS} steps: loss {loss_err:.3g} "
@@ -3028,6 +3080,656 @@ def phase_glow(dev, flush):
     return out
 
 
+# --- the last builders and the circular coupling (phases 17-19) ----------
+
+CC_LAYERS, CC_HIDDEN, CC_BINS = 12, 512, 10  # build_circular_nsf's
+CC_TAIL_BOUND = (np.pi, 3.0)
+CC_CHECK_BATCH = 4096  # one step, card against CPU
+CC_PERTURB = 0.3
+RES_BATCH = 512  # examples/residual.py
+RES_REVERSE_BATCH = 1024
+RES_CPU_ROWS = 4096  # rows of a pass held against the CPU
+RES_LR, RES_WD = 3e-4, 1e-5
+RES_POWER_ITERS = 50  # update_lipschitz(m, 50) after every step
+PR_LR = {"planar": 5e-3, "radial": 3e-3}  # the examples' rates
+PR_BATCH = 512
+PR_ANNEAL = 750  # examples/comparison_plan_rad_aff.py: half its iterations
+
+
+def circular_coupled_model(target=None):
+    """``build_circular_nsf``'s arguments with the circular coupling in
+    place of the autoregressive layer (the JAX package has no builder for
+    it): dim 2, ind_circ [0], K 12, one block of hidden 512, 10 bins, tail
+    bounds (pi, 3), masks alternating by layer, ``PeriodicWrap``, a
+    ``UniformGaussian`` base with scale (2 pi, 1); weights from the seed,
+    perturbed by :data:`CC_PERTURB` (at 0.5, float32 itself leaves
+    ``log_prob(sample)`` up to 7.4e-3 from ``log_q`` on the CPU's plain
+    path, against 5.9e-7 in float64; at 0.3, 1.4e-4, the model 6 nats
+    from its base)."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import distributions as tdist
+    from nf_tpu_torch import flows as tflows
+
+    gen = torch.Generator().manual_seed(SEED)
+    flows = [tflows.CircularCoupledRationalQuadraticSpline(
+        num_input_channels=2, num_blocks=1, num_hidden_channels=CC_HIDDEN,
+        ind_circ=[0], num_bins=CC_BINS, tail_bound=CC_TAIL_BOUND,
+        reverse_mask=(i % 2 == 1), generator=gen)
+        for i in range(CC_LAYERS)]
+    flows.append(tflows.PeriodicWrap([0], bound=np.pi))
+    model = nt.NormalizingFlow(
+        tdist.UniformGaussian(2, ind=[0], scale=[2 * np.pi, 1.0]), flows,
+        p=target).to("cuda")
+    perturb(model, SEED + 170, size=CC_PERTURB)
+    return model
+
+
+def _circular_counts():
+    """Kernels B's and E's launches at circular tails since the last
+    reset."""
+    from nf_tpu_torch.ops import spline_head_fused as shf
+
+    return (shf.fused_head_rqs.circular_launches,
+            shf.fused_head_rqs_bwd.circular_launches)
+
+
+def _angle_err(a, b):
+    """Largest difference, the angle (column 0) taken modulo 2 pi."""
+    d = (a - b).detach().cpu()
+    d[:, 0] = torch.remainder(d[:, 0] + np.pi, 2 * np.pi) - np.pi
+    return float(d.abs().max())
+
+
+def cc_kernel_operands(model, dev, batch=BATCH):
+    """Kernels B's and E's operands at an angle-transforming layer of the
+    circular coupled model: its transformed feature x_t (1, B) (a
+    transposed view), its trunk's h_t (512, B) with the periodic features,
+    the 3K+1 head's effective rows (3K = 30 circular), the tail bound pi;
+    cotangents N(0, 1)."""
+    from nf_tpu_torch.flows.neural_spline.feed import _effective_rows
+    from nf_tpu_torch.ops import spline_head_fused as shf
+
+    layer = next(f for f in model.flows[:CC_LAYERS]
+                 if f.prqct.tails == ("circular",))
+    prqct = layer.prqct
+    net = prqct.transform_net
+    rng = np.random.default_rng(SEED + 171)
+    x = torch.stack([torch.from_numpy(rng.uniform(-np.pi, np.pi, batch)),
+                     torch.from_numpy(rng.standard_normal(batch) * 1.5)],
+                    dim=1).float().to(dev)
+    with torch.no_grad():
+        id_split, t_split = prqct._split(x)
+        h_t = net.features_transposed(id_split).contiguous()
+        w, b = _effective_rows(net.final_layer.weight, net.final_layer.bias,
+                               CC_BINS, 1, "circular")
+        w, b = shf.effective_head(w, b, num_bins=CC_BINS, feats=1,
+                                  tails="circular",
+                                  softmax_scale=prqct.softmax_scale)
+    tb = prqct.tail_bound_arr.contiguous()
+    cty = _normal(rng, (batch, 1), 1.0, dev).T
+    ctl = _normal(rng, (1, batch), 1.0, dev)
+    return (t_split.T, h_t, w.contiguous(), b.contiguous(), tb, cty, ctl)
+
+
+def cc_kernels(dev, flush, peaks, model):
+    """Kernels B and E alone at the circular coupling's real operands
+    (circular tails, H 512, K 10, D 1, B 65536), both spline directions:
+    parity against their plain versions (B: y 1e-5, ld 1e-4; E: 1e-4 per
+    element and on the batch sums relative, or, where gx is off
+    ``head_rqs_bwd_plain`` (cuBLAS's order), against the plain version
+    summed in the kernel's order), their times and bounds; and their
+    registers and spills at K = 10 from the build."""
+    from nf_tpu_torch.ops import _build
+    from nf_tpu_torch.ops import spline_head_fused as shf
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    x_t, h_t, w, b, tb, cty, ctl = cc_kernel_operands(model, dev)
+    m, hidden = w.shape
+    b_t, e_t = {}, {}
+    worst = dict(y=0.0, ld=0.0, grad=0.0, sums=0.0, order=0.0)
+    for inverse in (False, True):
+        kw = dict(num_bins=CC_BINS, tails="circular", inverse=inverse)
+        y, ld = shf.fused_head_rqs(x_t, h_t, w, b, tail_bound=tb, **kw)
+        yp, lp = shf.head_rqs_plain(x_t, h_t, w, b, tb, **kw)
+        got = shf.fused_head_rqs_bwd(x_t, h_t, w, b, tb, cty, ctl, **kw)
+        plain = shf.head_rqs_bwd_plain(x_t, h_t, w, b, tb, cty, ctl, **kw)
+        torch.cuda.synchronize()
+        worst["y"] = max(worst["y"], max_err(y, yp))
+        worst["ld"] = max(worst["ld"], max_err(ld, lp))
+        grad = max(max_err(got[0], plain[0]), max_err(got[1], plain[1]))
+        sums = max(rel_err(got[2], plain[2]), rel_err(got[3], plain[3]))
+        if grad > G_TOL:
+            order = shf.head_rqs_bwd_plain_in_kernel_order(
+                x_t, h_t, w, b, tb, cty, ctl, **kw)
+            worst["order"] = max(worst["order"],
+                                 max_err(got[0], order[0]),
+                                 max_err(got[1], order[1]))
+            sums = max(sums, rel_err(got[2], order[2]),
+                       rel_err(got[3], order[3]))
+        else:
+            worst["grad"] = max(worst["grad"], grad)
+        worst["sums"] = max(worst["sums"], sums)
+        b_ms = device_ms(lambda: shf.fused_head_rqs(
+            x_t, h_t, w, b, tail_bound=tb, **kw), flush)
+        b_plain = device_ms(lambda: shf.head_rqs_plain(
+            x_t, h_t, w, b, tb, **kw), flush)
+        e_ms = device_ms(lambda: shf.fused_head_rqs_bwd(
+            x_t, h_t, w, b, tb, cty, ctl, **kw), flush)
+        e_plain = device_ms(lambda: shf.head_rqs_bwd_plain(
+            x_t, h_t, w, b, tb, cty, ctl, **kw), flush)
+        n = x_t.shape[1]
+        b_bytes = 4 * (n + hidden * n + m * hidden + m + 1 + 2 * n)
+        b_ops = (2 * m * hidden * n
+                 + tk.rqs_ops_per_element(CC_BINS, inverse) * n)
+        e_bytes = 4 * (3 * n + hidden * n + m * hidden + m + 1
+                       + n + hidden * n + m * hidden + m)
+        e_ops = (3 * 2 * m * hidden * n + m * n
+                 + tk.rqs_bwd_ops_per_element(CC_BINS, inverse) * n)
+        b_t[inverse] = (b_ms, b_plain) + bound(b_bytes, b_ops, peaks)
+        e_t[inverse] = (e_ms, e_plain) + bound(e_bytes, e_ops, peaks)
+    if not (worst["y"] <= Y_TOL and worst["ld"] <= LD_TOL
+            and worst["grad"] <= G_TOL and worst["order"] <= G_TOL
+            and worst["sums"] <= SUM_TOL):
+        raise RuntimeError(f"circular coupled kernels disagree with their "
+                           f"plain versions: {worst}")
+    import re
+
+    regs = {}  # the largest over the tail and layout instantiations
+    for lib in ("head_rqs_fwd", f"head_rqs_bwd@{CC_BINS}"):
+        for kernel, krows in ptxas_kernels(
+                _build.BUILD_LOGS.get(lib, "")).items():
+            short = re.search(
+                r"(head_rqs_(?:fwd|bwd)_kernel|reduce_partials)", kernel)
+            for k, inv, r, spill in krows:
+                if k in (CC_BINS, 0):
+                    key = (f"{short.group(1) if short else kernel} K{k}"
+                           f"{'i' if inv else 'f'}")
+                    old = regs.get(key, (0, 0))
+                    regs[key] = (max(old[0], r), max(old[1], spill))
+    print(f"phase circular_coupled kernels (B = {BATCH}, D = 1, H = "
+          f"{hidden}, K = {CC_BINS}, circular tails, the model's weights): "
+          f"B y {worst['y']:.3g} (limit {Y_TOL}), ld {worst['ld']:.3g} "
+          f"(limit {LD_TOL}); E gx/gh {worst['grad']:.3g} against the "
+          f"plain version, {worst['order']:.3g} against it summed in the "
+          f"kernel's order where gx was over {G_TOL}, gW/gb "
+          f"{worst['sums']:.3g} relative (limits {G_TOL}, {SUM_TOL}); "
+          + _timing_row("; B", b_t) + _timing_row("; E", e_t)
+          + "; registers (spill-store bytes) at K = 10: "
+          + (", ".join(f"{k} {r} ({s})" for k, (r, s) in regs.items())
+             or "not in the build log"), flush=True)
+    return {"head_rqs_fwd": b_t, "head_rqs_bwd": e_t, "worst": worst}
+
+
+def cc_step_check(model, dev):
+    """One SGD step of the reverse-KLD step, card against CPU, on the same
+    base draws (B = 4096): (loss error, gradient error, launches,
+    circular launches of B and E)."""
+    rng = np.random.default_rng(SEED + 172)
+    z0 = np.stack([rng.uniform(-np.pi, np.pi, CC_CHECK_BATCH),
+                   rng.standard_normal(CC_CHECK_BATCH)], axis=1)
+    z0 = torch.from_numpy(z0.astype(np.float32))
+    loss, grads, per_step = _circular_step_result(model, z0.to(dev),
+                                                  "analytic")
+    circ = _circular_counts()
+    cpu = copy.deepcopy(model).to("cpu")
+    loss_cpu, grads_cpu, _ = _circular_step_result(cpu, z0, "analytic")
+    torch.cuda.synchronize()
+    grad_err = max(rel_err(grads[n].cpu(), grads_cpu[n]) for n in grads)
+    return abs(loss - loss_cpu), grad_err, per_step, circ
+
+
+def phase_circular_coupled(dev, flush, peaks):
+    """Phase 17: the circular coupled NSF (:func:`circular_coupled_model`)
+    served at B = 65536 and trained by the reverse-KLD step on the
+    Gauss-von Mises target (Adam 5e-4, B = 16384), eagerly and as graphs;
+    kernels B and E at its real operands. Returns {path: launches}."""
+    import nf_tpu_torch as nt
+
+    t0 = time.perf_counter()
+    model = circular_coupled_model()
+    kernels = cc_kernels(dev, flush, peaks, model)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    rng = np.random.default_rng(SEED + 173)
+    x = np.stack([rng.uniform(-np.pi, np.pi, BATCH),
+                  rng.standard_normal(BATCH) * 1.5], axis=1)
+    x = torch.from_numpy(x.astype(np.float32))
+    x_dev = x.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 174)
+    counts, circ = {}, {}
+    with torch.inference_mode():
+        lp = _counted(counts, "log_prob", lambda: model.log_prob(x_dev))
+        circ["log_prob"] = _circular_counts()
+        z, log_q = _counted(counts, "sample", lambda: model.sample(
+            BATCH, generator=gen))
+        circ["sample"] = _circular_counts()
+        lp_s = model.log_prob(z)
+        x_back = model.forward(model.inverse(x_dev))
+        lp_cpu = cpu_model.log_prob(x[:CIRC_CPU_BATCH])
+        lp_64 = copy.deepcopy(cpu_model).double().log_prob(
+            x[:CIRC_CPU_BATCH].double())
+    want = {"rqs_fwd": CC_LAYERS, "head_rqs_fwd": CC_LAYERS}
+    _expect(counts, {"log_prob": want, "sample": want},
+            "circular_coupled serving")
+    for what, (b_circ, _) in circ.items():
+        if b_circ != CC_LAYERS // 2:
+            raise RuntimeError(f"circular_coupled {what}: {b_circ} launches "
+                               f"of kernel B at circular tails, expected "
+                               f"{CC_LAYERS // 2} (the layers transforming "
+                               f"the angle)")
+    # the card against the CPU is held to 1e-3, or to twice the CPU's own
+    # float32 error against float64 where that is larger (twelve 512-wide
+    # trunks: the two devices sum their products in other orders)
+    err64 = float((lp_cpu.double() - lp_64).abs().max())
+    cpu_tol = max(MODEL_TOL, 2 * err64)
+    errs = {f"log_prob cuda vs cpu (first {CIRC_CPU_BATCH})": max_err(
+                lp[:CIRC_CPU_BATCH].cpu(), lp_cpu),
+            "log_prob(sample) vs log_q": max_err(lp_s, log_q),
+            "forward(inverse(x)) vs x (angle mod 2 pi)": _angle_err(
+                x_back, x_dev)}
+    limits = dict.fromkeys(errs, MODEL_TOL)
+    limits[next(iter(errs))] = cpu_tol
+    for t in (lp, z, log_q, lp_s, x_back):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError("non-finite values on the circular_coupled "
+                               "serving path")
+    for k, v in errs.items():
+        if not v <= limits[k]:
+            raise RuntimeError(f"circular_coupled: {k} {v:.3g} > "
+                               f"{limits[k]:.3g}")
+    if max_err(lp, model.q0.log_prob(x_dev)) < 0.1:
+        raise RuntimeError("the perturbed circular coupled model is still "
+                           "the identity")
+    print(f"phase circular_coupled serving (B = {BATCH}, dim 2, ind_circ "
+          f"[0], K {CC_LAYERS}, hidden {CC_HIDDEN}, {CC_BINS} bins, tail "
+          f"bounds (pi, 3)): launches per pass {counts}; kernel B at "
+          f"circular tails per pass {({k: v[0] for k, v in circ.items()})}; "
+          f"errors " + ", ".join(f"{k} {v:.3g} (limit {limits[k]:.3g})"
+                                 for k, v in errs.items())
+          + f"; the CPU's float32 against float64 {err64:.3g}, |log p| up "
+          f"to {float(lp_64.abs().max()):.4g}", flush=True)
+    out = {"circular_coupled serving": (
+        {k: counts["log_prob"][k] + counts["sample"][k]
+         for k in counts["log_prob"]}, ("rqs_fwd", "head_rqs_fwd"))}
+
+    target_model = circular_coupled_model(target=GaussVonMises())
+    loss_err, grad_err, per_step, circ_step = cc_step_check(target_model,
+                                                            dev)
+    if not (loss_err <= MODEL_TOL and grad_err <= TRAIN_TOL):
+        raise RuntimeError(f"circular_coupled reverse KLD: card vs CPU loss "
+                           f"{loss_err:.3g}, gradients {grad_err:.3g}")
+    step_want = {"rqs_fwd": CC_LAYERS, "head_rqs_fwd": CC_LAYERS,
+                 "rqs_bwd": CC_LAYERS, "head_rqs_bwd": CC_LAYERS}
+    _expect({"step": per_step}, {"step": step_want},
+            "circular_coupled reverse-KLD step")
+    if circ_step != (CC_LAYERS // 2, CC_LAYERS // 2):
+        raise RuntimeError(f"circular_coupled step: B and E at circular "
+                           f"tails {circ_step}, expected "
+                           f"{CC_LAYERS // 2} each")
+    print(f"phase circular_coupled training check (B = {CC_CHECK_BATCH}, "
+          f"GaussVonMises): card vs CPU loss {loss_err:.3g} (limit "
+          f"{MODEL_TOL}), gradients {grad_err:.3g} relative (limit "
+          f"{TRAIN_TOL}); launches per step {per_step}; B and E at "
+          f"circular tails per step {circ_step}", flush=True)
+    out["circular_coupled training"] = (per_step, tuple(step_want))
+
+    served = serving_graphs("circular_coupled", model, x_dev, BATCH,
+                            want, "circular_coupled serving")
+    out["graphs: circular_coupled serving"] = (
+        _captured_counts(served), PATH_KERNELS["circular_coupled serving"])
+    gens = [torch.Generator(device=dev).manual_seed(SEED + 175)
+            for _ in range(2)]
+    step = step_graphs(
+        f"circular_coupled reverse-KLD step (B = {CIRC_TRAIN_BATCH})",
+        target_model, lambda opt: nt.make_reverse_kld_step(
+            opt, num_samples=CIRC_TRAIN_BATCH),
+        lambda i, which: (gens[which],), "circular_coupled step",
+        dict(lr=5e-4))
+    _expect_launches(step["launches"], step_want,
+                     "circular_coupled step graph")
+    out["graphs: circular_coupled step"] = (
+        step["launches"], PATH_KERNELS["circular_coupled step"])
+    print(f"phase timing phase 17 (circular_coupled): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out, kernels
+
+
+def moons(n, seed, dev):
+    """Two-moons data (``examples/residual.py``'s ``make_moons``, noise
+    0.1) drawn on the card from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.rand(n, generator=gen, device=dev) * np.pi
+    upper = torch.rand(n, generator=gen, device=dev) < 0.5
+    x = torch.where(upper, torch.cos(t), 1.0 - torch.cos(t))
+    y = torch.where(upper, torch.sin(t), 0.5 - torch.sin(t))
+    noise = torch.randn((n, 2), generator=gen, device=dev)
+    return torch.stack([x, y], dim=1) + 0.1 * noise
+
+
+def residual_model(dev):
+    """``build_residual`` at its defaults, perturbed (linear weights by
+    N(0, (0.5/sqrt(fan_in))²), the rest by N(0, 0.1²)), its power
+    iterations advanced 200 steps on the new weights (so the Lipschitz
+    bound holds), the exact 2D log-det on, and its ActNorms set by
+    ``init_from_data`` on 4096 two-moons points."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import flows as tflows
+    from nf_tpu_torch.utils import update_lipschitz
+
+    model = nt.build_residual(seed=SEED)
+    rng = np.random.default_rng(SEED + 180)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            scale = (0.5 / np.sqrt(p.shape[1])
+                     if p.ndim == 2 and name.endswith("weight") else 0.1)
+            noise = np.asarray(rng.standard_normal(tuple(p.shape)) * scale)
+            p.add_(torch.from_numpy(noise.astype(np.float32)).to(dev))
+    update_lipschitz(model, 200)
+    tflows.set_exact_logdet(model)
+    return model.init_from_data(moons(4096, SEED + 181, dev))
+
+
+def _blocks(model):
+    from nf_tpu_torch import flows as tflows
+
+    return [m for m in model.modules() if isinstance(m, tflows.iResBlock)]
+
+
+def _draw_probes(model, batch, seed):
+    """A probe and series coefficients per block of ``model`` (on the
+    CPU), drawn from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    return [(torch.randn((batch, 2), generator=gen),
+             m._sample_coeffs(gen, "cpu")) for m in _blocks(model)]
+
+
+def _set_probes(model, fixed, dev):
+    """Each block of ``model`` draws ``fixed``'s probe and coefficients."""
+    for m, (v, c) in zip(_blocks(model), fixed):
+        vd, cd = v.to(dev), c.to(dev)
+        m.draw = lambda x, g, vd=vd, cd=cd: (vd, cd)
+
+
+def residual_step_check(model, dev):
+    """One forward-KLD step (with_key, post_update) of a stochastic copy
+    of ``model``, card against CPU on injected probes (B = 512): (loss
+    error, gradient error, u/v error after the step)."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import flows as tflows
+    from nf_tpu_torch.utils import update_lipschitz
+
+    x = moons(RES_BATCH, SEED + 182, dev)
+    results = []
+    fixed = _draw_probes(copy.deepcopy(model).to("cpu"), RES_BATCH,
+                         SEED + 183)
+    for device in ("cpu", dev):
+        m = copy.deepcopy(model).to(device)
+        tflows.set_exact_logdet(m, False)
+        _set_probes(m, fixed, device)
+        opt = torch.optim.Adam(m.parameters(), lr=RES_LR,
+                               weight_decay=RES_WD)
+        step = nt.make_forward_kld_step(
+            opt, with_key=True,
+            post_update=lambda mm: update_lipschitz(mm, RES_POWER_ITERS))
+        loss = step.eager(nt.init_train_state(m, opt), x.to(device), 0)
+        results.append((float(loss), {n: p.grad for n, p in
+                                      m.named_parameters()
+                                      if p.grad is not None},
+                        {n: b for n, b in m.state_dict().items()
+                         if n.endswith((".u", ".v"))}))
+    (l2, g2, b2), (l1, g1, b1) = results
+    grad_err = max(rel_err(g1[n].cpu(), g2[n]) for n in g1)
+    uv_err = max(max_err(b1[n].cpu(), b2[n]) for n in b1)
+    return abs(l1 - l2), grad_err, uv_err
+
+
+def residual_reverse_check(model, dev):
+    """One eager reverse-KLD step on TwoModes under the exact log-det, card
+    against CPU on the same base draws (B = 1024): its gradient passes
+    through the fixed point's implicit VJP. (loss error, gradient error,
+    fixed-point and VJP iterations per layer on the card)."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import flows as tflows
+
+    z0 = _normal(np.random.default_rng(SEED + 184), (RES_REVERSE_BATCH, 2),
+                 1.0, "cpu")
+    out = []
+    for device in (dev, "cpu"):
+        m = copy.deepcopy(model).to(device)
+        m.p = nt.TwoModes()
+        zd = z0.to(device)
+        m.q0.forward = lambda n, generator=None, zd=zd, m=m: (
+            zd, m.q0.log_prob(zd))
+        opt = torch.optim.SGD(m.parameters(), lr=0.0)
+        step = nt.make_reverse_kld_step(opt, RES_REVERSE_BATCH).eager
+        loss = step(nt.init_train_state(m, opt), None)
+        out.append((float(loss), {n: p.grad for n, p in
+                                  m.named_parameters()
+                                  if p.grad is not None},
+                    tflows.fixed_point_stats(m)))
+    (l1, g1, st), (l2, g2, _) = out
+    grad_err = max(rel_err(g1[n].cpu(), g2[n]) for n in g1)
+    return abs(l1 - l2), grad_err, st
+
+
+def phase_residual(dev, flush):
+    """Phase 18: ``build_residual`` at its defaults (K 16, LipschitzMLP
+    [2, 128, 128, 128, 2], L 0.9, ActNorm): serving under the exact 2D
+    log-det eagerly and as graphs (the fixed point of ``sample`` a masked
+    fixed count in the graph), the forward-KLD step with ``with_key`` and
+    ``post_update=update_lipschitz(50)`` (Adam 3e-4, weight decay 1e-5,
+    B = 512 on two moons) card against CPU and eager against graph, one
+    eager reverse-KLD step through the implicit VJP, and a LipschitzCNN
+    block. No port kernel runs. Returns {path: launches}."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import flows as tflows
+    from nf_tpu_torch.flows import residual as res
+    from nf_tpu_torch.utils import update_lipschitz
+
+    t0 = time.perf_counter()
+    model = residual_model(dev)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    x = _normal(np.random.default_rng(SEED + 185), (BATCH, 2), 1.0, dev) \
+        + torch.tensor([0.5, 0.25], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 186)
+    counts = {}
+    with torch.no_grad():
+        lp = _counted(counts, "log_prob", lambda: model.log_prob(x))
+        sample_syncs = host_syncs(lambda: model.sample(BATCH, generator=gen))
+        z, log_q = _counted(counts, "sample", lambda: model.sample(
+            BATCH, generator=gen))
+        iters = [s[0] for s in tflows.fixed_point_stats(model)]
+        lp_s = model.log_prob(z)
+        x_back = model.forward(model.inverse(x))
+        rows = slice(0, RES_CPU_ROWS)
+        lp_cpu = cpu_model.log_prob(x[rows].cpu())
+        z0 = _normal(np.random.default_rng(SEED + 187), (RES_CPU_ROWS, 2),
+                     1.0, dev)
+        zs, lds = model.forward_and_log_det(z0)
+        zs_cpu, lds_cpu = cpu_model.forward_and_log_det(z0.cpu())
+    _expect(counts, {"log_prob": {}, "sample": {}}, "residual serving")
+    errs = {f"log_prob cuda vs cpu (first {RES_CPU_ROWS})": max_err(
+                lp[rows].cpu(), lp_cpu),
+            f"sample push-forward cuda vs cpu ({RES_CPU_ROWS} base draws)":
+                max(max_err(zs.cpu(), zs_cpu), max_err(lds.cpu(), lds_cpu)),
+            "log_prob(sample) vs log_q": max_err(lp_s, log_q),
+            "forward(inverse(x)) vs x": max_err(x_back, x)}
+    for t in (lp, z, log_q, lp_s, x_back):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError("non-finite values on the residual serving "
+                               "path")
+    for k, v in errs.items():
+        if not v <= MODEL_TOL:
+            raise RuntimeError(f"residual: {k} {v:.3g} > {MODEL_TOL}")
+    with torch.no_grad():
+        lp_ms = host_ms(lambda: model.log_prob(x))
+        sample_ms = host_ms(lambda: model.sample(BATCH, generator=gen))
+    print(f"phase residual serving (build_residual defaults, exact 2D "
+          f"log-det, B = {BATCH}): launches per pass {counts}; errors "
+          + ", ".join(f"{k} {v:.3g} (limit {MODEL_TOL})"
+                      for k, v in errs.items())
+          + f"; eager log_prob {lp_ms:.3f} ms/call, sample {sample_ms:.3f} "
+          f"ms/call; fixed-point iterations per layer (eager, JAX's rule) "
+          f"{iters}, max {max(iters)}; host syncs in one eager sample "
+          f"{len(sample_syncs)} (the convergence test read every "
+          f"{res.FIXED_POINT_CHECK_EVERY} steps)", flush=True)
+    if max(iters) + 1 > res.FIXED_POINT_GRAPH_ITERATIONS:
+        raise RuntimeError(f"the eager fixed point took {max(iters)} "
+                           f"iterations, past the graph's count "
+                           f"{res.FIXED_POINT_GRAPH_ITERATIONS}")
+    out = {"residual serving": (
+        {k: counts["log_prob"][k] + counts["sample"][k]
+         for k in counts["log_prob"]}, ())}
+    served = serving_graphs("residual", model, x, BATCH, {},
+                            "residual serving")
+    # the flags of the model copy the sampler's graph runs
+    stats = tflows.fixed_point_stats(
+        served["sample"]["fn"]._compiled.weights.model)
+    if not stats or any(s[2] for s in stats):
+        raise RuntimeError(f"the residual sampler graph left a fixed point "
+                           f"unconverged or reported none: {stats}")
+    t_graph = min(served["sample"]["turns"][1])
+    print(f"phase residual fixed point: design (b), a masked fixed count of "
+          f"{res.FIXED_POINT_GRAPH_ITERATIONS} steps per layer in the graph "
+          f"(the eager loop stops at JAX's count, max {max(iters)} here); "
+          f"every layer converged within it after the timed replays "
+          f"({len(stats)} layers, last counts "
+          f"{[s[0] for s in stats]}); graph sample {t_graph:.3f} ms against "
+          f"eager {sample_ms:.3f} ms; the graph runs "
+          f"{len(stats) * res.FIXED_POINT_GRAPH_ITERATIONS} masked steps "
+          f"where JAX's rule needs {sum(s[0] for s in stats)}", flush=True)
+    out["graphs: residual serving"] = (_captured_counts(served), ())
+
+    loss_err, grad_err, uv_err = residual_step_check(model, dev)
+    if not (loss_err <= MODEL_TOL and grad_err <= TRAIN_TOL
+            and uv_err <= MODEL_TOL):
+        raise RuntimeError(f"residual forward-KLD step: card vs CPU loss "
+                           f"{loss_err:.3g}, gradients {grad_err:.3g}, u/v "
+                           f"{uv_err:.3g}")
+    print(f"phase residual training check (forward KLD, with_key, "
+          f"post_update=update_lipschitz({RES_POWER_ITERS}), B = "
+          f"{RES_BATCH}, injected probes): card vs CPU loss {loss_err:.3g} "
+          f"(limit {MODEL_TOL}), gradients {grad_err:.3g} relative (limit "
+          f"{TRAIN_TOL}), u/v after the step {uv_err:.3g}", flush=True)
+    train_model = copy.deepcopy(model)
+    tflows.set_exact_logdet(train_model, False)
+    pool = moons(20 * RES_BATCH, SEED + 188, dev)
+    step = step_graphs(
+        f"residual forward-KLD step (with_key, post_update, B = "
+        f"{RES_BATCH})", train_model,
+        lambda opt: nt.make_forward_kld_step(
+            opt, with_key=True,
+            post_update=lambda m: update_lipschitz(m, RES_POWER_ITERS)),
+        lambda i, which: (pool[(i % 20) * RES_BATCH:
+                               (i % 20 + 1) * RES_BATCH], 1000 + i),
+        "residual step", dict(lr=RES_LR, weight_decay=RES_WD))
+    _expect_launches(step["launches"], {}, "residual step graph")
+    out["graphs: residual step"] = (step["launches"], ())
+
+    loss_err, grad_err, st = residual_reverse_check(model, dev)
+    if not (loss_err <= MODEL_TOL and grad_err <= TRAIN_TOL):
+        raise RuntimeError(f"residual reverse KLD: card vs CPU loss "
+                           f"{loss_err:.3g}, gradients {grad_err:.3g}")
+    if any(s[2] for s in st):
+        raise RuntimeError(f"residual reverse KLD: a fixed point stopped "
+                           f"unconverged: {st}")
+    print(f"phase residual reverse-KLD check (TwoModes, exact log-det, B = "
+          f"{RES_REVERSE_BATCH}, eager): card vs CPU loss {loss_err:.3g}, "
+          f"gradients through the implicit VJP {grad_err:.3g} relative "
+          f"(limits {MODEL_TOL}, {TRAIN_TOL}); fixed-point / VJP "
+          f"iterations per layer {[(s[0], s[1]) for s in st]}", flush=True)
+
+    gen_cpu = torch.Generator().manual_seed(SEED + 189)
+    cnn = nt.NormalizingFlow(
+        nt.distributions.DiagGaussian((4, 8, 8)),
+        [tflows.Residual(nt.nets.LipschitzCNN(
+            [4, 8, 4], kernel_size=[3, 3], spatial_dims=(8, 8),
+            lipschitz_const=0.9, generator=gen_cpu), exact_trace=True)])
+    perturb(cnn, SEED + 190, size=0.2)
+    update_lipschitz(cnn, 200)
+    xi = torch.randn((8, 4, 8, 8), generator=gen_cpu)
+    with torch.no_grad():
+        lp_cpu = cnn.log_prob(xi)
+        lp_dev = cnn.to(dev).log_prob(xi.to(dev))
+    cnn_err = max_err(lp_dev.cpu(), lp_cpu)
+    if not (cnn_err <= MODEL_TOL * max(1.0, float(lp_cpu.abs().max()))
+            and bool(torch.isfinite(lp_dev).all())):
+        raise RuntimeError(f"LipschitzCNN block: card vs CPU {cnn_err:.3g}")
+    print(f"phase residual LipschitzCNN block (iResBlock, exact_trace, x "
+          f"(8, 4, 8, 8), 256 vector-Jacobian products): log_prob card vs CPU "
+          f"{cnn_err:.3g} (|log p| up to {float(lp_cpu.abs().max()):.4g})",
+          flush=True)
+    print(f"phase timing phase 18 (residual): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def phase_planar_radial(dev, flush):
+    """Phase 19: ``build_planar_stack`` and ``build_radial_stack`` at their
+    defaults (dim 2, K 16) with TwoModes: ``sample`` at B = 65536 against
+    the CPU's push-forward of the same base draws and as a graph (bitwise
+    against eager), and the annealed reverse-KLD step (Adam 5e-3 / 3e-3,
+    B = 512) eager against graph. No port kernel runs. Returns {path:
+    launches}."""
+    import nf_tpu_torch as nt
+
+    t0 = time.perf_counter()
+    out = {}
+    builders = {"planar": nt.build_planar_stack,
+                "radial": nt.build_radial_stack}
+    for label, build in builders.items():
+        model = build(seed=SEED, target=nt.TwoModes())
+        perturb(model, SEED + 195, size=0.1)
+        cpu_model = copy.deepcopy(model).to("cpu")
+        counts = {}
+        gen = torch.Generator(device=dev).manual_seed(SEED + 196)
+        with torch.inference_mode():
+            z, log_q = _counted(counts, "sample", lambda: model.sample(
+                BATCH, generator=gen))
+            gen.manual_seed(SEED + 196)
+            z0, lq0 = model.q0.forward(BATCH, generator=gen)
+            zc, ldc = cpu_model.forward_and_log_det(z0.cpu())
+        _expect(counts, {"sample": {}}, f"{label} serving")
+        err = max(max_err(z.cpu(), zc), max_err(log_q.cpu(),
+                                                 lq0.cpu() - ldc))
+        if not (err <= MODEL_TOL and bool(torch.isfinite(z).all())):
+            raise RuntimeError(f"{label}: sample card vs CPU {err:.3g}")
+        sampler = nt.compile_sampler(model, BATCH)
+        zg, lqg = sampler(SEED)
+        with torch.inference_mode():
+            ze, lqe = model.sample(BATCH, generator=torch.Generator(
+                "cuda").manual_seed(SEED))
+        if not (torch.equal(zg, ze) and torch.equal(lqg, lqe)):
+            raise RuntimeError(f"{label} sampler graph differs from eager")
+
+        def eager_sample():
+            with torch.inference_mode():
+                return model.sample(BATCH, generator=gen)
+
+        turns = in_turns(eager_sample, lambda: sampler(SEED))
+        report = replay_report(lambda: sampler(SEED), f"{label} serving")
+        print(f"phase {label} serving ({label} stack defaults, K 16, B = "
+              f"{BATCH}): launches {counts}; sample card vs CPU "
+              f"push-forward {err:.3g} (limit {MODEL_TOL}); sampler graph "
+              f"bitwise eager; " + _turns_text(turns) + "; "
+              + _report_text(report), flush=True)
+        out[f"{label} serving"] = (counts["sample"], ())
+        out[f"graphs: {label} serving"] = (sampler.launches, ())
+        gens = [torch.Generator(device=dev).manual_seed(SEED + 197)
+                for _ in range(2)]
+        step = step_graphs(
+            f"{label} annealed reverse-KLD step (B = {PR_BATCH})", model,
+            lambda opt: nt.make_reverse_kld_step(
+                opt, num_samples=PR_BATCH,
+                beta_schedule=lambda t: min(1.0, 0.05 + t / PR_ANNEAL)),
+            lambda i, which: (gens[which],), f"{label} step",
+            dict(lr=PR_LR[label]))
+        _expect_launches(step["launches"], {}, f"{label} step graph")
+        out[f"graphs: {label} step"] = (step["launches"], ())
+    print(f"phase timing phase 19 (planar_radial): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port runs on an "
@@ -3122,6 +3824,10 @@ def main():
     paths.update(phase_glow(dev, flush))
     print(f"phase timing phases 15-16 (image_nsf, glow): "
           f"{time.perf_counter() - t_new:.1f} s", flush=True)
+    cc_paths, _ = phase_circular_coupled(dev, flush, peaks)
+    paths.update(cc_paths)
+    paths.update(phase_residual(dev, flush))
+    paths.update(phase_planar_radial(dev, flush))
     print("launches: " + "; ".join(f"{k} {v[0]}" for k, v in paths.items()),
           flush=True)
     for path, (counts, needed) in paths.items():

@@ -16,11 +16,15 @@ CUDA each step, and each served function of :mod:`nf_tpu_torch.serving`
 runs as one CUDA graph per batch shape; a conditional model's served
 functions take the context as a second input (``context_shape``).
 ``mixed_precision=True`` on the builders runs the conditioners in
-bfloat16 (``nets.MixedPrecision``). Builders: ``build_nsf``,
-``build_circular_nsf``, ``build_conditional_nsf`` and the image model
-``build_image_nsf`` (the spline kernels), ``build_realnvp``, ``build_maf``
-and ``build_glow_multiscale`` (plain products and convolutions, no
-kernel). The image models are ``MultiscaleFlow``s; a class-conditional
+bfloat16 (``nets.MixedPrecision``). Builders, all ten of the JAX
+package's: ``build_nsf``, ``build_circular_nsf``,
+``build_conditional_nsf`` and the image model ``build_image_nsf`` (the
+spline kernels), ``build_realnvp``, ``build_maf``,
+``build_glow_multiscale``, ``build_residual``, ``build_planar_stack`` and
+``build_radial_stack`` (plain products and convolutions, no kernel).
+Layers that draw (a residual flow's stochastic log-det) take
+``generator=`` through every flow's ``forward`` / ``inverse`` and the
+containers' methods, as the JAX package's take ``key=``. The image models are ``MultiscaleFlow``s; a class-conditional
 one's served functions take the labels as a second input
 (``class_cond``), and its sampler a ``temperature``.
 """
@@ -42,7 +46,10 @@ from .models import (
     build_image_nsf,
     build_maf,
     build_nsf,
+    build_planar_stack,
+    build_radial_stack,
     build_realnvp,
+    build_residual,
 )
 from .nets import MixedPrecision
 from .parallel import (
@@ -67,7 +74,9 @@ __all__ = ["BucketedFn", "ClassCondFlow", "CompiledFn",
            "MixedPrecision", "MultiscaleFlow", "NormalizingFlow",
            "TrainState", "TwoModes", "TwoMoons", "build_circular_nsf",
            "build_conditional_nsf", "build_glow_multiscale",
-           "build_image_nsf", "build_maf", "build_nsf", "build_realnvp",
+           "build_image_nsf", "build_maf", "build_nsf",
+           "build_planar_stack", "build_radial_stack", "build_realnvp",
+           "build_residual",
            "data", "transforms", "utils",
            "compile_log_prob", "compile_log_prob_buckets", "compile_sampler",
            "ema_model", "init_train_state", "load_reference_state_dict",

@@ -23,6 +23,19 @@ the LU 1x1 convolution's ``L``, ``U``, ``log_S``, ``P``, ``sign_S`` and
 (its coupling block's coupling, whose ``ConvNet2d`` keeps the
 reference's ``nn.Sequential`` indices), then ``flows.1.`` (the 1x1
 convolution) and ``flows.2.`` (the ActNorm).
+
+Residual flows load under the reference's names too: a ``Residual``'s
+``iresblock.geom_p`` (the logit of the geometric law's p) and
+``iresblock.lamb``, its net's ``iresblock.nnet.net.{i}.`` (Swish ``beta``
+at even i; the induced-norm layers' ``weight``, ``bias`` and the power
+iteration's buffers ``u`` and ``v`` at odd i), a ``Planar``'s ``u``,
+``w``, ``b``, a ``Radial``'s ``z_0``, ``beta``, ``alpha`` and ``d``, and a
+circular coupling's conditioner ``preprocessing.`` (the periodic
+features' ``weights`` and index buffers). The reference's bookkeeping
+buffers that compute nothing (an iResBlock's ``last_n_samples``,
+``last_firmom``, ``last_secmom``; an induced-norm layer's running
+``scale``, and a convolution's ``initialized`` and ``spatial_dims``) are
+taken when present and not loaded.
 """
 
 from __future__ import annotations
@@ -31,6 +44,8 @@ import numpy as np
 import torch
 
 from .flows.base import Scanned, open_composites
+from .flows.residual import iResBlock
+from .nets.lipschitz import InducedNormConv2d, InducedNormLinear
 from .nets.made import MADE
 from .nets.precision import MixedPrecision
 from .nets.resnet import ResidualNet
@@ -90,6 +105,24 @@ def _reference_names(model, own):
     return names
 
 
+# the reference's bookkeeping buffers, which compute nothing
+_BOOKKEEPING = (
+    (iResBlock, ("last_n_samples", "last_firmom", "last_secmom")),
+    ((InducedNormLinear, InducedNormConv2d),
+     ("scale", "initialized", "spatial_dims")),
+)
+
+
+def _bookkeeping_names(model):
+    """The reference names of the bookkeeping buffers ``model``'s modules
+    would carry in a reference state dict."""
+    own = [f"{name}.{suffix}" if name else suffix
+           for name, mod in model.named_modules()
+           for types, suffixes in _BOOKKEEPING if isinstance(mod, types)
+           for suffix in suffixes]
+    return set(_reference_names(model, own).values())
+
+
 def load_reference_state_dict(model, state_dict):
     """Copy ``state_dict`` into ``model`` in place and return ``model``.
     Raises ``KeyError`` on missing or unused keys and ``ValueError`` on a
@@ -97,7 +130,8 @@ def load_reference_state_dict(model, state_dict):
     own = model.state_dict()
     names = _reference_names(model, own)
     missing = sorted(set(names.values()) - set(state_dict))
-    unused = sorted(set(state_dict) - set(names.values()))
+    unused = sorted(set(state_dict) - set(names.values())
+                    - _bookkeeping_names(model))
     if missing or unused:
         raise KeyError(f"state dict does not match the model: missing "
                        f"{missing[:10]}, unused {unused[:10]}")

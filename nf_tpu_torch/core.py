@@ -42,62 +42,67 @@ class NormalizingFlow(nn.Module):
     def _base_log_prob(self, z, context):
         return self.q0.log_prob(z)
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         """Latent z -> flow variable x (reference ``core.py:27``)."""
         for flow in self.chain():
-            z, _ = flow.forward(z, context=context)
+            z, _ = flow.forward(z, context=context, generator=generator)
         return z
 
-    def forward_and_log_det(self, z, context=None):
+    def forward_and_log_det(self, z, context=None, generator=None):
         """(reference ``core.py:40``)"""
         log_det = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
         for flow in self.chain():
-            z, log_d = flow.forward(z, context=context)
+            z, log_d = flow.forward(z, context=context, generator=generator)
             log_det = log_det + log_d
         return z, log_det
 
-    def inverse(self, x, context=None):
+    def inverse(self, x, context=None, generator=None):
         """Flow variable x -> latent z (reference ``core.py:56``)."""
         for flow in reversed(self.chain()):
-            x, _ = flow.inverse(x, context=context)
+            x, _ = flow.inverse(x, context=context, generator=generator)
         return x
 
-    def inverse_and_log_det(self, x, context=None):
+    def inverse_and_log_det(self, x, context=None, generator=None):
         """(reference ``core.py:70``)"""
         log_det = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         for flow in reversed(self.chain()):
-            x, log_d = flow.inverse(x, context=context)
+            x, log_d = flow.inverse(x, context=context, generator=generator)
             log_det = log_det + log_d
         return x, log_det
 
-    def log_prob(self, x, context=None):
-        """Per-sample log q(x) (reference ``core.py:182``)."""
-        z, log_q = self.inverse_and_log_det(x, context=context)
+    def log_prob(self, x, context=None, generator=None):
+        """Per-sample log q(x) (reference ``core.py:182``). ``generator``
+        feeds the layers that draw (a residual flow's stochastic
+        log-det), as the JAX package's ``key``."""
+        z, log_q = self.inverse_and_log_det(x, context=context,
+                                            generator=generator)
         return log_q + self._base_log_prob(z, context)
 
-    def forward_kld(self, x, context=None):
+    def forward_kld(self, x, context=None, generator=None):
         """MLE loss value -E[log q(x)] (reference ``core.py:87``). On CUDA
         its backward runs through the spline kernels' backward kernels (C
         and E)."""
-        return -torch.mean(self.log_prob(x, context=context))
+        return -torch.mean(self.log_prob(x, context=context,
+                                         generator=generator))
 
     def sample(self, num_samples=1, generator=None, context=None):
         """Draw samples with their log q (reference ``core.py:167``).
-        ``generator`` lives on the model's device."""
+        ``generator`` lives on the model's device; the base draws from it
+        first, then every layer that draws."""
         z, log_q = self._base_forward(num_samples, generator, context)
         for flow in self.chain():
-            z, log_det = flow.forward(z, context=context)
+            z, log_det = flow.forward(z, context=context, generator=generator)
             log_q = log_q - log_det
         return z, log_q
 
-    def _log_prob_detached(self, z, context):
+    def _log_prob_detached(self, z, context, generator=None):
         """log q(z) with the parameters detached: only the path through
         ``z`` carries a gradient (the JAX package's
         ``stop_gradient_params``)."""
         detached = {name: t.detach() for name, t in
                     self.named_parameters(prefix="model")}
-        return functional_call(_LogProb(self), detached, (z, context),
-                               strict=False)
+        return functional_call(_LogProb(self), detached,
+                               (z, context, generator), strict=False)
 
     def _target_log_prob(self, z, context):
         return self.p.log_prob(z, context=context) if context is not None \
@@ -116,7 +121,7 @@ class NormalizingFlow(nn.Module):
         gradient."""
         z, log_q = self.sample(num_samples, generator, context)
         if not score_fn:
-            log_q = self._log_prob_detached(z, context)
+            log_q = self._log_prob_detached(z, context, generator)
         log_p = self._target_log_prob(z, context)
         return torch.mean(log_q) - beta * torch.mean(log_p)
 
@@ -131,7 +136,7 @@ class NormalizingFlow(nn.Module):
             return float(np.sign(alpha - 1)) * torch.logsumexp(
                 alpha * (log_p - log_q), dim=0)
         w_const = torch.exp(log_p - log_q).detach()
-        log_q = self._log_prob_detached(z, context)
+        log_q = self._log_prob_detached(z, context, generator)
         w = torch.exp(log_p - log_q)
         w_alpha = w_const ** alpha
         w_alpha = w_alpha / torch.mean(w_alpha)
@@ -140,16 +145,18 @@ class NormalizingFlow(nn.Module):
 
     # --- data-dependent initialisation (nf_tpu/core.py:179-201) ----------
 
-    def init_from_data(self, x, context=None):
+    def init_from_data(self, x, context=None, generator=None):
         """Initialise the ActNorm layers from a data batch along the
         density (inverse) direction, in place; returns the model. Run it
         outside any capture: the parameters keep their addresses, so a
         served function or captured step built before it reads the new
-        values."""
+        values. ``generator`` feeds the layers that draw (the JAX
+        package's ``key``, which it requires for residual flows)."""
         with torch.no_grad():
             z = x
             for flow in reversed(self.chain()):
-                z, _ = flow.init_data_inverse(z, context=context)
+                z, _ = flow.init_data_inverse(z, context=context,
+                                              generator=generator)
         return self
 
     def init_from_samples(self, num_samples=64, generator=None,
@@ -161,7 +168,8 @@ class NormalizingFlow(nn.Module):
         with torch.no_grad():
             z, _ = self.q0.forward(num_samples, generator=generator)
             for flow in self.chain():
-                z, _ = flow.init_data_forward(z, context=context)
+                z, _ = flow.init_data_forward(z, context=context,
+                                              generator=generator)
         return self
 
 
@@ -381,5 +389,5 @@ class _LogProb(nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, x, context=None):
-        return self.model.log_prob(x, context=context)
+    def forward(self, x, context=None, generator=None):
+        return self.model.log_prob(x, context=context, generator=generator)

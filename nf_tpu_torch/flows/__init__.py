@@ -12,6 +12,7 @@ from .mixing import Invertible1x1Conv, LULinear, LULinearPermute, Permute
 from .neural_spline import (
     AutoregressiveRationalQuadraticSpline,
     CircularAutoregressiveRationalQuadraticSpline,
+    CircularCoupledRationalQuadraticSpline,
     CoupledRationalQuadraticSpline,
     MaskedPiecewiseRationalQuadraticAutoregressive,
     PiecewiseRationalQuadraticCDF,
@@ -19,7 +20,15 @@ from .neural_spline import (
 )
 from .normalization import ActNorm
 from .periodic import PeriodicShift, PeriodicWrap
+from .planar import Planar
+from .radial import Radial
 from .reshape import Merge, Split, Squeeze
+from .residual import (
+    Residual,
+    fixed_point_stats,
+    iResBlock,
+    set_exact_logdet,
+)
 
 __all__ = [
     "ActNorm",
@@ -30,6 +39,7 @@ __all__ = [
     "AutoregressiveRationalQuadraticSpline",
     "CCAffineConst",
     "CircularAutoregressiveRationalQuadraticSpline",
+    "CircularCoupledRationalQuadraticSpline",
     "Composite",
     "CoupledRationalQuadraticSpline",
     "Flow",
@@ -44,10 +54,16 @@ __all__ = [
     "PeriodicShift",
     "PeriodicWrap",
     "Permute",
+    "Planar",
     "PiecewiseRationalQuadraticCDF",
     "PiecewiseRationalQuadraticCoupling",
+    "Radial",
+    "Residual",
     "Reverse",
     "Scanned",
     "Split",
     "Squeeze",
+    "fixed_point_stats",
+    "iResBlock",
+    "set_exact_logdet",
 ]

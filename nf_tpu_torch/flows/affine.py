@@ -37,10 +37,10 @@ class AffineConstFlow(Flow):
                       if self.s.shape[i] == 1)
         return (sign * n * torch.sum(self.s)).to(z.dtype).expand(z.shape[0])
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         return z * torch.exp(self.s) + self.t, self._log_det(z, 1)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         return (z - self.t) * torch.exp(-self.s), self._log_det(z, -1)
 
 
@@ -64,13 +64,13 @@ class MaskedAffineFlow(Flow):
             else torch.zeros_like(z_masked)
         return scale, trans
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         z_masked = self.b * z
         scale, trans = self._nets(z_masked)
         z_ = z_masked + (1 - self.b) * (z * torch.exp(scale) + trans)
         return z_, sum_except_batch((1 - self.b) * scale)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         z_masked = self.b * z
         scale, trans = self._nets(z_masked)
         z_ = z_masked + (1 - self.b) * (z - trans) * torch.exp(-scale)
@@ -109,11 +109,11 @@ class CCAffineConst(Flow):
                       if self.s.shape[i] == 1)
         return sign * n * sum_except_batch(s)
 
-    def forward(self, z, context=None, y=None):
+    def forward(self, z, context=None, y=None, generator=None):
         s, t = self._params(context if y is None else y)
         return z * torch.exp(s) + t, self._log_det(z, s, 1)
 
-    def inverse(self, z, context=None, y=None):
+    def inverse(self, z, context=None, y=None, generator=None):
         s, t = self._params(context if y is None else y)
         return (z - t) * torch.exp(-s), self._log_det(z, s, -1)
 
@@ -155,10 +155,10 @@ class AffineCoupling(Flow):
             z2 = z2 / sig + shift if divide else z2 * sig + shift
         return [z1, z2], -log_sig if divide else log_sig
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         return self._coupling(z, inverse=False)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         return self._coupling(z, inverse=True)
 
 
@@ -175,16 +175,16 @@ class AffineCouplingBlock(Flow):
             Split(split_mode), AffineCoupling(param_map, scale, scale_map),
             Merge(split_mode)])
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         log_det_tot = zero_log_det_like_z(z)
         for flow in self.flows:
-            z, log_det = flow.forward(z, context=context)
+            z, log_det = flow.forward(z, context=context, generator=generator)
             log_det_tot = log_det_tot + log_det
         return z, log_det_tot
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         log_det_tot = zero_log_det_like_z(z)
         for flow in reversed(self.flows):
-            z, log_det = flow.inverse(z, context=context)
+            z, log_det = flow.inverse(z, context=context, generator=generator)
             log_det_tot = log_det_tot + log_det
         return z, log_det_tot

@@ -34,11 +34,11 @@ class Autoregressive(Flow):
     def _elementwise_inverse(self, inputs, autoregressive_params):
         raise NotImplementedError()
 
-    def forward(self, inputs, context=None):
+    def forward(self, inputs, context=None, generator=None):
         params = self.autoregressive_net(inputs, context)
         return self._elementwise_forward(inputs, params)
 
-    def inverse(self, inputs, context=None):
+    def inverse(self, inputs, context=None, generator=None):
         """D passes from zeros; returns the last pass's outputs and
         log-det, as the JAX ``lax.scan`` does."""
         outputs = torch.zeros_like(inputs)

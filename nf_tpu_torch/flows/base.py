@@ -1,9 +1,17 @@
 """Flow layer contract and structural combinators
 (``nf_tpu/flows/base.py``; reference ``normflows/flows/base.py:5-81``).
 
-Every layer is an ``nn.Module`` whose ``forward(z)`` and ``inverse(z)``
-return ``(z', log_det)`` with a per-sample ``log_det`` of shape ``(B,)``.
-``forward`` maps latent -> data. ``init_data_forward`` and
+Every layer is an ``nn.Module`` whose ``forward(z, context=None,
+generator=None)`` and ``inverse(z, context=None, generator=None)`` return
+``(z', log_det)`` with a per-sample ``log_det`` of shape ``(B,)``.
+``forward`` maps latent -> data. ``generator`` is the random source of a
+layer that draws (a residual block's stochastic log-det): the JAX package
+passes every layer a ``key`` (``nf_tpu/core.py:24-27``), split once per
+layer. A ``torch.Generator`` is stateful, so the port passes one generator
+down the whole chain and each drawing layer advances it in turn; there is
+no per-layer split. Layers that draw nothing take it and ignore it, and
+the containers (``Composite``, ``Scanned``, ``Reverse``, the models of
+``core``) hand it on. ``init_data_forward`` and
 ``init_data_inverse`` are the data-dependent initialisation pass
 (``nf_tpu/flows/base.py:46-53``): a layer with such state (``ActNorm``)
 sets it in place from the batch it is given, then transforms it; every
@@ -25,17 +33,17 @@ def zero_log_det_like_z(z):
 class Flow(nn.Module):
     """Abstract invertible layer."""
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         raise NotImplementedError("Forward pass has not been implemented.")
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         raise NotImplementedError("This flow has no algebraic inverse.")
 
-    def init_data_forward(self, z, context=None):
-        return self.forward(z, context=context)
+    def init_data_forward(self, z, context=None, generator=None):
+        return self.forward(z, context=context, generator=generator)
 
-    def init_data_inverse(self, z, context=None):
-        return self.inverse(z, context=context)
+    def init_data_inverse(self, z, context=None, generator=None):
+        return self.inverse(z, context=context, generator=generator)
 
 
 class Reverse(Flow):
@@ -45,17 +53,19 @@ class Reverse(Flow):
         super().__init__()
         self.flow = flow
 
-    def forward(self, z, context=None):
-        return self.flow.inverse(z, context=context)
+    def forward(self, z, context=None, generator=None):
+        return self.flow.inverse(z, context=context, generator=generator)
 
-    def inverse(self, z, context=None):
-        return self.flow.forward(z, context=context)
+    def inverse(self, z, context=None, generator=None):
+        return self.flow.forward(z, context=context, generator=generator)
 
-    def init_data_forward(self, z, context=None):
-        return self.flow.init_data_inverse(z, context=context)
+    def init_data_forward(self, z, context=None, generator=None):
+        return self.flow.init_data_inverse(z, context=context,
+                                           generator=generator)
 
-    def init_data_inverse(self, z, context=None):
-        return self.flow.init_data_forward(z, context=context)
+    def init_data_inverse(self, z, context=None, generator=None):
+        return self.flow.init_data_forward(z, context=context,
+                                           generator=generator)
 
 
 class Composite(Flow):
@@ -65,25 +75,27 @@ class Composite(Flow):
         super().__init__()
         self.flows = nn.ModuleList(flows)
 
-    def forward(self, z, context=None):
-        return _run(self.flows, "forward", z, context)
+    def forward(self, z, context=None, generator=None):
+        return _run(self.flows, "forward", z, context, generator)
 
-    def inverse(self, z, context=None):
-        return _run(list(reversed(self.flows)), "inverse", z, context)
+    def inverse(self, z, context=None, generator=None):
+        return _run(list(reversed(self.flows)), "inverse", z, context,
+                    generator)
 
-    def init_data_forward(self, z, context=None):
-        return _run(self.flows, "init_data_forward", z, context)
+    def init_data_forward(self, z, context=None, generator=None):
+        return _run(self.flows, "init_data_forward", z, context, generator)
 
-    def init_data_inverse(self, z, context=None):
+    def init_data_inverse(self, z, context=None, generator=None):
         return _run(list(reversed(self.flows)), "init_data_inverse", z,
-                    context)
+                    context, generator)
 
 
-def _run(flows, method, z, context):
+def _run(flows, method, z, context, generator=None):
     """``method`` of each flow in turn, the log-dets summed from zero."""
     log_det_tot = zero_log_det_like_z(z)
     for flow in flows:
-        z, log_det = getattr(flow, method)(z, context=context)
+        z, log_det = getattr(flow, method)(z, context=context,
+                                           generator=generator)
         log_det_tot = log_det_tot + log_det
     return z, log_det_tot
 
@@ -133,33 +145,35 @@ class Scanned(Flow):
             out += open_composites(unit)
         return out
 
-    def _remat(self, method, z, context):
+    def _remat(self, method, z, context, generator):
         units = list(self.units)
         if method == "inverse":
             units.reverse()
         log_det_tot = zero_log_det_like_z(z)
         for unit in units:
             z, log_det = checkpoint(getattr(unit, method), z, context,
-                                    use_reentrant=False,
+                                    generator, use_reentrant=False,
                                     preserve_rng_state=False)
             log_det_tot = log_det_tot + log_det
         return z, log_det_tot
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         if self.remat and torch.is_grad_enabled():
-            return self._remat("forward", z, context)
-        return _run(self.layers(), "forward", z, context)
+            return self._remat("forward", z, context, generator)
+        return _run(self.layers(), "forward", z, context, generator)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         if self.remat and torch.is_grad_enabled():
-            return self._remat("inverse", z, context)
-        return _run(self.layers()[::-1], "inverse", z, context)
+            return self._remat("inverse", z, context, generator)
+        return _run(self.layers()[::-1], "inverse", z, context, generator)
 
-    def init_data_forward(self, z, context=None):
-        return _run(self.layers(), "init_data_forward", z, context)
+    def init_data_forward(self, z, context=None, generator=None):
+        return _run(self.layers(), "init_data_forward", z, context,
+                    generator)
 
-    def init_data_inverse(self, z, context=None):
-        return _run(self.layers()[::-1], "init_data_inverse", z, context)
+    def init_data_inverse(self, z, context=None, generator=None):
+        return _run(self.layers()[::-1], "init_data_inverse", z, context,
+                    generator)
 
 
 def open_scanned(flows):

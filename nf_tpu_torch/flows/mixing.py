@@ -40,10 +40,10 @@ class Permute(Flow):
             z = torch.cat([z[:, first:], z[:, :first]], dim=1)
         return z, torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         return self._permute(z, self.perm, self.num_channels // 2)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         return self._permute(z, self.inv_perm, (self.num_channels + 1) // 2)
 
 
@@ -118,10 +118,10 @@ class Invertible1x1Conv(Flow):
         log_det = log_det * (z.shape[2] * z.shape[3])
         return z_, torch.broadcast_to(log_det, (z.shape[0],)).to(z.dtype)
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         return self._mix(z, inverse=True)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         return self._mix(z, inverse=False)
 
 
@@ -135,11 +135,11 @@ class _Permutation(Flow):
                              torch.as_tensor(permutation, dtype=torch.int64))
         self.dim = dim
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         z_ = torch.index_select(z, self.dim, self._permutation)
         return z_, torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         z_ = torch.index_select(z, self.dim, torch.argsort(self._permutation))
         return z_, torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
 
@@ -229,7 +229,7 @@ class LULinear(Flow):
             setattr(new, name, None)
         return new
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         if self.cache_weight is not None:
             out = z @ self.cache_weight.T + self.bias
             ld = self.cache_logabsdet
@@ -239,7 +239,7 @@ class LULinear(Flow):
             ld = self.logabsdet()
         return out, torch.broadcast_to(ld, (z.shape[0],)).to(z.dtype)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         if self.cache_inverse is not None:
             out = (z - self.bias) @ self.cache_inverse.T
             ld = -self.cache_logabsdet
@@ -264,12 +264,16 @@ class LULinearPermute(Flow):
                                               generator=generator)
         self.linear = LULinear(num_channels)
 
-    def forward(self, z, context=None):
-        z, log_det = self.linear.inverse(z, context=context)
-        z, _ = self.permutation.inverse(z, context=context)
+    def forward(self, z, context=None, generator=None):
+        z, log_det = self.linear.inverse(
+            z, context=context, generator=generator)
+        z, _ = self.permutation.inverse(
+            z, context=context, generator=generator)
         return z, log_det
 
-    def inverse(self, z, context=None):
-        z, _ = self.permutation.forward(z, context=context)
-        z, log_det = self.linear.forward(z, context=context)
+    def inverse(self, z, context=None, generator=None):
+        z, _ = self.permutation.forward(
+            z, context=context, generator=generator)
+        z, log_det = self.linear.forward(
+            z, context=context, generator=generator)
         return z, log_det

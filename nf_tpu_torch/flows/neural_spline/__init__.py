@@ -7,12 +7,14 @@ from .coupling import (
 from .wrapper import (
     AutoregressiveRationalQuadraticSpline,
     CircularAutoregressiveRationalQuadraticSpline,
+    CircularCoupledRationalQuadraticSpline,
     CoupledRationalQuadraticSpline,
 )
 
 __all__ = [
     "AutoregressiveRationalQuadraticSpline",
     "CircularAutoregressiveRationalQuadraticSpline",
+    "CircularCoupledRationalQuadraticSpline",
     "CoupledRationalQuadraticSpline",
     "Coupling",
     "MaskedPiecewiseRationalQuadraticAutoregressive",

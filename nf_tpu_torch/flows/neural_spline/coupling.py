@@ -81,7 +81,7 @@ class Coupling(Flow):
         out[:, self.transform_features] = transform_split
         return out
 
-    def forward(self, inputs, context=None):
+    def forward(self, inputs, context=None, generator=None):
         identity_split, transform_split = self._split(inputs)
         transform_params = self._transform_params(identity_split, context)
         transform_split, logabsdet = self._coupling_transform_forward(
@@ -93,7 +93,7 @@ class Coupling(Flow):
         return self._scatter(inputs, identity_split, transform_split), \
             logabsdet
 
-    def inverse(self, inputs, context=None):
+    def inverse(self, inputs, context=None, generator=None):
         identity_split, transform_split = self._split(inputs)
         logabsdet = 0.0
         if self.unconditional_transform is not None:
@@ -181,10 +181,10 @@ class PiecewiseRationalQuadraticCDF(Flow):
                 inputs, uw, uh, ud, tails=tails, tail_bound=tb, **kw)
         return outputs, sum_except_batch(logabsdet)
 
-    def forward(self, inputs, context=None):
+    def forward(self, inputs, context=None, generator=None):
         return self._spline(inputs, inverse=False)
 
-    def inverse(self, inputs, context=None):
+    def inverse(self, inputs, context=None, generator=None):
         return self._spline(inputs, inverse=True)
 
 

@@ -44,9 +44,16 @@ def fused_head_wanted(device, n_elements):
 
 def fused_head_eligible(net, tails, tail_bound_arr, num_bins):
     """Static test for the fused head: the conditioner runs transposed and
-    carries a bin-major head whose row count is exactly the
-    homogeneous-tail effective layout; mixed per-feature tails stay on the
-    k-major feed (``feed.py:35``)."""
+    carries a bin-major head whose row count is the homogeneous-tail
+    effective layout, or the per-feature 3K+1 layout of homogeneous
+    per-feature tails (the circular coupling's transformed half); mixed
+    per-feature tails stay on the k-major feed.
+
+    The JAX package's test (``feed.py:35``) takes only the first: its
+    circular coupling runs the unfused feed. The 3K+1 head differs from
+    the effective one by derivative planes the tail padding overwrites
+    (:func:`slice_ud_planes`), so kernel B takes its other rows
+    (:func:`_effective_rows`) and computes what the unfused feed does."""
     homo = homogeneous_tails(tails)
     if homo is None:
         return False
@@ -54,7 +61,23 @@ def fused_head_eligible(net, tails, tail_bound_arr, num_bins):
     if head is None or not hasattr(net, "features_transposed"):
         return False
     _, mult = head
-    return mult == 2 * num_bins + _fused._dplanes(num_bins, homo)
+    return mult in (2 * num_bins + _fused._dplanes(num_bins, homo),
+                    3 * num_bins + 1)
+
+
+def _effective_rows(weight, bias, num_bins, feats, homo):
+    """A 3K+1 bin-major head's rows without the derivative planes the tail
+    padding overwrites (linear: the first and the last; circular: the
+    last), the rows of the homogeneous layout; any other head as it is.
+    Those planes get no gradient, as on the unfused feed."""
+    K, D = num_bins, feats
+    if weight.shape[0] != (3 * K + 1) * D:
+        return weight, bias
+    first = 1 if homo == "linear" else 0
+    rows = slice((2 * K + first) * D, (2 * K + first
+                                       + _fused._dplanes(K, homo)) * D)
+    return (torch.cat([weight[:2 * K * D], weight[rows]]),
+            torch.cat([bias[:2 * K * D], bias[rows]]))
 
 
 def fused_head_spline_feed(inputs, h_t, net, *, num_bins, tails, tail_bound,
@@ -63,9 +86,12 @@ def fused_head_spline_feed(inputs, h_t, net, *, num_bins, tails, tail_bound,
     """Kernel-B twin of :func:`kmajor_spline_feed`: ``(B, D)`` inputs and
     transposed hidden activations -> ``(outputs (B, D), log_det (B,))``."""
     homo = homogeneous_tails(tails)
+    weight, bias = _effective_rows(net.final_layer.weight,
+                                   net.final_layer.bias, num_bins,
+                                   inputs.shape[1], homo)
     w_eff, b_eff = _fused.effective_head(
-        net.final_layer.weight, net.final_layer.bias, num_bins=num_bins,
-        feats=inputs.shape[1], tails=homo, softmax_scale=softmax_scale)
+        weight, bias, num_bins=num_bins, feats=inputs.shape[1], tails=homo,
+        softmax_scale=softmax_scale)
     tb = tail_bound_arr if tail_bound_arr is not None else tail_bound
     y_t, ld_t = _fused.fused_head_rqs(
         inputs.T, h_t, w_eff, b_eff, num_bins=num_bins, tails=homo,

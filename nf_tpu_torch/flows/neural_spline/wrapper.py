@@ -1,5 +1,5 @@
-"""User-facing NSF layers: the coupling layer and the autoregressive ones
-(``nf_tpu/flows/neural_spline/wrapper.py:60-107,176-240``; reference
+"""User-facing NSF layers: the coupling layers and the autoregressive ones
+(``nf_tpu/flows/neural_spline/wrapper.py:60-240``; reference
 ``normflows/flows/neural_spline/wrapper.py``).
 
 Direction convention (reference ``wrapper.py:79-85``): the flow's
@@ -16,6 +16,7 @@ from ...nets.precision import MixedPrecision
 from ...nets.resnet import ResidualNet
 from ...ops.splines import DEFAULT_MIN_DERIVATIVE, linear_tail_constant
 from ...utils.masks import create_alternating_binary_mask
+from ...utils.nn import PeriodicFeaturesElementwise
 from ..base import Flow
 from .autoregressive import MaskedPiecewiseRationalQuadraticAutoregressive
 from .coupling import PiecewiseRationalQuadraticCoupling, split_mask
@@ -86,11 +87,82 @@ class CoupledRationalQuadraticSpline(Flow):
             # True corresponds to eqs (4)-(6) in the NSF paper
             apply_unconditional_transform=True, dtype=dtype)
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         z, log_det = self.prqct.inverse(z, context=context)
         return z, log_det.reshape(-1)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
+        z, log_det = self.prqct.forward(z, context=context)
+        return z, log_det.reshape(-1)
+
+
+class CircularCoupledRationalQuadraticSpline(Flow):
+    """NSF coupling layer with circular coordinates
+    (``nf_tpu/flows/neural_spline/wrapper.py:110-173``; reference
+    ``wrapper.py:88-183``): circular tails on the features of
+    ``ind_circ``, linear on the rest, and the conditioner sees the
+    identity half's circular features as ``PeriodicFeaturesElementwise``
+    (scale ``pi / tail_bound`` of each). ``mask`` overrides the
+    alternating mask ``reverse_mask`` picks.
+
+    Where the transformed half's tails are homogeneous (dim 2: the one
+    transformed feature), the ResidualNet carries a bin-major head with
+    the per-feature 3K+1 row count, and on CUDA at B*D >= 4096 the
+    coupling takes kernel B (kernel E in the backward) at those tails,
+    circular ones included; the identity half's CDF takes kernel A
+    (kernel C). ``dropout_probability`` is not ported, as in the other
+    wrappers."""
+
+    def __init__(self, num_input_channels, num_blocks, num_hidden_channels,
+                 ind_circ, num_context_channels=None, num_bins=8,
+                 tail_bound=3.0, activation=F.relu, reverse_mask=False,
+                 mask=None, init_identity=True, mixed_precision=False,
+                 bin_major_head=True, generator=None, dtype=torch.float32):
+        super().__init__()
+        if mask is None:
+            mask = create_alternating_binary_mask(num_input_channels,
+                                                  even=reverse_mask)
+        mask = np.asarray(mask)
+        identity_features, _ = split_mask(mask)
+        ind_circ = [int(i) for i in ind_circ]
+        ind_circ_id = [i for i, f in enumerate(identity_features)
+                       if f in ind_circ]
+        if np.isscalar(tail_bound):
+            scale_pf = np.pi / tail_bound
+        else:
+            scale_pf = np.pi / np.asarray(tail_bound)[
+                np.asarray(identity_features, dtype=np.int64)[ind_circ_id]]
+        tails = ["circular" if i in ind_circ else "linear"
+                 for i in range(num_input_channels)]
+        head = _head_splits(mask, num_bins, tails) if bin_major_head \
+            else None
+
+        def transform_net_create_fn(in_features, out_features):
+            pf = (PeriodicFeaturesElementwise(in_features, ind_circ_id,
+                                              scale_pf, dtype=dtype)
+                  if ind_circ_id else None)
+            net = ResidualNet(
+                in_features, out_features, num_hidden_channels,
+                context_features=num_context_channels,
+                num_blocks=num_blocks, activation=activation,
+                bin_major_head=head, preprocessing=pf, generator=generator,
+                dtype=dtype)
+            if init_identity:
+                net = _identity_init_resnet(net)
+            if mixed_precision:
+                net = MixedPrecision(net)
+            return net
+
+        self.prqct = PiecewiseRationalQuadraticCoupling(
+            mask, transform_net_create_fn, num_bins=num_bins, tails=tails,
+            tail_bound=tail_bound, apply_unconditional_transform=True,
+            dtype=dtype)
+
+    def forward(self, z, context=None, generator=None):
+        z, log_det = self.prqct.inverse(z, context=context)
+        return z, log_det.reshape(-1)
+
+    def inverse(self, z, context=None, generator=None):
         z, log_det = self.prqct.forward(z, context=context)
         return z, log_det.reshape(-1)
 
@@ -117,11 +189,11 @@ class AutoregressiveRationalQuadraticSpline(Flow):
             init_identity=init_identity, mixed_precision=mixed_precision,
             bin_major_head=bin_major_head, generator=generator, dtype=dtype)
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         z, log_det = self.mprqat.inverse(z, context=context)
         return z, log_det.reshape(-1)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         z, log_det = self.mprqat.forward(z, context=context)
         return z, log_det.reshape(-1)
 

@@ -53,10 +53,10 @@ class ActNorm(AffineConstFlow):
                 self.t.copy_(-mean * torch.exp(s))
             self.data_dep_init_done.fill_(1.0)
 
-    def init_data_forward(self, z, context=None):
+    def init_data_forward(self, z, context=None, generator=None):
         self._init(z, inverse=False)
-        return self.forward(z, context=context)
+        return self.forward(z, context=context, generator=generator)
 
-    def init_data_inverse(self, z, context=None):
+    def init_data_inverse(self, z, context=None, generator=None):
         self._init(z, inverse=True)
-        return self.inverse(z, context=context)
+        return self.inverse(z, context=context, generator=generator)

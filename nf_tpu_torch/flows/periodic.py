@@ -28,10 +28,10 @@ class PeriodicWrap(Flow):
         self.register_buffer("bound", torch.broadcast_to(
             torch.as_tensor(bound, dtype=dtype), ind.shape).clone())
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         return z, zero_log_det_like_z(z)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         out = z.clone()
         out[..., self.ind] = _wrap(z[..., self.ind], self.bound)
         return out, zero_log_det_like_z(z)
@@ -50,12 +50,12 @@ class PeriodicShift(Flow):
         self.register_buffer("shift", torch.broadcast_to(
             torch.as_tensor(shift, dtype=dtype), ind.shape).clone())
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         out = z.clone()
         out[..., self.ind] = _wrap(z[..., self.ind] + self.shift, self.bound)
         return out, zero_log_det_like_z(z)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         out = z.clone()
         out[..., self.ind] = _wrap(z[..., self.ind] - self.shift, self.bound)
         return out, zero_log_det_like_z(z)

@@ -72,10 +72,10 @@ class Split(Flow):
             cb = (k % 2) == (1 - s % 2)
         return torch.where(cb, z1r, z2r)
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         return self._split(z), zero_log_det_like_z(z)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         z1, z2 = z
         return self._merge(z1, z2), zero_log_det_like_z(z1)
 
@@ -84,11 +84,11 @@ class Merge(Split):
     """Split with forward and inverse interchanged (reference
     ``reshape.py:87``)."""
 
-    def forward(self, z, context=None):
-        return super().inverse(z, context=context)
+    def forward(self, z, context=None, generator=None):
+        return super().inverse(z, context=context, generator=generator)
 
-    def inverse(self, z, context=None):
-        return super().forward(z, context=context)
+    def inverse(self, z, context=None, generator=None):
+        return super().forward(z, context=context, generator=generator)
 
 
 class Squeeze(Flow):
@@ -96,13 +96,13 @@ class Squeeze(Flow):
     ``reshape.py:103-128``), NCHW. As in the reference, the *inverse* is
     the squeeze (the density direction) and ``forward`` the unsqueeze."""
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         # channel-to-space: (B, 4C, H, W) -> (B, C, 2H, 2W)
         b, c4, h, w = z.shape
         z = z.reshape(b, c4 // 4, 2, 2, h, w).permute(0, 1, 4, 2, 5, 3)
         return z.reshape(b, c4 // 4, 2 * h, 2 * w), zero_log_det_like_z(z)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         # space-to-channel: (B, C, H, W) -> (B, 4C, H/2, W/2)
         b, c, h, w = z.shape
         z = z.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 1, 3, 5, 2, 4)

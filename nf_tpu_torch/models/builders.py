@@ -1,7 +1,9 @@
-"""Model builders (``nf_tpu/models/builders.py``): :func:`build_realnvp`,
-:func:`build_nsf`, :func:`build_circular_nsf`,
-:func:`build_conditional_nsf`, :func:`build_maf`, and the image models
-:func:`build_image_nsf` and :func:`build_glow_multiscale`.
+"""Model builders (``nf_tpu/models/builders.py``), all ten of the JAX
+package's: :func:`build_realnvp`, :func:`build_planar_stack`,
+:func:`build_radial_stack`, :func:`build_nsf`, :func:`build_circular_nsf`,
+:func:`build_conditional_nsf`, :func:`build_maf`, :func:`build_residual`,
+and the image models :func:`build_image_nsf` and
+:func:`build_glow_multiscale`.
 
 Weights are drawn on the host from ``torch.Generator().manual_seed(seed)``
 and moved to ``device`` (None: CUDA, raising if it is absent)."""
@@ -15,7 +17,7 @@ from .. import core
 from .. import distributions as dist
 from .. import flows as nff
 from .._device import resolve_device
-from ..nets import MLP, ConvResidualNet, MixedPrecision
+from ..nets import MLP, ConvResidualNet, LipschitzMLP, MixedPrecision
 from ..transforms import Logit
 from ..utils.masks import create_alternating_binary_mask
 
@@ -55,6 +57,27 @@ def build_realnvp(dim=2, K=64, hidden=None, target=None,
     q0 = dist.DiagGaussian(dim, trainable=trainable_base)
     return core.NormalizingFlow(q0, flows, p=target or dist.TwoModes()) \
         .to(dev)
+
+
+def build_planar_stack(dim=2, K=16, target=None, device=None, seed=0):
+    """K ``Planar`` layers (tanh) over a trainable ``DiagGaussian``, for
+    reverse-KLD training (``builders.py:60-65``; reference
+    ``examples/planar.ipynb``). Sampling only: tanh has no inverse."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    flows = [nff.Planar((dim,), generator=gen) for _ in range(K)]
+    q0 = dist.DiagGaussian(dim, trainable=True)
+    return core.NormalizingFlow(q0, flows, p=target).to(dev)
+
+
+def build_radial_stack(dim=2, K=16, target=None, device=None, seed=0):
+    """K ``Radial`` layers over a trainable ``DiagGaussian``
+    (``builders.py:68-73``): forward only, for reverse-KLD training."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    flows = [nff.Radial((dim,), generator=gen) for _ in range(K)]
+    q0 = dist.DiagGaussian(dim, trainable=True)
+    return core.NormalizingFlow(q0, flows, p=target).to(dev)
 
 
 def build_nsf(dim=2, K=8, hidden=128, num_bins=8, num_blocks=2,
@@ -159,6 +182,34 @@ def build_maf(dim=2, K=8, hidden=64, num_blocks=2, target=None, device=None,
             dim, hidden, num_blocks=num_blocks,
             mixed_precision=mixed_precision, generator=gen))
         flows.append(nff.Permute(dim, generator=gen))
+    q0 = dist.DiagGaussian(dim, trainable=False)
+    return core.NormalizingFlow(q0, flows, p=target).to(dev)
+
+
+def build_residual(dim=2, K=16, hidden=128, n_hidden_layers=3,
+                   lipschitz_const=0.9, reduce_memory=False, target=None,
+                   actnorm=True, device=None, seed=0):
+    """Residual flow (``builders.py:156-173``; reference
+    ``examples/residual.ipynb`` cell 1): K ``Residual`` blocks over
+    ``LipschitzMLP([dim, hidden x n_hidden_layers, dim])`` nets with
+    Lipschitz constant ``lipschitz_const``, each followed by an
+    ``ActNorm``, over a fixed ``DiagGaussian``. ``reduce_memory=False``
+    (the default) takes the basic estimator; ``True`` the Neumann one,
+    checkpointed. Its ``log_prob`` / ``forward_kld`` take a ``generator``
+    (or :func:`~nf_tpu_torch.flows.set_exact_logdet` for the exact 2D
+    log-det); train it with ``make_forward_kld_step(with_key=True,
+    post_update=lambda m: update_lipschitz(m, n))``. No port kernel runs:
+    the flow is products, their vector-Jacobian products and elementwise
+    glue."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    flows = []
+    for _ in range(K):
+        net = LipschitzMLP([dim] + [hidden] * n_hidden_layers + [dim],
+                           lipschitz_const=lipschitz_const, generator=gen)
+        flows.append(nff.Residual(net, reduce_memory=reduce_memory))
+        if actnorm:
+            flows.append(nff.ActNorm(dim))
     q0 = dist.DiagGaussian(dim, trainable=False)
     return core.NormalizingFlow(q0, flows, p=target).to(dev)
 

@@ -1,4 +1,11 @@
 from .cnn import Conv2d, ConvNet2d
+from .lipschitz import (
+    InducedNormConv2d,
+    InducedNormLinear,
+    LipschitzCNN,
+    LipschitzMLP,
+    Swish,
+)
 from .made import (
     MADE,
     MaskedFeedforwardBlock,
@@ -15,6 +22,7 @@ from .resnet import (
 )
 
 __all__ = ["Conv2d", "ConvNet2d", "ConvResidualBlock", "ConvResidualNet",
-           "Linear", "MADE", "MLP", "MaskedFeedforwardBlock", "MaskedLinear",
-           "MaskedResidualBlock", "MixedPrecision", "ResidualBlock",
-           "ResidualNet"]
+           "InducedNormConv2d", "InducedNormLinear", "LipschitzCNN",
+           "LipschitzMLP", "Linear", "MADE", "MLP", "MaskedFeedforwardBlock",
+           "MaskedLinear", "MaskedResidualBlock", "MixedPrecision",
+           "ResidualBlock", "ResidualNet", "Swish"]

@@ -71,14 +71,21 @@ class ResidualNet(nn.Module):
     (row ``p*D + d``), which is the spline kernels' ``(K, N)`` plane
     layout. The reference orders rows feature-major (row ``d*mult + p``);
     ``compat.load_reference_state_dict`` permutes the final layer's rows.
+
+    ``preprocessing``: a module applied to the inputs before the trunk
+    (``nf_tpu/nets/resnet.py:179-180``; the circular coupling's
+    ``PeriodicFeaturesElementwise``), in ``forward`` and in
+    ``features_transposed`` alike; ``in_features`` counts its outputs.
     """
 
     def __init__(self, in_features, out_features, hidden_features,
                  context_features=None, num_blocks=2,
                  activation: Callable = F.relu,
-                 bin_major_head: Optional[tuple] = None, generator=None,
+                 bin_major_head: Optional[tuple] = None,
+                 preprocessing: Optional[nn.Module] = None, generator=None,
                  dtype=torch.float32):
         super().__init__()
+        self.preprocessing = preprocessing
         if bin_major_head is not None:
             feats, mult = bin_major_head
             if feats * mult != out_features:
@@ -100,7 +107,8 @@ class ResidualNet(nn.Module):
                                   generator=generator, dtype=dtype)
 
     def forward(self, inputs, context=None):
-        temps = inputs
+        temps = inputs if self.preprocessing is None \
+            else self.preprocessing(inputs)
         if context is not None:
             temps = torch.cat([temps, context], dim=1)
         temps = self.initial_layer(temps)
@@ -114,8 +122,12 @@ class ResidualNet(nn.Module):
         """Hidden activations before the final layer, feature-major
         ``(hidden, batch)``: the trunk runs transposed, and the fused
         head+spline kernel (``ops.spline_head_fused``) computes the final
-        layer's product itself."""
-        temps_t = inputs.T
+        layer's product itself. The preprocessing (periodic features of
+        a circular coupling's angles) runs on the ``(batch, features)``
+        input, before the one small transpose."""
+        temps = inputs if self.preprocessing is None \
+            else self.preprocessing(inputs)
+        temps_t = temps.T
         context_t = context.T if context is not None else None
         if context_t is not None:
             temps_t = torch.cat([temps_t, context_t], dim=0)

@@ -28,9 +28,12 @@ def launch_counts():
 
 
 def reset_launch_counts():
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0 (kernels B's and E's counts
+    at circular tails too)."""
     for fn in _counted_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "circular_launches"):
+            fn.circular_launches = 0
 
 
 __all__ = [

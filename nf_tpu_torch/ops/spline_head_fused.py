@@ -28,7 +28,8 @@ Beside the kernels:
   (kernel B forward, kernel E backward) or raise, CPU -> the plain version;
 * ``fused_head_rqs.launches`` and ``fused_head_rqs_bwd.launches``, the
   counts of launches, kept on the host (a CUDA graph adds to them once,
-  at its capture);
+  at its capture), and ``circular_launches`` of each, those of them at
+  circular tails;
 * :func:`effective_head` and :func:`_build_d_list`, ported from the JAX
   module (:329, :93).
 """
@@ -208,6 +209,7 @@ def _launch(x_t, h_t, w, b, tb, *, num_bins, tails, inverse, mbw, mbh, md):
         raise RuntimeError(
             f"head_rqs_fwd kernel launch failed: CUDA error {err}")
     fused_head_rqs.launches += 1
+    fused_head_rqs.circular_launches += tails == "circular"
     return y, ld
 
 
@@ -301,6 +303,7 @@ def _launch_bwd(x_t, h_t, w, b, tb, cty, ctl, *, num_bins, tails, inverse,
         raise RuntimeError(
             f"head_rqs_bwd kernel launch failed: CUDA error {err}")
     fused_head_rqs_bwd.launches += 1
+    fused_head_rqs_bwd.circular_launches += tails == "circular"
     return gx, gh, gw, gb
 
 
@@ -410,3 +413,6 @@ def fused_head_rqs(
 
 fused_head_rqs.launches = 0
 fused_head_rqs_bwd.launches = 0
+# of those, the launches at circular tails
+fused_head_rqs.circular_launches = 0
+fused_head_rqs_bwd.circular_launches = 0

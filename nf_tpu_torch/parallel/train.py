@@ -31,7 +31,17 @@ batch into the graph's input and replays. A captured step needs:
   change raises;
 * for the reverse step, the generator of its first call, registered with
   the graph (another one raises); ``beta_schedule(state.step)`` is
-  written into a device scalar before each replay.
+  written into a device scalar before each replay;
+* for a keyed forward step (``with_key=True``), nothing: the step draws
+  from a CUDA generator of its own, registered with the graph and
+  reseeded with the call's integer seed before each replay, so a seed
+  gives the draws of the eager step with that seed.
+
+``post_update(model)`` (``update_lipschitz`` for residual flows) runs
+after the optimizer's update, inside the step and so inside the graph, as
+the JAX package runs it inside the jitted step; it changes the model in
+place (a residual flow's power-iteration buffers, written at their
+addresses).
 
 A capture that fails raises; nothing runs eagerly in its place. On the
 CPU the steps are eager. ``step.eager`` is the uncaptured step, and
@@ -39,9 +49,8 @@ CPU the steps are eager. ``step.eager`` is the uncaptured step, and
 capture.
 
 Not ported yet: meshes, state shardings, donation and ``shard_batch``
-(the ``parallel/`` item, on ``torch.distributed``); keyed losses,
-``post_update`` and carried buffers (the residual-flow slice). Those
-arguments raise.
+(the ``parallel/`` item, on ``torch.distributed``); those arguments
+raise.
 """
 
 from __future__ import annotations
@@ -73,10 +82,16 @@ class TrainState:
     ema: Optional[nn.Module] = None
 
 
-def init_train_state(model, optimizer, with_ema=False):
+def init_train_state(model, optimizer, with_ema=False, carry_buffers=False):
     """Wrap ``model`` and ``optimizer`` in a :class:`TrainState`;
     ``with_ema=True`` adds a frozen copy of the model for the EMA that a
-    step factory built with ``ema_decay`` updates (``train.py:63``)."""
+    step factory built with ``ema_decay`` updates (``train.py:63``).
+
+    ``carry_buffers`` is taken for parity and changes nothing: the JAX
+    package threads the buffers through its state so that a
+    ``post_update`` keeps its changes; the port's buffers live in the
+    model, which a step changes in place."""
+    del carry_buffers
     ema = copy.deepcopy(model).requires_grad_(False) if with_ema else None
     return TrainState(model=model, optimizer=optimizer, ema=ema)
 
@@ -177,18 +192,40 @@ def _default_loss(model, batch):
     return model.forward_kld(batch)
 
 
-def _no_post_update(post_update):
-    if post_update is not None:
-        raise NotImplementedError(
-            "post_update (e.g. update_lipschitz) arrives with the "
-            "residual-flow slice of the port")
+def _default_keyed_loss(model, batch, generator):
+    if isinstance(batch, (tuple, list)):
+        return model.forward_kld(*batch, generator=generator)
+    return model.forward_kld(batch, generator=generator)
+
+
+class _StepGenerators:
+    """A keyed step's own generator per device, reseeded per call."""
+
+    def __init__(self):
+        self.by_device = {}
+
+    def get(self, device):
+        device = torch.device(device)
+        if device not in self.by_device:
+            self.by_device[device] = torch.Generator(device=device)
+        return self.by_device[device]
+
+    def seeded(self, state, seed):
+        if isinstance(seed, bool) or not isinstance(seed, int):
+            raise TypeError(f"a keyed step takes an integer seed, got "
+                            f"{type(seed).__name__}")
+        gen = self.get(next(state.model.parameters()).device)
+        gen.manual_seed(seed)
+        return gen
 
 
 def _step_body(state, optimizer, loss_of, accum_steps, ema_decay,
-               skip_nonfinite):
+               skip_nonfinite, post_update=None):
     """The update both steps share: ``loss_of(model, i)`` is microbatch
     i's loss; their gradients are averaged over ``accum_steps`` before one
-    optimizer update, then the EMA and the non-finite guard."""
+    optimizer update, then ``post_update``, the EMA and the non-finite
+    guard (which also restores the float buffers ``post_update`` may have
+    changed)."""
     if state.optimizer is not optimizer:
         raise ValueError("state.optimizer is not the optimizer this step "
                          "was built with")
@@ -220,17 +257,24 @@ def _step_body(state, optimizer, loss_of, accum_steps, ema_decay,
         loss = loss.detach()
 
     ema = list(state.ema.parameters()) if ema_decay is not None else []
+    buffers = ([b for b in model.buffers() if b.is_floating_point()]
+               if post_update is not None else [])
     if skip_nonfinite:
         ok = _all_finite(loss, [p.grad for p in params])
         with torch.no_grad():
-            old_params = [p.detach().clone() for p in params + ema]
+            old_params = [p.detach().clone() for p in params + ema + buffers]
             old_state = {k: v.clone() for k, v in
                          _state_tensors(optimizer, params).items()}
     optimizer.step()
+    if post_update is not None:
+        out = post_update(model)
+        if out is not None and out is not model:
+            raise ValueError("post_update must change the model in place "
+                             "(it returned another object)")
     if ema_decay is not None:
         _ema_update(ema, list(model.parameters()), ema_decay)
     if skip_nonfinite:
-        pairs = list(zip(params + ema, old_params))
+        pairs = list(zip(params + ema + buffers, old_params))
         for k, v in _state_tensors(optimizer, params).items():
             old = old_state.get(k)
             pairs.append((v, old if old is not None
@@ -250,6 +294,17 @@ def make_forward_kld_step(optimizer, loss_fn: Optional[Callable] = None,
     ``loss_fn(model, batch) -> scalar`` defaults to
     ``model.forward_kld(x)``, with ``batch`` a tensor ``x`` or a tuple
     ``(x, context)``. ``state.optimizer`` must be ``optimizer``.
+
+    ``with_key=True`` (models with stochastic log-dets: residual flows):
+    the step is ``step(state, batch, seed)`` with an integer ``seed``, and
+    the loss ``loss_fn(model, batch, generator)`` /
+    ``model.forward_kld(x, generator=generator)``, ``generator`` the
+    step's own on the model's device, seeded with ``seed`` at the start of
+    the step (the JAX package's ``key``; its microbatches fold the key in,
+    here they draw from the generator in turn).
+
+    ``post_update(model)``: runs after the optimizer's update, in place
+    (e.g. ``lambda m: update_lipschitz(m, 50)``).
 
     ``accum_steps > 1``: the batch arrives as ``(accum_steps, micro, ...)``
     (:func:`reshape_for_accum`); the loss and gradients are averaged over
@@ -273,23 +328,27 @@ def make_forward_kld_step(optimizer, loss_fn: Optional[Callable] = None,
     eager calls at that shape (the module's notes say what a captured
     step needs).
     """
-    _no_post_update(post_update)
-    if with_key:
-        raise NotImplementedError(
-            "keyed losses (stochastic log-det estimators) arrive with the "
-            "residual-flow slice of the port")
     if loss_fn is None:
-        loss_fn = _default_loss
+        loss_fn = _default_loss if not with_key else _default_keyed_loss
 
-    def eager(state: TrainState, batch):
+    def body(state: TrainState, batch, generator=None):
         def loss_of(model, i):
-            return loss_fn(model, _microbatch(batch, i)
-                           if accum_steps > 1 else batch)
+            mb = _microbatch(batch, i) if accum_steps > 1 else batch
+            return (loss_fn(model, mb, generator) if with_key
+                    else loss_fn(model, mb))
 
         return _step_body(state, optimizer, loss_of, accum_steps, ema_decay,
-                          skip_nonfinite)
+                          skip_nonfinite, post_update)
 
-    return _ForwardStep(optimizer, eager)
+    if not with_key:
+        return _ForwardStep(optimizer, body)
+    generators = _StepGenerators()
+
+    def eager(state: TrainState, batch, seed):
+        return body(state, batch, generators.seeded(state, seed))
+
+    return _ForwardStep(optimizer, eager, keyed_body=body,
+                        generators=generators)
 
 
 def make_reverse_kld_step(optimizer, num_samples: int, beta_schedule=None,
@@ -310,15 +369,14 @@ def make_reverse_kld_step(optimizer, num_samples: int, beta_schedule=None,
     of samples per step at less activation memory. ``ema_decay`` and
     ``skip_nonfinite`` as in :func:`make_forward_kld_step`.
 
-    ``mesh``, ``donate`` and ``post_update`` raise: the sharded step
-    arrives with the port's ``torch.distributed`` item, ``post_update``
-    with the residual-flow slice.
+    ``post_update(model)`` as in :func:`make_forward_kld_step`. ``mesh``
+    and ``donate`` raise: the sharded step arrives with the port's
+    ``torch.distributed`` item.
 
     On CUDA the step runs as one CUDA graph after two eager calls; every
     call must pass the generator of the first (the graph draws from it,
     registered at the capture).
     """
-    _no_post_update(post_update)
     if mesh is not None or donate:
         raise NotImplementedError(
             "meshes and donation arrive with the port's torch.distributed "
@@ -338,7 +396,7 @@ def make_reverse_kld_step(optimizer, num_samples: int, beta_schedule=None,
             state, optimizer,
             lambda model, i: model.reverse_kld(
                 micro, beta=beta, score_fn=score_fn, generator=generator),
-            accum_steps, ema_decay, skip_nonfinite)
+            accum_steps, ema_decay, skip_nonfinite, post_update)
 
     return _ReverseStep(optimizer, eager, beta_schedule)
 
@@ -440,6 +498,9 @@ class _GraphedStep:
     def _captured(self, entry, state):
         raise NotImplementedError()
 
+    def _before_replay(self, entry, state, args):
+        pass
+
     def __call__(self, state, *args):
         device = next(state.model.parameters()).device
         if device.type != "cuda":
@@ -485,6 +546,7 @@ class _GraphedStep:
                     "addresses); build a new step")
             self._load(entry, state, args, first=False)
             state.step += 1
+        self._before_replay(entry, state, args)
         entry.graph.replay()
         return entry.loss.clone()
 
@@ -504,11 +566,27 @@ def _batch_tensors(batch):
 
 class _ForwardStep(_GraphedStep):
     """``step(state, batch)``: a graph per batch shape, whose input the
-    batch is copied into."""
+    batch is copied into; keyed, ``step(state, batch, seed)``, the graph
+    registered with the step's generator, reseeded before each replay."""
+
+    def __init__(self, optimizer, eager, keyed_body=None, generators=None):
+        super().__init__(optimizer, eager)
+        self.keyed_body = keyed_body
+        self.generators = generators
 
     def _key(self, args):
         return tuple((tuple(t.shape), t.dtype, t.device)
                      for t in _batch_tensors(args[0]))
+
+    def _new(self, state, args):
+        if self.generators is None:
+            return _Graph(state)
+        return _Graph(state, generator=self.generators.get(
+            next(state.model.parameters()).device))
+
+    def _before_replay(self, entry, state, args):
+        if self.generators is not None:
+            self.generators.seeded(state, args[1])
 
     def _load(self, entry, state, args, first):
         parts = _batch_tensors(args[0])
@@ -523,6 +601,8 @@ class _ForwardStep(_GraphedStep):
                 dst.copy_(src)
 
     def _captured(self, entry, state):
+        if self.keyed_body is not None:
+            return self.keyed_body(state, entry.batch, entry.generator)
         return self.eager(state, entry.batch)
 
 

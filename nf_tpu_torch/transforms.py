@@ -23,7 +23,7 @@ class Logit(Flow):
         super().__init__()
         self.alpha = alpha
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         beta = 1 - 2 * self.alpha
         ls = sum_except_batch(F.logsigmoid(z))
         mls = sum_except_batch(F.logsigmoid(-z))
@@ -31,7 +31,7 @@ class Logit(Flow):
         log_det = -math.log(beta) * d + ls + mls
         return (torch.sigmoid(z) - self.alpha) / beta, log_det
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         beta = 1 - 2 * self.alpha
         z = self.alpha + beta * z
         logz = torch.log(z)
@@ -50,8 +50,8 @@ class Shift(Flow):
         super().__init__()
         self.shift = shift
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, generator=None):
         return z - self.shift, zero_log_det_like_z(z)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, generator=None):
         return z + self.shift, zero_log_det_like_z(z)

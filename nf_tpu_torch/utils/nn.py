@@ -77,3 +77,26 @@ class PeriodicFeaturesElementwise(nn.Module):
             x = self.activation(x)
         out = torch.cat([x, inputs[..., self.ind_]], dim=-1)
         return out[..., self.inv_perm]
+
+
+class PeriodicFeaturesCat(nn.Module):
+    """Replace the circular coordinates f with ``[sin(s*f), cos(s*f)]``
+    concatenated (``nf_tpu/utils/nn.py:82-103``; reference
+    ``utils/nn.py:133-178``): ``ndim + len(ind)`` output features, ordered
+    ``[sin, cos, the other features]``. No parameters; the buffers
+    ``scale``, ``ind`` and ``ind_`` carry the reference's names."""
+
+    def __init__(self, ndim, ind, scale=1.0, dtype=torch.float32):
+        super().__init__()
+        ind_a, other, _ = complement_indices(ndim, ind)
+        self.ndim = ndim
+        scale = torch.broadcast_to(torch.as_tensor(scale, dtype=dtype),
+                                   (len(ind_a),)).clone()
+        self.register_buffer("scale", scale)
+        self.register_buffer("ind", torch.tensor(ind_a, dtype=torch.int64))
+        self.register_buffer("ind_", torch.tensor(other, dtype=torch.int64))
+
+    def forward(self, inputs):
+        x = inputs[..., self.ind] * self.scale
+        return torch.cat([torch.sin(x), torch.cos(x), inputs[..., self.ind_]],
+                         dim=-1)

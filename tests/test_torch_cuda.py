@@ -1004,6 +1004,86 @@ def test_captured_step_raises_on_a_loaded_optimizer_state(cuda):
         step(state, gen)
 
 
+def _residual(cuda):
+    """A small ``build_residual`` (K 2, nets [2, 16, 16, 2]) on the card,
+    perturbed, its power iterations advanced on the new weights."""
+    from nf_tpu_torch.utils import update_lipschitz
+
+    model = nt.build_residual(K=2, hidden=16, n_hidden_layers=2)
+    rng = np.random.default_rng(7)
+    with torch.no_grad():
+        for p in model.parameters():
+            noise = np.asarray(rng.standard_normal(tuple(p.shape)) * 0.2,
+                               dtype=np.float32)
+            p.add_(torch.from_numpy(noise).to(p.device))
+    return update_lipschitz(model, 200)
+
+
+def _keyed_step(opt):
+    from nf_tpu_torch.utils import update_lipschitz
+
+    return nt.make_forward_kld_step(
+        opt, with_key=True, post_update=lambda m: update_lipschitz(m, 5))
+
+
+def test_captured_keyed_residual_step_matches_eager(cuda):
+    """The residual forward-KLD step with ``with_key`` (its probes and
+    series lengths from the step's generator, registered with the graph)
+    and ``post_update`` (the power iteration inside the graph): five
+    captured steps against five eager ones on the same seeds, the loss,
+    the parameters and the buffers ``u`` and ``v``."""
+    base = _residual(cuda)
+    models = [copy.deepcopy(base) for _ in range(2)]
+    opts = [_adam(m, weight_decay=1e-5) for m in models]
+    states = [nt.init_train_state(m, o) for m, o in zip(models, opts)]
+    graphed, eager = _keyed_step(opts[0]), _keyed_step(opts[1]).eager
+    rng = np.random.default_rng(8)
+    for i in range(5):
+        x = _normal(rng, (512, 2), 1.5).to(cuda)
+        lg, le = graphed(states[0], x, 100 + i), eager(states[1], x, 100 + i)
+        torch.testing.assert_close(lg, le, atol=STEP_TOL, rtol=0)
+    for a, b in zip(models[0].state_dict().values(),
+                    models[1].state_dict().values()):
+        torch.testing.assert_close(a, b, atol=STEP_TOL, rtol=0)
+    assert not any(graphed.launches.values())
+
+
+def test_captured_step_with_post_update_raises_on_a_loaded_optimizer_state(
+        cuda):
+    model = _residual(cuda)
+    opt = _adam(model)
+    state = nt.init_train_state(model, opt)
+    step = _keyed_step(opt)
+    x = torch.zeros((256, 2), device=cuda)
+    for i in range(3):
+        step(state, x, i)
+    opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+    with pytest.raises(RuntimeError, match="state tensors were replaced"):
+        step(state, x, 3)
+
+
+def test_residual_graphs_match_eager(cuda):
+    """Under the exact 2D log-det: the captured ``log_prob`` against eager
+    and the sampler (its fixed point a masked fixed count) bitwise against
+    eager, every layer's fixed point converged within the count."""
+    from nf_tpu_torch import flows as tflows
+
+    model = tflows.set_exact_logdet(_residual(cuda))
+    x = _normal(np.random.default_rng(9), (3000, 2), 1.5).to(cuda)
+    lp_fn = nt.compile_log_prob(model, (3000, 2))
+    with torch.no_grad():
+        want = model.log_prob(x)
+    torch.testing.assert_close(lp_fn(x), want, atol=1e-6, rtol=0)
+    sampler = nt.compile_sampler(model, 3000)
+    z, log_q = sampler(5)
+    with torch.no_grad():
+        ze, lqe = model.sample(3000, generator=torch.Generator(
+            "cuda").manual_seed(5))
+    assert torch.equal(z, ze) and torch.equal(log_q, lqe)
+    stats = tflows.fixed_point_stats(sampler._compiled.weights.model)
+    assert len(stats) == 2 and not any(s[2] for s in stats)
+
+
 def _chip_smoke():
     """``chip_smoke.py`` at the repository root, as a module."""
     import importlib.util

@@ -254,8 +254,10 @@ def test_cpu_step_launches_no_kernel_and_refuses_what_waits():
         nt.make_reverse_kld_step(opt, num_samples=32, mesh=object())
     with pytest.raises(NotImplementedError, match="torch.distributed"):
         nt.make_reverse_kld_step(opt, num_samples=32, donate=True)
-    with pytest.raises(NotImplementedError, match="residual-flow"):
+    # post_update changes the model in place: another model is refused
+    with pytest.raises(ValueError, match="in place"):
         nt.make_reverse_kld_step(opt, num_samples=32,
-                                 post_update=lambda x: x)
+                                 post_update=copy.deepcopy)(
+            nt.init_train_state(m, opt), torch.Generator().manual_seed(2))
     with pytest.raises(ValueError, match="divide"):
         nt.make_reverse_kld_step(opt, num_samples=30, accum_steps=4)

@@ -267,11 +267,15 @@ def test_reshape_for_accum_validates():
 def test_step_refuses_what_waits_for_later_slices():
     model = _port_model()
     opt = torch.optim.SGD(model.parameters(), lr=1e-2)
-    with pytest.raises(NotImplementedError, match="residual-flow"):
-        nt.make_forward_kld_step(opt, post_update=lambda m: m)
-    with pytest.raises(NotImplementedError, match="residual-flow"):
-        nt.make_forward_kld_step(opt, with_key=True)
     state = nt.init_train_state(model, opt)
+    # post_update changes the model in place: another model is refused
+    with pytest.raises(ValueError, match="in place"):
+        nt.make_forward_kld_step(opt, post_update=copy.deepcopy)(
+            state, _twomoons(8))
+    # a keyed step draws from its own generator, seeded by an integer
+    with pytest.raises(TypeError, match="integer seed"):
+        nt.make_forward_kld_step(opt, with_key=True)(state, _twomoons(8),
+                                                     0.5)
     with pytest.raises(ValueError, match="no EMA params"):
         nt.ema_model(state)
     with pytest.raises(ValueError, match="no EMA slot"):
