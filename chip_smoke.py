@@ -164,7 +164,30 @@ toolkit. Phases, one line each:
     B = 65536 against the CPU's push-forward of the same base draws and
     as a graph (bitwise eager), the annealed reverse-KLD step of
     ``examples/comparison_plan_rad_aff.py`` (Adam 5e-3 / 3e-3, B = 512)
-    eager against graph; no port kernel launched.
+    eager against graph; no port kernel launched;
+20. dropout_batch_norm: ``build_nsf``'s arguments with dropout 0.1 in
+    every coupling trunk (``CoupledRationalQuadraticSpline(...,
+    dropout_probability=0.1)``): the keyed forward-KLD step (Adam 1e-3):
+    one step card against CPU at B = 16384 on the card's masks replayed
+    on the CPU, five captured steps against five eager at B = 65536, the
+    captured step in turns against the unkeyed one, served ``log_prob``
+    bitwise the p = 0 model's (A, B, C, E 8 per step); ``build_circular_
+    nsf`` at its defaults with MADE dropout 0.1: the reverse-KLD step with
+    ``score_fn`` True and False (the re-pass on the sampling pass's
+    masks) card against CPU at B = 4096 and as graphs at 16384 (A and C
+    24 or 36 per step), one AR layer's round trip under one draw; a
+    ``build_nsf``-shaped model with batch-norm trunks: kernels B and E at
+    its operands against their plain versions, ``log_prob`` and the step
+    card against CPU at 65536;
+21. layers_distributions: ``examples/change_base_distribution.py``'s
+    model (a trainable two-mode ``GaussianMixture`` base, K 8
+    ``AffineCouplingBlock``s over MLPs [1, 64, 64, 2], swap ``Permute``s):
+    its forward-KLD step (Adam 3e-3, B = 512) eager against graph, served
+    at 65536 as graphs; every new base, target and prior's ``log_prob``
+    card against CPU at 65536 and its sampler on the card (the draws' mean
+    log-density against the CPU's draws'); a RealNVP-shaped stack with
+    ``BatchNorm`` and ``InvertibleAffine`` card against CPU; a bfloat16
+    ``build_image_nsf`` raising at kernel A; no port kernel launched.
 
 It then prints the whole run's wall time, one JSON line on the kernels
 (their launches summed over every path above), the card's name and power
@@ -1671,7 +1694,8 @@ PATH_KERNELS = {"build_nsf serving": ("rqs_fwd", "head_rqs_fwd"),
                                           "rqs_bwd", "head_rqs_bwd"),
                 "residual serving": (), "residual step": (),
                 "planar serving": (), "planar step": (),
-                "radial serving": (), "radial step": ()}
+                "radial serving": (), "radial step": (),
+                "change_base serving": (), "change_base step": ()}
 
 
 def kernel_of(name):
@@ -3730,6 +3754,682 @@ def phase_planar_radial(dev, flush):
     return out
 
 
+# --- phases 20-21: dropout and batch norm on the kernel paths; the last
+# layers and distributions ----------------------------------------------------
+
+DROP_P = 0.1  # dropout_probability of phase 20's trunks
+DROP_CHECK_BATCH = 16384  # one keyed step, card against CPU (>= the gate)
+CHANGE_BASE_BATCH = 512  # examples/change_base_distribution.py
+CHANGE_BASE_LR = 3e-3
+
+
+def dropout_nsf_model(dev, p=DROP_P):
+    """``build_nsf``'s arguments (dim 2, K 8, hidden 128, 8 bins, 2
+    blocks, tail bound 3, ``LULinearPermute``) with
+    ``CoupledRationalQuadraticSpline(..., dropout_probability=p)``: the
+    builder's layers drawn in its order from its seed, so the weights are
+    ``_nsf_model()``'s, perturbed the same way."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import distributions as tdist
+    from nf_tpu_torch import flows as tflows
+
+    gen = torch.Generator().manual_seed(SEED)
+    flows = []
+    for i in range(8):
+        flows += [tflows.CoupledRationalQuadraticSpline(
+                      num_input_channels=2, num_blocks=2,
+                      num_hidden_channels=HIDDEN, num_bins=K_BINS,
+                      tail_bound=3.0, dropout_probability=p,
+                      reverse_mask=i % 2 == 1, generator=gen),
+                  tflows.LULinearPermute(2, generator=gen)]
+    model = nt.NormalizingFlow(tdist.DiagGaussian(2, trainable=False),
+                               flows).to(dev)
+    perturb(model, SEED)
+    return model
+
+
+def set_dropout(model, p):
+    """``dropout_probability`` of every block of ``model`` set to ``p``:
+    the weights stay as they are (the probability draws nothing at
+    construction)."""
+    for m in model.modules():
+        if hasattr(m, "dropout_probability"):
+            m.dropout_probability = p
+    return model
+
+
+def record_masks(fn):
+    """Run ``fn`` and keep every dropout mask it draws (through the port's
+    one helper): ``(its result, the masks on the CPU)``."""
+    from nf_tpu_torch.nets import _dropout
+
+    real, masks = _dropout.draw_mask, []
+
+    def record(*args):
+        mask = real(*args)
+        masks.append(mask)
+        return mask
+
+    _dropout.draw_mask = record
+    try:
+        out = fn()
+    finally:
+        _dropout.draw_mask = real
+    return out, [m.cpu() for m in masks]
+
+
+def replay_masks(masks, fn):
+    """Run ``fn`` with the dropout helper handing out ``masks`` in order
+    instead of drawing: the card's masks replayed on the CPU. A mask the
+    card drew on the transposed trunk (H, B) is replayed transposed where
+    the CPU's unfused trunk asks for (B, H). Fails unless every mask was
+    taken, each at its shape."""
+    from nf_tpu_torch.nets import _dropout
+
+    real, it = _dropout.draw_mask, iter(masks)
+    taken = [0]
+
+    def replay(generator, keep, shape, device):
+        mask = next(it)
+        if tuple(mask.shape) != tuple(shape):
+            mask = mask.T
+        if tuple(mask.shape) != tuple(shape):
+            raise RuntimeError(f"replayed mask {tuple(mask.shape)} for a "
+                               f"draw of {tuple(shape)}")
+        taken[0] += 1
+        return mask.to(device)
+
+    _dropout.draw_mask = replay
+    try:
+        out = fn()
+    finally:
+        _dropout.draw_mask = real
+    if taken[0] != len(masks):
+        raise RuntimeError(f"{taken[0]} of {len(masks)} recorded masks "
+                           f"replayed")
+    return out
+
+
+def _grads(model):
+    return {n: p.grad for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def keyed_step_check(model, dev, batch):
+    """One keyed forward-KLD step (Adam 1e-3) of ``model``: on the card
+    with the masks its generator draws, recorded; on the CPU on those
+    masks. (loss error, gradient error relative, launches, masks)."""
+    import nf_tpu_torch as nt
+
+    x = nt.TwoMoons().sample(batch, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 200))
+    out = []
+    for device in (dev, "cpu"):
+        m = copy.deepcopy(model).to(device)
+        opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+        step = nt.make_forward_kld_step(opt, with_key=True).eager
+        run = lambda: step(nt.init_train_state(m, opt), x.to(device),  # noqa
+                           SEED + 201)
+        if device == dev:
+            counts = {}
+            loss, masks = record_masks(lambda: _counted(counts, "step", run))
+        else:
+            loss = replay_masks(masks, run)
+        out.append((float(loss), _grads(m)))
+    (l1, g1), (l2, g2) = out
+    grad_err = max(rel_err(g1[n].cpu(), g2[n]) for n in g1)
+    return abs(l1 - l2), grad_err, counts["step"], masks
+
+
+def circular_dropout_check(model, dev, score_fn):
+    """One reverse-KLD step (SGD at lr 0) of the MADE-dropout circular NSF
+    on the same base draws (B = 4096): on the card with its generator's
+    masks, recorded; on the CPU on those masks. (loss error, gradient
+    error relative, launches, masks drawn)."""
+    import nf_tpu_torch as nt
+
+    rng = np.random.default_rng(SEED + 210)
+    z0 = np.stack([rng.uniform(-np.pi, np.pi, CIRC_CHECK_BATCH),
+                   rng.standard_normal(CIRC_CHECK_BATCH)], axis=1)
+    z0 = torch.from_numpy(z0.astype(np.float32))
+    out = []
+    for device in (dev, "cpu"):
+        m = copy.deepcopy(model).to(device)
+        zd = z0.to(device)
+        m.q0.sample = lambda n, generator=None, zd=zd: zd
+        opt = torch.optim.SGD(m.parameters(), lr=0.0)
+        step = nt.make_reverse_kld_step(opt, num_samples=CIRC_CHECK_BATCH,
+                                        score_fn=score_fn).eager
+        gen = torch.Generator(device=device).manual_seed(SEED + 211)
+        run = lambda: step(nt.init_train_state(m, opt), gen)  # noqa: E731
+        if device == dev:
+            counts = {}
+            loss, masks = record_masks(lambda: _counted(counts, "step", run))
+        else:
+            loss = replay_masks(masks, run)
+        out.append((float(loss), _grads(m)))
+    (l1, g1), (l2, g2) = out
+    grad_err = max(rel_err(g1[n].cpu(), g2[n]) for n in g1)
+    return abs(l1 - l2), grad_err, counts["step"], len(masks)
+
+
+def batch_norm_nsf_model(dev):
+    """A ``build_nsf``-shaped model whose couplings' ``ResidualNet``s have
+    ``use_batch_norm=True``, built through
+    ``PiecewiseRationalQuadraticCoupling`` (as the JAX package allows):
+    dim 2, K 8 couplings (hidden 128, 2 blocks, 8 bins, linear tails at 3,
+    a bin-major head, the unconditional CDF on the identity half) each
+    reversed as ``CoupledRationalQuadraticSpline`` does, and
+    ``LULinearPermute``; perturbed as ``_nsf_model``, the norms' affine
+    included."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import distributions as tdist
+    from nf_tpu_torch import flows as tflows
+    from nf_tpu_torch.nets import ResidualNet
+    from nf_tpu_torch.utils import create_alternating_binary_mask
+
+    gen = torch.Generator().manual_seed(SEED + 220)
+    head = (1, 3 * K_BINS - 1)
+
+    def net_fn(n_in, n_out):
+        return ResidualNet(n_in, n_out, HIDDEN, num_blocks=2,
+                           use_batch_norm=True, bin_major_head=head,
+                           generator=gen)
+
+    flows = []
+    for i in range(8):
+        mask = create_alternating_binary_mask(2, even=i % 2 == 1)
+        flows += [tflows.Reverse(tflows.PiecewiseRationalQuadraticCoupling(
+                      mask, net_fn, num_bins=K_BINS, tails="linear",
+                      tail_bound=3.0, apply_unconditional_transform=True)),
+                  tflows.LULinearPermute(2, generator=gen)]
+    model = nt.NormalizingFlow(tdist.DiagGaussian(2, trainable=False),
+                               flows).to(dev)
+    perturb(model, SEED + 221)
+    return model
+
+
+def bn_kernel_check(model, dev):
+    """Kernels B and E at a batch-norm trunk's operands (the first
+    coupling, B = 65536): h_t from ``features_transposed`` (normalised over
+    the batch on axis 1), both spline directions, against their plain
+    versions. (B's y and ld errors, E's per-element and batch-sum
+    errors)."""
+    from nf_tpu_torch.ops import spline_head_fused as shf
+
+    prqct = model.flows[0].flow
+    net = prqct.transform_net
+    rng = np.random.default_rng(SEED + 222)
+    x = _normal(rng, (BATCH, 2), 1.5, dev)
+    with torch.no_grad():
+        id_split, t_split = prqct._split(x)
+        h_t = net.features_transposed(id_split).contiguous()
+        w, b = shf.effective_head(net.final_layer.weight,
+                                  net.final_layer.bias, num_bins=K_BINS,
+                                  feats=1, tails="linear",
+                                  softmax_scale=prqct.softmax_scale)
+    x_t = t_split.T.contiguous()
+    tb = torch.full((1,), 3.0, device=dev)
+    cty = _normal(rng, (1, BATCH), 1.0, dev)
+    ctl = _normal(rng, (1, BATCH), 1.0, dev)
+    worst = dict(y=0.0, ld=0.0, grad=0.0, sums=0.0)
+    for inverse in (False, True):
+        kw = dict(num_bins=K_BINS, tails="linear", inverse=inverse)
+        y, ld = shf.fused_head_rqs(x_t, h_t, w, b, tail_bound=tb, **kw)
+        yp, lp = shf.head_rqs_plain(x_t, h_t, w, b, tb, **kw)
+        got = shf.fused_head_rqs_bwd(x_t, h_t, w, b, tb, cty, ctl, **kw)
+        plain = shf.head_rqs_bwd_plain(x_t, h_t, w, b, tb, cty, ctl, **kw)
+        grad = max(max_err(got[0], plain[0]), max_err(got[1], plain[1]))
+        if grad > G_TOL:  # cuBLAS's order: hold E to its own order
+            plain = shf.head_rqs_bwd_plain_in_kernel_order(
+                x_t, h_t, w, b, tb, cty, ctl, **kw)
+            grad = max(max_err(got[0], plain[0]), max_err(got[1], plain[1]))
+        worst["y"] = max(worst["y"], max_err(y, yp))
+        worst["ld"] = max(worst["ld"], max_err(ld, lp))
+        worst["grad"] = max(worst["grad"], grad)
+        worst["sums"] = max(worst["sums"], rel_err(got[2], plain[2]),
+                            rel_err(got[3], plain[3]))
+    if not (worst["y"] <= Y_TOL and worst["ld"] <= LD_TOL
+            and worst["grad"] <= G_TOL and worst["sums"] <= SUM_TOL):
+        raise RuntimeError(f"kernels B and E behind a batch-norm trunk "
+                           f"disagree with their plain versions: {worst}")
+    return worst
+
+
+def phase_dropout_batch_norm(dev, flush):
+    """Phase 20: dropout and batch norm on the kernels' paths, at full
+    width. (a) ``build_nsf``'s arguments with dropout 0.1 in every trunk:
+    its keyed forward-KLD step (Adam 1e-3, B = 65536) eagerly and as a
+    graph, its masks from the step's registered generator (kernels B
+    forward, E backward), one step card against CPU on injected masks,
+    served ``log_prob`` bitwise the p = 0 model's, the graph step timed in
+    turns against the unkeyed one. (b) ``build_circular_nsf`` at its
+    defaults with MADE dropout 0.1: the reverse-KLD step at 2^14 with
+    ``score_fn`` True and False, eagerly and as graphs (A, C), card against
+    CPU on injected masks, one AR layer's round trip under one draw. (c) a
+    ``build_nsf``-shaped model with batch-norm trunks: B and E at its
+    operands against their plain versions, ``log_prob`` (B) and the step's
+    gradients (E) card against CPU at 65536. Returns {path: launches}."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch.nets._dropout import shared_masks
+
+    t0 = time.perf_counter()
+    out = {}
+    # (a) the dropout NSF's keyed step
+    model = dropout_nsf_model(dev)
+    loss_err, grad_err, per_step, masks = keyed_step_check(
+        model, dev, DROP_CHECK_BATCH)
+    step_want = {"rqs_fwd": 8, "head_rqs_fwd": 8, "rqs_bwd": 8,
+                 "head_rqs_bwd": 8}
+    _expect({"step": per_step}, {"step": step_want},
+            "dropout build_nsf keyed step")
+    if not (loss_err <= MODEL_TOL and grad_err <= TRAIN_TOL):
+        raise RuntimeError(f"dropout build_nsf keyed step: card vs CPU on "
+                           f"injected masks loss {loss_err:.3g}, gradients "
+                           f"{grad_err:.3g} relative")
+    shapes = sorted({tuple(m.shape) for m in masks})
+    print(f"phase dropout build_nsf keyed step check (B = "
+          f"{DROP_CHECK_BATCH}, p = {DROP_P}): card vs CPU on the card's "
+          f"{len(masks)} injected masks (shapes {shapes}) loss {loss_err:.3g} (limit {MODEL_TOL}), gradients "
+          f"{grad_err:.3g} relative (limit {TRAIN_TOL}); launches per step "
+          f"{per_step}", flush=True)
+    out["dropout build_nsf keyed step"] = (per_step, tuple(step_want))
+    plain = _nsf_model()
+    x = _normal(np.random.default_rng(SEED + 202), (BATCH, 2), 1.5, dev)
+    lp_drop, lp_plain = (nt.compile_log_prob(m, (BATCH, 2))
+                         for m in (model, plain))
+    if not torch.equal(lp_drop(x), lp_plain(x)):
+        raise RuntimeError("served log_prob of the dropout model differs "
+                           "from the same weights at p = 0")
+    out["dropout build_nsf served log_prob"] = (
+        lp_drop.launches, ("rqs_fwd", "head_rqs_fwd"))
+    del lp_drop, lp_plain
+    pool = nt.TwoMoons().sample(10 * BATCH, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 203))
+
+    def batch_of(i, which):
+        return (pool[(i % 10) * BATCH:(i % 10 + 1) * BATCH], SEED + 300 + i)
+
+    keyed = step_graphs(
+        f"dropout build_nsf keyed forward-KLD step (p = {DROP_P}, B = "
+        f"{BATCH})", model,
+        lambda opt: nt.make_forward_kld_step(opt, with_key=True), batch_of,
+        "build_nsf step", dict(lr=1e-3))
+    _expect_launches(keyed["launches"], step_want,
+                     "dropout build_nsf keyed step graph")
+    out["graphs: dropout build_nsf keyed step"] = (
+        keyed["launches"], PATH_KERNELS["build_nsf step"])
+    # the keyed graph step against the unkeyed one, in turns
+    steps = []
+    for make, m in ((lambda o: nt.make_forward_kld_step(o), plain),
+                    (lambda o: nt.make_forward_kld_step(o, with_key=True),
+                     model)):
+        mm = copy.deepcopy(m)
+        opt = torch.optim.Adam(mm.parameters(), lr=1e-3, capturable=True)
+        steps.append((make(opt), nt.init_train_state(mm, opt)))
+    (unkeyed, s_u), (keyed_step, s_k) = steps
+    xb = pool[:BATCH]
+    for _ in range(3):  # two eager warm-up steps and the capture
+        unkeyed(s_u, xb)
+        keyed_step(s_k, xb, SEED + 7)
+    (u1, u2), (k1, k2) = in_turns(lambda: unkeyed(s_u, xb),
+                                  lambda: keyed_step(s_k, xb, SEED + 7))
+    b_prof = keyed["report"]["kernels"]
+    print(f"phase dropout build_nsf step graphs in turns (unkeyed, keyed, "
+          f"keyed, unkeyed; wall ms per step, median of 10): unkeyed "
+          f"{u1:.3f} / {u2:.3f}, keyed dropout {k1:.3f} / {k2:.3f}; kernels "
+          f"B and E per step by the counters {keyed['launches']['head_rqs_fwd']}"
+          f" / {keyed['launches']['head_rqs_bwd']}, by the profiler "
+          f"{b_prof.get('head_rqs_fwd', 0)} / {b_prof.get('head_rqs_bwd', 0)}"
+          f"; served log_prob bitwise the p = 0 model's", flush=True)
+    del steps, unkeyed, keyed_step, s_u, s_k
+
+    # (b) the circular NSF with MADE dropout
+    circ = set_dropout(_circular_model(), DROP_P)
+    circ.p = GaussVonMises()
+    for score_fn in (True, False):
+        per = 24 if score_fn else 36  # the re-pass: one more A and C a layer
+        want = {"rqs_fwd": per, "rqs_bwd": per}
+        loss_err, grad_err, per_step, n_masks = circular_dropout_check(
+            circ, dev, score_fn)
+        _expect({"step": per_step}, {"step": want},
+                f"circular dropout step (score_fn={score_fn})")
+        if not (loss_err <= MODEL_TOL and grad_err <= TRAIN_TOL):
+            raise RuntimeError(f"circular dropout step (score_fn="
+                               f"{score_fn}): card vs CPU loss "
+                               f"{loss_err:.3g}, gradients {grad_err:.3g}")
+        if n_masks != 12:
+            raise RuntimeError(f"circular dropout step: {n_masks} masks "
+                               f"drawn, expected 12 (one per MADE block, "
+                               f"the re-pass reusing them)")
+        print(f"phase dropout circular step check (score_fn={score_fn}, B "
+              f"= {CIRC_CHECK_BATCH}, p = {DROP_P}): {n_masks} masks drawn "
+              f"(the D passes and the re-pass reuse them), card vs CPU on "
+              f"them loss {loss_err:.3g} (limit {MODEL_TOL}), gradients "
+              f"{grad_err:.3g} relative (limit {TRAIN_TOL}); launches per "
+              f"step {per_step}", flush=True)
+        out[f"circular dropout step (score_fn={score_fn})"] = (
+            per_step, ("rqs_fwd", "rqs_bwd"))
+        gens = [torch.Generator(device=dev).manual_seed(SEED + 230)
+                for _ in range(2)]
+        step = step_graphs(
+            f"circular dropout reverse-KLD step (score_fn={score_fn}, "
+            f"B = {CIRC_TRAIN_BATCH})", circ,
+            lambda opt, sf=score_fn: nt.make_reverse_kld_step(
+                opt, num_samples=CIRC_TRAIN_BATCH, score_fn=sf),
+            lambda i, which: (gens[which],), "circular step (analytic)",
+            dict(lr=5e-4))
+        _expect_launches(step["launches"], want,
+                         f"circular dropout step graph (score_fn="
+                         f"{score_fn})")
+        out[f"graphs: circular dropout step (score_fn={score_fn})"] = (
+            step["launches"], PATH_KERNELS["circular step (analytic)"])
+    layer = circ.flows[0]
+    rng = np.random.default_rng(SEED + 231)
+    xc = np.stack([rng.uniform(-np.pi, np.pi, CIRC_BATCH),
+                   rng.standard_normal(CIRC_BATCH) * 1.5], axis=1)
+    xc = torch.from_numpy(xc.astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 232)
+    counts = {}
+    with torch.no_grad(), shared_masks():
+        y, ld = _counted(counts, "forward", lambda: layer.forward(
+            xc, generator=gen))
+        back, ld_back = layer.inverse(y, generator=gen)
+    rt = max(max_err(back, xc), max_err(ld + ld_back, torch.zeros_like(ld)))
+    if not rt <= ROUND_TRIP_TOL:
+        raise RuntimeError(f"circular AR layer under one mask draw: "
+                           f"inverse(forward(x)) off by {rt:.3g}")
+    print(f"phase dropout circular AR layer round trip (B = {CIRC_BATCH}, "
+          f"one draw): {rt:.3g} (limit {ROUND_TRIP_TOL}); launches of its "
+          f"forward (D = 2 passes) {counts['forward']}", flush=True)
+    out["circular dropout AR round trip"] = (counts["forward"],
+                                             ("rqs_fwd",))
+    del circ
+
+    # (c) batch-norm trunks
+    bn = batch_norm_nsf_model(dev)
+    worst = bn_kernel_check(bn, dev)
+    cpu = copy.deepcopy(bn).to("cpu")
+    x = _normal(np.random.default_rng(SEED + 223), (BATCH, 2), 1.5, dev)
+    counts = {}
+    with torch.no_grad():
+        lp = _counted(counts, "log_prob", lambda: bn.log_prob(x))
+        lp_cpu = cpu.log_prob(x.cpu())
+    lp_err = max_err(lp.cpu(), lp_cpu)
+
+    def bn_step(m, xx):
+        loss = m.forward_kld(xx)
+        loss.backward()
+        return loss
+
+    loss = _counted(counts, "step", lambda: bn_step(bn, x))
+    loss_cpu = bn_step(cpu, x.cpu())
+    grads, grads_cpu = _grads(bn), _grads(cpu)
+    grad_err = max(rel_err(grads[n].cpu(), grads_cpu[n]) for n in grads)
+    _expect(counts, {"log_prob": {"rqs_fwd": 8, "head_rqs_fwd": 8},
+                     "step": step_want}, "batch-norm build_nsf")
+    loss_err = abs(float(loss.detach()) - float(loss_cpu.detach()))
+    if not (lp_err <= MODEL_TOL and loss_err <= MODEL_TOL
+            and grad_err <= TRAIN_TOL):
+        raise RuntimeError(f"batch-norm build_nsf card vs CPU: log_prob "
+                           f"{lp_err:.3g}, loss {loss_err:.3g}, gradients "
+                           f"{grad_err:.3g}")
+    print(f"phase batch-norm build_nsf (B = {BATCH}, use_batch_norm=True "
+          f"trunks): kernels B and E at its operands vs plain {worst}; card "
+          f"vs CPU log_prob {lp_err:.3g} (limit {MODEL_TOL}), step loss "
+          f"{loss_err:.3g}, gradients {grad_err:.3g} relative (limit "
+          f"{TRAIN_TOL}); launches {counts}", flush=True)
+    out["batch-norm build_nsf log_prob"] = (
+        counts["log_prob"], ("rqs_fwd", "head_rqs_fwd"))
+    out["batch-norm build_nsf step"] = (counts["step"], tuple(step_want))
+    print(f"phase timing phase 20 (dropout, batch norm): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def change_base_model(dev):
+    """``examples/change_base_distribution.py``'s model: a trainable
+    ``GaussianMixture`` base of 2 modes at (-1, 0) and (1, 0), K 8
+    ``AffineCouplingBlock``s over ``MLP [1, 64, 64, 2]`` (zero-init last
+    layers) each followed by a swap ``Permute``, target ``TwoMoons``;
+    perturbed off the identity (linear weights by N(0, (0.2/sqrt(fan_in))²),
+    the rest by N(0, 0.05²): at 0.5 and 0.1 the exp-scaled couplings sent
+    some of 65536 draws out of float32)."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import distributions as tdist
+    from nf_tpu_torch import flows as tflows
+    from nf_tpu_torch.nets import MLP
+
+    gen = torch.Generator().manual_seed(SEED + 240)
+    flows = []
+    for _ in range(8):
+        flows += [tflows.AffineCouplingBlock(MLP([1, 64, 64, 2],
+                                                 init_zeros=True,
+                                                 generator=gen)),
+                  tflows.Permute(2, mode="swap")]
+    q0 = tdist.GaussianMixture(2, 2, loc=[[-1.0, 0.0], [1.0, 0.0]])
+    model = nt.NormalizingFlow(q0, flows, p=nt.TwoMoons()).to(dev)
+    rng = np.random.default_rng(SEED + 241)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            scale = (0.2 / np.sqrt(p.shape[1])
+                     if p.ndim == 2 and name.endswith("weight") else 0.05)
+            noise = np.asarray(rng.standard_normal(tuple(p.shape)) * scale,
+                               dtype=np.float32)
+            p.add_(torch.from_numpy(noise).to(dev))
+    return model
+
+
+def _distributions(dev):
+    """Each new base, target and prior: (label, on the card, on the CPU,
+    its log_prob's extra argument or None, whether it samples)."""
+    from nf_tpu_torch import distributions as tdist
+
+    rng = np.random.default_rng(SEED + 250)
+    image = (rng.random((64, 48)) ** 3).astype(np.float32)
+    y = torch.from_numpy(rng.integers(0, 10, BATCH))
+    gm = tdist.GaussianMixture(3, 2, loc=[[-1.0, 0.0], [1.0, 0.5],
+                                          [0.0, -1.5]],
+                               weights=[0.2, 0.3, 0.5],
+                               generator=torch.Generator().manual_seed(1))
+    made = [("Uniform", tdist.Uniform(2, -2.0, 2.0), None),
+            ("AffineGaussian", tdist.AffineGaussian(2, 2), None),
+            ("AffineGaussian(num_classes=10)",
+             tdist.AffineGaussian(2, 2, num_classes=10), y),
+            ("GaussianMixture", gm, None),
+            ("GaussianPCA", tdist.GaussianPCA(
+                2, generator=torch.Generator().manual_seed(2), sigma=0.3),
+             None),
+            ("CircularGaussianMixture", tdist.CircularGaussianMixture(),
+             None),
+            ("RingMixture", tdist.RingMixture(), None),
+            ("TwoIndependent", tdist.TwoIndependent(
+                tdist.TwoMoons(), tdist.RingMixture()), None),
+            ("Sinusoidal", tdist.Sinusoidal(), None),
+            ("Sinusoidal_gap", tdist.Sinusoidal_gap(), None),
+            ("Sinusoidal_split", tdist.Sinusoidal_split(), None),
+            ("Smiley", tdist.Smiley(), None)]
+    out = []
+    for label, d, arg in made:
+        with torch.no_grad():  # off the identity: the affine bases' s, t
+            for p in d.parameters():
+                p.add_(torch.from_numpy(np.asarray(
+                    rng.standard_normal(tuple(p.shape)) * 0.2,
+                    dtype=np.float32)))
+        out.append((label, copy.deepcopy(d).to(dev), d, arg))
+    out.append(("ImagePrior", tdist.ImagePrior(image, device=dev),
+                tdist.ImagePrior(image, device="cpu"), None))
+    return out
+
+
+def _sample(d, n, gen, arg):
+    """``n`` draws of ``d`` from ``gen`` (a base's with labels ``arg``),
+    or None where ``d`` has no sampler (the sinusoidal priors)."""
+    from nf_tpu_torch.distributions import BaseDistribution
+
+    if isinstance(d, BaseDistribution):
+        kw = {} if arg is None else dict(y=arg[:n].to(gen.device))
+        return d.forward(n, generator=gen, **kw)[0]
+    if hasattr(d, "sample"):
+        return d.sample(n, generator=gen)
+    return None
+
+
+def phase_layers_distributions(dev, flush):
+    """Phase 21: the change-of-base example's model (a trainable
+    ``GaussianMixture`` base) trained by its forward-KLD step (Adam 3e-3,
+    B = 512) eagerly and as a graph, and served at 65536 as graphs; every
+    new distribution, target and prior card against CPU at 65536 and
+    sampled on the card; a RealNVP-shaped stack with ``BatchNorm`` and
+    ``InvertibleAffine`` card against CPU; and a bfloat16
+    ``build_image_nsf`` raising at kernel A. Returns {path: launches}."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import distributions as tdist
+    from nf_tpu_torch import flows as tflows
+    from nf_tpu_torch.nets import MLP
+
+    t0 = time.perf_counter()
+    out = {}
+    model = change_base_model(dev)
+    target = nt.TwoMoons()
+    pool = target.sample(40 * CHANGE_BASE_BATCH, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 242))
+
+    def batch_of(i, which):
+        i %= 40
+        return (pool[i * CHANGE_BASE_BATCH:(i + 1) * CHANGE_BASE_BATCH],)
+
+    step = step_graphs(
+        f"change-of-base model forward-KLD step (B = {CHANGE_BASE_BATCH})",
+        model, nt.make_forward_kld_step, batch_of, "change_base step",
+        dict(lr=CHANGE_BASE_LR))
+    out["graphs: change_base step"] = (step["launches"], ())
+    x = _normal(np.random.default_rng(SEED + 243), (BATCH, 2), 1.5, dev)
+    served = serving_graphs("change_base", model, x, BATCH, {},
+                            "change_base serving")
+    out["graphs: change_base serving"] = (_captured_counts(served), ())
+    cpu = copy.deepcopy(model).to("cpu")
+    with torch.no_grad():
+        lp_err = max_err(model.log_prob(x).cpu(), cpu.log_prob(x.cpu()))
+        z, log_q = model.sample(BATCH, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 244))
+        lq_err = max_err(model.log_prob(z), log_q)
+    if not (lp_err <= MODEL_TOL and lq_err <= MODEL_TOL):
+        raise RuntimeError(f"change_base: log_prob card vs CPU {lp_err:.3g}, "
+                           f"log_prob(sample) vs log_q {lq_err:.3g}")
+    print(f"phase change_base model: log_prob card vs CPU at {BATCH} "
+          f"{lp_err:.3g}, log_prob(sample) vs log_q {lq_err:.3g} (limit "
+          f"{MODEL_TOL})", flush=True)
+
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 251)
+    cgen = torch.Generator().manual_seed(SEED + 252)
+    z = _normal(np.random.default_rng(SEED + 253), (BATCH, 2), 1.5, "cpu")
+    z4 = _normal(np.random.default_rng(SEED + 254), (BATCH, 4), 1.5, "cpu")
+    for label, d, d_cpu, arg in _distributions(dev):
+        zz = z4 if label == "TwoIndependent" else z
+        args = () if arg is None else (arg,)
+        with torch.no_grad():
+            lp = d.log_prob(zz.to(dev), *(a.to(dev) for a in args))
+            lp_cpu = d_cpu.log_prob(zz, *args)
+        finite = torch.isfinite(lp_cpu)
+        if not torch.equal(torch.isfinite(lp).cpu(), finite):
+            raise RuntimeError(f"{label}: the card's log_prob is finite "
+                               f"elsewhere than the CPU's")
+        # relative to max(|log p|, 1): the priors reach 1e2-1e3 nats
+        err = float(((lp.cpu() - lp_cpu).abs()[finite]
+                     / lp_cpu.abs()[finite].clamp_min(1.0)).max())
+        with torch.no_grad():
+            s = _sample(d, BATCH, gen, args[0] if args else None)
+            s_cpu = _sample(d_cpu, BATCH, cgen, args[0] if args else None)
+        note = "no sampler"
+        if s is not None:
+            if s.shape != s_cpu.shape or not bool(torch.isfinite(s).all()):
+                raise RuntimeError(f"{label}: card draws {tuple(s.shape)}, "
+                                   f"finite {bool(torch.isfinite(s).all())}")
+            # the draws' mean log-density on the card and on the CPU (other
+            # random numbers) agree within 6 standard errors
+            sa = args[0][:BATCH].to(dev) if args else None
+            with torch.no_grad():
+                a = d.log_prob(s, *(() if sa is None else (sa,))).double()
+                b = d_cpu.log_prob(s_cpu, *args).double()
+            a, b = a[torch.isfinite(a)].cpu(), b[torch.isfinite(b)]
+            se = float(torch.sqrt(a.var() / a.numel() + b.var() / b.numel()))
+            gap = abs(float(a.mean()) - float(b.mean()))
+            if not gap <= 6 * se + 1e-6:
+                raise RuntimeError(f"{label}: the card's draws' mean log p "
+                                   f"{float(a.mean()):.4f}, the CPU's "
+                                   f"{float(b.mean()):.4f} ({gap / se:.1f} "
+                                   f"standard errors)")
+            note = (f"sampled {tuple(s.shape)}, mean log p "
+                    f"{float(a.mean()):.4f} vs the CPU's draws "
+                    f"{float(b.mean()):.4f}")
+        if not err <= 1e-4:
+            raise RuntimeError(f"{label}: log_prob card vs CPU {err:.3g}")
+        rows.append(f"{label} log_prob {err:.3g}, {note}")
+    print(f"phase distributions (B = {BATCH}; log_prob card vs CPU "
+          f"relative to max(|log p|, 1), limit 1e-4): " + "; ".join(rows),
+          flush=True)
+
+    # a RealNVP-shaped stack with BatchNorm and InvertibleAffine
+    gen = torch.Generator().manual_seed(SEED + 260)
+    flows = []
+    for i in range(8):
+        b = torch.tensor([1.0, 0.0] if i % 2 == 0 else [0.0, 1.0])
+        flows += [tflows.MaskedAffineFlow(
+                      b, t=MLP([2, 64, 64, 2], generator=gen),
+                      s=MLP([2, 64, 64, 2], generator=gen)),
+                  tflows.InvertibleAffine(2, generator=gen),
+                  tflows.BatchNorm()]
+    stack = nt.NormalizingFlow(tdist.DiagGaussian(2), flows).to(dev)
+    perturb(stack, SEED + 261, size=0.2)
+    cpu = copy.deepcopy(stack).to("cpu")
+    zb = _normal(np.random.default_rng(SEED + 262), (BATCH, 2), 1.0, dev)
+    w = _normal(np.random.default_rng(SEED + 263), (BATCH, 2), 1.0, dev)
+    counts = {}
+
+    def fwd(m, zz, ww):
+        xx, ld = m.forward_and_log_det(zz)
+        loss = (xx * ww).mean() + ld.mean()
+        loss.backward()
+        return xx, ld
+
+    xg, ldg = _counted(counts, "forward", lambda: fwd(stack, zb, w))
+    xc, ldc = fwd(cpu, zb.cpu(), w.cpu())
+    errs = (max_err(xg.detach().cpu(), xc.detach()),
+            max_err(ldg.detach().cpu(), ldc.detach()))
+    grads, grads_cpu = _grads(stack), _grads(cpu)
+    grad_err = max(rel_err(grads[n].cpu(), grads_cpu[n]) for n in grads)
+    if not (max(errs) <= MODEL_TOL and grad_err <= TRAIN_TOL):
+        raise RuntimeError(f"BatchNorm/InvertibleAffine stack card vs CPU: "
+                           f"x, log-det {errs}, gradients {grad_err:.3g}")
+    print(f"phase BatchNorm + InvertibleAffine stack (K 8, B = {BATCH}): "
+          f"card vs CPU x {errs[0]:.3g}, log-det {errs[1]:.3g} (limit "
+          f"{MODEL_TOL}), gradients {grad_err:.3g} relative (limit "
+          f"{TRAIN_TOL}); launches {counts['forward']}", flush=True)
+    out["BatchNorm stack"] = (counts["forward"], ())
+
+    # a bfloat16 build_image_nsf stops at kernel A
+    img = nt.build_image_nsf(dtype=torch.bfloat16, seed=SEED)
+    xi = image_batch(16, SEED + 270, dev)[0].to(torch.bfloat16)
+    counts = {}
+    try:
+        _counted(counts, "log_prob", lambda: img.log_prob(xi))
+    except TypeError as e:
+        message = str(e)
+    else:
+        raise RuntimeError("a bfloat16 build_image_nsf ran on the card; "
+                           "kernel A takes only float32")
+    if "kernel A" not in message or "bfloat16" not in message:
+        raise RuntimeError(f"bfloat16 build_image_nsf raised without naming "
+                           f"kernel A: {message}")
+    print(f"phase bf16 build_image_nsf: log_prob raised at kernel A: "
+          f"{message!r}", flush=True)
+    print(f"phase timing phase 21 (layers, distributions): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port runs on an "
@@ -3828,6 +4528,8 @@ def main():
     paths.update(cc_paths)
     paths.update(phase_residual(dev, flush))
     paths.update(phase_planar_radial(dev, flush))
+    paths.update(phase_dropout_batch_norm(dev, flush))
+    paths.update(phase_layers_distributions(dev, flush))
     print("launches: " + "; ".join(f"{k} {v[0]}" for k, v in paths.items()),
           flush=True)
     for path, (counts, needed) in paths.items():

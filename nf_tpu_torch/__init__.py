@@ -22,9 +22,10 @@ package's: ``build_nsf``, ``build_circular_nsf``,
 spline kernels), ``build_realnvp``, ``build_maf``,
 ``build_glow_multiscale``, ``build_residual``, ``build_planar_stack`` and
 ``build_radial_stack`` (plain products and convolutions, no kernel).
-Layers that draw (a residual flow's stochastic log-det) take
-``generator=`` through every flow's ``forward`` / ``inverse`` and the
-containers' methods, as the JAX package's take ``key=``. The image models are ``MultiscaleFlow``s; a class-conditional
+Layers that draw (a residual flow's stochastic log-det, a conditioner's
+dropout) take ``generator=`` through every flow's ``forward`` /
+``inverse`` and the containers' methods, as the JAX package's take
+``key=``; without one nothing is dropped. The image models are ``MultiscaleFlow``s; a class-conditional
 one's served functions take the labels as a second input
 (``class_cond``), and its sampler a ``temperature``.
 """

@@ -36,6 +36,18 @@ buffers that compute nothing (an iResBlock's ``last_n_samples``,
 ``last_firmom``, ``last_secmom``; an induced-norm layer's running
 ``scale``, and a convolution's ``initialized`` and ``spatial_dims``) are
 taken when present and not loaded.
+
+The layers and distributions of the last slice load by the same rule:
+``InvertibleAffine`` as the 1x1 convolution (``L``, ``U``, ``log_S``,
+``P``, ``sign_S``, ``eye``, or ``W``), ``GaussianMixture``'s ``loc``,
+``log_scale``, ``weight_scores``, ``GaussianPCA``'s ``loc``, ``W``,
+``log_sigma`` and ``AffineGaussian``'s ``transform.`` (the JAX exporter
+writes all of these, ``nf_tpu/compat_export.py:351,381-384``). A batch-norm
+``ResidualNet`` or ``ConvResidualNet`` takes ``blocks.i.batch_norm_layers.
+j.weight`` and ``.bias``; the reference's ``nn.BatchNorm1d`` also keeps
+running statistics, which batch-statistics normalisation never reads, so
+they are bookkeeping too. (The JAX exporter raises on a batch-norm net,
+``compat_export.py:114-115,147-148``.)
 """
 
 from __future__ import annotations
@@ -48,7 +60,7 @@ from .flows.residual import iResBlock
 from .nets.lipschitz import InducedNormConv2d, InducedNormLinear
 from .nets.made import MADE
 from .nets.precision import MixedPrecision
-from .nets.resnet import ResidualNet
+from .nets.resnet import ResidualNet, _BatchAffineNorm
 
 
 def _head_to_bin_major(arr, head):
@@ -110,6 +122,8 @@ _BOOKKEEPING = (
     (iResBlock, ("last_n_samples", "last_firmom", "last_secmom")),
     ((InducedNormLinear, InducedNormConv2d),
      ("scale", "initialized", "spatial_dims")),
+    (_BatchAffineNorm, ("running_mean", "running_var",
+                        "num_batches_tracked")),
 )
 
 

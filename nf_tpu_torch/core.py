@@ -6,6 +6,8 @@ multiscale image flow."""
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch import nn
@@ -13,6 +15,7 @@ from torch.func import functional_call
 
 from .distributions.base import replace
 from .flows.base import open_scanned
+from .nets._dropout import shared_masks
 
 
 class NormalizingFlow(nn.Module):
@@ -118,10 +121,13 @@ class NormalizingFlow(nn.Module):
         ``score_fn=False`` is sticking the landing (arXiv 1703.09194):
         log q is recomputed through the inverse chain with the parameters
         detached, so only the path through the samples carries their
-        gradient."""
-        z, log_q = self.sample(num_samples, generator, context)
-        if not score_fn:
-            log_q = self._log_prob_detached(z, context, generator)
+        gradient. The re-pass drops the activations the sampling pass
+        dropped (:func:`~nf_tpu_torch.nets._dropout.shared_masks`), as the
+        JAX package feeds both passes the same per-flow keys."""
+        with shared_masks() if not score_fn else contextlib.nullcontext():
+            z, log_q = self.sample(num_samples, generator, context)
+            if not score_fn:
+                log_q = self._log_prob_detached(z, context, generator)
         log_p = self._target_log_prob(z, context)
         return torch.mean(log_q) - beta * torch.mean(log_p)
 
@@ -129,14 +135,16 @@ class NormalizingFlow(nn.Module):
                           generator=None, context=None):
         """Alpha divergence of ``num_samples`` draws against ``self.p``,
         with the DReG estimator when ``dreg`` (``nf_tpu/core.py:147-176``;
-        reference ``core.py:133-165``)."""
-        z, log_q = self.sample(num_samples, generator, context)
-        log_p = self._target_log_prob(z, context)
-        if not dreg:
-            return float(np.sign(alpha - 1)) * torch.logsumexp(
-                alpha * (log_p - log_q), dim=0)
-        w_const = torch.exp(log_p - log_q).detach()
-        log_q = self._log_prob_detached(z, context, generator)
+        reference ``core.py:133-165``), whose re-pass reuses the sampling
+        pass's dropout masks, as under ``reverse_kld(score_fn=False)``."""
+        with shared_masks() if dreg else contextlib.nullcontext():
+            z, log_q = self.sample(num_samples, generator, context)
+            log_p = self._target_log_prob(z, context)
+            if not dreg:
+                return float(np.sign(alpha - 1)) * torch.logsumexp(
+                    alpha * (log_p - log_q), dim=0)
+            w_const = torch.exp(log_p - log_q).detach()
+            log_q = self._log_prob_detached(z, context, generator)
         w = torch.exp(log_p - log_q)
         w_alpha = w_const ** alpha
         w_alpha = w_alpha / torch.mean(w_alpha)

@@ -1,17 +1,39 @@
 from .base import (
+    AffineGaussian,
     BaseDistribution,
     ClassCondDiagGaussian,
     ConditionalDiagGaussian,
     DiagGaussian,
+    GaussianMixture,
+    GaussianPCA,
     GlowBase,
+    Uniform,
     UniformGaussian,
 )
-from .prior import PriorDistribution, TwoModes
+from .prior import (
+    ImagePrior,
+    PriorDistribution,
+    Sinusoidal,
+    Sinusoidal_gap,
+    Sinusoidal_split,
+    Smiley,
+    TwoModes,
+)
 from .target import ConditionalDiagGaussian as ConditionalDiagGaussianTarget
-from .target import Target, TwoMoons, rejection_sample
+from .target import (
+    CircularGaussianMixture,
+    RingMixture,
+    Target,
+    TwoIndependent,
+    TwoMoons,
+    rejection_sample,
+)
 
-__all__ = ["BaseDistribution", "ClassCondDiagGaussian",
-           "ConditionalDiagGaussian", "ConditionalDiagGaussianTarget",
-           "DiagGaussian", "GlowBase",
-           "PriorDistribution", "Target", "TwoModes", "TwoMoons",
+__all__ = ["AffineGaussian", "BaseDistribution", "CircularGaussianMixture",
+           "ClassCondDiagGaussian", "ConditionalDiagGaussian",
+           "ConditionalDiagGaussianTarget", "DiagGaussian",
+           "GaussianMixture", "GaussianPCA", "GlowBase", "ImagePrior",
+           "PriorDistribution", "RingMixture", "Sinusoidal",
+           "Sinusoidal_gap", "Sinusoidal_split", "Smiley", "Target",
+           "TwoIndependent", "TwoModes", "TwoMoons", "Uniform",
            "UniformGaussian", "rejection_sample"]

@@ -20,6 +20,7 @@ import math
 import torch
 from torch import nn
 
+from .._device import resolve_device
 from ..utils.nn import complement_indices, one_hot
 
 _LOG2PI = math.log(2 * math.pi)
@@ -132,6 +133,34 @@ class ConditionalDiagGaussian(BaseDistribution):
     def log_prob(self, z, context=None):
         mean, log_scale = self._params(context)
         return _gaussian_log_prob(mean, log_scale, z)
+
+
+class Uniform(BaseDistribution):
+    """Box-uniform distribution on ``[low, high]^shape``
+    (``nf_tpu/distributions/base.py:130-157``; reference
+    ``base.py:158-195``). It holds no tensor: draws land on the
+    generator's device (None: CUDA)."""
+
+    def __init__(self, shape, low=-1.0, high=1.0):
+        super().__init__()
+        self.shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        self.low = float(low)
+        self.high = float(high)
+        self.log_prob_val = -math.prod(self.shape) * math.log(high - low)
+
+    def forward(self, num_samples=1, generator=None, context=None):
+        dev = resolve_device(generator.device if generator is not None
+                             else None)
+        u = torch.rand((num_samples,) + self.shape, generator=generator,
+                       device=dev)
+        z = self.low + (self.high - self.low) * u
+        return z, torch.full((num_samples,), self.log_prob_val,
+                             dtype=z.dtype, device=dev)
+
+    def log_prob(self, z, context=None):
+        out_range = (z < self.low) | (z > self.high)
+        ind_inf = torch.any(out_range.reshape(z.shape[0], -1), dim=-1)
+        return torch.where(ind_inf, -math.inf, self.log_prob_val).to(z.dtype)
 
 
 class UniformGaussian(BaseDistribution):
@@ -285,3 +314,159 @@ class GlowBase(BaseDistribution):
     def log_prob(self, z, y=None):
         loc, log_scale = self._params(y)
         return self._log_p(log_scale, ((z - loc) / torch.exp(log_scale)) ** 2)
+
+
+class AffineGaussian(BaseDistribution):
+    """A standard Gaussian pushed through an affine-constant flow, or with
+    ``num_classes`` a class-conditional one (``CCAffineConst``), sampled
+    at ``temperature`` (``base.py:349-411``; reference
+    ``base.py:474-570``). The flow is the submodule ``transform``
+    (``s``, ``t`` and, class-conditional, ``s_cc``, ``t_cc``). Without
+    ``y`` a class-conditional draw takes its labels uniformly from
+    ``generator`` first."""
+
+    def __init__(self, shape, affine_shape, num_classes=None,
+                 dtype=torch.float32):
+        super().__init__()
+        from ..flows.affine import AffineConstFlow, CCAffineConst
+
+        self.shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        self.num_classes = num_classes
+        self.temperature = None
+        self.transform = (CCAffineConst(affine_shape, num_classes, dtype)
+                          if num_classes is not None
+                          else AffineConstFlow(affine_shape, dtype=dtype))
+
+    @property
+    def class_cond(self):
+        return self.num_classes is not None
+
+    def _log_scale(self):
+        return math.log(self.temperature) if self.temperature else 0.0
+
+    def forward(self, num_samples=1, generator=None, y=None):
+        s = self.transform.s
+        if self.class_cond:
+            if y is None:
+                y = _draw_labels(num_samples, self.num_classes, generator,
+                                 s.device)
+            num_samples = y.shape[0]
+            y = one_hot(y, self.num_classes, s.dtype)
+        log_scale = self._log_scale()
+        d = math.prod(self.shape)
+        dims = tuple(range(1, len(self.shape) + 1))
+        eps = torch.randn((num_samples,) + self.shape, generator=generator,
+                          dtype=s.dtype, device=s.device)
+        z = math.exp(log_scale) * eps
+        log_p = (-0.5 * d * _LOG2PI - d * log_scale
+                 - 0.5 * torch.sum(eps ** 2, dim=dims))
+        z, log_det = (self.transform.forward(z, y=y) if self.class_cond
+                      else self.transform.forward(z))
+        return z, log_p - log_det
+
+    def log_prob(self, z, y=None):
+        log_scale = self._log_scale()
+        d = math.prod(self.shape)
+        dims = tuple(range(1, len(self.shape) + 1))
+        z, log_p = (self.transform.inverse(z, y=y) if self.class_cond
+                    else self.transform.inverse(z))
+        z = z / math.exp(log_scale)
+        return (log_p - d * log_scale - 0.5 * d * _LOG2PI
+                - 0.5 * torch.sum(z ** 2, dim=dims))
+
+
+class GaussianMixture(BaseDistribution):
+    """Diagonal Gaussian mixture of ``n_modes`` modes in ``dim``
+    dimensions (``base.py:414-469``; reference ``base.py:573-659``):
+    ``loc`` and ``log_scale`` (1, n_modes, dim) and ``weight_scores`` (1,
+    n_modes), the log of the normalised weights. ``loc`` defaults to
+    standard normal draws from ``generator``, ``scale`` and ``weights`` to
+    ones. A non-trainable mixture keeps them as buffers."""
+
+    def __init__(self, n_modes, dim, loc=None, scale=None, weights=None,
+                 trainable=True, generator=None, dtype=torch.float32):
+        super().__init__()
+        self.n_modes = n_modes
+        self.dim = dim
+        if loc is None:
+            loc = torch.randn((n_modes, dim), generator=generator,
+                              dtype=dtype)
+        loc = torch.as_tensor(loc, dtype=dtype)[None]
+        scale = (torch.ones((n_modes, dim), dtype=dtype) if scale is None
+                 else torch.as_tensor(scale, dtype=dtype))[None]
+        weights = (torch.ones(n_modes, dtype=dtype) if weights is None
+                   else torch.as_tensor(weights, dtype=dtype))[None]
+        weights = weights / torch.sum(weights, dim=1, keepdim=True)
+        for name, value in (("loc", loc), ("log_scale", torch.log(scale)),
+                            ("weight_scores", torch.log(weights))):
+            if trainable:
+                setattr(self, name, nn.Parameter(value.clone()))
+            else:
+                self.register_buffer(name, value.clone())
+
+    def forward(self, num_samples=1, generator=None, context=None):
+        weights = torch.softmax(self.weight_scores, dim=1)
+        # the mode by inverting the weights' CDF at a uniform draw: no
+        # host check of the weights, as torch.multinomial makes
+        u = torch.rand((num_samples, 1), generator=generator,
+                       dtype=self.loc.dtype, device=self.loc.device)
+        cdf = torch.cumsum(weights[0], dim=0)
+        mode = torch.clamp_max(torch.sum(u >= cdf, dim=1), self.n_modes - 1)
+        mode_1h = one_hot(mode, self.n_modes, self.loc.dtype)[..., None]
+        eps = torch.randn((num_samples, self.dim), generator=generator,
+                          dtype=self.loc.dtype, device=self.loc.device)
+        scale_sample = torch.sum(torch.exp(self.log_scale) * mode_1h, dim=1)
+        loc_sample = torch.sum(self.loc * mode_1h, dim=1)
+        z = eps * scale_sample + loc_sample
+        return z, self.log_prob(z)
+
+    def log_prob(self, z, context=None):
+        weights = torch.softmax(self.weight_scores, dim=1)
+        eps = (z[:, None, :] - self.loc) / torch.exp(self.log_scale)
+        log_p = (-0.5 * self.dim * _LOG2PI + torch.log(weights)
+                 - 0.5 * torch.sum(eps ** 2, dim=2)
+                 - torch.sum(self.log_scale, dim=2))
+        return torch.logsumexp(log_p, dim=1)
+
+
+class GaussianPCA(BaseDistribution):
+    """Low-rank-plus-noise Gaussian, covariance ``W^T W + sigma^2 I``
+    (``base.py:472-520``; reference ``base.py:662-719``). As in the JAX
+    package, the density is the correct ``-d/2 log 2 pi - 1/2 log det
+    Sigma - 1/2 z^T Sigma^-1 z`` (the reference drops the log of the
+    determinant), and a draw adds the ``sigma`` noise so the samples
+    follow it. ``W`` is drawn from ``generator``."""
+
+    def __init__(self, dim, latent_dim=None, sigma=0.1, generator=None,
+                 dtype=torch.float32):
+        super().__init__()
+        latent_dim = dim if latent_dim is None else latent_dim
+        self.dim = dim
+        self.latent_dim = latent_dim
+        self.loc = nn.Parameter(torch.zeros(1, dim, dtype=dtype))
+        self.W = nn.Parameter(torch.randn((latent_dim, dim),
+                                          generator=generator, dtype=dtype))
+        self.log_sigma = nn.Parameter(torch.tensor(math.log(sigma),
+                                                   dtype=dtype))
+
+    def _sig(self):
+        eye = torch.eye(self.dim, dtype=self.W.dtype, device=self.W.device)
+        return self.W.T @ self.W + torch.exp(self.log_sigma * 2) * eye
+
+    def forward(self, num_samples=1, generator=None, context=None):
+        kw = dict(generator=generator, dtype=self.loc.dtype,
+                  device=self.loc.device)
+        eps = torch.randn((num_samples, self.latent_dim), **kw)
+        noise = torch.exp(self.log_sigma) * torch.randn(
+            (num_samples, self.dim), **kw)
+        z_ = eps @ self.W + noise
+        return z_ + self.loc, self._log_prob_centered(z_)
+
+    def _log_prob_centered(self, z_):
+        sig = self._sig()
+        logdet = torch.linalg.slogdet(sig)[1]
+        quad = torch.sum(z_ * torch.linalg.solve(sig, z_.T).T, dim=1)
+        return -0.5 * self.dim * _LOG2PI - 0.5 * logdet - 0.5 * quad
+
+    def log_prob(self, z, context=None):
+        return self._log_prob_centered(z - self.loc)

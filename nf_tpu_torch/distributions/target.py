@@ -1,5 +1,5 @@
 """Analytic target densities and rejection sampling
-(``nf_tpu/distributions/target.py:23-75,140-156``; reference
+(``nf_tpu/distributions/target.py``; reference
 ``normflows/distributions/target.py``).
 
 The JAX package runs its sampler as a ``lax.while_loop`` over fixed-size
@@ -97,3 +97,82 @@ class ConditionalDiagGaussian(Target):
         eps = torch.randn((num_samples, d), generator=generator,
                           dtype=context.dtype, device=context.device)
         return loc + scale * eps
+
+
+class CircularGaussianMixture(nn.Module):
+    """Two-dimensional Gaussian mixture with ``n_modes`` modes on the
+    circle of radius 2 (``nf_tpu/distributions/target.py:78-102``;
+    reference ``target.py:135-175``), each of scale ``2/3 sin(pi /
+    n_modes)``. Sampling is exact: a mode, then a Gaussian draw around
+    it, on the generator's device (None: CUDA)."""
+
+    def __init__(self, n_modes=8):
+        super().__init__()
+        self.n_modes = n_modes
+        self.scale = 2 / 3 * math.sin(math.pi / n_modes)
+
+    def _locs(self, dtype, device):
+        # float64 on the device, as the JAX package builds them in numpy;
+        # no host-to-device copy, so a captured call can evaluate it
+        phi = (2 * math.pi / self.n_modes) * torch.arange(
+            self.n_modes, dtype=torch.float64, device=device)
+        locs = torch.stack([2 * torch.sin(phi), 2 * torch.cos(phi)], dim=1)
+        return locs.to(dtype)
+
+    def log_prob(self, z, context=None):
+        locs = self._locs(z.dtype, z.device)
+        d = torch.sum((z[:, None, :] - locs) ** 2, dim=2) \
+            / (2 * self.scale ** 2)
+        return (-math.log(2 * math.pi * self.scale ** 2 * self.n_modes)
+                + torch.logsumexp(-d, dim=1))
+
+    def sample(self, num_samples=1, generator=None, device=None):
+        if device is None and generator is not None:
+            device = generator.device
+        dev = resolve_device(device)
+        eps = torch.randn((num_samples, 2), generator=generator, device=dev)
+        mode = torch.randint(0, self.n_modes, (num_samples,),
+                             generator=generator, device=dev)
+        phi = (2 * math.pi / self.n_modes) * mode
+        loc = torch.stack([2 * torch.sin(phi), 2 * torch.cos(phi)], dim=1)
+        return eps * self.scale + loc
+
+
+class RingMixture(Target):
+    """Mixture of ``n_rings`` concentric rings of radii ``2 (i + 1) /
+    n_rings`` and width ``1 / (4 n_rings)`` (``target.py:105-119``;
+    reference ``target.py:178-196``), sampled by rejection."""
+
+    def __init__(self, n_rings=2):
+        super().__init__()
+        self.n_rings = n_rings
+        self.ring_scale = 1 / 4 / n_rings
+
+    def log_prob(self, z, context=None):
+        norm = torch.sqrt(torch.sum(z ** 2, dim=1))
+        radii = (2 / self.n_rings) * torch.arange(
+            1, self.n_rings + 1, dtype=torch.float64, device=z.device)
+        radii = radii.to(z.dtype)
+        d = ((norm[:, None] - radii) ** 2) / (2 * self.ring_scale ** 2)
+        return torch.logsumexp(-d, dim=1)
+
+
+class TwoIndependent(Target):
+    """Product of two independent targets of equal dimension, the first
+    on the first half of the features (``target.py:122-137``; reference
+    ``target.py:76-97``), for augmented flows."""
+
+    def __init__(self, target1, target2):
+        super().__init__()
+        self.target1 = target1
+        self.target2 = target2
+
+    def log_prob(self, z, context=None):
+        z1, z2 = torch.chunk(z, 2, dim=1)
+        return self.target1.log_prob(z1) + self.target2.log_prob(z2)
+
+    def sample(self, num_samples=1, generator=None, device=None):
+        return torch.cat([
+            self.target1.sample(num_samples, generator, device=device),
+            self.target2.sample(num_samples, generator, device=device)],
+            dim=1)

@@ -6,9 +6,15 @@ from .affine import (
     MaskedAffineFlow,
 )
 from .autoregressive import Autoregressive, MaskedAffineAutoregressive
-from .base import Composite, Flow, Reverse, Scanned
+from .base import Composite, Flow, Reverse, Scanned, zero_log_det_like_z
 from .glow import GlowBlock
-from .mixing import Invertible1x1Conv, LULinear, LULinearPermute, Permute
+from .mixing import (
+    Invertible1x1Conv,
+    InvertibleAffine,
+    LULinear,
+    LULinearPermute,
+    Permute,
+)
 from .neural_spline import (
     AutoregressiveRationalQuadraticSpline,
     CircularAutoregressiveRationalQuadraticSpline,
@@ -18,7 +24,8 @@ from .neural_spline import (
     PiecewiseRationalQuadraticCDF,
     PiecewiseRationalQuadraticCoupling,
 )
-from .normalization import ActNorm
+from .neural_spline.coupling import Coupling
+from .normalization import ActNorm, BatchNorm
 from .periodic import PeriodicShift, PeriodicWrap
 from .planar import Planar
 from .radial import Radial
@@ -37,14 +44,17 @@ __all__ = [
     "AffineCouplingBlock",
     "Autoregressive",
     "AutoregressiveRationalQuadraticSpline",
+    "BatchNorm",
     "CCAffineConst",
     "CircularAutoregressiveRationalQuadraticSpline",
     "CircularCoupledRationalQuadraticSpline",
     "Composite",
+    "Coupling",
     "CoupledRationalQuadraticSpline",
     "Flow",
     "GlowBlock",
     "Invertible1x1Conv",
+    "InvertibleAffine",
     "LULinear",
     "LULinearPermute",
     "MaskedAffineAutoregressive",
@@ -66,4 +76,5 @@ __all__ = [
     "fixed_point_stats",
     "iResBlock",
     "set_exact_logdet",
+    "zero_log_det_like_z",
 ]

@@ -6,6 +6,13 @@ Forward is one pass of the autoregressive net; the inverse is D sequential
 passes, each fixing one more feature (the MAF asymmetry, reference
 ``autoregressive.py:29-38``). The JAX package runs the D passes as a
 ``lax.scan``; here they are a Python loop over the same body.
+
+``generator`` reaches the autoregressive net's dropout. The JAX package
+hands the flow's one key to each of the D passes, so every pass drops the
+same activations; here the passes run inside
+:func:`~nf_tpu_torch.nets._dropout.shared_masks`, which draws each block's
+mask once and reuses it, so the inverse inverts the forward under the same
+draw.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..nets._dropout import shared_masks
 from ..nets.made import MADE
 from ..nets.precision import MixedPrecision
 from .base import Flow
@@ -35,17 +43,22 @@ class Autoregressive(Flow):
         raise NotImplementedError()
 
     def forward(self, inputs, context=None, generator=None):
-        params = self.autoregressive_net(inputs, context)
+        params = self.autoregressive_net(inputs, context,
+                                         generator=generator)
         return self._elementwise_forward(inputs, params)
 
     def inverse(self, inputs, context=None, generator=None):
-        """D passes from zeros; returns the last pass's outputs and
-        log-det, as the JAX ``lax.scan`` does."""
+        """D passes from zeros, one dropout draw shared by all of them;
+        returns the last pass's outputs and log-det, as the JAX
+        ``lax.scan`` does."""
         outputs = torch.zeros_like(inputs)
         logabsdet = None
-        for _ in range(math.prod(inputs.shape[1:])):
-            params = self.autoregressive_net(outputs, context)
-            outputs, logabsdet = self._elementwise_inverse(inputs, params)
+        with shared_masks():
+            for _ in range(math.prod(inputs.shape[1:])):
+                params = self.autoregressive_net(outputs, context,
+                                                 generator=generator)
+                outputs, logabsdet = self._elementwise_inverse(inputs,
+                                                               params)
         return outputs, logabsdet
 
 
@@ -57,23 +70,21 @@ class MaskedAffineAutoregressive(Autoregressive):
     (latent -> data, the sampling direction) is one MADE pass; ``inverse``
     (the density direction) is D passes. With the bin-major head (the
     default) the MADE emits ``(2*D, B)`` rows param-major, so the scale
-    and shift are contiguous ``(D, B)`` planes."""
+    and shift are contiguous ``(D, B)`` planes. ``use_batch_norm`` is taken
+    and ignored, as the JAX package's MADE ignores it."""
 
     def __init__(self, features, hidden_features, context_features=None,
                  num_blocks=2, use_residual_blocks=True, random_mask=False,
                  activation=F.relu, dropout_probability=0.0,
                  use_batch_norm=False, mixed_precision=False,
                  bin_major_head=True, generator=None, dtype=torch.float32):
-        if use_batch_norm:
-            raise NotImplementedError(
-                "MADE batch norm is not ported: the JAX package's builders "
-                "make MADEs without it")
         made = MADE(features, hidden_features,
                     context_features=context_features, num_blocks=num_blocks,
                     output_multiplier=2,
                     use_residual_blocks=use_residual_blocks,
                     random_mask=random_mask, activation=activation,
                     dropout_probability=dropout_probability,
+                    use_batch_norm=use_batch_norm,
                     bin_major_head=bin_major_head, generator=generator,
                     dtype=dtype)
         super().__init__(MixedPrecision(made) if mixed_precision else made)

@@ -1,6 +1,7 @@
-"""Mixing layers (``nf_tpu/flows/mixing.py:29-160,204-365``; reference
+"""Mixing layers (``nf_tpu/flows/mixing.py``; reference
 ``normflows/flows/mixing.py``): the channel permutation of the MAF stack,
-Glow's invertible 1x1 convolution and the LU mixing of the NSF stack."""
+Glow's invertible 1x1 convolution, its ``(B, D)`` twin
+``InvertibleAffine`` and the LU mixing of the NSF stack."""
 
 from __future__ import annotations
 
@@ -57,22 +58,16 @@ def _random_orthogonal(num_channels, generator):
     return q
 
 
-class Invertible1x1Conv(Flow):
-    """Glow's invertible 1x1 convolution on NCHW tensors
-    (``mixing.py:97-160``; reference ``mixing.py:57-133``). As in the
-    reference, ``forward`` (the sampling direction) applies ``W^-1`` and
-    ``inverse`` applies ``W``; the log-det is ``log |det W|`` per pixel
-    times H*W.
+class _LUWeight(Flow):
+    """A learned invertible ``W`` (``mixing.py:90-105``): ``use_lu=True``
+    keeps ``W = P L U`` as the parameters ``L``, ``U`` and ``log_S`` with
+    the buffers ``P``, ``sign_S`` and ``eye`` (the reference's names), so
+    ``W^-1`` is two triangular solves and ``log |det W| = sum(log_S)``;
+    ``use_lu=False`` keeps ``W`` itself, inverted and its determinant
+    taken by ``torch.linalg``. Initialised to a random rotation drawn from
+    ``generator``."""
 
-    ``use_lu=True`` keeps ``W = P L U`` as the parameters ``L``, ``U`` and
-    ``log_S`` with the buffers ``P``, ``sign_S`` and ``eye`` (the
-    reference's names): ``W^-1`` is two triangular solves and ``log |det
-    W| = sum(log_S)``. ``use_lu=False`` keeps ``W`` itself, inverted and
-    its determinant taken by ``torch.linalg``. The channel mixing is one
-    product, ``einsum("oi,bihw->bohw")``, in float32 as every product of
-    the port."""
-
-    def __init__(self, num_channels, use_lu=False, generator=None,
+    def __init__(self, num_channels, use_lu, generator=None,
                  dtype=torch.float32):
         super().__init__()
         self.num_channels = num_channels
@@ -103,7 +98,8 @@ class Invertible1x1Conv(Flow):
             return u_inv @ l_inv @ self.P.T
         return self.P @ lower @ upper
 
-    def _mix(self, z, inverse):
+    def _weight(self, inverse):
+        """``(W or W^-1, log |det| of it)``."""
         if self.use_lu:
             w = self._assemble_w(inverse)
             log_det = torch.sum(self.log_S)
@@ -112,11 +108,48 @@ class Invertible1x1Conv(Flow):
             # would wait for the device
             w = torch.linalg.inv_ex(self.W).inverse if inverse else self.W
             log_det = torch.linalg.slogdet(self.W)[1]
-        if inverse:
-            log_det = -log_det
+        return w, -log_det if inverse else log_det
+
+
+class Invertible1x1Conv(_LUWeight):
+    """Glow's invertible 1x1 convolution on NCHW tensors
+    (``mixing.py:97-160``; reference ``mixing.py:57-133``). As in the
+    reference, ``forward`` (the sampling direction) applies ``W^-1`` and
+    ``inverse`` applies ``W``; the log-det is ``log |det W|`` per pixel
+    times H*W. The channel mixing is one product,
+    ``einsum("oi,bihw->bohw")``, in float32 as every product of the
+    port."""
+
+    def __init__(self, num_channels, use_lu=False, generator=None,
+                 dtype=torch.float32):
+        super().__init__(num_channels, use_lu, generator, dtype)
+
+    def _mix(self, z, inverse):
+        w, log_det = self._weight(inverse)
         z_ = torch.einsum("oi,bihw->bohw", w, z)
         log_det = log_det * (z.shape[2] * z.shape[3])
         return z_, torch.broadcast_to(log_det, (z.shape[0],)).to(z.dtype)
+
+    def forward(self, z, context=None, generator=None):
+        return self._mix(z, inverse=True)
+
+    def inverse(self, z, context=None, generator=None):
+        return self._mix(z, inverse=False)
+
+
+class InvertibleAffine(_LUWeight):
+    """The invertible 1x1 convolution on ``(B, D)`` features
+    (``mixing.py:161-201``; reference ``mixing.py:136-207``): ``forward``
+    is ``z @ W^-1``, ``inverse`` ``z @ W``, the log-det ``-+log |det W|``
+    for every sample. LU-parametrised by default."""
+
+    def __init__(self, num_channels, use_lu=True, generator=None,
+                 dtype=torch.float32):
+        super().__init__(num_channels, use_lu, generator, dtype)
+
+    def _mix(self, z, inverse):
+        w, log_det = self._weight(inverse)
+        return z @ w, torch.broadcast_to(log_det, (z.shape[0],)).to(z.dtype)
 
     def forward(self, z, context=None, generator=None):
         return self._mix(z, inverse=True)

@@ -34,13 +34,17 @@ class MaskedPiecewiseRationalQuadraticAutoregressive(Autoregressive):
     spline on [0, 1], no tails), 'linear', 'circular', or a per-feature
     list of those two; ``tail_bound`` a float or one per feature.
     ``mixed_precision=True`` runs the MADE in bfloat16
-    (:class:`~nf_tpu_torch.nets.MixedPrecision`)."""
+    (:class:`~nf_tpu_torch.nets.MixedPrecision`). ``dropout_probability``
+    drops the MADE's activations under a ``generator``, one draw shared by
+    the inverse's D passes; ``use_batch_norm`` is ignored, as in the JAX
+    package."""
 
     def __init__(self, features, hidden_features, context_features=None,
                  num_bins=10, tails=None, tail_bound=1.0, num_blocks=2,
                  use_residual_blocks=True, random_mask=False,
                  permute_mask=False, activation=F.relu,
-                 dropout_probability=0.0, init_identity=True,
+                 dropout_probability=0.0, use_batch_norm=False,
+                 init_identity=True,
                  min_bin_width=splines.DEFAULT_MIN_BIN_WIDTH,
                  min_bin_height=splines.DEFAULT_MIN_BIN_HEIGHT,
                  min_derivative=splines.DEFAULT_MIN_DERIVATIVE,
@@ -75,6 +79,7 @@ class MaskedPiecewiseRationalQuadraticAutoregressive(Autoregressive):
                     random_mask=random_mask, permute_mask=permute_mask,
                     activation=activation,
                     dropout_probability=dropout_probability,
+                    use_batch_norm=use_batch_norm,
                     preprocessing=preprocessing,
                     bin_major_head=bin_major_head, generator=generator,
                     dtype=dtype)

@@ -66,8 +66,9 @@ class Coupling(Flow):
     def _coupling_transform_inverse(self, inputs, transform_params):
         raise NotImplementedError()
 
-    def _transform_params(self, identity_split, context):
-        return self.transform_net(identity_split, context)
+    def _transform_params(self, identity_split, context, generator=None):
+        return self.transform_net(identity_split, context,
+                                  generator=generator)
 
     def _split(self, inputs):
         if inputs.ndim not in (2, 4):
@@ -83,7 +84,8 @@ class Coupling(Flow):
 
     def forward(self, inputs, context=None, generator=None):
         identity_split, transform_split = self._split(inputs)
-        transform_params = self._transform_params(identity_split, context)
+        transform_params = self._transform_params(identity_split, context,
+                                                  generator)
         transform_split, logabsdet = self._coupling_transform_forward(
             transform_split, transform_params)
         if self.unconditional_transform is not None:
@@ -99,7 +101,8 @@ class Coupling(Flow):
         if self.unconditional_transform is not None:
             identity_split, logabsdet = \
                 self.unconditional_transform.inverse(identity_split)
-        transform_params = self._transform_params(identity_split, context)
+        transform_params = self._transform_params(identity_split, context,
+                                                  generator)
         transform_split, logabsdet_split = self._coupling_transform_inverse(
             transform_split, transform_params)
         logabsdet = logabsdet + logabsdet_split
@@ -265,18 +268,21 @@ class PiecewiseRationalQuadraticCoupling(Coupling):
             inputs, uw, uh, ud, tails=tails, tail_bound=tb,
             **self._spline_kw(inverse))
 
-    def _transform_params(self, identity_split, context):
+    def _transform_params(self, identity_split, context, generator=None):
         """Route the conditioner through transposed execution when kernel B
         will consume it: the trunk emits ``(hidden, batch)`` features and
-        the head product moves into the kernel."""
+        the head product moves into the kernel. ``generator`` reaches the
+        trunk's dropout on both feeds; a dropped-out trunk changes ``h_t``,
+        not the head, so kernel B (and E) take it as they take any other."""
         if (fused_head_eligible(self.transform_net, self.tails,
                                 self.tail_bound_arr, self.num_bins)
                 and fused_head_wanted(identity_split.device,
                                       identity_split.shape[0]
                                       * self.num_transform_features)):
             return FusedFeed(self.transform_net.features_transposed(
-                identity_split, context))
-        return self.transform_net(identity_split, context)
+                identity_split, context, generator=generator))
+        return self.transform_net(identity_split, context,
+                                  generator=generator)
 
     def _coupling_transform(self, inputs, transform_params, inverse):
         feed_kw = dict(num_bins=self.num_bins, tails=self.tails,

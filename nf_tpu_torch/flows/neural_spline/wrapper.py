@@ -4,6 +4,16 @@
 
 Direction convention (reference ``wrapper.py:79-85``): the flow's
 ``forward`` calls the spline coupling's *inverse* and vice versa.
+
+``dropout_probability`` reaches every layer's conditioner, and the flow's
+``generator`` reaches its dropout: the coupled layers pass it as the JAX
+package's pass their key (``nf_tpu/flows/neural_spline/wrapper.py:
+101-107,167-173``). The JAX package's autoregressive wrappers drop their
+key (``wrapper.py:199-205,234-240``), so there a MADE's dropout never
+draws; the port's pass the generator on, so that the
+``dropout_probability`` both packages take acts in a keyed loss, as it
+does in the MADE-spline layer the wrappers hold. At the builders' p = 0,
+or without a generator, the two agree exactly.
 """
 
 from __future__ import annotations
@@ -60,9 +70,10 @@ class CoupledRationalQuadraticSpline(Flow):
 
     def __init__(self, num_input_channels, num_blocks, num_hidden_channels,
                  num_context_channels=None, num_bins=8, tails="linear",
-                 tail_bound=3.0, activation=F.relu, reverse_mask=False,
-                 init_identity=True, mixed_precision=False,
-                 bin_major_head=True, generator=None, dtype=torch.float32):
+                 tail_bound=3.0, activation=F.relu, dropout_probability=0.0,
+                 reverse_mask=False, init_identity=True,
+                 mixed_precision=False, bin_major_head=True, generator=None,
+                 dtype=torch.float32):
         super().__init__()
         mask = np.asarray(create_alternating_binary_mask(
             num_input_channels, even=reverse_mask))
@@ -74,6 +85,7 @@ class CoupledRationalQuadraticSpline(Flow):
                 in_features, out_features, num_hidden_channels,
                 context_features=num_context_channels,
                 num_blocks=num_blocks, activation=activation,
+                dropout_probability=dropout_probability,
                 bin_major_head=head, generator=generator, dtype=dtype)
             if init_identity:
                 net = _identity_init_resnet(net)
@@ -88,11 +100,13 @@ class CoupledRationalQuadraticSpline(Flow):
             apply_unconditional_transform=True, dtype=dtype)
 
     def forward(self, z, context=None, generator=None):
-        z, log_det = self.prqct.inverse(z, context=context)
+        z, log_det = self.prqct.inverse(z, context=context,
+                                        generator=generator)
         return z, log_det.reshape(-1)
 
     def inverse(self, z, context=None, generator=None):
-        z, log_det = self.prqct.forward(z, context=context)
+        z, log_det = self.prqct.forward(z, context=context,
+                                        generator=generator)
         return z, log_det.reshape(-1)
 
 
@@ -110,14 +124,14 @@ class CircularCoupledRationalQuadraticSpline(Flow):
     the per-feature 3K+1 row count, and on CUDA at B*D >= 4096 the
     coupling takes kernel B (kernel E in the backward) at those tails,
     circular ones included; the identity half's CDF takes kernel A
-    (kernel C). ``dropout_probability`` is not ported, as in the other
-    wrappers."""
+    (kernel C)."""
 
     def __init__(self, num_input_channels, num_blocks, num_hidden_channels,
                  ind_circ, num_context_channels=None, num_bins=8,
-                 tail_bound=3.0, activation=F.relu, reverse_mask=False,
-                 mask=None, init_identity=True, mixed_precision=False,
-                 bin_major_head=True, generator=None, dtype=torch.float32):
+                 tail_bound=3.0, activation=F.relu, dropout_probability=0.0,
+                 reverse_mask=False, mask=None, init_identity=True,
+                 mixed_precision=False, bin_major_head=True, generator=None,
+                 dtype=torch.float32):
         super().__init__()
         if mask is None:
             mask = create_alternating_binary_mask(num_input_channels,
@@ -145,6 +159,7 @@ class CircularCoupledRationalQuadraticSpline(Flow):
                 in_features, out_features, num_hidden_channels,
                 context_features=num_context_channels,
                 num_blocks=num_blocks, activation=activation,
+                dropout_probability=dropout_probability,
                 bin_major_head=head, preprocessing=pf, generator=generator,
                 dtype=dtype)
             if init_identity:
@@ -159,11 +174,13 @@ class CircularCoupledRationalQuadraticSpline(Flow):
             dtype=dtype)
 
     def forward(self, z, context=None, generator=None):
-        z, log_det = self.prqct.inverse(z, context=context)
+        z, log_det = self.prqct.inverse(z, context=context,
+                                        generator=generator)
         return z, log_det.reshape(-1)
 
     def inverse(self, z, context=None, generator=None):
-        z, log_det = self.prqct.forward(z, context=context)
+        z, log_det = self.prqct.forward(z, context=context,
+                                        generator=generator)
         return z, log_det.reshape(-1)
 
 
@@ -190,11 +207,13 @@ class AutoregressiveRationalQuadraticSpline(Flow):
             bin_major_head=bin_major_head, generator=generator, dtype=dtype)
 
     def forward(self, z, context=None, generator=None):
-        z, log_det = self.mprqat.inverse(z, context=context)
+        z, log_det = self.mprqat.inverse(z, context=context,
+                                         generator=generator)
         return z, log_det.reshape(-1)
 
     def inverse(self, z, context=None, generator=None):
-        z, log_det = self.mprqat.forward(z, context=context)
+        z, log_det = self.mprqat.forward(z, context=context,
+                                         generator=generator)
         return z, log_det.reshape(-1)
 
 

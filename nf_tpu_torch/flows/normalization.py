@@ -1,5 +1,5 @@
-"""ActNorm (``nf_tpu/flows/normalization.py:22-72``; reference
-``normflows/flows/normalization.py:7-39``).
+"""ActNorm and BatchNorm (``nf_tpu/flows/normalization.py:22-87``;
+reference ``normflows/flows/normalization.py:7-62``).
 
 The reference sets an ActNorm's parameters from the first batch inside
 ``forward``. The JAX package makes that an explicit pass before the
@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from .affine import AffineConstFlow
+from .base import Flow
 
 
 class ActNorm(AffineConstFlow):
@@ -60,3 +61,25 @@ class ActNorm(AffineConstFlow):
     def init_data_inverse(self, z, context=None, generator=None):
         self._init(z, inverse=True)
         return self.inverse(z, context=context, generator=generator)
+
+
+class BatchNorm(Flow):
+    """Batch normalisation as a flow layer (``normalization.py:75-87``;
+    reference ``normalization.py:42-62``): ``(z - mean) / sqrt(std² +
+    eps)`` over the batch, the standard deviation with one degree of
+    freedom removed, eps 1e-10, and the log-det ``-sum(log(std² +
+    eps)) / 2`` for every sample, the statistics' dependence on the
+    parameters ignored. It has only this direction, as in the JAX
+    package; ``inverse`` raises."""
+
+    def __init__(self, eps=1e-10):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, z, context=None, generator=None):
+        mean = torch.mean(z, dim=0, keepdim=True)
+        std = torch.std(z, dim=0, keepdim=True, correction=1)
+        var_eps = std ** 2 + self.eps
+        log_det = -0.5 * torch.sum(torch.log(var_eps))
+        return ((z - mean) / torch.sqrt(var_eps),
+                torch.broadcast_to(log_det, (z.shape[0],)))

@@ -24,7 +24,7 @@ from ..utils.masks import create_alternating_binary_mask
 
 def build_realnvp(dim=2, K=64, hidden=None, target=None,
                   trainable_base=False, scan=False, mixed_precision=False,
-                  device=None, seed=0):
+                  device=None, seed=0, dtype=torch.float32):
     """Real NVP: K pairs of a ``MaskedAffineFlow`` (alternating masks,
     ``s`` and ``t`` MLPs ``[dim, *hidden, dim]`` with zero-init last
     layers) and an ``ActNorm`` (``builders.py:24-57``; reference
@@ -36,7 +36,9 @@ def build_realnvp(dim=2, K=64, hidden=None, target=None,
     odd-mask coupling, ActNorm) into one ``Scanned`` (K must be even); it
     computes what ``scan=False`` does, bitwise, and loads the same
     export. ``mixed_precision=True`` runs ``s`` and ``t`` in bfloat16
-    (:class:`~nf_tpu_torch.nets.MixedPrecision`)."""
+    (:class:`~nf_tpu_torch.nets.MixedPrecision`). ``dtype`` is every
+    parameter's and buffer's, the base's included, as in the JAX
+    package."""
     if scan and K % 2 != 0:
         raise ValueError("scan=True needs an even K")
     dev = resolve_device(device)
@@ -45,16 +47,18 @@ def build_realnvp(dim=2, K=64, hidden=None, target=None,
     layers = [dim] + list(hidden) + [dim]
     flows = []
     for i in range(K):
-        b = create_alternating_binary_mask(dim, even=(i % 2 == 0))
-        s = MLP(layers, init_zeros=True, generator=gen)
-        t = MLP(layers, init_zeros=True, generator=gen)
+        b = create_alternating_binary_mask(dim, even=(i % 2 == 0),
+                                           dtype=dtype)
+        s = MLP(layers, init_zeros=True, generator=gen, dtype=dtype)
+        t = MLP(layers, init_zeros=True, generator=gen, dtype=dtype)
         if mixed_precision:
             s, t = MixedPrecision(s), MixedPrecision(t)
-        flows += [nff.MaskedAffineFlow(b, t=t, s=s), nff.ActNorm(dim)]
+        flows += [nff.MaskedAffineFlow(b, t=t, s=s),
+                  nff.ActNorm(dim, dtype=dtype)]
     if scan:
         flows = [nff.Scanned([nff.Composite(flows[4 * i:4 * i + 4])
                               for i in range(K // 2)])]
-    q0 = dist.DiagGaussian(dim, trainable=trainable_base)
+    q0 = dist.DiagGaussian(dim, trainable=trainable_base, dtype=dtype)
     return core.NormalizingFlow(q0, flows, p=target or dist.TwoModes()) \
         .to(dev)
 
@@ -238,7 +242,8 @@ def _image_base(latent, class_cond, num_classes):
 def build_image_nsf(input_shape=(3, 32, 32), L=2, K=4, hidden_channels=64,
                     num_bins=8, tail_bound=3.0, num_classes=10,
                     class_cond=False, num_blocks=2, logit_alpha=0.05,
-                    mixed_precision=False, device=None, seed=0):
+                    mixed_precision=False, device=None, seed=0,
+                    dtype=torch.float32):
     """Multiscale neural-spline flow on images (``builders.py:176-238``):
     per level, K x [ActNorm, LU 1x1 convolution, RQ-spline channel
     coupling (linear tails) with a ``ConvResidualNet`` conditioner], then
@@ -256,7 +261,8 @@ def build_image_nsf(input_shape=(3, 32, 32), L=2, K=4, hidden_channels=64,
 
     def net_fn(in_ch, out_ch):
         net = ConvResidualNet(in_ch, out_ch, hidden_channels,
-                              num_blocks=num_blocks, generator=gen)
+                              num_blocks=num_blocks, generator=gen,
+                              dtype=dtype)
         return MixedPrecision(net) if mixed_precision else net
 
     for i, (ch, latent) in enumerate(_image_levels(input_shape, L)):
@@ -265,11 +271,12 @@ def build_image_nsf(input_shape=(3, 32, 32), L=2, K=4, hidden_channels=64,
             # a {-1, 1} channel mask: the channels at +1 are transformed
             mask = create_alternating_binary_mask(ch, even=(j % 2 == 0)) \
                 * 2.0 - 1.0
-            level += [nff.ActNorm((ch, 1, 1)),
-                      nff.Invertible1x1Conv(ch, use_lu=True, generator=gen),
+            level += [nff.ActNorm((ch, 1, 1), dtype=dtype),
+                      nff.Invertible1x1Conv(ch, use_lu=True, generator=gen,
+                                            dtype=dtype),
                       nff.PiecewiseRationalQuadraticCoupling(
                           mask, net_fn, num_bins=num_bins, tails="linear",
-                          tail_bound=tail_bound)]
+                          tail_bound=tail_bound, dtype=dtype)]
         level.append(nff.Squeeze())
         flows.append(level)
         if i > 0:
@@ -285,7 +292,7 @@ def build_glow_multiscale(input_shape=(3, 32, 32), L=3, K=16,
                           class_cond=True, split_mode="channel", scale=True,
                           use_lu=True, logit_alpha=0.05, scan=False,
                           remat=False, mixed_precision=False, device=None,
-                          seed=0):
+                          seed=0, dtype=torch.float32):
     """Multiscale Glow (``builders.py:241-278``; reference
     ``examples/glow.ipynb`` cell 2: L 3, K 16, hidden 256, a
     class-conditional base, a Logit transform): per level K
@@ -296,7 +303,8 @@ def build_glow_multiscale(input_shape=(3, 32, 32), L=3, K=16,
     computes what ``scan=False`` does, bitwise, and loads the same
     export. ``remat=True`` (with ``scan``) recomputes each block's
     activations in the backward (``torch.utils.checkpoint``).
-    ``mixed_precision=True`` runs the conditioners in bfloat16."""
+    ``mixed_precision=True`` runs the conditioners in bfloat16. ``dtype``
+    is the blocks' (the bases stay float32, as in the JAX package)."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     q0, flows, merges = [], [], []
@@ -304,7 +312,7 @@ def build_glow_multiscale(input_shape=(3, 32, 32), L=3, K=16,
         blocks = [nff.GlowBlock(ch, hidden_channels, scale=scale,
                                 split_mode=split_mode, use_lu=use_lu,
                                 mixed_precision=mixed_precision,
-                                generator=gen)
+                                generator=gen, dtype=dtype)
                   for _ in range(K)]
         level = [nff.Scanned(blocks, remat=remat)] if scan else blocks
         level.append(nff.Squeeze())

@@ -5,6 +5,11 @@ from .lipschitz import (
     LipschitzCNN,
     LipschitzMLP,
     Swish,
+    asym_squash,
+    normalize_u,
+    normalize_v,
+    projmax,
+    vector_norm,
 )
 from .made import (
     MADE,
@@ -12,7 +17,7 @@ from .made import (
     MaskedLinear,
     MaskedResidualBlock,
 )
-from .mlp import MLP, Linear
+from .mlp import MLP, Linear, clamp_exp
 from .precision import MixedPrecision
 from .resnet import (
     ConvResidualBlock,
@@ -25,4 +30,6 @@ __all__ = ["Conv2d", "ConvNet2d", "ConvResidualBlock", "ConvResidualNet",
            "InducedNormConv2d", "InducedNormLinear", "LipschitzCNN",
            "LipschitzMLP", "Linear", "MADE", "MLP", "MaskedFeedforwardBlock",
            "MaskedLinear", "MaskedResidualBlock", "MixedPrecision",
-           "ResidualBlock", "ResidualNet", "Swish"]
+           "ResidualBlock", "ResidualNet", "Swish", "asym_squash",
+           "clamp_exp", "normalize_u", "normalize_v", "projmax",
+           "vector_norm"]

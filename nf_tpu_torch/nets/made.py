@@ -15,6 +15,13 @@ dict, since a ``torch.Generator`` cannot redraw a JAX permutation.
 There is no ``features_transposed``: the fused head+spline kernel (B)
 needs a transposed trunk, and the JAX package's MADE has none either, so
 an autoregressive layer always feeds kernel A.
+
+``dropout_probability`` drops each block's activations (a feed-forward
+block's output, a residual block's before its second product) when the
+caller passes a ``generator`` (:func:`~nf_tpu_torch.nets._dropout.dropout`,
+``nf_tpu/nets/made.py:129-132,186-189``). ``use_batch_norm`` is taken and
+ignored, as the JAX package's blocks take it and build no norm
+(``made.py:116-125,151-180``).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import _dropout
 from .mlp import Linear
 
 
@@ -105,24 +113,17 @@ class MaskedLinear(Linear):
         return y
 
 
-def _no_dropout(dropout_probability):
-    if dropout_probability:
-        raise NotImplementedError(
-            "MADE dropout is not ported: the JAX package applies it only "
-            "with a key, which its reverse-KLD and serving paths never pass")
-
-
 class MaskedFeedforwardBlock(nn.Module):
     """Masked linear + activation (reference ``made.py:84-141``)."""
 
     def __init__(self, in_degrees, autoregressive_features,
                  context_features=None, random_mask=False,
                  activation: Callable = F.relu, dropout_probability=0.0,
-                 generator=None, dtype=torch.float32):
+                 use_batch_norm=False, generator=None, dtype=torch.float32):
         super().__init__()
         if context_features is not None:
             raise NotImplementedError()
-        _no_dropout(dropout_probability)
+        self.dropout_probability = dropout_probability
         self.linear = MaskedLinear(
             in_degrees, len(np.asarray(in_degrees)), autoregressive_features,
             random_mask=random_mask, is_output=False, generator=generator,
@@ -133,8 +134,9 @@ class MaskedFeedforwardBlock(nn.Module):
     def out_degrees(self):
         return self.linear.out_degrees
 
-    def forward(self, inputs, context=None):
-        return self.activation(self.linear(inputs))
+    def forward(self, inputs, context=None, generator=None):
+        return _dropout.dropout(self.activation(self.linear(inputs)),
+                                self.dropout_probability, generator, self)
 
 
 class MaskedResidualBlock(nn.Module):
@@ -145,13 +147,13 @@ class MaskedResidualBlock(nn.Module):
     def __init__(self, in_degrees, autoregressive_features,
                  context_features=None, random_mask=False,
                  activation: Callable = F.relu, dropout_probability=0.0,
-                 zero_initialization=True, generator=None,
-                 dtype=torch.float32):
+                 use_batch_norm=False, zero_initialization=True,
+                 generator=None, dtype=torch.float32):
         super().__init__()
         if random_mask:
             raise ValueError(
                 "Masked residual block can't be used with random masks.")
-        _no_dropout(dropout_probability)
+        self.dropout_probability = dropout_probability
         in_degrees = np.asarray(in_degrees)
         features = len(in_degrees)
         l0 = MaskedLinear(in_degrees, features, autoregressive_features,
@@ -179,10 +181,12 @@ class MaskedResidualBlock(nn.Module):
     def out_degrees(self):
         return self.linear_layers[1].out_degrees
 
-    def forward(self, inputs, context=None):
+    def forward(self, inputs, context=None, generator=None):
         temps = self.activation(inputs)
         temps = self.linear_layers[0](temps)
         temps = self.activation(temps)
+        temps = _dropout.dropout(temps, self.dropout_probability, generator,
+                                 self)
         temps = self.linear_layers[1](temps)
         if context is not None and self.context_layer is not None:
             temps = temps * torch.sigmoid(self.context_layer(context))
@@ -204,6 +208,7 @@ class MADE(nn.Module):
                  num_blocks=2, output_multiplier=1, use_residual_blocks=True,
                  random_mask=False, permute_mask=False,
                  activation: Callable = F.relu, dropout_probability=0.0,
+                 use_batch_norm=False,
                  preprocessing: Optional[nn.Module] = None,
                  bin_major_head=False, generator=None, dtype=torch.float32):
         super().__init__()
@@ -231,7 +236,8 @@ class MADE(nn.Module):
             blk = block(prev, features, context_features=context_features,
                         random_mask=random_mask, activation=activation,
                         dropout_probability=dropout_probability,
-                        generator=generator, dtype=dtype)
+                        use_batch_norm=use_batch_norm, generator=generator,
+                        dtype=dtype)
             blocks.append(blk)
             prev = blk.out_degrees
         self.blocks = nn.ModuleList(blocks)
@@ -243,14 +249,14 @@ class MADE(nn.Module):
         self.bin_major_head = ((features, output_multiplier)
                                if bin_major_head else None)
 
-    def forward(self, inputs, context=None):
+    def forward(self, inputs, context=None, generator=None):
         out = inputs if self.preprocessing is None \
             else self.preprocessing(inputs)
         out = self.initial_layer(out)
         if context is not None and self.context_layer is not None:
             out = out + self.context_layer(context)
         for block in self.blocks:
-            out = block(out, context=context)
+            out = block(out, context=context, generator=generator)
         if self.bin_major_head is not None:
             return self.final_layer.call_transposed(out)
         return self.final_layer(out)

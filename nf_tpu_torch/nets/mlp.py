@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import _dropout
+
 
 class Linear(nn.Module):
     """Dense layer ``y = x @ W^T + b`` with the reference's init,
@@ -73,10 +75,10 @@ class MLP(nn.Module):
     2, 4, ... with a LeakyReLU after each but the last, and, when
     ``dropout`` is given, a slot before the last Linear that shifts it to
     an odd index, as the reference's ``nn.Dropout`` does
-    (``nf_tpu/compat_export.py:95-103``). That slot applies no dropout: the
-    JAX package drops only when its caller passes a key, and none of its
-    steps or served functions does, so the port keeps the slot for the
-    names and leaves it empty."""
+    (``nf_tpu/compat_export.py:95-103``). The slot drops the last hidden
+    activations at probability ``dropout`` when ``forward`` gets a
+    ``generator`` (``nf_tpu/nets/mlp.py:120-126``), and passes them
+    through otherwise, as the JAX package does without a key."""
 
     def __init__(self, layers, leaky=0.0, score_scale=None, output_fn=None,
                  output_scale=None, init_zeros=False, dropout=None,
@@ -88,7 +90,7 @@ class MLP(nn.Module):
         mods = []
         for k in range(n):
             if k == n - 1 and dropout is not None:
-                mods.append(nn.Identity())
+                mods.append(_DropoutSlot(dropout))
             mods.append(Linear(layers[k], layers[k + 1], generator=generator,
                                init_zeros=init_zeros and k == n - 1,
                                dtype=dtype))
@@ -99,8 +101,10 @@ class MLP(nn.Module):
         self.output_fn = output_fn
         self.output_scale = output_scale
 
-    def forward(self, x):
-        x = self.net(x)
+    def forward(self, x, generator=None):
+        for layer in self.net:
+            x = layer(x, generator) if isinstance(layer, _DropoutSlot) \
+                else layer(x)
         if self.output_fn is not None:
             if self.score_scale is not None:
                 x = x * self.score_scale
@@ -108,3 +112,16 @@ class MLP(nn.Module):
             if self.output_scale is not None:
                 x = x * self.output_scale
         return x
+
+
+class _DropoutSlot(nn.Module):
+    """The reference's ``nn.Dropout`` position in ``MLP.net``: no
+    parameters, so the last Linear keeps the reference's index; the
+    mask's owner."""
+
+    def __init__(self, probability):
+        super().__init__()
+        self.probability = probability
+
+    def forward(self, x, generator=None):
+        return _dropout.dropout(x, self.probability, generator, self)

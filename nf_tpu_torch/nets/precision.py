@@ -21,6 +21,11 @@ fused head (kernel B: CUDA, a transposed trunk, B*D >= 4096), the trunk
 it runs through ``features_transposed`` and the head kernel B reads stay
 float32, as on a TPU; the unfused feed and every MADE run in
 ``compute_dtype``.
+
+A dropout ``generator`` passes through uncast, as the JAX package passes
+its keys (``precision.py:40``); the masks are drawn from float32 uniforms
+in either dtype (``nets/_dropout.py``), so a bfloat16 trunk drops the
+same activations as its float32 twin.
 """
 
 from __future__ import annotations

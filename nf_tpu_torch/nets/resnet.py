@@ -6,10 +6,15 @@ Pre-activation residual blocks with optional GLU-style context gating
 (``h * sigmoid(W_ctx c)``). Module and parameter names follow the
 reference (``initial_layer``, ``blocks.i.linear_layers.j`` or
 ``blocks.i.conv_layers.j``, ``context_layer``, ``final_layer``) so
-reference state dicts load by name (``nf_tpu_torch.compat``). Batch norm
-and dropout are not ported: the JAX package's builders make these nets
-without batch norm, and its dropout needs a training-step key the serving
-path never passes.
+reference state dicts load by name (``nf_tpu_torch.compat``), batch norm
+under ``blocks.i.batch_norm_layers.j``.
+
+``use_batch_norm=True`` normalises with the batch's statistics and a
+learned affine, train mode always and no running statistics, eps 1e-3
+(``nf_tpu/nets/resnet.py:26-57``). ``dropout_probability`` drops the
+activations before each block's second product when the caller passes a
+``generator`` (:func:`~nf_tpu_torch.nets._dropout.dropout`), one mask per
+block in block order, as the JAX package folds its key in per block.
 """
 
 from __future__ import annotations
@@ -20,18 +25,69 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import _dropout
 from .cnn import Conv2d
 from .mlp import Linear
+
+
+class _BatchAffineNorm(nn.Module):
+    """Batch-statistics normalisation with a learned affine
+    (``nf_tpu/nets/resnet.py:26-46``): a BatchNorm that is always in
+    train mode and keeps no running statistics; the variance is the
+    biased one, eps 1e-3. ``weight`` and ``bias`` are the reference's
+    names for JAX's ``gamma`` and ``beta``. On ``(B, F)`` it reduces over
+    the batch, on ``(B, C, H, W)`` over all but the channels, and
+    :meth:`transposed` over the batch of feature-major ``(F, B)`` data."""
+
+    def __init__(self, features, eps=1e-3, dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(features, dtype=dtype))
+
+    def _normalize(self, x, dims):
+        mean = torch.mean(x, dim=dims, keepdim=True)
+        var = torch.var(x, dim=dims, keepdim=True, correction=0)
+        return (x - mean) * torch.rsqrt(var + self.eps)
+
+    def forward(self, x):
+        if x.ndim == 2:
+            return self._normalize(x, (0,)) * self.weight + self.bias
+        return (self._normalize(x, (0, 2, 3)) * self.weight[:, None, None]
+                + self.bias[:, None, None])
+
+    def transposed(self, x_t):
+        """``_bn_t`` (``resnet.py:49-56``): the batch on axis 1, the
+        affine broadcast over it."""
+        return (self._normalize(x_t, (1,)) * self.weight[:, None]
+                + self.bias[:, None])
+
+
+def _batch_norms(use_batch_norm, features, dtype):
+    return (nn.ModuleList([_BatchAffineNorm(features, dtype=dtype)
+                           for _ in range(2)])
+            if use_batch_norm else None)
+
+
+def _norm(block, i, temps, transposed=False):
+    """``block``'s i-th batch norm applied to ``temps``, or ``temps``
+    without batch norm."""
+    if block.batch_norm_layers is None:
+        return temps
+    bn = block.batch_norm_layers[i]
+    return bn.transposed(temps) if transposed else bn(temps)
 
 
 class ResidualBlock(nn.Module):
     """Pre-activation residual block (reference ``resnet.py:7-51``)."""
 
     def __init__(self, features, context_features=None,
-                 activation: Callable = F.relu, generator=None,
-                 dtype=torch.float32):
+                 activation: Callable = F.relu, dropout_probability=0.0,
+                 use_batch_norm=False, generator=None, dtype=torch.float32):
         super().__init__()
         self.activation = activation
+        self.dropout_probability = dropout_probability
+        self.batch_norm_layers = _batch_norms(use_batch_norm, features, dtype)
         self.linear_layers = nn.ModuleList([
             Linear(features, features, generator=generator, dtype=dtype),
             Linear(features, features, generator=generator, dtype=dtype)])
@@ -41,21 +97,27 @@ class ResidualBlock(nn.Module):
                    dtype=dtype)
             if context_features is not None else None)
 
-    def forward(self, inputs, context=None):
-        temps = self.activation(inputs)
+    def forward(self, inputs, context=None, generator=None):
+        temps = self.activation(_norm(self, 0, inputs))
         temps = self.linear_layers[0](temps)
-        temps = self.activation(temps)
+        temps = self.activation(_norm(self, 1, temps))
+        temps = _dropout.dropout(temps, self.dropout_probability, generator,
+                                 self)
         temps = self.linear_layers[1](temps)
         if context is not None and self.context_layer is not None:
             temps = temps * torch.sigmoid(self.context_layer(context))
         return inputs + temps
 
-    def call_transposed(self, inputs_t, context_t=None):
+    def call_transposed(self, inputs_t, context_t=None, generator=None):
         """The same block on feature-major ``(features, batch)``
-        activations; every matmul goes through ``Linear.matmul_t``."""
-        temps = self.activation(inputs_t)
+        activations; every matmul goes through ``Linear.matmul_t``, batch
+        norm reduces over axis 1, and the dropout mask is drawn in the
+        ``(features, batch)`` shape."""
+        temps = self.activation(_norm(self, 0, inputs_t, True))
         temps = self.linear_layers[0].matmul_t(temps)
-        temps = self.activation(temps)
+        temps = self.activation(_norm(self, 1, temps, True))
+        temps = _dropout.dropout(temps, self.dropout_probability, generator,
+                                 self)
         temps = self.linear_layers[1].matmul_t(temps)
         if context_t is not None and self.context_layer is not None:
             temps = temps * torch.sigmoid(
@@ -80,7 +142,8 @@ class ResidualNet(nn.Module):
 
     def __init__(self, in_features, out_features, hidden_features,
                  context_features=None, num_blocks=2,
-                 activation: Callable = F.relu,
+                 activation: Callable = F.relu, dropout_probability=0.0,
+                 use_batch_norm=False,
                  bin_major_head: Optional[tuple] = None,
                  preprocessing: Optional[nn.Module] = None, generator=None,
                  dtype=torch.float32):
@@ -101,24 +164,25 @@ class ResidualNet(nn.Module):
                                     generator=generator, dtype=dtype)
         self.blocks = nn.ModuleList([
             ResidualBlock(hidden_features, context_features, activation,
+                          dropout_probability, use_batch_norm,
                           generator=generator, dtype=dtype)
             for _ in range(num_blocks)])
         self.final_layer = Linear(hidden_features, out_features,
                                   generator=generator, dtype=dtype)
 
-    def forward(self, inputs, context=None):
+    def forward(self, inputs, context=None, generator=None):
         temps = inputs if self.preprocessing is None \
             else self.preprocessing(inputs)
         if context is not None:
             temps = torch.cat([temps, context], dim=1)
         temps = self.initial_layer(temps)
         for block in self.blocks:
-            temps = block(temps, context=context)
+            temps = block(temps, context=context, generator=generator)
         if self.bin_major_head is not None:
             return self.final_layer.call_transposed(temps)
         return self.final_layer(temps)
 
-    def features_transposed(self, inputs, context=None):
+    def features_transposed(self, inputs, context=None, generator=None):
         """Hidden activations before the final layer, feature-major
         ``(hidden, batch)``: the trunk runs transposed, and the fused
         head+spline kernel (``ops.spline_head_fused``) computes the final
@@ -133,7 +197,8 @@ class ResidualNet(nn.Module):
             temps_t = torch.cat([temps_t, context_t], dim=0)
         temps_t = self.initial_layer.matmul_t(temps_t)
         for block in self.blocks:
-            temps_t = block.call_transposed(temps_t, context_t)
+            temps_t = block.call_transposed(temps_t, context_t,
+                                            generator=generator)
         return temps_t
 
 
@@ -152,10 +217,12 @@ class ConvResidualBlock(nn.Module):
     near zero at init, and an optional 1x1 context gate."""
 
     def __init__(self, channels, context_channels=None,
-                 activation: Callable = F.relu, generator=None,
-                 dtype=torch.float32):
+                 activation: Callable = F.relu, dropout_probability=0.0,
+                 use_batch_norm=False, generator=None, dtype=torch.float32):
         super().__init__()
         self.activation = activation
+        self.dropout_probability = dropout_probability
+        self.batch_norm_layers = _batch_norms(use_batch_norm, channels, dtype)
         self.conv_layers = nn.ModuleList([
             Conv2d(channels, channels, 3, generator=generator, dtype=dtype)
             for _ in range(2)])
@@ -165,10 +232,12 @@ class ConvResidualBlock(nn.Module):
                    dtype=dtype)
             if context_channels is not None else None)
 
-    def forward(self, inputs, context=None):
-        temps = self.activation(inputs)
+    def forward(self, inputs, context=None, generator=None):
+        temps = self.activation(_norm(self, 0, inputs))
         temps = self.conv_layers[0](temps)
-        temps = self.activation(temps)
+        temps = self.activation(_norm(self, 1, temps))
+        temps = _dropout.dropout(temps, self.dropout_probability, generator,
+                                 self)
         temps = self.conv_layers[1](temps)
         if context is not None and self.context_layer is not None:
             temps = temps * torch.sigmoid(self.context_layer(context))
@@ -183,8 +252,8 @@ class ConvResidualNet(nn.Module):
 
     def __init__(self, in_channels, out_channels, hidden_channels,
                  context_channels=None, num_blocks=2,
-                 activation: Callable = F.relu, generator=None,
-                 dtype=torch.float32):
+                 activation: Callable = F.relu, dropout_probability=0.0,
+                 use_batch_norm=False, generator=None, dtype=torch.float32):
         super().__init__()
         self.hidden_channels = hidden_channels
         self.context_channels = context_channels
@@ -193,15 +262,16 @@ class ConvResidualNet(nn.Module):
                                     dtype=dtype)
         self.blocks = nn.ModuleList([
             ConvResidualBlock(hidden_channels, context_channels, activation,
+                              dropout_probability, use_batch_norm,
                               generator=generator, dtype=dtype)
             for _ in range(num_blocks)])
         self.final_layer = Conv2d(hidden_channels, out_channels, 1,
                                   generator=generator, dtype=dtype)
 
-    def forward(self, inputs, context=None):
+    def forward(self, inputs, context=None, generator=None):
         temps = inputs if context is None else torch.cat([inputs, context],
                                                          dim=1)
         temps = self.initial_layer(temps)
         for block in self.blocks:
-            temps = block(temps, context=context)
+            temps = block(temps, context=context, generator=generator)
         return self.final_layer(temps)

@@ -1,5 +1,9 @@
 from .splines import (
+    DEFAULT_MIN_BIN_HEIGHT,
+    DEFAULT_MIN_BIN_WIDTH,
+    DEFAULT_MIN_DERIVATIVE,
     rational_quadratic_spline,
+    searchsorted,
     unconstrained_rational_quadratic_spline,
     unconstrained_rational_quadratic_spline_kmajor,
 )
@@ -37,9 +41,13 @@ def reset_launch_counts():
 
 
 __all__ = [
+    "DEFAULT_MIN_BIN_HEIGHT",
+    "DEFAULT_MIN_BIN_WIDTH",
+    "DEFAULT_MIN_DERIVATIVE",
     "launch_counts",
     "reset_launch_counts",
     "rational_quadratic_spline",
+    "searchsorted",
     "unconstrained_rational_quadratic_spline",
     "unconstrained_rational_quadratic_spline_kmajor",
 ]

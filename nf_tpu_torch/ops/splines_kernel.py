@@ -584,8 +584,9 @@ def _check(x, planes, tb, num_bins):
                          f"{SUPPORTED_BINS}, got K={num_bins}")
     for t in (x, *planes) + ((tb,) if tb is not None else ()):
         if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA spline kernel takes float32, "
-                            f"got {t.dtype}")
+            raise TypeError(f"kernel A (rqs_fwd, the CUDA spline kernel) "
+                            f"takes float32, got {t.dtype}: its bfloat16 "
+                            f"variant is not written")
         if t.device != x.device:
             raise ValueError("all operands must be on the same CUDA device")
 

@@ -100,3 +100,33 @@ class PeriodicFeaturesCat(nn.Module):
         x = inputs[..., self.ind] * self.scale
         return torch.cat([torch.sin(x), torch.cos(x), inputs[..., self.ind_]],
                          dim=-1)
+
+
+def tile(x, n):
+    """Interleaved tiling (reference ``utils/nn.py:181``):
+    ``tile([a, b], 2) == [a, a, b, b]``, the input flattened first."""
+    return torch.repeat_interleave(x.reshape(-1), n)
+
+
+class ConstScaleLayer(nn.Module):
+    """Multiply by a fixed constant (``nf_tpu/utils/nn.py:106-112``;
+    reference ``utils/nn.py:7-24``)."""
+
+    def __init__(self, scale=1.0):
+        super().__init__()
+        self.scale = scale
+
+    def forward(self, x):
+        return x * self.scale
+
+
+class ClampExp(nn.Module):
+    """Nonlinearity ``min(exp(lam * x), 1)`` (``nf_tpu/utils/nn.py:
+    115-121``; reference ``utils/nn.py:46-62``)."""
+
+    def __init__(self, lam=1.0):
+        super().__init__()
+        self.lam = lam
+
+    def forward(self, x):
+        return torch.clamp_max(torch.exp(self.lam * x), 1.0)

@@ -1564,3 +1564,193 @@ def test_mixed_precision_image_models_on_cuda(cuda, build):
     grads = [p.grad for p in mixed.parameters() if p.grad is not None]
     assert grads and all(g.dtype == torch.float32
                          and bool(torch.isfinite(g).all()) for g in grads)
+
+
+# --- dropout and batch norm on the kernel paths --------------------------------
+
+DROPOUT_P = 0.1
+
+
+def _dropout_nsf(cuda, batch_norm=False):
+    """``build_nsf``'s layers at small size (dim 2, K 2, hidden 16, 4
+    bins, LULinearPermute) with ``dropout_probability`` 0.1 in every
+    coupling trunk (or, with ``batch_norm``, batch-norm trunks), perturbed
+    by N(0, 0.2²)."""
+    from nf_tpu_torch import distributions as tdist
+    from nf_tpu_torch import flows as tflows
+    from nf_tpu_torch.nets import ResidualBlock
+
+    gen = torch.Generator().manual_seed(0)
+    flows = []
+    for i in range(2):
+        flows += [tflows.CoupledRationalQuadraticSpline(
+                      2, 2, 16, num_bins=4, tail_bound=3.0,
+                      dropout_probability=DROPOUT_P, reverse_mask=i % 2 == 1,
+                      generator=gen),
+                  tflows.LULinearPermute(2, generator=gen)]
+    model = nt.NormalizingFlow(tdist.DiagGaussian(2, trainable=False), flows)
+    if batch_norm:
+        for m in model.modules():
+            if isinstance(m, ResidualBlock):
+                from nf_tpu_torch.nets.resnet import _batch_norms
+                m.batch_norm_layers = _batch_norms(True, 16, torch.float32)
+    model = model.to(cuda)
+    rng = np.random.default_rng(11)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(_normal(rng, tuple(p.shape), 0.2).to(cuda))
+    return model
+
+
+def test_captured_keyed_dropout_step_matches_eager(cuda):
+    """The keyed forward-KLD step of a dropped-out NSF at B = 8192 (kernel
+    B forward, E backward): its masks come from the step's generator,
+    registered with the graph and reseeded per call, so five replays on
+    five seeds match five eager steps; another seed drops other
+    activations; without a generator the same weights are the p = 0
+    model's."""
+    base = _dropout_nsf(cuda)
+    models = [copy.deepcopy(base) for _ in range(2)]
+    opts = [_adam(m) for m in models]
+    states = [nt.init_train_state(m, o) for m, o in zip(models, opts)]
+    graphed = nt.make_forward_kld_step(opts[0], with_key=True)
+    eager = nt.make_forward_kld_step(opts[1], with_key=True).eager
+    rng = np.random.default_rng(12)
+    xs = [_normal(rng, (8192, 2), 1.5).to(cuda) for _ in range(6)]
+    for i in range(5):
+        lg, le = graphed(states[0], xs[i], 40 + i), eager(states[1], xs[i],
+                                                           40 + i)
+        torch.testing.assert_close(lg, le, atol=STEP_TOL, rtol=0)
+    for p, q in zip(models[0].parameters(), models[1].parameters()):
+        torch.testing.assert_close(p, q, atol=STEP_TOL, rtol=0)
+    want = {k: 0 for k in tops.launch_counts()}
+    want.update(rqs_fwd=2, rqs_bwd=2, head_rqs_fwd=2, head_rqs_bwd=2)
+    assert graphed.launches == want
+    m = models[1]
+    with torch.no_grad():
+        keyed = [m.forward_kld(xs[5], generator=torch.Generator(
+            cuda).manual_seed(s)) for s in (1, 1, 2)]
+        plain = m.forward_kld(xs[5])
+    assert torch.equal(keyed[0], keyed[1])
+    assert not torch.equal(keyed[0], keyed[2])
+    assert not torch.equal(keyed[0], plain)
+    p0 = copy.deepcopy(m)
+    for mod in p0.modules():
+        if hasattr(mod, "dropout_probability"):
+            mod.dropout_probability = 0.0
+    with torch.no_grad():
+        assert torch.equal(p0.log_prob(xs[5]), m.log_prob(xs[5]))
+        assert torch.equal(p0.forward_kld(xs[5], generator=torch.Generator(
+            cuda).manual_seed(1)), plain)
+
+
+def test_kernels_b_and_e_behind_a_batch_norm_trunk_match_plain(cuda):
+    """Kernel B's and E's operands from a batch-norm trunk (h_t normalised
+    over the batch on the transposed layout) at B = 8192, against their
+    plain versions; and the layer's log_prob and gradients on the card
+    (B and E) against the CPU (the unfused plain path)."""
+    from nf_tpu_torch.flows.neural_spline.feed import FusedFeed
+
+    model = _dropout_nsf(cuda, batch_norm=True)
+    layer = model.flows[0].prqct
+    net = layer.transform_net
+    rng = np.random.default_rng(13)
+    x = _normal(rng, (8192, 2), 1.5).to(cuda)
+    with torch.no_grad():
+        id_split, t_split = layer._split(x)
+        params = layer._transform_params(id_split, None)
+        assert isinstance(params, FusedFeed)
+        h_t = params.h_t.contiguous()
+        w, b = tshf.effective_head(
+            net.final_layer.weight, net.final_layer.bias, num_bins=4,
+            feats=1, tails="linear", softmax_scale=layer.softmax_scale)
+    tb = torch.full((1,), 3.0, device=cuda)
+    x_t = t_split.T.contiguous()
+    cty, ctl = (_normal(rng, (1, 8192)).to(cuda) for _ in range(2))
+    for inverse in (False, True):
+        kw = dict(num_bins=4, tails="linear", inverse=inverse)
+        y, ld = tshf.fused_head_rqs(x_t, h_t, w, b, tail_bound=tb, **kw)
+        yp, lp = tshf.head_rqs_plain(x_t, h_t, w, b, tb, **kw)
+        torch.testing.assert_close(y, yp, atol=Y_TOL, rtol=0)
+        torch.testing.assert_close(ld, lp, atol=LD_TOL, rtol=0)
+        got = tshf.fused_head_rqs_bwd(x_t, h_t, w, b, tb, cty, ctl, **kw)
+        plain = tshf.head_rqs_bwd_plain_in_kernel_order(
+            x_t, h_t, w, b, tb, cty, ctl, **kw)
+        for g, p in zip(got[:2], plain[:2]):
+            torch.testing.assert_close(g, p, atol=G_TOL, rtol=0)
+        for g, p in zip(got[2:], plain[2:]):
+            assert float((g - p).abs().max()) \
+                <= SUM_TOL * max(float(p.abs().max()), 1.0)
+    cpu = copy.deepcopy(model).to("cpu")
+    before = tops.launch_counts()
+    loss = model.forward_kld(x)
+    loss.backward()
+    after = tops.launch_counts()
+    assert after["head_rqs_fwd"] - before["head_rqs_fwd"] == 2
+    assert after["head_rqs_bwd"] - before["head_rqs_bwd"] == 2
+    loss_cpu = cpu.forward_kld(x.cpu())
+    loss_cpu.backward()
+    assert abs(float(loss.detach()) - float(loss_cpu.detach())) <= MODEL_TOL
+    for p, q in zip(model.parameters(), cpu.parameters()):
+        if q.grad is not None:
+            scale = max(float(q.grad.abs().max()), 1.0)
+            assert float((p.grad.cpu() - q.grad).abs().max()) \
+                <= MODEL_TOL * scale
+
+
+@pytest.mark.parametrize("score_fn", [True, False])
+def test_captured_circular_step_with_made_dropout_matches_eager(cuda,
+                                                                score_fn):
+    """The circular NSF's reverse-KLD step with MADE dropout (kernels A and
+    C), sticking the landing's re-pass on the sampling pass's masks under
+    ``score_fn=False``: five replays against five eager steps."""
+    from nf_tpu_torch.nets.made import MaskedResidualBlock
+
+    base = _perturbed(nt.build_circular_nsf, K=2, hidden=16, num_bins=4)
+    for m in base.modules():
+        if isinstance(m, MaskedResidualBlock):
+            m.dropout_probability = DROPOUT_P
+    base.p = _GaussVonMises()
+    models = [copy.deepcopy(base) for _ in range(2)]
+    opts = [_adam(m) for m in models]
+    states = [nt.init_train_state(m, o) for m, o in zip(models, opts)]
+    kw = dict(num_samples=4096, score_fn=score_fn)
+    graphed = nt.make_reverse_kld_step(opts[0], **kw)
+    eager = nt.make_reverse_kld_step(opts[1], **kw).eager
+    gens = [torch.Generator("cuda").manual_seed(9) for _ in range(2)]
+    for _ in range(5):
+        lg, le = graphed(states[0], gens[0]), eager(states[1], gens[1])
+        torch.testing.assert_close(lg, le, atol=STEP_TOL, rtol=0)
+    for p, q in zip(models[0].parameters(), models[1].parameters()):
+        torch.testing.assert_close(p, q, atol=STEP_TOL, rtol=0)
+    per = 4 if score_fn else 6  # the re-pass: one more A and C per layer
+    assert graphed.launches["rqs_fwd"] == per
+    assert graphed.launches["rqs_bwd"] == per
+
+
+def test_ar_layer_round_trip_under_one_draw_on_cuda(cuda):
+    """One circular AR layer (kernel A) with MADE dropout: under one draw
+    (``shared_masks``) ``inverse(forward(x))`` is x; with two draws it is
+    not."""
+    from nf_tpu_torch.nets._dropout import shared_masks
+
+    model = _perturbed(nt.build_circular_nsf, K=1, hidden=16, num_bins=4)
+    layer = model.flows[0]
+    for m in layer.modules():
+        if hasattr(m, "dropout_probability"):
+            m.dropout_probability = 0.3
+    rng = np.random.default_rng(14)
+    x = torch.stack([torch.from_numpy(rng.uniform(-3.0, 3.0, 4096)),
+                     torch.from_numpy(rng.standard_normal(4096))],
+                    dim=1).float().to(cuda)
+    gen = torch.Generator(cuda).manual_seed(3)
+    with torch.no_grad(), shared_masks():
+        y, ld = layer.forward(x, generator=gen)
+        back, ld_back = layer.inverse(y, generator=gen)
+    torch.testing.assert_close(back, x, atol=1e-3, rtol=0)
+    torch.testing.assert_close(ld + ld_back, torch.zeros_like(ld),
+                               atol=1e-3, rtol=0)
+    with torch.no_grad():
+        y, _ = layer.forward(x, generator=gen)
+        back, _ = layer.inverse(y, generator=gen)
+    assert float((back - x).abs().max()) > 1e-2
