@@ -187,7 +187,34 @@ toolkit. Phases, one line each:
     card against CPU at 65536 and its sampler on the card (the draws' mean
     log-density against the CPU's draws'); a RealNVP-shaped stack with
     ``BatchNorm`` and ``InvertibleAffine`` card against CPU; a bfloat16
-    ``build_image_nsf`` raising at kernel A; no port kernel launched.
+    ``build_image_nsf`` raising at kernel A; no port kernel launched;
+22. snf, snf_nsf, mh: ``examples/stochastic_nf.py``'s stochastic
+    normalizing flow (K 4 ``MaskedAffineFlow`` + ``ActNorm`` blocks, MLPs
+    [2, 64, 64, 2], an HMC layer of 5 leapfrog steps of 0.2 after every
+    second block, TwoModes): ``init_from_samples(512)``, its annealed
+    reverse-KLD step (B = 1024) card against CPU on the card's draws
+    replayed (the base's draws, the momenta and uniforms; an accept
+    decision within 1e-5 of its threshold is taken from the card and
+    counted), eager against graph, ``sample_with_mcmc_stats`` at 8192,
+    the sampler as a graph at 65536; no port kernel. The same recipe over
+    ``build_nsf``'s layer pairs (hidden 128, 8 bins): its reverse-KLD step
+    at B = 4096, kernels B and E in the couplings (A and C on their
+    identity halves' CDF) around the HMC layers' second-order gradient,
+    card against CPU, eager against graph and timed against
+    ``build_nsf``'s own step; its sampler at 65536 (A and B), held
+    against the CPU at 1e-3 or twice the CPU's own float32 error against
+    float64. A Metropolis-Hastings chain (65536 chains, 200 steps) whose
+    moments match a numpy quadrature of TwoModes;
+23. hais: ``examples/hais_sampling.py`` (4096 samples, 31 HMC layers)
+    card against CPU on the card's draws, as a graph bitwise eager, its
+    ``log Z`` against the quadrature, the ESS; no port kernel;
+24. vae: ``examples/vae.py``'s flow VAE on procedural digits, one step
+    card against CPU on the encoder's draws, 200 keyed negative-ELBO
+    steps graph and eager in turns, the IWAE-16 bound; no port kernel;
+25. infrastructure: ``prefetch_to_device`` feeding ``build_nsf``'s
+    captured step, a ``CheckpointManager`` round trip of a captured step,
+    ``Named`` ranges in a ``utils.trace`` profile, ``utils.throughput`` of
+    a served sampler.
 
 It then prints the whole run's wall time, one JSON line on the kernels
 (their launches summed over every path above), the card's name and power
@@ -1695,7 +1722,14 @@ PATH_KERNELS = {"build_nsf serving": ("rqs_fwd", "head_rqs_fwd"),
                 "residual serving": (), "residual step": (),
                 "planar serving": (), "planar step": (),
                 "radial serving": (), "radial step": (),
-                "change_base serving": (), "change_base step": ()}
+                "change_base serving": (), "change_base step": (),
+                "snf serving": (), "snf step": (),
+                "snf_nsf serving": ("rqs_fwd", "head_rqs_fwd"),
+                "snf_nsf step": ("rqs_fwd", "head_rqs_fwd", "rqs_bwd",
+                                 "head_rqs_bwd"),
+                "nsf reverse step": ("rqs_fwd", "head_rqs_fwd", "rqs_bwd",
+                                     "head_rqs_bwd"),
+                "hais serving": (), "vae step": ()}
 
 
 def kernel_of(name):
@@ -4430,6 +4464,898 @@ def phase_layers_distributions(dev, flush):
     return out
 
 
+# --- phases 22-25: stochastic normalizing flows, HAIS, the flow VAE and the
+# infrastructure -----------------------------------------------------------
+
+SNF_K = 4  # examples/stochastic_nf.py: K 4 blocks, HMC after every second
+SNF_HIDDEN = 64
+SNF_LEAPFROG = 5
+SNF_STEP = 0.2
+SNF_ITERS = 1500  # the example's iterations: beta reaches 1 at 750
+SNF_LR = 2e-3
+SNF_BATCH = 1024
+SNF_INIT = 512
+SNF_STATS = 8192
+SNF_NSF_BATCH = 4096  # B*D = 8192 >= the fused-head gate: kernels B and E
+SNF_PERTURB = 0.1
+# the spline layers' perturbation: the serving phase's 0.5 spreads the
+# samples far off the target's ring, where the HMC layers' log-dets are
+# tens of nats
+SNF_NSF_PERTURB = 0.2
+TIE = 1e-5  # |u - p| below which an accept decision may flip on rounding
+MH_CHAINS = 65536
+MH_STEPS = 200  # tests/test_stochastic_hais.py:79's chain
+MH_SCALE = 0.5
+# 4 x the largest deviation of the CPU's plain path from the quadrature
+# over 5 seeds (tests/test_torch_hais.py measures it), rounded up
+MH_MOMENT_TOL = 0.07
+HAIS_SAMPLES = 4096  # examples/hais_sampling.py
+HAIS_STEPS = 32
+HAIS_LEAPFROG = 5
+HAIS_STEP = 0.12
+# max(4 x the standard deviation of the CPU's estimates over 5 seeds, 0.05)
+# (tests/test_torch_hais.py)
+HAIS_LOGZ_TOL = 0.05
+VAE_N = 4096  # examples/vae.py: procedural 28 x 28 digits, latent 16
+VAE_LATENT = 16
+VAE_BATCH = 128
+VAE_STEPS = 200
+VAE_LR = 1e-3
+VAE_IWAE_ROWS = 512
+VAE_IWAE_SAMPLES = 16
+PREFETCH_STEPS = 20
+CKPT_STEPS = (3, 2)  # steps before the checkpoint, steps after it
+
+
+def two_modes_quadrature():
+    """``log Z`` of the TwoModes density and its moments ``E[x], E[y],
+    E[x^2], E[y^2]``, by a Riemann sum on a 2801 x 2801 grid over [-7,
+    7]^2 in float64 (numpy; the density's formula as
+    ``TwoModes.log_prob``)."""
+    g = np.linspace(-7.0, 7.0, 2801)
+    x, y = np.meshgrid(g, g, indexing="ij")
+    a, r = np.abs(x), np.hypot(x, y)
+    log_p = (-0.5 * ((r - 2.0) / 0.4) ** 2 - 0.5 * ((a - 2.0) / 0.6) ** 2
+             + np.log1p(np.exp(-2.0 * a * 2.0 / 0.36)))
+    w = np.exp(log_p) * (g[1] - g[0]) ** 2
+    z = w.sum()
+    return float(np.log(z)), np.array([(w * x).sum(), (w * y).sum(),
+                                       (w * x * x).sum(),
+                                       (w * y * y).sum()]) / z
+
+
+def moments(z):
+    """``E[x], E[y], E[x^2], E[y^2]`` of samples ``z`` (N, 2), in float64."""
+    z = z.detach().double().cpu()
+    return np.array([float(z[:, 0].mean()), float(z[:, 1].mean()),
+                     float((z[:, 0] ** 2).mean()),
+                     float((z[:, 1] ** 2).mean())])
+
+
+def log_z_estimate(log_w):
+    return float(torch.logsumexp(log_w.double(), 0) - np.log(log_w.shape[0]))
+
+
+def mh_chain(dev, seed):
+    """The Metropolis-Hastings chain of phase 22c: ``MH_CHAINS`` chains on
+    TwoModes started at (+-3, +-3), a quarter in each quadrant, with a
+    ``DiagGaussianProposal`` of scale 0.5; ``(z, log_det, acceptance)``."""
+    from nf_tpu_torch import distributions as tdist
+    from nf_tpu_torch import flows as tflows
+
+    mh = tflows.MetropolisHastings(
+        tdist.TwoModes(), tdist.DiagGaussianProposal((2,), MH_SCALE),
+        steps=MH_STEPS).to(dev)
+    z0 = torch.tensor([[3.0, 3.0], [-3.0, 3.0], [3.0, -3.0], [-3.0, -3.0]],
+                      device=dev).repeat(MH_CHAINS // 4, 1)
+    return mh.forward_with_stats(z0, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+
+
+def hais_model(dev):
+    """``examples/hais_sampling.py``'s HAIS: TwoModes from a
+    ``DiagGaussian(2)`` prior, 32 annealing steps (31 HMC layers), 5
+    leapfrog steps of 0.12, unit mass."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import distributions as tdist
+
+    return nt.sampling.HAIS.create(
+        np.linspace(1.0, 0.0, HAIS_STEPS + 1),
+        tdist.DiagGaussian(2, trainable=False), tdist.TwoModes(),
+        num_leapfrog=HAIS_LEAPFROG, step_size=[HAIS_STEP] * 2,
+        log_mass=[0.0] * 2, device=dev)
+
+
+def snf_model(dev, kind):
+    """``examples/stochastic_nf.py``'s SNF (``kind`` "affine": K 4 blocks
+    of ``MaskedAffineFlow`` over MLPs [2, 64, 64, 2] and ``ActNorm``) or
+    the same recipe over ``build_nsf``'s layer pairs (``kind`` "nsf":
+    ``CoupledRationalQuadraticSpline`` with a ResidualNet trunk of hidden
+    128, 8 bins, 2 blocks, then ``LULinearPermute``), with an HMC layer (5
+    leapfrog steps of 0.2, log-mass 0) after every second block targeting
+    ``LinearInterpolation(TwoModes, base, (i + 1) / K)``, and TwoModes as
+    the model's target. The deterministic layers are perturbed off the
+    identity (the affine nets by 0.1, the spline layers by 0.2); the HMC
+    layers keep the example's values."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import distributions as tdist
+    from nf_tpu_torch import flows as tflows
+    from nf_tpu_torch.nets import MLP
+    from nf_tpu_torch.utils.masks import create_alternating_binary_mask
+
+    gen = torch.Generator().manual_seed(SEED + 300)
+    base = tdist.DiagGaussian(2, trainable=False)
+    target = tdist.TwoModes()
+    if kind == "nsf":
+        nsf = nt.build_nsf(dim=2, K=SNF_K, hidden=HIDDEN, num_bins=K_BINS,
+                           num_blocks=2, tail_bound=3.0, device="cpu",
+                           seed=SEED)
+        perturb(nsf, SEED + 301, size=SNF_NSF_PERTURB)
+    flows = []
+    for i in range(SNF_K):
+        if kind == "nsf":
+            flows += list(nsf.flows[2 * i:2 * i + 2])
+        else:
+            widths = [2, SNF_HIDDEN, SNF_HIDDEN, 2]
+            coupling = tflows.MaskedAffineFlow(
+                create_alternating_binary_mask(2, even=(i % 2 == 0)),
+                t=MLP(widths, init_zeros=True, generator=gen),
+                s=MLP(widths, init_zeros=True, generator=gen))
+            perturb(coupling, SEED + 302 + i, size=SNF_PERTURB)
+            flows += [coupling, tflows.ActNorm(2)]
+        if (i + 1) % 2 == 0:
+            flows.append(tflows.HamiltonianMonteCarlo(
+                tdist.LinearInterpolation(target, base,
+                                          alpha=(i + 1) / SNF_K),
+                SNF_LEAPFROG, np.log(np.full(2, SNF_STEP)), np.zeros(2)))
+    return nt.NormalizingFlow(base, flows, p=target).to(dev)
+
+
+def _hmc_layers(model):
+    from nf_tpu_torch.flows import HamiltonianMonteCarlo
+
+    return [m for m in model.modules()
+            if isinstance(m, HamiltonianMonteCarlo)]
+
+
+def record_draws(base, layers, fn):
+    """Run ``fn`` (eagerly) with ``base`` keeping what its ``forward``
+    returned and each HMC layer of ``layers`` its draws (momentum,
+    uniforms) and its acceptance probabilities, per call, on the CPU:
+    ``(result, record)``."""
+    rec = {"base": [], "draws": [[] for _ in layers],
+           "prob": [[] for _ in layers]}
+    real_base = base.forward
+
+    def base_forward(*args, **kw):
+        z, log_p = real_base(*args, **kw)
+        rec["base"].append((z.detach().cpu(), log_p.detach().cpu()))
+        return z, log_p
+
+    base.forward = base_forward
+    for i, layer in enumerate(layers):
+        layer.draw = _recorded(layer.draw, rec["draws"][i], cpu=True)
+        layer.trajectory = _recorded(layer.trajectory, rec["prob"][i],
+                                     pick=1)
+    try:
+        out = fn()
+    finally:
+        _unpatch(base, layers)
+    return out, rec
+
+
+def _recorded(fn, into, cpu=False, pick=None):
+    def call(*args, **kw):
+        out = fn(*args, **kw)
+        kept = out if pick is None else out[pick]
+        into.append(tuple(t.detach().cpu() for t in kept) if cpu
+                    else kept.detach().cpu())
+        return out
+    return call
+
+
+def _unpatch(base, layers):
+    del base.forward
+    for layer in layers:
+        for name in ("draw", "trajectory"):
+            if name in layer.__dict__:
+                delattr(layer, name)
+
+
+def replay_draws(rec, build, device, dtype=torch.float32):
+    """Run a fresh call of ``build() -> (base, HMC layers, fn)`` on
+    ``device`` with ``base`` and the layers handed the card's draws of
+    ``rec`` (as ``dtype``). An accept decision ``u < p`` may come out
+    otherwise here than on the card where ``u`` lies within ``TIE`` of
+    ``p``; such a chain is run again (a fresh ``build()``) with the card's
+    decision (its uniform set to -inf or +inf), until every decision is
+    the card's. Fails if a decision differs anywhere else. ``(fn's result, the count of chains
+    decided by the card at a tie)``."""
+    forced = {}
+    for _ in range(6):
+        base, layers, fn = build()
+        probs = [[] for _ in layers]
+        base_it = iter(rec["base"])
+        base.forward = lambda *a, **k: tuple(
+            t.to(device, dtype) for t in next(base_it))
+        for i, layer in enumerate(layers):
+            layer.draw = _replayer(rec["draws"][i], forced, i, device, dtype)
+            layer.trajectory = _recorded(layer.trajectory, probs[i], pick=1)
+        try:
+            out = fn()
+        finally:
+            _unpatch(base, layers)
+        new = 0
+        for i in range(len(layers)):
+            for c, ((_, u), p_card, p_here) in enumerate(zip(
+                    rec["draws"][i], rec["prob"][i], probs[i])):
+                differ = (u < p_card) != (u < p_here)
+                done = forced.get((i, c))
+                if done is not None:
+                    differ &= ~done[0]
+                if not bool(differ.any()):
+                    continue
+                p_here = p_here.float()
+                tie = ((u - p_here).abs() < TIE) | ((u - p_card).abs() < TIE)
+                if bool((differ & ~tie).any()):
+                    j = int(torch.nonzero(differ & ~tie)[0])
+                    raise RuntimeError(
+                        f"HMC layer {i} call {c}: chain {j} decided "
+                        f"otherwise than on the card away from a tie (u "
+                        f"{float(u[j]):.7g}, p card {float(p_card[j]):.7g}"
+                        f", here {float(p_here[j]):.7g})")
+                mask = differ if done is None else done[0] | differ
+                forced[i, c] = (mask, u < p_card)
+                new += int(differ.sum())
+        if not new:
+            return out, sum(int(m.sum()) for m, _ in forced.values())
+    raise RuntimeError("the accept decisions did not settle in 6 replays")
+
+
+def _replayer(calls, forced, i, device, dtype):
+    it = iter(enumerate(calls))
+
+    def draw(z, generator=None):
+        c, (p_unit, u) = next(it)
+        f = forced.get((i, c))
+        if f is not None:
+            mask, accept = f
+            u = torch.where(mask, torch.where(accept, -np.inf, np.inf), u)
+        return p_unit.to(device, dtype), u.to(device, dtype)
+    return draw
+
+
+def snf_step_check(model, dev, batch, beta):
+    """One eager annealed reverse-KLD step (Adam, ``SNF_LR``) of ``model``
+    at ``batch``: on the card, recording its draws, and on the CPU on
+    them. ``(loss error, gradient error relative, launches, ties)``."""
+    import nf_tpu_torch as nt
+
+    def build(device):
+        m = copy.deepcopy(model).to(device)
+        opt = torch.optim.Adam(m.parameters(), lr=SNF_LR)
+        step = nt.make_reverse_kld_step(opt, num_samples=batch,
+                                        beta_schedule=lambda t: beta).eager
+        gen = torch.Generator(device=device).manual_seed(SEED + 310)
+        return m.q0, _hmc_layers(m), lambda: (
+            step(nt.init_train_state(m, opt), gen), _grads(m))
+
+    counts = {}
+    base, layers, run = build(dev)
+    (l1, g1), rec = record_draws(base, layers, lambda: _counted(
+        counts, "step", run))
+    (l2, g2), ties = replay_draws(rec, lambda: build("cpu"), "cpu")
+    grad_err = max(rel_err(g1[n].cpu(), g2[n]) for n in g1)
+    return abs(float(l1) - float(l2)), grad_err, counts["step"], ties
+
+
+def sample_check(label, model, dev, batch, stats=False):
+    """``sample`` (or ``sample_with_mcmc_stats``) of ``model`` at ``batch``
+    on the card, then on the CPU on the card's draws, in float32 and in
+    float64: ``(result, its launches, max error of z and log_q card vs
+    CPU, the limit, ties)``. The limit is 1e-3, or twice the CPU's own
+    float32 error against float64 where that is larger (the leapfrog
+    amplifies every layer's rounding, as the circular coupling's phase
+    holds its float32 models). Fails on non-finite values."""
+    counts = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 311)
+
+    def run(m, g):
+        def call():
+            with torch.inference_mode():
+                return (m.sample_with_mcmc_stats(batch, generator=g) if stats
+                        else m.sample(batch, generator=g))
+        return call
+
+    def on_cpu(dtype):
+        m = copy.deepcopy(model).to("cpu", dtype)
+        return lambda: (m.q0, _hmc_layers(m), run(m, None))
+
+    got, rec = record_draws(model.q0, _hmc_layers(model), lambda: _counted(
+        counts, "sample", run(model, gen)))
+    want, ties = replay_draws(rec, on_cpu(torch.float32), "cpu")
+    exact, _ = replay_draws(rec, on_cpu(torch.float64), "cpu",
+                            torch.float64)
+    err = max(max_err(got[0].cpu(), want[0]), max_err(got[1].cpu(), want[1]))
+    own = max(max_err(want[0].double(), exact[0]),
+              max_err(want[1].double(), exact[1]))
+    limit = max(MODEL_TOL, 2 * own)
+    if not (bool(torch.isfinite(got[0]).all())
+            and bool(torch.isfinite(got[1]).all())):
+        raise RuntimeError(f"{label}: non-finite samples or log q")
+    if not err <= limit:
+        raise RuntimeError(f"{label}: card vs CPU on the card's draws "
+                           f"{err:.3g} > {limit:.3g} (the CPU's float32 "
+                           f"against float64 {own:.3g})")
+    return got, counts["sample"], err, limit, ties
+
+
+def _acceptance_text(acc):
+    return "[" + ", ".join(f"{float(a.mean()):.4f}" for a in acc) + "]"
+
+
+def phase_snf(dev, flush):
+    """Phase 22a: ``examples/stochastic_nf.py``'s SNF (K 4 affine blocks,
+    HMC after every second) on TwoModes: ``init_from_samples(512)``, one
+    annealed reverse-KLD step card against CPU on the card's draws (B =
+    1024), the step eager against graph in turns (five steps within 1e-5,
+    timed, profiled), ``sample_with_mcmc_stats`` at 8192 against the CPU
+    (its acceptance rates), the sampler served as a graph at 65536 (bitwise
+    eager). No port kernel runs. Returns ``({path: launches}, model)``."""
+    import nf_tpu_torch as nt
+
+    t0 = time.perf_counter()
+    model = snf_model(dev, "affine")
+    counts = {}
+    _counted(counts, "init", lambda: model.init_from_samples(
+        SNF_INIT, generator=torch.Generator(device=dev).manual_seed(
+            SEED + 312)))
+    loss_err, grad_err, per_step, ties = snf_step_check(
+        model, dev, SNF_BATCH, beta=0.05)
+    if not (loss_err <= TRAIN_TOL and grad_err <= TRAIN_TOL):
+        raise RuntimeError(f"snf step card vs CPU: loss {loss_err:.3g}, "
+                           f"gradients {grad_err:.3g} (limit {TRAIN_TOL})")
+    (z, log_q, acc), per_stats, stats_err, stats_limit, stats_ties = \
+        sample_check("snf sample_with_mcmc_stats", model, dev, SNF_STATS,
+                     stats=True)
+    _expect({"init": counts["init"], "step": per_step,
+             "sample_with_mcmc_stats": per_stats},
+            {"init": {}, "step": {}, "sample_with_mcmc_stats": {}},
+            "snf")
+    print(f"phase snf (examples/stochastic_nf.py: K {SNF_K} MaskedAffineFlow"
+          f" + ActNorm blocks, MLPs [2, {SNF_HIDDEN}, {SNF_HIDDEN}, 2], HMC "
+          f"({SNF_LEAPFROG} leapfrog steps of {SNF_STEP}) after every second"
+          f", TwoModes): init_from_samples({SNF_INIT}); reverse-KLD step (B "
+          f"= {SNF_BATCH}, beta 0.05) card vs CPU on the card's draws: loss "
+          f"{loss_err:.3g}, gradients {grad_err:.3g} relative (limit "
+          f"{TRAIN_TOL}; {ties} accept decisions at a tie taken from the "
+          f"card); sample_with_mcmc_stats (B = {SNF_STATS}) card vs CPU "
+          f"{stats_err:.3g} (limit {stats_limit:.3g}; ties {stats_ties}), HMC "
+          f"acceptance per layer {_acceptance_text(acc)}, mean |z| "
+          f"{float(z.norm(dim=1).mean()):.4f}; no port kernel launched",
+          flush=True)
+    out = {"snf init": (counts["init"], ()), "snf step": (per_step, ()),
+           "snf sample_with_mcmc_stats": (per_stats, ())}
+    gens = [torch.Generator(device=dev).manual_seed(SEED + 313)
+            for _ in range(2)]
+    step = step_graphs(
+        f"snf annealed reverse-KLD step (B = {SNF_BATCH})", model,
+        lambda opt: nt.make_reverse_kld_step(
+            opt, num_samples=SNF_BATCH,
+            beta_schedule=lambda t: min(1.0, 0.05 + t / (SNF_ITERS // 2))),
+        lambda i, which: (gens[which],), "snf step", dict(lr=SNF_LR))
+    _expect_launches(step["launches"], {}, "snf step graph")
+    out["graphs: snf step"] = (step["launches"], ())
+    out["graphs: snf serving"] = (_sampler_graph("snf", model, BATCH), ())
+    print(f"phase timing phase 22a (snf): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out, model
+
+
+def _sampler_graph(label, model, batch):
+    """``compile_sampler(model, batch)`` against eager sampling, bitwise
+    for two seeds; times in turns and a profiled replay. Returns the
+    capture's launches."""
+    import nf_tpu_torch as nt
+
+    sampler = nt.compile_sampler(model, batch)
+    for seed in (SEED, SEED + 1):
+        z, log_q = sampler(seed)
+        with torch.inference_mode():
+            ze, lqe = model.sample(batch, generator=torch.Generator(
+                "cuda").manual_seed(seed))
+        if not (torch.equal(z, ze) and torch.equal(log_q, lqe)):
+            raise RuntimeError(f"{label} sampler: the graph's draws for seed"
+                               f" {seed} differ from eager "
+                               f"({max_err(z, ze):.3g})")
+    gen = torch.Generator("cuda").manual_seed(SEED)
+
+    def eager():
+        with torch.inference_mode():
+            return model.sample(batch, generator=gen)
+
+    turns = in_turns(eager, lambda: sampler(SEED))
+    report = replay_report(lambda: sampler(SEED), f"{label} serving")
+    print(f"phase graphs {label} sampler (B = {batch}): graph bitwise eager "
+          f"for two seeds; capture counted {sampler.launches}; "
+          + _turns_text(turns) + "; " + _report_text(report), flush=True)
+    return sampler.launches
+
+
+def phase_snf_nsf(dev, flush):
+    """Phase 22b: the SNF recipe over ``build_nsf``'s layer pairs (hidden
+    128, 8 bins, 2 blocks, ``LULinearPermute``; HMC after every second
+    pair): the reverse-KLD step at B = 4096 (kernel B forward and kernel
+    E backward in the couplings, A and C on their identity halves' CDF,
+    behind and in front of the HMC layers' second-order gradient) card against CPU on the card's draws, eager against graph
+    in turns, timed in turns against ``build_nsf``'s own step (the same
+    layers without the HMC layers); the sampler at 65536 card against CPU
+    and as a graph. Returns {path: launches}."""
+    import nf_tpu_torch as nt
+
+    t0 = time.perf_counter()
+    model = snf_model(dev, "nsf")
+    loss_err, grad_err, per_step, ties = snf_step_check(
+        model, dev, SNF_NSF_BATCH, beta=1.0)
+    if not (loss_err <= TRAIN_TOL and grad_err <= TRAIN_TOL):
+        raise RuntimeError(f"snf_nsf step card vs CPU: loss {loss_err:.3g}, "
+                           f"gradients {grad_err:.3g} (limit {TRAIN_TOL})")
+    (z, log_q), per_sample, sample_err, sample_limit, sample_ties = \
+        sample_check("snf_nsf sample", model, dev, BATCH)
+    for what, c in (("step", per_step), ("sample", per_sample)):
+        _expect({what: c}, {what: {k: SNF_K for k in PATH_KERNELS[
+            f"snf_nsf {'step' if what == 'step' else 'serving'}"]}},
+            "snf_nsf")
+    print(f"phase snf_nsf (build_nsf's layers, K {SNF_K}, hidden {HIDDEN}, "
+          f"{K_BINS} bins, HMC after every second pair): reverse-KLD step "
+          f"(B = {SNF_NSF_BATCH}) card vs CPU on the card's draws: loss "
+          f"{loss_err:.3g}, gradients {grad_err:.3g} relative (limit "
+          f"{TRAIN_TOL}; ties {ties}), launches {per_step}; sample (B = "
+          f"{BATCH}) card vs CPU {sample_err:.3g} (limit {sample_limit:.3g}, "
+          f"1e-3 or twice the CPU's float32 error against float64; ties "
+          f"{sample_ties}), launches {per_sample}", flush=True)
+    out = {"snf_nsf step": (per_step, PATH_KERNELS["snf_nsf step"]),
+           "snf_nsf sample": (per_sample, PATH_KERNELS["snf_nsf serving"])}
+    gens = [torch.Generator(device=dev).manual_seed(SEED + 320)
+            for _ in range(2)]
+
+    def make(opt):
+        return nt.make_reverse_kld_step(opt, num_samples=SNF_NSF_BATCH)
+
+    step = step_graphs(f"snf_nsf reverse-KLD step (B = {SNF_NSF_BATCH})",
+                       model, make, lambda i, which: (gens[which],),
+                       "snf_nsf step", dict(lr=SNF_LR))
+    _expect_launches(step["launches"], {
+        k: SNF_K for k in PATH_KERNELS["snf_nsf step"]},
+        "snf_nsf step graph")
+    out["graphs: snf_nsf step"] = (step["launches"],
+                                   PATH_KERNELS["snf_nsf step"])
+    # build_nsf's own step: the same layers, no HMC layer
+    plain = nt.NormalizingFlow(
+        copy.deepcopy(model.q0),
+        [copy.deepcopy(f) for f in model.flows if not _hmc_layers(f)],
+        p=nt.TwoModes())
+    states, steps = [], []
+    for m in (model, plain):
+        m = copy.deepcopy(m)
+        opt = torch.optim.Adam(m.parameters(), lr=SNF_LR, capturable=True)
+        states.append(nt.init_train_state(m, opt))
+        steps.append(make(opt))
+    gen2 = [torch.Generator(device=dev).manual_seed(SEED + 321)
+            for _ in range(2)]
+    for _ in range(3):  # two warm-up steps, then the capture
+        for st, s, g in zip(states, steps, gen2):
+            s(st, g)
+    ms = {}
+    for label, k in (("snf", 0), ("build_nsf", 1), ("build_nsf", 1),
+                     ("snf", 0)):
+        ms.setdefault(label, []).append(host_ms(
+            lambda: steps[k](states[k], gen2[k])))
+    eager_ms = {label: host_ms(lambda: steps[k].eager(states[k], gen2[k]))
+                for label, k in (("snf", 0), ("build_nsf", 1))}
+    plain_report = replay_report(lambda: steps[1](states[1], gen2[1]),
+                                 "nsf reverse step")
+    print(f"phase snf_nsf cost of the HMC layers (reverse-KLD step, B = "
+          f"{SNF_NSF_BATCH}, graphs in turns snf, build_nsf, build_nsf, snf;"
+          f" wall ms per step, median of 10): snf {ms['snf'][0]:.3f} / "
+          f"{ms['snf'][1]:.3f}, build_nsf {ms['build_nsf'][0]:.3f} / "
+          f"{ms['build_nsf'][1]:.3f}; eager snf {eager_ms['snf']:.3f}, "
+          f"build_nsf {eager_ms['build_nsf']:.3f}; build_nsf's graph: "
+          + _report_text(plain_report), flush=True)
+    out["graphs: nsf reverse step"] = (steps[1].launches,
+                                       PATH_KERNELS["nsf reverse step"])
+    out["graphs: snf_nsf serving"] = (_sampler_graph("snf_nsf", model, BATCH),
+                                      PATH_KERNELS["snf_nsf serving"])
+    print(f"phase timing phase 22b (snf_nsf): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def phase_mh(dev):
+    """Phase 22c: ``MH_CHAINS`` Metropolis-Hastings chains on TwoModes
+    (``DiagGaussianProposal`` 0.5, 200 steps, from (+-3, +-3)): the first
+    two moments against the quadrature within ``MH_MOMENT_TOL``, the
+    acceptance per step; no port kernel. Returns {path: launches}."""
+    t0 = time.perf_counter()
+    counts = {}
+    with torch.inference_mode():
+        z, log_det, acc = _counted(counts, "chain", lambda: mh_chain(
+            dev, SEED + 330))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _expect(counts, {"chain": {}}, "mh chain")
+    _, want = two_modes_quadrature()
+    got = moments(z)
+    dev_max = float(np.max(np.abs(got - want)))
+    if not (dev_max <= MH_MOMENT_TOL and bool(torch.isfinite(log_det).all())):
+        raise RuntimeError(f"mh chain: moments {got} against the quadrature's"
+                           f" {want}: {dev_max:.3g} > {MH_MOMENT_TOL}")
+    print(f"phase mh ({MH_CHAINS} chains, DiagGaussianProposal {MH_SCALE}, "
+          f"{MH_STEPS} steps, TwoModes): E[x], E[y], E[x^2], E[y^2] = "
+          + ", ".join(f"{v:.4f}" for v in got) + " (quadrature "
+          + ", ".join(f"{v:.4f}" for v in want) + f"), largest deviation "
+          f"{dev_max:.4g} (limit {MH_MOMENT_TOL}); acceptance first step "
+          f"{float(acc[0]):.4f}, last {float(acc[-1]):.4f}; {ms:.1f} ms "
+          f"wall, eager, the first call", flush=True)
+    return {"mh chain": (counts["chain"], ())}
+
+
+def phase_hais(dev, flush):
+    """Phase 23: ``examples/hais_sampling.py``'s HAIS (4096 samples, 31 HMC
+    layers) eagerly and as a ``compile_sampler`` graph, in turns:
+    log-weights card against CPU on the card's draws, graph bitwise eager,
+    the ESS and the ``log Z`` estimate (against the quadrature within
+    ``HAIS_LOGZ_TOL``), the acceptance along the schedule. No port
+    kernel. Returns {path: launches}."""
+    import nf_tpu_torch as nt
+
+    t0 = time.perf_counter()
+    hais = hais_model(dev)
+    cpu = copy.deepcopy(hais).to("cpu")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 340)
+    counts = {}
+
+    def run(h, g):
+        def call():
+            with torch.inference_mode():
+                return h.sample_with_stats(HAIS_SAMPLES, generator=g)
+        return call
+
+    (z, log_w, acc), rec = record_draws(
+        hais.prior, list(hais.layers), lambda: _counted(
+            counts, "sample", run(hais, gen)))
+    (zc, lwc, accc), ties = replay_draws(rec, lambda: (
+        cpu.prior, list(cpu.layers), run(cpu, None)), "cpu")
+    err = max(max_err(z.cpu(), zc), max_err(log_w.cpu(), lwc))
+    if not err <= MODEL_TOL:
+        raise RuntimeError(f"hais: card vs CPU on the card's draws "
+                           f"{err:.3g} > {MODEL_TOL}")
+    if not torch.equal(acc.cpu(), accc):
+        raise RuntimeError("hais: acceptance card vs CPU differs")
+    _expect(counts, {"sample": {}}, "hais")
+    log_z, _ = two_modes_quadrature()
+    est = log_z_estimate(log_w)
+    ess = float(nt.utils.effective_sample_size(log_w))
+    if not abs(est - log_z) <= HAIS_LOGZ_TOL:
+        raise RuntimeError(f"hais: log Z {est:.5f} against the quadrature's "
+                           f"{log_z:.5f} (limit {HAIS_LOGZ_TOL})")
+    sampler = nt.compile_sampler(hais, HAIS_SAMPLES)
+    zg, lwg = sampler(SEED + 341)
+    with torch.inference_mode():
+        ze, lwe = hais.sample(HAIS_SAMPLES, generator=torch.Generator(
+            "cuda").manual_seed(SEED + 341))
+    if not (torch.equal(zg, ze) and torch.equal(lwg, lwe)):
+        raise RuntimeError("hais: the sampler graph differs from eager")
+
+    def eager():
+        with torch.inference_mode():
+            return hais.sample(HAIS_SAMPLES, generator=gen)
+
+    turns = in_turns(eager, lambda: sampler(SEED))
+    report = replay_report(lambda: sampler(SEED), "hais serving")
+    print(f"phase hais (examples/hais_sampling.py: {HAIS_SAMPLES} samples, "
+          f"{HAIS_STEPS} annealing steps, {HAIS_LEAPFROG} leapfrog steps of "
+          f"{HAIS_STEP}, TwoModes from DiagGaussian(2)): log-weights and "
+          f"samples card vs CPU on the card's draws {err:.3g} (limit "
+          f"{MODEL_TOL}; ties {ties}); ESS {ess:.1f} / {HAIS_SAMPLES}; log Z "
+          f"{est:.5f}, quadrature {log_z:.5f} (limit {HAIS_LOGZ_TOL}); "
+          f"acceptance along the schedule min {float(acc.min()):.4f}, mean "
+          f"{float(acc.mean()):.4f}, max {float(acc.max()):.4f}; sampler "
+          f"graph bitwise eager; capture counted {sampler.launches}; "
+          + _turns_text(turns) + "; " + _report_text(report), flush=True)
+    print(f"phase timing phase 23 (hais): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"hais sample": (counts["sample"], ()),
+            "graphs: hais serving": (sampler.launches, ())}
+
+
+def procedural_digits(seed, n=VAE_N, side=28):
+    """``examples/vae.py``'s zero-download digits in numpy: a Gaussian bump
+    at a class-dependent position and uniform noise, (n, side * side)
+    float32 in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, 10, n)
+    yy, xx = np.mgrid[0:side, 0:side] / side
+    cx = 0.25 + 0.5 * (cls % 3)[:, None, None] / 2.0
+    cy = 0.25 + 0.5 * (cls // 3)[:, None, None] / 3.0
+    img = np.exp(-(((xx[None] - cx) ** 2 + (yy[None] - cy) ** 2) / 0.02))
+    img = np.clip(img + 0.05 * rng.random(img.shape), 0, 1)
+    return img.reshape(n, -1).astype(np.float32)
+
+
+def vae_model(dev):
+    """``examples/vae.py``'s model: an ``NNDiagGaussian`` encoder on an MLP
+    [784, 256, 256, 32], 4 ``MaskedAffineFlow`` posterior layers on MLPs
+    [16, 128, 16] (zero-init, alternating half masks), an
+    ``NNBernoulliDecoder`` on an MLP [16, 256, 256, 784] and a fixed
+    ``DiagGaussian(16)`` prior."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import distributions as tdist
+    from nf_tpu_torch import flows as tflows
+    from nf_tpu_torch.nets import MLP
+
+    gen = torch.Generator().manual_seed(SEED + 350)
+    L = VAE_LATENT
+    flows = []
+    for i in range(4):
+        b = torch.tensor([1.0] * (L // 2) + [0.0] * (L - L // 2))
+        b = b if i % 2 == 0 else 1.0 - b
+        flows.append(tflows.MaskedAffineFlow(
+            b, t=MLP([L, 128, L], init_zeros=True, generator=gen),
+            s=MLP([L, 128, L], init_zeros=True, generator=gen)))
+    return nt.NormalizingFlowVAE(
+        tdist.DiagGaussian(L, trainable=False),
+        tdist.NNDiagGaussian(MLP([784, 256, 256, 2 * L], generator=gen)),
+        flows=flows,
+        decoder=tdist.NNBernoulliDecoder(MLP([L, 256, 256, 784],
+                                             generator=gen))).to(dev)
+
+
+def negative_elbo(model, x, generator):
+    """``examples/vae.py``'s loss: ``mean(log q - log p)`` of one
+    posterior sample per row."""
+    _, log_q, log_p = model(x, num_samples=1, generator=generator)
+    return torch.mean(log_q - log_p)
+
+
+def phase_vae(dev, flush):
+    """Phase 24: ``examples/vae.py``'s flow VAE on its procedural digits:
+    one keyed negative-ELBO step card against CPU on the card's encoder
+    draws, then 200 steps of ``make_forward_kld_step(..., with_key=True)``
+    (Adam 1e-3, batch 128) as a graph and eagerly, in turns, on the same
+    batches and seeds (the first five within 1e-5 of each other, the loss
+    falling on both), timed and profiled; then the IWAE-16 bound on 512
+    rows. No port kernel. Returns {path: launches}."""
+    import nf_tpu_torch as nt
+
+    t0 = time.perf_counter()
+    x_all = torch.from_numpy(procedural_digits(SEED + 351)).to(dev)
+    idx = torch.from_numpy(np.random.default_rng(SEED + 352).integers(
+        0, VAE_N, (VAE_STEPS + 40, VAE_BATCH))).to(dev)
+    base = vae_model(dev)
+    # one step card against CPU on the card's encoder draws
+    out = []
+    for device in (dev, "cpu"):
+        m = copy.deepcopy(base).to(device)
+        opt = torch.optim.Adam(m.parameters(), lr=VAE_LR)
+        step = nt.make_forward_kld_step(opt, loss_fn=negative_elbo,
+                                        with_key=True).eager
+        run = lambda: step(nt.init_train_state(m, opt),  # noqa: E731
+                           x_all[idx[0]].to(device), SEED + 353)
+        if device == dev:
+            counts = {}
+            eps = []
+            m.q0.draw = _recorded(m.q0.draw, eps)
+            loss = _counted(counts, "step", run)
+        else:
+            it = iter(eps)
+            m.q0.draw = lambda shape, generator, like: next(it).to(
+                like.device)
+            loss = run()
+        del m.q0.draw
+        out.append((float(loss), _grads(m)))
+    (l1, g1), (l2, g2) = out
+    grad_err = max(rel_err(g1[n].cpu(), g2[n]) for n in g1)
+    if not (abs(l1 - l2) <= TRAIN_TOL * max(abs(l2), 1.0)
+            and grad_err <= TRAIN_TOL):
+        raise RuntimeError(f"vae step card vs CPU: loss {abs(l1 - l2):.3g}, "
+                           f"gradients {grad_err:.3g} (limit {TRAIN_TOL})")
+    _expect(counts, {"step": {}}, "vae step")
+    # 200 steps, graph and eager in turns
+    models = [copy.deepcopy(base) for _ in range(2)]
+    opts = [torch.optim.Adam(m.parameters(), lr=VAE_LR, capturable=True)
+            for m in models]
+    states = [nt.init_train_state(m, o) for m, o in zip(models, opts)]
+    graphed = nt.make_forward_kld_step(opts[0], loss_fn=negative_elbo,
+                                       with_key=True)
+    eager = nt.make_forward_kld_step(opts[1], loss_fn=negative_elbo,
+                                     with_key=True).eager
+    losses = [[], []]
+    wall = [0.0, 0.0]
+    for i in range(VAE_STEPS):
+        x = x_all[idx[i]]
+        for k, (fn, st) in enumerate(((graphed, states[0]),
+                                      (eager, states[1]))):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses[k].append(fn(st, x, SEED + 400 + i))
+            torch.cuda.synchronize()
+            wall[k] += time.perf_counter() - t1
+    lg, le = (torch.stack(v).cpu() for v in losses)
+    early = max_err(lg[:GRAPH_STEPS], le[:GRAPH_STEPS])
+    if not early <= STEP_TOL:
+        raise RuntimeError(f"vae: graph vs eager over the first "
+                           f"{GRAPH_STEPS} steps {early:.3g} > {STEP_TOL}")
+    for k, lv in (("graph", lg), ("eager", le)):
+        if not (bool(torch.isfinite(lv).all())
+                and float(lv[-10:].mean()) < float(lv[:10].mean())
+                - LOSS_MARGIN):
+            raise RuntimeError(f"vae: the {k} negative ELBO did not fall: "
+                               f"first 10 {float(lv[:10].mean()):.3f}, last "
+                               f"10 {float(lv[-10:].mean()):.3f}")
+    j = [VAE_STEPS]
+
+    def call(fn, st):
+        def run():
+            j[0] += 1
+            return fn(st, x_all[idx[j[0] % (VAE_STEPS + 40)]], SEED + j[0])
+        return run
+
+    turns = in_turns(call(eager, states[1]), call(graphed, states[0]))
+    report = replay_report(call(graphed, states[0]), "vae step")
+    _expect_launches(graphed.launches, {}, "vae step graph")
+    with torch.inference_mode():
+        _, log_q, log_p = models[0](
+            x_all[:VAE_IWAE_ROWS], num_samples=VAE_IWAE_SAMPLES,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 354))
+        iwae = float(torch.mean(torch.logsumexp(log_p - log_q, dim=1)
+                                - np.log(VAE_IWAE_SAMPLES)))
+    print(f"phase vae (examples/vae.py: {VAE_N} procedural 784-pixel digits, "
+          f"latent {VAE_LATENT}, NNDiagGaussian on MLP [784, 256, 256, 32], "
+          f"4 MaskedAffineFlow on MLP [16, 128, 16], NNBernoulliDecoder on "
+          f"MLP [16, 256, 256, 784], Adam {VAE_LR}, batch {VAE_BATCH}): one "
+          f"step card vs CPU on the card's draws: loss {abs(l1 - l2):.3g}, "
+          f"gradients {grad_err:.3g} (limit {TRAIN_TOL}); {VAE_STEPS} steps "
+          f"graph and eager in turns: the first {GRAPH_STEPS} within "
+          f"{early:.3g} (limit {STEP_TOL}), -ELBO graph {float(lg[0]):.3f} -> "
+          f"{float(lg[-10:].mean()):.3f} (last 10), eager {float(le[0]):.3f} "
+          f"-> {float(le[-10:].mean()):.3f}; wall s over the {VAE_STEPS} "
+          f"steps, synchronised: graph {wall[0]:.3f}, eager {wall[1]:.3f}; "
+          f"IWAE-{VAE_IWAE_SAMPLES} bound on {VAE_IWAE_ROWS} rows (graph-"
+          f"trained) {iwae:.3f}; capture counted {graphed.launches}; "
+          + _turns_text(turns, "step") + "; " + _report_text(report),
+          flush=True)
+    print(f"phase timing phase 24 (vae): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"vae step": (counts["step"], ()),
+            "graphs: vae step": (graphed.launches, ())}
+
+
+def phase_infrastructure(dev, flush, snf):
+    """Phase 25: (a) ``prefetch_to_device`` feeding ``build_nsf``'s captured
+    forward-KLD step from an ``ArrayDataset`` (B = 65536): every batch
+    equal to a synchronous copy's, the losses equal to a twin fed by
+    synchronous copies, the host syncs per step; (b) a
+    ``CheckpointManager`` save and restore of the SNF's captured reverse
+    step (model, Adam, generator), the replays after the restore bitwise
+    those of the uninterrupted run; (c) ``Named`` ranges in a
+    ``utils.trace`` profile, the wrapped model bitwise the plain one; (d)
+    ``utils.throughput`` of the served ``build_nsf`` sampler. Returns
+    {path: launches}."""
+    import os
+    import tempfile
+
+    import nf_tpu_torch as nt
+    from nf_tpu_torch.utils import Named
+
+    t0 = time.perf_counter()
+    # (a) the prefetched build_nsf step
+    data = nt.TwoMoons().sample(PREFETCH_STEPS * BATCH, generator=torch
+                                .Generator().manual_seed(SEED + 360))
+    data = data.numpy()
+    base = _nsf_model()
+    models = [copy.deepcopy(base) for _ in range(2)]
+    opts = [torch.optim.Adam(m.parameters(), lr=1e-3, capturable=True)
+            for m in models]
+    states = [nt.init_train_state(m, o) for m, o in zip(models, opts)]
+    steps = [nt.make_forward_kld_step(o) for o in opts]
+    fed, direct, same = [], [], True
+    batches = []
+
+    def prefetched():
+        for b in nt.data.prefetch_to_device(
+                nt.data.ArrayDataset(data, batch_size=BATCH, seed=SEED),
+                size=2):
+            fed.append(steps[0](states[0], b))
+            batches.append(b)
+
+    msgs = host_syncs(prefetched)
+    for b in nt.data.ArrayDataset(data, batch_size=BATCH, seed=SEED):
+        x = torch.as_tensor(b).to(dev)
+        same = same and torch.equal(x, batches[len(direct)])
+        direct.append(steps[1](states[1], x))
+    loss_err = max_err(torch.stack(fed), torch.stack(direct))
+    if not (same and len(fed) == PREFETCH_STEPS and loss_err <= STEP_TOL):
+        raise RuntimeError(f"prefetch: batches equal {same}, {len(fed)} "
+                           f"steps, losses against the synchronous copies "
+                           f"{loss_err:.3g}")
+    print(f"phase infrastructure prefetch_to_device (ArrayDataset of "
+          f"{PREFETCH_STEPS} batches of {BATCH} TwoMoons rows, size 2) into "
+          f"build_nsf's captured forward-KLD step: every batch equal to a "
+          f"synchronous copy, losses against the synchronously fed twin's "
+          f"{loss_err:.3g} (limit {STEP_TOL}); host syncs over the "
+          f"{PREFETCH_STEPS} steps {len(msgs)}"
+          + (f" (first: {msgs[0][:120]})" if msgs else "")
+          + f"; capture counted {steps[0].launches}", flush=True)
+    out = {"graphs: prefetch build_nsf step": (
+        steps[0].launches, PATH_KERNELS["build_nsf step"])}
+    # (b) a checkpoint of a captured step, restored
+    model = copy.deepcopy(snf)
+    opt = torch.optim.Adam(model.parameters(), lr=SNF_LR, capturable=True)
+    state = nt.init_train_state(model, opt)
+    step = nt.make_reverse_kld_step(opt, num_samples=SNF_BATCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 361)
+    with tempfile.TemporaryDirectory() as d:
+        manager = nt.utils.CheckpointManager(d, max_to_keep=2)
+        for _ in range(CKPT_STEPS[0]):
+            step(state, gen)
+        manager.save(state.step, state, generator=gen)
+        after = [step(state, gen) for _ in range(CKPT_STEPS[1])]
+        params = [p.detach().clone() for p in model.parameters()]
+        restored, at = manager.restore(state, generator=gen)
+        again = [step(state, gen) for _ in range(CKPT_STEPS[1])]
+        kept = manager.all_steps()
+    bitwise = (all(torch.equal(a, b) for a, b in zip(after, again))
+               and all(torch.equal(p, q.detach()) for p, q in
+                       zip(params, model.parameters())))
+    if not (bitwise and at == CKPT_STEPS[0] and restored is state):
+        raise RuntimeError(f"checkpoint: restored step {at}, the replays "
+                           f"after the restore bitwise the uninterrupted "
+                           f"run's: {bitwise}")
+    print(f"phase infrastructure checkpoint: the SNF's captured reverse-KLD "
+          f"step saved at step {at} (model, Adam, generator), {CKPT_STEPS[1]}"
+          f" replays, restored in place, {CKPT_STEPS[1]} replays again: "
+          f"losses and parameters bitwise equal; steps kept {kept}",
+          flush=True)
+    # (c) Named ranges in a trace
+    named = copy.deepcopy(snf)
+    for i, f in enumerate(named.flows):
+        named.flows[i] = Named(f, f"snf_layer_{i}")
+    with tempfile.TemporaryDirectory() as d:
+        with nt.utils.trace(d) as prof:
+            with torch.inference_mode():
+                zn, lqn = named.sample(BATCH, generator=torch.Generator(
+                    device=dev).manual_seed(SEED + 362))
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()}
+        trace_bytes = os.path.getsize(os.path.join(d, "trace.json"))
+    with torch.inference_mode():
+        zp, lqp = snf.sample(BATCH, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 362))
+    ranges = sorted(n for n in names if n.startswith("snf_layer_"))
+    if not (len(ranges) == len(snf.flows) and torch.equal(zn, zp)
+            and torch.equal(lqn, lqp)):
+        raise RuntimeError(f"Named: ranges {ranges} in the trace, samples "
+                           f"bitwise the plain model's: "
+                           f"{torch.equal(zn, zp)}")
+    print(f"phase infrastructure Named: {len(ranges)} named ranges in the "
+          f"torch.profiler trace ({trace_bytes} bytes of Chrome trace), the "
+          f"wrapped SNF's samples bitwise the plain one's", flush=True)
+    # (d) throughput of the served build_nsf sampler
+    sampler = nt.compile_sampler(base, BATCH)
+    z0 = torch.zeros(BATCH, 2, device=dev)
+    rate = nt.utils.throughput(lambda z: sampler(SEED)[0], z0, iters=20,
+                               items_per_call=BATCH)
+    print(f"phase infrastructure throughput: build_nsf's served sampler (B "
+          f"= {BATCH}) {rate:.4g} samples/s over 20 replays timed with CUDA "
+          f"events; capture counted {sampler.launches}", flush=True)
+    out["graphs: throughput build_nsf serving"] = (
+        sampler.launches, PATH_KERNELS["snf_nsf serving"])
+    print(f"phase timing phase 25 (infrastructure): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port runs on an "
@@ -4530,6 +5456,16 @@ def main():
     paths.update(phase_planar_radial(dev, flush))
     paths.update(phase_dropout_batch_norm(dev, flush))
     paths.update(phase_layers_distributions(dev, flush))
+    t_new = time.perf_counter()
+    snf_paths, snf = phase_snf(dev, flush)
+    paths.update(snf_paths)
+    paths.update(phase_snf_nsf(dev, flush))
+    paths.update(phase_mh(dev))
+    paths.update(phase_hais(dev, flush))
+    paths.update(phase_vae(dev, flush))
+    paths.update(phase_infrastructure(dev, flush, snf))
+    print(f"phase timing phases 22-25 (snf, snf_nsf, mh, hais, vae, "
+          f"infrastructure): {time.perf_counter() - t_new:.1f} s", flush=True)
     print("launches: " + "; ".join(f"{k} {v[0]}" for k, v in paths.items()),
           flush=True)
     for path, (counts, needed) in paths.items():

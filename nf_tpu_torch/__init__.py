@@ -23,14 +23,21 @@ spline kernels), ``build_realnvp``, ``build_maf``,
 ``build_glow_multiscale``, ``build_residual``, ``build_planar_stack`` and
 ``build_radial_stack`` (plain products and convolutions, no kernel).
 Layers that draw (a residual flow's stochastic log-det, a conditioner's
-dropout) take ``generator=`` through every flow's ``forward`` /
-``inverse`` and the containers' methods, as the JAX package's take
-``key=``; without one nothing is dropped. The image models are ``MultiscaleFlow``s; a class-conditional
+dropout, an MCMC layer) take ``generator=`` through every flow's
+``forward`` / ``inverse`` and the containers' methods, as the JAX
+package's take ``key=``; without one nothing is dropped. Stochastic
+normalizing flows put ``flows.MetropolisHastings`` and
+``flows.HamiltonianMonteCarlo`` layers into a ``NormalizingFlow``
+(``sample_with_mcmc_stats`` reports their accept rates);
+``sampling.HAIS`` is annealed importance sampling, and
+``NormalizingFlowVAE`` a VAE with a flow posterior. ``data`` and
+``utils`` hold the input pipeline, checkpoints, metrics, profiling and
+debug helpers. The image models are ``MultiscaleFlow``s; a class-conditional
 one's served functions take the labels as a second input
 (``class_cond``), and its sampler a ``temperature``.
 """
 
-from . import data, transforms, utils
+from . import data, sampling, transforms, utils
 from ._device import resolve_device
 from .compat import load_reference_state_dict
 from .core import (
@@ -38,6 +45,7 @@ from .core import (
     ConditionalNormalizingFlow,
     MultiscaleFlow,
     NormalizingFlow,
+    NormalizingFlowVAE,
 )
 from .distributions import ConditionalDiagGaussianTarget, TwoModes, TwoMoons
 from .models import (
@@ -73,12 +81,13 @@ from .serving import (
 __all__ = ["BucketedFn", "ClassCondFlow", "CompiledFn",
            "ConditionalDiagGaussianTarget", "ConditionalNormalizingFlow",
            "MixedPrecision", "MultiscaleFlow", "NormalizingFlow",
+           "NormalizingFlowVAE",
            "TrainState", "TwoModes", "TwoMoons", "build_circular_nsf",
            "build_conditional_nsf", "build_glow_multiscale",
            "build_image_nsf", "build_maf", "build_nsf",
            "build_planar_stack", "build_radial_stack", "build_realnvp",
            "build_residual",
-           "data", "transforms", "utils",
+           "data", "sampling", "transforms", "utils",
            "compile_log_prob", "compile_log_prob_buckets", "compile_sampler",
            "ema_model", "init_train_state", "load_reference_state_dict",
            "make_forward_kld_step", "make_reverse_kld_step",

@@ -1,8 +1,8 @@
-"""Model containers (``nf_tpu/core.py:30-433``; reference
-``normflows/core.py``): a base distribution and a chain of flows, the
-conditional variant that threads a context through both, the
-class-conditional flow whose labels condition only the base, and the
-multiscale image flow."""
+"""Model containers (``nf_tpu/core.py``; reference ``normflows/core.py``):
+a base distribution and a chain of flows, the conditional variant that
+threads a context through both, the class-conditional flow whose labels
+condition only the base, the multiscale image flow, and the VAE with a
+flow-transformed posterior."""
 
 from __future__ import annotations
 
@@ -98,6 +98,27 @@ class NormalizingFlow(nn.Module):
             log_q = log_q - log_det
         return z, log_q
 
+    def sample_with_mcmc_stats(self, num_samples=1, generator=None,
+                               context=None):
+        """:meth:`sample` and the accept rates of its MCMC layers
+        (``nf_tpu/core.py:99-121``): ``(z, log_q, acceptance)``, where
+        ``acceptance`` holds one device tensor per MCMC layer in chain
+        order, each that layer's ``forward_with_stats`` rates (``(steps,)``
+        for Metropolis-Hastings, ``(1,)`` for HMC). Nothing here reads the
+        device."""
+        z, log_q = self._base_forward(num_samples, generator, context)
+        acceptance = []
+        for flow in self.chain():
+            if hasattr(flow, "forward_with_stats"):
+                z, log_det, acc = flow.forward_with_stats(
+                    z, context=context, generator=generator)
+                acceptance.append(acc)
+            else:
+                z, log_det = flow.forward(z, context=context,
+                                          generator=generator)
+            log_q = log_q - log_det
+        return z, log_q, tuple(acceptance)
+
     def _log_prob_detached(self, z, context, generator=None):
         """log q(z) with the parameters detached: only the path through
         ``z`` carries a gradient (the JAX package's
@@ -122,8 +143,9 @@ class NormalizingFlow(nn.Module):
         log q is recomputed through the inverse chain with the parameters
         detached, so only the path through the samples carries their
         gradient. The re-pass drops the activations the sampling pass
-        dropped (:func:`~nf_tpu_torch.nets._dropout.shared_masks`), as the
-        JAX package feeds both passes the same per-flow keys."""
+        dropped and its MCMC layers reuse the sampling pass's draws
+        (:func:`~nf_tpu_torch.nets._dropout.shared_masks`), as the JAX
+        package feeds both passes the same per-flow keys."""
         with shared_masks() if not score_fn else contextlib.nullcontext():
             z, log_q = self.sample(num_samples, generator, context)
             if not score_fn:
@@ -136,7 +158,8 @@ class NormalizingFlow(nn.Module):
         """Alpha divergence of ``num_samples`` draws against ``self.p``,
         with the DReG estimator when ``dreg`` (``nf_tpu/core.py:147-176``;
         reference ``core.py:133-165``), whose re-pass reuses the sampling
-        pass's dropout masks, as under ``reverse_kld(score_fn=False)``."""
+        pass's dropout masks and MCMC draws, as under
+        ``reverse_kld(score_fn=False)``."""
         with shared_masks() if dreg else contextlib.nullcontext():
             z, log_q = self.sample(num_samples, generator, context)
             log_p = self._target_log_prob(z, context)
@@ -399,3 +422,36 @@ class _LogProb(nn.Module):
 
     def forward(self, x, context=None, generator=None):
         return self.model.log_prob(x, context=context, generator=generator)
+
+
+class NormalizingFlowVAE(nn.Module):
+    """VAE with a flow-transformed approximate posterior
+    (``nf_tpu/core.py:436-467``; reference ``core.py:656-701``): the
+    encoder ``q0`` draws z given x, the ``flows`` transform it, and the
+    ``prior`` and the optional ``decoder`` score it."""
+
+    def __init__(self, prior, q0, flows=None, decoder=None):
+        super().__init__()
+        self.prior = prior
+        self.q0 = q0
+        self.flows = nn.ModuleList(flows or ())
+        self.decoder = decoder
+
+    def forward(self, x, num_samples=1, generator=None):
+        """``(z, log_q, log_p)`` shaped ``(batch, num_samples, ...)``
+        (reference ``core.py:676-700``): the encoder draws first from
+        ``generator``, then every flow layer that draws."""
+        z, log_q = self.q0(x, num_samples=num_samples, generator=generator)
+        # flatten the batch and sample axes
+        z = z.reshape((-1,) + tuple(z.shape[2:]))
+        log_q = log_q.reshape((-1,) + tuple(log_q.shape[2:]))
+        for flow in open_scanned(self.flows):
+            z, log_det = flow.forward(z, generator=generator)
+            log_q = log_q - log_det
+        log_p = self.prior.log_prob(z)
+        if self.decoder is not None:
+            log_p = log_p + self.decoder.log_prob(x, z)
+        z = z.reshape((-1, num_samples) + tuple(z.shape[1:]))
+        log_q = log_q.reshape((-1, num_samples) + tuple(log_q.shape[1:]))
+        log_p = log_p.reshape((-1, num_samples) + tuple(log_p.shape[1:]))
+        return z, log_q, log_p

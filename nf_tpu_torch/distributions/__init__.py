@@ -10,6 +10,11 @@ from .base import (
     Uniform,
     UniformGaussian,
 )
+from .decoder import BaseDecoder, NNBernoulliDecoder, NNDiagGaussianDecoder
+from .encoder import BaseEncoder, ConstDiagGaussian, Dirac, NNDiagGaussian
+from .encoder import Uniform as UniformEncoder
+from .linear_interpolation import LinearInterpolation
+from .mh_proposal import DiagGaussianProposal, MHProposal
 from .prior import (
     ImagePrior,
     PriorDistribution,
@@ -29,11 +34,15 @@ from .target import (
     rejection_sample,
 )
 
-__all__ = ["AffineGaussian", "BaseDistribution", "CircularGaussianMixture",
+__all__ = ["AffineGaussian", "BaseDecoder", "BaseDistribution",
+           "BaseEncoder", "CircularGaussianMixture",
            "ClassCondDiagGaussian", "ConditionalDiagGaussian",
-           "ConditionalDiagGaussianTarget", "DiagGaussian",
+           "ConditionalDiagGaussianTarget", "ConstDiagGaussian",
+           "DiagGaussian", "DiagGaussianProposal", "Dirac",
            "GaussianMixture", "GaussianPCA", "GlowBase", "ImagePrior",
-           "PriorDistribution", "RingMixture", "Sinusoidal",
-           "Sinusoidal_gap", "Sinusoidal_split", "Smiley", "Target",
+           "LinearInterpolation", "MHProposal", "NNBernoulliDecoder",
+           "NNDiagGaussian", "NNDiagGaussianDecoder", "PriorDistribution",
+           "RingMixture", "Sinusoidal", "Sinusoidal_gap",
+           "Sinusoidal_split", "Smiley", "Target",
            "TwoIndependent", "TwoModes", "TwoMoons", "Uniform",
-           "UniformGaussian", "rejection_sample"]
+           "UniformEncoder", "UniformGaussian", "rejection_sample"]

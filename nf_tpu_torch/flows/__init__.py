@@ -30,6 +30,7 @@ from .periodic import PeriodicShift, PeriodicWrap
 from .planar import Planar
 from .radial import Radial
 from .reshape import Merge, Split, Squeeze
+from .stochastic import HamiltonianMonteCarlo, MetropolisHastings
 from .residual import (
     Residual,
     fixed_point_stats,
@@ -53,6 +54,7 @@ __all__ = [
     "CoupledRationalQuadraticSpline",
     "Flow",
     "GlowBlock",
+    "HamiltonianMonteCarlo",
     "Invertible1x1Conv",
     "InvertibleAffine",
     "LULinear",
@@ -61,6 +63,7 @@ __all__ = [
     "MaskedAffineFlow",
     "MaskedPiecewiseRationalQuadraticAutoregressive",
     "Merge",
+    "MetropolisHastings",
     "PeriodicShift",
     "PeriodicWrap",
     "Permute",

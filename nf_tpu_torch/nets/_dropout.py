@@ -26,6 +26,12 @@ and DReG losses around the sampling pass and the re-pass through the
 inverse chain (JAX feeds both the same per-flow keys,
 ``nf_tpu/core.py:139,163``). The masks are tensors made inside the call,
 so the reuse holds under a CUDA graph capture too.
+
+The MCMC layers (``flows.stochastic``) draw their momenta, proposals and
+accept uniforms through :func:`shared_draw`, under the same rule: an MCMC
+layer's inverse is its forward, so JAX's re-pass with the flow's key
+draws the same numbers again, and inside :func:`shared_masks` the port's
+re-pass reuses the sampling pass's draws.
 """
 
 from __future__ import annotations
@@ -61,6 +67,18 @@ def shared_masks():
         _SCOPES.pop()
 
 
+def shared_draw(owner, shape, draw):
+    """``draw()``, once per ``(owner, shape)`` inside :func:`shared_masks`
+    (each later call returns the first draw), every time outside it."""
+    if not _SCOPES:
+        return draw()
+    draws = _SCOPES[-1]
+    key = (id(owner), tuple(shape))
+    if key not in draws:
+        draws[key] = draw()
+    return draws[key]
+
+
 def dropout(x, probability, generator, owner):
     """``x`` with inverted dropout at ``probability``, the mask drawn from
     ``generator``; ``x`` itself when ``generator`` is None or the
@@ -69,13 +87,6 @@ def dropout(x, probability, generator, owner):
     if generator is None or not probability:
         return x
     keep = 1.0 - probability
-    if _SCOPES:
-        masks = _SCOPES[-1]
-        key = (id(owner), tuple(x.shape))
-        if key not in masks:
-            masks[key] = draw_mask(generator, keep, tuple(x.shape),
-                                   x.device)
-        mask = masks[key]
-    else:
-        mask = draw_mask(generator, keep, tuple(x.shape), x.device)
+    mask = shared_draw(owner, x.shape, lambda: draw_mask(
+        generator, keep, tuple(x.shape), x.device))
     return torch.where(mask, x / keep, 0.0)

@@ -40,6 +40,13 @@ _LOCK = threading.Lock()
 BUILD_LOGS: dict = {}
 
 
+def set_build_dir(path):
+    """Build and look up the libraries in ``path`` from now on
+    (``utils.profiling.enable_compilation_cache``)."""
+    global BUILD_DIR
+    BUILD_DIR = os.path.abspath(path)
+
+
 def _nvcc():
     found = shutil.which("nvcc")
     if found:

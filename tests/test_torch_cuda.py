@@ -1754,3 +1754,102 @@ def test_ar_layer_round_trip_under_one_draw_on_cuda(cuda):
         y, _ = layer.forward(x, generator=gen)
         back, _ = layer.inverse(y, generator=gen)
     assert float((back - x).abs().max()) > 1e-2
+
+
+# --- stochastic flows, HAIS and the infrastructure ----------------------------
+
+def _small_snf(cuda, nsf=False):
+    """A K 2 SNF (HMC after the second block) on TwoModes, on the card:
+    affine blocks, or ``build_nsf``'s layer pairs (kernels B and E above
+    the fused-head gate)."""
+    from nf_tpu_torch import distributions as tdist
+    from nf_tpu_torch import flows as tflows
+    from nf_tpu_torch.nets import MLP
+    from nf_tpu_torch.utils.masks import create_alternating_binary_mask
+
+    gen = torch.Generator().manual_seed(0)
+    base = tdist.DiagGaussian(2, trainable=False)
+    target = tdist.TwoModes()
+    if nsf:
+        flows = list(nt.build_nsf(K=2, hidden=32, device="cpu").flows)
+    else:
+        flows = []
+        for i in range(2):
+            flows += [tflows.MaskedAffineFlow(
+                create_alternating_binary_mask(2, even=(i % 2 == 0)),
+                t=MLP([2, 16, 16, 2], generator=gen),
+                s=MLP([2, 16, 16, 2], generator=gen)), tflows.ActNorm(2)]
+    flows.append(tflows.HamiltonianMonteCarlo(
+        tdist.LinearInterpolation(target, base, alpha=1.0), 5,
+        np.log(np.full(2, 0.2)), np.zeros(2)))
+    return nt.NormalizingFlow(base, flows, p=target).to(cuda)
+
+
+@pytest.mark.parametrize("nsf", [False, True])
+def test_hmc_reverse_step_captures_its_double_backward(cuda, nsf):
+    """The reverse-KLD step through an HMC layer (its leapfrog gradient
+    built with ``create_graph=True``) captured as a CUDA graph: five
+    captured steps equal five eager ones within 1e-5, and the HMC layer's
+    parameters moved."""
+    model = _small_snf(cuda, nsf)
+    models = [copy.deepcopy(model) for _ in range(2)]
+    opts = [torch.optim.Adam(m.parameters(), lr=1e-3, capturable=True)
+            for m in models]
+    states = [nt.init_train_state(m, o) for m, o in zip(models, opts)]
+    batch = 4096
+    graphed = nt.make_reverse_kld_step(opts[0], num_samples=batch)
+    eager = nt.make_reverse_kld_step(opts[1], num_samples=batch).eager
+    gens = [torch.Generator(device=cuda).manual_seed(1) for _ in range(2)]
+    for _ in range(5):
+        lg = graphed(states[0], gens[0])
+        le = eager(states[1], gens[1])
+        torch.testing.assert_close(lg, le, atol=1e-5, rtol=0)
+    for p, q in zip(models[0].parameters(), models[1].parameters()):
+        torch.testing.assert_close(p, q, atol=1e-5, rtol=0)
+    hmc = models[0].flows[-1]
+    assert float((hmc.log_step_size.detach() - np.log(0.2)).abs().max()) > 0
+    if nsf:
+        assert graphed.launches["head_rqs_fwd"] == 2
+        assert graphed.launches["head_rqs_bwd"] == 2
+
+
+def test_prefetch_orders_its_copies_before_the_consumer(cuda):
+    """``prefetch_to_device`` copies on a side stream; each batch is
+    complete when the consumer's stream reads it, while a long kernel
+    holds that stream: a sum on the consumer's stream equals numpy's."""
+    rng = np.random.default_rng(0)
+    data = rng.standard_normal((16 * 65536, 4)).astype(np.float32)
+    ds = nt.data.ArrayDataset(data, batch_size=65536, shuffle=False)
+    sums = []
+    for b in nt.data.prefetch_to_device(ds, size=3):
+        assert b.is_cuda
+        torch.cuda._sleep(2_000_000)
+        sums.append(b.double().sum())
+    want = data.reshape(16, 65536, 4).astype(np.float64).sum(axis=(1, 2))
+    np.testing.assert_allclose(torch.stack(sums).cpu().numpy(), want,
+                               rtol=1e-9)
+
+
+def test_checkpoint_round_trip_of_a_captured_step(cuda, tmp_path):
+    """A ``CheckpointManager`` save of a captured reverse-KLD step's state
+    (model, capturable Adam, the step's generator), restored in place: the
+    replays after the restore equal those of the uninterrupted run,
+    bitwise, and the captured graph keeps running."""
+    model = _small_snf(cuda)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3, capturable=True)
+    state = nt.init_train_state(model, opt)
+    step = nt.make_reverse_kld_step(opt, num_samples=1024)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    manager = nt.utils.CheckpointManager(tmp_path, max_to_keep=1)
+    for _ in range(4):
+        step(state, gen)
+    manager.save(state.step, state, generator=gen)
+    after = [step(state, gen) for _ in range(3)]
+    params = [p.detach().clone() for p in model.parameters()]
+    _, at = manager.restore(state, generator=gen)
+    again = [step(state, gen) for _ in range(3)]
+    assert at == 4 and state.step == 7
+    for a, b in zip(after, again):
+        assert torch.equal(a, b)
+    for p, q in zip(params, model.parameters()):
+        assert torch.equal(p, q.detach())
