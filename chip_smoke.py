@@ -214,7 +214,29 @@ toolkit. Phases, one line each:
 25. infrastructure: ``prefetch_to_device`` feeding ``build_nsf``'s
     captured step, a ``CheckpointManager`` round trip of a captured step,
     ``Named`` ranges in a ``utils.trace`` profile, ``utils.throughput`` of
-    a served sampler.
+    a served sampler;
+26. binary and parallel: the training binary ``nf_tpu_torch.train.main``
+    in this process: (a) ``--model nsf --loss forward_kld`` on two moons
+    at ``build_nsf``'s width, B = 65536, 200 steps with checkpoints and a
+    JSONL log (the loss falls; A, B, C, E in every replay), ms per step
+    in turns with the bare captured step, the target's draw alone, the
+    idle share of a profiled step, then re-entered on its directory (the
+    restored state bitwise the saved one, 100 more steps as a graph); (b)
+    the annealed reverse-KLD binary on TwoModes at 16384 samples (the
+    reverse KLD at beta 1 falls); (c) the image NSF binary at
+    ``build_image_nsf``'s defaults (L 2, K 4, hidden 64), B = 64, on
+    procedural images (in turns with the bare captured step) and on an
+    ``.npz`` (bits/dim finite and falling; A and C), and Glow (no port
+    kernel); (d)
+    ``python -m nf_tpu_torch.train --distributed`` in subprocesses over
+    NCCL at world size 1, against the same run without it (1e-6), and
+    with ``--accum_steps 2``; then on a world-size-1 NCCL process group:
+    (e) the data-parallel forward step (B = 65536) and the
+    sample-parallel reverse step (16384) captured against eager, the
+    NCCL kernel in a profiled replay, each against the mesh-less captured
+    step in turns; (f) ``make_sharded_sampler`` over phase 23's HAIS
+    against the unsharded HAIS; (g) ``compat_export`` of (a)'s model into
+    a CPU ``build_nsf`` (``log_prob`` within 1e-3).
 
 It then prints the whole run's wall time, one JSON line on the kernels
 (their launches summed over every path above), the card's name and power
@@ -1729,7 +1751,11 @@ PATH_KERNELS = {"build_nsf serving": ("rqs_fwd", "head_rqs_fwd"),
                                  "head_rqs_bwd"),
                 "nsf reverse step": ("rqs_fwd", "head_rqs_fwd", "rqs_bwd",
                                      "head_rqs_bwd"),
-                "hais serving": (), "vae step": ()}
+                "hais serving": (), "vae step": (),
+                "sharded forward step": ("rqs_fwd", "head_rqs_fwd",
+                                         "rqs_bwd", "head_rqs_bwd"),
+                "sharded reverse step": ("rqs_fwd", "head_rqs_fwd",
+                                         "rqs_bwd", "head_rqs_bwd")}
 
 
 def kernel_of(name):
@@ -5356,6 +5382,502 @@ def phase_infrastructure(dev, flush, snf):
     return out
 
 
+# --- phase 26: the training binary and the parallel layer ------------------
+
+BIN_ITERS = 200  # path a: build_nsf's forward-KLD binary, then resumed
+BIN_CKPT_EVERY = 100
+BIN_RESUME_ITERS = 300
+BIN_REV_SAMPLES = 16384  # path b: B*D = 32768, past the fused-head gate
+BIN_REV_ITERS = 100
+BIN_IMG_BATCH = 64  # path c: the image NSF (examples/image_nsf.py's batch)
+BIN_IMG_ITERS = 30
+BIN_GLOW_ITERS = 10
+BIN_DIST_ITERS = 20  # path d: --distributed at world size 1
+DIST_TOL = 1e-6  # --distributed against the same run without it
+SUBPROCESS_TIMEOUT = 300
+
+
+def _binary_argv(**flags):
+    """``--flag value`` pairs of ``flags`` (None: a bare switch)."""
+    argv = []
+    for k, v in flags.items():
+        argv += [f"--{k}"] + ([] if v is None else [str(v)])
+    return argv
+
+
+def _nsf_argv(iters, **more):
+    """Path a's argv: ``build_nsf`` at its full width on two moons."""
+    return _binary_argv(model="nsf", loss="forward_kld", target="two_moons",
+                        num_layers=8, hidden=HIDDEN, num_bins=K_BINS,
+                        batch_size=BATCH, iters=iters, log_every=50,
+                        **more)
+
+
+def run_binary(argv):
+    """``nf_tpu_torch.train.main(argv)`` in this process, on the card:
+    ``(state, launches counted from 0 over the run, its printed text)``."""
+    import contextlib
+    import io
+
+    from nf_tpu_torch import train
+
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        state = train.main(argv)
+    return state, read_counts(), out.getvalue()
+
+
+def _log(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _falls(values, what):
+    if not (np.all(np.isfinite(values))
+            and values[-1] < values[0] - LOSS_MARGIN):
+        raise RuntimeError(f"{what}: {values} (finite and falling by "
+                           f"{LOSS_MARGIN} expected)")
+
+
+def _need(counts, kernels, what):
+    missing = [k for k in kernels if not counts.get(k)]
+    others = [k for k, n in counts.items() if n and k not in kernels]
+    if missing or others:
+        raise RuntimeError(f"{what}: launches {counts}, expected "
+                           f"{kernels} and no other port kernel")
+
+
+def _state_tensors(state):
+    return [t.detach().clone() for t in _train_tensors(state)]
+
+
+def binary_forward(dev, d):
+    """Path a: the forward-KLD binary at ``build_nsf``'s full width, its
+    timing against the bare captured step in turns, a profiled step,
+    then the resume."""
+    import nf_tpu_torch as nt
+
+    argv = _nsf_argv(BIN_ITERS, checkpoint_every=BIN_CKPT_EVERY,
+                     checkpoint_dir=f"{d}/ckpt", log_path=f"{d}/log.jsonl")
+    state, counts, _ = run_binary(argv)
+    _need(counts, ("rqs_fwd", "head_rqs_fwd", "rqs_bwd", "head_rqs_bwd"),
+          "binary forward KLD")
+    _need(state.run_step.launches, ("rqs_fwd", "head_rqs_fwd", "rqs_bwd",
+                                    "head_rqs_bwd"),
+          "binary forward KLD, one replay (counted at the capture)")
+    logged = _log(f"{d}/log.jsonl")
+    losses = [r["loss"] for r in logged]
+    _falls(losses, "binary forward KLD losses")
+    saved = _state_tensors(state)
+    if state.step != BIN_ITERS:
+        raise RuntimeError(f"binary: {state.step} steps")
+    # the binary's step (the target's draw, the shard, the replay) in turns
+    # with the bare captured step on a drawn batch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 400)
+    x = nt.TwoMoons().sample(BATCH, generator=gen)
+    step = state.run_step.step
+    turns = in_turns(lambda: state.run_step(state, 0),
+                     lambda: step(state, x))
+    draw = host_ms(lambda: nt.TwoMoons().sample(BATCH, generator=gen))
+    wall, busy, top = profile_call(lambda: state.run_step(state, 0))
+    report = replay_report(lambda: step(state, x), "build_nsf step")
+    (b1, b2), (g1, g2) = turns
+    print(f"phase binary (a) python -m nf_tpu_torch.train {' '.join(argv)}: "
+          f"losses at steps " + ", ".join(f"{r['step']} {r['loss']:.4f}"
+                                          for r in logged)
+          + f"; launches over the run {counts}; one replay (capture) "
+          f"{state.run_step.launches}; wall ms per step (median of 10, in "
+          f"turns binary, bare, bare, binary): the binary's step (the "
+          f"target's draw included) {b1:.3f} / {b2:.3f}, the bare captured "
+          f"step on a drawn batch {g1:.3f} / {g2:.3f}; the target's draw "
+          f"alone {draw:.3f} ms; one profiled binary step: wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms, idle "
+          f"{1 - busy / wall:.1%}; the bare step's " + _report_text(report),
+          flush=True)
+    del step
+    return state, saved, counts, dict(turns=turns, draw=draw,
+                                      idle=1 - busy / wall, report=report)
+
+
+def binary_resume(dev, d, saved):
+    """Path a resumed: ``main`` re-entered on the same directory, first
+    with ``--iters`` at the checkpoint (it restores and stops: the
+    restored tensors against the saved ones), then to
+    ``BIN_RESUME_ITERS``."""
+    common = dict(checkpoint_every=BIN_CKPT_EVERY, checkpoint_dir=f"{d}/ckpt",
+                  log_path=f"{d}/log.jsonl")
+    state, _, text = run_binary(_nsf_argv(BIN_ITERS, **common))
+    restored = _state_tensors(state)
+    same = len(restored) == len(saved) and all(
+        torch.equal(a, b) for a, b in zip(restored, saved))
+    if not (same and f"resumed from step {BIN_ITERS}" in text):
+        raise RuntimeError(f"resume: printed 'resumed from step "
+                           f"{BIN_ITERS}': {'resumed' in text}; restored "
+                           f"parameters and Adam state bitwise the saved "
+                           f"ones: {same}")
+    del state
+    state, counts, text = run_binary(_nsf_argv(BIN_RESUME_ITERS,
+                                               **common))
+    kernels = ("rqs_fwd", "head_rqs_fwd", "rqs_bwd", "head_rqs_bwd")
+    _need(counts, kernels, "binary resumed")
+    graphs = [g for g in state.run_step.step.graphs.values()
+              if g.graph is not None]
+    losses = [r["loss"] for r in _log(f"{d}/log.jsonl")
+              if r["step"] >= BIN_ITERS]
+    if not (f"resumed from step {BIN_ITERS}" in text and graphs
+            and state.step == BIN_RESUME_ITERS
+            and np.all(np.isfinite(losses))):
+        raise RuntimeError(f"resume to {BIN_RESUME_ITERS}: "
+                           f"{state.step} steps, graphs {len(graphs)}, "
+                           f"losses {losses}")
+    print(f"phase binary (a) resumed: 'resumed from step {BIN_ITERS}', "
+          f"the restored parameters and Adam state bitwise the saved "
+          f"ones ({len(saved)} tensors); {BIN_RESUME_ITERS - BIN_ITERS} "
+          f"more steps as a graph (one replay {state.run_step.launches}), "
+          f"losses " + ", ".join(f"{v:.4f}" for v in losses), flush=True)
+    return counts
+
+
+def binary_reverse(dev, d):
+    """Path b: the annealed reverse-KLD binary; the reverse KLD at beta 1
+    of the trained model against the initial one on the same draws."""
+    from nf_tpu_torch import train
+    from nf_tpu_torch.utils.config import TrainConfig
+
+    argv = _binary_argv(model="nsf", loss="reverse_kld", target="two_modes",
+                        num_layers=8, hidden=HIDDEN, num_bins=K_BINS,
+                        num_samples=BIN_REV_SAMPLES, beta_anneal_iters=100,
+                        iters=BIN_REV_ITERS, log_every=25,
+                        log_path=f"{d}/reverse.jsonl")
+    state, counts, _ = run_binary(argv)
+    kernels = ("rqs_fwd", "head_rqs_fwd", "rqs_bwd", "head_rqs_bwd")
+    _need(counts, kernels, "binary reverse KLD")
+    _need(state.run_step.launches, kernels, "binary reverse KLD, one replay")
+    initial = train.build_model(TrainConfig.from_args(argv), dev)
+    initial.init_from_samples(1024, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    kl = []
+    for m in (initial, state.model):
+        with torch.no_grad():
+            kl.append(float(m.reverse_kld(
+                BIN_REV_SAMPLES, beta=1.0, generator=torch.Generator(
+                    device=dev).manual_seed(SEED + 401))))
+    _falls(kl, "binary reverse KLD at beta 1, initial then trained")
+    logged = [(r["step"], r["loss"]) for r in _log(f"{d}/reverse.jsonl")]
+    # the binary's step is the captured step itself (it draws inside)
+    ms = host_ms(lambda: state.run_step(state, 0))
+    report = replay_report(lambda: state.run_step(state, 0),
+                           "nsf reverse step")
+    print(f"phase binary (b) python -m nf_tpu_torch.train {' '.join(argv)}: "
+          f"reverse KLD at beta 1 on {BIN_REV_SAMPLES} draws, initial "
+          f"{kl[0]:.4f}, trained {kl[1]:.4f}; logged (annealed) losses "
+          f"{logged}; launches over the run {counts}; one replay "
+          f"{state.run_step.launches}; wall ms per step (median of 10) "
+          f"{ms:.3f}; " + _report_text(report), flush=True)
+    return counts
+
+
+def binary_images(dev, d):
+    """Path c: the image NSF binary on procedural images and on an .npz,
+    then Glow."""
+    from nf_tpu_torch.data import procedural_image_classes
+
+    x, y = procedural_image_classes(SEED + 1, 512)
+    np.savez(f"{d}/x.npz", x=x, y=y)
+    out = {}
+    for source, extra in (("procedural", {}),
+                          ("npz", {"data": f"{d}/x.npz"})):
+        log = f"{d}/image_{source}.jsonl"
+        # --num_layers 4 --hidden 64: build_image_nsf's defaults (the
+        # binary's own are 8 and 128)
+        argv = _binary_argv(model="image_nsf", num_layers=4, hidden=64,
+                            batch_size=BIN_IMG_BATCH, iters=BIN_IMG_ITERS,
+                            log_every=10, log_path=log, **extra)
+        t0 = time.perf_counter()
+        state, counts, _ = run_binary(argv)
+        seconds = time.perf_counter() - t0
+        _need(counts, ("rqs_fwd", "rqs_bwd"), f"binary image NSF ({source})")
+        bpd = [r["bits_per_dim"] for r in _log(log)]
+        if not (np.all(np.isfinite(bpd)) and bpd[-1] < bpd[0]):
+            raise RuntimeError(f"binary image NSF ({source}): bits/dim "
+                               f"{bpd}")
+        timing = ""
+        if source == "procedural":
+            # the binary's step (the host batch: numpy gather, copy,
+            # Scale and Jitter) in turns with the bare captured step
+            # the binary's shapes and dtypes (int32 labels): its graph
+            batch = (torch.rand((BIN_IMG_BATCH, 3, 32, 32), device=dev),
+                     torch.randint(0, 10, (BIN_IMG_BATCH,), device=dev,
+                                   dtype=torch.int32))
+            step = state.run_step.step
+            (b1, b2), (g1, g2) = in_turns(
+                lambda: state.run_step(state, 0),
+                lambda: step(state, batch))
+            wall, busy, _ = profile_call(lambda: state.run_step(state, 0))
+            timing = (f"; wall ms per step (median of 10, in turns binary, "
+                      f"bare, bare, binary): the binary's step {b1:.3f} / "
+                      f"{b2:.3f}, the bare captured step {g1:.3f} / "
+                      f"{g2:.3f}; one profiled binary step: wall "
+                      f"{wall:.3f} ms, device busy {busy:.3f} ms, idle "
+                      f"{1 - busy / wall:.1%}")
+            del step
+        print(f"phase binary (c) python -m nf_tpu_torch.train "
+              f"{' '.join(argv)}: bits/dim at steps "
+              + ", ".join(f"{r['step']} {r['bits_per_dim']:.4f}"
+                          for r in _log(log))
+              + f"; launches over the run {counts}; one replay "
+              f"{state.run_step.launches}; {seconds:.1f} s" + timing,
+              flush=True)
+        out[f"binary image_nsf ({source})"] = (counts, ("rqs_fwd",
+                                                        "rqs_bwd"))
+        del state
+    argv = _binary_argv(model="glow", levels=2, num_layers=4,
+                        batch_size=BIN_IMG_BATCH, iters=BIN_GLOW_ITERS,
+                        log_every=5, log_path=f"{d}/glow.jsonl")
+    state, counts, _ = run_binary(argv)
+    records = _log(f"{d}/glow.jsonl")
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["bits_per_dim"])
+               for r in records):
+        raise RuntimeError(f"binary glow: {records}")
+    print(f"phase binary (c) python -m nf_tpu_torch.train {' '.join(argv)}: "
+          f"bits/dim " + ", ".join(f"{r['bits_per_dim']:.4f}"
+                                   for r in records)
+          + f"; launches over the run {counts} (no port kernel)", flush=True)
+    out["binary glow"] = (counts, ())
+    return out
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def binary_distributed(dev, d):
+    """Path d: ``python -m nf_tpu_torch.train --distributed`` in
+    subprocesses at world size 1 over NCCL (path a's argv at
+    ``BIN_DIST_ITERS``, and with ``--accum_steps 2``), against the same
+    argv in this process without ``--distributed``."""
+    import os
+
+    procs = {}
+    for name, extra in (("plain", {}), ("accum", {"accum_steps": 2})):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(_free_port()), RANK="0", WORLD_SIZE="1",
+                   LOCAL_RANK="0")
+        env.pop("PYTHONPATH", None)
+        argv = _nsf_argv(BIN_DIST_ITERS, distributed=None,
+                         checkpoint_dir=f"{d}/dist_{name}", **extra)
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "nf_tpu_torch.train"] + argv,
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    state, counts, _ = run_binary(_nsf_argv(BIN_DIST_ITERS))
+    texts = {}
+    try:
+        for name, proc in procs.items():
+            texts[name], _ = proc.communicate(timeout=SUBPROCESS_TIMEOUT)
+            if proc.returncode != 0:
+                raise RuntimeError(f"--distributed ({name}) exited "
+                                   f"{proc.returncode}:\n"
+                                   f"{texts[name][-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def final(name):
+        payload = torch.load(f"{d}/dist_{name}/step_{BIN_DIST_ITERS}/"
+                             "state.pt", map_location="cpu",
+                             weights_only=True)
+        return payload["model"]
+
+    mine = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    dist_err = max(max_err(final("plain")[k], v) for k, v in mine.items())
+    accum_err = max(max_err(final("accum")[k], v) for k, v in mine.items())
+    accum_finite = all(bool(torch.all(torch.isfinite(v)))
+                       for v in final("accum").values())
+    if not (dist_err <= DIST_TOL and accum_finite
+            and "mesh: {'data': 1}" in texts["plain"]):
+        raise RuntimeError(f"--distributed at world size 1: parameters "
+                           f"{dist_err:.3g} from the run without it "
+                           f"(limit {DIST_TOL}); --accum_steps 2 finite "
+                           f"{accum_finite}")
+    print(f"phase binary (d) python -m nf_tpu_torch.train --distributed "
+          f"(NCCL, MASTER_ADDR 127.0.0.1, RANK 0, WORLD_SIZE 1, "
+          f"LOCAL_RANK 0), path a's argv at --iters {BIN_DIST_ITERS}: final "
+          f"parameters {dist_err:.3g} from the same argv without "
+          f"--distributed in this process (limit {DIST_TOL}); with "
+          f"--accum_steps 2: ran, {accum_err:.3g} from it (accumulation "
+          f"sums the halves' gradients in another order)", flush=True)
+    return counts
+
+
+def sharded_steps(dev, mesh):
+    """Path e: the data-parallel forward step (B = 65536) and the
+    sample-parallel reverse step (16384) on the world-size-1 NCCL mesh,
+    captured against eager (``step_graphs``), the NCCL kernel in a
+    profiled replay, and each against the mesh-less captured step in
+    turns."""
+    import nf_tpu_torch as nt
+
+    base = _nsf_model()
+    base.p = nt.TwoModes()
+    pool = nt.TwoMoons().sample(8 * BATCH, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 402))
+
+    def batch_of(i, which):
+        return (pool[(i % 8) * BATCH:(i % 8 + 1) * BATCH],)
+
+    gens = {}
+
+    def gen_of(i, which):
+        if which not in gens:
+            gens[which] = torch.Generator(device=dev).manual_seed(SEED + 403)
+        return (gens[which],)
+
+    out = {}
+    for label, path, make, args_of in (
+            ("forward", "sharded forward step",
+             lambda opt, m: nt.make_forward_kld_step(opt, mesh=m), batch_of),
+            ("reverse", "sharded reverse step",
+             lambda opt, m: nt.make_reverse_kld_step(
+                 opt, num_samples=BIN_REV_SAMPLES, mesh=m), gen_of)):
+        gens.clear()
+        r = step_graphs(f"sharded {label} step (NCCL, world size 1)", base,
+                        lambda opt: make(opt, mesh), args_of, path,
+                        dict(lr=1e-4))
+        # NCCL's kernels; at world size 1 its average is its one-rank
+        # reduce kernel (NCCL's onerank.cu), whose symbol has no "nccl"
+        nccl = [n for n, _ in r["report"]["top"]
+                if "nccl" in n.lower() or "onerank" in n.lower()]
+        # the collective's cost: the mesh-less captured step in turns
+        models = [copy.deepcopy(base) for _ in range(2)]
+        opts = [torch.optim.Adam(m.parameters(), lr=1e-4, capturable=True)
+                for m in models]
+        states = [nt.init_train_state(m, o) for m, o in zip(models, opts)]
+        steps = [make(opts[0], None), make(opts[1], mesh)]
+        gens.clear()
+        calls = [lambda k=k: steps[k](states[k], *args_of(0, k))
+                 for k in range(2)]
+        for _ in range(3):  # two eager warm-up steps, then the capture
+            for c in calls:
+                c()
+        (m1, m2), (s1, s2) = in_turns(calls[0], calls[1])
+        extra = sorted({n for n, _ in r["report"]["top"]}
+                       - {n for n, _ in profile_call(calls[0])[2]})
+        print(f"phase parallel (e) sharded {label} step: NCCL kernels in "
+              f"the profiled replay {[n[:120] for n in nccl] or 'none'}; "
+              f"kernels the sharded replay runs and the mesh-less one does "
+              f"not: " + "; ".join(n[:120] for n in extra)
+              + f"; captured wall ms per step in turns (mesh-less, sharded, "
+              f"sharded, mesh-less): mesh-less {m1:.3f} / {m2:.3f}, sharded "
+              f"{s1:.3f} / {s2:.3f}", flush=True)
+        if not nccl:
+            raise RuntimeError(f"sharded {label} step: no NCCL kernel in "
+                               f"a profiled replay")
+        out[f"graphs: {path}"] = (r["launches"], PATH_KERNELS[path])
+        del models, opts, states, steps, calls
+    return out
+
+
+def sharded_sampler(dev, mesh):
+    """Path f: ``make_sharded_sampler`` over phase 23's HAIS at world size
+    1 against the unsharded HAIS on the same stream, and
+    ``log_normalizer`` over the mesh against the local one."""
+    from nf_tpu_torch.parallel import log_normalizer, make_sharded_sampler
+
+    hais = hais_model(dev)
+    sample = make_sharded_sampler(mesh, HAIS_SAMPLES, with_stats=True)
+    with torch.inference_mode():
+        z, log_w, acc = sample(hais, torch.Generator(
+            device=dev).manual_seed(SEED + 404))
+        zu, log_wu, accu = hais.sample_with_stats(
+            HAIS_SAMPLES, generator=torch.Generator(
+                device=dev).manual_seed(SEED + 404))
+    same = (torch.equal(z, zu) and torch.equal(log_w, log_wu)
+            and torch.equal(acc, accu))
+    lz, lzu = float(log_normalizer(log_w, mesh)), float(log_normalizer(
+        log_wu))
+    if not (same and abs(lz - lzu) <= DIST_TOL):
+        raise RuntimeError(f"sharded sampler: bitwise the unsharded HAIS "
+                           f"{same}; log Z {lz} against {lzu}")
+    print(f"phase parallel (f) make_sharded_sampler(mesh, {HAIS_SAMPLES}, "
+          f"with_stats=True) over phase 23's HAIS at world size 1: samples, "
+          f"log-weights and accept rates (mean {float(acc.mean()):.4f}) "
+          f"bitwise the unsharded HAIS's on the same stream; log Z over the "
+          f"mesh {lz:.6f}, local {lzu:.6f}", flush=True)
+
+
+def export_check(dev, state):
+    """Path g: path a's card-trained model through ``export_state_dict``
+    into a fresh CPU ``build_nsf``: ``log_prob`` on 4096 points within
+    MODEL_TOL of the card model."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import train
+    from nf_tpu_torch.compat_export import export_state_dict
+    from nf_tpu_torch.utils.config import TrainConfig
+
+    sd = export_state_dict(state.model)
+    cpu = nt.load_reference_state_dict(train.build_model(
+        TrainConfig.from_args(_nsf_argv(BIN_ITERS)), "cpu"), sd)
+    x = nt.TwoMoons().sample(4096, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 405))
+    with torch.no_grad():
+        err = max_err(state.model.log_prob(x).cpu(), cpu.log_prob(x.cpu()))
+    if not err <= MODEL_TOL:
+        raise RuntimeError(f"compat_export: log_prob {err:.3g} from the "
+                           f"card model")
+    print(f"phase binary (g) compat_export: path a's trained model "
+          f"exported ({len(sd)} reference-named arrays), loaded into a "
+          f"fresh CPU build_nsf: log_prob on 4096 points {err:.3g} from "
+          f"the card model (limit {MODEL_TOL})", flush=True)
+
+
+def phase_training_binary(dev):
+    """Phase 26: the training binary in this process (a: forward KLD at
+    ``build_nsf``'s width, timed and resumed; b: reverse KLD; c: the
+    image NSF on procedural images and an .npz, and Glow), d: in
+    subprocesses under ``--distributed`` (NCCL, world size 1), then on a
+    world-size-1 NCCL process group in this process, e: the sharded steps
+    as graphs, f: the sharded sampler; g: ``compat_export`` of a's
+    model. Returns {path: (launches, the kernels it must launch)}."""
+    import tempfile
+
+    import torch.distributed as dist
+    from nf_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    t0 = time.perf_counter()
+    paths = {}
+    a_kernels = ("rqs_fwd", "head_rqs_fwd", "rqs_bwd", "head_rqs_bwd")
+    with tempfile.TemporaryDirectory() as d:
+        state, saved, counts, _ = binary_forward(dev, d)
+        paths["binary forward KLD"] = (counts, a_kernels)
+        export_check(dev, state)
+        del state
+        paths["binary forward KLD resumed"] = (binary_resume(dev, d, saved),
+                                               a_kernels)
+        paths["binary reverse KLD"] = (binary_reverse(dev, d), a_kernels)
+        paths.update(binary_images(dev, d))
+        paths["binary forward KLD (in-process twin of --distributed)"] = (
+            binary_distributed(dev, d), a_kernels)
+    initialize_distributed(coordinator_address=f"127.0.0.1:{_free_port()}",
+                           num_processes=1, process_id=0)
+    try:
+        mesh = make_mesh()
+        paths.update(sharded_steps(dev, mesh))
+        sharded_sampler(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    print(f"phase timing phase 26 (training binary, parallel): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port runs on an "
@@ -5466,6 +5988,7 @@ def main():
     paths.update(phase_infrastructure(dev, flush, snf))
     print(f"phase timing phases 22-25 (snf, snf_nsf, mh, hais, vae, "
           f"infrastructure): {time.perf_counter() - t_new:.1f} s", flush=True)
+    paths.update(phase_training_binary(dev))
     print("launches: " + "; ".join(f"{k} {v[0]}" for k, v in paths.items()),
           flush=True)
     for path, (counts, needed) in paths.items():

@@ -32,12 +32,16 @@ normalizing flows put ``flows.MetropolisHastings`` and
 ``sampling.HAIS`` is annealed importance sampling, and
 ``NormalizingFlowVAE`` a VAE with a flow posterior. ``data`` and
 ``utils`` hold the input pipeline, checkpoints, metrics, profiling and
-debug helpers. The image models are ``MultiscaleFlow``s; a class-conditional
+debug helpers; ``compat_export.export_state_dict`` writes a model's
+weights under the reference's names. ``python -m nf_tpu_torch.train`` is
+the training binary, and ``parallel`` shards the steps over the ranks of
+a ``torch.distributed`` process group. The image models are
+``MultiscaleFlow``s; a class-conditional
 one's served functions take the labels as a second input
 (``class_cond``), and its sampler a ``temperature``.
 """
 
-from . import data, sampling, transforms, utils
+from . import compat_export, data, parallel, sampling, transforms, utils
 from ._device import resolve_device
 from .compat import load_reference_state_dict
 from .core import (
@@ -66,9 +70,11 @@ from .parallel import (
     ema_model,
     init_train_state,
     make_forward_kld_step,
+    make_mesh,
     make_reverse_kld_step,
     model_of_state,
     reshape_for_accum,
+    shard_batch,
 )
 from .serving import (
     BucketedFn,
@@ -86,9 +92,10 @@ __all__ = ["BucketedFn", "ClassCondFlow", "CompiledFn",
            "build_conditional_nsf", "build_glow_multiscale",
            "build_image_nsf", "build_maf", "build_nsf",
            "build_planar_stack", "build_radial_stack", "build_realnvp",
-           "build_residual",
-           "data", "sampling", "transforms", "utils",
+           "build_residual", "compat_export",
+           "data", "parallel", "sampling", "transforms", "utils",
            "compile_log_prob", "compile_log_prob_buckets", "compile_sampler",
            "ema_model", "init_train_state", "load_reference_state_dict",
-           "make_forward_kld_step", "make_reverse_kld_step",
-           "model_of_state", "reshape_for_accum", "resolve_device"]
+           "make_forward_kld_step", "make_mesh", "make_reverse_kld_step",
+           "model_of_state", "reshape_for_accum", "resolve_device",
+           "shard_batch"]

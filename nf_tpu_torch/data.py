@@ -101,15 +101,21 @@ def prefetch_to_device(iterator: Iterable, size: int = 2, sharding=None,
     (``record_stream``), so the allocator does not hand its memory to the
     side stream's next copy while the step still reads it. Nothing here
     waits on the host for a copy. An exception in ``iterator`` reaches
-    the consumer. ``sharding`` (a multi-device layout) raises until the
-    port's ``torch.distributed`` item."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "sharding= arrives with the port's torch.distributed item; "
-            "prefetch_to_device feeds one device")
+    the consumer.
+
+    ``sharding`` (a ``parallel.data_sharding`` of a mesh): every batch is
+    a global batch, the same on every rank, and lands as this rank's
+    shard on the mesh's device (``device`` must then be None or that
+    device); only the shard is copied."""
     if size < 1:
         raise ValueError("prefetch size must be >= 1")
-    dev = resolve_device(device)
+    if sharding is None:
+        dev = resolve_device(device)
+    else:
+        dev = sharding.mesh.device
+        if device is not None and torch.device(device) != dev:
+            raise ValueError(f"device {device} is not the mesh's device "
+                             f"{dev}, where the sharding places the batch")
     q: "queue.Queue" = queue.Queue(maxsize=size)
     stop = threading.Event()
 
@@ -128,6 +134,9 @@ def prefetch_to_device(iterator: Iterable, size: int = 2, sharding=None,
             side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
             for batch in iterator:
                 host = _map(torch.as_tensor, batch)
+                if sharding is not None:
+                    host = _map(lambda t: sharding.block(t).contiguous(),
+                                host)
                 if side is None:
                     item = (_map(lambda t: t.to(dev), host), None)
                 else:

@@ -1,7 +1,18 @@
-"""Training (``nf_tpu/parallel``): the single-device forward-KLD and
-reverse-KLD steps; meshes and the sharded steps arrive with the port's
-``torch.distributed`` item."""
+"""Training and parallelism (``nf_tpu/parallel``): the forward-KLD and
+reverse-KLD steps, on one device or sharded over a mesh of
+``torch.distributed`` ranks (data-parallel and sample-parallel), the
+meshes and layouts, multi-process runs and sharded sampling. The
+tensor-parallel layouts of ``tp.py`` are not ported yet."""
 
+from .mesh import Mesh, NamedSharding, data_sharding, make_mesh, replicated
+from .multihost import (
+    host_local_to_global,
+    initialize_distributed,
+    make_hybrid_mesh,
+    per_process_batches,
+    process_slice,
+)
+from .sampling import log_normalizer, make_sharded_sampler
 from .train import (
     TrainState,
     ema_model,
@@ -10,8 +21,13 @@ from .train import (
     make_reverse_kld_step,
     model_of_state,
     reshape_for_accum,
+    shard_batch,
 )
 
-__all__ = ["TrainState", "ema_model", "init_train_state",
-           "make_forward_kld_step", "make_reverse_kld_step",
-           "model_of_state", "reshape_for_accum"]
+__all__ = ["Mesh", "NamedSharding", "TrainState", "data_sharding",
+           "ema_model", "host_local_to_global", "init_train_state",
+           "initialize_distributed", "log_normalizer",
+           "make_forward_kld_step", "make_hybrid_mesh", "make_mesh",
+           "make_reverse_kld_step", "make_sharded_sampler",
+           "model_of_state", "per_process_batches", "process_slice",
+           "replicated", "reshape_for_accum", "shard_batch"]

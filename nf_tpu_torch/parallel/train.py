@@ -48,9 +48,19 @@ CPU the steps are eager. ``step.eager`` is the uncaptured step, and
 ``step.launches`` the kernel launches of one replay, counted at the last
 capture.
 
-Not ported yet: meshes, state shardings, donation and ``shard_batch``
-(the ``parallel/`` item, on ``torch.distributed``); those arguments
-raise.
+With a ``mesh`` (:mod:`~nf_tpu_torch.parallel.mesh`) a step is sharded
+over the ranks of the ``torch.distributed`` process group, each rank one
+process on one device: the forward step takes the rank's shard of the
+batch (:func:`shard_batch`), the reverse step draws the rank's share of
+the samples from a stream of its own. The loss and the gradients are
+averaged over the ranks in one all-reduce of the flattened gradients
+before the optimizer, ``post_update``, the EMA and the non-finite guard,
+as JAX's ``pmean`` precedes them, so every rank takes the same update
+and the replicas stay bitwise identical. On CUDA (NCCL) the all-reduce
+is inside the step's graph. Layers that normalise by batch statistics
+are refused on a mesh of more than one rank: each rank would see only
+its shard's statistics. The forward step's ``state_shardings``
+(``tp.py``) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -60,10 +70,14 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .._graphs import WARMUP_CALLS, capture, warm_up
+from ..flows.normalization import BatchNorm
+from ..nets.resnet import _BatchAffineNorm
 from ..ops.splines_kernel import get_pallas_bwd_kernel
+from .mesh import _GOLDEN, RankStreams, data_sharding
 
 _NO_EMA = ("state has no EMA params: build it with init_train_state(..., "
            "with_ema=True) and a step factory with ema_decay set")
@@ -180,6 +194,70 @@ def reshape_for_accum(batch, accum_steps: int):
     return r(batch)
 
 
+def shard_batch(mesh, batch, accum: bool = False):
+    """This rank's shard of a global batch (a tensor or array, or a tuple
+    or list of them), on the mesh's device: its slice of dim 0, or under
+    ``accum`` of dim 1, the micro dim of ``(accum_steps, micro, ...)``
+    (:func:`reshape_for_accum`), over the ``data`` axis
+    (``train.py:163``). Every rank passes the same global batch."""
+    dim = 1 if accum else 0
+
+    def local(x):
+        x = torch.as_tensor(x)
+        return data_sharding(mesh, x.ndim, dim=dim).local(x)
+
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(local(x) for x in batch)
+    return local(batch)
+
+
+def _refuse_batch_statistics(model):
+    for name, module in model.named_modules():
+        if isinstance(module, (BatchNorm, _BatchAffineNorm)):
+            raise NotImplementedError(
+                f"{name or 'the model'} ({type(module).__name__}) "
+                f"normalises by batch statistics, and on a mesh of more "
+                f"than one rank each rank sees only its shard of the batch; "
+                f"a sharded step does not train it")
+
+
+class _Reducer:
+    """The average over the ranks of a step's loss and gradients: one
+    all-reduce per dtype of the flattened tensors (NCCL's average on
+    CUDA, gloo's sum and a scale on the CPU)."""
+
+    def __init__(self, mesh, axis="data"):
+        mesh.collective_over(axis)  # raises unless it spans every rank
+        self.checked = set()
+
+    def __call__(self, model, loss, params):
+        world = dist.get_world_size()
+        if world > 1 and id(model) not in self.checked:
+            _refuse_batch_statistics(model)
+            self.checked.add(id(model))
+        nccl = dist.get_backend() == "nccl"
+        if nccl != loss.is_cuda:
+            raise ValueError(
+                f"a sharded step on {loss.device} needs the "
+                f"{'NCCL' if loss.is_cuda else 'gloo'} backend; the process "
+                f"group runs {dist.get_backend()}")
+        groups = {}
+        for t in [loss] + [p.grad for p in params if p.grad is not None]:
+            groups.setdefault(t.dtype, []).append(t)
+        for tensors in groups.values():
+            flat = torch.cat([t.reshape(-1) for t in tensors])
+            if nccl:
+                dist.all_reduce(flat, op=dist.ReduceOp.AVG)
+            else:
+                dist.all_reduce(flat)
+                flat.mul_(1.0 / world)
+            parts = torch.split(flat, [t.numel() for t in tensors])
+            with torch.no_grad():
+                torch._foreach_copy_(
+                    tensors, [p.view_as(t) for t, p in zip(tensors, parts)])
+        return loss
+
+
 def _microbatch(batch, i):
     if isinstance(batch, (tuple, list)):
         return type(batch)(x[i] for x in batch)
@@ -199,9 +277,12 @@ def _default_keyed_loss(model, batch, generator):
 
 
 class _StepGenerators:
-    """A keyed step's own generator per device, reseeded per call."""
+    """A keyed step's own generator per device, reseeded per call; rank r
+    of a mesh seeds it with ``seed + r * 0x9E3779B97F4A7C15`` (mod 2^64),
+    so the ranks draw apart (JAX's one key covers the global batch)."""
 
-    def __init__(self):
+    def __init__(self, rank=0):
+        self.rank = rank
         self.by_device = {}
 
     def get(self, device):
@@ -215,17 +296,17 @@ class _StepGenerators:
             raise TypeError(f"a keyed step takes an integer seed, got "
                             f"{type(seed).__name__}")
         gen = self.get(next(state.model.parameters()).device)
-        gen.manual_seed(seed)
+        gen.manual_seed((seed + self.rank * _GOLDEN) % 2 ** 64)
         return gen
 
 
 def _step_body(state, optimizer, loss_of, accum_steps, ema_decay,
-               skip_nonfinite, post_update=None):
+               skip_nonfinite, post_update=None, reduce=None):
     """The update both steps share: ``loss_of(model, i)`` is microbatch
-    i's loss; their gradients are averaged over ``accum_steps`` before one
-    optimizer update, then ``post_update``, the EMA and the non-finite
-    guard (which also restores the float buffers ``post_update`` may have
-    changed)."""
+    i's loss; their gradients are averaged over ``accum_steps`` (and by
+    ``reduce``, a :class:`_Reducer`, over the ranks) before one optimizer
+    update, then ``post_update``, the EMA and the non-finite guard (which
+    also restores the float buffers ``post_update`` may have changed)."""
     if state.optimizer is not optimizer:
         raise ValueError("state.optimizer is not the optimizer this step "
                          "was built with")
@@ -255,6 +336,8 @@ def _step_body(state, optimizer, loss_of, accum_steps, ema_decay,
         loss = loss_of(model, 0)
         loss.backward()
         loss = loss.detach()
+    if reduce is not None:
+        loss = reduce(model, loss, params)
 
     ema = list(state.ema.parameters()) if ema_decay is not None else []
     buffers = ([b for b in model.buffers() if b.is_floating_point()]
@@ -288,7 +371,8 @@ def make_forward_kld_step(optimizer, loss_fn: Optional[Callable] = None,
                           accum_steps: int = 1,
                           ema_decay: Optional[float] = None,
                           skip_nonfinite: bool = False, post_update=None,
-                          with_key: bool = False):
+                          with_key: bool = False, mesh=None,
+                          donate: bool = False, state_shardings=None):
     """Build ``step(state, batch) -> loss`` (``train.py:176``).
 
     ``loss_fn(model, batch) -> scalar`` defaults to
@@ -324,12 +408,24 @@ def make_forward_kld_step(optimizer, loss_fn: Optional[Callable] = None,
     without ``capturable=True`` on CUDA) is refused. The non-finite loss is
     still returned.
 
+    ``mesh``: the data-parallel step (``train.py:176``). Each rank passes
+    its shard of the global batch (:func:`shard_batch`; under
+    ``accum_steps`` the micro dim is sharded), and the loss and the
+    gradients are averaged over the ranks before the update (the module's
+    notes). A keyed step seeds each rank's generator apart. ``donate`` is
+    accepted: the step updates the state in place, which is what JAX's
+    donation permits. ``state_shardings`` (tensor-parallel and FSDP
+    layouts, ``tp.py``) raises: not ported yet.
+
     On CUDA the step runs as one CUDA graph per batch shape after two
     eager calls at that shape (the module's notes say what a captured
     step needs).
     """
+    del donate
+    _refuse_state_shardings(state_shardings)
     if loss_fn is None:
         loss_fn = _default_loss if not with_key else _default_keyed_loss
+    reduce = _reducer(mesh)
 
     def body(state: TrainState, batch, generator=None):
         def loss_of(model, i):
@@ -338,11 +434,12 @@ def make_forward_kld_step(optimizer, loss_fn: Optional[Callable] = None,
                     else loss_fn(model, mb))
 
         return _step_body(state, optimizer, loss_of, accum_steps, ema_decay,
-                          skip_nonfinite, post_update)
+                          skip_nonfinite, post_update, reduce)
 
     if not with_key:
         return _ForwardStep(optimizer, body)
-    generators = _StepGenerators()
+    generators = _StepGenerators(
+        mesh.axis_index("data") if mesh is not None else 0)
 
     def eager(state: TrainState, batch, seed):
         return body(state, batch, generators.seeded(state, seed))
@@ -355,9 +452,10 @@ def make_reverse_kld_step(optimizer, num_samples: int, beta_schedule=None,
                           score_fn: bool = True, accum_steps: int = 1,
                           ema_decay: Optional[float] = None,
                           skip_nonfinite: bool = False, mesh=None,
-                          donate: bool = False, post_update=None):
-    """Build ``step(state, generator) -> loss`` (``train.py:308``, on one
-    device): the model draws ``num_samples`` samples from ``generator`` (a
+                          donate: bool = False, post_update=None,
+                          axis: str = "data"):
+    """Build ``step(state, generator) -> loss`` (``train.py:308``): the
+    model draws ``num_samples`` samples from ``generator`` (a
     ``torch.Generator`` on the model's device) and the loss is
     ``model.reverse_kld`` against its target ``model.p``, at ``beta =
     beta_schedule(state.step)`` (default 1), with ``score_fn`` as there.
@@ -369,36 +467,70 @@ def make_reverse_kld_step(optimizer, num_samples: int, beta_schedule=None,
     of samples per step at less activation memory. ``ema_decay`` and
     ``skip_nonfinite`` as in :func:`make_forward_kld_step`.
 
-    ``post_update(model)`` as in :func:`make_forward_kld_step`. ``mesh``
-    and ``donate`` raise: the sharded step arrives with the port's
-    ``torch.distributed`` item.
+    ``post_update(model)`` as in :func:`make_forward_kld_step`.
+
+    ``mesh``: the sample-parallel step. Each rank draws ``num_samples /
+    (ranks x accum_steps)`` samples per microdraw from a stream of its own
+    derived from ``generator`` (:class:`~nf_tpu_torch.parallel.mesh.
+    RankStreams`: reproducible for a fixed world size, no two ranks
+    alike; ``generator`` advances as if it had drawn them), and the loss
+    and the gradients are averaged over ``axis`` before the update.
+    ``donate`` is accepted (the step updates the state in place).
 
     On CUDA the step runs as one CUDA graph after two eager calls; every
     call must pass the generator of the first (the graph draws from it,
-    registered at the capture).
+    or on a mesh from the rank's generator, registered at the capture).
     """
-    if mesh is not None or donate:
-        raise NotImplementedError(
-            "meshes and donation arrive with the port's torch.distributed "
-            "item; this step runs on one device")
-    if num_samples % accum_steps != 0:
+    del donate
+    n_dev = mesh.shape[axis] if mesh is not None else 1
+    if num_samples % (n_dev * accum_steps) != 0:
         raise ValueError(f"num_samples {num_samples} must divide over "
-                         f"{accum_steps} accum steps")
-    micro = num_samples // accum_steps
+                         f"{n_dev} devices x {accum_steps} accum steps")
+    micro = num_samples // (n_dev * accum_steps)
     if beta_schedule is None:
         def beta_schedule(step):
             return 1.0
+    reduce = _reducer(mesh, axis)
+    streams = RankStreams(mesh.axis_index(axis)) if reduce is not None \
+        else None
 
-    def eager(state: TrainState, generator, beta=None):
+    def body(state: TrainState, generator, beta=None):
         if beta is None:
             beta = beta_schedule(state.step)
         return _step_body(
             state, optimizer,
             lambda model, i: model.reverse_kld(
                 micro, beta=beta, score_fn=score_fn, generator=generator),
-            accum_steps, ema_decay, skip_nonfinite, post_update)
+            accum_steps, ema_decay, skip_nonfinite, post_update, reduce)
 
-    return _ReverseStep(optimizer, eager, beta_schedule)
+    if streams is None:
+        return _ReverseStep(optimizer, body, beta_schedule)
+
+    def eager(state: TrainState, generator, beta=None):
+        own = streams.enter(generator)
+        try:
+            return body(state, own, beta)
+        finally:
+            streams.leave(generator)
+
+    return _ReverseStep(optimizer, eager, beta_schedule, body=body,
+                        streams=streams)
+
+
+def _refuse_state_shardings(state_shardings):
+    if state_shardings is not None:
+        raise NotImplementedError(
+            "state_shardings (tensor-parallel and FSDP layouts of the "
+            "state, nf_tpu/parallel/tp.py) are not ported yet; a sharded "
+            "step replicates the state")
+
+
+def _reducer(mesh, axis="data"):
+    """The step's average over the ranks, or None without a process
+    group (a mesh of one has nothing to reduce)."""
+    if mesh is None or not mesh.collective_over(axis):
+        return None
+    return _Reducer(mesh, axis)
 
 
 # --- captured steps -----------------------------------------------------------
@@ -501,6 +633,9 @@ class _GraphedStep:
     def _before_replay(self, entry, state, args):
         pass
 
+    def _after_replay(self, entry, state, args):
+        pass
+
     def __call__(self, state, *args):
         device = next(state.model.parameters()).device
         if device.type != "cuda":
@@ -548,6 +683,7 @@ class _GraphedStep:
             state.step += 1
         self._before_replay(entry, state, args)
         entry.graph.replay()
+        self._after_replay(entry, state, args)
         return entry.loss.clone()
 
     def _check(self, entry, state, args):
@@ -608,22 +744,31 @@ class _ForwardStep(_GraphedStep):
 
 class _ReverseStep(_GraphedStep):
     """``step(state, generator)``: one graph, registered with the
-    generator of the first call; ``beta`` a device scalar written before
-    each replay."""
+    generator of the first call (on a mesh, with the rank's generator
+    that ``streams`` derives from it before each replay); ``beta`` a
+    device scalar written before each replay. ``body(state, generator,
+    beta)`` is the step drawing from ``generator`` itself (the captured
+    work)."""
 
-    def __init__(self, optimizer, eager, beta_schedule):
+    def __init__(self, optimizer, eager, beta_schedule, body=None,
+                 streams=None):
         super().__init__(optimizer, eager)
         self.beta_schedule = beta_schedule
+        self.body = body if body is not None else eager
+        self.streams = streams
 
     def _key(self, args):
         return ()
 
     def _new(self, state, args):
-        return _Graph(state, generator=args[0])
+        entry = _Graph(state, generator=args[0] if self.streams is None
+                       else self.streams.own(args[0].device))
+        entry.caller = args[0]
+        return entry
 
     def _check(self, entry, state, args):
         super()._check(entry, state, args)
-        if args[0] is not entry.generator:
+        if args[0] is not entry.caller:
             raise ValueError("this step draws from the generator of its "
                              "first call, registered with its graph; pass "
                              "that generator, or build a new step")
@@ -635,5 +780,13 @@ class _ReverseStep(_GraphedStep):
                 device=next(state.model.parameters()).device)
         entry.beta.fill_(self.beta_schedule(state.step))
 
+    def _before_replay(self, entry, state, args):
+        if self.streams is not None:
+            self.streams.enter(args[0])
+
+    def _after_replay(self, entry, state, args):
+        if self.streams is not None:
+            self.streams.leave(args[0])
+
     def _captured(self, entry, state):
-        return self.eager(state, entry.generator, beta=entry.beta)
+        return self.body(state, entry.generator, beta=entry.beta)

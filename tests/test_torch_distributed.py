@@ -1,0 +1,355 @@
+"""The port's multi-process layer on the CPU: two OS processes join a gloo
+process group and train through ``nf_tpu_torch.parallel`` and the
+training binary, against one process running the same global recipe
+(the port's twin of ``tests/test_multihost.py``).
+
+The workers are this file run as a script (``--worker``). Each writes a
+JSON of what it saw; the tests compare rank 0 with rank 1 (bitwise: the
+replicas take identical updates) and the two processes with the one
+(within 1e-5 relative: gloo's sum of two halves against one process's
+sum over the whole batch differs in the order of additions).
+"""
+
+import argparse
+import hashlib
+import json
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEPS = 5
+GLOBAL_BATCH = 64
+REVERSE_SAMPLES = 64
+SAMPLER_N = 64
+LR = 1e-2
+REV_LR = 1e-2
+BINARY_2D = ["--model", "realnvp", "--loss", "forward_kld", "--target",
+             "two_moons", "--iters", str(STEPS), "--num_layers", "2",
+             "--hidden", "16", "--batch_size", str(GLOBAL_BATCH),
+             "--log_every", "1"]
+BINARY_GLOW = ["--model", "glow", "--iters", str(STEPS), "--levels", "1",
+               "--num_layers", "1", "--hidden", "8", "--image_size", "8",
+               "--batch_size", str(GLOBAL_BATCH), "--log_every", "100"]
+BINARY_RESIDUAL = ["--model", "residual", "--loss", "forward_kld",
+                   "--target", "two_moons", "--iters", "2", "--num_layers",
+                   "2", "--hidden", "16", "--batch_size", "32"]
+
+
+def _nsf():
+    import nf_tpu_torch as nt
+
+    return nt.build_nsf(dim=2, K=2, hidden=16, num_bins=4,
+                        target=nt.TwoModes(), device="cpu", seed=3)
+
+
+def _dataset():
+    rng = np.random.default_rng(5)
+    theta = rng.random(512) * 2 * np.pi
+    return (np.stack([2 * np.cos(theta), np.sin(theta)], 1)
+            + rng.normal(0, 0.1, (512, 2))).astype(np.float32)
+
+
+def _params(model):
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def _summary(model):
+    flat = _params(model).numpy()
+    return {"params": flat.tolist(),
+            "param_sum": float(np.sum(np.abs(flat.astype(np.float64)))),
+            "param_hash": hashlib.sha256(flat.tobytes()).hexdigest()}
+
+
+def _forward_runs(mesh, accum):
+    """Five data-parallel steps on the same global batches."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch.parallel import shard_batch
+
+    model = _nsf()
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    state = nt.init_train_state(model, opt)
+    step = nt.make_forward_kld_step(opt, mesh=mesh, accum_steps=accum)
+    data = _dataset()
+    rng = np.random.default_rng(9)
+    losses = []
+    for _ in range(STEPS):
+        batch = torch.from_numpy(data[rng.integers(0, len(data),
+                                                   GLOBAL_BATCH)])
+        if accum > 1:
+            batch = nt.reshape_for_accum(batch, accum)
+        losses.append(float(step(state, shard_batch(mesh, batch,
+                                                    accum=accum > 1))))
+    return dict(losses=losses, **_summary(model))
+
+
+def _reverse_run(mesh):
+    """One sample-parallel SGD step; the rank's base draws recorded."""
+    import nf_tpu_torch as nt
+
+    model = _nsf()
+    drawn = []
+    base = model.q0.forward
+
+    def recording(num_samples, generator=None, context=None):
+        z, log_q = base(num_samples, generator=generator)
+        drawn.append(z.tolist())
+        return z, log_q
+
+    model.q0.forward = recording
+    opt = torch.optim.SGD(model.parameters(), lr=REV_LR)
+    state = nt.init_train_state(model, opt)
+    step = nt.make_reverse_kld_step(opt, num_samples=REVERSE_SAMPLES,
+                                    mesh=mesh)
+    loss = step(state, torch.Generator().manual_seed(11))
+    return {"draws": drawn[0], "loss": float(loss),
+            "params": _params(model).tolist()}
+
+
+class _Recorder:
+    """A sampler that records each rank's own accept rates."""
+
+    def __init__(self, sampler):
+        self.sampler = sampler
+        self.own = None
+
+    def sample_with_stats(self, n, generator):
+        z, log_w, acc = self.sampler.sample_with_stats(n, generator)
+        self.own = acc.tolist()
+        return z, log_w, acc
+
+
+def _sampler_run(mesh):
+    from nf_tpu_torch import distributions as dist
+    from nf_tpu_torch.parallel import log_normalizer, make_sharded_sampler
+    from nf_tpu_torch.sampling import HAIS
+
+    hais = HAIS.create(np.linspace(1.0, 0.0, 5), dist.DiagGaussian(2),
+                       dist.TwoModes(), num_leapfrog=3, step_size=0.2,
+                       log_mass=torch.zeros(2), device="cpu")
+    rec = _Recorder(hais)
+    sample = make_sharded_sampler(mesh, SAMPLER_N, with_stats=True)
+    z, log_w, acc = sample(rec, torch.Generator().manual_seed(4))
+    return {"z": z.tolist(), "log_w": log_w.tolist(), "own": rec.own,
+            "pooled": acc.tolist(),
+            "log_z": float(log_normalizer(log_w, mesh))}
+
+
+def _binary(argv):
+    from nf_tpu_torch import train
+
+    state = train.main(argv, device="cpu")
+    return dict(final_step=state.step, **_summary(state.model))
+
+
+def worker(args):
+    sys.path.insert(0, ROOT)
+    from nf_tpu_torch.parallel import (
+        initialize_distributed,
+        make_hybrid_mesh,
+        make_mesh,
+        per_process_batches,
+    )
+
+    distributed = args.num_processes > 1
+    if distributed:
+        rank, world = initialize_distributed(
+            coordinator_address=f"127.0.0.1:{args.port}",
+            num_processes=args.num_processes, process_id=args.process_id,
+            platform="cpu")
+        assert (rank, world) == (args.process_id, args.num_processes)
+    mesh = make_mesh(devices=None if distributed else ["cpu"])
+    out = {"mesh": mesh.shape,
+           "hybrid": make_hybrid_mesh(
+               ("data", "sample"), ici_shape=(1, 1),
+               dcn_shape=(args.num_processes, 1),
+               devices=None if distributed else ["cpu"]).shape,
+           "batches": [b.tolist() for b in per_process_batches(
+               _dataset(), 8, mesh, num_iters=2, seed=9)],
+           "forward": _forward_runs(mesh, 1),
+           "accum": _forward_runs(mesh, 2),
+           "reverse": _reverse_run(mesh),
+           "sampler": _sampler_run(mesh)}
+    flag = ["--distributed"] if distributed else []
+    out["binary"] = _binary(BINARY_2D + flag)
+    out["binary_accum"] = _binary(BINARY_2D + ["--accum_steps", "2"] + flag)
+    out["binary_glow"] = _binary(BINARY_GLOW + flag)
+    if not distributed:
+        out["binary_glow_accum"] = _binary(BINARY_GLOW + ["--accum_steps",
+                                                          "2"])
+    if distributed:
+        out["binary_residual"] = _binary(BINARY_RESIDUAL + flag)
+    with open(args.out, "w") as f:
+        json.dump(out, f)
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start(tmp_path, num_processes, port):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    runs = []
+    for pid in range(num_processes):
+        out = tmp_path / f"worker{num_processes}_{pid}.json"
+        cmd = [sys.executable, os.path.abspath(__file__), "--worker",
+               "--process-id", str(pid), "--num-processes",
+               str(num_processes), "--port", str(port), "--out", str(out)]
+        runs.append((subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True),
+                     out))
+    return runs
+
+
+def _finish(runs, timeout=300):
+    results = []
+    for proc, out in runs:
+        try:
+            stdout, _ = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for p, _ in runs:
+                p.kill()
+            raise
+        assert proc.returncode == 0, f"worker failed:\n{stdout[-4000:]}"
+        with open(out) as f:
+            results.append(json.load(f))
+    return results
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_distributed")
+    two = _start(tmp, 2, _free_port())
+    one = _start(tmp, 1, _free_port())
+    return _finish(two), _finish(one)[0]
+
+
+def test_meshes_span_the_ranks(runs):
+    multi, single = runs
+    for r in multi:
+        assert r["mesh"] == {"data": 2}
+        assert r["hybrid"] == {"data": 2, "sample": 1}
+    assert single["mesh"] == {"data": 1}
+
+
+def test_per_process_batches_make_the_same_global_batches(runs):
+    multi, single = runs
+    for i in range(2):
+        glued = np.concatenate([np.asarray(r["batches"][i]) for r in multi])
+        np.testing.assert_array_equal(glued, np.asarray(single["batches"][i]))
+
+
+@pytest.mark.parametrize("kind", ["forward", "accum", "binary",
+                                  "binary_accum", "binary_glow"])
+def test_two_processes_match_one(runs, kind):
+    """Rank 0 and rank 1 hold bitwise the same parameters; the two
+    processes land where one process lands (and the first loss, before
+    any update, is the same global batch's)."""
+    multi, single = runs
+    assert multi[0][kind]["param_hash"] == multi[1][kind]["param_hash"]
+    np.testing.assert_allclose(multi[0][kind]["param_sum"],
+                               single[kind]["param_sum"], rtol=1e-5)
+    if "losses" in single[kind]:
+        np.testing.assert_allclose(multi[0][kind]["losses"][0],
+                                   single[kind]["losses"][0], rtol=1e-6)
+        np.testing.assert_allclose(multi[0][kind]["losses"],
+                                   single[kind]["losses"], rtol=1e-5)
+    else:
+        assert multi[0][kind]["final_step"] == STEPS
+        assert single[kind]["final_step"] == STEPS
+
+
+@pytest.mark.parametrize("kind,micro", [("forward", "accum"),
+                                        ("binary", "binary_accum"),
+                                        ("binary_glow", "binary_glow_accum")])
+def test_two_processes_are_one_process_on_their_shards(runs, kind, micro):
+    """Two ranks, each on its half of the global batch, hold element by
+    element the parameters that one process reaches on the two halves as
+    microbatches: the all-reduce averages the loss and the gradients as
+    accumulation does, in the same order of additions. (Against the
+    full batch, test_two_processes_match_one, the order differs, and Adam,
+    dividing by the root of each gradient's square, moves elements whose
+    gradient is near zero by up to ~1e-4 in five steps.)"""
+    multi, single = runs
+    np.testing.assert_array_equal(multi[0][kind]["params"],
+                                  single[micro]["params"])
+    if "losses" in single[kind]:
+        assert multi[0][kind]["losses"] == single[micro]["losses"]
+
+
+def test_accumulation_is_the_full_batch_step(runs):
+    _, single = runs
+    np.testing.assert_allclose(single["accum"]["param_sum"],
+                               single["forward"]["param_sum"], rtol=1e-5)
+    np.testing.assert_allclose(single["binary_accum"]["param_sum"],
+                               single["binary"]["param_sum"], rtol=1e-5)
+
+
+def test_keyed_residual_replicas_agree(runs):
+    multi, _ = runs
+    assert multi[0]["binary_residual"]["final_step"] == 2
+    assert (multi[0]["binary_residual"]["param_hash"]
+            == multi[1]["binary_residual"]["param_hash"])
+
+
+def test_sample_parallel_step_is_one_step_on_the_pooled_draws(runs):
+    """The ranks draw apart, and their averaged update is one process's
+    update on their draws concatenated."""
+    import nf_tpu_torch as nt
+
+    multi, _ = runs
+    d0, d1 = (np.asarray(r["reverse"]["draws"], np.float32) for r in multi)
+    assert d0.shape == (REVERSE_SAMPLES // 2, 2)
+    assert not np.allclose(d0, d1)
+    assert multi[0]["reverse"]["params"] == multi[1]["reverse"]["params"]
+
+    model = _nsf()
+    pooled = torch.from_numpy(np.concatenate([d0, d1]))
+    base = model.q0
+
+    def fixed(num_samples, generator=None, context=None):
+        assert num_samples == REVERSE_SAMPLES
+        return pooled, base.log_prob(pooled)
+
+    model.q0.forward = fixed
+    opt = torch.optim.SGD(model.parameters(), lr=REV_LR)
+    loss = nt.make_reverse_kld_step(opt, num_samples=REVERSE_SAMPLES)(
+        nt.init_train_state(model, opt), torch.Generator())
+    np.testing.assert_allclose(multi[0]["reverse"]["loss"], float(loss),
+                               rtol=1e-5)
+    np.testing.assert_allclose(multi[0]["reverse"]["params"],
+                               _params(model).numpy(), rtol=1e-5, atol=1e-7)
+
+
+def test_sharded_sampler_pools_the_ranks(runs):
+    multi, _ = runs
+    own = np.asarray([r["sampler"]["own"] for r in multi])
+    for r in multi:
+        np.testing.assert_allclose(r["sampler"]["pooled"], own.mean(0),
+                                   rtol=1e-6)
+        assert len(r["sampler"]["z"]) == SAMPLER_N // 2
+    log_w = torch.tensor(sum((r["sampler"]["log_w"] for r in multi), []),
+                         dtype=torch.float64)
+    want = float(torch.logsumexp(log_w, 0) - np.log(SAMPLER_N))
+    for r in multi:
+        np.testing.assert_allclose(r["sampler"]["log_z"], want, rtol=1e-5)
+    assert not np.allclose(multi[0]["sampler"]["z"], multi[1]["sampler"]["z"])
+
+
+if __name__ == "__main__":
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--worker", action="store_true")
+    parser.add_argument("--process-id", type=int, required=True)
+    parser.add_argument("--num-processes", type=int, required=True)
+    parser.add_argument("--port", type=int, required=True)
+    parser.add_argument("--out", required=True)
+    worker(parser.parse_args())

@@ -4,9 +4,10 @@ JAX package ``nf_tpu``. Checked in a fresh interpreter, whose
 ``sys.modules`` this test's own imports cannot fill.
 
 And its names: every public name of the JAX package's top level,
-``flows``, ``distributions``, ``sampling`` and ``utils`` has a counterpart
-of the same name in the port, but for the names ``ROADMAP.md`` section 1
-item 3 keeps out by design or still queues (listed below)."""
+``flows``, ``distributions``, ``sampling``, ``utils`` and ``parallel`` has
+a counterpart of the same name in the port, but for the names
+``ROADMAP.md`` section 1 keeps out by design or still queues (listed
+below)."""
 
 import importlib
 import json
@@ -41,7 +42,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr[-2000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])
     for module in ("flows.residual", "nets.lipschitz", "flows.stochastic",
-                   "sampling.hais", "utils.serialization", "data"):
+                   "sampling.hais", "utils.serialization", "data", "train",
+                   "compat_export", "parallel.multihost"):
         assert f"nf_tpu_torch.{module}" in result["imported"]
     assert result["bad"] == []
 
@@ -52,8 +54,8 @@ _BY_DESIGN = {"utils": {"Module", "buffer_field", "combine", "is_array",
                         "is_inexact_array", "partition", "partition_arrays",
                         "static_field", "stop_gradient_params",
                         "tree_size"}}
-# queued in ROADMAP.md section 1: train.py and compat_export.py
-_QUEUED = {"": {"compat_export"}}
+# queued in ROADMAP.md section 1: the tensor-parallel layouts (tp.py)
+_QUEUED = {"parallel": {"param_shardings", "shard_params"}}
 
 
 def _public_names(module):
@@ -76,7 +78,7 @@ def _public_names(module):
 
 
 @pytest.mark.parametrize("package", ["", "flows", "distributions",
-                                     "sampling", "utils"])
+                                     "sampling", "utils", "parallel"])
 def test_every_public_jax_name_has_a_port_counterpart(package):
     suffix = f".{package}" if package else ""
     jax_mod = importlib.import_module("nf_tpu" + suffix)

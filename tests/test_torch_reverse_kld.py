@@ -250,10 +250,8 @@ def test_cpu_step_launches_no_kernel_and_refuses_what_waits():
         nt.init_train_state(m, opt), torch.Generator().manual_seed(1))
     assert counts == (tk.rqs_fwd.launches, tk.rqs_bwd.launches,
                       tk.rqs_bwd_autodiff.launches)
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        nt.make_reverse_kld_step(opt, num_samples=32, mesh=object())
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        nt.make_reverse_kld_step(opt, num_samples=32, donate=True)
+    # meshes and donation are taken (tests/test_torch_parallel.py)
+    nt.make_reverse_kld_step(opt, num_samples=32, donate=True)
     # post_update changes the model in place: another model is refused
     with pytest.raises(ValueError, match="in place"):
         nt.make_reverse_kld_step(opt, num_samples=32,

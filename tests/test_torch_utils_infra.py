@@ -26,6 +26,7 @@ from nf_tpu_torch import data as tdata
 from nf_tpu_torch import flows as tflows
 from nf_tpu_torch import utils as tutils
 from nf_tpu_torch.ops import _build
+from nf_tpu_torch.parallel import data_sharding, make_mesh
 
 
 def _model(dtype=torch.float32):
@@ -334,9 +335,12 @@ def test_prefetch_to_device_propagates_errors_and_stops_its_worker():
         (np.full(2, i) for i in range(10 ** 9)), size=1, device="cpu")
     assert float(next(endless)[0]) == 0.0
     endless.close()
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        next(tdata.prefetch_to_device(iter([]), sharding=object(),
-                                      device="cpu"))
+    # a sharding places the batch on its mesh's device, no other
+    mesh = make_mesh(devices=["cpu"])
+    with pytest.raises(ValueError, match="mesh's device"):
+        next(tdata.prefetch_to_device(iter([]),
+                                      sharding=data_sharding(mesh, 1),
+                                      device="meta"))
     with pytest.raises(ValueError):
         next(tdata.prefetch_to_device(iter([]), size=0, device="cpu"))
 
