@@ -236,7 +236,29 @@ toolkit. Phases, one line each:
     NCCL kernel in a profiled replay, each against the mesh-less captured
     step in turns; (f) ``make_sharded_sampler`` over phase 23's HAIS
     against the unsharded HAIS; (g) ``compat_export`` of (a)'s model into
-    a CPU ``build_nsf`` (``log_prob`` within 1e-3).
+    a CPU ``build_nsf`` (``log_prob`` within 1e-3);
+27. export: serving's deployment surface and the tensor-parallel
+    layouts at ``build_nsf``'s full width (B = 65536): (1) kernels A, B,
+    C (its shared path) and E called through ``torch.ops.nf_tpu_torch``
+    at the main shapes, beside PERF.md's kernel_ms; (2)
+    ``export_log_prob`` and ``export_sampler`` with ``freeze_params``
+    True and False, and the circular NSF's ``log_prob``, reloaded in a
+    fresh interpreter whose builders raise: within 1e-5 of
+    ``compile_log_prob`` (a refreshed weight list against a model
+    holding it), the samplers bitwise ``compile_sampler``, the artifacts'
+    A and B op nodes as many as a compiled replay launches; (3) the
+    exported calls eager and as the reloaded function's CUDA graph in
+    turns with the compiled ones; (4) the card's ``log_prob`` artifact
+    moved to the CPU (1e-3); (5) ``cost_analysis`` and
+    ``memory_analysis`` of ``build_nsf``'s and the circular NSF's
+    ``log_prob`` and sampler, with the FLOP/s of each graph; (6) on a
+    world-size-1 NCCL group, the forward step with ``state_shardings`` on
+    a (data 1, model 1) mesh and the batch-norm ``build_nsf``'s sharded
+    step, each bitwise its twin after five captured steps.
+
+``python3 chip_smoke.py --dispatch-turns PARENT`` times the eager
+``build_nsf`` ``log_prob`` and step of the checkout ``PARENT`` against
+this one's in turns (the cost of the ops' dispatcher) and stops.
 
 It then prints the whole run's wall time, one JSON line on the kernels
 (their launches summed over every path above), the card's name and power
@@ -5878,6 +5900,390 @@ def phase_training_binary(dev):
     return paths
 
 
+EXPORT_TOL = 1e-5  # a reloaded artifact against the compiled function
+MOVED_TOL = 1e-3  # a card artifact moved to the CPU against the card
+SHARD_STEPS = 5
+# PERF.md section 6's kernel_ms (forward / inverse) at the main paths'
+# shapes as recorded before the kernels became ops, the yardstick of
+# phase 27's times through the ops
+PERF_KERNEL_MS = {"rqs_fwd": (0.0071, 0.0071),
+                  "head_rqs_fwd": (0.0292, 0.0282),
+                  "rqs_bwd": (0.0134, 0.0133),
+                  "head_rqs_bwd": (0.0627, 0.0636)}
+# the reload: a fresh interpreter with every builder and the flow
+# container's constructor made to raise loads each artifact and calls it
+RELOAD = r"""
+import sys, torch
+import nf_tpu_torch.serving as s
+import nf_tpu_torch.models.builders as b
+import nf_tpu_torch.core as c
+def no(*a, **k):
+    raise AssertionError("model code ran in the reloading process")
+for n in dir(b):
+    if n.startswith("build_"):
+        setattr(b, n, no)
+c.NormalizingFlow.__init__ = no
+d = sys.argv[1]
+inp = torch.load(d + "/inputs.pt")
+out = {}
+for name, args in (("lp", (inp["x"],)), ("lp_flat", (inp["w0"], inp["x"])),
+                   ("lp_fresh", (inp["w1"], inp["x"])),
+                   ("sp", (inp["seed"],)), ("sp_flat", (inp["seed"],
+                                                        inp["w0"])),
+                   ("circ", (inp["xc"],))):
+    fn = s.load_exported(d + "/" + name.replace("_fresh", "_flat") + ".pt2")
+    fn(*args)
+    out[name] = (fn(*args), fn.kernel_nodes(), fn.launches,
+                 [str(p) for p in fn.platforms])
+torch.save(out, d + "/outputs.pt")
+"""
+
+
+def op_timings(dev, flush, peaks):
+    """(1) kernels A (the CDF), B (the transform half), C (the CDF's
+    shared-parameter backward) and E at the main paths' shapes, called
+    through ``torch.ops.nf_tpu_torch`` directly, beside PERF.md's
+    kernel_ms."""
+    from nf_tpu_torch.ops import cost, splines
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    ops = torch.ops.nf_tpu_torch
+    minima = (1e-3, 1e-3, 1e-3)
+    rng = np.random.default_rng(SEED + 600)
+    x, uw, uh, ud, cty, ctl = _cdf_operands(rng, dev)
+    ud = splines.pad_derivatives(ud, "linear", 1e-3, axis=-1)
+    cdf = tk.op_operands(x, *(t.movedim(-1, 0) for t in (uw, uh, ud)), 3.0)
+    x_t = _normal(rng, (BATCH, 1), 1.5, dev).T
+    h_t = _normal(rng, (HIDDEN, BATCH), 1.0, dev)
+    m = 3 * K_BINS - 1
+    w = _normal(rng, (m, HIDDEN), 0.3 / np.sqrt(HIDDEN), dev)
+    b = _normal(rng, (m,), 0.1, dev)
+    tb = torch.full((1,), 3.0, device=dev)
+    hct = [_normal(rng, (1, BATCH), 1.0, dev) for _ in range(2)]
+    rows = []
+    for label, fn, args in (
+            ("rqs_fwd", ops.rqs_fwd, lambda inv: (*cdf, inv, *minima)),
+            ("head_rqs_fwd", ops.head_rqs_fwd,
+             lambda inv: (x_t, h_t, w, b, tb, K_BINS, False, inv, *minima)),
+            ("rqs_bwd", ops.rqs_bwd_shared,
+             lambda inv: (*cdf, cty, ctl, inv, *minima)),
+            ("head_rqs_bwd", ops.head_rqs_bwd,
+             lambda inv: (x_t, h_t, w, b, tb, K_BINS, False, *hct, inv,
+                          *minima))):
+        times = []
+        for inverse in (False, True):
+            ms = device_ms(lambda: fn(*args(inverse)), flush)
+            name = "rqs_bwd_shared" if label == "rqs_bwd" else label
+            nbytes_ops = cost.COSTS[name](*args(inverse))
+            times.append((ms, bound(nbytes_ops[1], nbytes_ops[0], peaks)))
+        perf = PERF_KERNEL_MS[label]
+        worst = max(abs(t / p - 1) for (t, _), p in zip(times, perf))
+        rows.append(f"{label} kernel_ms {times[0][0]:.4f} / "
+                    f"{times[1][0]:.4f} (PERF.md {perf[0]} / {perf[1]}, "
+                    f"{'within' if worst <= 0.05 else 'NOT within'} 5%: "
+                    f"{100 * worst:.1f}%; bound_ms {times[0][1][0]:.5f} "
+                    f"({times[0][1][1]}))")
+    print("phase export (1) kernels through torch.ops.nf_tpu_torch at the "
+          "main shapes (forward / inverse; A at the CDF x (65536, 1), B "
+          "and E at x_t (1, 65536), H 128, C's shared path): "
+          + "; ".join(rows), flush=True)
+
+
+def _nonzero(counts):
+    """The kernels of ``counts`` that launched."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def export_reload(dev, d, model, circ, x, xc):
+    """(2) the artifacts of ``build_nsf`` (``log_prob`` frozen and with
+    the weights as inputs, the sampler both ways) and of the circular
+    NSF's ``log_prob``, reloaded in a fresh interpreter that calls no
+    builder, against the compiled functions; returns the blobs."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import serving
+
+    t0 = time.perf_counter()
+    blobs = {"lp": serving.export_log_prob(model, (BATCH, 2),
+                                           platforms=("cuda", "cpu")),
+             "lp_flat": serving.export_log_prob(model, (BATCH, 2),
+                                                freeze_params=False),
+             "sp": serving.export_sampler(model, BATCH),
+             "sp_flat": serving.export_sampler(model, BATCH,
+                                               freeze_params=False),
+             "circ": serving.export_log_prob(circ, (CIRC_BATCH, 2))}
+    t_export = time.perf_counter() - t0
+    fresh = copy.deepcopy(model)
+    perturb(fresh, SEED + 601, size=0.05)
+    seed = SEED + 602
+    for name, blob in blobs.items():
+        with open(f"{d}/{name}.pt2", "wb") as f:
+            f.write(blob)
+    weights = [[t.detach() for t in serving._tensors(m).values()]
+               for m in (model, fresh)]
+    torch.save({"x": x, "xc": xc, "w0": weights[0], "w1": weights[1],
+                "seed": seed}, f"{d}/inputs.pt")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", RELOAD, d],
+                         capture_output=True, text=True,
+                         timeout=SUBPROCESS_TIMEOUT)
+    t_reload = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"the reloading process failed:\n"
+                           f"{run.stderr[-4000:]}")
+    out = torch.load(f"{d}/outputs.pt")
+    lp = nt.compile_log_prob(model, (BATCH, 2))
+    sp = nt.compile_sampler(model, BATCH)
+    cl = nt.compile_log_prob(circ, (CIRC_BATCH, 2))
+    want = {"lp": lp(x), "lp_flat": lp(x),
+            "lp_fresh": nt.compile_log_prob(fresh, (BATCH, 2))(x),
+            "circ": cl(xc)}
+    errs = {k: max_err(out[k][0], v) for k, v in want.items()}
+    bad = {k: e for k, e in errs.items() if not e <= EXPORT_TOL}
+    z, log_q = sp(seed)
+    bitwise = {k: torch.equal(out[k][0][0], z)
+               and torch.equal(out[k][0][1], log_q) for k in ("sp",
+                                                             "sp_flat")}
+    nodes = {k: out[k][1] for k in out}
+    need = {"lp": _nonzero(lp.launches),
+            "lp_flat": _nonzero(lp.launches),
+            "sp": _nonzero(sp.launches),
+            "sp_flat": _nonzero(sp.launches),
+            "circ": _nonzero(cl.launches)}
+    wrong = {k: (nodes[k], need[k]) for k in need if nodes[k] != need[k]}
+    replays = {k: _nonzero(out[k][2]) for k in out}
+    if bad or not all(bitwise.values()) or wrong or any(
+            replays[k] != need[k] for k in need):
+        raise RuntimeError(f"export: reloaded against compiled {errs} "
+                           f"(limit {EXPORT_TOL}), samplers bitwise "
+                           f"{bitwise}, op nodes against replay launches "
+                           f"{wrong}, reloaded replays {replays}")
+    print(f"phase export (2) artifacts ({', '.join(f'{k} {len(v) / 1e6:.2f} MB' for k, v in blobs.items())}; "
+          f"exported in {t_export:.1f} s) reloaded in a fresh interpreter "
+          f"whose builders and NormalizingFlow constructor raise "
+          f"({t_reload:.1f} s, each captured as one CUDA graph): log_prob "
+          f"against compile_log_prob {errs['lp']:.3g}, with the weights as "
+          f"inputs {errs['lp_flat']:.3g}, refreshed weights against a model "
+          f"holding them {errs['lp_fresh']:.3g}, circular NSF "
+          f"{errs['circ']:.3g} (limit {EXPORT_TOL}); samplers bitwise "
+          f"compile_sampler at seed {seed} (frozen, weights as inputs); op "
+          f"nodes = replay launches: build_nsf log_prob {nodes['lp']}, "
+          f"sampler {nodes['sp']}, circular {nodes['circ']}; platforms "
+          f"{out['lp'][3]}", flush=True)
+    return blobs, (lp, sp, cl)
+
+
+def export_timings(dev, blobs, compiled, model, x):
+    """(3) the exported ``log_prob`` and sampler, eagerly (the program's
+    module) and as the reloaded function's graph, in turns with the
+    compiled functions; (4) the card's ``log_prob`` artifact moved to the
+    CPU. Returns {path: launches}."""
+    from nf_tpu_torch import serving
+
+    lp, sp, _ = compiled
+    fns = {k: serving.load_exported(blobs[k]) for k in ("lp", "sp")}
+    fns["lp"](x)
+    fns["sp"](SEED)
+    rows = []
+    for label, fn, graph, compiled_fn, eager in (
+            ("log_prob", fns["lp"], lambda: fns["lp"](x), lambda: lp(x),
+             lambda: fns["lp"].module(x)),
+            ("sample", fns["sp"], lambda: fns["sp"](SEED),
+             lambda: sp(SEED), lambda: fns["sp"].module())):
+        with torch.no_grad():
+            (e1, e2), (g1, g2) = in_turns(eager, graph)
+        (c1, c2), (h1, h2) = in_turns(compiled_fn, graph)
+        rows.append(f"{label}: exported eager {e1:.3f} / {e2:.3f}, exported "
+                    f"graph {g1:.3f} / {g2:.3f}; in turns with the compiled "
+                    f"graph: compiled {c1:.3f} / {c2:.3f}, exported graph "
+                    f"{h1:.3f} / {h2:.3f}")
+    print("phase export (3) wall ms per call at B = 65536 (median of 10, in "
+          "turns): " + "; ".join(rows), flush=True)
+    with torch.no_grad():
+        eager_ms = host_ms(lambda: model.log_prob(x))
+    print(f"phase export (3) eager build_nsf log_prob through the ops (the "
+          f"model's own call): {eager_ms:.3f} ms", flush=True)
+    cpu = serving.load_exported(blobs["lp"], device="cpu")
+    t0 = time.perf_counter()
+    moved = cpu(x.cpu())
+    secs = time.perf_counter() - t0
+    err = max_err(moved, fns["lp"](x).cpu())
+    if not err <= MOVED_TOL:
+        raise RuntimeError(f"the card's artifact moved to the CPU: "
+                           f"log_prob {err:.3g} from the card")
+    print(f"phase export (4) the card's log_prob artifact moved to the CPU "
+          f"(platforms {cpu.platforms}; each op's CPU implementation, the "
+          f"plain versions): {err:.3g} from the card (limit {MOVED_TOL}), "
+          f"{secs:.1f} s on the host", flush=True)
+    return {"exported build_nsf log_prob": fns["lp"].launches,
+            "exported build_nsf sampler": fns["sp"].launches}
+
+
+def cost_and_memory(dev, model, circ, compiled, x, xc):
+    """(5) ``cost_analysis`` and ``memory_analysis`` of ``build_nsf``'s
+    and the circular NSF's ``log_prob`` and sampler, and the FLOP/s each
+    graph achieves over its wall time."""
+    import nf_tpu_torch as nt
+
+    lp, sp, cl = compiled
+    cs = nt.compile_sampler(circ, CIRC_BATCH)
+    rows = []
+    for label, fn, call in (("build_nsf log_prob", lp, lambda: lp(x)),
+                            ("build_nsf sample", sp, lambda: sp(SEED)),
+                            ("circular log_prob", cl, lambda: cl(xc)),
+                            ("circular sample", cs, lambda: cs(SEED))):
+        cost = fn.cost_analysis()
+        mem = fn.memory_analysis()
+        ms = host_ms(call)
+        rows.append(f"{label}: flops {cost['flops']:.4g}, bytes accessed "
+                    f"{cost['bytes accessed']:.4g}, graph {ms:.3f} ms -> "
+                    f"{cost['flops'] / ms / 1e9:.2f} TFLOP/s; memory: "
+                    f"arguments {mem.argument_size_in_bytes}, outputs "
+                    f"{mem.output_size_in_bytes}, graph pool "
+                    f"{mem.temp_size_in_bytes} bytes")
+    print("phase export (5) cost_analysis / memory_analysis (B = 65536): "
+          + "; ".join(rows), flush=True)
+
+
+def sharded_layouts(dev):
+    """(6) on a world-size-1 NCCL group: the forward step with
+    ``state_shardings`` from ``param_shardings`` on a (data 1, model 1)
+    mesh against the mesh step without it, and the batch-norm
+    ``build_nsf``'s sharded step against the mesh-less one, five
+    captured steps each, parameters bitwise."""
+    import torch.distributed as dist
+
+    import nf_tpu_torch as nt
+    from nf_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        param_shardings,
+        shard_batch,
+    )
+
+    pool = nt.TwoMoons().sample(SHARD_STEPS * BATCH, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 603))
+    initialize_distributed(coordinator_address=f"127.0.0.1:{_free_port()}",
+                           num_processes=1, process_id=0)
+    try:
+        rows = []
+        mesh2 = make_mesh(("data", "model"), shape=(1, 1))
+        mesh = make_mesh()
+        for label, build, m_a, m_b, sharded in (
+                ("state_shardings", _nsf_model, mesh2, mesh2, True),
+                ("batch-norm build_nsf", lambda: batch_norm_nsf_model(dev),
+                 None, mesh, False)):
+            base = build()
+            models = [copy.deepcopy(base) for _ in range(2)]
+            opts = [torch.optim.Adam(m.parameters(), lr=1e-4,
+                                     capturable=True) for m in models]
+            states = [nt.init_train_state(m, o) for m, o in zip(models, opts)]
+            steps = [nt.make_forward_kld_step(opts[0], mesh=m_a),
+                     nt.make_forward_kld_step(
+                         opts[1], mesh=m_b,
+                         state_shardings=param_shardings(states[1], m_b)
+                         if sharded else None)]
+            losses = [[], []]
+            for i in range(SHARD_STEPS):
+                batch = pool[i * BATCH:(i + 1) * BATCH]
+                for k, m in enumerate((m_a, m_b)):
+                    xb = shard_batch(m, batch) if m is not None else batch
+                    losses[k].append(steps[k](states[k], xb))
+            same = all(torch.equal(p, q) for p, q in zip(
+                models[0].parameters(), models[1].parameters()))
+            same_loss = all(torch.equal(a, b) for a, b in zip(*losses))
+            if not (same and same_loss):
+                raise RuntimeError(f"{label}: the sharded step is not bitwise "
+                                   f"its twin after {SHARD_STEPS} steps")
+            rows.append(f"{label}: {SHARD_STEPS} captured steps bitwise "
+                        f"(losses and parameters), launches per replay "
+                        f"{_nonzero(steps[1].launches)}")
+        print("phase export (6) sharded layouts on a world-size-1 NCCL "
+              "group (B = 65536, Adam 1e-4): " + "; ".join(rows), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return {"sharded forward step with state_shardings": steps[1].launches}
+
+
+def phase_export(dev, flush, peaks):
+    """Phase 27: serving's deployment surface and the tensor-parallel
+    layouts (the module's notes). Returns {path: (launches, the kernels
+    it must launch)}."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    op_timings(dev, flush, peaks)
+    model = _nsf_model()
+    circ = _circular_model()
+    x = _normal(np.random.default_rng(SEED + 604), (BATCH, 2), 1.5, dev)
+    xc = _normal(np.random.default_rng(SEED + 605), (CIRC_BATCH, 2), 1.5,
+                 dev)
+    with tempfile.TemporaryDirectory() as d:
+        blobs, compiled = export_reload(dev, d, model, circ, x, xc)
+    served = export_timings(dev, blobs, compiled, model, x)
+    cost_and_memory(dev, model, circ, compiled, x, xc)
+    sharded = sharded_layouts(dev)
+    need = ("rqs_fwd", "head_rqs_fwd")
+    paths = {k: (v, need) for k, v in served.items()}
+    paths.update({k: (v, need + ("rqs_bwd", "head_rqs_bwd"))
+                  for k, v in sharded.items()})
+    print(f"phase timing phase 27 (export, cost, layouts): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
+def dispatch_turns(parent):
+    """``python3 chip_smoke.py --dispatch-turns PARENT``: the eager
+    ``build_nsf`` ``log_prob`` and forward-KLD step at B = 65536 of the
+    package in the checkout ``PARENT`` (one from before the kernels became
+    ``torch.library`` ops, whose kernels sat behind
+    ``torch.autograd.Function``s) and of this one, on the same weights and
+    batch, wall ms in turns (parent, this, this, parent). Prints no
+    result line."""
+    import importlib.util
+    import os
+
+    import nf_tpu_torch as nt
+
+    pkg = os.path.join(os.path.abspath(parent), "nf_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "nf_tpu_torch_parent", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    old = importlib.util.module_from_spec(spec)
+    sys.modules["nf_tpu_torch_parent"] = old
+    spec.loader.exec_module(old)
+    phase_device()
+    dev = torch.device("cuda")
+    new_model = _nsf_model()
+    old_model = old.build_nsf(dim=2, K=8, hidden=HIDDEN, num_bins=K_BINS,
+                              num_blocks=2, tail_bound=3.0)
+    old_model.load_state_dict(new_model.state_dict())
+    x = nt.TwoMoons().sample(BATCH, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 610))
+    with torch.no_grad():
+        err = max_err(old_model.log_prob(x), new_model.log_prob(x))
+    rows = [f"log_prob of the two packages {err:.3g} apart"]
+    calls = {}
+    for name, pkg_, model in (("parent", old, old_model),
+                              ("ops", nt, new_model)):
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4, capturable=True)
+        state = pkg_.init_train_state(model, opt)
+        step = pkg_.make_forward_kld_step(opt).eager
+
+        def lp(model=model):
+            with torch.no_grad():
+                model.log_prob(x)
+        calls[name] = (lp, lambda step=step, state=state: step(state, x))
+    for i, what in enumerate(("log_prob", "forward-KLD step")):
+        turns = [in_turns(calls["parent"][i], calls["ops"][i], reps=30)
+                 for _ in range(2)]
+        rows.append(f"eager {what}: parent " + " / ".join(
+            f"{t:.3f}" for (p, _) in turns for t in p) + ", through the ops "
+            + " / ".join(f"{t:.3f}" for (_, n) in turns for t in n) + " ms")
+    print("dispatch turns (build_nsf, B = 65536, wall ms, median of 30, "
+          "twice in turns parent, ops, ops, parent): " + "; ".join(rows),
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port runs on an "
@@ -5989,6 +6395,7 @@ def main():
     print(f"phase timing phases 22-25 (snf, snf_nsf, mh, hais, vae, "
           f"infrastructure): {time.perf_counter() - t_new:.1f} s", flush=True)
     paths.update(phase_training_binary(dev))
+    paths.update(phase_export(dev, flush, peaks))
     print("launches: " + "; ".join(f"{k} {v[0]}" for k, v in paths.items()),
           flush=True)
     for path, (counts, needed) in paths.items():
@@ -6018,4 +6425,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dispatch-turns"] and len(sys.argv) == 3:
+        sys.exit(dispatch_turns(sys.argv[2]))
     sys.exit(main())

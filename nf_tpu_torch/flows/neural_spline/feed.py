@@ -37,8 +37,11 @@ class FusedFeed(NamedTuple):
 
 def fused_head_wanted(device, n_elements):
     """The port's gate for kernel B: a CUDA tensor and ``B*D >= 4096``.
-    The CPU never takes it (its unfused feed is the plain path)."""
-    return (torch.device(device).type == "cuda"
+    The CPU takes it only inside ``ops.cpu_through_ops`` (elsewhere its
+    unfused feed is the plain path)."""
+    from ...ops.splines_kernel import _CPU_THROUGH_OPS
+
+    return ((torch.device(device).type == "cuda" or _CPU_THROUGH_OPS[0])
             and n_elements >= FUSED_HEAD_MIN_ELEMENTS)
 
 

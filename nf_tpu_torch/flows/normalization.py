@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..nets import _batch_stats
 from .affine import AffineConstFlow
 from .base import Flow
 
@@ -70,16 +71,22 @@ class BatchNorm(Flow):
     freedom removed, eps 1e-10, and the log-det ``-sum(log(std² +
     eps)) / 2`` for every sample, the statistics' dependence on the
     parameters ignored. It has only this direction, as in the JAX
-    package; ``inverse`` raises."""
+    package; ``inverse`` raises. Inside a sharded step the statistics are
+    the global batch's (``nets/_batch_stats.py``)."""
 
     def __init__(self, eps=1e-10):
         super().__init__()
         self.eps = eps
 
     def forward(self, z, context=None, generator=None):
-        mean = torch.mean(z, dim=0, keepdim=True)
-        std = torch.std(z, dim=0, keepdim=True, correction=1)
-        var_eps = std ** 2 + self.eps
+        shared = _batch_stats.moments(z, (0,), 1)
+        if shared is None:
+            mean = torch.mean(z, dim=0, keepdim=True)
+            std = torch.std(z, dim=0, keepdim=True, correction=1)
+            var_eps = std ** 2 + self.eps
+        else:  # the global batch of a sharded step (nets/_batch_stats.py)
+            mean, var = shared
+            var_eps = var + self.eps
         log_det = -0.5 * torch.sum(torch.log(var_eps))
         return ((z - mean) / torch.sqrt(var_eps),
                 torch.broadcast_to(log_det, (z.shape[0],)))

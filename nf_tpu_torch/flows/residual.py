@@ -7,7 +7,11 @@ power-series log-det estimators (``nf_tpu/flows/residual.py``; reference
   caller's ``torch.Generator`` (the probe by ``torch.randn``, then the
   series lengths), and the estimators are functions of that explicit
   probe and those coefficients (:meth:`iResBlock.hutchinson`), so a test
-  can feed both frameworks the same ones.
+  can feed both frameworks the same ones. The draw goes through
+  ``nets._dropout.shared_draw``: inside ``shared_masks()`` (the
+  sticking-the-landing and DReG re-pass) a block reuses the sampling
+  pass's probe and series length, as the JAX block gets the same per-flow
+  key in both passes (``nf_tpu/core.py:130-140``).
 * **Series lengths.** Geometric lengths (support from 1, as
   ``jax.random.geometric``) by inversion of a uniform draw on the device,
   ``floor(log1p(-u) / log1p(-p)) + 1``, the formula JAX samples with:
@@ -63,6 +67,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..nets._dropout import shared_draw
 from .base import Flow
 
 # JAX's cap on the loop's count (``residual.py:50``: ``i <= 1000``)
@@ -376,7 +381,8 @@ class iResBlock(nn.Module):
                 "fixed probe every step would bias training). For a "
                 "deterministic 2D evaluation use "
                 "flows.set_exact_logdet(model).")
-        return self.hutchinson(x, *self.draw(x, generator))
+        return self.hutchinson(x, *shared_draw(
+            self, x.shape, lambda: self.draw(x, generator)))
 
 
 class Residual(Flow):

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from . import _dropout
+from . import _batch_stats, _dropout
 from .cnn import Conv2d
 from .mlp import Linear
 
@@ -37,7 +37,9 @@ class _BatchAffineNorm(nn.Module):
     biased one, eps 1e-3. ``weight`` and ``bias`` are the reference's
     names for JAX's ``gamma`` and ``beta``. On ``(B, F)`` it reduces over
     the batch, on ``(B, C, H, W)`` over all but the channels, and
-    :meth:`transposed` over the batch of feature-major ``(F, B)`` data."""
+    :meth:`transposed` over the batch of feature-major ``(F, B)`` data;
+    inside a sharded step over the global batch
+    (``nets/_batch_stats.py``)."""
 
     def __init__(self, features, eps=1e-3, dtype=torch.float32):
         super().__init__()
@@ -46,8 +48,12 @@ class _BatchAffineNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, dtype=dtype))
 
     def _normalize(self, x, dims):
-        mean = torch.mean(x, dim=dims, keepdim=True)
-        var = torch.var(x, dim=dims, keepdim=True, correction=0)
+        shared = _batch_stats.moments(x, dims, 0)
+        if shared is None:
+            mean = torch.mean(x, dim=dims, keepdim=True)
+            var = torch.var(x, dim=dims, keepdim=True, correction=0)
+        else:  # the global batch of a sharded step (nets/_batch_stats.py)
+            mean, var = shared
         return (x - mean) * torch.rsqrt(var + self.eps)
 
     def forward(self, x):

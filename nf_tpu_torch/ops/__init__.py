@@ -1,3 +1,5 @@
+import contextlib
+
 from .splines import (
     DEFAULT_MIN_BIN_HEIGHT,
     DEFAULT_MIN_BIN_WIDTH,
@@ -23,6 +25,34 @@ def _counted_wrappers():
             "rqs_bwd_autodiff": rqs_bwd_autodiff}
 
 
+# the ops of the five kernels (``torch.ops.nf_tpu_torch.<name>``), by the
+# kernel each launches: A rqs_fwd, B head_rqs_fwd, C rqs_bwd and its
+# shared-parameter path rqs_bwd_shared, D rqs_bwd_autodiff, E head_rqs_bwd
+KERNEL_OPS = {"rqs_fwd": "rqs_fwd", "head_rqs_fwd": "head_rqs_fwd",
+              "rqs_bwd": "rqs_bwd", "rqs_bwd_shared": "rqs_bwd",
+              "rqs_bwd_autodiff": "rqs_bwd_autodiff",
+              "head_rqs_bwd": "head_rqs_bwd"}
+
+
+@contextlib.contextmanager
+def cpu_through_ops():
+    """Within this context the spline wrappers take the kernels' ops on
+    CPU tensors too (where a kernel would take the operands: float32, K
+    in ``SUPPORTED_BINS``), whose CPU implementations are the plain
+    versions: the values are those of the plain path, and a trace (an
+    export, a cost count) sees one op per kernel launch, as on the card.
+    Outside it the CPU path calls the plain versions with ordinary
+    autograd."""
+    from .splines_kernel import _CPU_THROUGH_OPS
+
+    before = _CPU_THROUGH_OPS[0]
+    _CPU_THROUGH_OPS[0] = True
+    try:
+        yield
+    finally:
+        _CPU_THROUGH_OPS[0] = before
+
+
 def launch_counts():
     """``{kernel: launches recorded so far}`` for the five CUDA kernels.
     The counts are kept on the host: a CUDA graph records a launch once,
@@ -41,9 +71,11 @@ def reset_launch_counts():
 
 
 __all__ = [
+    "KERNEL_OPS",
     "DEFAULT_MIN_BIN_HEIGHT",
     "DEFAULT_MIN_BIN_WIDTH",
     "DEFAULT_MIN_DERIVATIVE",
+    "cpu_through_ops",
     "launch_counts",
     "reset_launch_counts",
     "rational_quadratic_spline",

@@ -24,8 +24,11 @@ Beside the kernels:
   :func:`head_rqs_plain_in_kernel_order` and
   :func:`head_rqs_bwd_plain_in_kernel_order` sum the head product in the
   kernels' order;
-* :func:`fused_head_rqs`, the wrapper: CUDA -> :class:`_HeadRQSFunction`
-  (kernel B forward, kernel E backward) or raise, CPU -> the plain version;
+* :func:`fused_head_rqs`, the wrapper: CUDA -> the op
+  ``torch.ops.nf_tpu_torch.head_rqs_fwd`` (kernel B; its registered
+  backward calls ``head_rqs_bwd``, kernel E) or raise, CPU -> the plain
+  version with ordinary autograd; each op's CPU implementation is the
+  plain version (``splines_kernel``'s notes on the ops);
 * ``fused_head_rqs.launches`` and ``fused_head_rqs_bwd.launches``, the
   counts of launches, kept on the host (a CUDA graph adds to them once,
   at its capture), and ``circular_launches`` of each, those of them at
@@ -47,7 +50,12 @@ from .splines import (
     DEFAULT_MIN_DERIVATIVE,
     linear_tail_constant,
 )
-from .splines_kernel import SUPPORTED_BINS, rqs_bwd_plain, rqs_plain
+from .splines_kernel import (
+    SUPPORTED_BINS,
+    _cpu_takes_op,
+    rqs_bwd_plain,
+    rqs_plain,
+)
 
 
 def _dplanes(num_bins, tails):
@@ -317,29 +325,90 @@ def fused_head_rqs_bwd(x_t, h_t, head_weight, head_bias, tb, cty, ctl, *,
     exposed for the parity checks."""
     if x_t.device.type != "cuda":
         raise ValueError(f"kernel E runs on CUDA tensors, got {x_t.device}")
-    return _launch_bwd(x_t, h_t.contiguous(), head_weight.contiguous(),
-                       head_bias.contiguous(), tb.contiguous(), cty, ctl,
-                       num_bins=num_bins, tails=tails, inverse=inverse,
-                       mbw=float(min_bin_width), mbh=float(min_bin_height),
-                       md=float(min_derivative))
+    return torch.ops.nf_tpu_torch.head_rqs_bwd(
+        x_t, h_t.contiguous(), head_weight.contiguous(),
+        head_bias.contiguous(), tb.contiguous(), int(num_bins),
+        tails == "circular", cty, ctl, bool(inverse), float(min_bin_width),
+        float(min_bin_height), float(min_derivative))
 
 
-class _HeadRQSFunction(torch.autograd.Function):
-    """Kernel B forward, kernel E backward. The residuals are the inputs,
-    as in the JAX custom VJP (``spline_head_fused.py:263-276``); the tail
-    bound gets no gradient."""
+# --- kernels B and E as torch.library ops (``splines_kernel``'s notes) ------
 
-    @staticmethod
-    def forward(ctx, x_t, h_t, w, b, tb, kw):
-        ctx.save_for_backward(x_t, h_t, w, b, tb)
-        ctx.kw = kw
-        return _launch(x_t, h_t, w, b, tb, **kw)
+_HEAD = ("Tensor x_t, Tensor h_t, Tensor w, Tensor b, Tensor tb, "
+         "int num_bins, bool circular")
+_MINIMA = ("bool inverse, float min_bin_width, float min_bin_height, "
+           "float min_derivative")
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, gy, gld):
-        gx, gh, gw, gb = _launch_bwd(*ctx.saved_tensors, gy, gld, **ctx.kw)
-        return gx, gh, gw, gb, None, None
+
+def _head_kw(num_bins, circular, inverse, mbw, mbh, md):
+    return dict(num_bins=num_bins, tails="circular" if circular else "linear",
+                inverse=inverse, min_bin_width=mbw, min_bin_height=mbh,
+                min_derivative=md)
+
+
+def _launch_kw(num_bins, circular, inverse, mbw, mbh, md):
+    return dict(num_bins=num_bins, tails="circular" if circular else "linear",
+                inverse=inverse, mbw=mbw, mbh=mbh, md=md)
+
+
+@torch.library.custom_op(
+    "nf_tpu_torch::head_rqs_fwd", mutates_args=(),
+    schema=f"({_HEAD}, {_MINIMA}) -> (Tensor, Tensor)")
+def _head_fwd_op(x_t, h_t, w, b, tb, *opts):
+    return tuple(t.contiguous() for t in head_rqs_plain(
+        x_t, h_t, w, b, tb, **_head_kw(*opts)))
+
+
+@_head_fwd_op.register_kernel("cuda")
+def _(x_t, h_t, w, b, tb, *opts):
+    return _launch(x_t, h_t, w, b, tb, **_launch_kw(*opts))
+
+
+@_head_fwd_op.register_fake
+def _(x_t, h_t, w, b, tb, *opts):
+    return x_t.new_empty(x_t.shape), x_t.new_empty(x_t.shape)
+
+
+@torch.library.custom_op(
+    "nf_tpu_torch::head_rqs_bwd", mutates_args=(),
+    schema=(f"({_HEAD}, Tensor cty, Tensor ctl, {_MINIMA}) -> "
+            f"(Tensor, Tensor, Tensor, Tensor)"))
+def _head_bwd_op(x_t, h_t, w, b, tb, num_bins, circular, cty, ctl, *opts):
+    return tuple(t.contiguous() for t in head_rqs_bwd_plain(
+        x_t, h_t, w, b, tb, cty, ctl, **_head_kw(num_bins, circular, *opts)))
+
+
+@_head_bwd_op.register_kernel("cuda")
+def _(x_t, h_t, w, b, tb, num_bins, circular, cty, ctl, *opts):
+    return _launch_bwd(x_t, h_t, w, b, tb, cty, ctl,
+                       **_launch_kw(num_bins, circular, *opts))
+
+
+@_head_bwd_op.register_fake
+def _(x_t, h_t, w, b, *rest):
+    return (x_t.new_empty(x_t.shape), h_t.new_empty(h_t.shape),
+            w.new_empty(w.shape), b.new_empty(b.shape))
+
+
+def _head_setup(ctx, inputs, output):
+    """Kernel B's residuals are its inputs, as in the JAX custom VJP
+    (``spline_head_fused.py:263-276``)."""
+    x_t, h_t, w, b, tb, *opts = inputs
+    ctx.save_for_backward(x_t, h_t, w, b, tb)
+    ctx.opts = opts
+
+
+@once_differentiable
+def _head_backward(ctx, gy, gld):
+    """Kernel E; the tail bound gets no gradient."""
+    x_t, h_t, w, b, tb = ctx.saved_tensors
+    num_bins, circular, *minima = ctx.opts
+    gx, gh, gw, gb = torch.ops.nf_tpu_torch.head_rqs_bwd(
+        x_t, h_t, w, b, tb, num_bins, circular, gy, gld, *minima)
+    return (gx, gh, gw, gb) + (None,) * 7
+
+
+_head_fwd_op.register_autograd(_head_backward, setup_context=_head_setup)
 
 
 def fused_head_rqs(
@@ -379,12 +448,12 @@ def fused_head_rqs(
         tb = torch.full((D,), float(tail_bound), dtype=x_t.dtype,
                         device=x_t.device)
     kw = dict(num_bins=K, tails=tails, inverse=inverse)
-    if x_t.device.type == "cpu":
+    if x_t.device.type == "cpu" and not _cpu_takes_op(x_t, K):
         return head_rqs_plain(x_t, h_t, head_weight, head_bias, tb,
                               min_bin_width=min_bin_width,
                               min_bin_height=min_bin_height,
                               min_derivative=min_derivative, **kw)
-    if x_t.device.type != "cuda":
+    if x_t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused head kernel for device {x_t.device}")
     if K not in SUPPORTED_BINS:
         raise ValueError(f"the fused head kernel is built for K in "
@@ -404,11 +473,11 @@ def fused_head_rqs(
                             f"{t.dtype}")
         if t.device != x_t.device:
             raise ValueError("all operands must be on the same CUDA device")
-    kw.update(mbw=float(min_bin_width), mbh=float(min_bin_height),
-              md=float(min_derivative))
-    return _HeadRQSFunction.apply(
+    return torch.ops.nf_tpu_torch.head_rqs_fwd(
         x_t, h_t.contiguous(), head_weight.contiguous(),
-        head_bias.contiguous(), tb.contiguous(), kw)
+        head_bias.contiguous(), tb.contiguous(), K, tails == "circular",
+        bool(inverse), float(min_bin_width), float(min_bin_height),
+        float(min_derivative))
 
 
 fused_head_rqs.launches = 0

@@ -197,6 +197,15 @@ def pad_derivatives(ud, tails, min_derivative, axis):
     raise RuntimeError(f"{tails} tails are not implemented.")
 
 
+def _kernel_path(inputs, num_bins):
+    """CUDA tensors take the kernel wrappers; CPU tensors the dense plain
+    path, except inside ``ops.cpu_through_ops`` where a kernel would take
+    them."""
+    from .splines_kernel import _cpu_takes_op
+
+    return inputs.is_cuda or _cpu_takes_op(inputs, num_bins)
+
+
 def unconstrained_rational_quadratic_spline(
     inputs,
     unnormalized_widths,
@@ -218,7 +227,7 @@ def unconstrained_rational_quadratic_spline(
     """
     ud = pad_derivatives(unnormalized_derivatives, tails, min_derivative,
                          axis=-1)
-    if inputs.is_cuda:
+    if _kernel_path(inputs, unnormalized_widths.shape[-1]):
         from .splines_kernel import fused_unconstrained_rqs
 
         return fused_unconstrained_rqs(
@@ -252,7 +261,7 @@ def unconstrained_rational_quadratic_spline_kmajor(
     axis 0 of ``inputs`` (the ``(D, batch)`` layout of bin-major heads)."""
     ud = pad_derivatives(unnormalized_derivatives, tails, min_derivative,
                          axis=0)
-    if inputs.is_cuda:
+    if _kernel_path(inputs, unnormalized_widths.shape[0]):
         from .splines_kernel import fused_unconstrained_rqs_kmajor
 
         return fused_unconstrained_rqs_kmajor(

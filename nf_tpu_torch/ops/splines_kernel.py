@@ -18,10 +18,17 @@ Beside the kernels:
   shared-parameter path). CPU tensors use :func:`rqs_plain` (with ordinary
   autograd), and the tests and ``chip_smoke.py`` hold the kernels against
   both;
-* :func:`rqs_fwd`, the wrapper: a CUDA tensor goes through
-  :class:`_RQSFunction`, whose forward launches kernel A and whose
-  backward launches kernel C (or the call raises); a CPU tensor runs
-  :func:`rqs_plain`;
+* :func:`rqs_fwd`, the wrapper: a CUDA tensor goes through the op
+  ``torch.ops.nf_tpu_torch.rqs_fwd``, whose CUDA implementation launches
+  kernel A and whose registered backward calls the op of kernel C (or the
+  call raises); a CPU tensor runs :func:`rqs_plain` with ordinary
+  autograd;
+* the five ops (``rqs_fwd``, ``rqs_bwd``, ``rqs_bwd_shared``,
+  ``rqs_bwd_autodiff`` here, the head's two in ``spline_head_fused``),
+  registered with ``torch.library`` under ``nf_tpu_torch::``: a CUDA
+  implementation (the launch), a CPU one (the plain version) and a fake
+  one (the shapes), so that ``torch.export`` traces through them and an
+  exported program carries one node per kernel launch;
 * kernel D (``csrc/rqs_bwd_autodiff.cu``, replaces ``_rqs_bwd_kernel``,
   :220), the mechanical adjoint of ``_rqs_math`` that the JAX package
   traces with ``jax.vjp`` under ``set_pallas_bwd_kernel("autodiff")``;
@@ -41,8 +48,8 @@ kernels as ``(B*C, H*W)`` views (:func:`image_split`): the image
 coupling's bin-major planes are a permuted view of its conditioner's
 ``(B, C*P, H, W)`` output, strides ``(H*W, C*P*H*W, P*H*W, W, 1)``, whose
 (B, C) and (H, W) each merge into one axis; what cannot be viewed so
-raises, and nothing is copied. The parameters enter
-:class:`_RQSFunction` in their broadcastable shape, and its backward
+raises, and nothing is copied. The parameters enter the ``rqs_fwd`` op
+in their broadcastable shape, and its backward
 returns their gradients in that shape, summed over what was broadcast, as
 XLA sums the transpose of the JAX package's broadcast: where every row
 shares them (the unconditional CDF), kernel C's shared-parameter path
@@ -724,7 +731,7 @@ def _shares_rows(x2, planes, tb):
 
 
 def _sums_in_kernel(x2, planes, tb):
-    """Whether :class:`_RQSFunction`'s backward takes kernel C's
+    """Whether the ``rqs_fwd`` op's backward takes kernel C's
     shared-parameter path for its unexpanded parameter views: only where
     its own expand broadcast every parameter down the rows. A view the
     caller expanded to full size (row stride 0) needs one gradient per
@@ -741,10 +748,11 @@ def _bwd(mode, x, w, h, d, tb, cty, ctl, inverse, min_bin_width,
     K = w.shape[0]
     _check(x, (w, h, d), tb if isinstance(tb, torch.Tensor) else None, K)
     x2, w3, h3, d3, tb = kernel_views(x, w, h, d, tb)
-    gx, gw, gh, gd = _launch_bwd(
-        x2, w3, h3, d3, tb, cty.reshape(x2.shape), ctl.reshape(x2.shape),
-        inverse, float(min_bin_width), float(min_bin_height),
-        float(min_derivative), mode)
+    op = getattr(torch.ops.nf_tpu_torch, _BWD_KERNELS[mode])
+    gx, gw, gh, gd = op(
+        x2, w3, h3, d3, *_tb_args(tb), cty.reshape(x2.shape),
+        ctl.reshape(x2.shape), bool(inverse), float(min_bin_width),
+        float(min_bin_height), float(min_derivative))
     return (gx.view(x.shape), gw.view(K, *x.shape), gh.view(K, *x.shape),
             gd.view(K + 1, *x.shape))
 
@@ -795,50 +803,173 @@ def rqs_bwd_shared(x, w, h, d, tb, cty, ctl, *, inverse,
             f"the shared-parameter path takes at most "
             f"{SHARED_PARAM_MAX_COLS} columns and parameters the same for "
             f"every row; got x {tuple(x.shape)}, w {tuple(w.shape)}")
-    gx, gw, gh, gd = _launch_bwd_shared(
-        x2, w3, h3, d3, tb, cty.reshape(x2.shape), ctl.reshape(x2.shape),
-        inverse, float(min_bin_width), float(min_bin_height),
-        float(min_derivative))
+    gx, gw, gh, gd = torch.ops.nf_tpu_torch.rqs_bwd_shared(
+        x2, w3, h3, d3, *_tb_args(tb), cty.reshape(x2.shape),
+        ctl.reshape(x2.shape), bool(inverse), float(min_bin_width),
+        float(min_bin_height), float(min_derivative))
     return gx.view(x.shape), gw, gh, gd
 
 
-class _RQSFunction(torch.autograd.Function):
-    """Kernel A forward; kernel C backward, or kernel D under
-    ``set_pallas_bwd_kernel("autodiff")`` as it stood at the forward call
-    (the JAX package reads the switch when it traces). The residuals are
-    the inputs, as in the JAX custom VJP (``splines_pallas.py:556-563``);
-    the tail bound gets no gradient.
+# --- the kernels as torch.library ops ------------------------------------------
+#
+# Each kernel is one op of the ``nf_tpu_torch`` namespace: its CUDA
+# implementation launches the kernel on the current stream, its CPU
+# implementation is the kernel's plain version (so an op means the same on
+# both devices, and an exported program moved to the CPU runs there), and
+# its fake implementation gives the output shapes, so ``torch.export``
+# traces through it. The spline operands are the kernel views: ``x``
+# (rows, cols), the parameters (planes, r, c) with r in {1, rows} and c in
+# {1, cols} (broadcast inside, never copied), ``tb`` a (rows, cols) view or
+# None with the float ``tb_scalar``. Outputs are fresh and contiguous.
 
-    The parameters come in their broadcastable shape (:func:`param_views`)
-    and are expanded here, so the backward returns gradients of that
-    shape: kernel C's shared-parameter path's row sums where every row
-    shares the parameters, else the per-element planes, reduced with
-    ``sum_to_size`` where a parameter was broadcast (autograd's expand
-    backward no longer sees the expansion)."""
+_SPLINE = ("Tensor x, Tensor w, Tensor h, Tensor d, Tensor? tb, "
+           "float tb_scalar")
+_MINIMA = "float min_bin_width, float min_bin_height, float min_derivative"
 
-    @staticmethod
-    def forward(ctx, x2, w3, h3, d3, tb, opts):
-        tb_t = tb if isinstance(tb, torch.Tensor) else None
-        ctx.save_for_backward(x2, w3, h3, d3, tb_t)
-        ctx.tb_scalar = None if tb_t is not None else tb
-        ctx.opts = opts
-        ctx.mode = _BWD_MODE[0]
-        return _launch(x2, *_expand(x2, (w3, h3, d3)), tb, *opts)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, gy, gld):
-        x2, w3, h3, d3, tb_t = ctx.saved_tensors
-        tb = tb_t if tb_t is not None else ctx.tb_scalar
-        planes = (w3, h3, d3)
-        views = _expand(x2, planes)
-        if ctx.mode == "analytic" and _sums_in_kernel(x2, planes, tb):
-            gx, *grads = _launch_bwd_shared(x2, *views, tb, gy, gld,
-                                            *ctx.opts)
-        else:
-            gx, *grads = _launch_bwd(x2, *views, tb, gy, gld, *ctx.opts,
-                                     ctx.mode)
-        return (gx, *param_grads(grads, planes), None, None)
+def _tail(tb, tb_scalar):
+    return tb if tb is not None else tb_scalar
+
+
+def _fresh(*ts):
+    """The plain versions' outputs in the kernels' layout: contiguous."""
+    return tuple(t.contiguous() for t in ts)
+
+
+@torch.library.custom_op(
+    "nf_tpu_torch::rqs_fwd", mutates_args=(),
+    schema=f"({_SPLINE}, bool inverse, {_MINIMA}) -> (Tensor, Tensor)")
+def _rqs_fwd_op(x, w, h, d, tb, tb_scalar, inverse, min_bin_width,
+                min_bin_height, min_derivative):
+    return _fresh(*rqs_plain(x, w, h, d, _tail(tb, tb_scalar),
+                             inverse=inverse, min_bin_width=min_bin_width,
+                             min_bin_height=min_bin_height,
+                             min_derivative=min_derivative))
+
+
+@_rqs_fwd_op.register_kernel("cuda")
+def _(x, w, h, d, tb, tb_scalar, inverse, mbw, mbh, md):
+    return _launch(x, *_expand(x, (w, h, d)), _tail(tb, tb_scalar), inverse,
+                   mbw, mbh, md)
+
+
+@_rqs_fwd_op.register_fake
+def _(x, w, h, d, tb, tb_scalar, inverse, mbw, mbh, md):
+    return x.new_empty(x.shape), x.new_empty(x.shape)
+
+
+_BWD_SCHEMA = (f"({_SPLINE}, Tensor cty, Tensor ctl, bool inverse, "
+               f"{_MINIMA}) -> (Tensor, Tensor, Tensor, Tensor)")
+
+
+def _bwd_kw(inverse, mbw, mbh, md):
+    return dict(inverse=inverse, min_bin_width=mbw, min_bin_height=mbh,
+                min_derivative=md)
+
+
+@torch.library.custom_op("nf_tpu_torch::rqs_bwd", mutates_args=(),
+                         schema=_BWD_SCHEMA)
+def _rqs_bwd_op(x, w, h, d, tb, tb_scalar, cty, ctl, inverse, mbw, mbh, md):
+    return _fresh(*rqs_bwd_plain(x, w, h, d, _tail(tb, tb_scalar), cty, ctl,
+                                 **_bwd_kw(inverse, mbw, mbh, md)))
+
+
+@torch.library.custom_op("nf_tpu_torch::rqs_bwd_autodiff", mutates_args=(),
+                         schema=_BWD_SCHEMA)
+def _rqs_bwd_autodiff_op(x, w, h, d, tb, tb_scalar, cty, ctl, inverse, mbw,
+                         mbh, md):
+    # kernel D's plain version is autograd through rqs_plain; an op's
+    # implementation may run with autograd's dispatch keys excluded
+    keys = torch._C._dispatch_tls_local_exclude_set()
+    for key in _AUTOGRAD_KEYS:
+        keys = keys.remove(key)
+    with torch._C._ForceDispatchKeyGuard(
+            torch._C._dispatch_tls_local_include_set(), keys):
+        return _fresh(*rqs_vjp_plain(x, w, h, d, _tail(tb, tb_scalar), cty,
+                                     ctl, **_bwd_kw(inverse, mbw, mbh, md)))
+
+
+_AUTOGRAD_KEYS = (torch._C.DispatchKey.AutogradCPU,
+                  torch._C.DispatchKey.AutogradCUDA,
+                  torch._C.DispatchKey.ADInplaceOrView)
+
+
+@torch.library.custom_op("nf_tpu_torch::rqs_bwd_shared", mutates_args=(),
+                         schema=_BWD_SCHEMA)
+def _rqs_bwd_shared_op(x, w, h, d, tb, tb_scalar, cty, ctl, inverse, mbw,
+                       mbh, md):
+    return _fresh(*rqs_bwd_shared_plain(x, w, h, d, _tail(tb, tb_scalar),
+                                        cty, ctl,
+                                        **_bwd_kw(inverse, mbw, mbh, md)))
+
+
+def _bwd_cuda(mode):
+    def impl(x, w, h, d, tb, tb_scalar, cty, ctl, inverse, mbw, mbh, md):
+        return _launch_bwd(x, *_expand(x, (w, h, d)), _tail(tb, tb_scalar),
+                           cty, ctl, inverse, mbw, mbh, md, mode)
+    return impl
+
+
+_rqs_bwd_op.register_kernel("cuda")(_bwd_cuda("analytic"))
+_rqs_bwd_autodiff_op.register_kernel("cuda")(_bwd_cuda("autodiff"))
+
+
+@_rqs_bwd_shared_op.register_kernel("cuda")
+def _(x, w, h, d, tb, tb_scalar, cty, ctl, inverse, mbw, mbh, md):
+    return _launch_bwd_shared(x, *_expand(x, (w, h, d)),
+                              _tail(tb, tb_scalar), cty, ctl, inverse, mbw,
+                              mbh, md)
+
+
+def _per_element_fake(x, w, h, d, *rest):
+    K = w.shape[0]
+    return (x.new_empty(x.shape), x.new_empty((K, *x.shape)),
+            x.new_empty((K, *x.shape)), x.new_empty((K + 1, *x.shape)))
+
+
+_rqs_bwd_op.register_fake(_per_element_fake)
+_rqs_bwd_autodiff_op.register_fake(_per_element_fake)
+
+
+@_rqs_bwd_shared_op.register_fake
+def _(x, w, h, d, *rest):
+    K, cols = w.shape[0], x.shape[-1]
+    return (x.new_empty(x.shape), x.new_empty((K, 1, cols)),
+            x.new_empty((K, 1, cols)), x.new_empty((K + 1, 1, cols)))
+
+
+def _rqs_setup(ctx, inputs, output):
+    """Kernel A's residuals are its inputs, as in the JAX custom VJP
+    (``splines_pallas.py:556-563``), and the backward mode as it stands at
+    the forward call (the JAX package reads the switch when it traces)."""
+    x, w, h, d, tb, tb_scalar, *opts = inputs
+    ctx.save_for_backward(x, w, h, d, tb)
+    ctx.tb_scalar = tb_scalar
+    ctx.opts = opts
+    ctx.mode = _BWD_MODE[0]
+
+
+@once_differentiable
+def _rqs_backward(ctx, gy, gld):
+    """Kernel C (its shared-parameter path where every row shares the
+    parameters), or kernel D under ``set_pallas_bwd_kernel("autodiff")``.
+    The parameters came in their broadcastable shape (:func:`param_views`),
+    so their gradients go back in it: the shared path's row sums, else the
+    per-element planes reduced with ``sum_to_size`` where a parameter was
+    broadcast. The tail bound gets no gradient."""
+    x, w, h, d, tb = ctx.saved_tensors
+    planes = (w, h, d)
+    ops = torch.ops.nf_tpu_torch
+    if ctx.mode == "analytic" and _sums_in_kernel(
+            x, planes, _tail(tb, ctx.tb_scalar)):
+        op = ops.rqs_bwd_shared
+    else:
+        op = ops.rqs_bwd if ctx.mode == "analytic" else ops.rqs_bwd_autodiff
+    gx, *grads = op(x, *planes, tb, ctx.tb_scalar, gy, gld, *ctx.opts)
+    return (gx, *param_grads(grads, planes)) + (None,) * 6
+
+
+_rqs_fwd_op.register_autograd(_rqs_backward, setup_context=_rqs_setup)
 
 
 def param_grads(grads, planes):
@@ -866,9 +997,9 @@ def rqs_fwd(x, w, h, d, tb, *, inverse,
     :func:`rqs_plain`."""
     kw = dict(inverse=inverse, min_bin_width=min_bin_width,
               min_bin_height=min_bin_height, min_derivative=min_derivative)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not _cpu_takes_op(x, w.shape[0]):
         return rqs_plain(x, w, h, d, tb, **kw)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no spline kernel for device {x.device}")
     K = w.shape[0]
     if h.shape[0] != K or d.shape[0] != K + 1:
@@ -880,12 +1011,37 @@ def rqs_fwd(x, w, h, d, tb, *, inverse,
         # with stride 0 on the card (reading it back would sync the host)
         tb = float(tb) if tb.device.type == "cpu" else tb.reshape(())
     _check(x, (w, h, d), tb if isinstance(tb, torch.Tensor) else None, K)
-    x2, planes, tb2 = _views(x, w, h, d, tb)
-    y, ld = _RQSFunction.apply(
-        x2, *planes, tb2,
-        (bool(inverse), float(min_bin_width), float(min_bin_height),
-         float(min_derivative)))
+    y, ld = torch.ops.nf_tpu_torch.rqs_fwd(
+        *op_operands(x, w, h, d, tb), bool(inverse), float(min_bin_width),
+        float(min_bin_height), float(min_derivative))
     return y.view(x.shape), ld.view(x.shape)
+
+
+def op_operands(x, w, h, d, tb):
+    """The spline operands of the ops for :func:`rqs_fwd`'s arguments:
+    ``(x2, w3, h3, d3, tb tensor or None, tb float)``, the kernel views
+    before their expand (:func:`kernel_views`)."""
+    x2, planes, tb2 = _views(x, w, h, d, tb)
+    return (x2, *planes, *_tb_args(tb2))
+
+
+# while set (ops.cpu_through_ops), the wrappers take the ops on CPU tensors
+# too, where the kernels would take the operands: the ops' CPU
+# implementations are the plain versions, so the values do not change
+_CPU_THROUGH_OPS = [False]
+
+
+def _cpu_takes_op(x, num_bins):
+    return (_CPU_THROUGH_OPS[0] and num_bins in SUPPORTED_BINS
+            and x.dtype == torch.float32)
+
+
+def _tb_args(tb):
+    """A tail bound as the ops take it: ``(tensor, 0.0)`` or ``(None,
+    float)``."""
+    if isinstance(tb, torch.Tensor):
+        return tb, 0.0
+    return None, float(tb)
 
 
 def param_views(x, w, h, d, split=None):

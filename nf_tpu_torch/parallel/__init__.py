@@ -1,8 +1,8 @@
 """Training and parallelism (``nf_tpu/parallel``): the forward-KLD and
 reverse-KLD steps, on one device or sharded over a mesh of
 ``torch.distributed`` ranks (data-parallel and sample-parallel), the
-meshes and layouts, multi-process runs and sharded sampling. The
-tensor-parallel layouts of ``tp.py`` are not ported yet."""
+meshes and layouts (the tensor-parallel and FSDP-style ones of
+``tp.py``), multi-process runs and sharded sampling."""
 
 from .mesh import Mesh, NamedSharding, data_sharding, make_mesh, replicated
 from .multihost import (
@@ -13,6 +13,7 @@ from .multihost import (
     process_slice,
 )
 from .sampling import log_normalizer, make_sharded_sampler
+from .tp import param_shardings, shard_params
 from .train import (
     TrainState,
     ema_model,
@@ -29,5 +30,6 @@ __all__ = ["Mesh", "NamedSharding", "TrainState", "data_sharding",
            "initialize_distributed", "log_normalizer",
            "make_forward_kld_step", "make_hybrid_mesh", "make_mesh",
            "make_reverse_kld_step", "make_sharded_sampler",
-           "model_of_state", "per_process_batches", "process_slice",
-           "replicated", "reshape_for_accum", "shard_batch"]
+           "model_of_state", "param_shardings", "per_process_batches",
+           "process_slice", "replicated", "reshape_for_accum",
+           "shard_batch", "shard_params"]

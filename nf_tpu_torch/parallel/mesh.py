@@ -7,7 +7,9 @@ batch and sample dimension. So the canonical mesh is 1-D over the
 one slice of each batch, and the loss and the gradients are averaged
 over the ranks by ``torch.distributed`` collectives. Where JAX places a
 global array across its devices, here each process keeps its own rows
-and the global array stays implicit.
+and the global array stays implicit. On a mesh of more axes (``("data",
+"model")``, ``parallel.tp``) a collective over one axis runs in the
+subgroup of ranks along it (:meth:`Mesh.group`).
 
 Each rank drives one device: ``cuda:{LOCAL_RANK}`` under NCCL (see
 :func:`~nf_tpu_torch.parallel.multihost.initialize_distributed`), the
@@ -55,12 +57,14 @@ class Mesh:
 
     ``ranks`` holds every rank at its mesh position (shape ``tuple(
     shape.values())``); ``device`` is this process's device, and
-    ``rank`` its rank."""
+    ``rank`` its rank. A collective over an axis runs in this rank's line
+    of ranks along it (:meth:`group`)."""
 
     axis_names: tuple
     ranks: np.ndarray
     device: torch.device
     rank: int
+    _groups: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def shape(self):
@@ -78,18 +82,32 @@ class Mesh:
 
     def collective_over(self, axis):
         """Whether a reduction over ``axis`` runs a collective: it does
-        under a process group (at world size 1 too), over every rank,
-        the one group the sharded steps reduce over; so the mesh's other
-        axes must have size 1."""
+        under a process group (at world size 1 too), over
+        :meth:`group`."""
         if axis not in self.axis_names:
             raise ValueError(f"mesh has no axis {axis!r}: {self.axis_names}")
-        others = [n for a, n in self.shape.items() if a != axis]
-        if any(n != 1 for n in others):
-            raise NotImplementedError(
-                f"a collective over {axis!r} of mesh {self.shape} spans a "
-                f"subgroup of the ranks; the sharded steps reduce over "
-                f"every rank (tensor-parallel layouts arrive with tp.py)")
         return dist.is_available() and dist.is_initialized()
+
+    def group(self, axis):
+        """The process group of this rank's line along ``axis`` (the ranks
+        that share its other coordinates), for ``torch.distributed``'s
+        ``group=``: None, the default group, where the axis spans every
+        rank. The first call per axis creates one group per line with
+        ``dist.new_group``, every line in a fixed order, which every rank
+        must do at the same point (the step factories do it when they are
+        built)."""
+        if not self.collective_over(axis):
+            return None
+        if all(n == 1 for a, n in self.shape.items() if a != axis):
+            return None
+        if axis not in self._groups:
+            lines = np.moveaxis(self.ranks, self.axis_names.index(axis),
+                                -1).reshape(-1, self.shape[axis])
+            for line in lines:
+                group = dist.new_group([int(r) for r in line])
+                if self.rank in line:
+                    self._groups[axis] = group
+        return self._groups[axis]
 
 
 def make_mesh(axis_names: Sequence[str] = ("data",),

@@ -39,6 +39,7 @@ def make_sharded_sampler(mesh: Mesh, num_samples: int, axis: str = "data",
     local = num_samples // n_dev
     collective = mesh.collective_over(axis)
     streams = RankStreams(mesh.axis_index(axis)) if collective else None
+    group = mesh.group(axis) if collective else None
 
     def sample(sampler, generator):
         own = streams.enter(generator) if streams is not None else generator
@@ -51,8 +52,8 @@ def make_sharded_sampler(mesh: Mesh, num_samples: int, axis: str = "data",
                 streams.leave(generator)
         if collective:
             acc = acc.clone()
-            dist.all_reduce(acc)
-            acc = acc / dist.get_world_size()
+            dist.all_reduce(acc, group=group)
+            acc = acc / n_dev
         return z, log_w, acc
 
     return sample
@@ -67,11 +68,12 @@ def log_normalizer(log_weights, mesh: Mesh = None, axis: str = "data"):
     if mesh is None or not mesh.collective_over(axis):
         return torch.logsumexp(log_weights, dim=0) - math.log(
             log_weights.shape[0])
+    group = mesh.group(axis)
     peak = torch.max(log_weights).detach().clone()
-    dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX, group=group)
     total = torch.sum(torch.exp(log_weights - peak)).reshape(1)
     count = torch.tensor([log_weights.shape[0]], dtype=total.dtype,
                          device=total.device)
     both = torch.cat([total, count])
-    dist.all_reduce(both)
+    dist.all_reduce(both, group=group)
     return peak + torch.log(both[0]) - torch.log(both[1])

@@ -53,18 +53,22 @@ over the ranks of the ``torch.distributed`` process group, each rank one
 process on one device: the forward step takes the rank's shard of the
 batch (:func:`shard_batch`), the reverse step draws the rank's share of
 the samples from a stream of its own. The loss and the gradients are
-averaged over the ranks in one all-reduce of the flattened gradients
-before the optimizer, ``post_update``, the EMA and the non-finite guard,
-as JAX's ``pmean`` precedes them, so every rank takes the same update
-and the replicas stay bitwise identical. On CUDA (NCCL) the all-reduce
-is inside the step's graph. Layers that normalise by batch statistics
-are refused on a mesh of more than one rank: each rank would see only
-its shard's statistics. The forward step's ``state_shardings``
-(``tp.py``) is not ported yet and raises.
+averaged over the ``data`` ranks (the axis's subgroup on a mesh of more
+axes) in one all-reduce of the flattened gradients before the optimizer,
+``post_update``, the EMA and the non-finite guard, as JAX's ``pmean``
+precedes them, so every rank takes the same update and the replicas stay
+bitwise identical. On CUDA (NCCL) the collectives are inside the step's
+graph. Layers that normalise by batch statistics (``BatchNorm``, the
+batch-norm conditioners) take them over the global batch: the step's
+forward passes run inside ``nets._batch_stats.global_batch``, where each
+layer all-reduces its sums differentiably. The forward step's
+``state_shardings`` (``tp.py``) hold the split parameters and their
+optimizer state in blocks (:class:`_Layout`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 from typing import Callable, Optional
@@ -74,8 +78,7 @@ import torch.distributed as dist
 from torch import nn
 
 from .._graphs import WARMUP_CALLS, capture, warm_up
-from ..flows.normalization import BatchNorm
-from ..nets.resnet import _BatchAffineNorm
+from ..nets import _batch_stats
 from ..ops.splines_kernel import get_pallas_bwd_kernel
 from .mesh import _GOLDEN, RankStreams, data_sharding
 
@@ -211,30 +214,21 @@ def shard_batch(mesh, batch, accum: bool = False):
     return local(batch)
 
 
-def _refuse_batch_statistics(model):
-    for name, module in model.named_modules():
-        if isinstance(module, (BatchNorm, _BatchAffineNorm)):
-            raise NotImplementedError(
-                f"{name or 'the model'} ({type(module).__name__}) "
-                f"normalises by batch statistics, and on a mesh of more "
-                f"than one rank each rank sees only its shard of the batch; "
-                f"a sharded step does not train it")
-
-
 class _Reducer:
-    """The average over the ranks of a step's loss and gradients: one
-    all-reduce per dtype of the flattened tensors (NCCL's average on
-    CUDA, gloo's sum and a scale on the CPU)."""
+    """The average over the ``axis`` ranks of a step's loss and gradients:
+    one all-reduce per dtype of the flattened tensors over the axis's
+    subgroup (NCCL's average on CUDA, gloo's sum and a scale on the CPU).
+    :meth:`forward` opens the global batch of the batch-statistics layers
+    (``nets/_batch_stats.py``) around a forward pass."""
 
     def __init__(self, mesh, axis="data"):
-        mesh.collective_over(axis)  # raises unless it spans every rank
-        self.checked = set()
+        self.group = mesh.group(axis)
+        self.size = mesh.shape[axis]
 
-    def __call__(self, model, loss, params):
-        world = dist.get_world_size()
-        if world > 1 and id(model) not in self.checked:
-            _refuse_batch_statistics(model)
-            self.checked.add(id(model))
+    def forward(self):
+        return _batch_stats.global_batch(self.group, self.size)
+
+    def __call__(self, loss, grads):
         nccl = dist.get_backend() == "nccl"
         if nccl != loss.is_cuda:
             raise ValueError(
@@ -242,20 +236,143 @@ class _Reducer:
                 f"{'NCCL' if loss.is_cuda else 'gloo'} backend; the process "
                 f"group runs {dist.get_backend()}")
         groups = {}
-        for t in [loss] + [p.grad for p in params if p.grad is not None]:
+        for t in [loss] + grads:
             groups.setdefault(t.dtype, []).append(t)
         for tensors in groups.values():
             flat = torch.cat([t.reshape(-1) for t in tensors])
             if nccl:
-                dist.all_reduce(flat, op=dist.ReduceOp.AVG)
+                dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=self.group)
             else:
-                dist.all_reduce(flat)
-                flat.mul_(1.0 / world)
+                dist.all_reduce(flat, group=self.group)
+                flat.mul_(1.0 / self.size)
             parts = torch.split(flat, [t.numel() for t in tensors])
             with torch.no_grad():
                 torch._foreach_copy_(
                     tensors, [p.view_as(t) for t, p in zip(tensors, parts)])
         return loss
+
+
+class _Layout:
+    """The ZeRO-3 / FSDP layout of a forward step's parameters
+    (``state_shardings``, :func:`~nf_tpu_torch.parallel.tp.
+    param_shardings`). Each rank holds its block of every split parameter
+    as the optimizer's parameter, so the optimizer's state is held in
+    blocks too; the model keeps the whole tensors, which the kernels and
+    every reader of ``state.model`` see. Per step: each block is taken
+    from the whole parameter (a local copy, so a change to the model
+    between steps is kept), the whole gradients come from the forward and
+    backward and their average over ``data``, each rank keeps its block of
+    them and updates only its blocks, and an all-gather over the split's
+    axis writes the updated blocks back into the whole parameters before
+    ``post_update``, the EMA and the non-finite guard. The update is
+    elementwise, so the result is the replicated step's."""
+
+    def __init__(self, mesh, shardings):
+        self.mesh = mesh
+        self.shardings = dict(shardings)
+        self.model = None
+        self.split = []  # (whole parameter, block parameter, dim, axis)
+        self.groups = {}
+
+    def attach(self, model, optimizer):
+        """On the first step: the block parameters, put in the
+        optimizer's place of the whole ones (state the optimizer holds
+        for a whole one moves to its block)."""
+        if self.model is model:
+            return
+        if self.model is not None:
+            raise ValueError("this step's layout belongs to another model")
+        named = dict(model.named_parameters())
+        unknown = sorted(set(self.shardings) - set(named))
+        if unknown:
+            raise ValueError(f"state_shardings names no parameter of the "
+                             f"model: {unknown[:5]}")
+        swap = {}
+        for name, sh in self.shardings.items():
+            if sh.mesh is not self.mesh:
+                raise ValueError(f"{name}: state_shardings' mesh is not "
+                                 f"the step's")
+            axes = [(d, a) for d, a in enumerate(sh.spec) if a is not None]
+            if not axes:
+                continue
+            if len(axes) > 1:
+                raise NotImplementedError(
+                    f"{name}: a spec splitting {len(axes)} dims; a layout "
+                    f"splits one dim over one axis")
+            whole = named[name]
+            block = torch.nn.Parameter(sh.block(whole.detach()).clone(),
+                                       requires_grad=whole.requires_grad)
+            dim, axis = axes[0]
+            if self.mesh.shape[axis] == 1:
+                continue  # one block: the whole parameter
+            self.split.append((whole, block, dim, axis))
+            swap[whole] = block
+            self.groups.setdefault(axis, self.mesh.group(axis))
+        for group in optimizer.param_groups:
+            group["params"] = [swap.get(p, p) for p in group["params"]]
+        for whole, block in swap.items():
+            state = optimizer.state.pop(whole, None)
+            if state:
+                optimizer.state[block] = {
+                    k: (self._block_of(v, whole, block)
+                        if torch.is_tensor(v) else v)
+                    for k, v in state.items()}
+        self.model = model
+
+    def _block_of(self, v, whole, block):
+        if v.shape != whole.shape:
+            return v
+        for w, b, dim, axis in self.split:
+            if b is block:
+                n = b.shape[dim]
+                return v.narrow(dim, self.mesh.axis_index(axis) * n,
+                                n).clone()
+        return v
+
+    @property
+    def wholes(self):
+        return [w for w, _, _, _ in self.split]
+
+    def take_blocks(self):
+        """Each block from its whole parameter; the whole ones' gradients
+        cleared (the optimizer's ``zero_grad`` sees only the blocks)."""
+        with torch.no_grad():
+            for whole, block, dim, axis in self.split:
+                n = block.shape[dim]
+                block.copy_(whole.narrow(dim, self.mesh.axis_index(axis) * n,
+                                         n))
+                whole.grad = None
+
+    def take_grads(self):
+        """Each block's gradient: its block of the averaged whole one."""
+        for whole, block, dim, axis in self.split:
+            if whole.grad is None:
+                block.grad = None
+                continue
+            n = block.shape[dim]
+            block.grad = whole.grad.narrow(
+                dim, self.mesh.axis_index(axis) * n, n).clone()
+
+    def gather(self):
+        """The updated blocks into the whole parameters: one all-gather
+        per (axis, dtype) of the flattened blocks over the axis's
+        subgroup."""
+        by = {}
+        for entry in self.split:
+            by.setdefault((entry[3], entry[1].dtype), []).append(entry)
+        for (axis, _), entries in by.items():
+            flat = torch.cat([b.detach().reshape(-1)
+                              for _, b, _, _ in entries])
+            parts = [torch.empty_like(flat)
+                     for _ in range(self.mesh.shape[axis])]
+            dist.all_gather(parts, flat, group=self.groups[axis])
+            with torch.no_grad():
+                for r, part in enumerate(parts):
+                    blocks = torch.split(part, [b.numel()
+                                                for _, b, _, _ in entries])
+                    for (whole, b, dim, _), v in zip(entries, blocks):
+                        n = b.shape[dim]
+                        whole.narrow(dim, r * n, n).copy_(v.view_as(b))
 
 
 def _microbatch(batch, i):
@@ -301,12 +418,14 @@ class _StepGenerators:
 
 
 def _step_body(state, optimizer, loss_of, accum_steps, ema_decay,
-               skip_nonfinite, post_update=None, reduce=None):
+               skip_nonfinite, post_update=None, reduce=None, layout=None):
     """The update both steps share: ``loss_of(model, i)`` is microbatch
     i's loss; their gradients are averaged over ``accum_steps`` (and by
-    ``reduce``, a :class:`_Reducer`, over the ranks) before one optimizer
-    update, then ``post_update``, the EMA and the non-finite guard (which
-    also restores the float buffers ``post_update`` may have changed)."""
+    ``reduce``, a :class:`_Reducer`, over the ranks, whose forward passes
+    see the global batch's statistics) before one optimizer update, then
+    ``post_update``, the EMA and the non-finite guard (which also restores
+    the float buffers ``post_update`` may have changed). ``layout``, a
+    :class:`_Layout`, holds the split parameters in blocks."""
     if state.optimizer is not optimizer:
         raise ValueError("state.optimizer is not the optimizer this step "
                          "was built with")
@@ -315,40 +434,55 @@ def _step_body(state, optimizer, loss_of, accum_steps, ema_decay,
                          "build it with init_train_state(..., "
                          "with_ema=True)")
     model = state.model
+    if layout is not None:
+        layout.attach(model, optimizer)
+        layout.take_blocks()
     params = [p for g in optimizer.param_groups for p in g["params"]]
+    # the gradients the average and the guard read: the whole parameters'
+    # under a layout (the same on every rank of a block's line)
+    graded = list(model.parameters()) if layout is not None else params
     if skip_nonfinite:
         _check_guardable(optimizer)
     optimizer.zero_grad(set_to_none=True)
+    forward = reduce.forward if reduce is not None else contextlib.nullcontext
     if accum_steps > 1:
         loss = None
         for i in range(accum_steps):
-            part = loss_of(model, i)
+            with forward():
+                part = loss_of(model, i)
             part.backward()
             part = part.detach()
             loss = part if loss is None else loss + part
         inv = 1.0 / accum_steps
         loss = loss * inv
         with torch.no_grad():
-            for p in params:
+            for p in graded:
                 if p.grad is not None:
                     p.grad.mul_(inv)
     else:
-        loss = loss_of(model, 0)
+        with forward():
+            loss = loss_of(model, 0)
         loss.backward()
         loss = loss.detach()
     if reduce is not None:
-        loss = reduce(model, loss, params)
+        loss = reduce(loss, [p.grad for p in graded if p.grad is not None])
+    if layout is not None:
+        layout.take_grads()
 
     ema = list(state.ema.parameters()) if ema_decay is not None else []
     buffers = ([b for b in model.buffers() if b.is_floating_point()]
                if post_update is not None else [])
+    wholes = layout.wholes if layout is not None else []
     if skip_nonfinite:
-        ok = _all_finite(loss, [p.grad for p in params])
+        ok = _all_finite(loss, [p.grad for p in graded])
         with torch.no_grad():
-            old_params = [p.detach().clone() for p in params + ema + buffers]
+            old_params = [p.detach().clone()
+                          for p in params + ema + buffers + wholes]
             old_state = {k: v.clone() for k, v in
                          _state_tensors(optimizer, params).items()}
     optimizer.step()
+    if layout is not None:
+        layout.gather()
     if post_update is not None:
         out = post_update(model)
         if out is not None and out is not model:
@@ -357,7 +491,7 @@ def _step_body(state, optimizer, loss_of, accum_steps, ema_decay,
     if ema_decay is not None:
         _ema_update(ema, list(model.parameters()), ema_decay)
     if skip_nonfinite:
-        pairs = list(zip(params + ema + buffers, old_params))
+        pairs = list(zip(params + ema + buffers + wholes, old_params))
         for k, v in _state_tensors(optimizer, params).items():
             old = old_state.get(k)
             pairs.append((v, old if old is not None
@@ -414,18 +548,30 @@ def make_forward_kld_step(optimizer, loss_fn: Optional[Callable] = None,
     gradients are averaged over the ranks before the update (the module's
     notes). A keyed step seeds each rank's generator apart. ``donate`` is
     accepted: the step updates the state in place, which is what JAX's
-    donation permits. ``state_shardings`` (tensor-parallel and FSDP
-    layouts, ``tp.py``) raises: not ported yet.
+    donation permits. ``state_shardings``, ``{parameter name:
+    NamedSharding}`` on ``mesh`` (:func:`~nf_tpu_torch.parallel.tp.
+    param_shardings`): the tensor-parallel and FSDP layouts, each split
+    parameter and its optimizer state held in blocks (:class:`_Layout`;
+    the first step puts the blocks in the optimizer's ``param_groups``),
+    with the result of the replicated step.
 
     On CUDA the step runs as one CUDA graph per batch shape after two
     eager calls at that shape (the module's notes say what a captured
     step needs).
     """
     del donate
-    _refuse_state_shardings(state_shardings)
     if loss_fn is None:
         loss_fn = _default_loss if not with_key else _default_keyed_loss
     reduce = _reducer(mesh)
+    layout = None
+    if state_shardings is not None:
+        if mesh is None:
+            raise ValueError("state_shardings lay the state out on a mesh: "
+                             "pass mesh=")
+        layout = _Layout(mesh, state_shardings)
+        for axis in {a for sh in state_shardings.values()
+                     for a in sh.spec if a is not None}:
+            mesh.group(axis)  # every rank creates the subgroups now
 
     def body(state: TrainState, batch, generator=None):
         def loss_of(model, i):
@@ -434,7 +580,7 @@ def make_forward_kld_step(optimizer, loss_fn: Optional[Callable] = None,
                     else loss_fn(model, mb))
 
         return _step_body(state, optimizer, loss_of, accum_steps, ema_decay,
-                          skip_nonfinite, post_update, reduce)
+                          skip_nonfinite, post_update, reduce, layout)
 
     if not with_key:
         return _ForwardStep(optimizer, body)
@@ -515,14 +661,6 @@ def make_reverse_kld_step(optimizer, num_samples: int, beta_schedule=None,
 
     return _ReverseStep(optimizer, eager, beta_schedule, body=body,
                         streams=streams)
-
-
-def _refuse_state_shardings(state_shardings):
-    if state_shardings is not None:
-        raise NotImplementedError(
-            "state_shardings (tensor-parallel and FSDP layouts of the "
-            "state, nf_tpu/parallel/tp.py) are not ported yet; a sharded "
-            "step replicates the state")
 
 
 def _reducer(mesh, axis="data"):

@@ -44,29 +44,57 @@ The CPU, which the caller asks for by putting the model there, runs the
 eager function on the bound weights (the tests' path). On CUDA a capture
 that fails raises; nothing runs eagerly in its place.
 
-Not ported yet, each raising ``NotImplementedError``: ``typed_key`` (a
-JAX key flavour; the port takes an integer seed), XLA's
-``cost_analysis``, ``flops`` and ``memory_analysis``, and the StableHLO
-artifacts ``export_sampler``, ``export_log_prob`` and ``load_exported``
-(ROADMAP queue 1 item 9).
+Deployment artifacts (``serving.py:267-369``): :func:`export_log_prob`
+and :func:`export_sampler` take the arguments of the compile functions
+and return ``bytes``, a ``torch.export`` program saved with
+``torch.export.save``: the model traced once, every kernel launch one node
+of a ``torch.library`` op (``nf_tpu_torch.ops``), the weights embedded
+(``freeze_params=True``) or taken as a leading flat list in the order of
+:func:`_tensors` (``freeze_params=False``). :func:`load_exported` reloads
+one as an :class:`ExportedFn` without the model's code: no builder runs
+and no model class is unpickled, only the op library is needed, which
+importing this module registers. On CUDA an :class:`ExportedFn` captures
+the reloaded program as one CUDA graph per input shape at first use; on
+the CPU it runs eagerly. An exported sampler draws from the default
+generator of its device, seeded with the call's seed in a forked RNG
+state, so a seed gives the draws of the compiled sampler. ``platforms``
+names the devices an artifact may run on (``"cuda"``, ``"cpu"``): one
+exported on the card runs on the CPU after
+``torch.export.passes.move_to_device_pass`` (each op's CPU implementation
+is its kernel's plain version), but one exported on the CPU is refused
+for the card: its trace came from the CPU, not from the card's path.
+
+:meth:`CompiledFn.cost_analysis` counts one eager call of the bound model:
+matrix products and convolutions by
+``torch.utils.flop_counter.FlopCounterMode``, each kernel's op by the
+formulas of ``ops/cost.py`` (those of ``chip_smoke.py``'s bounds), bytes
+as each operation's inputs plus outputs. :meth:`CompiledFn.memory_analysis`
+gives the argument, output and graph-pool sizes.
+
+``typed_key`` raises ``NotImplementedError``: it selects a JAX key
+flavour, and the port takes an integer seed.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
+import io
 import itertools
+import json
 from typing import Optional, Tuple
 
 import torch
+from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import TorchDispatchMode
 
+from . import ops
+from ._device import resolve_device
 from ._graphs import WARMUP_CALLS, capture, warm_up
+from .ops import cost, spline_head_fused, splines_kernel  # noqa: F401 (ops)
 
 _NO_TYPED_KEY = ("typed_key selects a JAX key flavour; the port's sampler "
                  "takes an integer seed")
-_NO_XLA = ("cost_analysis, flops and memory_analysis are XLA's; the "
-           "port's graphs have no counterpart yet (ROADMAP queue 1 item 9)")
-_NO_EXPORT = ("export_sampler, export_log_prob and load_exported "
-              "(StableHLO artifacts) arrive with ROADMAP queue 1 item 9")
 
 
 def _tensors(model):
@@ -174,12 +202,19 @@ class _Executable:
                        for s, dt in specs]
         self.graph = None
         self.launches = {}
+        self.pool_bytes = None
         if dev.type == "cuda":
             with torch.no_grad():
                 warm_up(self._run, dev, WARMUP_CALLS)
+                # the capture empties the allocator's cache first; what it
+                # holds after is the graph's pool
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                before = torch.cuda.memory_reserved(dev)
                 self.graph, self.outputs, self.launches = capture(
                     self._run, dev, pool,
                     (self.generator,) if seeded else ())
+                self.pool_bytes = torch.cuda.memory_reserved(dev) - before
 
     def _run(self):
         gen = (self.generator,) if self.seeded else ()
@@ -243,13 +278,112 @@ class CompiledFn:
                           self._compiled.weights.bind(model))
 
     def cost_analysis(self):
-        raise NotImplementedError(_NO_XLA)
+        """``{"flops": ..., "bytes accessed": ...}`` (XLA's key names) of
+        one call, counted over one eager call of the bound model on its
+        inputs (the module's notes). On the CPU the spline wrappers take
+        the kernels' ops for the count (``ops.cpu_through_ops``), so the
+        count is the card's."""
+        exe = self._compiled
+        exe.weights.load(self._params)
+        gen = (torch.Generator(device=exe.weights.device).manual_seed(0),) \
+            if exe.seeded else ()
+        flops, nbytes = _count(lambda: exe.fn(exe.weights.model, *gen,
+                                              *exe.inputs))
+        return {"flops": float(flops), "bytes accessed": float(nbytes)}
 
-    def flops(self):
-        raise NotImplementedError(_NO_XLA)
+    def flops(self) -> Optional[float]:
+        return self.cost_analysis()["flops"]
 
     def memory_analysis(self):
-        raise NotImplementedError(_NO_XLA)
+        """:class:`MemoryStats` of the executable: the static inputs and
+        the weights its graph reads (JAX passes the parameters as
+        arguments), its outputs, and on CUDA the memory its graph's pool
+        took at the capture (``temp_size_in_bytes``; None on the CPU, where
+        nothing is captured)."""
+        exe = self._compiled
+        args = sum(_nbytes(t) for t in exe.inputs) + sum(
+            _nbytes(t) for t in exe.weights.tensors.values())
+        if exe.graph is not None:
+            outputs = exe.outputs
+        else:
+            exe.weights.load(self._params)
+            gen = (torch.Generator().manual_seed(0),) if exe.seeded else ()
+            with torch.no_grad():
+                outputs = exe.fn(exe.weights.model, *gen, *exe.inputs)
+        outs = outputs if isinstance(outputs, tuple) else (outputs,)
+        return MemoryStats(argument_size_in_bytes=args,
+                           output_size_in_bytes=sum(_nbytes(t)
+                                                    for t in outs),
+                           temp_size_in_bytes=exe.pool_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryStats:
+    """The fields of JAX's ``CompiledMemoryStats`` that have a meaning
+    for a captured graph; ``generated_code_size_in_bytes`` has none."""
+
+    argument_size_in_bytes: int
+    output_size_in_bytes: int
+    temp_size_in_bytes: Optional[int]
+    generated_code_size_in_bytes: Optional[int] = None
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
+
+class _ByteCounter(TorchDispatchMode):
+    """Bytes of every operation dispatched: a kernel's op by its formula
+    (``ops.cost``), any other by its tensor inputs and outputs."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if getattr(func, "is_view", False):
+            return out  # a view moves no bytes
+        name = func.name().split("::")
+        if name[0] == "nf_tpu_torch":
+            self.bytes += cost.COSTS[name[1].split(".")[0]](*args)[1]
+        else:
+            flat = torch.utils._pytree.tree_leaves((args, kwargs, out))
+            self.bytes += sum(cost.stored_bytes(t) for t in flat
+                              if isinstance(t, torch.Tensor))
+        return out
+
+
+_FORMULAS = []
+
+
+def _register_formulas():
+    """The kernels' operation counts as ``FlopCounterMode`` formulas,
+    registered once."""
+    if _FORMULAS:
+        return
+    from torch.utils.flop_counter import register_flop_formula
+
+    for name, fn in cost.COSTS.items():
+        def formula(*args, out_val=None, _fn=fn, **kw):
+            return _fn(*args)[0]
+        register_flop_formula(getattr(torch.ops.nf_tpu_torch, name),
+                              get_raw=True)(formula)
+    _FORMULAS.append(True)
+
+
+def _count(run):
+    """``(flops, bytes)`` of ``run()`` under no_grad, the CPU path through
+    the kernels' ops."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    _register_formulas()
+    counter = _ByteCounter()
+    with torch.no_grad(), ops.cpu_through_ops(), \
+            FlopCounterMode(display=False) as flops, counter:
+        run()
+    return flops.get_total_flops(), counter.bytes
 
 
 def _bound(executable, model):
@@ -288,6 +422,16 @@ def compile_sampler(model, num_samples: int,
     with ``context_shape`` raises ``ValueError``, as in the JAX package:
     the conditional containers sample at temperature 1 and take no
     labels."""
+    fn, specs = _sampler_fn(num_samples, temperature, context_shape,
+                            class_cond, dtype, typed_key)
+    exe = _Executable(_Weights(model), fn, specs, seeded=True)
+    return _bound(exe, model)
+
+
+def _sampler_fn(num_samples, temperature, context_shape, class_cond, dtype,
+                typed_key):
+    """``(fn(model, generator, *inputs), input specs)`` of a sampler,
+    shared by :func:`compile_sampler` and :func:`export_sampler`."""
     _exclusive(class_cond, context_shape)
     if temperature is not None and context_shape is not None:
         raise ValueError(
@@ -299,13 +443,11 @@ def compile_sampler(model, num_samples: int,
     if class_cond:
         def fn(m, gen, y):
             return m.sample(num_samples, gen, y=y, **kw)
-        specs = [_labels(num_samples)]
-    else:
-        def fn(m, gen, *context):
-            return m.sample(num_samples, gen, *context, **kw)
-        specs = _context_specs(context_shape, dtype)
-    exe = _Executable(_Weights(model), fn, specs, seeded=True)
-    return _bound(exe, model)
+        return fn, [_labels(num_samples)]
+
+    def fn(m, gen, *context):
+        return m.sample(num_samples, gen, *context, **kw)
+    return fn, _context_specs(context_shape, dtype)
 
 
 def _log_prob(model, x, *context):
@@ -326,12 +468,19 @@ def compile_log_prob(model, batch_shape: Tuple[int, ...],
     context's shape) ``fn(x, context)``, with ``class_cond`` ``fn(x, y)``
     (integer labels, one per row); ``x`` must have ``batch_shape``, the
     context ``context_shape``, both ``dtype``."""
-    _exclusive(class_cond, context_shape)
-    extra = ([_labels(batch_shape[0])] if class_cond
-             else _context_specs(context_shape, dtype))
     exe = _Executable(_Weights(model), _log_prob,
-                      [(tuple(batch_shape), dtype)] + extra)
+                      _log_prob_specs(batch_shape, context_shape, class_cond,
+                                      dtype))
     return _bound(exe, model)
+
+
+def _log_prob_specs(batch_shape, context_shape, class_cond, dtype):
+    """The inputs of ``log_prob`` at a batch shape: ``x``, then the labels
+    or the context."""
+    _exclusive(class_cond, context_shape)
+    return [(tuple(batch_shape), dtype)] + (
+        [_labels(batch_shape[0])] if class_cond
+        else _context_specs(context_shape, dtype))
 
 
 class BucketedFn:
@@ -416,13 +565,290 @@ def compile_log_prob_buckets(model, max_batch: int,
                       buckets)
 
 
-def export_sampler(*args, **kwargs):
-    raise NotImplementedError(_NO_EXPORT)
+# --- artifacts: torch.export programs ---------------------------------------
+
+_META = "nf_tpu_torch.json"
+PLATFORMS = ("cuda", "cpu")
 
 
-def export_log_prob(*args, **kwargs):
-    raise NotImplementedError(_NO_EXPORT)
+class _DefaultDraws(TorchFunctionMode):
+    """Drops ``generator`` from every call that passes ``generator``: an
+    exported program takes no generator, so the traced draws come from
+    the default one, in the order the eager calls draw from ``generator``
+    (the base first, then each layer that draws)."""
+
+    def __init__(self, generator):
+        super().__init__()
+        self.generator = generator
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = {k: v for k, v in (kwargs or {}).items()
+                  if v is not self.generator}
+        args = tuple(None if a is self.generator else a for a in args)
+        return func(*args, **kwargs)
 
 
-def load_exported(*args, **kwargs):
-    raise NotImplementedError(_NO_EXPORT)
+class _Run(torch.nn.Module):
+    """``fn(model, [generator,] *inputs)`` as a module's ``forward``, the
+    draws of a seeded ``fn`` from the default generator
+    (:class:`_DefaultDraws`)."""
+
+    def __init__(self, model, fn, seeded):
+        super().__init__()
+        self.model = model
+        self.fn = fn
+        self.generator = (torch.Generator(device=_device_of(model))
+                          if seeded else None)
+
+    def forward(self, *args):
+        if self.generator is None:
+            return self.fn(self.model, *args)
+        with _DefaultDraws(self.generator):
+            return self.fn(self.model, self.generator, *args)
+
+
+class _Flat(torch.nn.Module):
+    """A :class:`_Run` whose model's tensors come in as a leading list
+    (:func:`_tensors`' order) through ``functional_call``; the run is not
+    a submodule, so the program embeds none of them."""
+
+    def __init__(self, run):
+        super().__init__()
+        self.__dict__["run"] = run
+        self.names = [f"model.{n}" for n in _tensors(run.model)]
+
+    def forward(self, weights, *args):
+        return torch.func.functional_call(
+            self.run, dict(zip(self.names, weights)), args, strict=True)
+
+
+def _device_of(model):
+    return next(iter(_tensors(model).values())).device
+
+
+def _indexed(device):
+    """A CUDA device with its index (the current one where it has none)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _platforms(platforms, device):
+    """The platforms an artifact exported on ``device`` runs on."""
+    if platforms is None:
+        return (device.type,)
+    platforms = tuple(platforms)
+    bad = [p for p in platforms if p not in PLATFORMS]
+    if bad:
+        raise ValueError(f"unknown platforms {bad}: the port runs on "
+                         f"{PLATFORMS}")
+    if "cuda" in platforms and device.type != "cuda":
+        raise ValueError(
+            "an artifact for the card is exported from a model on the card: "
+            "a trace on the CPU holds the CPU's path, not the card's")
+    if device.type not in platforms:
+        raise ValueError(f"platforms {platforms} leave out the device the "
+                         f"model lies on ({device.type})")
+    return platforms
+
+
+def _export(model, fn, specs, seeded, freeze_params, platforms, kind):
+    """Trace ``fn(model, [generator,] *inputs)`` at the input ``specs``
+    (``(shape, dtype)``) and save it with its metadata -> bytes."""
+    device = _device_of(model)
+    if device.type not in PLATFORMS:
+        raise ValueError(f"no artifacts for a model on {device}")
+    platforms = _platforms(platforms, device)
+    inputs = tuple(torch.zeros(shape, dtype=dt, device=device)
+                   for shape, dt in specs)
+    traced = _Run(model, fn, seeded)
+    if not freeze_params:
+        traced = _Flat(traced)
+        inputs = ([t.detach() for t in _tensors(model).values()],) + inputs
+    with torch.no_grad():
+        program = torch.export.export(traced, inputs, strict=False)
+    meta = {"kind": kind, "device": str(_indexed(device)),
+            "platforms": platforms,
+            "inputs": [[list(t.shape), str(t.dtype)] for t in
+                       torch.utils._pytree.tree_leaves(inputs)]}
+    buf = io.BytesIO()
+    torch.export.save(program, buf, extra_files={_META: json.dumps(meta)})
+    return buf.getvalue()
+
+
+def export_sampler(model, num_samples: int,
+                   temperature: Optional[float] = None,
+                   context_shape: Optional[Tuple[int, ...]] = None,
+                   class_cond: bool = False, dtype=torch.float32,
+                   typed_key: bool = False, freeze_params: bool = True,
+                   platforms: Optional[Tuple[str, ...]] = None) -> bytes:
+    """Export ``model.sample(num_samples)`` (``serving.py:309``): the
+    arguments of :func:`compile_sampler`; the artifact's call is
+    ``fn(seed[, context | y])`` (``fn(seed, weights, ...)`` with
+    ``freeze_params=False``, the flat list of :func:`_tensors`' values) ->
+    ``(z, log_q)``, a seed giving, bitwise, the draws of ``model.sample``
+    from a generator freshly seeded with it. The trace draws from the
+    default generator (:class:`_DefaultDraws`), so every draw of the
+    model, its layers' too, comes through ``generator``."""
+    fn, specs = _sampler_fn(num_samples, temperature, context_shape,
+                            class_cond, dtype, typed_key)
+    return _export(model, fn, specs, True, freeze_params, platforms,
+                   "sampler")
+
+
+def export_log_prob(model, batch_shape: Tuple[int, ...],
+                    context_shape: Optional[Tuple[int, ...]] = None,
+                    class_cond: bool = False, dtype=torch.float32,
+                    freeze_params: bool = True,
+                    platforms: Optional[Tuple[str, ...]] = None) -> bytes:
+    """Export ``model.log_prob`` at a fixed batch shape
+    (``serving.py:323``): the arguments of :func:`compile_log_prob`; the
+    artifact's call is ``fn(x[, context | y])``, or ``fn(weights, x,
+    ...)`` with ``freeze_params=False``."""
+    return _export(model, _log_prob,
+                   _log_prob_specs(batch_shape, context_shape, class_cond,
+                                   dtype),
+                   False, freeze_params, platforms, "log_prob")
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """The shape and dtype of one input (JAX's ``in_avals``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+class ExportedFn:
+    """A reloaded artifact (``serving.py:335``), callable as the function
+    it was exported from: ``fn([seed,] [weights,] *inputs)``.
+
+    On CUDA the first call at an input shape captures the program as one
+    CUDA graph (two eager warm-up calls on a side stream, then the
+    capture, as the compiled functions do); a call copies its inputs into
+    the graph's static inputs, replays and returns copies of the outputs.
+    On the CPU the program runs eagerly. ``launches`` is ``{kernel:
+    launches}`` of one replay of the last graph captured."""
+
+    def __init__(self, program, meta, device):
+        self._program = program
+        # the program as a module: its call is the eager run
+        self.module = program.module()
+        self._meta = meta
+        self.device = device
+        self._graphs = {}
+        self.launches = {}
+
+    @property
+    def platforms(self) -> Tuple[str, ...]:
+        return tuple(self._meta["platforms"])
+
+    @property
+    def in_avals(self):
+        """:class:`TensorSpec` of each tensor input, the weights first
+        where they are inputs (the seed is not a tensor)."""
+        return [TensorSpec(tuple(shape), getattr(torch, dt.split(".")[-1]))
+                for shape, dt in self._meta["inputs"]]
+
+    def kernel_nodes(self):
+        """``{kernel: op nodes}`` of the program's graph: one node per
+        launch of that kernel in a call."""
+        out = {}
+        for node in self._program.graph.nodes:
+            if node.op != "call_function":
+                continue
+            name = getattr(node.target, "name", lambda: "")().split("::")
+            if name[0] == "nf_tpu_torch":
+                kernel = ops.KERNEL_OPS[name[1].split(".")[0]]
+                out[kernel] = out.get(kernel, 0) + 1
+        return out
+
+    def __call__(self, *args):
+        seeded = self._meta["kind"] == "sampler"
+        if seeded:
+            if not args:
+                raise TypeError("an exported sampler takes an integer seed")
+            seed, *args = args
+            if isinstance(seed, bool) or not isinstance(seed, int):
+                raise TypeError(f"the sampler takes an integer seed, got "
+                                f"{type(seed).__name__}")
+        flat = torch.utils._pytree.tree_leaves(args)
+        if len(flat) != len(self._meta["inputs"]):
+            raise TypeError(f"expected {len(self._meta['inputs'])} tensors "
+                            f"(weights first where they are inputs), got "
+                            f"{len(flat)}")
+        for t, spec in zip(flat, self.in_avals):
+            if (not isinstance(t, torch.Tensor)
+                    or (tuple(t.shape), t.dtype) != (spec.shape, spec.dtype)):
+                raise ValueError(f"exported for inputs {self.in_avals}, got "
+                                 f"{[_spec(a) for a in flat]}")
+        devices = [self.device] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=devices), torch.no_grad():
+            if seeded:
+                self._seed(seed)
+            if self.device.type != "cuda":
+                return self.module(*args)
+            return self._replay(args, flat, seed if seeded else None)
+
+    def _seed(self, seed):
+        """Seed the default generator of the device, as a fresh generator
+        seeded with ``seed`` starts (offset 0)."""
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                torch.cuda.manual_seed(seed)
+        else:
+            torch.default_generator.manual_seed(seed)
+
+    def _replay(self, args, flat, seed):
+        key = tuple((tuple(t.shape), t.dtype) for t in flat)
+        entry = self._graphs.get(key)
+        if entry is None:
+            static = [t.to(self.device, copy=True) for t in flat]
+            spec = torch.utils._pytree.tree_structure(args)
+
+            def run():
+                return self.module(
+                    *torch.utils._pytree.tree_unflatten(static, spec))
+
+            warm_up(run, self.device, WARMUP_CALLS)
+            graph, out, launches = capture(run, self.device)
+            entry = self._graphs[key] = (graph, static, out)
+            self.launches = launches
+        graph, static, out = entry
+        for dst, src in zip(static, flat):
+            dst.copy_(src)
+        if seed is not None:  # the warm-up and the capture drew
+            self._seed(seed)
+        graph.replay()
+        return _take(out, None, fresh=True)
+
+
+def _spec(t):
+    return (tuple(t.shape), t.dtype) if isinstance(t, torch.Tensor) \
+        else type(t).__name__
+
+
+def load_exported(data, device=None) -> ExportedFn:
+    """Reload an artifact of :func:`export_sampler` /
+    :func:`export_log_prob` (``bytes`` or a file path;
+    ``serving.py:361``) on ``device``: None for the device it was
+    exported on; another one must be among its ``platforms``, and the
+    program is moved there (``move_to_device_pass``)."""
+    if not isinstance(data, (bytes, bytearray)):
+        with open(data, "rb") as f:
+            data = f.read()
+    extra = {_META: ""}
+    program = torch.export.load(io.BytesIO(bytes(data)), extra_files=extra)
+    meta = json.loads(extra[_META])
+    device = _indexed(resolve_device(meta["device"] if device is None
+                                     else device))
+    if device.type not in meta["platforms"]:
+        raise ValueError(f"the artifact was exported for platforms "
+                         f"{tuple(meta['platforms'])}, not {device.type}: "
+                         f"export it with platforms=(..., "
+                         f"{device.type!r})")
+    if str(device) != meta["device"]:
+        from torch.export.passes import move_to_device_pass
+
+        program = move_to_device_pass(program, device)
+    return ExportedFn(program, meta, device)

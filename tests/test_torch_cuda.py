@@ -1853,3 +1853,136 @@ def test_checkpoint_round_trip_of_a_captured_step(cuda, tmp_path):
         assert torch.equal(a, b)
     for p, q in zip(params, model.parameters()):
         assert torch.equal(p, q.detach())
+
+
+# --- the kernels as torch.library ops (nf_tpu_torch.ops) ----------------------
+
+def _op_operands(cuda, rng, K=8, rows=4096, cols=2):
+    """Kernel views for the spline ops: x (rows, cols), full per-element
+    parameter planes (K, rows, cols) / (K+1, ...), a float tail bound,
+    cotangents."""
+    x = _normal(rng, (rows, cols), 1.5).to(cuda)
+    w, h = (_normal(rng, (K, rows, cols), 0.5).to(cuda) for _ in range(2))
+    d = _normal(rng, (K + 1, rows, cols), 0.5).to(cuda)
+    cty, ctl = (_normal(rng, (rows, cols)).to(cuda) for _ in range(2))
+    return x, w, h, d, cty, ctl
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_spline_ops_match_their_plain_twins_on_cuda(cuda, inverse):
+    """Each spline op on CUDA tensors (the kernel) against its plain twin
+    on the same tensors: A 1e-5 / 1e-4, C, D and C's shared path 1e-4
+    (per element; the shared path's row sums relative to the largest).
+    The ops count their launches as the wrappers did."""
+    ops = torch.ops.nf_tpu_torch
+    minima = (1e-3, 1e-3, 1e-3)
+    x, w, h, d, cty, ctl = _op_operands(cuda, np.random.default_rng(40))
+    tops.reset_launch_counts()
+    y, ld = ops.rqs_fwd(x, w, h, d, None, 3.0, inverse, *minima)
+    yp, lp = tk.rqs_plain(x, w, h, d, 3.0, inverse=inverse)
+    assert _max_err(y, yp) <= Y_TOL and _max_err(ld, lp) <= LD_TOL
+    for name, plain in (("rqs_bwd", tk.rqs_bwd_plain),
+                        ("rqs_bwd_autodiff", tk.rqs_vjp_plain)):
+        got = getattr(ops, name)(x, w, h, d, None, 3.0, cty, ctl, inverse,
+                                 *minima)
+        want = plain(x, w, h, d, 3.0, cty, ctl, inverse=inverse)
+        for a, b in zip(got, want):
+            assert _max_err(a, b) <= G_TOL
+    small = [t[:, :1] for t in (w, h, d)]
+    got = ops.rqs_bwd_shared(x, *small, None, 3.0, cty, ctl, inverse,
+                             *minima)
+    want = tk.rqs_bwd_shared_plain(x, *small, 3.0, cty, ctl, inverse=inverse)
+    assert _max_err(got[0], want[0]) <= G_TOL
+    for a, b in zip(got[1:], want[1:]):
+        assert _max_err(a, b) <= SUM_TOL * max(float(b.abs().max()), 1.0)
+    assert tops.launch_counts() == {"rqs_fwd": 1, "head_rqs_fwd": 0,
+                                    "rqs_bwd": 2, "head_rqs_bwd": 0,
+                                    "rqs_bwd_autodiff": 1}
+
+
+def _max_err(a, b):
+    return float((a - b).abs().max())
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_head_ops_match_their_plain_twins_on_cuda(cuda, inverse):
+    """Kernels B and E through their ops against the plain versions summed
+    in the kernels' order (the head product's rounding is then the
+    kernels'): B 1e-5 / 1e-4, E 1e-4 per element, gW and gb 1e-4
+    relative to the largest."""
+    rng = np.random.default_rng(41)
+    K, D, H, B = 8, 1, 128, 8192
+    m = (3 * K - 1) * D
+    x_t = _normal(rng, (B, D), 1.5).to(cuda).T
+    h_t = _normal(rng, (H, B)).to(cuda)
+    w = _normal(rng, (m, H), 0.3 / np.sqrt(H)).to(cuda)
+    b = _normal(rng, (m,), 0.1).to(cuda)
+    tb = torch.full((D,), 3.0, device=cuda)
+    cty, ctl = (_normal(rng, (D, B)).to(cuda) for _ in range(2))
+    kw = dict(num_bins=K, tails="linear", inverse=inverse)
+    ops = torch.ops.nf_tpu_torch
+    y, ld = ops.head_rqs_fwd(x_t, h_t, w, b, tb, K, False, inverse, 1e-3,
+                             1e-3, 1e-3)
+    yp, lp = tshf.head_rqs_plain_in_kernel_order(x_t, h_t, w, b, tb, **kw)
+    assert _max_err(y, yp) <= Y_TOL and _max_err(ld, lp) <= LD_TOL
+    got = ops.head_rqs_bwd(x_t, h_t, w, b, tb, K, False, cty, ctl, inverse,
+                           1e-3, 1e-3, 1e-3)
+    want = tshf.head_rqs_bwd_plain_in_kernel_order(x_t, h_t, w, b, tb, cty,
+                                                   ctl, **kw)
+    for a, bb in zip(got[:2], want[:2]):
+        assert _max_err(a, bb) <= G_TOL
+    for a, bb in zip(got[2:], want[2:]):
+        assert _max_err(a, bb) <= SUM_TOL * max(float(bb.abs().max()), 1.0)
+
+
+def test_captured_op_routed_step_is_bitwise_its_eager_step(cuda):
+    """``build_nsf``'s forward-KLD step at B = 6000, its kernels reached
+    through the ops (A, B forward; C, E as their registered backward):
+    five captured steps are bitwise five eager ones."""
+    base = _perturbed(nt.build_nsf, 5, **GRAPH_SMALL)
+    models = [copy.deepcopy(base) for _ in range(2)]
+    opts = [_adam(m) for m in models]
+    states = [nt.init_train_state(m, o) for m, o in zip(models, opts)]
+    graphed = nt.make_forward_kld_step(opts[0])
+    eager = nt.make_forward_kld_step(opts[1]).eager
+    rng = np.random.default_rng(42)
+    for _ in range(5):
+        x = _normal(rng, (6000, 2), 1.5).to(cuda)
+        assert torch.equal(graphed(states[0], x), eager(states[1], x))
+    for p, q in zip(models[0].parameters(), models[1].parameters()):
+        assert torch.equal(p, q)
+    assert graphed.launches["head_rqs_fwd"] == 2
+
+
+def test_exported_artifacts_on_cuda(cuda):
+    """A ``build_nsf`` on the card at B = 6000 exported and reloaded: the
+    artifact holds one op node per launch of the compiled replay, its
+    graph answers within 1e-5 of ``compile_log_prob`` and its sampler is
+    bitwise ``compile_sampler``'s; moved to the CPU (``platforms``), its
+    ``log_prob`` is within 1e-3 of the card's."""
+    from nf_tpu_torch import serving
+
+    model = _perturbed(nt.build_nsf, 6, **GRAPH_SMALL)
+    x = _normal(np.random.default_rng(43), (6000, 2), 1.5).to(cuda)
+    compiled = nt.compile_log_prob(model, (6000, 2))
+    blob = serving.export_log_prob(model, (6000, 2), platforms=("cuda",
+                                                                 "cpu"))
+    fn = serving.load_exported(blob)
+    assert fn.kernel_nodes() == {k: v for k, v in compiled.launches.items()
+                                 if v}
+    got = fn(x)
+    torch.testing.assert_close(got, compiled(x), atol=1e-5, rtol=0)
+    torch.testing.assert_close(fn(x), got, atol=0, rtol=0)
+    assert fn.launches == compiled.launches
+    cpu = serving.load_exported(blob, device="cpu")
+    torch.testing.assert_close(cpu(x.cpu()), got.cpu(), atol=MODEL_TOL,
+                               rtol=0)
+    sampler = serving.load_exported(serving.export_sampler(model, 6000))
+    want = nt.compile_sampler(model, 6000)
+    for seed in (1, 2, 1):
+        z, log_q = sampler(seed)
+        zc, lqc = want(seed)
+        assert torch.equal(z, zc) and torch.equal(log_q, lqc)
+    with pytest.raises(ValueError, match="platforms"):
+        serving.load_exported(serving.export_log_prob(model, (6000, 2)),
+                              device="cpu")

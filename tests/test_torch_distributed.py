@@ -7,7 +7,11 @@ The workers are this file run as a script (``--worker``). Each writes a
 JSON of what it saw; the tests compare rank 0 with rank 1 (bitwise: the
 replicas take identical updates) and the two processes with the one
 (within 1e-5 relative: gloo's sum of two halves against one process's
-sum over the whole batch differs in the order of additions).
+sum over the whole batch differs in the order of additions). Four more
+processes run ``__graft_entry__.dryrun_multichip``'s dp x tp step on a
+(data 2, model 2) mesh with ``state_shardings``, and the two processes
+also train batch-norm models, whose statistics span the ranks; both are
+held against the one process on the whole batch within 1e-5.
 """
 
 import argparse
@@ -140,6 +144,132 @@ def _sampler_run(mesh):
             "log_z": float(log_normalizer(log_w, mesh))}
 
 
+# __graft_entry__.dryrun_multichip's dp x tp step: build_realnvp(dim 2, K 4,
+# hidden [32, 32]), Adam(1e-3), one step on 8 rows per rank
+TP_BATCH = 32
+TP_LR = 1e-3
+BN_LR = 1e-2
+
+
+def _tp_batch():
+    return np.random.default_rng(13).standard_normal(
+        (TP_BATCH, 2)).astype(np.float32)
+
+
+def _tp_run(mesh=None):
+    """The dp x tp step on a (data 2, model 2) mesh with ``param_shardings``
+    over ``model`` (the whole batch, mesh-less, without ``mesh``): the
+    loss, the whole parameters after the step, and how many elements of
+    Adam's state the rank holds."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch.parallel import param_shardings, shard_batch
+
+    model = nt.build_realnvp(dim=2, K=4, hidden=[32, 32], device="cpu",
+                             seed=7)
+    with torch.no_grad():  # the zero-initialised last layers moved
+        gen = torch.Generator().manual_seed(8)
+        for p in model.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    opt = torch.optim.Adam(model.parameters(), lr=TP_LR)
+    state = nt.init_train_state(model, opt)
+    batch = torch.from_numpy(_tp_batch())
+    if mesh is None:
+        loss = nt.make_forward_kld_step(opt)(state, batch)
+    else:
+        sh = param_shardings(state, mesh, axis="model")
+        step = nt.make_forward_kld_step(opt, mesh=mesh, state_shardings=sh)
+        loss = step(state, shard_batch(mesh, batch))
+    held = sum(v.numel() for st in opt.state.values() for k, v in st.items()
+               if k == "exp_avg")
+    return {"loss": float(loss), "params": _params(model).tolist(),
+            "opt_state": held,
+            "full": sum(p.numel() for p in model.parameters())}
+
+
+def bn_nsf_model():
+    """A ``build_nsf``-shaped model whose coupling trunks have
+    ``use_batch_norm=True`` (``chip_smoke.batch_norm_nsf_model`` at K 2,
+    hidden 16, 4 bins), its weights moved from the identity by seeded
+    noise."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import distributions as tdist
+    from nf_tpu_torch import flows as tflows
+    from nf_tpu_torch.nets import ResidualNet
+    from nf_tpu_torch.utils import create_alternating_binary_mask
+
+    gen = torch.Generator().manual_seed(21)
+
+    def net_fn(n_in, n_out):
+        return ResidualNet(n_in, n_out, 16, num_blocks=2, use_batch_norm=True,
+                           bin_major_head=(1, 3 * 4 - 1), generator=gen)
+
+    flows = []
+    for i in range(2):
+        mask = create_alternating_binary_mask(2, even=i % 2 == 1)
+        flows += [tflows.Reverse(tflows.PiecewiseRationalQuadraticCoupling(
+                      mask, net_fn, num_bins=4, tails="linear",
+                      tail_bound=3.0, apply_unconditional_transform=True)),
+                  tflows.LULinearPermute(2, generator=gen)]
+    model = nt.NormalizingFlow(tdist.DiagGaussian(2, trainable=False), flows)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.2 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def _latent_kld(model, z):
+    """The reverse KLD on given base draws ``z`` (a batch): a
+    ``BatchNorm`` stack has only the sampling direction."""
+    x, log_det = model.forward_and_log_det(z)
+    return torch.mean(model.q0.log_prob(z) - log_det - model.p.log_prob(x))
+
+
+def bn_flow_model():
+    """A RealNVP-shaped stack with ``BatchNorm`` after each coupling
+    (``chip_smoke``'s phase 21 stack at 2 couplings, MLPs [2, 16, 2]) on
+    TwoModes; trained through :func:`_latent_kld` (``loss_fn``)."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import distributions as tdist
+    from nf_tpu_torch import flows as tflows
+    from nf_tpu_torch.nets import MLP
+
+    gen = torch.Generator().manual_seed(22)
+    flows = []
+    for i in range(2):
+        b = torch.tensor([1.0, 0.0] if i % 2 == 0 else [0.0, 1.0])
+        flows += [tflows.MaskedAffineFlow(b, t=MLP([2, 16, 2], generator=gen),
+                                          s=MLP([2, 16, 2], generator=gen)),
+                  tflows.BatchNorm()]
+    model = nt.NormalizingFlow(tdist.DiagGaussian(2), flows,
+                               p=tdist.TwoModes())
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.2 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+bn_flow_model.loss_fn = _latent_kld
+
+
+def _bn_run(build, mesh=None):
+    """One SGD step of a batch-norm model on the global batch (this
+    rank's shard of it with ``mesh``): its loss and parameters."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch.parallel import shard_batch
+
+    model = build()
+    opt = torch.optim.SGD(model.parameters(), lr=BN_LR)
+    state = nt.init_train_state(model, opt)
+    batch = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        (GLOBAL_BATCH, 2)).astype(np.float32))
+    kw = dict(loss_fn=getattr(build, "loss_fn", None))
+    if mesh is not None:
+        batch = shard_batch(mesh, batch)
+        kw["mesh"] = mesh
+    loss = nt.make_forward_kld_step(opt, **kw)(state, batch)
+    return {"loss": float(loss), "params": _params(model).tolist()}
+
+
 def _binary(argv):
     from nf_tpu_torch import train
 
@@ -163,6 +293,13 @@ def worker(args):
             num_processes=args.num_processes, process_id=args.process_id,
             platform="cpu")
         assert (rank, world) == (args.process_id, args.num_processes)
+    if args.num_processes == 4:
+        mesh = make_mesh(("data", "model"), shape=(2, 2))
+        out = {"tp": _tp_run(mesh), "coords": [mesh.axis_index("data"),
+                                               mesh.axis_index("model")]}
+        with open(args.out, "w") as f:
+            json.dump(out, f)
+        return
     mesh = make_mesh(devices=None if distributed else ["cpu"])
     out = {"mesh": mesh.shape,
            "hybrid": make_hybrid_mesh(
@@ -174,7 +311,12 @@ def worker(args):
            "forward": _forward_runs(mesh, 1),
            "accum": _forward_runs(mesh, 2),
            "reverse": _reverse_run(mesh),
-           "sampler": _sampler_run(mesh)}
+           "sampler": _sampler_run(mesh),
+           "bn_nsf": _bn_run(bn_nsf_model, mesh),
+           "bn_flow": _bn_run(bn_flow_model, mesh)}
+    if not distributed:
+        out.update(tp_single=_tp_run(), bn_nsf_single=_bn_run(bn_nsf_model),
+                   bn_flow_single=_bn_run(bn_flow_model))
     flag = ["--distributed"] if distributed else []
     out["binary"] = _binary(BINARY_2D + flag)
     out["binary_accum"] = _binary(BINARY_2D + ["--accum_steps", "2"] + flag)
@@ -230,11 +372,46 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_distributed")
     two = _start(tmp, 2, _free_port())
     one = _start(tmp, 1, _free_port())
-    return _finish(two), _finish(one)[0]
+    four = _start(tmp, 4, _free_port())
+    return _finish(two), _finish(one)[0], _finish(four)
+
+
+def test_dp_by_tp_step_is_the_single_process_step(runs):
+    """``__graft_entry__.dryrun_multichip``'s dp x tp step at world size 4
+    on a (data 2, model 2) mesh: every rank ends with the whole
+    parameters of the single-process step on the whole batch (1e-5), the
+    same loss, and holds Adam's state for its blocks only."""
+    _, single, four = runs
+    want = single["tp_single"]
+    assert sorted(tuple(r["coords"]) for r in four) == [(0, 0), (0, 1),
+                                                        (1, 0), (1, 1)]
+    for r in four:
+        np.testing.assert_allclose(r["tp"]["loss"], want["loss"], rtol=1e-5)
+        np.testing.assert_allclose(r["tp"]["params"], want["params"],
+                                   atol=1e-5, rtol=0)
+        assert r["tp"]["opt_state"] < want["opt_state"] == want["full"]
+    assert four[0]["tp"]["params"] == four[3]["tp"]["params"]
+
+
+@pytest.mark.parametrize("kind", ["bn_nsf", "bn_flow"])
+def test_batch_statistics_span_the_ranks(runs, kind):
+    """A batch-norm ``build_nsf`` and a ``BatchNorm`` stack trained at
+    world size 2, each rank on its half of the batch, equal the one
+    process on the whole batch (1e-5): the layers' statistics are the
+    global batch's. The ranks hold bitwise the same parameters."""
+    multi, single, _ = runs
+    assert multi[0][kind]["params"] == multi[1][kind]["params"]
+    want = single[f"{kind}_single"]
+    np.testing.assert_allclose(multi[0][kind]["loss"], want["loss"],
+                               rtol=1e-5)
+    np.testing.assert_allclose(multi[0][kind]["params"], want["params"],
+                               atol=1e-5, rtol=0)
+    # and the one process on a mesh of one is the mesh-less step
+    assert single[kind]["params"] == want["params"]
 
 
 def test_meshes_span_the_ranks(runs):
-    multi, single = runs
+    multi, single, _ = runs
     for r in multi:
         assert r["mesh"] == {"data": 2}
         assert r["hybrid"] == {"data": 2, "sample": 1}
@@ -242,7 +419,7 @@ def test_meshes_span_the_ranks(runs):
 
 
 def test_per_process_batches_make_the_same_global_batches(runs):
-    multi, single = runs
+    multi, single, _ = runs
     for i in range(2):
         glued = np.concatenate([np.asarray(r["batches"][i]) for r in multi])
         np.testing.assert_array_equal(glued, np.asarray(single["batches"][i]))
@@ -254,7 +431,7 @@ def test_two_processes_match_one(runs, kind):
     """Rank 0 and rank 1 hold bitwise the same parameters; the two
     processes land where one process lands (and the first loss, before
     any update, is the same global batch's)."""
-    multi, single = runs
+    multi, single, _ = runs
     assert multi[0][kind]["param_hash"] == multi[1][kind]["param_hash"]
     np.testing.assert_allclose(multi[0][kind]["param_sum"],
                                single[kind]["param_sum"], rtol=1e-5)
@@ -279,7 +456,7 @@ def test_two_processes_are_one_process_on_their_shards(runs, kind, micro):
     full batch, test_two_processes_match_one, the order differs, and Adam,
     dividing by the root of each gradient's square, moves elements whose
     gradient is near zero by up to ~1e-4 in five steps.)"""
-    multi, single = runs
+    multi, single, _ = runs
     np.testing.assert_array_equal(multi[0][kind]["params"],
                                   single[micro]["params"])
     if "losses" in single[kind]:
@@ -287,7 +464,7 @@ def test_two_processes_are_one_process_on_their_shards(runs, kind, micro):
 
 
 def test_accumulation_is_the_full_batch_step(runs):
-    _, single = runs
+    _, single, _ = runs
     np.testing.assert_allclose(single["accum"]["param_sum"],
                                single["forward"]["param_sum"], rtol=1e-5)
     np.testing.assert_allclose(single["binary_accum"]["param_sum"],
@@ -295,7 +472,7 @@ def test_accumulation_is_the_full_batch_step(runs):
 
 
 def test_keyed_residual_replicas_agree(runs):
-    multi, _ = runs
+    multi, _, _ = runs
     assert multi[0]["binary_residual"]["final_step"] == 2
     assert (multi[0]["binary_residual"]["param_hash"]
             == multi[1]["binary_residual"]["param_hash"])
@@ -306,7 +483,7 @@ def test_sample_parallel_step_is_one_step_on_the_pooled_draws(runs):
     update on their draws concatenated."""
     import nf_tpu_torch as nt
 
-    multi, _ = runs
+    multi, _, _ = runs
     d0, d1 = (np.asarray(r["reverse"]["draws"], np.float32) for r in multi)
     assert d0.shape == (REVERSE_SAMPLES // 2, 2)
     assert not np.allclose(d0, d1)
@@ -331,7 +508,7 @@ def test_sample_parallel_step_is_one_step_on_the_pooled_draws(runs):
 
 
 def test_sharded_sampler_pools_the_ranks(runs):
-    multi, _ = runs
+    multi, _, _ = runs
     own = np.asarray([r["sampler"]["own"] for r in multi])
     for r in multi:
         np.testing.assert_allclose(r["sampler"]["pooled"], own.mean(0),

@@ -54,8 +54,8 @@ _BY_DESIGN = {"utils": {"Module", "buffer_field", "combine", "is_array",
                         "is_inexact_array", "partition", "partition_arrays",
                         "static_field", "stop_gradient_params",
                         "tree_size"}}
-# queued in ROADMAP.md section 1: the tensor-parallel layouts (tp.py)
-_QUEUED = {"parallel": {"param_shardings", "shard_params"}}
+# names the port has yet to bring (ROADMAP.md section 1): none
+_QUEUED = {}
 
 
 def _public_names(module):

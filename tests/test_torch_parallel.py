@@ -189,12 +189,6 @@ def test_data_parallel_step_matches_jax(kind, world_of_one, monkeypatch):
                                    rtol=0, err_msg=k)
 
 
-def test_state_shardings_wait_for_tp():
-    opt = torch.optim.SGD([torch.nn.Parameter(torch.zeros(2))], lr=1.0)
-    with pytest.raises(NotImplementedError, match="tp.py"):
-        nt.make_forward_kld_step(opt, mesh=_cpu_mesh(), state_shardings={})
-
-
 def _hais():
     return HAIS.create(np.linspace(1.0, 0.0, 6), tdist.DiagGaussian(2),
                        tdist.TwoModes(), num_leapfrog=3, step_size=0.2,

@@ -589,6 +589,29 @@ def test_stochastic_estimator_is_unbiased_against_brute_force():
     assert abs(float(ld_est.mean() - ld_exact.mean())) < 0.15
 
 
+def test_re_pass_reuses_the_sampling_pass_probe_and_series_length():
+    """Inside ``shared_masks()`` (the sticking-the-landing and DReG re-pass
+    through the inverse chain) an iResBlock reuses the sampling pass's
+    Hutchinson probe and series length, as the JAX block gets the flow's
+    same key in both passes (``nf_tpu/core.py:130-140``): the block draws
+    once, and the re-pass's log-det estimate at the point the sampling
+    pass reached is that pass's, its sign flipped."""
+    from nf_tpu_torch.nets._dropout import shared_masks
+
+    _, tmodel = _model_pair(seed=33)
+    flow = next(f for f in tmodel.flows if isinstance(f, tflows.Residual))
+    z = _t(_inputs((BATCH, 2), seed=34))
+    gen = torch.Generator().manual_seed(35)
+    block, draws = flow.iresblock, []
+    real = block.draw
+    block.draw = lambda x, g: draws.append(x.shape) or real(x, g)
+    with torch.no_grad(), shared_masks():
+        x, ld_sampling = flow.forward(z, generator=gen)
+        _, ld_re_pass = flow.inverse(x, generator=gen)
+    assert len(draws) == 1
+    assert torch.equal(ld_re_pass, -ld_sampling)
+
+
 def test_reference_bookkeeping_buffers_load():
     jmodel, _ = _model_pair(seed=33)
     sd = model_state_dict(jmodel)

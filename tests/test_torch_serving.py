@@ -178,17 +178,11 @@ def test_sampler_draws_as_the_eager_sampler_from_the_same_seed():
 
 @pytest.mark.parametrize("call", [
     lambda m: nt.compile_sampler(m, 4, typed_key=True),
-    lambda m: nt.compile_log_prob(m, (4, 2)).cost_analysis(),
-    lambda m: nt.compile_log_prob(m, (4, 2)).flops(),
-    lambda m: nt.compile_log_prob(m, (4, 2)).memory_analysis(),
-    lambda m: serving.export_sampler(m, 4),
-    lambda m: serving.export_log_prob(m, (4, 2)),
-    lambda m: serving.load_exported(b""),
-], ids=["typed_key", "cost_analysis", "flops", "memory_analysis",
-        "export_sampler", "export_log_prob", "load_exported"])
+    lambda m: serving.export_sampler(m, 4, typed_key=True),
+], ids=["typed_key", "export_typed_key"])
 def test_what_is_not_ported_raises(call):
     _, tmodel = _pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP|seed"):
+    with pytest.raises(NotImplementedError, match="seed"):
         call(tmodel)
 
 

@@ -284,9 +284,9 @@ def test_step_refuses_what_waits_for_later_slices():
     with pytest.raises(ValueError, match="not the optimizer"):
         nt.make_forward_kld_step(other)(state, _twomoons(8))
     assert nt.model_of_state(state) is model
-    # the state's tensor-parallel layouts wait for tp.py (meshes are
-    # taken: tests/test_torch_parallel.py)
-    with pytest.raises(NotImplementedError, match="tp.py"):
+    # the state's tensor-parallel layouts lay it out on a mesh (the
+    # layouts themselves: tests/test_torch_tp.py)
+    with pytest.raises(ValueError, match="mesh"):
         nt.make_forward_kld_step(opt, state_shardings={})
 
 
