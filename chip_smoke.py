@@ -186,8 +186,9 @@ toolkit. Phases, one line each:
     at 65536 as graphs; every new base, target and prior's ``log_prob``
     card against CPU at 65536 and its sampler on the card (the draws' mean
     log-density against the CPU's draws'); a RealNVP-shaped stack with
-    ``BatchNorm`` and ``InvertibleAffine`` card against CPU; a bfloat16
-    ``build_image_nsf`` raising at kernel A; no port kernel launched;
+    ``BatchNorm`` and ``InvertibleAffine`` card against CPU; no port
+    kernel launched; a bfloat16 ``build_image_nsf``'s ``log_prob`` of 16
+    images, kernel A's bfloat16 instantiation 8 times;
 22. snf, snf_nsf, mh: ``examples/stochastic_nf.py``'s stochastic
     normalizing flow (K 4 ``MaskedAffineFlow`` + ``ActNorm`` blocks, MLPs
     [2, 64, 64, 2], an HMC layer of 5 leapfrog steps of 0.2 after every
@@ -254,7 +255,22 @@ toolkit. Phases, one line each:
     ``log_prob`` and sampler, with the FLOP/s of each graph; (6) on a
     world-size-1 NCCL group, the forward step with ``state_shardings`` on
     a (data 1, model 1) mesh and the batch-norm ``build_nsf``'s sharded
-    step, each bitwise its twin after five captured steps.
+    step, each bitwise its twin after five captured steps;
+28. image_nsf_bf16 (run right after phase 16, beside the float32 image
+    NSF): ``build_image_nsf(dtype=torch.bfloat16)`` at its defaults,
+    perturbed, its ActNorms set in bfloat16: kernels A, C and D in
+    bfloat16 on the image views at both levels (B = 256 and 64) and at
+    K = 10, each element within one bfloat16 ulp of its plain version
+    (``2^-7 |plain| + 1e-6``, gradients ``+ 1e-4 max |plain|``), each one
+    device launch with no cast around it (one captured call is one graph
+    node), timed in turns with float32; ``log_prob``, bits/dim and ``sample(256, temperature=0.7)`` card
+    against CPU on 16 images and by the round trip at the bfloat16 bar
+    (0.05 abs + 0.05 relative); the forward-KLD step at B = 64 (Adam
+    1e-3) under "analytic" (A, C) and "autodiff" (A, D), card against CPU
+    (the loss at the bar, the gradients within 0.3 relative L2); then
+    ``compile_log_prob`` and ``compile_sampler`` (bitwise eager) and the
+    captured steps against eager, every port launch a bfloat16 one, and
+    each timed in turns with the float32 model's graph.
 
 ``python3 chip_smoke.py --dispatch-turns PARENT`` times the eager
 ``build_nsf`` ``log_prob`` and step of the checkout ``PARENT`` against
@@ -433,7 +449,7 @@ def phase_build():
                      f"{len(spills)} instantiations spilling")
     print(f"phase build: {len(names)} libraries in {secs:.1f} s "
           f"(sm_90a; {'; '.join(notes)})", flush=True)
-    for n in ("rqs_bwd", "rqs_bwd_autodiff"):
+    for n in ("rqs_fwd", "rqs_bwd", "rqs_bwd_autodiff"):
         print(f"phase build {n} by kernel (K, direction: registers, bytes "
               f"spilled): " + "; ".join(
                   f"{kernel} " + ", ".join(
@@ -446,8 +462,9 @@ def phase_build():
 
 def ptxas_kernels(log):
     """``nvcc -Xptxas -v`` output -> {kernel: [(K, inverse, registers,
-    spill-store bytes)]}, by the kernel's name and its template arguments
-    in the mangled symbol."""
+    spill-store bytes)]}, by the kernel's name (with " bf16" for a
+    bfloat16 instantiation) and its template arguments in the mangled
+    symbol."""
     import re
 
     out, entry, spill = {}, None, 0
@@ -465,7 +482,10 @@ def ptxas_kernels(log):
             name = re.search(r"\d+(rqs_\w+?)I", entry)
             k = re.search(r"Li(\d+)E", entry)
             inv = re.search(r"Lb([01])E", entry)
-            out.setdefault(name.group(1) if name else entry, []).append(
+            label = name.group(1) if name else entry
+            if "bfloat16" in entry:  # the bfloat16 instantiations
+                label += " bf16"
+            out.setdefault(label, []).append(
                 (int(k.group(1)) if k else 0, bool(inv and inv.group(1) ==
                                                      "1"),
                  int(m.group(1)), spill))
@@ -860,7 +880,7 @@ def _spline_bytes(x, planes, n_out):
     parameter planes (a stride-0 broadcast is read once) in, ``n_out``
     planes of x's size out."""
     stored = sum(t.untyped_storage().nbytes() for t in planes)
-    return 4 * x.numel() * (1 + n_out) + stored
+    return x.element_size() * x.numel() * (1 + n_out) + stored
 
 
 def timing_kernel_d(dev, flush, peaks):
@@ -1759,6 +1779,7 @@ PATH_KERNELS = {"build_nsf serving": ("rqs_fwd", "head_rqs_fwd"),
                 "maf serving": (), "maf step": (),
                 "image_nsf serving": ("rqs_fwd",),
                 "image_nsf step": ("rqs_fwd", "rqs_bwd"),
+                "image_nsf step (autodiff)": ("rqs_fwd", "rqs_bwd_autodiff"),
                 "glow serving": (), "glow step": (),
                 "circular_coupled serving": ("rqs_fwd", "head_rqs_fwd"),
                 "circular_coupled step": ("rqs_fwd", "head_rqs_fwd",
@@ -2127,6 +2148,38 @@ def dependency_types(graph):
         raise RuntimeError(f"cuGraphGetEdges_v2 failed: CUresult {err}")
     kinds = [data[8 * i + 2] for i in range(n.value)]
     return {"default": kinds.count(0), "programmatic": kinds.count(1)}
+
+
+def graph_node_types(fn):
+    """The device work of one call of ``fn``, without the profiler: after
+    one warm-up call, the call captured into a kept CUDA graph, whose
+    nodes' types are read with libcuda's ``cuGraphGetNodes`` and
+    ``cuGraphNodeGetType`` (0 a kernel, 1 a copy, 2 a memset, ...)."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    err = cu.cuGraphGetNodes(raw, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    if not err:
+        err = cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if not err:
+            err = cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                        ctypes.byref(kind))
+        types.append(kind.value)
+    if err:
+        raise RuntimeError(f"reading the graph's nodes failed: CUresult "
+                           f"{err}")
+    return types
 
 
 def programmatic_edges(model, batch):
@@ -2750,7 +2803,7 @@ def rel_model_err(a, b):
     return max_err(a, b) / max(float(b.abs().max()), 1.0)
 
 
-def _image_operands(rng, batch, ct, side, dev, scale=0.5):
+def _image_operands(rng, batch, ct, side, dev, scale=0.5, K=K_BINS):
     """Kernel A's and C's operands at one image coupling's shapes, made as
     the bin-major feed makes them: x (B, C, H, W) ~ N(0, 1.5²) (some past
     the tail bound 3); a conditioner output (B, C*P, H, W) ~ N(0,
@@ -2758,10 +2811,10 @@ def _image_operands(rng, batch, ct, side, dev, scale=0.5):
     multiplied by the softmax scale 1/sqrt(64), the derivatives padded for
     linear tails (K + 1 contiguous planes); cotangents (B, C, H, W) ~
     N(0, 1). At ``scale`` 0.5 (the repo's parity draws, ROADMAP §3) the
-    gradients are O(1) and held abs; at 1 some reach O(1e3)."""
+    gradients are O(1) and held abs; at 1 some reach O(1e3). ``K`` bins
+    (8, the image NSF's, unless given)."""
     from nf_tpu_torch.ops import splines
 
-    K = K_BINS
     x = _normal(rng, (batch, ct, side, side), 1.5, dev)
     out = _normal(rng, (batch, ct * (3 * K - 1), side, side), scale, dev)
     p = out.reshape(batch, ct, -1, side, side).permute(2, 0, 1, 3, 4)
@@ -2931,13 +2984,15 @@ def conv_times(dev, flush):
           + "; ".join(rows), flush=True)
 
 
-def image_graphs(label, model, x, y, per_pass, path):
+def image_graphs(label, model, x, y, per_pass, path, bitwise=False):
     """``compile_log_prob`` and ``compile_sampler`` of an image model at
     ``len(x)`` (with labels ``y`` when the model is class-conditional)
     against eager calls: log_prob within GRAPH_TOL relative to max(|log
     p|, 1) and bits/dim from it within BPD_TOL, the tempered sampler (and
-    its labels) bitwise; times in turns; a profiled replay of each.
-    Returns {"log_prob": ..., "sample": ...}."""
+    its labels) bitwise; times in turns; a profiled replay of each. With
+    ``bitwise`` the log_prob graph must equal eager bitwise too. Inputs
+    are compiled in ``x``'s dtype. Returns {"log_prob": ..., "sample":
+    ...}."""
     import nf_tpu_torch as nt
     from types import SimpleNamespace
 
@@ -2947,14 +3002,19 @@ def image_graphs(label, model, x, y, per_pass, path):
     ys = (y,) if cc else ()
     batch = x.shape[0]
     out = {}
-    lp_fn = nt.compile_log_prob(model, tuple(x.shape), class_cond=cc)
+    lp_fn = nt.compile_log_prob(model, tuple(x.shape), class_cond=cc,
+                                dtype=x.dtype)
     _expect_launches(lp_fn.launches, per_pass, f"{label} log_prob graph")
 
     def eager_lp():
         with torch.inference_mode():
             return model.log_prob(x, *ys)
 
-    lp_err = rel_model_err(lp_fn(x, *ys), eager_lp())
+    lp_graph, lp_eager = lp_fn(x, *ys), eager_lp()
+    if bitwise and not torch.equal(lp_graph, lp_eager):
+        raise RuntimeError(f"{label} log_prob: the graph is not eager "
+                           f"bitwise ({max_err(lp_graph, lp_eager):.3g})")
+    lp_err = rel_model_err(lp_graph, lp_eager)
     with torch.inference_mode():
         bpd = bits_per_dim(model, x, y)
     bpd_graph = bits_per_dim(SimpleNamespace(log_prob=lp_fn), x, y)
@@ -4364,7 +4424,8 @@ def phase_layers_distributions(dev, flush):
     new distribution, target and prior card against CPU at 65536 and
     sampled on the card; a RealNVP-shaped stack with ``BatchNorm`` and
     ``InvertibleAffine`` card against CPU; and a bfloat16
-    ``build_image_nsf`` raising at kernel A. Returns {path: launches}."""
+    ``build_image_nsf``'s ``log_prob`` through kernel A's bfloat16
+    instantiation. Returns {path: launches}."""
     import nf_tpu_torch as nt
     from nf_tpu_torch import distributions as tdist
     from nf_tpu_torch import flows as tflows
@@ -4491,22 +4552,25 @@ def phase_layers_distributions(dev, flush):
           f"{TRAIN_TOL}); launches {counts['forward']}", flush=True)
     out["BatchNorm stack"] = (counts["forward"], ())
 
-    # a bfloat16 build_image_nsf stops at kernel A
+    # a bfloat16 build_image_nsf runs kernel A's bfloat16 instantiation
+    # (phase 28 drives it at full width)
     img = nt.build_image_nsf(dtype=torch.bfloat16, seed=SEED)
     xi = image_batch(16, SEED + 270, dev)[0].to(torch.bfloat16)
     counts = {}
-    try:
-        _counted(counts, "log_prob", lambda: img.log_prob(xi))
-    except TypeError as e:
-        message = str(e)
-    else:
-        raise RuntimeError("a bfloat16 build_image_nsf ran on the card; "
-                           "kernel A takes only float32")
-    if "kernel A" not in message or "bfloat16" not in message:
-        raise RuntimeError(f"bfloat16 build_image_nsf raised without naming "
-                           f"kernel A: {message}")
-    print(f"phase bf16 build_image_nsf: log_prob raised at kernel A: "
-          f"{message!r}", flush=True)
+    with torch.inference_mode():
+        lp = _counted(counts, "log_prob", lambda: img.log_prob(xi))
+    bf16 = _bf16_counts()
+    if not (bool(torch.isfinite(lp).all())
+            and counts["log_prob"]["rqs_fwd"] == IMG_COUPLINGS
+            and bf16["rqs_fwd"] == IMG_COUPLINGS):
+        raise RuntimeError(f"bfloat16 build_image_nsf log_prob: launches "
+                           f"{counts}, bfloat16 {bf16}, finite "
+                           f"{bool(torch.isfinite(lp).all())}")
+    print(f"phase bf16 build_image_nsf: log_prob of 16 images ran, "
+          f"{bf16['rqs_fwd']} bfloat16 launches of kernel A, mean "
+          f"{float(lp.mean()):.4g}", flush=True)
+    out["bf16 image_nsf log_prob"] = (
+        _with_bf16(counts["log_prob"], bf16), ("rqs_fwd", "rqs_fwd_bf16"))
     print(f"phase timing phase 21 (layers, distributions): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return out
@@ -6231,6 +6295,451 @@ def phase_export(dev, flush, peaks):
     return paths
 
 
+# --- phase 28: the bfloat16 image NSF -------------------------------------
+
+# the bfloat16 bar, the JAX package's mixed-precision one: abs, plus as much
+# relative
+BF16_TOL = 0.05
+# one step's gradients, card against CPU, as a whole (relative L2 of the
+# gradient vector): no per-element bar holds for a bfloat16 image model
+# (tests/test_torch_image_bf16.py measures why on the CPU)
+BF16_GRAD_TOL = 0.3
+# the bfloat16 kernels' rows of the kernels line: name, the float32
+# kernel they instantiate, source, the TPU kernel it replaces
+BF16_KERNELS = (
+    ("rqs_fwd_bf16", "rqs_fwd", "nf_tpu_torch/csrc/rqs_fwd.cu",
+     "nf_tpu/ops/splines_pallas.py:209"),
+    ("rqs_bwd_bf16", "rqs_bwd", "nf_tpu_torch/csrc/rqs_bwd.cu",
+     "nf_tpu/ops/splines_pallas.py:399"),
+    ("rqs_bwd_autodiff_bf16", "rqs_bwd_autodiff",
+     "nf_tpu_torch/csrc/rqs_bwd_autodiff.cu",
+     "nf_tpu/ops/splines_pallas.py:220"))
+
+
+def bf16_ulp_ratio(got, want, grad):
+    """max over elements of |got - want| over one bfloat16 ulp of
+    ``want``, ``2^-7 |want| + 1e-6`` (gradients: ``+ 1e-4 max |want|``, for
+    those that cancel to near 0): at most 1 passes."""
+    g, w = got.float(), want.float()
+    bar = 2.0 ** -7 * w.abs() + 1e-6
+    if grad:
+        bar = bar + 1e-4 * float(w.abs().max())
+    return float(((g - w).abs() / bar).max())
+
+
+def bf16_bar_ratio(got, want):
+    """max over elements of |got - want| over the bfloat16 bar,
+    ``BF16_TOL (1 + |want|)``: at most 1 passes."""
+    g, w = got.double(), want.double()
+    return float(((g - w).abs() / (BF16_TOL * (1 + w.abs()))).max())
+
+
+def _bf16_calls(ops, inverse):
+    """The three bfloat16 kernels and their plain versions on ``ops`` (x,
+    w, h, d, cty, ctl): {name: (kernel call, plain call, gradients?)}."""
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    x, w, h, d, cty, ctl = ops
+    return {"rqs_fwd": (lambda: tk.rqs_fwd(x, w, h, d, 3.0, inverse=inverse),
+                        lambda: tk.rqs_plain(x, w, h, d, 3.0,
+                                             inverse=inverse), False),
+            "rqs_bwd": (lambda: tk.rqs_bwd(x, w, h, d, 3.0, cty, ctl,
+                                           inverse=inverse),
+                        lambda: tk.rqs_bwd_plain(x, w, h, d, 3.0, cty, ctl,
+                                                 inverse=inverse), True),
+            "rqs_bwd_autodiff": (
+                lambda: tk.rqs_bwd_autodiff(x, w, h, d, 3.0, cty, ctl,
+                                            inverse=inverse),
+                lambda: tk.rqs_vjp_plain(x, w, h, d, 3.0, cty, ctl,
+                                         inverse=inverse), True)}
+
+
+def parity_image_kernels_bf16(dev):
+    """Kernels A, C and D in bfloat16 on the image coupling's views at
+    both levels' shapes, B = 256 and 64, and at K = 10 on (64, 12, 8, 8),
+    both directions, logits at N(0, 0.5²) and N(0, 1): each element within
+    one bfloat16 ulp of its plain version (``bf16_ulp_ratio`` <= 1), the
+    views the planes' own storage; and one call of each kernel, captured,
+    is one graph node, a kernel, while its bfloat16 count rises (no cast
+    kernel around it). Returns {kernel: max abs difference from its plain
+    version}."""
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    rng = np.random.default_rng(SEED + 280)
+    worst = {k: 0.0 for k in ("rqs_fwd", "rqs_bwd", "rqs_bwd_autodiff")}
+    abs_err = dict(worst)
+    cases = 0
+    shapes = [(b, ct, side, K_BINS) for b in (IMG_BATCH, IMG_STEP_BATCH)
+              for ct, side in IMG_LEVELS] + [(IMG_STEP_BATCH, 12, 8, 10)]
+    for batch, ct, side, K in shapes:
+        for scale in (0.5, 1.0):
+            ops = [t.to(torch.bfloat16) for t in _image_operands(
+                rng, batch, ct, side, dev, scale, K)]
+            x, w, h, d = ops[:4]
+            views = tk.param_views(x, w, h, d)
+            if not all(v.data_ptr() == t.data_ptr()
+                       and v.shape[1:] == (batch * ct, side * side)
+                       for v, t in zip(views, (w, h, d))):
+                raise RuntimeError(f"bf16 image planes at {tuple(x.shape)}"
+                                   f": param_views are not their views")
+            for inverse in (False, True):
+                for name, (kernel, plain, grad) in _bf16_calls(
+                        ops, inverse).items():
+                    got, want = kernel(), plain()
+                    torch.cuda.synchronize()
+                    if any(t.dtype != torch.bfloat16 for t in got):
+                        raise RuntimeError(f"{name} on bfloat16 operands "
+                                           f"gave {[t.dtype for t in got]}")
+                    worst[name] = max(worst[name], *(
+                        bf16_ulp_ratio(a, b, grad)
+                        for a, b in zip(got, want)))
+                    abs_err[name] = max(abs_err[name], *(
+                        max_err(a.float(), b.float())
+                        for a, b in zip(got, want)))
+                cases += 1
+    launches = {}
+    for name, (kernel, _, _) in _bf16_calls(ops, True).items():
+        before = _bf16_counts()[name]
+        types = graph_node_types(kernel)
+        launches[name] = (types, _bf16_counts()[name] - before)
+        if types != [0] or launches[name][1] != 2:
+            raise RuntimeError(f"{name} on bfloat16 views: a captured call "
+                               f"holds graph nodes of types {types} (0: a "
+                               f"kernel), its warm-up and capture counted "
+                               f"{launches[name][1]} bfloat16 launches; one "
+                               f"bfloat16 kernel and nothing else expected")
+    if not all(v <= 1.0 for v in worst.values()):
+        raise RuntimeError(f"bf16 kernels against their plain versions: "
+                           f"worst |kernel - plain| / one bf16 ulp {worst}"
+                           f" (limit 1)")
+    print(f"phase bf16 image kernels ({cases} cases: B = {IMG_BATCH} and "
+          f"{IMG_STEP_BATCH} at both levels, K = 8, and K = 10 at "
+          f"({IMG_STEP_BATCH}, 12, 8, 8); both directions; logits at "
+          f"N(0, 0.5²) and N(0, 1)): worst |kernel - plain| in bf16 ulps "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + " (limit 1); max abs "
+          + ", ".join(f"{k} {v:.3g}" for k, v in abs_err.items())
+          + "; one captured call of each is one graph node, a kernel, its "
+          "bfloat16 instantiation (no cast around it)", flush=True)
+    return abs_err
+
+
+def timing_image_kernels_bf16(dev, flush, peaks):
+    """Kernels A (at B = 256, C and D at B = 64; level 1, (B*6, 256)
+    views) in bfloat16 and in float32 in turns (f32, bf16, bf16, f32),
+    with the bfloat16 plain version's time and each dtype's bound (bytes
+    at its element size: x, the planes and, for C and D, the cotangents
+    read, the outputs written). Both directions for A, the inverse (the
+    log_prob's and the step's) for C and D. Returns {kernel: {inverse:
+    (bf16 ms, plain ms, bound ms, bound by)}} and prints the float32 times
+    beside."""
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    rng = np.random.default_rng(SEED + 281)
+    ct, side = IMG_LEVELS[0]
+    out, rows = {}, []
+    for name, batch, directions in (("rqs_fwd", IMG_BATCH, (False, True)),
+                                    ("rqs_bwd", IMG_STEP_BATCH, (True,)),
+                                    ("rqs_bwd_autodiff", IMG_STEP_BATCH,
+                                     (True,))):
+        ops32 = _image_operands(rng, batch, ct, side, dev, 1.0)
+        ops16 = [t.to(torch.bfloat16) for t in ops32]
+        out[name] = {}
+        for inverse in directions:
+            k32 = _bf16_calls(ops32, inverse)[name][0]
+            k16, plain16, _ = _bf16_calls(ops16, inverse)[name]
+            t32a = device_ms(k32, flush)
+            t16a = device_ms(k16, flush)
+            t16b = device_ms(k16, flush)
+            t32b = device_ms(k32, flush)
+            plain = device_ms(plain16, flush)
+            n_out = 2 if name == "rqs_fwd" else 3 * K_BINS + 2
+            x, w, h, d = ops16[:4]
+            ops_n = {"rqs_fwd": tk.rqs_ops_per_element,
+                     "rqs_bwd": tk.rqs_bwd_ops_per_element,
+                     "rqs_bwd_autodiff": tk.rqs_vjp_ops_per_element}[name](
+                K_BINS, inverse) * x.numel()
+            cot = 0 if name == "rqs_fwd" else 2 * x.numel()
+            b16 = bound(_spline_bytes(x, (w, h, d), n_out)
+                        + cot * x.element_size(), ops_n, peaks)
+            b32 = bound(_spline_bytes(ops32[0], ops32[1:4], n_out)
+                        + cot * 4, ops_n, peaks)
+            out[name][inverse] = ((t16a + t16b) / 2, plain) + b16
+            rows.append(
+                f"{name} {'inverse' if inverse else 'forward'} x ({batch}, "
+                f"{ct}, {side}, {side}): bf16 kernel_ms {t16a:.4f} / "
+                f"{t16b:.4f}, f32 {t32a:.4f} / {t32b:.4f} (in turns f32, "
+                f"bf16, bf16, f32); bf16 plain_ms {plain:.4f}; bound_ms "
+                f"bf16 {b16[0]:.5f} ({b16[1]}), f32 {b32[0]:.5f} "
+                f"({b32[1]})")
+    print("phase timing bf16 image kernels (device ms after the flush): "
+          + "; ".join(rows), flush=True)
+    return out
+
+
+def _bf16_counts():
+    from nf_tpu_torch.ops import bf16_launch_counts
+
+    return bf16_launch_counts()
+
+
+def _with_bf16(counts, bf16):
+    """A path's counts with the bfloat16 instantiations' under
+    ``<kernel>_bf16``."""
+    return dict(counts, **{f"{k}_bf16": v for k, v in bf16.items()})
+
+
+def _all_bf16(counts, bf16, what):
+    """Fail unless every launch of A, C and D counted in ``counts`` was of
+    its bfloat16 instantiation."""
+    for k, v in bf16.items():
+        if counts[k] != v:
+            raise RuntimeError(f"{what}: {counts[k]} launches of {k}, "
+                               f"{v} of them bfloat16")
+
+
+def _grad_l2(got, want):
+    """Relative L2 distance of the gradient vector ``got`` ({name:
+    gradient}) to ``want``."""
+    diff = sum(float(((got[n].double().cpu() - want[n].double().cpu()) ** 2)
+                     .sum()) for n in want)
+    total = sum(float((want[n].double().cpu() ** 2).sum()) for n in want)
+    return (diff / total) ** 0.5
+
+
+def bf16_image_checks(model, x):
+    """The bfloat16 image NSF at B = len(x), eagerly: ``log_prob`` and
+    bits/dim card against CPU on IMG_CPU_ROWS images, the tempered
+    ``sample`` against the tempered model's ``log_prob``, each at the
+    bfloat16 bar; finite values of the right shapes and dtypes; A's
+    bfloat16 kernel once per coupling per pass. Returns the passes'
+    counts with their bfloat16 ones."""
+    from nf_tpu_torch.utils.eval import bits_per_dim
+
+    batch, rows = x.shape[0], IMG_CPU_ROWS
+    cpu = copy.deepcopy(model).to("cpu")
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 283)
+    counts, bf16 = {}, {}
+
+    def counted(label, fn):  # every count is 0 before fn (_counted)
+        out = _counted(counts, label, fn)
+        bf16[label] = _bf16_counts()
+        _all_bf16(counts[label], bf16[label], f"bf16 image_nsf {label}")
+        return out
+
+    with torch.inference_mode():
+        lp = counted("log_prob", lambda: model.log_prob(x))
+        bpd = bits_per_dim(model, x)
+        z, log_q = counted("sample", lambda: model.sample(
+            batch, generator=gen, temperature=IMG_TEMPERATURE))
+        lp_s = model.set_temperature(IMG_TEMPERATURE).log_prob(z)
+        lp_cpu = cpu.log_prob(x[:rows].cpu())
+        bpd_cpu = bits_per_dim(cpu, x[:rows].cpu())
+    per_pass = {"rqs_fwd": IMG_COUPLINGS}
+    _expect(counts, {"log_prob": per_pass, "sample": per_pass},
+            "bf16 image_nsf serving")
+    for t in (lp, bpd, z, log_q, lp_s):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError("non-finite values on the bf16 image_nsf path")
+    if z.dtype != torch.bfloat16 or z.shape != x.shape \
+            or lp.shape != (batch,):
+        raise RuntimeError(f"bf16 image_nsf: sample {z.dtype} "
+                           f"{tuple(z.shape)}, log_prob {tuple(lp.shape)}")
+    errs = {f"log_prob cuda vs cpu (first {rows})": bf16_bar_ratio(
+                lp[:rows].cpu(), lp_cpu),
+            f"bits/dim cuda vs cpu (first {rows})": bf16_bar_ratio(
+                bpd[:rows].cpu(), bpd_cpu),
+            f"log_prob(sample) vs log_q at T = {IMG_TEMPERATURE}":
+                bf16_bar_ratio(lp_s, log_q)}
+    if not all(v <= 1.0 for v in errs.values()):
+        raise RuntimeError(f"bf16 image_nsf at the bf16 bar ({BF16_TOL} abs "
+                           f"+ {BF16_TOL} relative): {errs} (limit 1)")
+    print(f"phase bf16 image_nsf serving (B = {batch}): launches per pass "
+          f"{counts}, of them bfloat16 {bf16}; bits/dim mean "
+          f"{float(bpd.mean()):.4f}; errors over the bf16 bar "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (limit 1; max |log_prob cuda - cpu| "
+          f"{max_err(lp[:rows].cpu(), lp_cpu):.4g} at |log p| up to "
+          f"{float(lp_cpu.abs().max()):.4g})", flush=True)
+    return {k: counts["log_prob"][k] + counts["sample"][k]
+            for k in counts["log_prob"]}, {
+        k: bf16["log_prob"][k] + bf16["sample"][k] for k in bf16["log_prob"]}
+
+
+def bf16_step_check(model, batch, mode):
+    """One Adam step (lr 1e-3) of ``make_forward_kld_step`` on the
+    bfloat16 model under backward ``mode``: at the full batch its launches
+    (A and C, or D, 8 each, all bfloat16); on IMG_CPU_ROWS rows, card
+    against CPU, the loss at the bf16 bar and the gradients within
+    BF16_GRAD_TOL (relative L2 of the whole vector). Returns (counts,
+    bfloat16 counts, the card's gradients on the rows)."""
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    tk.set_pallas_bwd_kernel(mode)
+    try:
+        # _step_result sets every count to 0 before the step
+        _, _, launches = _step_result(model, batch)
+        bf16 = _bf16_counts()
+        loss, grads, _ = _step_result(model, batch[:IMG_CPU_ROWS])
+    finally:
+        tk.set_pallas_bwd_kernel("analytic")
+    backward = "rqs_bwd" if mode == "analytic" else "rqs_bwd_autodiff"
+    _expect({"step": launches},
+            {"step": {"rqs_fwd": IMG_COUPLINGS, backward: IMG_COUPLINGS}},
+            f"bf16 image_nsf step ({mode})")
+    _all_bf16(launches, bf16, f"bf16 image_nsf step ({mode})")
+    loss_cpu, grads_cpu, _ = _step_result(copy.deepcopy(model).to("cpu"),
+                                          batch[:IMG_CPU_ROWS].cpu())
+    loss_err = bf16_bar_ratio(torch.tensor(loss), torch.tensor(loss_cpu))
+    grad_err = _grad_l2(grads, grads_cpu)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    if not (finite and loss_err <= 1.0 and grad_err <= BF16_GRAD_TOL):
+        raise RuntimeError(f"bf16 image_nsf step ({mode}), card vs CPU: "
+                           f"loss {loss} vs {loss_cpu} ({loss_err:.3g} of "
+                           f"the bar), gradients {grad_err:.3g} relative L2 "
+                           f"(limit {BF16_GRAD_TOL}), finite {finite}")
+    print(f"phase bf16 image_nsf step ({mode}): card vs CPU on "
+          f"{IMG_CPU_ROWS} rows: loss {loss:.4f} vs {loss_cpu:.4f} "
+          f"({loss_err:.3g} of the bf16 bar), gradients {grad_err:.3g} "
+          f"relative L2 (limit {BF16_GRAD_TOL}); launches per step at "
+          f"B = {len(batch)} {launches}, of them bfloat16 {bf16}",
+          flush=True)
+    return launches, bf16, grads
+
+
+def _launching_bf16(compile_fn, what):
+    """Run ``compile_fn()`` (a graph's capture against eager calls) with
+    every count at 0 before it, and fail unless every port kernel launch
+    it made (warm-up calls, capture, eager calls) was bfloat16; returns
+    its result."""
+    reset_counts()
+    out = compile_fn()
+    _all_bf16(read_counts(), _bf16_counts(), what)
+    return out
+
+
+def _replay_kernels_bf16(report, what):
+    """Fail unless every port kernel in a profiled replay is a bfloat16
+    instantiation; returns the count of the replay's copy kernels."""
+    for name, _ in report["top"]:
+        if kernel_of(name) is not None and "bfloat16" not in name:
+            raise RuntimeError(f"{what}: a replay launched {name[:80]}, a "
+                               f"port kernel that is not bfloat16")
+    return sum(c for n, (_, c) in report["top"] if "copy" in n.lower())
+
+
+def bf16_turns(label, f32_fn, bf16_fn):
+    """``in_turns`` of the float32 and the bfloat16 call: f32, bf16, bf16,
+    f32."""
+    (a, d), (b, c) = in_turns(f32_fn, bf16_fn)
+    print(f"phase timing bf16 vs f32 image_nsf {label}: wall ms per call "
+          f"(median of 10, in turns f32, bf16, bf16, f32): f32 {a:.3f} / "
+          f"{d:.3f}, bf16 {b:.3f} / {c:.3f}", flush=True)
+
+
+def phase_image_nsf_bf16(dev, flush, peaks):
+    """Phase 28: ``build_image_nsf(dtype=torch.bfloat16)`` at its defaults
+    (3 x 32 x 32, L 2, K 4, hidden 64, 8 bins, linear tails, tail bound 3),
+    seed 0, perturbed by IMG_PERTURB, its ActNorms set in bfloat16 by
+    ``init_from_data`` on ``procedural_image_classes(0, 256)``: kernels A,
+    C and D in bfloat16 against their plain versions and timed in turns
+    with float32; serving at B = 256 and the forward-KLD step at B = 64
+    (Adam 1e-3), under "analytic" (A, C) and "autodiff" (A, D), eagerly
+    card against CPU; then ``compile_log_prob``, ``compile_sampler``
+    (T = 0.7) and the captured step as graphs against eager (log_prob and
+    sampler bitwise), each launching only bfloat16 port kernels, and
+    timed in turns with the float32 model's graphs. Returns ({path:
+    (counts with their ``<kernel>_bf16``, kernels it must launch)},
+    {kernel: (max abs err, {inverse: timing})})."""
+    import nf_tpu_torch as nt
+
+    t0 = time.perf_counter()
+    abs_err = parity_image_kernels_bf16(dev)
+    times = timing_image_kernels_bf16(dev, flush, peaks)
+    x, _ = image_batch(IMG_BATCH, SEED, dev)
+    x16 = x.to(torch.bfloat16)
+    model = nt.build_image_nsf(seed=SEED, dtype=torch.bfloat16)
+    perturb(model, SEED + 84, size=IMG_PERTURB)
+    model.init_from_data(x16)
+    dtypes = {str(p.dtype) for n, p in model.named_parameters()
+              if not n.startswith("q0.")}
+    if dtypes != {"torch.bfloat16"}:
+        raise RuntimeError(f"bf16 image_nsf layers hold {dtypes}")
+    paths = {}
+    need16 = ("rqs_fwd", "rqs_fwd_bf16")
+    counts, bf16 = bf16_image_checks(model, x16)
+    paths["bf16 image_nsf serving"] = (_with_bf16(counts, bf16), need16)
+    xs = [image_batch(IMG_STEP_BATCH, SEED + 1 + i, dev)[0].to(torch.bfloat16)
+          for i in range(GRAPH_STEPS + 30)]
+    for mode, need in (("analytic", ("rqs_bwd", "rqs_bwd_bf16")),
+                       ("autodiff", ("rqs_bwd_autodiff",
+                                     "rqs_bwd_autodiff_bf16"))):
+        counts, bf16, _ = bf16_step_check(model, xs[0], mode)
+        paths[f"bf16 image_nsf step ({mode})"] = (_with_bf16(counts, bf16),
+                                                  need16 + need)
+    # graphs, against eager and in turns with the float32 model's
+    served = _launching_bf16(lambda: image_graphs(
+        "bf16 image_nsf", model, x16, None, {"rqs_fwd": IMG_COUPLINGS},
+        "image_nsf serving", bitwise=True), "bf16 image_nsf serving graphs")
+    copies = {k: _replay_kernels_bf16(v["report"], f"bf16 {k} graph")
+              for k, v in served.items()}
+    counts = _captured_counts(served)
+    paths["graphs: bf16 image_nsf serving"] = (
+        _with_bf16(counts, {"rqs_fwd": counts.get("rqs_fwd", 0),
+                            "rqs_bwd": 0, "rqs_bwd_autodiff": 0}), need16)
+    for mode, path in (("analytic", "image_nsf step"),
+                       ("autodiff", "image_nsf step (autodiff)")):
+        st = _launching_bf16(lambda: step_graphs(
+            f"bf16 image_nsf forward-KLD step ({mode}, B = "
+            f"{IMG_STEP_BATCH})", model, nt.make_forward_kld_step,
+            lambda i, which: (xs[i % len(xs)],), path, dict(lr=IMG_LR),
+            mode=mode), f"bf16 image_nsf step graph ({mode})")
+        copies[f"step ({mode})"] = _replay_kernels_bf16(
+            st["report"], f"bf16 step graph ({mode})")
+        bwd = "rqs_bwd" if mode == "analytic" else "rqs_bwd_autodiff"
+        _expect_launches(st["launches"], {"rqs_fwd": IMG_COUPLINGS,
+                                          bwd: IMG_COUPLINGS},
+                         f"bf16 image_nsf step graph ({mode})")
+        l16 = {k: st["launches"].get(k, 0)
+               for k in ("rqs_fwd", "rqs_bwd", "rqs_bwd_autodiff")}
+        paths[f"graphs: bf16 image_nsf step ({mode})"] = (
+            _with_bf16(st["launches"], l16), need16 + (bwd, bwd + "_bf16"))
+    print(f"phase bf16 image_nsf graphs: copy kernels per profiled replay "
+          f"{copies}", flush=True)
+    # the float32 model of phase 15 in turns
+    m32 = nt.build_image_nsf(seed=SEED)
+    perturb(m32, SEED + 84, size=IMG_PERTURB)
+    m32.init_from_data(x)
+    lp32 = nt.compile_log_prob(m32, tuple(x.shape))
+    lp16 = nt.compile_log_prob(model, tuple(x16.shape), dtype=torch.bfloat16)
+    bf16_turns(f"compile_log_prob (B = {IMG_BATCH})", lambda: lp32(x),
+               lambda: lp16(x16))
+    s32 = nt.compile_sampler(m32, IMG_BATCH, temperature=IMG_TEMPERATURE)
+    s16 = nt.compile_sampler(model, IMG_BATCH, temperature=IMG_TEMPERATURE)
+    bf16_turns(f"compile_sampler (B = {IMG_BATCH}, T = {IMG_TEMPERATURE})",
+               lambda: s32(SEED), lambda: s16(SEED))
+    xs32 = [t.float() for t in xs[:4]]
+    step_fns = []
+    for m, batches in ((m32, xs32), (model, xs[:4])):
+        mm = copy.deepcopy(m)
+        opt = torch.optim.Adam(mm.parameters(), lr=IMG_LR, capturable=True)
+        state = nt.init_train_state(mm, opt)
+        step = nt.make_forward_kld_step(opt)
+        i = [0]
+
+        def call(step=step, state=state, batches=batches, i=i):
+            i[0] += 1
+            return step(state, batches[i[0] % len(batches)])
+        step_fns.append(call)
+    bf16_turns(f"captured forward-KLD step (B = {IMG_STEP_BATCH})",
+               *step_fns)
+    print(f"phase timing phase 28 (bf16 image_nsf): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rows = {name: (abs_err[base], times[base])
+            for name, base, _, _ in BF16_KERNELS}
+    return paths, rows
+
+
 def dispatch_turns(parent):
     """``python3 chip_smoke.py --dispatch-turns PARENT``: the eager
     ``build_nsf`` ``log_prob`` and forward-KLD step at B = 65536 of the
@@ -6378,6 +6887,14 @@ def main():
     paths.update(phase_glow(dev, flush))
     print(f"phase timing phases 15-16 (image_nsf, glow): "
           f"{time.perf_counter() - t_new:.1f} s", flush=True)
+    # phase 28, the bfloat16 image NSF, beside the float32 one
+    bf16_paths, bf16_rows = phase_image_nsf_bf16(dev, flush, peaks)
+    paths.update(bf16_paths)
+    for name, _, source, replaces in BF16_KERNELS:
+        err, t = bf16_rows[name]
+        # the inverse direction: the log_prob's and the step's
+        results[name] = dict(err=err, t=t[True], source=source,
+                             replaces=replaces)
     cc_paths, _ = phase_circular_coupled(dev, flush, peaks)
     paths.update(cc_paths)
     paths.update(phase_residual(dev, flush))
@@ -6411,7 +6928,7 @@ def main():
         kernels.append({
             "name": label, "route": "cuda", "source": r["source"],
             "replaces": r["replaces"],
-            "launches": sum(c[label] for c, _ in paths.values()),
+            "launches": sum(c.get(label, 0) for c, _ in paths.values()),
             "max_abs_err": r["err"], "ms": ms, "plain_ms": plain,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     print(f"phase total: {time.perf_counter() - t_start:.1f} s wall, the "

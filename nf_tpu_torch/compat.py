@@ -160,10 +160,10 @@ def _held_prefixes(model):
     return tuple(_reference_names(model, own).values())
 
 
-def load_reference_state_dict(model, state_dict):
+def load_reference_state_dict(model, state_dict, strict=True):
     """Copy ``state_dict`` into ``model`` in place and return ``model``.
-    Raises ``KeyError`` on missing or unused keys and ``ValueError`` on a
-    shape mismatch."""
+    Raises ``KeyError`` on missing keys, and on unused ones unless
+    ``strict`` is False, and ``ValueError`` on a shape mismatch."""
     own = model.state_dict()
     names = _reference_names(model, own)
     missing = sorted(set(names.values()) - set(state_dict))
@@ -171,7 +171,7 @@ def load_reference_state_dict(model, state_dict):
     unused = sorted(k for k in set(state_dict) - set(names.values())
                     - _bookkeeping_names(model)
                     if not (held and k.startswith(held)))
-    if missing or unused:
+    if missing or (strict and unused):
         raise KeyError(f"state dict does not match the model: missing "
                        f"{missing[:10]}, unused {unused[:10]}")
     heads = {(f"{name}." if name else "") + "final_layer.":
@@ -194,3 +194,34 @@ def load_reference_state_dict(model, state_dict):
     # degrees follows the loaded buffer
     model.load_state_dict(converted)
     return model
+
+
+def import_state_dict(model, state_dict, strict=True):
+    """The JAX package's name for :func:`load_reference_state_dict`
+    (``nf_tpu/compat.py:730``): load a reference ``state_dict`` into the
+    architecturally matching ``model``. ``strict=True`` raises if a key
+    goes unused (a structural mismatch), ``strict=False`` ignores such
+    keys; a missing key always raises. The port loads in place and
+    returns ``model``."""
+    return load_reference_state_dict(model, state_dict, strict=strict)
+
+
+def save_state_dict_npz(state_dict, path):
+    """Write a state dict (tensors or arrays) to ``.npz``
+    (``nf_tpu/compat.py:712``), which the JAX package's
+    ``load_state_dict_npz`` reads as well."""
+    arrays = {}
+    for k, v in state_dict.items():
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu()
+            v = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+        arrays[k] = np.asarray(v)
+    np.savez(path, **arrays)
+
+
+def load_state_dict_npz(path):
+    """The ``{name: array}`` mapping an ``.npz`` of
+    :func:`save_state_dict_npz` (or of the JAX package's) holds
+    (``nf_tpu/compat.py:723``), for :func:`import_state_dict`."""
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}

@@ -286,6 +286,14 @@ class MultiscaleFlow(nn.Module):
     def _level(self, i):
         return open_scanned(self.flows[i])
 
+    def _level_dtype(self, i, like):
+        """The dtype of level i's layers (their first floating-point
+        parameter), or ``like``'s where they have none."""
+        for p in self.flows[i].parameters():
+            if p.is_floating_point():
+                return p.dtype
+        return like.dtype
+
     def forward_kld(self, x, y=None):
         """(reference ``core.py:480``)"""
         return -torch.mean(self.log_prob(x, y))
@@ -333,7 +341,9 @@ class MultiscaleFlow(nn.Module):
         given (reference ``core.py:553-586``). A class-conditional model
         without ``y`` draws one label per sample from ``generator`` and
         gives it to every level, as the JAX package does (the reference
-        draws one per level, mixing classes across scales)."""
+        draws one per level, mixing classes across scales). The bases draw
+        in float32; each level's draws enter its layers in their dtype
+        (bfloat16 layers: bfloat16 draws), and log q stays float32."""
         model = (self.set_temperature(temperature)
                  if temperature is not None else self)
         if model.class_cond and y is None:
@@ -347,6 +357,7 @@ class MultiscaleFlow(nn.Module):
                                                  y=y)
             else:
                 z_, log_q_ = model.q0[i].forward(num_samples, generator)
+            z_ = z_.to(model._level_dtype(i, z_))
             if i == 0:
                 z, log_q = z_, log_q_
             else:

@@ -10,7 +10,9 @@
 // recomputes the forward in registers, so the residuals are the inputs
 // alone (as the JAX custom VJP saves them).
 //
-// * Per element (any strides; rqs_bwd_launch): one thread per element,
+// * Per element (any strides; rqs_bwd_launch, and rqs_bwd_launch_bf16 for
+//   bfloat16 operands and outputs with float32 math inside, half the
+//   bytes): one thread per element,
 //   the launch, strides and output layout of rqs_bwd_kernel.cuh, shared
 //   with kernel D. Per element it reads x, cty, ctl and the parameter
 //   planes, and writes gx and 3K+1 planes: (3K+5) * 4 bytes, 116 at
@@ -75,6 +77,24 @@ extern "C" int rqs_bwd_launch(const float* x, const float* uw,
                               float min_bin_width, float min_bin_height,
                               float min_derivative, float* gx, float* gw,
                               float* gh, float* gd, void* stream) {
+  return nf::rqs_bwd_dispatch<AnalyticMath>(
+      x, uw, uh, ud, tb, cty, ctl, tb_scalar, strides, rows, cols, num_bins,
+      inverse, min_bin_width, min_bin_height, min_derivative, gx, gw, gh, gd,
+      stream);
+}
+
+// The per-element path for bfloat16 operands, cotangents and outputs
+// (float32 math inside). The shared-parameter path below is float32 only:
+// no build_* model reaches it in bfloat16, and splines_kernel raises for
+// it.
+extern "C" int rqs_bwd_launch_bf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* uw, const __nv_bfloat16* uh,
+    const __nv_bfloat16* ud, const __nv_bfloat16* tb,
+    const __nv_bfloat16* cty, const __nv_bfloat16* ctl, float tb_scalar,
+    const long long* strides, long long rows, long long cols, int num_bins,
+    int inverse, float min_bin_width, float min_bin_height,
+    float min_derivative, __nv_bfloat16* gx, __nv_bfloat16* gw,
+    __nv_bfloat16* gh, __nv_bfloat16* gd, void* stream) {
   return nf::rqs_bwd_dispatch<AnalyticMath>(
       x, uw, uh, ud, tb, cty, ctl, tb_scalar, strides, rows, cols, num_bins,
       inverse, min_bin_width, min_bin_height, min_derivative, gx, gw, gh, gd,

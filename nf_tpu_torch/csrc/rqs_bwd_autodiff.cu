@@ -59,3 +59,20 @@ extern "C" int rqs_bwd_autodiff_launch(
       inverse, min_bin_width, min_bin_height, min_derivative, gx, gw, gh, gd,
       stream);
 }
+
+// The same for bfloat16 operands, cotangents and outputs: the float32
+// adjoint (its tie rule at x = +-tail_bound included) on the widened
+// inputs, each gradient rounded once on store.
+extern "C" int rqs_bwd_autodiff_launch_bf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* uw, const __nv_bfloat16* uh,
+    const __nv_bfloat16* ud, const __nv_bfloat16* tb,
+    const __nv_bfloat16* cty, const __nv_bfloat16* ctl, float tb_scalar,
+    const long long* strides, long long rows, long long cols, int num_bins,
+    int inverse, float min_bin_width, float min_bin_height,
+    float min_derivative, __nv_bfloat16* gx, __nv_bfloat16* gw,
+    __nv_bfloat16* gh, __nv_bfloat16* gd, void* stream) {
+  return nf::rqs_bwd_dispatch<AutodiffMath>(
+      x, uw, uh, ud, tb, cty, ctl, tb_scalar, strides, rows, cols, num_bins,
+      inverse, min_bin_width, min_bin_height, min_derivative, gx, gw, gh, gd,
+      stream);
+}

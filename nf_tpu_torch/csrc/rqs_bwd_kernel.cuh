@@ -16,11 +16,19 @@
 // _RQSFunction), as XLA sums the transpose of the JAX package's broadcast;
 // the unconditional CDF's case, where every row shares the parameters, has
 // a path of its own in kernel C that sums inside the kernel (rqs_bwd.cu).
-// The stores of a warp cover 32 consecutive floats of each plane, so they
-// coalesce into full 128-byte lines.
+// The stores of a warp cover 32 consecutive elements of each plane, so
+// they coalesce into full lines (128 bytes in float32, 64 in bfloat16).
+//
+// The kernel is a template on the storage type T of every operand and
+// output, float or __nv_bfloat16: a bfloat16 element is widened on load,
+// the math is the float32 policy's, and each result is rounded once on
+// store (rqs_math.cuh's to_f32 / from_f32), so the bfloat16 launch reads
+// and writes 2 bytes per element.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "rqs_math.cuh"
 
 namespace nf {
 
@@ -47,19 +55,19 @@ inline BwdStrides bwd_strides(const long long* p) {
 // in one wave, where 128 blocks of 256 threads reach 128 of them
 constexpr int kBwdThreads = 128;
 
-template <class Math, int K, bool INVERSE>
-__global__ void rqs_bwd_kernel(const float* __restrict__ x,
-                               const float* __restrict__ uw,
-                               const float* __restrict__ uh,
-                               const float* __restrict__ ud,
-                               const float* __restrict__ tb, float tb_scalar,
-                               const float* __restrict__ cty,
-                               const float* __restrict__ ctl, BwdStrides s,
+template <class Math, class T, int K, bool INVERSE>
+__global__ void rqs_bwd_kernel(const T* __restrict__ x,
+                               const T* __restrict__ uw,
+                               const T* __restrict__ uh,
+                               const T* __restrict__ ud,
+                               const T* __restrict__ tb, float tb_scalar,
+                               const T* __restrict__ cty,
+                               const T* __restrict__ ctl, BwdStrides s,
                                long long rows, long long cols,
                                float min_bin_width, float min_bin_height,
-                               float min_derivative, float* __restrict__ gx,
-                               float* __restrict__ gw, float* __restrict__ gh,
-                               float* __restrict__ gd) {
+                               float min_derivative, T* __restrict__ gx,
+                               T* __restrict__ gw, T* __restrict__ gh,
+                               T* __restrict__ gd) {
   const long long n = rows * cols;
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -73,41 +81,40 @@ __global__ void rqs_bwd_kernel(const float* __restrict__ x,
   const long long od = r * s.d[1] + c * s.d[2];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    w[k] = uw[ow + k * s.w[0]];
-    h[k] = uh[oh + k * s.h[0]];
+    w[k] = to_f32(uw[ow + k * s.w[0]]);
+    h[k] = to_f32(uh[oh + k * s.h[0]]);
   }
 #pragma unroll
-  for (int k = 0; k < K + 1; ++k) d[k] = ud[od + k * s.d[0]];
-  const float t = tb ? tb[r * s.tb[0] + c * s.tb[1]] : tb_scalar;
-  const float xv = x[r * s.x[0] + c * s.x[1]];
-  const float cy = cty[r * s.cty[0] + c * s.cty[1]];
-  const float cl = ctl[r * s.ctl[0] + c * s.ctl[1]];
+  for (int k = 0; k < K + 1; ++k) d[k] = to_f32(ud[od + k * s.d[0]]);
+  const float t = tb ? to_f32(tb[r * s.tb[0] + c * s.tb[1]]) : tb_scalar;
+  const float xv = to_f32(x[r * s.x[0] + c * s.x[1]]);
+  const float cy = to_f32(cty[r * s.cty[0] + c * s.cty[1]]);
+  const float cl = to_f32(ctl[r * s.ctl[0] + c * s.ctl[1]]);
 
   float gxv, gwv[K], ghv[K], gdv[K + 1];
   Math::template apply<K, INVERSE>(xv, t, w, h, d, cy, cl, min_bin_width,
                                    min_bin_height, min_derivative, gxv, gwv,
                                    ghv, gdv);
-  gx[i] = gxv;
+  gx[i] = from_f32<T>(gxv);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    gw[k * n + i] = gwv[k];
-    gh[k * n + i] = ghv[k];
+    gw[k * n + i] = from_f32<T>(gwv[k]);
+    gh[k * n + i] = from_f32<T>(ghv[k]);
   }
 #pragma unroll
-  for (int k = 0; k < K + 1; ++k) gd[k * n + i] = gdv[k];
+  for (int k = 0; k < K + 1; ++k) gd[k * n + i] = from_f32<T>(gdv[k]);
 }
 
-template <class Math, int K, bool INVERSE>
-void rqs_bwd_launch_k(const float* x, const float* uw, const float* uh,
-                      const float* ud, const float* tb, float tb_scalar,
-                      const float* cty, const float* ctl,
-                      const BwdStrides& s, long long rows, long long cols,
-                      float mbw, float mbh, float md, float* gx, float* gw,
-                      float* gh, float* gd, cudaStream_t stream) {
+template <class Math, class T, int K, bool INVERSE>
+void rqs_bwd_launch_k(const T* x, const T* uw, const T* uh, const T* ud,
+                      const T* tb, float tb_scalar, const T* cty,
+                      const T* ctl, const BwdStrides& s, long long rows,
+                      long long cols, float mbw, float mbh, float md, T* gx,
+                      T* gw, T* gh, T* gd, cudaStream_t stream) {
   const long long n = rows * cols;
   const unsigned blocks =
       static_cast<unsigned>((n + kBwdThreads - 1) / kBwdThreads);
-  rqs_bwd_kernel<Math, K, INVERSE><<<blocks, kBwdThreads, 0, stream>>>(
+  rqs_bwd_kernel<Math, T, K, INVERSE><<<blocks, kBwdThreads, 0, stream>>>(
       x, uw, uh, ud, tb, tb_scalar, cty, ctl, s, rows, cols, mbw, mbh, md,
       gx, gw, gh, gd);
 }
@@ -116,30 +123,28 @@ void rqs_bwd_launch_k(const float* x, const float* uw, const float* uh,
 // w(3), h(3), d(3), tb(2), cty(2), ctl(2). gx (rows, cols), gw and gh
 // (K, rows, cols), gd (K+1, rows, cols) are contiguous. Returns
 // cudaGetLastError() after the launch; -1 for a bin count that has no
-// instantiation.
-template <class Math>
-int rqs_bwd_dispatch(const float* x, const float* uw, const float* uh,
-                     const float* ud, const float* tb, const float* cty,
-                     const float* ctl, float tb_scalar,
+// instantiation. T is the storage type of every tensor (float or
+// __nv_bfloat16).
+template <class Math, class T>
+int rqs_bwd_dispatch(const T* x, const T* uw, const T* uh, const T* ud,
+                     const T* tb, const T* cty, const T* ctl, float tb_scalar,
                      const long long* strides, long long rows, long long cols,
                      int num_bins, int inverse, float min_bin_width,
-                     float min_bin_height, float min_derivative, float* gx,
-                     float* gw, float* gh, float* gd, void* stream) {
+                     float min_bin_height, float min_derivative, T* gx, T* gw,
+                     T* gh, T* gd, void* stream) {
   const BwdStrides s = bwd_strides(strides);
   if (rows * cols == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NF_RQS_BWD_CASE(KK)                                                  \
   case KK:                                                                   \
     if (inverse)                                                             \
-      rqs_bwd_launch_k<Math, KK, true>(x, uw, uh, ud, tb, tb_scalar, cty,    \
-                                       ctl, s, rows, cols, min_bin_width,    \
-                                       min_bin_height, min_derivative, gx,   \
-                                       gw, gh, gd, st);                      \
+      rqs_bwd_launch_k<Math, T, KK, true>(                                  \
+          x, uw, uh, ud, tb, tb_scalar, cty, ctl, s, rows, cols,             \
+          min_bin_width, min_bin_height, min_derivative, gx, gw, gh, gd, st); \
     else                                                                     \
-      rqs_bwd_launch_k<Math, KK, false>(x, uw, uh, ud, tb, tb_scalar, cty,   \
-                                        ctl, s, rows, cols, min_bin_width,   \
-                                        min_bin_height, min_derivative, gx,  \
-                                        gw, gh, gd, st);                     \
+      rqs_bwd_launch_k<Math, T, KK, false>(                                 \
+          x, uw, uh, ud, tb, tb_scalar, cty, ctl, s, rows, cols,             \
+          min_bin_width, min_bin_height, min_derivative, gx, gw, gh, gd, st); \
     break;
   switch (num_bins) {
     NF_RQS_BWD_CASE(4)

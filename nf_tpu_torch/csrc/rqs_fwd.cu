@@ -38,6 +38,15 @@
 //     computes the same functions in the same order, so both paths give
 //     the same bits. Each element's x and tail bound are loaded before
 //     the prologue, so their latency overlaps the prologue's.
+//
+// Both paths are templates on the storage type T of every operand and
+// output: float (rqs_fwd_launch) or __nv_bfloat16 (rqs_fwd_launch_bf16,
+// the bfloat16 image NSF's). A bfloat16 element is read as 2 bytes,
+// widened, run through the same float32 math and rounded once on store
+// (rqs_math.cuh), so the bfloat16 kernel moves half the float32 one's
+// bytes and computes the float32 function of its widened inputs. The loads
+// are scalar, one element per thread per plane, so a row that starts at an
+// odd element (a (B*C, H*W) view) needs no alignment.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -57,16 +66,16 @@ struct Strides {
   long long x[2], w[3], h[3], d[3], tb[2];
 };
 
-template <int K, bool INVERSE>
-__global__ void rqs_fwd_kernel(const float* __restrict__ x,
-                               const float* __restrict__ uw,
-                               const float* __restrict__ uh,
-                               const float* __restrict__ ud,
-                               const float* __restrict__ tb, float tb_scalar,
+template <class T, int K, bool INVERSE>
+__global__ void rqs_fwd_kernel(const T* __restrict__ x,
+                               const T* __restrict__ uw,
+                               const T* __restrict__ uh,
+                               const T* __restrict__ ud,
+                               const T* __restrict__ tb, float tb_scalar,
                                Strides s, long long rows, long long cols,
                                float min_bin_width, float min_bin_height,
-                               float min_derivative, float* __restrict__ y,
-                               float* __restrict__ ld) {
+                               float min_derivative, T* __restrict__ y,
+                               T* __restrict__ ld) {
   const long long i =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= rows * cols) return;
@@ -79,29 +88,29 @@ __global__ void rqs_fwd_kernel(const float* __restrict__ x,
   const long long od = r * s.d[1] + c * s.d[2];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    w[k] = uw[ow + k * s.w[0]];
-    h[k] = uh[oh + k * s.h[0]];
+    w[k] = nf::to_f32(uw[ow + k * s.w[0]]);
+    h[k] = nf::to_f32(uh[oh + k * s.h[0]]);
   }
 #pragma unroll
-  for (int k = 0; k < K + 1; ++k) d[k] = ud[od + k * s.d[0]];
-  const float t = tb ? tb[r * s.tb[0] + c * s.tb[1]] : tb_scalar;
-  const float xv = x[r * s.x[0] + c * s.x[1]];
+  for (int k = 0; k < K + 1; ++k) d[k] = nf::to_f32(ud[od + k * s.d[0]]);
+  const float t =
+      tb ? nf::to_f32(tb[r * s.tb[0] + c * s.tb[1]]) : tb_scalar;
+  const float xv = nf::to_f32(x[r * s.x[0] + c * s.x[1]]);
 
   float yv, lv;
   nf::rqs_element<K, INVERSE>(xv, t, w, h, d, min_bin_width, min_bin_height,
                               min_derivative, yv, lv);
-  y[i] = yv;
-  ld[i] = lv;
+  y[i] = nf::from_f32<T>(yv);
+  ld[i] = nf::from_f32<T>(lv);
 }
 
-template <int K, bool INVERSE>
+template <class T, int K, bool INVERSE>
 __global__ void __launch_bounds__(kThreads) rqs_fwd_shared_kernel(
-    const float* __restrict__ x, const float* __restrict__ uw,
-    const float* __restrict__ uh, const float* __restrict__ ud,
-    const float* __restrict__ tb, float tb_scalar, Strides s,
-    long long rows, long long cols, float min_bin_width,
-    float min_bin_height, float min_derivative, float* __restrict__ y,
-    float* __restrict__ ld) {
+    const T* __restrict__ x, const T* __restrict__ uw,
+    const T* __restrict__ uh, const T* __restrict__ ud,
+    const T* __restrict__ tb, float tb_scalar, Strides s, long long rows,
+    long long cols, float min_bin_width, float min_bin_height,
+    float min_derivative, T* __restrict__ y, T* __restrict__ ld) {
   // per column: each bin's left knots (cw, ch) and sizes (w, h), and the
   // derivatives at the K + 1 knots
   __shared__ float s_cw[kMaxSharedCols][K], s_w[kMaxSharedCols][K],
@@ -113,8 +122,10 @@ __global__ void __launch_bounds__(kThreads) rqs_fwd_shared_kernel(
   const bool active = i < rows * cols;
   const long long r = i / cols;
   const int c = static_cast<int>(i - r * cols);
-  auto tail = [&](int cc) { return tb ? tb[cc * s.tb[1]] : tb_scalar; };
-  const float xv = active ? x[r * s.x[0] + c * s.x[1]] : 0.0f;
+  auto tail = [&](int cc) {
+    return tb ? nf::to_f32(tb[cc * s.tb[1]]) : tb_scalar;
+  };
+  const float xv = active ? nf::to_f32(x[r * s.x[0] + c * s.x[1]]) : 0.0f;
   const float t = active ? tail(c) : 0.0f;
 
   // the column tables: warp 0 the widths, warp 1 the heights (a column per
@@ -125,11 +136,11 @@ __global__ void __launch_bounds__(kThreads) rqs_fwd_shared_kernel(
   if (warp < 2) {
     const bool wid = warp == 0;
     for (int cc = threadIdx.x & 31; cc < ncols; cc += 32) {
-      const float* u = wid ? uw + cc * s.w[2] : uh + cc * s.h[2];
+      const T* u = wid ? uw + cc * s.w[2] : uh + cc * s.h[2];
       const long long bin_stride = wid ? s.w[0] : s.h[0];
       float logits[K], sizes[K], cum[K + 1];
 #pragma unroll
-      for (int k = 0; k < K; ++k) logits[k] = u[k * bin_stride];
+      for (int k = 0; k < K; ++k) logits[k] = nf::to_f32(u[k * bin_stride]);
       nf::normalized_sizes<K>(logits, wid ? min_bin_width : min_bin_height,
                               sizes);
       nf::knots<K>(sizes, tail(cc), cum);
@@ -145,8 +156,8 @@ __global__ void __launch_bounds__(kThreads) rqs_fwd_shared_kernel(
     for (int e = threadIdx.x - 64; e < ncols * (K + 1); e += kThreads - 64) {
       const int cc = e / (K + 1);
       const int k = e - cc * (K + 1);
-      s_d[cc][k] =
-          min_derivative + nf::softplus(ud[cc * s.d[2] + k * s.d[0]]);
+      s_d[cc][k] = min_derivative +
+                   nf::softplus(nf::to_f32(ud[cc * s.d[2] + k * s.d[0]]));
     }
   }
   __syncthreads();
@@ -160,23 +171,61 @@ __global__ void __launch_bounds__(kThreads) rqs_fwd_shared_kernel(
   float yv, lv;
   nf::rqs_map<INVERSE>(xv, t, xin, s_cw[c][bin], s_w[c][bin], s_ch[c][bin],
                        s_h[c][bin], s_d[c][bin], s_d[c][bin + 1], yv, lv);
-  y[i] = yv;
-  ld[i] = lv;
+  y[i] = nf::from_f32<T>(yv);
+  ld[i] = nf::from_f32<T>(lv);
 }
 
-template <int K, bool INVERSE>
-void launch(const float* x, const float* uw, const float* uh, const float* ud,
-            const float* tb, float tb_scalar, const Strides& s,
-            long long rows, long long cols, float mbw, float mbh, float md,
-            float* y, float* ld, cudaStream_t stream) {
+template <class T, int K, bool INVERSE>
+void launch(const T* x, const T* uw, const T* uh, const T* ud, const T* tb,
+            float tb_scalar, const Strides& s, long long rows,
+            long long cols, float mbw, float mbh, float md, T* y, T* ld,
+            cudaStream_t stream) {
   const long long n = rows * cols;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   const bool shared = cols <= kMaxSharedCols && s.w[1] == 0 &&
                       s.h[1] == 0 && s.d[1] == 0 && (!tb || s.tb[0] == 0);
-  auto kernel = shared ? rqs_fwd_shared_kernel<K, INVERSE>
-                       : rqs_fwd_kernel<K, INVERSE>;
+  auto kernel = shared ? rqs_fwd_shared_kernel<T, K, INVERSE>
+                       : rqs_fwd_kernel<T, K, INVERSE>;
   kernel<<<blocks, kThreads, 0, stream>>>(x, uw, uh, ud, tb, tb_scalar, s,
                                           rows, cols, mbw, mbh, md, y, ld);
+}
+
+// The body of both C entry points: see rqs_fwd_launch.
+template <class T>
+int dispatch(const T* x, const T* uw, const T* uh, const T* ud, const T* tb,
+             float tb_scalar, const long long* strides, long long rows,
+             long long cols, int num_bins, int inverse, float min_bin_width,
+             float min_bin_height, float min_derivative, T* y, T* ld,
+             void* stream) {
+  Strides s;
+  const long long* p = strides;
+  for (int j = 0; j < 2; ++j) s.x[j] = *p++;
+  for (int j = 0; j < 3; ++j) s.w[j] = *p++;
+  for (int j = 0; j < 3; ++j) s.h[j] = *p++;
+  for (int j = 0; j < 3; ++j) s.d[j] = *p++;
+  for (int j = 0; j < 2; ++j) s.tb[j] = *p++;
+  if (rows * cols == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NF_RQS_CASE(KK)                                                     \
+  case KK:                                                                  \
+    if (inverse)                                                            \
+      launch<T, KK, true>(x, uw, uh, ud, tb, tb_scalar, s, rows, cols,      \
+                          min_bin_width, min_bin_height, min_derivative, y, \
+                          ld, st);                                          \
+    else                                                                    \
+      launch<T, KK, false>(x, uw, uh, ud, tb, tb_scalar, s, rows, cols,     \
+                           min_bin_width, min_bin_height, min_derivative,   \
+                           y, ld, st);                                      \
+    break;
+  switch (num_bins) {
+    NF_RQS_CASE(4)
+    NF_RQS_CASE(8)
+    NF_RQS_CASE(10)
+    default:
+      return -1;
+  }
+#undef NF_RQS_CASE
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -192,33 +241,22 @@ extern "C" int rqs_fwd_launch(const float* x, const float* uw,
                               float min_bin_width, float min_bin_height,
                               float min_derivative, float* y, float* ld,
                               void* stream) {
-  Strides s;
-  const long long* p = strides;
-  for (int j = 0; j < 2; ++j) s.x[j] = *p++;
-  for (int j = 0; j < 3; ++j) s.w[j] = *p++;
-  for (int j = 0; j < 3; ++j) s.h[j] = *p++;
-  for (int j = 0; j < 3; ++j) s.d[j] = *p++;
-  for (int j = 0; j < 2; ++j) s.tb[j] = *p++;
-  if (rows * cols == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NF_RQS_CASE(KK)                                                     \
-  case KK:                                                                  \
-    if (inverse)                                                            \
-      launch<KK, true>(x, uw, uh, ud, tb, tb_scalar, s, rows, cols,         \
-                       min_bin_width, min_bin_height, min_derivative, y, ld, \
-                       st);                                                 \
-    else                                                                    \
-      launch<KK, false>(x, uw, uh, ud, tb, tb_scalar, s, rows, cols,        \
-                        min_bin_width, min_bin_height, min_derivative, y,   \
-                        ld, st);                                            \
-    break;
-  switch (num_bins) {
-    NF_RQS_CASE(4)
-    NF_RQS_CASE(8)
-    NF_RQS_CASE(10)
-    default:
-      return -1;
-  }
-#undef NF_RQS_CASE
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<float>(x, uw, uh, ud, tb, tb_scalar, strides, rows, cols,
+                         num_bins, inverse, min_bin_width, min_bin_height,
+                         min_derivative, y, ld, stream);
+}
+
+// The same for bfloat16 operands and outputs (tb_scalar and the minima stay
+// float).
+extern "C" int rqs_fwd_launch_bf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* uw, const __nv_bfloat16* uh,
+    const __nv_bfloat16* ud, const __nv_bfloat16* tb, float tb_scalar,
+    const long long* strides, long long rows, long long cols, int num_bins,
+    int inverse, float min_bin_width, float min_bin_height,
+    float min_derivative, __nv_bfloat16* y, __nv_bfloat16* ld,
+    void* stream) {
+  return dispatch<__nv_bfloat16>(x, uw, uh, ud, tb, tb_scalar, strides, rows,
+                                 cols, num_bins, inverse, min_bin_width,
+                                 min_bin_height, min_derivative, y, ld,
+                                 stream);
 }

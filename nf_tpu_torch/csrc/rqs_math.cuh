@@ -15,9 +15,36 @@
 // Built without fast-math and with -fmad=false (ops/_build.py): expf, logf,
 // log1pf and sqrtf are the accurate ones and every operation rounds on its
 // own, so the kernels agree with the plain PyTorch version to rounding.
+//
+// Storage types. Kernels A, C and D are instantiated for float and for
+// __nv_bfloat16 operands (the JAX package's Pallas kernels take any dtype,
+// and build_image_nsf(dtype=bfloat16) runs them in bfloat16). Whatever the
+// storage, the math is this file's float32: a bfloat16 operand is widened
+// on load (to_f32, exact) and a result rounded to nearest even on store
+// (from_f32, as torch's .to(torch.bfloat16)), so the reads and writes move
+// 2 bytes per element and the values are the float32 kernel's on the
+// widened inputs, rounded once.
 #pragma once
 
+#include <cuda_bf16.h>
+
 namespace nf {
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <class T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // jax.nn.softplus: logaddexp(v, 0) = max(v, 0) + log1p(exp(-|v|))
 __device__ __forceinline__ float softplus(float v) {

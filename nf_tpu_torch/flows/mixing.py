@@ -58,6 +58,11 @@ def _random_orthogonal(num_channels, generator):
     return q
 
 
+def _f32(t):
+    """A bfloat16 tensor as float32; any other tensor as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 class _LUWeight(Flow):
     """A learned invertible ``W`` (``mixing.py:90-105``): ``use_lu=True``
     keeps ``W = P L U`` as the parameters ``L``, ``U`` and ``log_S`` with
@@ -87,28 +92,35 @@ class _LUWeight(Flow):
             self.W = nn.Parameter(q.to(dtype))
 
     def _assemble_w(self, inverse):
-        eye = self.eye
-        lower = torch.tril(self.L, -1) + eye
-        upper = torch.triu(self.U, 1) + torch.diag(
-            self.sign_S * torch.exp(self.log_S))
+        eye = _f32(self.eye)
+        lower = torch.tril(_f32(self.L), -1) + eye
+        upper = torch.triu(_f32(self.U), 1) + torch.diag(
+            _f32(self.sign_S) * torch.exp(_f32(self.log_S)))
         if inverse:
             l_inv = torch.linalg.solve_triangular(lower, eye, upper=False,
                                                   unitriangular=True)
             u_inv = torch.linalg.solve_triangular(upper, eye, upper=True)
-            return u_inv @ l_inv @ self.P.T
-        return self.P @ lower @ upper
+            return u_inv @ l_inv @ _f32(self.P).T
+        return _f32(self.P) @ lower @ upper
 
     def _weight(self, inverse):
-        """``(W or W^-1, log |det| of it)``."""
+        """``(W or W^-1, log |det| of it)``. A bfloat16 layer assembles,
+        solves, inverts and takes the log-determinant in float32 (neither
+        device has a bfloat16 triangular solve, inverse or determinant),
+        then casts the weight to bfloat16; the log-det stays float32 until
+        the layer's output casts it. A float32 layer computes the same
+        operations with no cast."""
+        dtype = self.L.dtype if self.use_lu else self.W.dtype
         if self.use_lu:
             w = self._assemble_w(inverse)
-            log_det = torch.sum(self.log_S)
+            log_det = torch.sum(_f32(self.log_S))
         else:
+            weight = _f32(self.W)
             # inv_ex: no check of the factorisation's status, which
             # would wait for the device
-            w = torch.linalg.inv_ex(self.W).inverse if inverse else self.W
-            log_det = torch.linalg.slogdet(self.W)[1]
-        return w, -log_det if inverse else log_det
+            w = torch.linalg.inv_ex(weight).inverse if inverse else weight
+            log_det = torch.linalg.slogdet(weight)[1]
+        return w.to(dtype), -log_det if inverse else log_det
 
 
 class Invertible1x1Conv(_LUWeight):

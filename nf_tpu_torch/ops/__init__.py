@@ -9,6 +9,11 @@ from .splines import (
     unconstrained_rational_quadratic_spline,
     unconstrained_rational_quadratic_spline_kmajor,
 )
+from .splines_kernel import (
+    fused_unconstrained_rqs,
+    fused_unconstrained_rqs_kmajor,
+    set_pallas_bwd_kernel,
+)
 
 
 def _counted_wrappers():
@@ -61,13 +66,22 @@ def launch_counts():
     return {k: fn.launches for k, fn in _counted_wrappers().items()}
 
 
+def bf16_launch_counts():
+    """``{kernel: launches of its bfloat16 instantiation so far}`` for the
+    kernels that have one (A, C's per-element path and D), kept as
+    :func:`launch_counts` keeps its counts, which include these."""
+    return {k: fn.bf16_launches for k, fn in _counted_wrappers().items()
+            if hasattr(fn, "bf16_launches")}
+
+
 def reset_launch_counts():
     """Set every kernel's launch count to 0 (kernels B's and E's counts
-    at circular tails too)."""
+    at circular tails, and the bfloat16 counts, too)."""
     for fn in _counted_wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "circular_launches"):
-            fn.circular_launches = 0
+        for extra in ("circular_launches", "bf16_launches"):
+            if hasattr(fn, extra):
+                setattr(fn, extra, 0)
 
 
 __all__ = [
@@ -75,11 +89,15 @@ __all__ = [
     "DEFAULT_MIN_BIN_HEIGHT",
     "DEFAULT_MIN_BIN_WIDTH",
     "DEFAULT_MIN_DERIVATIVE",
+    "bf16_launch_counts",
     "cpu_through_ops",
+    "fused_unconstrained_rqs",
+    "fused_unconstrained_rqs_kmajor",
     "launch_counts",
     "reset_launch_counts",
     "rational_quadratic_spline",
     "searchsorted",
+    "set_pallas_bwd_kernel",
     "unconstrained_rational_quadratic_spline",
     "unconstrained_rational_quadratic_spline_kmajor",
 ]

@@ -6,7 +6,8 @@ kernel (``ops.splines_kernel``) is held against. The entry points
 :func:`unconstrained_rational_quadratic_spline` and its ``_kmajor`` twin
 dispatch on the tensor's device: a CUDA tensor goes to kernel A
 (``splines_kernel.fused_unconstrained_rqs[_kmajor]``), a CPU tensor to
-:func:`identity_tail_spline`. There is no switch between the two.
+:func:`identity_tail_spline`. There is no switch between the two. A
+bfloat16 spline is computed in float32 and rounded on both devices.
 
 Parameters broadcast against the inputs over leading axes, so the
 unconditional CDF passes its ``(1, D, K)`` parameters without
@@ -16,6 +17,7 @@ stride of 0).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -25,6 +27,33 @@ from ..utils.nn import softplus
 DEFAULT_MIN_BIN_WIDTH = 1e-3
 DEFAULT_MIN_BIN_HEIGHT = 1e-3
 DEFAULT_MIN_DERIVATIVE = 1e-3
+
+
+def _widen(t):
+    """A bfloat16 tensor (or each of a sequence of them) as float32."""
+    if isinstance(t, (list, tuple)):
+        return type(t)(_widen(v) for v in t)
+    if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16:
+        return t.float()
+    return t
+
+
+def _in_float32(fn):
+    """``fn`` (a spline: its input first, a tuple of tensors out) on a
+    bfloat16 input as the bfloat16 kernels compute it: every tensor
+    argument widened to float32, ``fn``'s float32 math, each result
+    rounded to bfloat16 once (to nearest even, as the kernels'
+    ``__float2bfloat16_rn``). Other dtypes go through ``fn`` untouched.
+    The plain versions of kernels A, C and D and the dense path take a
+    bfloat16 input through it, so the card and the CPU compute one
+    function."""
+    @functools.wraps(fn)
+    def wrapped(x, *args, **kw):
+        if x.dtype != torch.bfloat16:
+            return fn(x, *args, **kw)
+        out = fn(_widen(x), *(_widen(a) for a in args), **kw)
+        return tuple(t.to(torch.bfloat16) for t in out)
+    return wrapped
 
 
 def linear_tail_constant(min_derivative):
@@ -197,6 +226,18 @@ def pad_derivatives(ud, tails, min_derivative, axis):
     raise RuntimeError(f"{tails} tails are not implemented.")
 
 
+@_in_float32
+def _dense(inputs, uw, uh, ud, tail_bound, inverse, **minima):
+    """:func:`identity_tail_spline` on bin-minor parameters and a scalar or
+    tensor ``tail_bound``, the CPU path of both entry points; a bfloat16
+    call computes as the bfloat16 kernel does (:func:`_in_float32`), with
+    autograd through the casts."""
+    tb = torch.broadcast_to(
+        torch.as_tensor(tail_bound, dtype=inputs.dtype, device=inputs.device),
+        inputs.shape)
+    return identity_tail_spline(inputs, uw, uh, ud, tb, inverse, **minima)
+
+
 def _kernel_path(inputs, num_bins):
     """CUDA tensors take the kernel wrappers; CPU tensors the dense plain
     path, except inside ``ops.cpu_through_ops`` where a kernel would take
@@ -234,13 +275,10 @@ def unconstrained_rational_quadratic_spline(
             inputs, unnormalized_widths, unnormalized_heights, ud,
             tail_bound, inverse=inverse, min_bin_width=min_bin_width,
             min_bin_height=min_bin_height, min_derivative=min_derivative)
-    tb = torch.broadcast_to(
-        torch.as_tensor(tail_bound, dtype=inputs.dtype, device=inputs.device),
-        inputs.shape)
-    return identity_tail_spline(
-        inputs, unnormalized_widths, unnormalized_heights, ud, tb, inverse,
-        min_bin_width=min_bin_width, min_bin_height=min_bin_height,
-        min_derivative=min_derivative)
+    return _dense(inputs, unnormalized_widths, unnormalized_heights, ud,
+                  tail_bound, inverse, min_bin_width=min_bin_width,
+                  min_bin_height=min_bin_height,
+                  min_derivative=min_derivative)
 
 
 def unconstrained_rational_quadratic_spline_kmajor(
@@ -268,12 +306,8 @@ def unconstrained_rational_quadratic_spline_kmajor(
             inputs, unnormalized_widths, unnormalized_heights, ud,
             tail_bound, inverse=inverse, min_bin_width=min_bin_width,
             min_bin_height=min_bin_height, min_derivative=min_derivative)
-    tb = torch.broadcast_to(
-        torch.as_tensor(tail_bound, dtype=inputs.dtype, device=inputs.device),
-        inputs.shape)
-    return identity_tail_spline(
-        inputs, torch.movedim(unnormalized_widths, 0, -1),
-        torch.movedim(unnormalized_heights, 0, -1),
-        torch.movedim(ud, 0, -1), tb, inverse,
-        min_bin_width=min_bin_width, min_bin_height=min_bin_height,
-        min_derivative=min_derivative)
+    return _dense(inputs, torch.movedim(unnormalized_widths, 0, -1),
+                  torch.movedim(unnormalized_heights, 0, -1),
+                  torch.movedim(ud, 0, -1), tail_bound, inverse,
+                  min_bin_width=min_bin_width, min_bin_height=min_bin_height,
+                  min_derivative=min_derivative)

@@ -37,7 +37,19 @@ Beside the kernels:
 * ``rqs_fwd.launches``, ``rqs_bwd.launches`` and
   ``rqs_bwd_autodiff.launches``, the counts of launches, kept on the host
   (a CUDA graph adds to them once, at its capture; ``ops.launch_counts``
-  reads all five kernels' counts).
+  reads all five kernels' counts), and ``bf16_launches`` of each, those of
+  them through the bfloat16 instantiation (``ops.bf16_launch_counts``).
+
+Kernels A, C (its per-element path) and D take float32 or bfloat16
+operands, all of one dtype, and give outputs in it. The JAX package's
+Pallas kernels are dtype-generic and run per operation in bfloat16; here a
+bfloat16 kernel reads and writes 2-byte elements and computes in float32
+between (``csrc/rqs_math.cuh``), and each plain version takes a bfloat16
+input the same way (:func:`_in_float32`: widen, float32 math, round once).
+That is the one design whose kernel-against-plain and port-against-JAX
+float32 checks hold element by element: two per-operation bfloat16
+implementations differ by more than a bfloat16 bar in places. Kernel C's
+shared-parameter path is float32 only and raises on bfloat16.
 
 Both layouts of the JAX package enter here: :func:`fused_unconstrained_rqs`
 (bin-minor ``(..., K)``, ``splines_pallas.py:605``) and
@@ -72,6 +84,7 @@ from .splines import (
     DEFAULT_MIN_BIN_HEIGHT,
     DEFAULT_MIN_BIN_WIDTH,
     DEFAULT_MIN_DERIVATIVE,
+    _in_float32,
 )
 
 SUPPORTED_BINS = (4, 8, 10)  # the K values the CUDA sources instantiate
@@ -83,6 +96,10 @@ SHARED_PARAM_MAX_COLS = 64
 # (column, bin): g_cw, g_wd, g_ch, g_hh, g_d0, g_d1 (kSlots)
 SHARED_BWD_ROWS_PER_BLOCK = 512
 SHARED_BWD_SLOTS = 6
+# the operand dtypes kernels A, C and D are instantiated for (kernel C's
+# shared-parameter path: float32 only), and the C entry point's suffix of
+# each
+KERNEL_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
 # --- plain versions ----------------------------------------------------------
@@ -116,6 +133,7 @@ def _knots(sizes, tb):
     return [cums[k + 1] - cums[k] for k in range(len(sizes))], cums
 
 
+@_in_float32
 def rqs_plain(x, w, h, d, tb, *, inverse, min_bin_width=DEFAULT_MIN_BIN_WIDTH,
               min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
               min_derivative=DEFAULT_MIN_DERIVATIVE, split_ties=False):
@@ -129,7 +147,8 @@ def rqs_plain(x, w, h, d, tb, *, inverse, min_bin_width=DEFAULT_MIN_BIN_WIDTH,
     ``torch.maximum``, whose gradient at a tie is half on each side, as
     JAX's (``jnp.clip``, ``jnp.maximum``, the JVP of ``jnp.logaddexp``);
     ``torch.clamp`` passes all of it. That is kernel D's plain version
-    (:func:`rqs_vjp_plain`)."""
+    (:func:`rqs_vjp_plain`). A bfloat16 ``x`` is computed in float32 and
+    rounded (:func:`_in_float32`), differentiably."""
     K = len(w)
     if not isinstance(tb, torch.Tensor):
         tb = float(tb)  # a Python number: no host-to-device copy
@@ -284,6 +303,7 @@ def _map_cotangents(xin, cw, wd, ch, hh, d0, d1, cty, ctl, inverse):
     return g_x_in, g_cw, g_wd, g_ch, g_hh, g_d0, g_d1
 
 
+@_in_float32
 def rqs_bwd_plain(x, w, h, d, tb, cty, ctl, *, inverse,
                   min_bin_width=DEFAULT_MIN_BIN_WIDTH,
                   min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
@@ -295,7 +315,8 @@ def rqs_bwd_plain(x, w, h, d, tb, cty, ctl, *, inverse,
     here). The tail bound gets none. Recompute, then the hand-derived
     transpose: ``du/dtheta = wd * J``; the inverse differentiates the root
     implicitly through the forward equation; the softmax gradients go
-    through the pinned knots from the bin-search step planes."""
+    through the pinned knots from the bin-search step planes. A bfloat16
+    ``x`` is computed in float32 and rounded (:func:`_in_float32`)."""
     K = len(w)
     if not isinstance(tb, torch.Tensor):
         tb = float(tb)
@@ -473,6 +494,7 @@ def rqs_bwd_shared_plain(x, w, h, d, tb, cty, ctl, *, inverse,
     return gx, gw, gh, gd
 
 
+@_in_float32
 def rqs_vjp_plain(x, w, h, d, tb, cty, ctl, *, inverse,
                   min_bin_width=DEFAULT_MIN_BIN_WIDTH,
                   min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
@@ -482,7 +504,9 @@ def rqs_vjp_plain(x, w, h, d, tb, cty, ctl, *, inverse,
     through :func:`rqs_plain` with ``split_ties=True``, so the inverse is
     differentiated through the root formula and ties split as in JAX.
     Operands and outputs as :func:`rqs_bwd_plain`: one gradient per element
-    (broadcast parameters are not summed here); the tail bound gets none."""
+    (broadcast parameters are not summed here); the tail bound gets none.
+    A bfloat16 ``x`` is differentiated in float32 and the gradients rounded
+    (:func:`_in_float32`)."""
     K = len(w)
     leaves = [x.detach().requires_grad_()] + [
         t.detach().expand(t.shape[0], *x.shape).requires_grad_()
@@ -589,11 +613,13 @@ def _check(x, planes, tb, num_bins):
     if num_bins not in SUPPORTED_BINS:
         raise ValueError(f"the CUDA spline kernel is built for K in "
                          f"{SUPPORTED_BINS}, got K={num_bins}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"kernel A (rqs_fwd, the CUDA spline kernel) takes "
+                        f"float32 or bfloat16, got {x.dtype}")
     for t in (x, *planes) + ((tb,) if tb is not None else ()):
-        if t.dtype != torch.float32:
-            raise TypeError(f"kernel A (rqs_fwd, the CUDA spline kernel) "
-                            f"takes float32, got {t.dtype}: its bfloat16 "
-                            f"variant is not written")
+        if t.dtype != x.dtype:
+            raise TypeError(f"kernel A (rqs_fwd) takes operands of one "
+                            f"dtype: x is {x.dtype}, an operand {t.dtype}")
         if t.device != x.device:
             raise ValueError("all operands must be on the same CUDA device")
 
@@ -604,7 +630,7 @@ def _launch(x2, w, h, d, tb, inverse, mbw, mbh, md):
     from . import _build
 
     lib = _build.load("rqs_fwd")
-    fn = lib.rqs_fwd_launch
+    fn = getattr(lib, "rqs_fwd_launch" + KERNEL_DTYPES[x2.dtype])
     fn.argtypes = ([ctypes.c_void_p] * 5
                    + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
@@ -624,6 +650,7 @@ def _launch(x2, w, h, d, tb, inverse, mbw, mbh, md):
     if err != 0:
         raise RuntimeError(f"rqs_fwd kernel launch failed: CUDA error {err}")
     rqs_fwd.launches += 1
+    rqs_fwd.bf16_launches += x2.dtype == torch.bfloat16
     return y, ld
 
 
@@ -639,8 +666,8 @@ def _bwd_operands(name, x2, w, h, d, tb, cty, ctl):
     """Checks the cotangents; returns ``(tb tensor or None, tb scalar, the
     17 strides)`` of a backward launch."""
     for t in (cty, ctl):
-        if t.dtype != torch.float32 or t.device != x2.device:
-            raise TypeError(f"{name} takes float32 cotangents on "
+        if t.dtype != x2.dtype or t.device != x2.device:
+            raise TypeError(f"{name} takes {x2.dtype} cotangents on "
                             f"{x2.device}, got {t.dtype} on {t.device}")
     tb_t = tb if isinstance(tb, torch.Tensor) else None
     tb_scalar = 0.0 if tb_t is not None else float(tb)
@@ -658,7 +685,8 @@ def _launch_bwd(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md,
     from . import _build
 
     name = _BWD_KERNELS[mode]
-    fn = getattr(_build.load(name), name + "_launch")
+    fn = getattr(_build.load(name),
+                 name + "_launch" + KERNEL_DTYPES[x2.dtype])
     fn.argtypes = _BWD_ARGTYPES + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     rows, cols = x2.shape
@@ -677,6 +705,7 @@ def _launch_bwd(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md,
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     _WRAPPERS[name].launches += 1
+    _WRAPPERS[name].bf16_launches += x2.dtype == torch.bfloat16
     return gx, gw, gh, gd
 
 
@@ -690,6 +719,7 @@ def _launch_bwd_shared(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md):
     With no rows it launches nothing: the sums are zeros."""
     from . import _build
 
+    _shared_float32(x2)
     fn = _build.load("rqs_bwd").rqs_bwd_shared_launch
     fn.argtypes = _BWD_ARGTYPES + [ctypes.c_void_p] * 6
     fn.restype = ctypes.c_int
@@ -718,6 +748,17 @@ def _launch_bwd_shared(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md):
                            f"error {err}")
     rqs_bwd.launches += 1
     return gx, gw, gh, gd
+
+
+def _shared_float32(x):
+    """Kernel C's shared-parameter path is instantiated for float32 only:
+    a TypeError for anything else (no ``build_*`` model reaches it in
+    bfloat16)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"kernel C's shared path (rqs_bwd_shared, the "
+                        f"unconditional CDF's backward) takes float32, got "
+                        f"{x.dtype}: its bfloat16 instantiation is not "
+                        f"written")
 
 
 def _shares_rows(x2, planes, tb):
@@ -898,6 +939,7 @@ _AUTOGRAD_KEYS = (torch._C.DispatchKey.AutogradCPU,
                          schema=_BWD_SCHEMA)
 def _rqs_bwd_shared_op(x, w, h, d, tb, tb_scalar, cty, ctl, inverse, mbw,
                        mbh, md):
+    _shared_float32(x)
     return _fresh(*rqs_bwd_shared_plain(x, w, h, d, _tail(tb, tb_scalar),
                                         cty, ctl,
                                         **_bwd_kw(inverse, mbw, mbh, md)))
@@ -1033,7 +1075,7 @@ _CPU_THROUGH_OPS = [False]
 
 def _cpu_takes_op(x, num_bins):
     return (_CPU_THROUGH_OPS[0] and num_bins in SUPPORTED_BINS
-            and x.dtype == torch.float32)
+            and x.dtype in KERNEL_DTYPES)
 
 
 def _tb_args(tb):
@@ -1108,6 +1150,9 @@ def _views(x, w, h, d, tb):
 rqs_fwd.launches = 0
 rqs_bwd.launches = 0
 rqs_bwd_autodiff.launches = 0
+rqs_fwd.bf16_launches = 0
+rqs_bwd.bf16_launches = 0
+rqs_bwd_autodiff.bf16_launches = 0
 # backward mode -> the csrc/<name>.cu that implements it, and its counter
 _BWD_KERNELS = {"analytic": "rqs_bwd", "autodiff": "rqs_bwd_autodiff"}
 _WRAPPERS = {"rqs_bwd": rqs_bwd, "rqs_bwd_autodiff": rqs_bwd_autodiff}

@@ -1986,3 +1986,75 @@ def test_exported_artifacts_on_cuda(cuda):
     with pytest.raises(ValueError, match="platforms"):
         serving.load_exported(serving.export_log_prob(model, (6000, 2)),
                               device="cpu")
+
+
+# --- the bfloat16 instantiations of kernels A, C and D ------------------------
+
+def _bf16_ulps(got, want, grad):
+    """max |got - want| over one bfloat16 ulp of ``want``, ``2^-7 |want| +
+    1e-6`` (gradients ``+ 1e-4 max |want|``): at most 1 passes."""
+    g, w = got.float(), want.float()
+    bar = 2.0 ** -7 * w.abs() + 1e-6
+    if grad:
+        bar = bar + 1e-4 * float(w.abs().max())
+    return float(((g - w).abs() / bar).max())
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("K", tk.SUPPORTED_BINS)
+def test_bf16_kernels_match_their_plain_versions(cuda, K, inverse):
+    """A, C and D on bfloat16 operands at a ragged (D, B) with a
+    per-feature tail bound: bfloat16 outputs, each element within one
+    bfloat16 ulp of the plain version (which widens, computes in float32
+    and rounds); A bitwise."""
+    rng = np.random.default_rng(100 + K)
+    D, B = 3, 70001
+    bf = torch.bfloat16
+    x = _normal(rng, (D, B), 2.0).to(cuda, bf)
+    w, h = (_normal(rng, (K, D, B), 0.5).to(cuda, bf) for _ in range(2))
+    d = _normal(rng, (K + 1, D, B), 0.5).to(cuda, bf)
+    tb = torch.tensor([[1.5], [2.5], [3.0]], device=cuda, dtype=bf)
+    cty, ctl = (_normal(rng, (D, B)).to(cuda, bf) for _ in range(2))
+    before = tops.bf16_launch_counts()
+    y, ld = tk.rqs_fwd(x, w, h, d, tb, inverse=inverse)
+    yp, lp = tk.rqs_plain(x, w, h, d, tb, inverse=inverse)
+    gc = tk.rqs_bwd(x, w, h, d, tb, cty, ctl, inverse=inverse)
+    gcp = tk.rqs_bwd_plain(x, w, h, d, tb, cty, ctl, inverse=inverse)
+    gd = tk.rqs_bwd_autodiff(x, w, h, d, tb, cty, ctl, inverse=inverse)
+    gdp = tk.rqs_vjp_plain(x, w, h, d, tb, cty, ctl, inverse=inverse)
+    torch.cuda.synchronize()
+    after = tops.bf16_launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "rqs_fwd": 1, "rqs_bwd": 1, "rqs_bwd_autodiff": 1}
+    assert torch.equal(y, yp) and torch.equal(ld, lp)
+    for got, want in ((gc, gcp), (gd, gdp)):
+        for a, b in zip(got, want):
+            assert a.dtype == bf and _bf16_ulps(a, b, True) <= 1.0
+
+
+def test_bf16_spline_gradients_run_the_bf16_kernels(cuda):
+    """Autograd through kernel A on bfloat16 leaves runs kernel C's (or,
+    under "autodiff", D's) bfloat16 instantiation and gives bfloat16
+    gradients; the CDF's shared path, float32 only, raises."""
+    rng = np.random.default_rng(7)
+    bf = torch.bfloat16
+    x = _normal(rng, (4, 3000), 2.0).to(cuda, bf).requires_grad_()
+    w = _normal(rng, (8, 4, 3000), 0.5).to(cuda, bf).requires_grad_()
+    d = _normal(rng, (9, 4, 3000), 0.5).to(cuda, bf).requires_grad_()
+    for mode in ("analytic", "autodiff"):
+        tk.set_pallas_bwd_kernel(mode)
+        try:
+            before = tops.bf16_launch_counts()
+            y, ld = tk.rqs_fwd(x, w, w, d, 3.0, inverse=True)
+            (y.float().sum() + ld.float().sum()).backward()
+        finally:
+            tk.set_pallas_bwd_kernel("analytic")
+        after = tops.bf16_launch_counts()
+        name = "rqs_bwd" if mode == "analytic" else "rqs_bwd_autodiff"
+        assert after[name] - before[name] == 1
+        assert x.grad.dtype == w.grad.dtype == bf
+        x.grad = w.grad = d.grad = None
+    xs = x.detach()[:, :8]
+    ws, ds = (t.detach()[:, :1, :8] for t in (w, d))
+    with pytest.raises(TypeError, match="kernel C's shared path"):
+        tk.rqs_bwd_shared(xs, ws, ws, ds, 3.0, xs, xs, inverse=False)

@@ -11,7 +11,11 @@ sum over the whole batch differs in the order of additions). Four more
 processes run ``__graft_entry__.dryrun_multichip``'s dp x tp step on a
 (data 2, model 2) mesh with ``state_shardings``, and the two processes
 also train batch-norm models, whose statistics span the ranks; both are
-held against the one process on the whole batch within 1e-5.
+held against the one process on the whole batch within 1e-5. Three more
+processes (two ranks and one) take the batch statistics of a ``BatchNorm``
+flow and a ``ResidualNet(use_batch_norm=True)`` on data at mean 300 and
+standard deviation 0.01, in float32 and bfloat16, against JAX's layers on
+the whole batch: a one-pass variance across the ranks cancels there.
 """
 
 import argparse
@@ -270,6 +274,76 @@ def _bn_run(build, mesh=None):
     return {"loss": float(loss), "params": _params(model).tolist()}
 
 
+BN_STATS_SEED = 31
+BN_STATS_HIDDEN = 16
+# rows of the batch-statistics data: 501 per rank, a count bfloat16 cannot
+# hold (it rounds to 500)
+BN_STATS_BATCH = 1002
+
+
+def bn_stats_data():
+    """(BN_STATS_BATCH, 2) float32 draws at mean 300 and standard
+    deviation 0.01: the sum of squares less the square of the sum cancels
+    there."""
+    rng = np.random.default_rng(BN_STATS_SEED)
+    return (300.0 + 0.01 * rng.standard_normal((BN_STATS_BATCH, 2))).astype(
+        np.float32)
+
+
+def _bn_stats_run(weights, world, rank, dtype):
+    """This rank's shard (the whole batch at world size 1) of
+    :func:`bn_stats_data` in ``dtype`` through the batch statistics, a
+    ``BatchNorm`` flow and a batch-norm ``ResidualNet`` loaded from
+    ``weights``, inside ``global_batch`` over ``world`` ranks; the
+    ResidualNet's parameter gradients of the mean squared output over the
+    global batch, summed over the ranks."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import flows as tflows
+    from nf_tpu_torch.nets import ResidualNet
+    from nf_tpu_torch.nets import _batch_stats
+
+    x = torch.from_numpy(bn_stats_data()).to(dtype).chunk(world)[rank]
+    net = nt.load_reference_state_dict(
+        ResidualNet(2, 2, BN_STATS_HIDDEN, num_blocks=2, use_batch_norm=True,
+                    dtype=dtype), dict(np.load(weights)))
+    ctx = (_batch_stats.global_batch(None, world) if world > 1
+           else contextlib.nullcontext())
+    with ctx:
+        stats = _batch_stats.moments(x, (0,), 1) if world > 1 else (
+            torch.mean(x, 0, keepdim=True),
+            torch.var(x.double(), 0, keepdim=True).to(dtype))
+        z, log_det = tflows.BatchNorm()(x)
+        y = net(x)
+        loss = torch.sum(y.float() ** 2) / BN_STATS_BATCH
+    loss.backward()
+    grads = torch.cat([p.grad.float().reshape(-1) for p in net.parameters()])
+    if world > 1:
+        dist.all_reduce(grads)
+    return {"mean": stats[0].float().tolist(),
+            "var": stats[1].float().tolist(), "z": z.float().tolist(),
+            "log_det": log_det.float().tolist(), "y": y.float().tolist(),
+            "grads": grads.tolist()}
+
+
+def bn_stats_worker(args):
+    from nf_tpu_torch.parallel import initialize_distributed
+
+    if args.num_processes > 1:
+        initialize_distributed(
+            coordinator_address=f"127.0.0.1:{args.port}",
+            num_processes=args.num_processes, process_id=args.process_id,
+            platform="cpu")
+    out = {str(dtype).split(".")[-1]: _bn_stats_run(
+               args.bn_stats, args.num_processes, args.process_id, dtype)
+           for dtype in (torch.float32, torch.bfloat16)}
+    with open(args.out, "w") as f:
+        json.dump(out, f)
+
+
 def _binary(argv):
     from nf_tpu_torch import train
 
@@ -279,6 +353,8 @@ def _binary(argv):
 
 def worker(args):
     sys.path.insert(0, ROOT)
+    if args.bn_stats:
+        return bn_stats_worker(args)
     from nf_tpu_torch.parallel import (
         initialize_distributed,
         make_hybrid_mesh,
@@ -336,15 +412,16 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _start(tmp_path, num_processes, port):
+def _start(tmp_path, num_processes, port, extra=(), tag="worker"):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"
     runs = []
     for pid in range(num_processes):
-        out = tmp_path / f"worker{num_processes}_{pid}.json"
+        out = tmp_path / f"{tag}{num_processes}_{pid}.json"
         cmd = [sys.executable, os.path.abspath(__file__), "--worker",
                "--process-id", str(pid), "--num-processes",
-               str(num_processes), "--port", str(port), "--out", str(out)]
+               str(num_processes), "--port", str(port), "--out", str(out),
+               *extra]
         runs.append((subprocess.Popen(cmd, cwd=ROOT, env=env,
                                       stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True),
@@ -374,6 +451,85 @@ def runs(tmp_path_factory):
     one = _start(tmp, 1, _free_port())
     four = _start(tmp, 4, _free_port())
     return _finish(two), _finish(one)[0], _finish(four)
+
+
+@pytest.fixture(scope="module")
+def bn_stats(tmp_path_factory):
+    """The batch statistics at mean 300 / std 0.01 on two ranks and on one
+    process, and JAX's ``BatchNorm`` flow and batch-norm ``ResidualNet``
+    (whose weights the workers load) on the whole batch, in float32."""
+    import jax
+    import jax.numpy as jnp
+
+    import nf_tpu.flows as jflows
+    from nf_tpu.nets.resnet import ResidualNet as JResidualNet
+    from test_torch_autoregressive import perturb_jax
+    from test_torch_batch_norm import bn_state_dict
+
+    tmp = tmp_path_factory.mktemp("torch_bn_stats")
+    jnet = perturb_jax(JResidualNet.create(
+        jax.random.PRNGKey(BN_STATS_SEED), 2, 2, BN_STATS_HIDDEN,
+        num_blocks=2, use_batch_norm=True), BN_STATS_SEED, scale=0.2)
+    weights = tmp / "bn_stats_weights.npz"
+    np.savez(weights, **bn_state_dict(jnet))
+    extra = ("--bn-stats", str(weights))
+    two = _start(tmp, 2, _free_port(), extra, "bn_stats")
+    one = _start(tmp, 1, _free_port(), extra, "bn_stats")
+    reference = {}
+    for name, dtype in (("float32", np.float32), ("bfloat16", None)):
+        x = bn_stats_data()
+        if dtype is None:  # the bfloat16 data, in float32
+            x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+        z, log_det = jflows.BatchNorm().forward(jnp.asarray(x))
+        reference[name] = {"x": x, "z": np.asarray(z),
+                           "log_det": np.asarray(log_det),
+                           "y": np.asarray(jnet(jnp.asarray(x)))}
+    return _finish(two), _finish(one)[0], reference
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batch_statistics_are_two_pass_across_ranks(bn_stats, dtype):
+    """At mean 300 and standard deviation 0.01 the variance over two ranks
+    is the whole batch's, as JAX's ``jnp.var`` / ``jnp.std(ddof=1)`` take
+    it. In float32: within 1e-4 relative of numpy's float64 variance and of
+    one process's, the ``BatchNorm`` log-det finite and within 1e-4 of
+    JAX's; the normalised values within 1e-2 of one process's and JAX's
+    (float32 rounds x - mean by ~3e-5 at 300, against a deviation of
+    0.01), the batch-norm ``ResidualNet``'s outputs and gradients within
+    1e-3 of the largest (its hidden batch norms see the same cancellation,
+    amplified by its weights; 1.3e-4 and 1.8e-4 measured). In bfloat16,
+    where every datum rounds to 300 and the variance is 0, at the bfloat16
+    bar, 0.05 abs plus 0.05 relative. A one-pass variance fails both: 0 or
+    below in float32, and a count of 501 rounded to 500 in bfloat16."""
+    multi, single, reference = bn_stats
+    ref = reference[dtype]
+    ranks = [r[dtype] for r in multi]
+    assert ranks[0]["var"] == ranks[1]["var"]
+    var64 = np.var(ref["x"].astype(np.float64), axis=0, ddof=1)
+    f32 = dtype == "float32"
+    tol = dict(rtol=1e-4, atol=0.0) if f32 else dict(rtol=0.05, atol=0.05)
+    for got in (ranks[0]["var"], single[dtype]["var"]):
+        np.testing.assert_allclose(np.asarray(got)[0], var64, **tol)
+    for r in ranks + [single[dtype]]:
+        assert np.all(np.isfinite(r["log_det"]))
+        np.testing.assert_allclose(r["log_det"], ref["log_det"][:len(
+            r["log_det"])], **tol)
+    z = np.concatenate([r["z"] for r in ranks])
+    y = np.concatenate([r["y"] for r in ranks])
+    g = np.asarray(ranks[0]["grads"])
+    g1 = np.asarray(single[dtype]["grads"])
+    assert np.all(np.isfinite(g))
+
+    def scaled(a, b):
+        scale = max(float(np.max(np.abs(b))), 1.0)
+        return np.asarray(a) / scale, np.asarray(b) / scale
+
+    for want in (single[dtype]["z"], ref["z"]):
+        np.testing.assert_allclose(z, want, **(dict(atol=1e-2) if f32
+                                               else tol))
+    for got, want in ((y, single[dtype]["y"]), (y, ref["y"]), (g, g1)):
+        np.testing.assert_allclose(*scaled(got, want),
+                                   **(dict(atol=1e-3) if f32 else tol))
 
 
 def test_dp_by_tp_step_is_the_single_process_step(runs):
@@ -529,4 +685,5 @@ if __name__ == "__main__":
     parser.add_argument("--num-processes", type=int, required=True)
     parser.add_argument("--port", type=int, required=True)
     parser.add_argument("--out", required=True)
+    parser.add_argument("--bn-stats", default=None)
     worker(parser.parse_args())

@@ -4,10 +4,10 @@ JAX package ``nf_tpu``. Checked in a fresh interpreter, whose
 ``sys.modules`` this test's own imports cannot fill.
 
 And its names: every public name of the JAX package's top level,
-``flows``, ``distributions``, ``sampling``, ``utils`` and ``parallel`` has
-a counterpart of the same name in the port, but for the names
+``flows``, ``distributions``, ``sampling``, ``utils``, ``parallel`` and
+``ops`` has a counterpart of the same name in the port, but for the names
 ``ROADMAP.md`` section 1 keeps out by design or still queues (listed
-below)."""
+below); so has every public function ``nf_tpu/compat.py`` defines."""
 
 import importlib
 import json
@@ -53,7 +53,10 @@ def test_port_imports_no_jax_and_no_jax_package():
 _BY_DESIGN = {"utils": {"Module", "buffer_field", "combine", "is_array",
                         "is_inexact_array", "partition", "partition_arrays",
                         "static_field", "stop_gradient_params",
-                        "tree_size"}}
+                        "tree_size"},
+              # the switch back to the dense path's autodiff: the port's
+              # backward is always a kernel on the card
+              "ops": {"set_pallas_bwd_enabled"}}
 # names the port has yet to bring (ROADMAP.md section 1): none
 _QUEUED = {}
 
@@ -78,7 +81,8 @@ def _public_names(module):
 
 
 @pytest.mark.parametrize("package", ["", "flows", "distributions",
-                                     "sampling", "utils", "parallel"])
+                                     "sampling", "utils", "parallel",
+                                     "ops"])
 def test_every_public_jax_name_has_a_port_counterpart(package):
     suffix = f".{package}" if package else ""
     jax_mod = importlib.import_module("nf_tpu" + suffix)
@@ -92,3 +96,20 @@ def test_every_public_jax_name_has_a_port_counterpart(package):
         want, got = getattr(jax_mod, name), getattr(port, name)
         assert isinstance(got, types.ModuleType) == isinstance(
             want, types.ModuleType), name
+
+
+def test_every_public_jax_compat_function_has_a_port_counterpart():
+    """``nf_tpu.compat`` is a module of converters: its public functions
+    (not the names it imports) each have a port counterpart."""
+    import ast
+
+    jax_compat = importlib.import_module("nf_tpu.compat")
+    port = importlib.import_module("nf_tpu_torch.compat")
+    with open(jax_compat.__file__) as f:
+        tree = ast.parse(f.read())
+    public = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)
+              and not n.name.startswith("_")}
+    assert {"import_state_dict", "save_state_dict_npz",
+            "load_state_dict_npz"} <= public
+    assert sorted(n for n in public if not callable(getattr(port, n, None))
+                  ) == []
