@@ -8,7 +8,9 @@ toolkit. Phases, one line each:
 
 1. device: name, compute capability (9.x required), power limit;
 2. build: ``nvcc`` builds every kernel from ``nf_tpu_torch/csrc``, one
-   process per source, all started together;
+   process per source, all started together; registers and spills per
+   instantiation, failing if a bfloat16 instantiation of B or E spills
+   more than its float32 twin;
 3. parity: each kernel against its plain PyTorch version on the same CUDA
    inputs (kernels A and B: 1e-5 abs on outputs, 1e-4 abs on log-dets;
    backward kernels C, D and E: 1e-4 abs on per-element gradients, 1e-4
@@ -270,7 +272,21 @@ toolkit. Phases, one line each:
     (the loss at the bar, the gradients within 0.3 relative L2); then
     ``compile_log_prob`` and ``compile_sampler`` (bitwise eager) and the
     captured steps against eager, every port launch a bfloat16 one, and
-    each timed in turns with the float32 model's graph.
+    each timed in turns with the float32 model's graph;
+29. coupled_nsf_bf16 (run right after phase 28): kernels B and E and C's
+    shared path in bfloat16 at ``build_nsf``'s coupling (H 128, K 8), the
+    circular coupled model's (H 512, K 10, circular tails) and at
+    B = 4099, each element within one bfloat16 ulp of its plain version
+    in the kernels' summation order, a captured call holding only its
+    bfloat16 kernels, timed in turns with float32; then
+    ``build_nsf(permutation=False)``'s stack in bfloat16 from the public
+    layers (8 ``CoupledRationalQuadraticSpline``, a ``DiagGaussian``):
+    ``log_prob`` and ``sample`` at B = 65536 card against CPU and by the
+    round trip at the bfloat16 bar, the forward-KLD step on TwoMoons
+    under "analytic" (A, B, C's shared path, E) and "autodiff" (D on the
+    CDF), card against CPU; the graphs bitwise eager, their kernel nodes
+    read by name (only bfloat16 port kernels, no cast), and each timed in
+    turns with the same layers in float32.
 
 ``python3 chip_smoke.py --dispatch-turns PARENT`` times the eager
 ``build_nsf`` ``log_prob`` and step of the checkout ``PARENT`` against
@@ -449,6 +465,21 @@ def phase_build():
                      f"{len(spills)} instantiations spilling")
     print(f"phase build: {len(names)} libraries in {secs:.1f} s "
           f"(sm_90a; {'; '.join(notes)})", flush=True)
+    heads = head_ptxas([_build.BUILD_LOGS.get(n, "") for n in names
+                        if n.startswith("head_")])
+    worse = [key for key, v in heads.items()
+             if v.get("bf16", (0, 0))[1] > v.get("f32", (0, 0))[1]]
+    print("phase build head kernels by instantiation (K, flags circular/"
+          "inverse[/one feature]: f32 registers +spill bytes, bf16 the "
+          "same): " + "; ".join(
+              f"{kernel.replace('_kernel', '')} K{k} {flags}: "
+              + ", ".join(f"{t} {r}" + (f" +{sp}" if sp else "")
+                          for t, (r, sp) in sorted(v.items()))
+              for (kernel, k, flags), v in sorted(heads.items())),
+          flush=True)
+    if worse:
+        raise RuntimeError(f"bfloat16 instantiations of B or E that spill "
+                           f"more than their float32 twins: {worse}")
     for n in ("rqs_fwd", "rqs_bwd", "rqs_bwd_autodiff"):
         print(f"phase build {n} by kernel (K, direction: registers, bytes "
               f"spilled): " + "; ".join(
@@ -458,6 +489,36 @@ def phase_build():
                       for k, inv, regs, spill in rows)
                   for kernel, rows in ptxas_kernels(
                       _build.BUILD_LOGS.get(n, "")).items()), flush=True)
+
+
+def head_ptxas(logs):
+    """``nvcc -Xptxas -v`` output of kernels B and E (``logs``: their
+    libraries' logs) -> {(kernel, K, flags): {"f32" | "bf16": (registers,
+    spill-store bytes)}}, ``flags`` the template's bools (B: circular,
+    inverse; E: circular, inverse, one feature)."""
+    import re
+
+    out, entry, spill = {}, None, 0
+    for line in "\n".join(logs).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            name = re.search(r"\d+(head_rqs_\w+?_kernel)I", entry)
+            if name:
+                k = int(re.search(r"Li(\d+)E", entry).group(1))
+                flags = "".join(re.findall(r"Lb([01])E", entry))
+                dtype = "bf16" if "bfloat16" in entry else "f32"
+                out.setdefault((name.group(1), k, flags), {})[dtype] = (
+                    int(m.group(1)), spill)
+            entry = None
+    return out
 
 
 def ptxas_kernels(log):
@@ -1780,6 +1841,12 @@ PATH_KERNELS = {"build_nsf serving": ("rqs_fwd", "head_rqs_fwd"),
                 "image_nsf serving": ("rqs_fwd",),
                 "image_nsf step": ("rqs_fwd", "rqs_bwd"),
                 "image_nsf step (autodiff)": ("rqs_fwd", "rqs_bwd_autodiff"),
+                "bf16 coupled serving": ("rqs_fwd", "head_rqs_fwd"),
+                "bf16 coupled step": ("rqs_fwd", "head_rqs_fwd", "rqs_bwd",
+                                      "head_rqs_bwd"),
+                "bf16 coupled step (autodiff)": ("rqs_fwd", "head_rqs_fwd",
+                                                 "rqs_bwd_autodiff",
+                                                 "head_rqs_bwd"),
                 "glow serving": (), "glow step": (),
                 "circular_coupled serving": ("rqs_fwd", "head_rqs_fwd"),
                 "circular_coupled step": ("rqs_fwd", "head_rqs_fwd",
@@ -1911,27 +1978,30 @@ def _expect_launches(got, want, what):
                            f"{full}")
 
 
-def serving_graphs(label, model, x, batch, per_pass, path, context=None):
+def serving_graphs(label, model, x, batch, per_pass, path, context=None,
+                   dtype=torch.float32):
     """``compile_log_prob`` and ``compile_sampler`` of ``model`` at
     ``batch`` against eager calls: log_prob within GRAPH_TOL, the sampler
     bitwise; times in turns; a profiled replay of each. ``per_pass``: the
     launches the log_prob capture must count (the sampler's: twice A for
     the circular NSF, as its eager pass). ``context``: a conditional
-    model's, an input of both graphs."""
+    model's, an input of both graphs. ``dtype``: the log_prob graph's
+    input's."""
     import nf_tpu_torch as nt
 
     ctx = () if context is None else (context,)
     ctx_kw = {} if context is None else dict(context=context)
     ctx_shape = None if context is None else tuple(context.shape)
     out = {}
-    lp_fn = nt.compile_log_prob(model, (batch, 2), context_shape=ctx_shape)
+    lp_fn = nt.compile_log_prob(model, (batch, 2), context_shape=ctx_shape,
+                                dtype=dtype)
     _expect_launches(lp_fn.launches, per_pass, f"{label} log_prob graph")
 
     def eager_lp():
         with torch.inference_mode():
             return model.log_prob(x, **ctx_kw)
 
-    lp_err = max_err(lp_fn(x, *ctx), eager_lp())
+    lp_err = max_err(lp_fn(x, *ctx).float(), eager_lp().float())
     if not lp_err <= GRAPH_TOL:
         raise RuntimeError(f"{label} log_prob: graph vs eager {lp_err:.3g} "
                            f"> {GRAPH_TOL}")
@@ -2150,18 +2220,16 @@ def dependency_types(graph):
     return {"default": kinds.count(0), "programmatic": kinds.count(1)}
 
 
-def graph_node_types(fn):
-    """The device work of one call of ``fn``, without the profiler: after
-    one warm-up call, the call captured into a kept CUDA graph, whose
-    nodes' types are read with libcuda's ``cuGraphGetNodes`` and
-    ``cuGraphNodeGetType`` (0 a kernel, 1 a copy, 2 a memset, ...)."""
+def graph_kernel_names(graph):
+    """The kernels of ``graph`` (a ``torch.cuda.CUDAGraph`` built with
+    ``keep_graph=True``), in node order, by their mangled names, read with
+    libcuda (``cuGraphKernelNodeGetParams_v2``, then ``cuFuncGetName`` or
+    ``cuKernelGetName``); a node of another type appears as
+    ``"<type N>"``. A bfloat16 instantiation of a port kernel carries
+    ``__nv_bfloat16`` in its name, and PyTorch's casts
+    ``direct_copy_kernel``."""
     import ctypes
 
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
-        fn()
     cu = ctypes.CDLL("libcuda.so.1")
     raw = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
@@ -2169,17 +2237,45 @@ def graph_node_types(fn):
     nodes = (ctypes.c_void_p * n.value)()
     if not err:
         err = cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
-    types = []
+    names = []
     for node in nodes:
+        if err:
+            break
+        node = ctypes.c_void_p(node)
         kind = ctypes.c_int(-1)
+        err = cu.cuGraphNodeGetType(node, ctypes.byref(kind))
+        if err or kind.value != 0:
+            names.append(f"<type {kind.value}>")
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func, grid and block dims and shared
+        # bytes (7 uint), kernelParams, extra, kern, ctx
+        params = (ctypes.c_uint64 * 9)()
+        err = cu.cuGraphKernelNodeGetParams_v2(node, params)
+        name = ctypes.c_char_p()
         if not err:
-            err = cu.cuGraphNodeGetType(ctypes.c_void_p(node),
-                                        ctypes.byref(kind))
-        types.append(kind.value)
+            func, kern = params[0], params[7]
+            err = (cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func))
+                   if func else cu.cuKernelGetName(ctypes.byref(name),
+                                                   ctypes.c_void_p(kern)))
+        names.append(name.value.decode() if not err and name.value else "?")
     if err:
-        raise RuntimeError(f"reading the graph's nodes failed: CUresult "
-                           f"{err}")
-    return types
+        raise RuntimeError(f"reading the graph's kernel nodes failed: "
+                           f"CUresult {err}")
+    return names
+
+
+def captured_kernel_names(fn, warm=1):
+    """:func:`graph_kernel_names` of one call of ``fn`` captured into a
+    kept graph after ``warm`` eager calls on a side stream."""
+    from nf_tpu_torch._graphs import warm_up
+
+    warm_up(fn, torch.device("cuda"), warm)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    return graph_kernel_names(graph)
 
 
 def programmatic_edges(model, batch):
@@ -6314,6 +6410,14 @@ BF16_KERNELS = (
     ("rqs_bwd_autodiff_bf16", "rqs_bwd_autodiff",
      "nf_tpu_torch/csrc/rqs_bwd_autodiff.cu",
      "nf_tpu/ops/splines_pallas.py:220"))
+# phase 29's: kernels B and E and C's shared-parameter path in bfloat16
+BF16_HEAD_KERNELS = (
+    ("head_rqs_fwd_bf16", "head_rqs_fwd", "nf_tpu_torch/csrc/head_rqs_fwd.cu",
+     "nf_tpu/ops/spline_head_fused.py:105"),
+    ("head_rqs_bwd_bf16", "head_rqs_bwd", "nf_tpu_torch/csrc/head_rqs_bwd.cu",
+     "nf_tpu/ops/spline_head_fused.py:129"),
+    ("rqs_bwd_shared_bf16", "rqs_bwd_shared", "nf_tpu_torch/csrc/rqs_bwd.cu",
+     "nf_tpu/ops/splines_pallas.py:399"))
 
 
 def bf16_ulp_ratio(got, want, grad):
@@ -6400,14 +6504,16 @@ def parity_image_kernels_bf16(dev):
     launches = {}
     for name, (kernel, _, _) in _bf16_calls(ops, True).items():
         before = _bf16_counts()[name]
-        types = graph_node_types(kernel)
-        launches[name] = (types, _bf16_counts()[name] - before)
-        if types != [0] or launches[name][1] != 2:
+        nodes = captured_kernel_names(kernel)
+        launches[name] = (nodes, _bf16_counts()[name] - before)
+        if (len(nodes) != 1 or kernel_of(nodes[0]) != name
+                or "__nv_bfloat16" not in nodes[0]
+                or launches[name][1] != 2):
             raise RuntimeError(f"{name} on bfloat16 views: a captured call "
-                               f"holds graph nodes of types {types} (0: a "
-                               f"kernel), its warm-up and capture counted "
-                               f"{launches[name][1]} bfloat16 launches; one "
-                               f"bfloat16 kernel and nothing else expected")
+                               f"holds graph nodes {nodes}, its warm-up and "
+                               f"capture counted {launches[name][1]} "
+                               f"bfloat16 launches; one bfloat16 kernel and "
+                               f"nothing else expected")
     if not all(v <= 1.0 for v in worst.values()):
         raise RuntimeError(f"bf16 kernels against their plain versions: "
                            f"worst |kernel - plain| / one bf16 ulp {worst}"
@@ -6485,15 +6591,19 @@ def _bf16_counts():
 
 def _with_bf16(counts, bf16):
     """A path's counts with the bfloat16 instantiations' under
-    ``<kernel>_bf16``."""
-    return dict(counts, **{f"{k}_bf16": v for k, v in bf16.items()})
+    ``<kernel>_bf16``: kernel C's per-element path under ``rqs_bwd_bf16``
+    and its shared-parameter path under ``rqs_bwd_shared_bf16``."""
+    out = dict(counts, **{f"{k}_bf16": v for k, v in bf16.items()})
+    out["rqs_bwd_bf16"] = bf16.get("rqs_bwd", 0) - bf16.get("rqs_bwd_shared",
+                                                           0)
+    return out
 
 
 def _all_bf16(counts, bf16, what):
-    """Fail unless every launch of A, C and D counted in ``counts`` was of
-    its bfloat16 instantiation."""
+    """Fail unless every launch of a port kernel counted in ``counts`` was
+    of its bfloat16 instantiation."""
     for k, v in bf16.items():
-        if counts[k] != v:
+        if k in counts and counts[k] != v:
             raise RuntimeError(f"{what}: {counts[k]} launches of {k}, "
                                f"{v} of them bfloat16")
 
@@ -6566,45 +6676,52 @@ def bf16_image_checks(model, x):
         k: bf16["log_prob"][k] + bf16["sample"][k] for k in bf16["log_prob"]}
 
 
-def bf16_step_check(model, batch, mode):
+def bf16_step_check(model, batch, mode, label="image_nsf", per_step=None,
+                    rows=IMG_CPU_ROWS, cpu=None):
     """One Adam step (lr 1e-3) of ``make_forward_kld_step`` on the
     bfloat16 model under backward ``mode``: at the full batch its launches
-    (A and C, or D, 8 each, all bfloat16); on IMG_CPU_ROWS rows, card
-    against CPU, the loss at the bf16 bar and the gradients within
-    BF16_GRAD_TOL (relative L2 of the whole vector). Returns (counts,
-    bfloat16 counts, the card's gradients on the rows)."""
+    (``per_step``, by default the image NSF's A and C, or D, 8 each), all
+    bfloat16; on ``rows`` rows, card against CPU, the loss at the bf16 bar
+    and the gradients within BF16_GRAD_TOL (relative L2 of the whole
+    vector). ``cpu``: the CPU's (loss, gradients) on these rows from an
+    earlier call (the CPU's autograd does not depend on ``mode``). Returns
+    (counts, bfloat16 counts, the card's gradients on the rows, the CPU's
+    (loss, gradients))."""
     from nf_tpu_torch.ops import splines_kernel as tk
 
+    backward = "rqs_bwd" if mode == "analytic" else "rqs_bwd_autodiff"
+    if per_step is None:
+        per_step = {"rqs_fwd": IMG_COUPLINGS, backward: IMG_COUPLINGS}
     tk.set_pallas_bwd_kernel(mode)
     try:
         # _step_result sets every count to 0 before the step
         _, _, launches = _step_result(model, batch)
         bf16 = _bf16_counts()
-        loss, grads, _ = _step_result(model, batch[:IMG_CPU_ROWS])
+        loss, grads, _ = _step_result(model, batch[:rows])
     finally:
         tk.set_pallas_bwd_kernel("analytic")
-    backward = "rqs_bwd" if mode == "analytic" else "rqs_bwd_autodiff"
-    _expect({"step": launches},
-            {"step": {"rqs_fwd": IMG_COUPLINGS, backward: IMG_COUPLINGS}},
-            f"bf16 image_nsf step ({mode})")
-    _all_bf16(launches, bf16, f"bf16 image_nsf step ({mode})")
-    loss_cpu, grads_cpu, _ = _step_result(copy.deepcopy(model).to("cpu"),
-                                          batch[:IMG_CPU_ROWS].cpu())
+    _expect({"step": launches}, {"step": per_step},
+            f"bf16 {label} step ({mode})")
+    _all_bf16(launches, bf16, f"bf16 {label} step ({mode})")
+    if cpu is None:
+        cpu = _step_result(copy.deepcopy(model).to("cpu"),
+                           batch[:rows].cpu())[:2]
+    loss_cpu, grads_cpu = cpu
     loss_err = bf16_bar_ratio(torch.tensor(loss), torch.tensor(loss_cpu))
     grad_err = _grad_l2(grads, grads_cpu)
     finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
     if not (finite and loss_err <= 1.0 and grad_err <= BF16_GRAD_TOL):
-        raise RuntimeError(f"bf16 image_nsf step ({mode}), card vs CPU: "
+        raise RuntimeError(f"bf16 {label} step ({mode}), card vs CPU: "
                            f"loss {loss} vs {loss_cpu} ({loss_err:.3g} of "
                            f"the bar), gradients {grad_err:.3g} relative L2 "
                            f"(limit {BF16_GRAD_TOL}), finite {finite}")
-    print(f"phase bf16 image_nsf step ({mode}): card vs CPU on "
-          f"{IMG_CPU_ROWS} rows: loss {loss:.4f} vs {loss_cpu:.4f} "
+    print(f"phase bf16 {label} step ({mode}): card vs CPU on "
+          f"{rows} rows: loss {loss:.4f} vs {loss_cpu:.4f} "
           f"({loss_err:.3g} of the bf16 bar), gradients {grad_err:.3g} "
           f"relative L2 (limit {BF16_GRAD_TOL}); launches per step at "
           f"B = {len(batch)} {launches}, of them bfloat16 {bf16}",
           flush=True)
-    return launches, bf16, grads
+    return launches, bf16, grads, cpu
 
 
 def _launching_bf16(compile_fn, what):
@@ -6628,11 +6745,11 @@ def _replay_kernels_bf16(report, what):
     return sum(c for n, (_, c) in report["top"] if "copy" in n.lower())
 
 
-def bf16_turns(label, f32_fn, bf16_fn):
+def bf16_turns(label, f32_fn, bf16_fn, model="image_nsf"):
     """``in_turns`` of the float32 and the bfloat16 call: f32, bf16, bf16,
     f32."""
     (a, d), (b, c) = in_turns(f32_fn, bf16_fn)
-    print(f"phase timing bf16 vs f32 image_nsf {label}: wall ms per call "
+    print(f"phase timing bf16 vs f32 {model} {label}: wall ms per call "
           f"(median of 10, in turns f32, bf16, bf16, f32): f32 {a:.3f} / "
           f"{d:.3f}, bf16 {b:.3f} / {c:.3f}", flush=True)
 
@@ -6674,7 +6791,7 @@ def phase_image_nsf_bf16(dev, flush, peaks):
     for mode, need in (("analytic", ("rqs_bwd", "rqs_bwd_bf16")),
                        ("autodiff", ("rqs_bwd_autodiff",
                                      "rqs_bwd_autodiff_bf16"))):
-        counts, bf16, _ = bf16_step_check(model, xs[0], mode)
+        counts, bf16, _, _ = bf16_step_check(model, xs[0], mode)
         paths[f"bf16 image_nsf step ({mode})"] = (_with_bf16(counts, bf16),
                                                   need16 + need)
     # graphs, against eager and in turns with the float32 model's
@@ -6737,6 +6854,482 @@ def phase_image_nsf_bf16(dev, flush, peaks):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     rows = {name: (abs_err[base], times[base])
             for name, base, _, _ in BF16_KERNELS}
+    return paths, rows
+
+
+# phase 29: the bfloat16 coupled NSF, build_nsf(permutation=False)'s stack
+# in bfloat16 from the public layers
+BF16_NSF_COUPLINGS = 8
+# its weights' perturbation: at 0.5 (build_nsf's phases) the splines are so
+# steep that rounding each coupling's output to bfloat16 moves log_prob by
+# ~1 nat and the sampler's round trip by ~6 (float32: 2e-3); at 0.1 the
+# bfloat16 model stays within the bar of its float32 twin (max 0.15 nats,
+# round trip 0.19, on the CPU at B = 4096)
+BF16_NSF_PERTURB = 0.1
+BF16_NSF_CPU_ROWS = 4096  # rows held against the CPU (B*D >= the gate)
+BF16_NSF_LR = 1e-3  # phase_training's Adam rate
+# (D, H, K, tails, B): build_nsf's coupling, the circular coupled model's
+# (H 512, K 10, circular tails), and both at B = 4099, whose h_t rows start
+# off 16 bytes
+BF16_HEAD_CASES = ((1, HIDDEN, K_BINS, "linear", BATCH),
+                   (1, 512, 10, "circular", BATCH),
+                   (1, HIDDEN, K_BINS, "linear", 4099),
+                   (1, 512, 10, "circular", 4099))
+
+
+def _head_operands(rng, dev, d, hidden, K, tails, batch, dtype):
+    """Kernel B's and E's operands at a coupling's shapes: x_t (D, B) (a
+    transposed view), h_t (H, B), W_eff and bias, tb (D,), cotangents."""
+    m = (3 * K - (1 if tails == "linear" else 0)) * d
+    x_t = _normal(rng, (batch, d), 1.5, dev).to(dtype).T
+    h_t = _normal(rng, (hidden, batch), 1.0, dev).to(dtype)
+    w = _normal(rng, (m, hidden), 0.3 / np.sqrt(hidden), dev).to(dtype)
+    b = _normal(rng, (m,), 0.1, dev).to(dtype)
+    tb = torch.full((d,), 3.0, device=dev, dtype=dtype)
+    cty, ctl = (_normal(rng, (d, batch), 1.0, dev).to(dtype)
+                for _ in range(2))
+    return x_t, h_t, w, b, tb, cty, ctl
+
+
+def _shared_operands(rng, dev, batch, dtype):
+    """Kernel C's shared path at a coupling's CDF: x (B, 1), (K, 1, 1)
+    parameters (the padded derivatives K+1), cotangents (B, 1)."""
+    from nf_tpu_torch.ops import splines
+
+    x, uw, uh, ud, cty, ctl = _cdf_operands(rng, dev, batch)
+    ud = splines.pad_derivatives(ud, "linear", 1e-3, axis=-1)
+    small = [t.movedim(-1, 0).to(dtype) for t in (uw, uh, ud)]
+    return [x.to(dtype)] + small + [cty.to(dtype), ctl.to(dtype)]
+
+
+def _bf16_head_calls(ops_h, ops_c, inverse, tails="linear", order=None):
+    """{kernel: (kernel call, plain call in the kernel's order, plain
+    call)} for B, E and C's shared path on ``ops_h`` and ``ops_c``.
+    ``order``: the head product summed in the kernels' order
+    (``spline_head_fused._params_in_kernel_order`` of the widened
+    operands), shared by both directions' plain calls in that order, which
+    are then ``head_rqs_plain_in_kernel_order`` and
+    ``head_rqs_bwd_plain_in_kernel_order`` without their own sums."""
+    from nf_tpu_torch.ops import spline_head_fused as shf
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    x_t, h_t, w, b, tb, cty, ctl = ops_h
+    K = (w.shape[0] // x_t.shape[0] + (1 if tails == "linear" else 0)) // 3
+    kw = dict(num_bins=K, tails=tails, inverse=inverse)
+    x, uw, uh, ud, cy, cl = ops_c
+    shared = (lambda: tk.rqs_bwd_shared(x, uw, uh, ud, 3.0, cy, cl,
+                                        inverse=inverse))
+    shared_plain = (lambda: tk.rqs_bwd_shared_plain(
+        x, uw, uh, ud, 3.0, cy, cl, inverse=inverse))
+    f32 = [t.float() for t in ops_h]
+
+    def fwd_order():
+        y, ld = shf.head_rqs_plain(f32[0], *order, f32[4], **kw)
+        return y.to(x_t.dtype), ld.to(x_t.dtype)
+
+    def bwd_order():
+        gx, gparams, _, gb = shf.head_rqs_bwd_plain(f32[0], *order, *f32[4:],
+                                                    **kw)
+        return tuple(t.to(x_t.dtype) for t in (
+            gx, torch.matmul(f32[2].T, gparams),
+            torch.matmul(gparams, f32[1].T), gb))
+
+    return {
+        "head_rqs_fwd": (
+            lambda: shf.fused_head_rqs(x_t, h_t, w, b, tail_bound=3.0, **kw),
+            fwd_order, lambda: shf.head_rqs_plain(x_t, h_t, w, b, tb, **kw)),
+        "head_rqs_bwd": (
+            lambda: shf.fused_head_rqs_bwd(x_t, h_t, w, b, tb, cty, ctl,
+                                           **kw),
+            bwd_order,
+            lambda: shf.head_rqs_bwd_plain(x_t, h_t, w, b, tb, cty, ctl,
+                                           **kw)),
+        "rqs_bwd_shared": (shared, shared_plain, shared_plain)}
+
+
+def parity_head_kernels_bf16(dev):
+    """Kernels B and E and C's shared path in bfloat16 at
+    :data:`BF16_HEAD_CASES` (C at the CDF's x (B, 1)), both directions:
+    each element of every output within one bfloat16 ulp of its plain
+    version in the kernel's summation order (``bf16_ulp_ratio`` <= 1; the
+    ratio against ``torch.matmul``'s order is printed beside), bfloat16
+    out; and one call of each, captured into a kept graph, holds that
+    kernel's bfloat16 instantiation (E and C: both their launches) and no
+    cast. Returns {kernel: max abs difference from its plain version}."""
+    rng = np.random.default_rng(SEED + 290)
+    bf = torch.bfloat16
+    worst = {k: 0.0 for k in ("head_rqs_fwd", "head_rqs_bwd",
+                              "rqs_bwd_shared")}
+    matmul, abs_err = dict(worst), dict(worst)
+    cases = 0
+    from nf_tpu_torch.ops import spline_head_fused as shf
+
+    for d, hidden, K, tails, batch in BF16_HEAD_CASES:
+        ops_h = _head_operands(rng, dev, d, hidden, K, tails, batch, bf)
+        ops_c = _shared_operands(rng, dev, batch, bf)
+        summed = shf._params_in_kernel_order(*(t.float()
+                                               for t in ops_h[1:4]))
+        for inverse in (False, True):
+            for name, (kernel, order, plain) in _bf16_head_calls(
+                    ops_h, ops_c, inverse, tails, summed).items():
+                grad = name != "head_rqs_fwd"
+                got, want, want_mm = kernel(), order(), plain()
+                torch.cuda.synchronize()
+                if any(t.dtype != bf for t in got):
+                    raise RuntimeError(f"{name} on bfloat16 operands gave "
+                                       f"{[t.dtype for t in got]}")
+                worst[name] = max(worst[name], *(
+                    bf16_ulp_ratio(a, c, grad) for a, c in zip(got, want)))
+                matmul[name] = max(matmul[name], *(
+                    bf16_ulp_ratio(a, c, grad)
+                    for a, c in zip(got, want_mm)))
+                abs_err[name] = max(abs_err[name], *(
+                    max_err(a.float(), c.float())
+                    for a, c in zip(got, want)))
+            cases += 1
+    nodes = {}
+    want_nodes = {"head_rqs_fwd": {"head_rqs_fwd": 1},
+                  "head_rqs_bwd": {"head_rqs_bwd": 2},
+                  "rqs_bwd_shared": {"rqs_bwd": 2}}
+    for name, (kernel, _, _) in _bf16_head_calls(ops_h, ops_c, False,
+                                                 tails).items():
+        names = captured_kernel_names(kernel)
+        ours = {}
+        for n in names:
+            k = kernel_of(n)
+            if k is not None:
+                ours[k] = ours.get(k, 0) + ("__nv_bfloat16" in n)
+        nodes[name] = len(names)
+        if ours != want_nodes[name] or any("direct_copy_kernel" in n
+                                           for n in names):
+            raise RuntimeError(f"{name} on bfloat16 operands: a captured "
+                               f"call's kernels {names}; expected its "
+                               f"bfloat16 instantiation "
+                               f"{want_nodes[name]} and no cast")
+    if not all(v <= 1.0 for v in worst.values()):
+        raise RuntimeError(f"bf16 B, E, C shared against their plain "
+                           f"versions in the kernels' order: worst |kernel - "
+                           f"plain| / one bf16 ulp {worst} (limit 1)")
+    print(f"phase bf16 head kernels ({cases} cases: (D, H, K, tails, B) in "
+          f"{BF16_HEAD_CASES}, C's shared path at x (B, 1); both "
+          f"directions): worst |kernel - plain in the kernel's order| in "
+          f"bf16 ulps " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + " (limit 1); against torch.matmul's order "
+          + ", ".join(f"{k} {v:.3g}" for k, v in matmul.items())
+          + "; max abs " + ", ".join(f"{k} {v:.3g}"
+                                     for k, v in abs_err.items())
+          + f"; a captured call of each holds its bfloat16 kernels and "
+          f"nothing of the port else, no cast (graph nodes {nodes})",
+          flush=True)
+    return abs_err
+
+
+def timing_head_kernels_bf16(dev, flush, peaks):
+    """Kernels B and E at build_nsf's coupling (D 1, H 128, K 8, linear, B
+    65536) and C's shared path at its CDF (x (65536, 1)), both directions,
+    in bfloat16 and in float32 in turns (f32, bf16, bf16, f32), with the
+    bfloat16 plain version's time and each dtype's bound (``ops.cost``:
+    the operands read and the outputs written at their element size; E's
+    float32 partials and C's workspace are scratch). Returns {kernel:
+    {inverse: (bf16 ms, plain ms, bound ms, bound by)}} and prints the
+    float32 times beside."""
+    from nf_tpu_torch.ops import cost
+
+    out, rows = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(SEED + 291)
+        ops_h = _head_operands(rng, dev, 1, HIDDEN, K_BINS, "linear", BATCH,
+                               dtype)
+        ops_c = _shared_operands(rng, dev, BATCH, dtype)
+        out[dtype] = (ops_h, ops_c)
+    minima = (1e-3, 1e-3, 1e-3)
+
+    def cost_of(name, ops_h, ops_c, inverse):
+        x_t, h_t, w, b, tb, cty, ctl = ops_h
+        if name == "head_rqs_fwd":
+            return cost.head_rqs_fwd(x_t, h_t, w, b, tb, K_BINS, False,
+                                     inverse, *minima)
+        if name == "head_rqs_bwd":
+            return cost.head_rqs_bwd(x_t, h_t, w, b, tb, K_BINS, False, cty,
+                                     ctl, inverse, *minima)
+        x, uw, uh, ud, cy, cl = ops_c
+        return cost.rqs_bwd_shared(x, uw, uh, ud, None, 3.0, cy, cl, inverse,
+                                   *minima)
+
+    times = {}
+    for name in ("head_rqs_fwd", "head_rqs_bwd", "rqs_bwd_shared"):
+        times[name] = {}
+        for inverse in (False, True):
+            k32 = _bf16_head_calls(*out[torch.float32], inverse)[name][0]
+            k16, _, plain16 = _bf16_head_calls(*out[torch.bfloat16],
+                                               inverse)[name]
+            t32a = device_ms(k32, flush)
+            t16a = device_ms(k16, flush)
+            t16b = device_ms(k16, flush)
+            t32b = device_ms(k32, flush)
+            plain = device_ms(plain16, flush)
+            ops16, bytes16 = cost_of(name, *out[torch.bfloat16], inverse)
+            ops32, bytes32 = cost_of(name, *out[torch.float32], inverse)
+            b16, b32 = bound(bytes16, ops16, peaks), bound(bytes32, ops32,
+                                                            peaks)
+            times[name][inverse] = ((t16a + t16b) / 2, plain) + b16
+            rows.append(
+                f"{name} {'inverse' if inverse else 'forward'}: bf16 "
+                f"kernel_ms {t16a:.4f} / {t16b:.4f}, f32 {t32a:.4f} / "
+                f"{t32b:.4f} (in turns f32, bf16, bf16, f32); bf16 plain_ms "
+                f"{plain:.4f}; bound_ms bf16 {b16[0]:.5f} ({b16[1]}, "
+                f"{bytes16} bytes), f32 {b32[0]:.5f} ({b32[1]}, {bytes32} "
+                f"bytes)")
+    print(f"phase timing bf16 head kernels (device ms after the flush; B "
+          f"and E at D 1, H {HIDDEN}, K {K_BINS}, linear, B {BATCH}; C's "
+          f"shared path at x ({BATCH}, 1)): " + "; ".join(rows), flush=True)
+    return times
+
+
+def bf16_nsf_model(dtype=torch.bfloat16):
+    """``build_nsf(permutation=False)``'s stack from the public layers:
+    BF16_NSF_COUPLINGS ``CoupledRationalQuadraticSpline`` (H 128, 2 blocks,
+    8 bins, linear tails, bound 3, masks alternating) on a
+    ``DiagGaussian(2, trainable=False)``, all in ``dtype``, weights drawn
+    from ``torch.Generator().manual_seed(SEED)`` and perturbed by
+    BF16_NSF_PERTURB, on the card. Its float32 twin holds the same values:
+    load the bfloat16 model's state into ``bf16_nsf_model(torch.float32)``.
+    """
+    import nf_tpu_torch as nt
+
+    gen = torch.Generator().manual_seed(SEED)
+    layers = [nt.flows.CoupledRationalQuadraticSpline(
+        num_input_channels=2, num_blocks=2, num_hidden_channels=HIDDEN,
+        num_bins=K_BINS, tails="linear", tail_bound=3.0,
+        reverse_mask=(i % 2 == 1), generator=gen, dtype=dtype)
+        for i in range(BF16_NSF_COUPLINGS)]
+    model = nt.NormalizingFlow(
+        nt.distributions.DiagGaussian(2, trainable=False, dtype=dtype),
+        layers).to("cuda")
+    perturb(model, SEED + 292, size=BF16_NSF_PERTURB)
+    return model
+
+
+def bf16_nsf_checks(model, x):
+    """The bfloat16 coupled NSF at B = len(x), eagerly: ``log_prob`` card
+    against CPU (its plain path, the unfused bfloat16 head) on
+    BF16_NSF_CPU_ROWS rows and ``sample``'s round trip, each at the bf16
+    bar; finite values of the right shapes and dtypes; per pass B and A
+    once per coupling, all bfloat16. Returns the passes' counts with their
+    bfloat16 ones."""
+    batch, rows = x.shape[0], BF16_NSF_CPU_ROWS
+    cpu = copy.deepcopy(model).to("cpu")
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 293)
+    counts, bf16 = {}, {}
+
+    def counted(label, fn):  # every count is 0 before fn (_counted)
+        out = _counted(counts, label, fn)
+        bf16[label] = _bf16_counts()
+        _all_bf16(counts[label], bf16[label], f"bf16 coupled {label}")
+        return out
+
+    with torch.inference_mode():
+        lp = counted("log_prob", lambda: model.log_prob(x))
+        z, log_q = counted("sample", lambda: model.sample(batch,
+                                                          generator=gen))
+        lp_z = model.log_prob(z)
+        lp_cpu = cpu.log_prob(x[:rows].cpu())
+    per_pass = {"rqs_fwd": BF16_NSF_COUPLINGS,
+                "head_rqs_fwd": BF16_NSF_COUPLINGS}
+    _expect(counts, {"log_prob": per_pass, "sample": per_pass},
+            "bf16 coupled serving")
+    for t in (lp, z, log_q, lp_z):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError("non-finite values on the bf16 coupled path")
+    if not (z.dtype == lp.dtype == torch.bfloat16 and z.shape == x.shape
+            and lp.shape == (batch,)):
+        raise RuntimeError(f"bf16 coupled: sample {z.dtype} "
+                           f"{tuple(z.shape)}, log_prob {lp.dtype} "
+                           f"{tuple(lp.shape)}")
+    errs = {f"log_prob cuda vs cpu (first {rows})": bf16_bar_ratio(
+                lp[:rows].cpu(), lp_cpu),
+            "log_prob(sample) vs log_q": bf16_bar_ratio(lp_z, log_q)}
+    if not all(v <= 1.0 for v in errs.values()):
+        raise RuntimeError(f"bf16 coupled NSF at the bf16 bar ({BF16_TOL} "
+                           f"abs + {BF16_TOL} relative): {errs} (limit 1)")
+    print(f"phase bf16 coupled serving (B = {batch}): launches per pass "
+          f"{counts}, of them bfloat16 {bf16}; errors over the bf16 bar "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (limit 1; max |log_prob cuda - cpu| "
+          f"{max_err(lp[:rows].cpu().float(), lp_cpu.float()):.4g} at "
+          f"|log p| up to {float(lp_cpu.float().abs().max()):.4g})",
+          flush=True)
+    return ({k: counts["log_prob"][k] + counts["sample"][k]
+             for k in counts["log_prob"]},
+            {k: bf16["log_prob"][k] + bf16["sample"][k]
+             for k in bf16["log_prob"]})
+
+
+def _graph_kernels_bf16(fn, warm, want, what):
+    """Capture one call of ``fn`` into a kept graph and read its kernel
+    nodes: every port kernel among them a bfloat16 instantiation, their
+    count by kernel ``want``, and no cast (``direct_copy_kernel``).
+    Returns (port kernels by kernel, nodes)."""
+    names = captured_kernel_names(fn, warm)
+    ours = {}
+    for n in names:
+        k = kernel_of(n)
+        if k is not None:
+            if "__nv_bfloat16" not in n:
+                raise RuntimeError(f"{what}: the graph holds {n[:90]}, a "
+                                   f"port kernel that is not bfloat16")
+            ours[k] = ours.get(k, 0) + 1
+    casts = [n for n in names if "direct_copy_kernel" in n]
+    if ours != want or casts:
+        raise RuntimeError(f"{what}: the graph's port kernels {ours} "
+                           f"(expected {want}), casts {casts[:3]}")
+    return ours, len(names)
+
+
+def phase_coupled_nsf_bf16(dev, flush, peaks):
+    """Phase 29: ``build_nsf(permutation=False)``'s stack in bfloat16
+    (:func:`bf16_nsf_model`): kernels B and E and C's shared path in
+    bfloat16 against their plain versions and timed in turns with
+    float32; serving (``log_prob``, ``sample``) at B = 65536 and the
+    forward-KLD step at B = 65536 on TwoMoons (Adam 1e-3; the batch drawn
+    in float32 and cast once), under "analytic" (A, B, C's shared path,
+    E) and "autodiff" (D on the CDF), eagerly card against CPU; then
+    ``compile_log_prob``, ``compile_sampler`` and the captured step as
+    graphs against eager (bitwise), each launching only bfloat16 port
+    kernels and no cast (the captured calls' kernel nodes read by name),
+    and timed in turns with the float32 twin's graphs. Returns ({path:
+    (counts with their ``<kernel>_bf16``, kernels it must launch)},
+    {kernel: (max abs err, {inverse: timing})})."""
+    import nf_tpu_torch as nt
+
+    t0 = time.perf_counter()
+    abs_err = parity_head_kernels_bf16(dev)
+    times = timing_head_kernels_bf16(dev, flush, peaks)
+    t_kernels = time.perf_counter() - t0
+    model = bf16_nsf_model()
+    dtypes = {str(p.dtype) for p in model.parameters()} | {
+        str(b.dtype) for b in model.buffers() if b.is_floating_point()}
+    if dtypes != {"torch.bfloat16"}:
+        raise RuntimeError(f"bf16 coupled NSF holds {dtypes}")
+    m32 = bf16_nsf_model(torch.float32)
+    m32.load_state_dict(model.state_dict())
+    target = nt.TwoMoons()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 294)
+    x32 = target.sample(BATCH, generator=gen)
+    x16 = x32.to(torch.bfloat16)
+    paths = {}
+    couplings = BF16_NSF_COUPLINGS
+    need = ("rqs_fwd", "rqs_fwd_bf16", "head_rqs_fwd", "head_rqs_fwd_bf16")
+    counts, bf16 = bf16_nsf_checks(model, x16)
+    paths["bf16 coupled serving"] = (_with_bf16(counts, bf16), need)
+    xs = [target.sample(BATCH, generator=gen).to(torch.bfloat16)
+          for _ in range(GRAPH_STEPS + 30)]
+    cpu = None
+    for mode, more in (("analytic", ("rqs_bwd", "rqs_bwd_shared_bf16")),
+                       ("autodiff", ("rqs_bwd_autodiff",
+                                     "rqs_bwd_autodiff_bf16"))):
+        bwd = "rqs_bwd" if mode == "analytic" else "rqs_bwd_autodiff"
+        per_step = {"rqs_fwd": couplings, "head_rqs_fwd": couplings,
+                    bwd: couplings, "head_rqs_bwd": couplings}
+        counts, bf16, _, cpu = bf16_step_check(
+            model, xs[0], mode, label="coupled", per_step=per_step,
+            rows=BF16_NSF_CPU_ROWS, cpu=cpu)
+        paths[f"bf16 coupled step ({mode})"] = (
+            _with_bf16(counts, bf16),
+            need + ("head_rqs_bwd", "head_rqs_bwd_bf16") + more)
+    # graphs against eager, their kernels by name
+    per_pass = {"rqs_fwd": couplings, "head_rqs_fwd": couplings}
+    served = _launching_bf16(lambda: serving_graphs(
+        "bf16 coupled", model, x16, BATCH, per_pass, "bf16 coupled serving",
+        dtype=torch.bfloat16), "bf16 coupled serving graphs")
+    lp_fn, sampler = served["log_prob"]["fn"], served["sample"]["fn"]
+    if served["log_prob"]["err"] != 0.0:
+        raise RuntimeError(f"bf16 coupled log_prob: graph vs eager "
+                           f"{served['log_prob']['err']:.3g}, not bitwise")
+    counts = _captured_counts(served)
+    paths["graphs: bf16 coupled serving"] = (
+        _with_bf16(counts, {k: counts.get(k, 0) for k in
+                            ("rqs_fwd", "head_rqs_fwd")}), need)
+
+    def eager_lp():
+        with torch.inference_mode():
+            return model.log_prob(x16)
+
+    nodes = {"log_prob": _graph_kernels_bf16(
+        eager_lp, 1, {"rqs_fwd": couplings, "head_rqs_fwd": couplings},
+        "bf16 coupled log_prob graph")}
+    for mode, path in (("analytic", "bf16 coupled step"),
+                       ("autodiff", "bf16 coupled step (autodiff)")):
+        st = _launching_bf16(lambda: step_graphs(
+            f"bf16 coupled forward-KLD step ({mode}, B = {BATCH})", model,
+            nt.make_forward_kld_step, lambda i, which: (xs[i % len(xs)],),
+            path, dict(lr=BF16_NSF_LR), mode=mode),
+            f"bf16 coupled step graph ({mode})")
+        if st["err"] != (0.0, 0.0):
+            raise RuntimeError(f"bf16 coupled step graph ({mode}): graph vs "
+                               f"eager {st['err']}, not bitwise")
+        bwd = "rqs_bwd" if mode == "analytic" else "rqs_bwd_autodiff"
+        per_step = {"rqs_fwd": couplings, "head_rqs_fwd": couplings,
+                    bwd: couplings, "head_rqs_bwd": couplings}
+        _expect_launches(st["launches"], per_step,
+                         f"bf16 coupled step graph ({mode})")
+        l16 = {k: st["launches"].get(k, 0) for k in
+               ("rqs_fwd", "head_rqs_fwd", "rqs_bwd", "rqs_bwd_autodiff",
+                "head_rqs_bwd")}
+        l16["rqs_bwd_shared"] = l16["rqs_bwd"]  # C runs its shared path
+        paths[f"graphs: bf16 coupled step ({mode})"] = (
+            _with_bf16(st["launches"], l16),
+            need + ("head_rqs_bwd", "head_rqs_bwd_bf16", bwd)
+            + (("rqs_bwd_shared_bf16",) if mode == "analytic"
+               else ("rqs_bwd_autodiff_bf16",)))
+        # C's shared path and E are two launches each
+        m_ = copy.deepcopy(model)
+        opt = torch.optim.Adam(m_.parameters(), lr=BF16_NSF_LR,
+                               capturable=True)
+        state = nt.init_train_state(m_, opt)
+        eager_step = nt.make_forward_kld_step(opt).eager
+        from nf_tpu_torch.ops import splines_kernel as tk
+
+        tk.set_pallas_bwd_kernel(mode)
+        try:
+            nodes[f"step ({mode})"] = _graph_kernels_bf16(
+                lambda: eager_step(state, xs[0]), 2,
+                {"rqs_fwd": couplings, "head_rqs_fwd": couplings,
+                 bwd: couplings * (2 if mode == "analytic" else 1),
+                 "head_rqs_bwd": 2 * couplings},
+                f"bf16 coupled step graph ({mode})")
+        finally:
+            tk.set_pallas_bwd_kernel("analytic")
+    print(f"phase bf16 coupled graphs: port kernels of a captured call by "
+          f"name, all bfloat16, no cast (kernels, graph nodes): {nodes}",
+          flush=True)
+    # the float32 twin's graphs in turns
+    lp32 = nt.compile_log_prob(m32, (BATCH, 2))
+    bf16_turns(f"compile_log_prob (B = {BATCH})", lambda: lp32(x32),
+               lambda: lp_fn(x16), "coupled")
+    s32 = nt.compile_sampler(m32, BATCH)
+    bf16_turns(f"compile_sampler (B = {BATCH})", lambda: s32(SEED),
+               lambda: sampler(SEED), "coupled")
+    step_fns = []
+    for m, batches in ((m32, [t.float() for t in xs[:4]]), (model, xs[:4])):
+        mm = copy.deepcopy(m)
+        opt = torch.optim.Adam(mm.parameters(), lr=BF16_NSF_LR,
+                               capturable=True)
+        state = nt.init_train_state(mm, opt)
+        step = nt.make_forward_kld_step(opt)
+        i = [0]
+
+        def call(step=step, state=state, batches=batches, i=i):
+            i[0] += 1
+            return step(state, batches[i[0] % len(batches)])
+        step_fns.append(call)
+    bf16_turns(f"captured forward-KLD step (B = {BATCH})", *step_fns,
+               "coupled")
+    print(f"phase timing phase 29 (bf16 coupled NSF): "
+          f"{time.perf_counter() - t0:.1f} s, the kernels' parity and "
+          f"timing {t_kernels:.1f} s of it", flush=True)
+    rows = {name: (abs_err[base], times[base])
+            for name, base, _, _ in BF16_HEAD_KERNELS}
     return paths, rows
 
 
@@ -6894,6 +7487,14 @@ def main():
         err, t = bf16_rows[name]
         # the inverse direction: the log_prob's and the step's
         results[name] = dict(err=err, t=t[True], source=source,
+                             replaces=replaces)
+    # phase 29, the bfloat16 coupled NSF, beside its float32 twin
+    bf16_paths, bf16_rows = phase_coupled_nsf_bf16(dev, flush, peaks)
+    paths.update(bf16_paths)
+    for name, _, source, replaces in BF16_HEAD_KERNELS:
+        err, t = bf16_rows[name]
+        # the forward direction: the log_prob's and the step's
+        results[name] = dict(err=err, t=t[False], source=source,
                              replaces=replaces)
     cc_paths, _ = phase_circular_coupled(dev, flush, peaks)
     paths.update(cc_paths)

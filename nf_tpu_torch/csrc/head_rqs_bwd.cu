@@ -64,10 +64,26 @@
 // Built with -DNF_BINS=K, the file instantiates kernel E for that bin
 // count alone (ops/_build.py builds the three counts as three libraries,
 // in parallel); without it, for every supported count.
+//
+// Storage types. The kernel is a template on the storage type T of every
+// operand and output, float (head_rqs_bwd_launch) or __nv_bfloat16
+// (head_rqs_bwd_launch_bf16, the coupled layers built with
+// dtype=bfloat16): x_t, h_t, the cotangents, gx and gh move 2 bytes per
+// element in bfloat16. W_eff, the bias and the tail bound are widened as
+// they are loaded, gp and every sum stay float32, and each output is
+// rounded once. The gW/gb partials stay float32 too (gW sums B columns;
+// reduce_partials rounds the total once into T). gW's h_t chunks are
+// staged as T (16-byte copies of 8 columns at a row stride of 40, 80
+// bytes, where every row of h_t starts on 16 bytes; element loads
+// otherwise: cp.async has no 2-byte copy) and widened per 4 columns from
+// one 8-byte load (load4). A bfloat16 thread sums gh 8 rows at a time in
+// phase 4 (4 per column in the split phase), half the float32 kernel's,
+// so that no bfloat16 instantiation spills more than its float32 twin.
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "rqs_bwd_math.cuh"
 
@@ -80,15 +96,22 @@ constexpr int kG = 16;         // rows of gh a thread holds per step
 constexpr int kG2 = 8;         // the same for each of two columns
 constexpr int kChunk = 32;     // batch columns of h_t staged per gW step
 constexpr int kRowPad = 4;     // pad of an h_s row (stride 36 floats)
+constexpr int kRowPadBf16 = 8;  // the same in bfloat16 (stride 40, 80 bytes)
 constexpr int kMaxSharedBytes = 232448;  // what a block may opt into
 constexpr int kWarps = kThreads / 32;
 constexpr int kGpStride = kThreads + kColPad;
-constexpr int kHStride = kChunk + kRowPad;
 constexpr int kTileM = 24;  // gW warp tile: 4 lanes x 6 rows of gW
 constexpr int kTileJ = 32;  // by 8 lanes x 4 columns
 static_assert(kChunk == 32, "a warp stages one h_t row of a chunk");
 static_assert(kG % kG2 == 0, "w_s rows cover the split gh steps");
 static_assert(kThreads / 2 == 128, "gw_sync's bar.sync counts 128 threads");
+
+// the row stride of a staged h_t chunk: 32 columns and a pad that keeps
+// the gW product's reads free of bank conflicts and every row on 16 bytes
+template <class T>
+__host__ __device__ constexpr int h_stride() {
+  return kChunk + (sizeof(T) == 4 ? kRowPad : kRowPadBf16);
+}
 
 __host__ __device__ constexpr int padded_params(int p) {
   return (p + 3) / 4 * 4;
@@ -115,20 +138,25 @@ __host__ __device__ inline int h_rows(int H) {
   return (H + kTileJ - 1) / kTileJ * kTileJ;
 }
 
-// gp, then W_eff's tile and nbuf h_t chunks: side by side when the warps
-// split, else sharing one region (W_eff in phases 0-1 and 4, h_t in 3)
-__host__ __device__ inline size_t shared_floats(int P, int D, int H,
-                                                int nbuf) {
-  const size_t w = static_cast<size_t>(w_rows(H)) * D * padded_params(P);
-  const size_t h = static_cast<size_t>(nbuf) * h_rows(H) * kHStride;
+// gp and W_eff's tile (float32), then nbuf h_t chunks (T): the tile and
+// the chunks side by side when the warps split, else sharing one region
+// (W_eff in phases 0-1 and 4, h_t in 3)
+template <class T>
+__host__ __device__ inline size_t shared_bytes(int P, int D, int H,
+                                               int nbuf) {
+  const size_t w =
+      sizeof(float) * static_cast<size_t>(w_rows(H)) * D * padded_params(P);
+  const size_t h =
+      sizeof(T) * static_cast<size_t>(nbuf) * h_rows(H) * h_stride<T>();
   const size_t rest = split_warps(D, H) ? w + h : (w > h ? w : h);
-  return static_cast<size_t>(gp_rows(P * D)) * kGpStride + rest;
+  return sizeof(float) * static_cast<size_t>(gp_rows(P * D)) * kGpStride
+         + rest;
 }
 
 // two h_t chunk buffers where they fit, else one
+template <class T>
 __host__ __device__ inline int h_buffers(int P, int D, int H) {
-  return shared_floats(P, D, H, 2) * sizeof(float) <= kMaxSharedBytes ? 2
-                                                                      : 1;
+  return shared_bytes<T>(P, D, H, 2) <= kMaxSharedBytes ? 2 : 1;
 }
 
 // the barrier of the warps that run phase 3: all of them, or warps 0-3
@@ -146,36 +174,44 @@ __device__ __forceinline__ void gw_sync() {
 // m0 + 4r and columns j0 + 8s (r < 6, s < 4).
 // quads: every row of h_t starts on 16 bytes, so a chunk's row is staged
 // in 16-byte copies.
-template <int NW, bool ALL>
-__device__ void gw_product(const float* gp, float* h_s, int nbuf,
-                           const float* __restrict__ h_t, long long B,
+template <class T, int NW, bool ALL>
+__device__ void gw_product(const float* gp, T* h_s, int nbuf,
+                           const T* __restrict__ h_t, long long B,
                            bool quads, long long b0, int M, int H,
                            float* __restrict__ out, int wi, int lane) {
   constexpr int kChunks = kThreads / kChunk;
+  constexpr int kHS = h_stride<T>();
   const int ti = wi * 32 + lane;
   const int mtiles = (M + kTileM - 1) / kTileM;
   const int tiles = mtiles * ((H + kTileJ - 1) / kTileJ);
   const int jg = lane & 7;
   const int mg = lane >> 3;
   auto stage_h = [&](int k) {  // chunk k -> buffer k % nbuf, zero past B
-    float* buf = h_s + (k % nbuf) * (h_rows(H) * kHStride);
-    if (quads) {  // 8 threads copy a row's 32 columns
-      const int c = 4 * (ti & 7);
+    T* buf = h_s + (k % nbuf) * (h_rows(H) * kHS);
+    if (quads) {  // kTR threads copy a row's 32 columns, kV each
+      constexpr int kV = 16 / sizeof(T);
+      constexpr int kTR = kChunk / kV;
+      const int c = kV * (ti % kTR);
       const long long bb = b0 + k * kChunk + c;
       const bool in = bb < B;
-      const float* src = h_t + (in ? bb : 0);
-      for (int j = ti >> 3; j < H; j += 4 * NW)
-        __pipeline_memcpy_async(buf + j * kHStride + c,
+      const T* src = h_t + (in ? bb : 0);
+      for (int j = ti / kTR; j < H; j += 32 * NW / kTR)
+        __pipeline_memcpy_async(buf + j * kHS + c,
                                 src + static_cast<long long>(j) * B, 16,
                                 in ? 0 : 16);
     } else {  // a warp copies a row
       const long long bb = b0 + k * kChunk + lane;
       const bool in = bb < B;
-      const float* src = h_t + (in ? bb : 0);
-      for (int j = wi; j < H; j += NW)
-        __pipeline_memcpy_async(buf + j * kHStride + lane,
-                                src + static_cast<long long>(j) * B, 4,
-                                in ? 0 : 4);
+      const T* src = h_t + (in ? bb : 0);
+      for (int j = wi; j < H; j += NW) {
+        if constexpr (std::is_same<T, float>::value)
+          __pipeline_memcpy_async(buf + j * kHS + lane,
+                                  src + static_cast<long long>(j) * B, 4,
+                                  in ? 0 : 4);
+        else  // no 2-byte cp.async: a load (gw_sync publishes it)
+          buf[j * kHS + lane] =
+              in ? src[static_cast<long long>(j) * B] : nf::from_f32<T>(0.0f);
+      }
     }
     __pipeline_commit();
   };
@@ -200,8 +236,7 @@ __device__ void gw_product(const float* gp, float* h_s, int nbuf,
       }
       gw_sync<ALL>();  // chunk k is in place
       if (busy) {
-        const float* hb =
-            h_s + ((k % nbuf) * h_rows(H) + j0) * kHStride;
+        const T* hb = h_s + ((k % nbuf) * h_rows(H) + j0) * kHS;
         const float* gk = gp + m0 * kGpStride + k * kChunk;
 #pragma unroll 1
         for (int c = 0; c < kChunk; c += 4) {
@@ -211,9 +246,7 @@ __device__ void gw_product(const float* gp, float* h_s, int nbuf,
             gv[r] = *reinterpret_cast<const float4*>(gk + 4 * r * kGpStride
                                                      + c);
 #pragma unroll
-          for (int s = 0; s < 4; ++s)
-            hv[s] = *reinterpret_cast<const float4*>(hb + 8 * s * kHStride
-                                                     + c);
+          for (int s = 0; s < 4; ++s) hv[s] = nf::load4(hb + 8 * s * kHS + c);
 #pragma unroll
           for (int r = 0; r < 6; ++r)
 #pragma unroll
@@ -243,17 +276,16 @@ __device__ void gw_product(const float* gp, float* h_s, int nbuf,
 
 // ONE: D == 1, known when compiled, so that the cotangents of phase 1 stay
 // in registers for phase 4 without a loop carrying them over features.
-template <int K, bool CIRCULAR, bool INVERSE, bool ONE>
+template <class T, int K, bool CIRCULAR, bool INVERSE, bool ONE>
 __global__ void __launch_bounds__(kThreads, 2) head_rqs_bwd_kernel(
-    const float* __restrict__ x_t, long long x_rs, long long x_cs,
-    const float* __restrict__ h_t, const float* __restrict__ w,
-    const float* __restrict__ bias, const float* __restrict__ tb,
-    const float* __restrict__ cty, long long cty_rs, long long cty_cs,
-    const float* __restrict__ ctl, long long ctl_rs, long long ctl_cs,
+    const T* __restrict__ x_t, long long x_rs, long long x_cs,
+    const T* __restrict__ h_t, const T* __restrict__ w,
+    const T* __restrict__ bias, const T* __restrict__ tb,
+    const T* __restrict__ cty, long long cty_rs, long long cty_cs,
+    const T* __restrict__ ctl, long long ctl_rs, long long ctl_cs,
     int feats, long long B, int H, bool quads, float edge,
     float min_bin_width, float min_bin_height, float min_derivative,
-    float* __restrict__ gx, float* __restrict__ gh,
-    float* __restrict__ partials) {
+    T* __restrict__ gx, T* __restrict__ gh, float* __restrict__ partials) {
   constexpr int ND = CIRCULAR ? K : K - 1;
   constexpr int P = 2 * K + ND;
   constexpr int PP = padded_params(P);
@@ -261,6 +293,13 @@ __global__ void __launch_bounds__(kThreads, 2) head_rqs_bwd_kernel(
   const int M = P * D;
   const int wrows = w_rows(H);
   const int ntiles = (H + kJ - 1) / kJ;
+  // rows of gh a thread sums per step (phase 4, and each of the two columns
+  // of the split phase): bfloat16 takes half of float32's, which keeps every
+  // bfloat16 instantiation within its float32 twin's spills at the 128
+  // registers two blocks per SM allow (at kG, kG2 some spilled 4-8 bytes
+  // more, the conversions of its loads and stores taking a register or two)
+  constexpr int GS = std::is_same<T, float>::value ? kG : kG / 2;
+  constexpr int GS2 = std::is_same<T, float>::value ? kG2 : kG2 / 2;
   extern __shared__ __align__(16) float smem[];
   float* gp = smem;                  // [gp_rows][kGpStride]
   float* w_s = gp + gp_rows(M) * kGpStride;  // [wrows][D][PP]
@@ -285,8 +324,9 @@ __global__ void __launch_bounds__(kThreads, 2) head_rqs_bwd_kernel(
       const int p = pd / D;
       const int jj = j0 + j;
       w_s[(j * D + d) * PP + p] =
-          (p < P && jj < H) ? w[static_cast<long long>(p * D + d) * H + jj]
-                            : 0.0f;
+          (p < P && jj < H)
+              ? nf::to_f32(w[static_cast<long long>(p * D + d) * H + jj])
+              : 0.0f;
     }
   };
   int staged = 0;  // the tile w_s holds (the same on every thread)
@@ -312,12 +352,12 @@ __global__ void __launch_bounds__(kThreads, 2) head_rqs_bwd_kernel(
       ensure_tile(t);
       if (active) {
         const int rows = min(kJ, H - t * kJ);
-        const float* hp = h_t + static_cast<long long>(t * kJ) * B + b;
+        const T* hp = h_t + static_cast<long long>(t * kJ) * B + b;
         const float4* wq = reinterpret_cast<const float4*>(w_s + d * PP);
         const int wstep = D * PP / 4;  // float4s from one j to the next
 #pragma unroll 8
         for (int j = 0; j < rows; ++j) {
-          const float hv = *hp;
+          const float hv = nf::to_f32(*hp);
           hp += B;
 #pragma unroll
           for (int q = 0; q < PP / 4; ++q) {
@@ -338,27 +378,28 @@ __global__ void __launch_bounds__(kThreads, 2) head_rqs_bwd_kernel(
       float uw[K], uh[K], ud[K + 1];
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        uw[k] = acc[k] + bias[k * D + d];
-        uh[k] = acc[K + k] + bias[(K + k) * D + d];
+        uw[k] = acc[k] + nf::to_f32(bias[k * D + d]);
+        uh[k] = acc[K + k] + nf::to_f32(bias[(K + k) * D + d]);
       }
       if (CIRCULAR) {
 #pragma unroll
         for (int k = 0; k < K; ++k)
-          ud[k] = acc[2 * K + k] + bias[(2 * K + k) * D + d];
+          ud[k] = acc[2 * K + k] + nf::to_f32(bias[(2 * K + k) * D + d]);
         ud[K] = ud[0];
       } else {
         ud[0] = edge;
         ud[K] = edge;
 #pragma unroll
         for (int k = 0; k < K - 1; ++k)
-          ud[k + 1] = acc[2 * K + k] + bias[(2 * K + k) * D + d];
+          ud[k + 1] = acc[2 * K + k] + nf::to_f32(bias[(2 * K + k) * D + d]);
       }
       float gxv, gwv[K], ghv[K], gdv[K + 1];
       nf::rqs_bwd_element<K, INVERSE>(
-          x_t[d * x_rs + b * x_cs], tb[d], uw, uh, ud,
-          cty[d * cty_rs + b * cty_cs], ctl[d * ctl_rs + b * ctl_cs],
-          min_bin_width, min_bin_height, min_derivative, gxv, gwv, ghv, gdv);
-      gx[d * B + b] = gxv;
+          nf::to_f32(x_t[d * x_rs + b * x_cs]), nf::to_f32(tb[d]), uw, uh,
+          ud, nf::to_f32(cty[d * cty_rs + b * cty_cs]),
+          nf::to_f32(ctl[d * ctl_rs + b * ctl_cs]), min_bin_width,
+          min_bin_height, min_derivative, gxv, gwv, ghv, gdv);
+      gx[d * B + b] = nf::from_f32<T>(gxv);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         c[k] = gwv[k];
@@ -381,8 +422,9 @@ __global__ void __launch_bounds__(kThreads, 2) head_rqs_bwd_kernel(
   }
   __syncthreads();  // every column's gp is in place
   const bool split = ONE && split_warps(D, H);
-  const int nbuf = h_buffers(P, D, H);
-  float* h_s = split ? w_s + wrows * D * PP : w_s;  // [nbuf][h_rows][36]
+  const int nbuf = h_buffers<T>(P, D, H);
+  // [nbuf][h_rows][h_stride]
+  T* h_s = reinterpret_cast<T*>(split ? w_s + wrows * D * PP : w_s);
 
   // 2. this block's share of gb = sum_b gp
   const int MH = M * H;
@@ -403,8 +445,8 @@ __global__ void __launch_bounds__(kThreads, 2) head_rqs_bwd_kernel(
       // its column b (g in registers) and column b - 128 (from gp). w_s
       // holds all of W_eff (H <= kJ) and stays.
       if (warp < kWarps / 2) {
-        gw_product<kWarps / 2, false>(gp, h_s, nbuf, h_t, B, quads, b0, M,
-                                      H, out, warp, lane);
+        gw_product<T, kWarps / 2, false>(gp, h_s, nbuf, h_t, B, quads, b0,
+                                         M, H, out, warp, lane);
         return;
       }
       const int t2 = tid - kThreads / 2;
@@ -413,13 +455,13 @@ __global__ void __launch_bounds__(kThreads, 2) head_rqs_bwd_kernel(
 #pragma unroll
       for (int p = 0; p < PP; ++p)
         g2[p] = (p < P) ? gp[p * kGpStride + t2] : 0.0f;
-      for (int js = 0; js < H; js += kG2) {
-        float s[kG2], s2[kG2];
+      for (int js = 0; js < H; js += GS2) {
+        float s[GS2], s2[GS2];
 #pragma unroll
-        for (int i = 0; i < kG2; ++i) s[i] = s2[i] = 0.0f;
+        for (int i = 0; i < GS2; ++i) s[i] = s2[i] = 0.0f;
         const float4* wq = reinterpret_cast<const float4*>(w_s + js * PP);
 #pragma unroll
-        for (int i = 0; i < kG2; ++i) {
+        for (int i = 0; i < GS2; ++i) {
 #pragma unroll
           for (int q = 0; q < PP / 4; ++q) {
             const float4 wv = wq[i * (PP / 4) + q];
@@ -434,11 +476,11 @@ __global__ void __launch_bounds__(kThreads, 2) head_rqs_bwd_kernel(
           }
         }
 #pragma unroll
-        for (int i = 0; i < kG2; ++i) {
+        for (int i = 0; i < GS2; ++i) {
           if (js + i < H) {
-            float* row = gh + static_cast<long long>(js + i) * B + b0;
-            if (active) row[tid] = s[i];
-            if (active2) row[t2] = s2[i];
+            T* row = gh + static_cast<long long>(js + i) * B + b0;
+            if (active) row[tid] = nf::from_f32<T>(s[i]);
+            if (active2) row[t2] = nf::from_f32<T>(s2[i]);
           }
         }
       }
@@ -451,10 +493,10 @@ __global__ void __launch_bounds__(kThreads, 2) head_rqs_bwd_kernel(
     ensure_tile(t);
     const int j0 = t * kJ;
     const int rows = min(kJ, H - j0);
-    for (int js = 0; js < rows; js += kG) {
-      float s[kG];
+    for (int js = 0; js < rows; js += GS) {
+      float s[GS];
 #pragma unroll
-      for (int i = 0; i < kG; ++i) s[i] = 0.0f;
+      for (int i = 0; i < GS; ++i) s[i] = 0.0f;
       for (int d = 0; d < D; ++d) {
         float gd[PP];
 #pragma unroll
@@ -464,7 +506,7 @@ __global__ void __launch_bounds__(kThreads, 2) head_rqs_bwd_kernel(
         const float4* wq =
             reinterpret_cast<const float4*>(w_s + (js * D + d) * PP);
 #pragma unroll
-        for (int i = 0; i < kG; ++i) {
+        for (int i = 0; i < GS; ++i) {
 #pragma unroll
           for (int q = 0; q < PP / 4; ++q) {
             const float4 wv = wq[i * (D * PP / 4) + q];
@@ -477,25 +519,27 @@ __global__ void __launch_bounds__(kThreads, 2) head_rqs_bwd_kernel(
       }
       if (active) {
 #pragma unroll
-        for (int i = 0; i < kG; ++i)
+        for (int i = 0; i < GS; ++i)
           if (js + i < rows)
-            gh[static_cast<long long>(j0 + js + i) * B + b] = s[i];
+            gh[static_cast<long long>(j0 + js + i) * B + b] =
+                nf::from_f32<T>(s[i]);
       }
     }
   }
 
   // 3. gW on every warp; h_s reuses w_s once gh is done with it
-  gw_product<kWarps, true>(gp, h_s, nbuf, h_t, B, quads, b0, M, H, out, warp,
-                           lane);
+  gw_product<T, kWarps, true>(gp, h_s, nbuf, h_t, B, quads, b0, M, H, out,
+                              warp, lane);
 }
 
-// Sum the blocks' (MH + M)-wide partial rows in a fixed order: 32 outputs
-// per block, 32 rows of threads each summing every 32nd partial in turn
-// (their loads issued together), then row 0 adds the 32 sums in order.
-// gW takes outputs [0, MH), gb the rest.
+// Sum the blocks' (MH + M)-wide float32 partial rows in a fixed order: 32
+// outputs per block, 32 rows of threads each summing every 32nd partial in
+// turn (their loads issued together), then row 0 adds the 32 sums in order
+// and rounds the total once into T. gW takes outputs [0, MH), gb the rest.
+template <class T>
 __global__ void __launch_bounds__(1024) reduce_partials(
     const float* __restrict__ partials, int blocks, int MH, int M,
-    float* __restrict__ gw, float* __restrict__ gb) {
+    T* __restrict__ gw, T* __restrict__ gb) {
   __shared__ float part[32][33];
   const int width = MH + M;
   const int o = blockIdx.x * 32 + threadIdx.x;
@@ -512,56 +556,45 @@ __global__ void __launch_bounds__(1024) reduce_partials(
 #pragma unroll
     for (int y = 1; y < 32; ++y) t += part[y][threadIdx.x];
     if (o < MH)
-      gw[o] = t;
+      gw[o] = nf::from_f32<T>(t);
     else
-      gb[o - MH] = t;
+      gb[o - MH] = nf::from_f32<T>(t);
   }
 }
 
-template <int K, bool CIRCULAR, bool INVERSE, bool ONE>
-int launch(const float* x_t, long long x_rs, long long x_cs,
-           const float* h_t, const float* w, const float* bias,
-           const float* tb, const float* cty, long long cty_rs,
-           long long cty_cs, const float* ctl, long long ctl_rs,
+template <class T, int K, bool CIRCULAR, bool INVERSE, bool ONE>
+int launch(const T* x_t, long long x_rs, long long x_cs, const T* h_t,
+           const T* w, const T* bias, const T* tb, const T* cty,
+           long long cty_rs, long long cty_cs, const T* ctl, long long ctl_rs,
            long long ctl_cs, int D, long long B, int H, float edge,
-           float mbw, float mbh, float md, float* gx, float* gh,
-           float* partials, cudaStream_t stream) {
+           float mbw, float mbh, float md, T* gx, T* gh, float* partials,
+           cudaStream_t stream) {
   constexpr int P = 2 * K + (CIRCULAR ? K : K - 1);
-  const size_t smem =
-      sizeof(float) * shared_floats(P, D, H, h_buffers(P, D, H));
-  auto kernel = head_rqs_bwd_kernel<K, CIRCULAR, INVERSE, ONE>;
+  const size_t smem = shared_bytes<T>(P, D, H, h_buffers<T>(P, D, H));
+  auto kernel = head_rqs_bwd_kernel<T, K, CIRCULAR, INVERSE, ONE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
-  const bool quads =
-      B % 4 == 0 && reinterpret_cast<std::uintptr_t>(h_t) % 16 == 0;
+  // 16-byte copies of h_t: every row starts on 16 bytes
+  const bool quads = B % (16 / sizeof(T)) == 0 &&
+                     reinterpret_cast<std::uintptr_t>(h_t) % 16 == 0;
   kernel<<<blocks, kThreads, smem, stream>>>(
       x_t, x_rs, x_cs, h_t, w, bias, tb, cty, cty_rs, cty_cs, ctl, ctl_rs,
       ctl_cs, D, B, H, quads, edge, mbw, mbh, md, gx, gh, partials);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// C interface for ctypes. x_t, cty, ctl (D, B) with their (row, column)
-// strides; h_t (H, B), w (M, H), bias (M,), tb (D,) contiguous; gx (D, B),
-// gh (H, B), gw (M, H), gb (M,) contiguous outputs; partials a contiguous
-// workspace of ceil(B / 256) * M * (H + 1) floats. `edge` is the
-// linear-tail derivative logit log(exp(1 - min_d) - 1). The wrapper checks
-// the block's shared memory (ops/spline_head_fused.py,
-// kernel_e_shared_bytes, the same sum as shared_floats above) before it
-// calls. Returns the first CUDA error of the two launches (0 if none); -1
-// for a bin count that has no instantiation in this build.
-extern "C" int head_rqs_bwd_launch(
-    const float* x_t, long long x_rs, long long x_cs, const float* h_t,
-    const float* w, const float* bias, const float* tb, const float* cty,
-    long long cty_rs, long long cty_cs, const float* ctl, long long ctl_rs,
-    long long ctl_cs, int D, long long B, int H, int num_bins, int circular,
-    int inverse, float edge, float min_bin_width, float min_bin_height,
-    float min_derivative, float* gx, float* gh, float* gw, float* gb,
-    float* partials, void* stream) {
+// The body of both C entry points: see head_rqs_bwd_launch.
+template <class T>
+int dispatch(const T* x_t, long long x_rs, long long x_cs, const T* h_t,
+             const T* w, const T* bias, const T* tb, const T* cty,
+             long long cty_rs, long long cty_cs, const T* ctl,
+             long long ctl_rs, long long ctl_cs, int D, long long B, int H,
+             int num_bins, int circular, int inverse, float edge,
+             float min_bin_width, float min_bin_height, float min_derivative,
+             T* gx, T* gh, T* gw, T* gb, float* partials, void* stream) {
   if (D == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int P = 2 * num_bins + (circular ? num_bins : num_bins - 1);
@@ -569,13 +602,14 @@ extern "C" int head_rqs_bwd_launch(
   const int blocks = static_cast<int>((B + kThreads - 1) / kThreads);
   if (B == 0) {
     // no columns: every gradient of the head is zero
-    cudaMemsetAsync(gw, 0, sizeof(float) * M * H, st);
-    cudaMemsetAsync(gb, 0, sizeof(float) * M, st);
+    cudaMemsetAsync(gw, 0, sizeof(T) * M * H, st);
+    cudaMemsetAsync(gb, 0, sizeof(T) * M, st);
     return static_cast<int>(cudaGetLastError());
   }
   int err = 0;
 #define NF_HEAD_BWD_LAUNCH(KK, CC, II)                                      \
-  err = (D == 1 ? launch<KK, CC, II, true> : launch<KK, CC, II, false>)(    \
+  err = (D == 1 ? launch<T, KK, CC, II, true>                               \
+                : launch<T, KK, CC, II, false>)(                            \
       x_t, x_rs, x_cs, h_t, w, bias, tb, cty, cty_rs, cty_cs, ctl, ctl_rs,  \
       ctl_cs, D, B, H, edge, min_bin_width, min_bin_height, min_derivative, \
       gx, gh, partials, st)
@@ -606,7 +640,53 @@ extern "C" int head_rqs_bwd_launch(
 #undef NF_HEAD_BWD_LAUNCH
   if (err != 0) return err;
   const int width = M * H + M;
-  reduce_partials<<<(width + 31) / 32, dim3(32, 32), 0, st>>>(
+  reduce_partials<T><<<(width + 31) / 32, dim3(32, 32), 0, st>>>(
       partials, blocks, M * H, M, gw, gb);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C interface for ctypes. x_t, cty, ctl (D, B) with their (row, column)
+// strides; h_t (H, B), w (M, H), bias (M,), tb (D,) contiguous; gx (D, B),
+// gh (H, B), gw (M, H), gb (M,) contiguous outputs; partials a contiguous
+// float32 workspace of ceil(B / 256) * M * (H + 1) floats. `edge` is the
+// linear-tail derivative logit log(exp(1 - min_d) - 1). The wrapper checks
+// the block's shared memory (ops/spline_head_fused.py,
+// kernel_e_shared_bytes, the same sum as shared_bytes above) before it
+// calls. Returns the first CUDA error of the two launches (0 if none); -1
+// for a bin count that has no instantiation in this build.
+extern "C" int head_rqs_bwd_launch(
+    const float* x_t, long long x_rs, long long x_cs, const float* h_t,
+    const float* w, const float* bias, const float* tb, const float* cty,
+    long long cty_rs, long long cty_cs, const float* ctl, long long ctl_rs,
+    long long ctl_cs, int D, long long B, int H, int num_bins, int circular,
+    int inverse, float edge, float min_bin_width, float min_bin_height,
+    float min_derivative, float* gx, float* gh, float* gw, float* gb,
+    float* partials, void* stream) {
+  return dispatch<float>(x_t, x_rs, x_cs, h_t, w, bias, tb, cty, cty_rs,
+                         cty_cs, ctl, ctl_rs, ctl_cs, D, B, H, num_bins,
+                         circular, inverse, edge, min_bin_width,
+                         min_bin_height, min_derivative, gx, gh, gw, gb,
+                         partials, stream);
+}
+
+// The same with every operand and output in bfloat16; the partials stay
+// float32 (edge and the minima stay float).
+extern "C" int head_rqs_bwd_launch_bf16(
+    const __nv_bfloat16* x_t, long long x_rs, long long x_cs,
+    const __nv_bfloat16* h_t, const __nv_bfloat16* w,
+    const __nv_bfloat16* bias, const __nv_bfloat16* tb,
+    const __nv_bfloat16* cty, long long cty_rs, long long cty_cs,
+    const __nv_bfloat16* ctl, long long ctl_rs, long long ctl_cs, int D,
+    long long B, int H, int num_bins, int circular, int inverse, float edge,
+    float min_bin_width, float min_bin_height, float min_derivative,
+    __nv_bfloat16* gx, __nv_bfloat16* gh, __nv_bfloat16* gw,
+    __nv_bfloat16* gb, float* partials, void* stream) {
+  return dispatch<__nv_bfloat16>(x_t, x_rs, x_cs, h_t, w, bias, tb, cty,
+                                 cty_rs, cty_cs, ctl, ctl_rs, ctl_cs, D, B,
+                                 H, num_bins, circular, inverse, edge,
+                                 min_bin_width, min_bin_height,
+                                 min_derivative, gx, gh, gw, gb, partials,
+                                 stream);
 }

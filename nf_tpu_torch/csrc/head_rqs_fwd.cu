@@ -51,10 +51,25 @@
 // (PERF.md): reading h_t itself runs below the card's peak, and the
 // spline at the end and the part of the product that the loads do not
 // hide are latency-bound at the ~8 warps per SM that B = 65536 gives.
+//
+// Storage types. The kernel is a template on the storage type T of every
+// operand and output, float (head_rqs_fwd_launch) or __nv_bfloat16
+// (head_rqs_fwd_launch_bf16, the coupled layers built with
+// dtype=bfloat16). In bfloat16, x_t, h_t, y and ld move 2 bytes per
+// element: h_t's ring holds bfloat16 (16-byte copies of 8 columns when B
+// is a multiple of 8 and h_t starts on 16 bytes, else element loads), and
+// a thread widens its 4 columns from one 8-byte load (load4). W_eff, the
+// bias and the tail bound are widened as they are staged (element loads:
+// cp.async has no 2-byte copy), so W_eff's tiles stay float32 in shared
+// memory. The product and the spline are the float32 kernel's, and y and
+// ld are rounded once. At H = 128, K = 8 a column then moves 256 bytes of
+// h_t against 5888 flops, ~23 flop/byte: past the f32 CUDA-core ridge, so
+// the bfloat16 kernel's bound is its arithmetic.
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "rqs_math.cuh"
 
@@ -69,18 +84,19 @@ constexpr int kS = 3;                     // stages in the ring
 static_assert(kJ == kThreads, "a W_eff tile is one copy per thread per p");
 static_assert(kJ % kR == 0, "a stage never straddles two W_eff tiles");
 static_assert(kWarpCols == 2 * 32, "a lane pair owns 4 columns");
-static_assert((kR * kWarpCols / 4) % 32 == 0,
+static_assert((kR * kWarpCols / 8) % 32 == 0,
               "a stage is whole 16-byte copies for every lane");
 
 __host__ __device__ constexpr int padded_params(int p) {
   return (p + 7) / 8 * 8;
 }
 
-// dynamic shared memory of one block: two W_eff tiles, the bias and the
-// h_t ring
+// dynamic shared memory of one block: two W_eff tiles and the bias
+// (float32), and the h_t ring (T)
+template <class T>
 __host__ __device__ constexpr size_t shared_bytes(int pp) {
-  return sizeof(float) * (static_cast<size_t>(2 * kJ + 1) * pp
-                          + static_cast<size_t>(kS) * kR * kBlockCols);
+  return sizeof(float) * static_cast<size_t>(2 * kJ + 1) * pp
+         + sizeof(T) * static_cast<size_t>(kS) * kR * kBlockCols;
 }
 
 // acc[c][p] = fmaf(w_row[p], h[c], acc[c][p]) for PH weights of one
@@ -103,14 +119,15 @@ __device__ __forceinline__ void fma_row(const float* w_row, const float4 hq,
   }
 }
 
-template <int K, bool CIRCULAR, bool INVERSE>
+template <class T, int K, bool CIRCULAR, bool INVERSE>
 __global__ void __launch_bounds__(kThreads, 3) head_rqs_fwd_kernel(
-    const float* __restrict__ x_t, long long x_rs, long long x_cs,
-    const float* __restrict__ h_t, const float* __restrict__ w,
-    const float* __restrict__ bias, const float* __restrict__ tb, int D,
+    const T* __restrict__ x_t, long long x_rs, long long x_cs,
+    const T* __restrict__ h_t, const T* __restrict__ w,
+    const T* __restrict__ bias, const T* __restrict__ tb, int D,
     long long B, int H, bool quads, float edge, float min_bin_width,
-    float min_bin_height, float min_derivative, float* __restrict__ y,
-    float* __restrict__ ld) {
+    float min_bin_height, float min_derivative, T* __restrict__ y,
+    T* __restrict__ ld) {
+  constexpr bool F32 = std::is_same<T, float>::value;
   constexpr int ND = CIRCULAR ? K : K - 1;
   constexpr int P = 2 * K + ND;
   constexpr int PP = padded_params(P);
@@ -118,7 +135,7 @@ __global__ void __launch_bounds__(kThreads, 3) head_rqs_fwd_kernel(
   extern __shared__ __align__(16) float smem[];
   float* w_s = smem;               // [2][kJ][PP]
   float* b_s = w_s + 2 * kJ * PP;  // [PP]
-  float* h_s = b_s + PP;           // [warps][kS][kR][kWarpCols]
+  T* h_s = reinterpret_cast<T*>(b_s + PP);  // [warps][kS][kR][kWarpCols]
 
   const int d = blockIdx.y;
   const int tid = threadIdx.x;
@@ -129,50 +146,56 @@ __global__ void __launch_bounds__(kThreads, 3) head_rqs_fwd_kernel(
   const long long bw =
       static_cast<long long>(blockIdx.x) * kBlockCols + warp * kWarpCols;
   const long long bq = bw + 2 * lane;
-  float* h_w = h_s + warp * (kS * kR * kWarpCols);
+  T* h_w = h_s + warp * (kS * kR * kWarpCols);
 
   // 3.'s operands: a column past B reads column B - 1 and stores nothing
   float xv[2];
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const long long b = min(bq + c, B - 1);
-    xv[c] = x_t[d * x_rs + b * x_cs];
+    xv[c] = nf::to_f32(x_t[d * x_rs + b * x_cs]);
   }
-  const float t = tb[d];
+  const float t = nf::to_f32(tb[d]);
 
   // 0. W_eff columns [j0, j0 + kJ) of feature d -> tile buffer (j0 / kJ)
   // % 2, zero past H and P. Thread tid copies column j0 + tid: the reads
-  // of a row coalesce.
+  // of a row coalesce. In bfloat16 each element is loaded and widened (the
+  // block barrier at the tile's first stage publishes it, as it publishes
+  // the float32 copies).
   auto stage_w = [&](int j0) {
     float* dst = w_s + ((j0 / kJ) & 1) * (kJ * PP) + tid * PP;
     const bool col = j0 + tid < H;
 #pragma unroll 4
     for (int p = 0; p < PP; ++p) {
       const bool in = col && p < P;
-      const float* src =
+      const T* src =
           w + (in ? static_cast<long long>(p * D + d) * H + j0 + tid : 0);
-      __pipeline_memcpy_async(dst + p, src, 4, in ? 0 : 4);
+      if constexpr (F32)
+        __pipeline_memcpy_async(dst + p, src, 4, in ? 0 : 4);
+      else
+        dst[p] = in ? nf::to_f32(*src) : 0.0f;
     }
   };
   // 1. rows [s*kR, s*kR + kR) of the warp's columns of h_t -> its ring
   // slot s % kS, then the W_eff tile they start; one commit per call, empty
-  // past H. The bias and W_eff come by cp.async too, so no warp waits on a
-  // load before its first stage is in flight (x and tb go to registers
-  // that only 3. reads).
+  // past H. In float32 the bias and W_eff come by cp.async too, so no warp
+  // waits on a load before its first stage is in flight (x and tb go to
+  // registers that only 3. reads).
   const int stages = (H + kR - 1) / kR;
   auto stage_h = [&](int s) {
     if (s < stages) {
       const int j = s * kR;
-      float* dst = h_w + (s % kS) * (kR * kWarpCols);
+      T* dst = h_w + (s % kS) * (kR * kWarpCols);
       if (quads) {
-        constexpr int kQ = kWarpCols / 4;  // 16-byte chunks per row
+        constexpr int kV = 16 / sizeof(T);       // columns per 16 bytes
+        constexpr int kQ = kWarpCols / kV;       // 16-byte chunks per row
 #pragma unroll
         for (int it = 0; it < kR * kQ / 32; ++it) {
           const int e = it * 32 + lane;
           const int r = e / kQ;
-          const int c = 4 * (e % kQ);
+          const int c = kV * (e % kQ);
           const bool in = j + r < H && bw + c < B;
-          const float* src =
+          const T* src =
               h_t + (in ? static_cast<long long>(j + r) * B + bw + c : 0);
           __pipeline_memcpy_async(dst + r * kWarpCols + c, src, 16,
                                   in ? 0 : 16);
@@ -184,10 +207,13 @@ __global__ void __launch_bounds__(kThreads, 3) head_rqs_fwd_kernel(
           const int r = e / kWarpCols;
           const int c = e % kWarpCols;
           const bool in = j + r < H && bw + c < B;
-          const float* src =
+          const T* src =
               h_t + (in ? static_cast<long long>(j + r) * B + bw + c : 0);
-          __pipeline_memcpy_async(dst + r * kWarpCols + c, src, 4,
-                                  in ? 0 : 4);
+          if constexpr (F32)
+            __pipeline_memcpy_async(dst + r * kWarpCols + c, src, 4,
+                                    in ? 0 : 4);
+          else  // no 2-byte cp.async: a load (the warp barrier publishes it)
+            dst[r * kWarpCols + c] = in ? *src : nf::from_f32<T>(0.0f);
         }
       }
       if (j % kJ == 0) stage_w(j);
@@ -203,8 +229,11 @@ __global__ void __launch_bounds__(kThreads, 3) head_rqs_fwd_kernel(
     for (int p = 0; p < PH; ++p) acc[c][p] = 0.0f;
   if (tid < PP) {  // the bias, with the first stage
     const bool in = tid < P;
-    __pipeline_memcpy_async(b_s + tid, bias + (in ? tid * D + d : 0), 4,
-                            in ? 0 : 4);
+    const T* src = bias + (in ? tid * D + d : 0);
+    if constexpr (F32)
+      __pipeline_memcpy_async(b_s + tid, src, 4, in ? 0 : 4);
+    else
+      b_s[tid] = in ? nf::to_f32(*src) : 0.0f;
   }
 #pragma unroll
   for (int s = 0; s < kS - 1; ++s) stage_h(s);
@@ -221,18 +250,14 @@ __global__ void __launch_bounds__(kThreads, 3) head_rqs_fwd_kernel(
     stage_h(s + kS - 1);
     const float* ws =
         w_s + ((j / kJ) & 1) * (kJ * PP) + (j % kJ) * PP + half * PH;
-    const float* hs = h_w + (s % kS) * (kR * kWarpCols) + 4 * (lane >> 1);
+    const T* hs = h_w + (s % kS) * (kR * kWarpCols) + 4 * (lane >> 1);
     if (j + kR <= H) {
 #pragma unroll
       for (int u = 0; u < kR; ++u)
-        fma_row<PH>(ws + u * PP,
-                    *reinterpret_cast<const float4*>(hs + u * kWarpCols),
-                    acc);
+        fma_row<PH>(ws + u * PP, nf::load4(hs + u * kWarpCols), acc);
     } else {
       for (int u = 0; u < H - j; ++u)
-        fma_row<PH>(ws + u * PP,
-                    *reinterpret_cast<const float4*>(hs + u * kWarpCols),
-                    acc);
+        fma_row<PH>(ws + u * PP, nf::load4(hs + u * kWarpCols), acc);
     }
   }
 
@@ -281,26 +306,27 @@ __global__ void __launch_bounds__(kThreads, 3) head_rqs_fwd_kernel(
   for (int c = 0; c < 2; ++c) {
     const long long b = bq + c;
     if (b < B) {
-      y[d * B + b] = yv[c];
-      ld[d * B + b] = lv[c];
+      y[d * B + b] = nf::from_f32<T>(yv[c]);
+      ld[d * B + b] = nf::from_f32<T>(lv[c]);
     }
   }
 }
 
-template <int K, bool CIRCULAR, bool INVERSE>
-int launch(const float* x_t, long long x_rs, long long x_cs,
-           const float* h_t, const float* w, const float* bias,
-           const float* tb, int D, long long B, int H, float edge, float mbw,
-           float mbh, float md, float* y, float* ld, cudaStream_t stream) {
+template <class T, int K, bool CIRCULAR, bool INVERSE>
+int launch(const T* x_t, long long x_rs, long long x_cs, const T* h_t,
+           const T* w, const T* bias, const T* tb, int D, long long B, int H,
+           float edge, float mbw, float mbh, float md, T* y, T* ld,
+           cudaStream_t stream) {
   constexpr int P = 2 * K + (CIRCULAR ? K : K - 1);
-  constexpr size_t smem = shared_bytes(padded_params(P));
-  auto kernel = head_rqs_fwd_kernel<K, CIRCULAR, INVERSE>;
+  constexpr size_t smem = shared_bytes<T>(padded_params(P));
+  auto kernel = head_rqs_fwd_kernel<T, K, CIRCULAR, INVERSE>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool quads =
-      B % 4 == 0 && reinterpret_cast<std::uintptr_t>(h_t) % 16 == 0;
+  // 16-byte copies of h_t: every row starts on 16 bytes
+  const bool quads = B % (16 / sizeof(T)) == 0 &&
+                     reinterpret_cast<std::uintptr_t>(h_t) % 16 == 0;
   dim3 grid(static_cast<unsigned>((B + kBlockCols - 1) / kBlockCols),
             static_cast<unsigned>(D));
   kernel<<<grid, kThreads, smem, stream>>>(x_t, x_rs, x_cs, h_t, w, bias, tb,
@@ -309,25 +335,19 @@ int launch(const float* x_t, long long x_rs, long long x_cs,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// C interface for ctypes. x_t (D, B) with strides (x_rs, x_cs); h_t (H, B),
-// w (P*D, H), bias (P*D,), tb (D,) contiguous; y, ld (D, B) contiguous.
-// `edge` is the linear-tail derivative logit log(exp(1 - min_d) - 1).
-// Returns the CUDA error of the launch (0 if none); -1 for a bin count that
-// has no instantiation.
-extern "C" int head_rqs_fwd_launch(
-    const float* x_t, long long x_rs, long long x_cs, const float* h_t,
-    const float* w, const float* bias, const float* tb, int D, long long B,
-    int H, int num_bins, int circular, int inverse, float edge,
-    float min_bin_width, float min_bin_height, float min_derivative,
-    float* y, float* ld, void* stream) {
+// The body of both C entry points: see head_rqs_fwd_launch.
+template <class T>
+int dispatch(const T* x_t, long long x_rs, long long x_cs, const T* h_t,
+             const T* w, const T* bias, const T* tb, int D, long long B,
+             int H, int num_bins, int circular, int inverse, float edge,
+             float min_bin_width, float min_bin_height, float min_derivative,
+             T* y, T* ld, void* stream) {
   if (B == 0 || D == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NF_HEAD_LAUNCH(KK, CC, II)                                          \
-  return launch<KK, CC, II>(x_t, x_rs, x_cs, h_t, w, bias, tb, D, B, H,     \
-                            edge, min_bin_width, min_bin_height,            \
-                            min_derivative, y, ld, st)
+  return launch<T, KK, CC, II>(x_t, x_rs, x_cs, h_t, w, bias, tb, D, B, H,  \
+                               edge, min_bin_width, min_bin_height,         \
+                               min_derivative, y, ld, st)
 #define NF_HEAD_CASE(KK)                                                    \
   case KK:                                                                  \
     if (circular) {                                                         \
@@ -344,4 +364,37 @@ extern "C" int head_rqs_fwd_launch(
 #undef NF_HEAD_CASE
 #undef NF_HEAD_LAUNCH
   return -1;
+}
+
+}  // namespace
+
+// C interface for ctypes. x_t (D, B) with strides (x_rs, x_cs); h_t (H, B),
+// w (P*D, H), bias (P*D,), tb (D,) contiguous; y, ld (D, B) contiguous.
+// `edge` is the linear-tail derivative logit log(exp(1 - min_d) - 1).
+// Returns the CUDA error of the launch (0 if none); -1 for a bin count that
+// has no instantiation.
+extern "C" int head_rqs_fwd_launch(
+    const float* x_t, long long x_rs, long long x_cs, const float* h_t,
+    const float* w, const float* bias, const float* tb, int D, long long B,
+    int H, int num_bins, int circular, int inverse, float edge,
+    float min_bin_width, float min_bin_height, float min_derivative,
+    float* y, float* ld, void* stream) {
+  return dispatch<float>(x_t, x_rs, x_cs, h_t, w, bias, tb, D, B, H,
+                         num_bins, circular, inverse, edge, min_bin_width,
+                         min_bin_height, min_derivative, y, ld, stream);
+}
+
+// The same with every operand and output in bfloat16 (edge and the minima
+// stay float).
+extern "C" int head_rqs_fwd_launch_bf16(
+    const __nv_bfloat16* x_t, long long x_rs, long long x_cs,
+    const __nv_bfloat16* h_t, const __nv_bfloat16* w,
+    const __nv_bfloat16* bias, const __nv_bfloat16* tb, int D, long long B,
+    int H, int num_bins, int circular, int inverse, float edge,
+    float min_bin_width, float min_bin_height, float min_derivative,
+    __nv_bfloat16* y, __nv_bfloat16* ld, void* stream) {
+  return dispatch<__nv_bfloat16>(x_t, x_rs, x_cs, h_t, w, bias, tb, D, B, H,
+                                 num_bins, circular, inverse, edge,
+                                 min_bin_width, min_bin_height,
+                                 min_derivative, y, ld, stream);
 }

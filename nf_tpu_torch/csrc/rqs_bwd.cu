@@ -52,6 +52,12 @@
 //   two runs give the same bits. The bytes are x, cty and ctl in and gx
 //   out, 16 per element (1.05 MB at B = 65536), ~0.3 us of HBM time; the
 //   launches and the latency of one element's chain set its time.
+//   Like the per-element path it is a template on the storage type T of
+//   the operands and outputs (rqs_bwd_shared_launch, and
+//   rqs_bwd_shared_launch_bf16 for the coupled layers built with
+//   dtype=bfloat16, 8 bytes per element): the tables, the per-block
+//   partials in the workspace and their fixed-order total stay float32,
+//   and gx and the parameter sums are rounded once into T.
 #include "rqs_bwd_kernel.cuh"
 #include "rqs_bwd_math.cuh"
 
@@ -84,9 +90,7 @@ extern "C" int rqs_bwd_launch(const float* x, const float* uw,
 }
 
 // The per-element path for bfloat16 operands, cotangents and outputs
-// (float32 math inside). The shared-parameter path below is float32 only:
-// no build_* model reaches it in bfloat16, and splines_kernel raises for
-// it.
+// (float32 math inside).
 extern "C" int rqs_bwd_launch_bf16(
     const __nv_bfloat16* x, const __nv_bfloat16* uw, const __nv_bfloat16* uh,
     const __nv_bfloat16* ud, const __nv_bfloat16* tb,
@@ -156,15 +160,14 @@ __device__ __forceinline__ void warp_halve(float (&v)[M], int lane,
   }
 }
 
-template <int K, bool INVERSE>
+template <class T, int K, bool INVERSE>
 __global__ void __launch_bounds__(kThreads) rqs_bwd_shared_blocks(
-    const float* __restrict__ x, const float* __restrict__ uw,
-    const float* __restrict__ uh, const float* __restrict__ ud,
-    const float* __restrict__ tb, float tb_scalar,
-    const float* __restrict__ cty, const float* __restrict__ ctl,
-    nf::BwdStrides s, long long rows, long long cols, float min_bin_width,
-    float min_bin_height, float min_derivative, float* __restrict__ gx,
-    float* __restrict__ work) {
+    const T* __restrict__ x, const T* __restrict__ uw,
+    const T* __restrict__ uh, const T* __restrict__ ud,
+    const T* __restrict__ tb, float tb_scalar, const T* __restrict__ cty,
+    const T* __restrict__ ctl, nf::BwdStrides s, long long rows,
+    long long cols, float min_bin_width, float min_bin_height,
+    float min_derivative, T* __restrict__ gx, float* __restrict__ work) {
   // the column's bins: left knots (cw, ch), sizes (w, h), and the
   // derivatives at the K + 1 knots
   __shared__ float s_cw[K], s_w[K], s_ch[K], s_h[K], s_d[K + 1];
@@ -175,25 +178,25 @@ __global__ void __launch_bounds__(kThreads) rqs_bwd_shared_blocks(
   const int tid = threadIdx.x;
   const long long r_end = min(rows, (blockIdx.x + 1) * kRowsPerBlock);
   long long r = blockIdx.x * kRowsPerBlock + tid;
-  const float t = tb ? tb[c * s.tb[1]] : tb_scalar;
+  const float t = tb ? nf::to_f32(tb[c * s.tb[1]]) : tb_scalar;
 
   // the first element's operands, loaded before the tables so that their
   // latency overlaps the tables'
   float xv = 0.0f, cy = 0.0f, cl = 0.0f;
   if (r < r_end) {
-    xv = x[r * s.x[0] + c * s.x[1]];
-    cy = cty[r * s.cty[0] + c * s.cty[1]];
-    cl = ctl[r * s.ctl[0] + c * s.ctl[1]];
+    xv = nf::to_f32(x[r * s.x[0] + c * s.x[1]]);
+    cy = nf::to_f32(cty[r * s.cty[0] + c * s.cty[1]]);
+    cl = nf::to_f32(ctl[r * s.ctl[0] + c * s.ctl[1]]);
   }
 
   // warp 0 the widths, warp 1 the heights, warp 2 the derivatives
   if (tid == 0 || tid == 32) {
     const bool wid = tid == 0;
-    const float* u = wid ? uw + c * s.w[2] : uh + c * s.h[2];
+    const T* u = wid ? uw + c * s.w[2] : uh + c * s.h[2];
     const long long bin_stride = wid ? s.w[0] : s.h[0];
     float logits[K], sizes[K], sm[K], cum[K + 1], cc;
 #pragma unroll
-    for (int k = 0; k < K; ++k) logits[k] = u[k * bin_stride];
+    for (int k = 0; k < K; ++k) logits[k] = nf::to_f32(u[k * bin_stride]);
     nf::softmax_terms<K>(logits, wid ? min_bin_width : min_bin_height, sizes,
                          sm, cc);
     nf::knots<K>(sizes, t, cum);
@@ -206,7 +209,8 @@ __global__ void __launch_bounds__(kThreads) rqs_bwd_shared_blocks(
     }
   } else if (tid >= 64 && tid < 64 + K + 1) {
     const int k = tid - 64;
-    s_d[k] = min_derivative + nf::softplus(ud[c * s.d[2] + k * s.d[0]]);
+    s_d[k] = min_derivative +
+             nf::softplus(nf::to_f32(ud[c * s.d[2] + k * s.d[0]]));
   }
   __syncthreads();
 
@@ -219,9 +223,9 @@ __global__ void __launch_bounds__(kThreads) rqs_bwd_shared_blocks(
     const long long rn = r + kThreads;
     float xn = 0.0f, cyn = 0.0f, cln = 0.0f;
     if (rn < r_end) {
-      xn = x[rn * s.x[0] + c * s.x[1]];
-      cyn = cty[rn * s.cty[0] + c * s.cty[1]];
-      cln = ctl[rn * s.ctl[0] + c * s.ctl[1]];
+      xn = nf::to_f32(x[rn * s.x[0] + c * s.x[1]]);
+      cyn = nf::to_f32(cty[rn * s.cty[0] + c * s.cty[1]]);
+      cln = nf::to_f32(ctl[rn * s.ctl[0] + c * s.ctl[1]]);
     }
     const float xin = fminf(fmaxf(xv, -t), t);
     int bin = 0;  // the one k with xin >= cref[k] and not xin >= cref[k + 1]
@@ -232,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) rqs_bwd_shared_blocks(
                              s_d[bin], s_d[bin + 1], cy, cl, g_x_in, g[0],
                              g[1], g[2], g[3], g[4], g[5]);
     const bool inside = (xv >= -t) && (xv <= t);
-    gx[r * cols + c] = inside ? g_x_in : cy;
+    gx[r * cols + c] = nf::from_f32<T>(inside ? g_x_in : cy);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const bool sel = inside && bin == k;
@@ -293,14 +297,13 @@ __device__ __forceinline__ void logits_grad_sums(const float (&g_cum)[K],
   for (int j = 0; j < K; ++j) out[j] = sm[j] * (gsm[j] - S);
 }
 
-template <int K>
+template <class T, int K>
 __global__ void __launch_bounds__(kThreads) rqs_bwd_shared_sum(
-    const float* __restrict__ uw, const float* __restrict__ uh,
-    const float* __restrict__ ud, const float* __restrict__ tb,
-    float tb_scalar, nf::BwdStrides s, long long cols, long long chunks,
-    float min_bin_width, float min_bin_height,
-    const float* __restrict__ work, float* __restrict__ gw,
-    float* __restrict__ gh, float* __restrict__ gd) {
+    const T* __restrict__ uw, const T* __restrict__ uh,
+    const T* __restrict__ ud, const T* __restrict__ tb, float tb_scalar,
+    nf::BwdStrides s, long long cols, long long chunks, float min_bin_width,
+    float min_bin_height, const float* __restrict__ work,
+    T* __restrict__ gw, T* __restrict__ gh, T* __restrict__ gd) {
   constexpr int kPerWarp = (kSlots * K + kWarps - 1) / kWarps;
   __shared__ float s_sum[kSlots * K];
   const int c = blockIdx.x;
@@ -314,15 +317,15 @@ __global__ void __launch_bounds__(kThreads) rqs_bwd_shared_sum(
   // overlap the end of rqs_bwd_shared_blocks (a programmatic launch)
   float sm[K], cc = 0.0f, sig = 0.0f;
   if (sizes_thread) {
-    const float* u = wid ? uw + c * s.w[2] : uh + c * s.h[2];
+    const T* u = wid ? uw + c * s.w[2] : uh + c * s.h[2];
     const long long bin_stride = wid ? s.w[0] : s.h[0];
     float logits[K], sizes[K];
 #pragma unroll
-    for (int k = 0; k < K; ++k) logits[k] = u[k * bin_stride];
+    for (int k = 0; k < K; ++k) logits[k] = nf::to_f32(u[k * bin_stride]);
     nf::softmax_terms<K>(logits, wid ? min_bin_width : min_bin_height, sizes,
                          sm, cc);
   } else if (knot_thread) {
-    sig = nf::sigmoid(ud[c * s.d[2] + knot * s.d[0]]);
+    sig = nf::sigmoid(nf::to_f32(ud[c * s.d[2] + knot * s.d[0]]));
   }
   // wait until rqs_bwd_shared_blocks has finished and its partials are
   // visible (returns at once after an ordinary launch)
@@ -360,11 +363,11 @@ __global__ void __launch_bounds__(kThreads) rqs_bwd_shared_sum(
       g_cum[k] = s_sum[k * kSlots + (wid ? 0 : 2)];
       g_size[k] = s_sum[k * kSlots + (wid ? 1 : 3)];
     }
-    const float t = tb ? tb[c * s.tb[1]] : tb_scalar;
+    const float t = tb ? nf::to_f32(tb[c * s.tb[1]]) : tb_scalar;
     logits_grad_sums<K>(g_cum, g_size, sm, cc, 2.0f * t, out);
-    float* g = wid ? gw : gh;
+    T* g = wid ? gw : gh;
 #pragma unroll
-    for (int k = 0; k < K; ++k) g[k * cols + c] = out[k];
+    for (int k = 0; k < K; ++k) g[k * cols + c] = nf::from_f32<T>(out[k]);
   } else if (knot_thread) {
     // knot k: the left end of bin k (g_d0) and the right end of bin k - 1
     // (g_d1), through the softplus
@@ -375,21 +378,20 @@ __global__ void __launch_bounds__(kThreads) rqs_bwd_shared_sum(
       v_k = s_sum[(K - 1) * kSlots + 5];
     else
       v_k = s_sum[knot * kSlots + 4] + s_sum[(knot - 1) * kSlots + 5];
-    gd[knot * cols + c] = sig * v_k;
+    gd[knot * cols + c] = nf::from_f32<T>(sig * v_k);
   }
 }
 
-template <int K, bool INVERSE>
-cudaError_t launch_shared(const float* x, const float* uw, const float* uh,
-                          const float* ud, const float* tb, float tb_scalar,
-                          const float* cty, const float* ctl,
-                          const nf::BwdStrides& s, long long rows,
-                          long long cols, float mbw, float mbh, float md,
-                          float* gx, float* gw, float* gh, float* gd,
+template <class T, int K, bool INVERSE>
+cudaError_t launch_shared(const T* x, const T* uw, const T* uh, const T* ud,
+                          const T* tb, float tb_scalar, const T* cty,
+                          const T* ctl, const nf::BwdStrides& s,
+                          long long rows, long long cols, float mbw,
+                          float mbh, float md, T* gx, T* gw, T* gh, T* gd,
                           float* work, cudaStream_t stream) {
   const long long chunks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   const dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(cols));
-  rqs_bwd_shared_blocks<K, INVERSE><<<grid, kThreads, 0, stream>>>(
+  rqs_bwd_shared_blocks<T, K, INVERSE><<<grid, kThreads, 0, stream>>>(
       x, uw, uh, ud, tb, tb_scalar, cty, ctl, s, rows, cols, mbw, mbh, md,
       gx, work);
   // a programmatic dependent launch: the sum's blocks may start while the
@@ -405,9 +407,48 @@ cudaError_t launch_shared(const float* x, const float* uw, const float* uh,
   cfg.numAttrs = 1;
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return cudaLaunchKernelEx(&cfg, rqs_bwd_shared_sum<K>, uw, uh, ud, tb,
+  return cudaLaunchKernelEx(&cfg, rqs_bwd_shared_sum<T, K>, uw, uh, ud, tb,
                             tb_scalar, s, cols, chunks, mbw, mbh,
                             static_cast<const float*>(work), gw, gh, gd);
+}
+
+// The body of both shared-path C entry points: see rqs_bwd_shared_launch.
+template <class T>
+int shared_dispatch(const T* x, const T* uw, const T* uh, const T* ud,
+                    const T* tb, const T* cty, const T* ctl, float tb_scalar,
+                    const long long* strides, long long rows, long long cols,
+                    int num_bins, int inverse, float min_bin_width,
+                    float min_bin_height, float min_derivative, T* gx, T* gw,
+                    T* gh, T* gd, float* work, void* stream) {
+  const nf::BwdStrides s = nf::bwd_strides(strides);
+  const bool rows_share =
+      rows == 1 ||
+      (s.w[1] == 0 && s.h[1] == 0 && s.d[1] == 0 && (!tb || s.tb[0] == 0));
+  if (cols > kMaxSharedCols || !rows_share) return -2;
+  if (rows * cols == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NF_RQS_BWD_SHARED_CASE(KK)                                          \
+  case KK:                                                                  \
+    err = inverse ? launch_shared<T, KK, true>(                             \
+                        x, uw, uh, ud, tb, tb_scalar, cty, ctl, s, rows,    \
+                        cols, min_bin_width, min_bin_height,                \
+                        min_derivative, gx, gw, gh, gd, work, st)           \
+                  : launch_shared<T, KK, false>(                            \
+                        x, uw, uh, ud, tb, tb_scalar, cty, ctl, s, rows,    \
+                        cols, min_bin_width, min_bin_height,                \
+                        min_derivative, gx, gw, gh, gd, work, st);          \
+    break;
+  cudaError_t err;
+  switch (num_bins) {
+    NF_RQS_BWD_SHARED_CASE(4)
+    NF_RQS_BWD_SHARED_CASE(8)
+    NF_RQS_BWD_SHARED_CASE(10)
+    default:
+      return -1;
+  }
+#undef NF_RQS_BWD_SHARED_CASE
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -428,33 +469,24 @@ extern "C" int rqs_bwd_shared_launch(
     int inverse, float min_bin_width, float min_bin_height,
     float min_derivative, float* gx, float* gw, float* gh, float* gd,
     float* work, void* stream) {
-  const nf::BwdStrides s = nf::bwd_strides(strides);
-  const bool rows_share =
-      rows == 1 ||
-      (s.w[1] == 0 && s.h[1] == 0 && s.d[1] == 0 && (!tb || s.tb[0] == 0));
-  if (cols > kMaxSharedCols || !rows_share) return -2;
-  if (rows * cols == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NF_RQS_BWD_SHARED_CASE(KK)                                          \
-  case KK:                                                                  \
-    err = inverse ? launch_shared<KK, true>(                                \
-                        x, uw, uh, ud, tb, tb_scalar, cty, ctl, s, rows,    \
-                        cols, min_bin_width, min_bin_height,                \
-                        min_derivative, gx, gw, gh, gd, work, st)           \
-                  : launch_shared<KK, false>(                               \
-                        x, uw, uh, ud, tb, tb_scalar, cty, ctl, s, rows,    \
-                        cols, min_bin_width, min_bin_height,                \
-                        min_derivative, gx, gw, gh, gd, work, st);          \
-    break;
-  cudaError_t err;
-  switch (num_bins) {
-    NF_RQS_BWD_SHARED_CASE(4)
-    NF_RQS_BWD_SHARED_CASE(8)
-    NF_RQS_BWD_SHARED_CASE(10)
-    default:
-      return -1;
-  }
-#undef NF_RQS_BWD_SHARED_CASE
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return shared_dispatch<float>(x, uw, uh, ud, tb, cty, ctl, tb_scalar,
+                                strides, rows, cols, num_bins, inverse,
+                                min_bin_width, min_bin_height,
+                                min_derivative, gx, gw, gh, gd, work, stream);
+}
+
+// The same for bfloat16 operands, cotangents and outputs; `work` stays
+// float32.
+extern "C" int rqs_bwd_shared_launch_bf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* uw, const __nv_bfloat16* uh,
+    const __nv_bfloat16* ud, const __nv_bfloat16* tb,
+    const __nv_bfloat16* cty, const __nv_bfloat16* ctl, float tb_scalar,
+    const long long* strides, long long rows, long long cols, int num_bins,
+    int inverse, float min_bin_width, float min_bin_height,
+    float min_derivative, __nv_bfloat16* gx, __nv_bfloat16* gw,
+    __nv_bfloat16* gh, __nv_bfloat16* gd, float* work, void* stream) {
+  return shared_dispatch<__nv_bfloat16>(
+      x, uw, uh, ud, tb, cty, ctl, tb_scalar, strides, rows, cols, num_bins,
+      inverse, min_bin_width, min_bin_height, min_derivative, gx, gw, gh, gd,
+      work, stream);
 }

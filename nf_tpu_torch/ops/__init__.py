@@ -68,10 +68,15 @@ def launch_counts():
 
 def bf16_launch_counts():
     """``{kernel: launches of its bfloat16 instantiation so far}`` for the
-    kernels that have one (A, C's per-element path and D), kept as
-    :func:`launch_counts` keeps its counts, which include these."""
-    return {k: fn.bf16_launches for k, fn in _counted_wrappers().items()
-            if hasattr(fn, "bf16_launches")}
+    five kernels, kept as :func:`launch_counts` keeps its counts, which
+    include these; and ``rqs_bwd_shared``, those of kernel C's bfloat16
+    launches that took its shared-parameter path (counted in
+    ``rqs_bwd``'s too)."""
+    from .splines_kernel import rqs_bwd
+
+    out = {k: fn.bf16_launches for k, fn in _counted_wrappers().items()}
+    out["rqs_bwd_shared"] = rqs_bwd.shared_bf16_launches
+    return out
 
 
 def reset_launch_counts():
@@ -79,7 +84,8 @@ def reset_launch_counts():
     at circular tails, and the bfloat16 counts, too)."""
     for fn in _counted_wrappers().values():
         fn.launches = 0
-        for extra in ("circular_launches", "bf16_launches"):
+        for extra in ("circular_launches", "bf16_launches",
+                      "shared_bf16_launches"):
             if hasattr(fn, extra):
                 setattr(fn, extra, 0)
 

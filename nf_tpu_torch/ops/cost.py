@@ -65,7 +65,9 @@ def rqs_bwd_autodiff(x, w, h, d, tb, tb_scalar, cty, ctl, inverse, *minima):
 
 def rqs_bwd_shared(x, w, h, d, tb, tb_scalar, cty, ctl, inverse, *minima):
     """Kernel C's shared-parameter path: the operands and cotangents in,
-    gx and the parameter sums (one per stored parameter) out."""
+    gx and the parameter sums (one per stored parameter) out, in the
+    operands' dtype; its float32 per-block partials are scratch, not
+    counted."""
     K, n = w.shape[0], x.numel()
     params = sum(stored_bytes(t) for t in (w, h, d))
     nbytes = (_spline_in(x, w, h, d, tb) + stored_bytes(cty)
@@ -87,12 +89,14 @@ def head_rqs_bwd(x_t, h_t, w, b, tb, num_bins, circular, cty, ctl, inverse,
                  *minima):
     """Kernel E: the recompute, gh and gW products (2 m H each per column),
     gb, the spline backward per element; the operands and cotangents in,
-    gx, gh, gW and gb out."""
+    gx and gh (in x_t's dtype), gW and gb (in the head's) out. Its float32
+    gW/gb partials are scratch that no caller reads, and are not counted."""
     (D, B), (m, H) = x_t.shape, w.shape
     ops = (3 * 2 * m * H * B + m * B
            + tk.rqs_bwd_ops_per_element(num_bins, inverse) * D * B)
     nbytes = (sum(stored_bytes(t) for t in (x_t, h_t, w, b, tb, cty, ctl))
-              + (D * B + H * B + m * H + m) * x_t.element_size())
+              + (D * B + H * B) * x_t.element_size()
+              + (m * H + m) * w.element_size())
     return ops, nbytes
 
 

@@ -31,10 +31,23 @@ Beside the kernels:
   plain version (``splines_kernel``'s notes on the ops);
 * ``fused_head_rqs.launches`` and ``fused_head_rqs_bwd.launches``, the
   counts of launches, kept on the host (a CUDA graph adds to them once,
-  at its capture), and ``circular_launches`` of each, those of them at
-  circular tails;
+  at its capture), and ``circular_launches`` and ``bf16_launches`` of
+  each, those of them at circular tails and through the bfloat16
+  instantiation;
 * :func:`effective_head` and :func:`_build_d_list`, ported from the JAX
   module (:329, :93).
+
+Kernels B and E take float32 or bfloat16 operands, every one of a call in
+the same dtype (the JAX package's kernels take any dtype; its coupled
+layers built with ``dtype=bfloat16`` run them in bfloat16, W_eff formed in
+bfloat16 by :func:`effective_head` as there). A bfloat16 kernel reads and
+writes 2-byte batch planes (x_t, h_t, y, ld, the cotangents, gx, gh),
+widens W_eff, the bias and the tail bound as it stages them, computes in
+float32 and rounds each result once; kernel E's gW/gb partials stay
+float32 and its gW and gb are rounded once from their float32 totals. The
+plain versions compute a bfloat16 call the same way
+(``splines._in_float32``), so kernel and plain version meet element by
+element, and the float32 plain versions are unchanged.
 """
 
 from __future__ import annotations
@@ -48,9 +61,11 @@ from .splines import (
     DEFAULT_MIN_BIN_HEIGHT,
     DEFAULT_MIN_BIN_WIDTH,
     DEFAULT_MIN_DERIVATIVE,
+    _in_float32,
     linear_tail_constant,
 )
 from .splines_kernel import (
+    KERNEL_DTYPES,
     SUPPORTED_BINS,
     _cpu_takes_op,
     rqs_bwd_plain,
@@ -91,12 +106,15 @@ def effective_head(weight, bias, *, num_bins, feats, tails, softmax_scale):
     return w_eff, b_eff
 
 
+@_in_float32
 def head_rqs_plain(x_t, h_t, head_weight, head_bias, tb, *, num_bins, tails,
                    inverse, min_bin_width=DEFAULT_MIN_BIN_WIDTH,
                    min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
                    min_derivative=DEFAULT_MIN_DERIVATIVE):
     """Plain version of kernel B: ``x_t`` (D, B), ``h_t`` (H, B), effective
-    head ``(2K+nd)*D x H`` and bias, ``tb`` (D,) -> ``(y, ld)`` (D, B)."""
+    head ``(2K+nd)*D x H`` and bias, ``tb`` (D,) -> ``(y, ld)`` (D, B). A
+    bfloat16 ``x_t`` is computed as kernel B computes it: every operand
+    widened, float32 math, ``(y, ld)`` rounded once (differentiably)."""
     K, D = num_bins, x_t.shape[0]
     params = torch.matmul(head_weight, h_t) + head_bias[:, None]
     planes = [params[p * D:(p + 1) * D] for p in range(2 * K
@@ -108,6 +126,7 @@ def head_rqs_plain(x_t, h_t, head_weight, head_bias, tb, *, num_bins, tails,
                      min_derivative=min_derivative)
 
 
+@_in_float32
 def head_rqs_bwd_plain(x_t, h_t, head_weight, head_bias, tb, cty, ctl, *,
                        num_bins, tails, inverse,
                        min_bin_width=DEFAULT_MIN_BIN_WIDTH,
@@ -118,7 +137,8 @@ def head_rqs_bwd_plain(x_t, h_t, head_weight, head_bias, tb, cty, ctl, *,
     B), gh (H, B), gW (M, H), gb (M,))`` (``spline_head_fused.py:129``).
     The derivative cotangents fold into head rows: linear tails drop the
     two synthesised edge planes, circular tails add ``gd[K]`` into row 0.
-    The tail bound gets no gradient."""
+    The tail bound gets no gradient. A bfloat16 ``x_t``: float32 math on
+    the widened operands, each gradient rounded once."""
     K, D = num_bins, x_t.shape[0]
     nd = _dplanes(K, tails)
     params = torch.matmul(head_weight, h_t) + head_bias[:, None]
@@ -171,6 +191,7 @@ def _params_in_kernel_order(h_t, head_weight, head_bias):
     return acc + head_bias[:, None], eye, torch.zeros_like(head_bias)
 
 
+@_in_float32
 def head_rqs_plain_in_kernel_order(x_t, h_t, head_weight, head_bias, tb,
                                    **kw):
     """:func:`head_rqs_plain` with the head product summed in kernel B's
@@ -181,6 +202,7 @@ def head_rqs_plain_in_kernel_order(x_t, h_t, head_weight, head_bias, tb,
         x_t, *_params_in_kernel_order(h_t, head_weight, head_bias), tb, **kw)
 
 
+@_in_float32
 def head_rqs_bwd_plain_in_kernel_order(x_t, h_t, head_weight, head_bias, tb,
                                        cty, ctl, **kw):
     """:func:`head_rqs_bwd_plain` with the head product summed as kernels B
@@ -199,7 +221,7 @@ def _launch(x_t, h_t, w, b, tb, *, num_bins, tails, inverse, mbw, mbh, md):
     from . import _build
 
     lib = _build.load("head_rqs_fwd")
-    fn = lib.head_rqs_fwd_launch
+    fn = getattr(lib, "head_rqs_fwd_launch" + KERNEL_DTYPES[x_t.dtype])
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 4
                    + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
@@ -218,37 +240,42 @@ def _launch(x_t, h_t, w, b, tb, *, num_bins, tails, inverse, mbw, mbh, md):
             f"head_rqs_fwd kernel launch failed: CUDA error {err}")
     fused_head_rqs.launches += 1
     fused_head_rqs.circular_launches += tails == "circular"
+    fused_head_rqs.bf16_launches += x_t.dtype == torch.bfloat16
     return y, ld
 
 
 # kernel E's layout (csrc/head_rqs_bwd.cu kThreads, kColPad, kJ, kG,
-# kChunk, kRowPad, kTileM, kTileJ) and the shared memory a block may use
-# on the H100
+# kChunk, kRowPad, kRowPadBf16, kTileM, kTileJ)
+# and the shared memory a block may use on the H100
 _E_THREADS, _E_COL_PAD, _E_WTILE, _E_GH_ROWS = 256, 4, 128, 16
-_E_CHUNK, _E_ROW_PAD, _E_TILE_M, _E_TILE_J = 32, 4, 24, 32
+_E_CHUNK, _E_ROW_PAD, _E_ROW_PAD_BF16 = 32, 4, 8
+_E_TILE_M, _E_TILE_J = 24, 32
 _MAX_SHARED_BYTES = 232448
 
 
-def kernel_e_shared_bytes(m, feats, hidden):
+def kernel_e_shared_bytes(m, feats, hidden, itemsize=4):
     """Dynamic shared memory of one block of kernel E at ``m`` head rows
-    over ``feats`` features, float32: the block's parameter cotangents (m
-    rounded up to 24, 256 + 4), the staged W_eff tile (rows, feats, P
-    rounded up to 4; rows = hidden rounded up to 16, at most 128) and the
-    chunks of h_t (hidden rounded up to 32, 32 + 4), two where they fit and
-    else one. At one feature and hidden <= 128 the tile and the chunks sit
-    side by side (gW and gh run at once on separate warps); otherwise they
-    share one region."""
+    over ``feats`` features and h_t elements of ``itemsize`` bytes (4
+    float32, 2 bfloat16): the block's parameter cotangents (float32, m
+    rounded up to 24, 256 + 4), the staged W_eff tile (float32, rows,
+    feats, P rounded up to 4; rows = hidden rounded up to 16, at most 128)
+    and the chunks of h_t in its own dtype (hidden rounded up to 32, 32 + 4
+    float32 or 32 + 8 bfloat16, rows of 144 or 80 bytes), two where they
+    fit and else one. At one feature and hidden <= 128 the tile and the
+    chunks sit side by side (gW and gh run at once on separate warps);
+    otherwise they share one region."""
     pp = (m // feats + 3) // 4 * 4
     rows = min(_E_WTILE, -(-hidden // _E_GH_ROWS) * _E_GH_ROWS)
     split = feats == 1 and hidden <= _E_WTILE
+    row_pad = _E_ROW_PAD if itemsize == 4 else _E_ROW_PAD_BF16
 
     def total(buffers):
-        w = rows * feats * pp
-        h = (buffers * -(-hidden // _E_TILE_J) * _E_TILE_J
-             * (_E_CHUNK + _E_ROW_PAD))
-        return 4 * (-(-m // _E_TILE_M) * _E_TILE_M
-                    * (_E_THREADS + _E_COL_PAD)
-                    + (w + h if split else max(w, h)))
+        w = 4 * rows * feats * pp
+        h = (itemsize * buffers * -(-hidden // _E_TILE_J) * _E_TILE_J
+             * (_E_CHUNK + row_pad))
+        return (4 * -(-m // _E_TILE_M) * _E_TILE_M
+                * (_E_THREADS + _E_COL_PAD)
+                + (w + h if split else max(w, h)))
 
     return total(2) if total(2) <= _MAX_SHARED_BYTES else total(1)
 
@@ -273,17 +300,20 @@ def _launch_bwd(x_t, h_t, w, b, tb, cty, ctl, *, num_bins, tails, inverse,
                          f"{[tuple(s) for s in shapes]}; expected {want} with "
                          f"m = (2K + nd) * D for K={num_bins}, "
                          f"tails={tails!r}")
-    smem = kernel_e_shared_bytes(m, D, H)
+    for t in (x_t, h_t, w, b, tb, cty, ctl):
+        if (x_t.dtype not in KERNEL_DTYPES or t.dtype != x_t.dtype
+                or t.device != x_t.device):
+            raise TypeError(f"kernel E takes float32 or bfloat16 operands, "
+                            f"all of one dtype, on {x_t.device}; x_t is "
+                            f"{x_t.dtype}, an operand {t.dtype} on "
+                            f"{t.device}")
+    smem = kernel_e_shared_bytes(m, D, H, h_t.element_size())
     if smem > _MAX_SHARED_BYTES:
         raise ValueError(f"kernel E needs {smem} bytes of shared memory per "
                          f"block at {m} head rows over {D} features and "
                          f"hidden {H}; the H100 gives {_MAX_SHARED_BYTES}")
-    for t in (x_t, h_t, w, b, tb, cty, ctl):
-        if t.dtype != torch.float32 or t.device != x_t.device:
-            raise TypeError(f"kernel E takes float32 operands on "
-                            f"{x_t.device}, got {t.dtype} on {t.device}")
     lib = _build.load(f"head_rqs_bwd@{num_bins}")
-    fn = lib.head_rqs_bwd_launch
+    fn = getattr(lib, "head_rqs_bwd_launch" + KERNEL_DTYPES[x_t.dtype])
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 4
                    + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
@@ -296,8 +326,9 @@ def _launch_bwd(x_t, h_t, w, b, tb, cty, ctl, *, num_bins, tails, inverse,
     gh = torch.empty((H, B), dtype=x_t.dtype, device=x_t.device)
     gw = torch.empty((m, H), dtype=x_t.dtype, device=x_t.device)
     gb = torch.empty((m,), dtype=x_t.dtype, device=x_t.device)
-    partials = torch.empty((max(blocks, 1), m * (H + 1)), dtype=x_t.dtype,
-                           device=x_t.device)
+    # float32 whatever the operands: gW sums B columns
+    partials = torch.empty((max(blocks, 1), m * (H + 1)),
+                           dtype=torch.float32, device=x_t.device)
     err = fn(x_t.data_ptr(), x_t.stride(0), x_t.stride(1), h_t.data_ptr(),
              w.data_ptr(), b.data_ptr(), tb.data_ptr(),
              cty.data_ptr(), cty.stride(0), cty.stride(1),
@@ -312,6 +343,7 @@ def _launch_bwd(x_t, h_t, w, b, tb, cty, ctl, *, num_bins, tails, inverse,
             f"head_rqs_bwd kernel launch failed: CUDA error {err}")
     fused_head_rqs_bwd.launches += 1
     fused_head_rqs_bwd.circular_launches += tails == "circular"
+    fused_head_rqs_bwd.bf16_launches += x_t.dtype == torch.bfloat16
     return gx, gh, gw, gb
 
 
@@ -431,8 +463,10 @@ def fused_head_rqs(
     activations (``ResidualNet.features_transposed``); ``head_weight``
     ((2K+nd)*D, H) the EFFECTIVE bin-major head rows (softmax scale folded
     in, :func:`effective_head`); ``head_bias`` ((2K+nd)*D,) or None.
-    ``tails``: 'linear' or 'circular'. ``tail_bound``: scalar or (D,).
-    Returns ``(y (D, B), log_det (D, B))``.
+    ``tails``: 'linear' or 'circular'. ``tail_bound``: scalar or (D,),
+    taken in ``x_t``'s dtype (as the JAX package takes it). Every operand
+    float32, or every one bfloat16; anything else raises TypeError.
+    Returns ``(y (D, B), log_det (D, B))`` in ``x_t``'s dtype.
     """
     if tails not in ("linear", "circular"):
         raise ValueError(f"fused head takes homogeneous 'linear' or "
@@ -443,7 +477,7 @@ def fused_head_rqs(
     if head_bias is None:
         head_bias = torch.zeros(m, dtype=x_t.dtype, device=x_t.device)
     if isinstance(tail_bound, torch.Tensor):
-        tb = torch.broadcast_to(tail_bound.reshape(-1), (D,))
+        tb = torch.broadcast_to(tail_bound.reshape(-1), (D,)).to(x_t.dtype)
     else:  # a fill, not a host-to-device copy (which would sync the host)
         tb = torch.full((D,), float(tail_bound), dtype=x_t.dtype,
                         device=x_t.device)
@@ -468,9 +502,10 @@ def fused_head_rqs(
             f"({m},) for K={K}, tails={tails!r}")
     operands = (x_t, h_t, head_weight, head_bias, tb)
     for t in operands:
-        if t.dtype != torch.float32:
-            raise TypeError(f"the fused head kernel takes float32, got "
-                            f"{t.dtype}")
+        if x_t.dtype not in KERNEL_DTYPES or t.dtype != x_t.dtype:
+            raise TypeError(f"the fused head kernel takes float32 or "
+                            f"bfloat16 operands, all of one dtype: x_t is "
+                            f"{x_t.dtype}, an operand {t.dtype}")
         if t.device != x_t.device:
             raise ValueError("all operands must be on the same CUDA device")
     return torch.ops.nf_tpu_torch.head_rqs_fwd(
@@ -482,6 +517,9 @@ def fused_head_rqs(
 
 fused_head_rqs.launches = 0
 fused_head_rqs_bwd.launches = 0
-# of those, the launches at circular tails
+# of those, the launches at circular tails, and those of the bfloat16
+# instantiation
 fused_head_rqs.circular_launches = 0
 fused_head_rqs_bwd.circular_launches = 0
+fused_head_rqs.bf16_launches = 0
+fused_head_rqs_bwd.bf16_launches = 0

@@ -38,10 +38,11 @@ Beside the kernels:
   ``rqs_bwd_autodiff.launches``, the counts of launches, kept on the host
   (a CUDA graph adds to them once, at its capture; ``ops.launch_counts``
   reads all five kernels' counts), and ``bf16_launches`` of each, those of
-  them through the bfloat16 instantiation (``ops.bf16_launch_counts``).
+  them through the bfloat16 instantiation (``ops.bf16_launch_counts``;
+  ``rqs_bwd.shared_bf16_launches``, those of C's shared-parameter path).
 
-Kernels A, C (its per-element path) and D take float32 or bfloat16
-operands, all of one dtype, and give outputs in it. The JAX package's
+Kernels A, C (both its paths) and D take float32 or bfloat16 operands, all
+of one dtype, and give outputs in it. The JAX package's
 Pallas kernels are dtype-generic and run per operation in bfloat16; here a
 bfloat16 kernel reads and writes 2-byte elements and computes in float32
 between (``csrc/rqs_math.cuh``), and each plain version takes a bfloat16
@@ -49,7 +50,8 @@ input the same way (:func:`_in_float32`: widen, float32 math, round once).
 That is the one design whose kernel-against-plain and port-against-JAX
 float32 checks hold element by element: two per-operation bfloat16
 implementations differ by more than a bfloat16 bar in places. Kernel C's
-shared-parameter path is float32 only and raises on bfloat16.
+shared-parameter path keeps its per-block partials and their total in
+float32 in bfloat16 too, and rounds the parameter sums once.
 
 Both layouts of the JAX package enter here: :func:`fused_unconstrained_rqs`
 (bin-minor ``(..., K)``, ``splines_pallas.py:605``) and
@@ -96,9 +98,8 @@ SHARED_PARAM_MAX_COLS = 64
 # (column, bin): g_cw, g_wd, g_ch, g_hh, g_d0, g_d1 (kSlots)
 SHARED_BWD_ROWS_PER_BLOCK = 512
 SHARED_BWD_SLOTS = 6
-# the operand dtypes kernels A, C and D are instantiated for (kernel C's
-# shared-parameter path: float32 only), and the C entry point's suffix of
-# each
+# the operand dtypes kernels A-E are instantiated for, and the C entry
+# point's suffix of each
 KERNEL_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
@@ -425,6 +426,7 @@ def _logits_grad_sums(g_cum, g_size, sm, c, span):
     return torch.stack([sm[j] * (gsm[j] - S) for j in range(K)])
 
 
+@_in_float32
 def rqs_bwd_shared_plain(x, w, h, d, tb, cty, ctl, *, inverse,
                          min_bin_width=DEFAULT_MIN_BIN_WIDTH,
                          min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
@@ -443,7 +445,9 @@ def rqs_bwd_shared_plain(x, w, h, d, tb, cty, ctl, *, inverse,
     nothing outside ``[-tb, tb]``); their sum per (column, bin); then per
     column the softmax/knot transposes (:func:`_logits_grad_sums`) and the
     derivatives' sigmoids. The sums equal those of :func:`rqs_bwd_plain`'s
-    planes over the rows up to rounding."""
+    planes over the rows up to rounding. A bfloat16 ``x``: float32 math on
+    the widened operands (the sums too), each result rounded once
+    (:func:`_in_float32`), as the bfloat16 kernel computes it."""
     if x.ndim != 2:
         raise ValueError(f"x must be (rows, cols), got {tuple(x.shape)}")
     rows, cols = x.shape
@@ -719,8 +723,9 @@ def _launch_bwd_shared(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md):
     With no rows it launches nothing: the sums are zeros."""
     from . import _build
 
-    _shared_float32(x2)
-    fn = _build.load("rqs_bwd").rqs_bwd_shared_launch
+    _shared_dtype(x2)
+    fn = getattr(_build.load("rqs_bwd"),
+                 "rqs_bwd_shared_launch" + KERNEL_DTYPES[x2.dtype])
     fn.argtypes = _BWD_ARGTYPES + [ctypes.c_void_p] * 6
     fn.restype = ctypes.c_int
     rows, cols = x2.shape
@@ -736,7 +741,9 @@ def _launch_bwd_shared(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md):
     gd = sums((K + 1, 1, cols), **opts)
     if not rows:
         return gx, gw, gh, gd
-    work = torch.empty(cols * chunks * SHARED_BWD_SLOTS * K, **opts)
+    # the per-block partial sums: float32 whatever the operands
+    work = torch.empty(cols * chunks * SHARED_BWD_SLOTS * K,
+                       dtype=torch.float32, device=x2.device)
     err = fn(x2.data_ptr(), w.data_ptr(), h.data_ptr(), d.data_ptr(),
              tb_t.data_ptr() if tb_t is not None else None, cty.data_ptr(),
              ctl.data_ptr(), tb_scalar, strides, rows, cols, K,
@@ -747,18 +754,18 @@ def _launch_bwd_shared(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md):
         raise RuntimeError(f"rqs_bwd shared-parameter launch failed: "
                            f"error {err}")
     rqs_bwd.launches += 1
+    rqs_bwd.bf16_launches += x2.dtype == torch.bfloat16
+    rqs_bwd.shared_bf16_launches += x2.dtype == torch.bfloat16
     return gx, gw, gh, gd
 
 
-def _shared_float32(x):
-    """Kernel C's shared-parameter path is instantiated for float32 only:
-    a TypeError for anything else (no ``build_*`` model reaches it in
-    bfloat16)."""
-    if x.dtype != torch.float32:
+def _shared_dtype(x):
+    """Kernel C's shared-parameter path is instantiated for float32 and
+    bfloat16: a TypeError for anything else."""
+    if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"kernel C's shared path (rqs_bwd_shared, the "
-                        f"unconditional CDF's backward) takes float32, got "
-                        f"{x.dtype}: its bfloat16 instantiation is not "
-                        f"written")
+                        f"unconditional CDF's backward) takes float32 or "
+                        f"bfloat16, got {x.dtype}")
 
 
 def _shares_rows(x2, planes, tb):
@@ -939,7 +946,7 @@ _AUTOGRAD_KEYS = (torch._C.DispatchKey.AutogradCPU,
                          schema=_BWD_SCHEMA)
 def _rqs_bwd_shared_op(x, w, h, d, tb, tb_scalar, cty, ctl, inverse, mbw,
                        mbh, md):
-    _shared_float32(x)
+    _shared_dtype(x)
     return _fresh(*rqs_bwd_shared_plain(x, w, h, d, _tail(tb, tb_scalar),
                                         cty, ctl,
                                         **_bwd_kw(inverse, mbw, mbh, md)))
@@ -1153,6 +1160,8 @@ rqs_bwd_autodiff.launches = 0
 rqs_fwd.bf16_launches = 0
 rqs_bwd.bf16_launches = 0
 rqs_bwd_autodiff.bf16_launches = 0
+# of rqs_bwd's bfloat16 launches, those of its shared-parameter path
+rqs_bwd.shared_bf16_launches = 0
 # backward mode -> the csrc/<name>.cu that implements it, and its counter
 _BWD_KERNELS = {"analytic": "rqs_bwd", "autodiff": "rqs_bwd_autodiff"}
 _WRAPPERS = {"rqs_bwd": rqs_bwd, "rqs_bwd_autodiff": rqs_bwd_autodiff}

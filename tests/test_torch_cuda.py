@@ -2025,7 +2025,8 @@ def test_bf16_kernels_match_their_plain_versions(cuda, K, inverse):
     torch.cuda.synchronize()
     after = tops.bf16_launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "rqs_fwd": 1, "rqs_bwd": 1, "rqs_bwd_autodiff": 1}
+        "rqs_fwd": 1, "rqs_bwd": 1, "rqs_bwd_autodiff": 1,
+        "head_rqs_fwd": 0, "head_rqs_bwd": 0, "rqs_bwd_shared": 0}
     assert torch.equal(y, yp) and torch.equal(ld, lp)
     for got, want in ((gc, gcp), (gd, gdp)):
         for a, b in zip(got, want):
@@ -2035,7 +2036,8 @@ def test_bf16_kernels_match_their_plain_versions(cuda, K, inverse):
 def test_bf16_spline_gradients_run_the_bf16_kernels(cuda):
     """Autograd through kernel A on bfloat16 leaves runs kernel C's (or,
     under "autodiff", D's) bfloat16 instantiation and gives bfloat16
-    gradients; the CDF's shared path, float32 only, raises."""
+    gradients; the CDF's shared path takes bfloat16 too, and raises on
+    float16."""
     rng = np.random.default_rng(7)
     bf = torch.bfloat16
     x = _normal(rng, (4, 3000), 2.0).to(cuda, bf).requires_grad_()
@@ -2056,5 +2058,141 @@ def test_bf16_spline_gradients_run_the_bf16_kernels(cuda):
         x.grad = w.grad = d.grad = None
     xs = x.detach()[:, :8]
     ws, ds = (t.detach()[:, :1, :8] for t in (w, d))
-    with pytest.raises(TypeError, match="kernel C's shared path"):
-        tk.rqs_bwd_shared(xs, ws, ws, ds, 3.0, xs, xs, inverse=False)
+    before = tops.bf16_launch_counts()["rqs_bwd_shared"]
+    grads = tk.rqs_bwd_shared(xs, ws, ws, ds, 3.0, xs, xs, inverse=False)
+    assert all(g.dtype == bf for g in grads)
+    assert tops.bf16_launch_counts()["rqs_bwd_shared"] - before == 1
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tk.rqs_bwd_shared(*(t.half() for t in (xs, ws, ws, ds)), 3.0,
+                          xs.half(), xs.half(), inverse=False)
+
+
+# --- the bfloat16 instantiations of kernels B, E and C's shared path --------
+
+# (D, H, K, tails): build_nsf's coupling, the circular coupled model's
+# trunk width and bins, a dim-4 coupling (E's all-warps layout)
+BF16_HEAD_SHAPES = [(1, 128, 8, "linear"), (1, 512, 10, "circular"),
+                    (2, 64, 8, "linear")]
+
+
+def _bf16_head_operands(rng, cuda, D, H, K, tails, B):
+    bf = torch.bfloat16
+    m = (2 * K + (K - 1 if tails == "linear" else K)) * D
+    x_t = _normal(rng, (B, D), 1.5).to(cuda, bf).T  # a transposed view
+    h_t = _normal(rng, (H, B)).to(cuda, bf)
+    w = _normal(rng, (m, H), 0.3 / np.sqrt(H)).to(cuda, bf)
+    b = _normal(rng, (m,), 0.1).to(cuda, bf)
+    tb = torch.full((D,), 3.0, device=cuda, dtype=bf)
+    cty, ctl = (_normal(rng, (D, B)).to(cuda, bf) for _ in range(2))
+    return x_t, h_t, w, b, tb, cty, ctl
+
+
+@pytest.mark.parametrize("B", [65536, 4099])
+@pytest.mark.parametrize("shape", BF16_HEAD_SHAPES,
+                         ids=lambda s: f"D{s[0]}-H{s[1]}-K{s[2]}-{s[3]}")
+def test_bf16_head_kernels_match_their_plain_versions(cuda, shape, B):
+    """B and E on bfloat16 operands (B = 4099: rows of h_t that start off
+    16 bytes, the kernels' element-load staging) against their plain
+    versions in the kernels' summation order, each element of y, ld, gx,
+    gh, gW and gb within one bfloat16 ulp; bfloat16 out, the bfloat16
+    instantiations counted."""
+    D, H, K, tails = shape
+    x_t, h_t, w, b, tb, cty, ctl = _bf16_head_operands(
+        np.random.default_rng(200 + H + B % 7), cuda, D, H, K, tails, B)
+    for inverse in (False, True):
+        kw = dict(num_bins=K, tails=tails, inverse=inverse)
+        before = tops.bf16_launch_counts()
+        got = tshf.fused_head_rqs(x_t, h_t, w, b, tail_bound=3.0, **kw)
+        want = tshf.head_rqs_plain_in_kernel_order(x_t, h_t, w, b, tb, **kw)
+        gotb = tshf.fused_head_rqs_bwd(x_t, h_t, w, b, tb, cty, ctl, **kw)
+        wantb = tshf.head_rqs_bwd_plain_in_kernel_order(
+            x_t, h_t, w, b, tb, cty, ctl, **kw)
+        torch.cuda.synchronize()
+        after = tops.bf16_launch_counts()
+        assert after["head_rqs_fwd"] - before["head_rqs_fwd"] == 1
+        assert after["head_rqs_bwd"] - before["head_rqs_bwd"] == 1
+        for a, c in zip(got, want):
+            assert a.dtype == torch.bfloat16
+            assert _bf16_ulps(a, c, False) <= 1.0
+        for a, c in zip(gotb, wantb):
+            assert a.dtype == torch.bfloat16
+            assert _bf16_ulps(a, c, True) <= 1.0
+
+
+@pytest.mark.parametrize("B", [65536, 4099])
+def test_bf16_shared_path_matches_its_plain_version(cuda, B):
+    """Kernel C's shared path on a bfloat16 CDF (x (B, 2), (K, 1, 2)
+    parameters, tail bound 3), both directions: gx and the parameter sums
+    within one bfloat16 ulp of ``rqs_bwd_shared_plain``, bfloat16 out, the
+    bfloat16 shared launch counted."""
+    from nf_tpu_torch.ops import splines
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(210 + B % 7)
+    x = _normal(rng, (B, 2), 1.5).to(cuda, bf)
+    cty, ctl = (_normal(rng, (B, 2)).to(cuda, bf) for _ in range(2))
+    uw, uh = (_normal(rng, (8, 1, 2), 0.5).to(cuda, bf) for _ in range(2))
+    ud = splines.pad_derivatives(_normal(rng, (7, 1, 2), 0.5).to(cuda, bf),
+                                 "linear", 1e-3, axis=0)
+    for inverse in (False, True):
+        before = tops.bf16_launch_counts()["rqs_bwd_shared"]
+        got = tk.rqs_bwd_shared(x, uw, uh, ud, 3.0, cty, ctl,
+                                inverse=inverse)
+        want = tk.rqs_bwd_shared_plain(x, uw, uh, ud, 3.0, cty, ctl,
+                                       inverse=inverse)
+        torch.cuda.synchronize()
+        assert tops.bf16_launch_counts()["rqs_bwd_shared"] - before == 1
+        for a, c in zip(got, want):
+            assert a.dtype == bf and _bf16_ulps(a, c, True) <= 1.0
+
+
+def _bf16_coupled(cuda, hidden=32, couplings=2):
+    """``build_nsf(permutation=False)``'s stack in bfloat16 from the
+    public layers, perturbed by N(0, 0.1²)."""
+    bf = torch.bfloat16
+    layers = [nt.flows.CoupledRationalQuadraticSpline(
+        num_input_channels=2, num_blocks=2, num_hidden_channels=hidden,
+        num_bins=8, tails="linear", tail_bound=3.0,
+        reverse_mask=(i % 2 == 1), dtype=bf) for i in range(couplings)]
+    model = nt.NormalizingFlow(
+        nt.distributions.DiagGaussian(2, trainable=False, dtype=bf), layers)
+    rng = np.random.default_rng(220)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(_normal(rng, tuple(p.shape), 0.1).to(p.dtype))
+    return model.to(cuda)
+
+
+def test_bf16_coupled_graphs_launch_only_bf16_kernels(cuda):
+    """One captured ``log_prob`` and one captured forward-KLD step of a
+    bfloat16 coupled NSF at B*D >= 4096 (kernel B's gate), the graphs'
+    kernel nodes read by name: per coupling the bfloat16 B and A, and in
+    the step E (and its partials' sum) and C's shared path (its two
+    launches), every port kernel a bfloat16 instantiation and no cast
+    (``direct_copy_kernel``) among the nodes."""
+    chip = _chip_smoke()
+    model = _bf16_coupled(cuda)
+    x = _normal(np.random.default_rng(221), (8192, 2), 1.5).to(
+        cuda, torch.bfloat16)
+
+    def log_prob():
+        with torch.inference_mode():
+            return model.log_prob(x)
+
+    opt = _adam(model)
+    state = nt.init_train_state(model, opt)
+    step = nt.make_forward_kld_step(opt)
+    want = {"log_prob": {"rqs_fwd": 2, "head_rqs_fwd": 2},
+            "step": {"rqs_fwd": 2, "head_rqs_fwd": 2, "rqs_bwd": 4,
+                     "head_rqs_bwd": 4}}
+    for what, fn, warm in (("log_prob", log_prob, 1),
+                           ("step", lambda: step.eager(state, x), 2)):
+        names = chip.captured_kernel_names(fn, warm)
+        ours = {}
+        for n in names:
+            k = chip.kernel_of(n)
+            if k is not None:
+                assert "__nv_bfloat16" in n, n
+                ours[k] = ours.get(k, 0) + 1
+        assert ours == want[what], (what, ours)
+        assert not [n for n in names if "direct_copy_kernel" in n], what

@@ -214,8 +214,9 @@ def test_kernel_checks_take_bfloat16_and_one_dtype():
 
 def test_ops_give_bfloat16_and_the_shared_path_raises():
     """The ops' CPU implementations (the twins) and fake implementations
-    give outputs in x's dtype; kernel C's shared-parameter path has no
-    bfloat16 instantiation and says so."""
+    give outputs in x's dtype; kernel C's shared-parameter path gives
+    bfloat16 too (it has a bfloat16 instantiation), and raises on a dtype
+    that has none."""
     x, uw, uh, ud, cty, ctl = (torch.from_numpy(a) for a in _operands(4, 32))
     ops = torch.ops.nf_tpu_torch
     x16, w16, h16, d16, cy16, cl16 = (t.to(BF16) for t in
@@ -232,9 +233,12 @@ def test_ops_give_bfloat16_and_the_shared_path_raises():
         assert all(o.dtype == BF16 for o in ops.rqs_fwd(
             *fakes, None, TB, False, *minima))
     shared = [t[:, :1] for t in (w16, h16, d16)]
+    grads = ops.rqs_bwd_shared(x16, *shared, None, TB, cy16, cl16, False,
+                               *minima)
+    assert all(g.dtype == BF16 for g in grads)
     with pytest.raises(TypeError, match="kernel C's shared path"):
-        ops.rqs_bwd_shared(x16, *shared, None, TB, cy16, cl16, False,
-                           *minima)
+        ops.rqs_bwd_shared(x16.half(), *(t.half() for t in shared), None,
+                           TB, cy16.half(), cl16.half(), False, *minima)
 
 
 def test_costs_count_two_bytes_per_bfloat16_element():
