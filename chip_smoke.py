@@ -330,10 +330,11 @@ CIRC_CPU_BATCH = 16384  # log_prob, card against CPU
 CIRC_STEPS = 50
 TIE_TOL = 1e-5  # kernel D at x = ±tb: half of kernel C's x-gradient
 
-# Published peaks (NVIDIA data sheets): memory bytes/s and float32
-# CUDA-core flop/s. The SXM part's are the default.
-PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12)}
-SXM_PEAKS = (3.35e12, 67e12)
+# Published peaks (NVIDIA data sheets, dense): memory bytes/s, float32
+# CUDA-core flop/s and bfloat16 tensor-core flop/s. The SXM part's are the
+# default.
+PEAKS = {"PCIe": (2.0e12, 51e12, 756e12), "NVL": (3.9e12, 60e12, 835e12)}
+SXM_PEAKS = (3.35e12, 67e12, 989e12)
 
 
 def nvidia_smi_line():
@@ -465,8 +466,14 @@ def phase_build():
                      f"{len(spills)} instantiations spilling")
     print(f"phase build: {len(names)} libraries in {secs:.1f} s "
           f"(sm_90a; {'; '.join(notes)})", flush=True)
-    heads = head_ptxas([_build.BUILD_LOGS.get(n, "") for n in names
-                        if n.startswith("head_")])
+    heads = {}  # (kernel, K, flags) -> {"f32" | "bf16": (registers, spill)}
+    for kernel, rows in ptxas_kernels("\n".join(
+            _build.BUILD_LOGS.get(n, "") for n in names
+            if n.startswith("head_"))).items():
+        base, bf16, _ = kernel.partition(" bf16")
+        for k, flags, regs, spill in rows:
+            heads.setdefault((base, k, flags), {})[
+                "bf16" if bf16 else "f32"] = (regs, spill)
     worse = [key for key, v in heads.items()
              if v.get("bf16", (0, 0))[1] > v.get("f32", (0, 0))[1]]
     print("phase build head kernels by instantiation (K, flags circular/"
@@ -484,48 +491,20 @@ def phase_build():
         print(f"phase build {n} by kernel (K, direction: registers, bytes "
               f"spilled): " + "; ".join(
                   f"{kernel} " + ", ".join(
-                      f"K{k}{'i' if inv else 'f'} {regs}"
+                      f"K{k}{'i' if flags[:1] == '1' else 'f'} {regs}"
                       + (f" +{spill}" if spill else "")
-                      for k, inv, regs, spill in rows)
+                      for k, flags, regs, spill in rows)
                   for kernel, rows in ptxas_kernels(
                       _build.BUILD_LOGS.get(n, "")).items()), flush=True)
 
 
-def head_ptxas(logs):
-    """``nvcc -Xptxas -v`` output of kernels B and E (``logs``: their
-    libraries' logs) -> {(kernel, K, flags): {"f32" | "bf16": (registers,
-    spill-store bytes)}}, ``flags`` the template's bools (B: circular,
-    inverse; E: circular, inverse, one feature)."""
-    import re
-
-    out, entry, spill = {}, None, 0
-    for line in "\n".join(logs).splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            entry, spill = m.group(1), 0
-            continue
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
-            spill = int(m.group(1))
-            continue
-        m = re.search(r"Used (\d+) registers", line)
-        if m and entry:
-            name = re.search(r"\d+(head_rqs_\w+?_kernel)I", entry)
-            if name:
-                k = int(re.search(r"Li(\d+)E", entry).group(1))
-                flags = "".join(re.findall(r"Lb([01])E", entry))
-                dtype = "bf16" if "bfloat16" in entry else "f32"
-                out.setdefault((name.group(1), k, flags), {})[dtype] = (
-                    int(m.group(1)), spill)
-            entry = None
-    return out
-
-
 def ptxas_kernels(log):
-    """``nvcc -Xptxas -v`` output -> {kernel: [(K, inverse, registers,
+    """``nvcc -Xptxas -v`` output -> {kernel: [(K, flags, registers,
     spill-store bytes)]}, by the kernel's name (with " bf16" for a
     bfloat16 instantiation) and its template arguments in the mangled
-    symbol."""
+    symbol: K (0 where it has none) and ``flags``, its bools in order
+    (A, C, D: inverse; B: circular, inverse; E: circular, inverse, one
+    feature)."""
     import re
 
     out, entry, spill = {}, None, 0
@@ -540,15 +519,15 @@ def ptxas_kernels(log):
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            name = re.search(r"\d+(rqs_\w+?)I", entry)
+            name = re.search(r"\d+((?:head_)?rqs_\w+?|reduce_partials)I",
+                             entry)
             k = re.search(r"Li(\d+)E", entry)
-            inv = re.search(r"Lb([01])E", entry)
             label = name.group(1) if name else entry
             if "bfloat16" in entry:  # the bfloat16 instantiations
                 label += " bf16"
             out.setdefault(label, []).append(
-                (int(k.group(1)) if k else 0, bool(inv and inv.group(1) ==
-                                                     "1"),
+                (int(k.group(1)) if k else 0,
+                 "".join(re.findall(r"Lb([01])E", entry)),
                  int(m.group(1)), spill))
             entry = None
     return {n: sorted(rows) for n, rows in out.items()}
@@ -1279,9 +1258,13 @@ def timing_kernel_e_other(dev, flush, peaks):
     return out
 
 
-def bound(nbytes, ops, peaks):
+def bound(nbytes, ops, peaks, dtype=torch.float32):
+    """The least time in ms: bytes over the memory rate, operations over
+    the card's peak for the operands' type (bfloat16 at the tensor cores'
+    rate, whatever units the kernel multiplies on), the larger of the
+    two, and which one it is."""
     t_bytes = nbytes / peaks[0] * 1e3
-    t_ops = ops / peaks[1] * 1e3
+    t_ops = ops / peaks[2 if dtype == torch.bfloat16 else 1] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -3502,10 +3485,10 @@ def cc_kernels(dev, flush, peaks, model):
                 _build.BUILD_LOGS.get(lib, "")).items():
             short = re.search(
                 r"(head_rqs_(?:fwd|bwd)_kernel|reduce_partials)", kernel)
-            for k, inv, r, spill in krows:
+            for k, flags, r, spill in krows:
                 if k in (CC_BINS, 0):
                     key = (f"{short.group(1) if short else kernel} K{k}"
-                           f"{'i' if inv else 'f'}")
+                           f"{'i' if flags[:1] == '1' else 'f'}")
                     old = regs.get(key, (0, 0))
                     regs[key] = (max(old[0], r), max(old[1], spill))
     print(f"phase circular_coupled kernels (B = {BATCH}, D = 1, H = "
@@ -6567,7 +6550,8 @@ def timing_image_kernels_bf16(dev, flush, peaks):
                 K_BINS, inverse) * x.numel()
             cot = 0 if name == "rqs_fwd" else 2 * x.numel()
             b16 = bound(_spline_bytes(x, (w, h, d), n_out)
-                        + cot * x.element_size(), ops_n, peaks)
+                        + cot * x.element_size(), ops_n, peaks,
+                        torch.bfloat16)
             b32 = bound(_spline_bytes(ops32[0], ops32[1:4], n_out)
                         + cot * 4, ops_n, peaks)
             out[name][inverse] = ((t16a + t16b) / 2, plain) + b16
@@ -7070,8 +7054,8 @@ def timing_head_kernels_bf16(dev, flush, peaks):
             plain = device_ms(plain16, flush)
             ops16, bytes16 = cost_of(name, *out[torch.bfloat16], inverse)
             ops32, bytes32 = cost_of(name, *out[torch.float32], inverse)
-            b16, b32 = bound(bytes16, ops16, peaks), bound(bytes32, ops32,
-                                                            peaks)
+            b16 = bound(bytes16, ops16, peaks, torch.bfloat16)
+            b32 = bound(bytes32, ops32, peaks)
             times[name][inverse] = ((t16a + t16b) / 2, plain) + b16
             rows.append(
                 f"{name} {'inverse' if inverse else 'forward'}: bf16 "
@@ -7273,10 +7257,19 @@ def phase_coupled_nsf_bf16(dev, flush, peaks):
                     bwd: couplings, "head_rqs_bwd": couplings}
         _expect_launches(st["launches"], per_step,
                          f"bf16 coupled step graph ({mode})")
+        # the counts of _launching_bf16's window (warm-ups, capture, eager
+        # steps): every bf16 launch of C in it, the capture's among them,
+        # took the shared path, so the capture's C launches are shared ones
+        win = _bf16_counts()
+        if win["rqs_bwd_shared"] != win["rqs_bwd"]:
+            raise RuntimeError(f"bf16 coupled step graph ({mode}): "
+                               f"{win['rqs_bwd_shared']} of C's "
+                               f"{win['rqs_bwd']} bf16 launches took its "
+                               f"shared path")
         l16 = {k: st["launches"].get(k, 0) for k in
                ("rqs_fwd", "head_rqs_fwd", "rqs_bwd", "rqs_bwd_autodiff",
                 "head_rqs_bwd")}
-        l16["rqs_bwd_shared"] = l16["rqs_bwd"]  # C runs its shared path
+        l16["rqs_bwd_shared"] = l16["rqs_bwd"]
         paths[f"graphs: bf16 coupled step ({mode})"] = (
             _with_bf16(st["launches"], l16),
             need + ("head_rqs_bwd", "head_rqs_bwd_bf16", bwd)

@@ -363,6 +363,62 @@ def test_costs_halve_the_batch_planes():
     assert o16 == o32 and 2 * n16 == n32
 
 
+def _chip_smoke():
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_bf16_bounds_take_the_tensor_core_peak():
+    """``chip_smoke.bound`` takes a bfloat16 kernel's operations at the
+    card's bfloat16 tensor-core peak, a float32 one's at the CUDA cores'
+    float32 peak: at build_nsf's kernel B (H 128, M 23, B 65536) the
+    bfloat16 bound is its bytes', the float32 one too."""
+    cs = _chip_smoke()
+    peaks = cs.SXM_PEAKS
+    ops = 2 * 23 * 128 * 65536
+    b16 = cs.bound(17176368, ops, peaks, torch.bfloat16)
+    b32 = cs.bound(34352736, ops, peaks)
+    assert b16 == (17176368 / peaks[0] * 1e3, "bytes")
+    assert b32 == (34352736 / peaks[0] * 1e3, "bytes")
+    assert cs.bound(0, ops, peaks, torch.bfloat16) == (
+        ops / 989e12 * 1e3, "operations")
+    assert cs.bound(0, ops, peaks) == (ops / 67e12 * 1e3, "operations")
+
+
+def test_ptxas_kernels_reads_every_template_bool():
+    """``chip_smoke.ptxas_kernels`` names B's, E's and the spline kernels'
+    instantiations by kernel and dtype, with K and every template bool,
+    so that the build phase can hold each bfloat16 instantiation's spills
+    against its float32 twin's."""
+    lines = []
+    for t, spill in (("f", 0), ("13__nv_bfloat16", 4)):
+        lines += [
+            f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119"
+            f"head_rqs_bwd_kernelI{t}Li8ELb1ELb0ELb1EEEvPKT_' for 'sm_90a'",
+            f"    0 bytes stack frame, {spill} bytes spill stores, 0 bytes "
+            f"spill loads",
+            "ptxas info    : Used 128 registers, 380 bytes cmem[0]",
+            f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115"
+            f"reduce_partialsI{t}EEvPKfiiiPT_S4_' for 'sm_90a'",
+            "ptxas info    : Used 20 registers",
+            f"ptxas info    : Compiling entry function '_ZN2nf14rqs_bwd_kernel"
+            f"INS_12AnalyticMathE{t}Li4ELb1EEEvPKT0_' for 'sm_90a'",
+            "ptxas info    : Used 60 registers"]
+    got = _chip_smoke().ptxas_kernels("\n".join(lines))
+    assert got == {
+        "head_rqs_bwd_kernel": [(8, "101", 128, 0)],
+        "head_rqs_bwd_kernel bf16": [(8, "101", 128, 4)],
+        "reduce_partials": [(0, "", 20, 0)],
+        "reduce_partials bf16": [(0, "", 20, 0)],
+        "rqs_bwd_kernel": [(4, "1", 60, 0)],
+        "rqs_bwd_kernel bf16": [(4, "1", 60, 0)]}
+
+
 # --- the bfloat16 coupled NSF ------------------------------------------------
 
 _PAIR = {}
