@@ -286,7 +286,21 @@ toolkit. Phases, one line each:
     under "analytic" (A, B, C's shared path, E) and "autodiff" (D on the
     CDF), card against CPU; the graphs bitwise eager, their kernel nodes
     read by name (only bfloat16 port kernels, no cast), and each timed in
-    turns with the same layers in float32.
+    turns with the same layers in float32;
+30. examples (run last): every twin of ``examples_torch/`` (the example
+    scripts on the port) through its ``main()`` in this process, at its
+    default widths and batch with its iterations capped at 100, its output
+    files in a temporary directory: each twin's wall seconds, iterations
+    per second and launches, losses finite (affine on smiley, which leaves
+    float32 in the JAX example too, only its first 5) and, where the
+    objective is fixed (no annealed beta), the last 10 below the first 10
+    by LOSS_MARGIN (the residual recipe, at Adam 3e-4, by half of it);
+    ``neural_spline_flow.py`` once at its full recipe (2000 iterations at
+    batch 512, A and C), the mean of its last 100 losses within
+    NSF_RECIPE_BAR (``tests/recipe_bar_nsf.py``: the JAX example on the CPU
+    over seeds 0-2), its ms per iteration beside the target's draw alone;
+    ``serving_inference.py``'s served ``log_prob`` and ``sample`` at
+    B = 4096 through kernel B; the kernel-free twins launch no port kernel.
 
 ``python3 chip_smoke.py --dispatch-turns PARENT`` times the eager
 ``build_nsf`` ``log_prob`` and step of the checkout ``PARENT`` against
@@ -7326,6 +7340,232 @@ def phase_coupled_nsf_bf16(dev, flush, peaks):
     return paths, rows
 
 
+EXAMPLE_ITERS = 100  # phase 30: a twin's iterations, at most (its default)
+# phase 30's bar on the full recipe of examples_torch/neural_spline_flow.py
+# (2000 iterations, batch 512): the mean of its last 100 iterations'
+# losses lies in the JAX example's mean over seeds 0-2 on the CPU, plus or
+# minus three times the larger seed-to-seed spread of the JAX example and
+# the twin on the CPU (tests/recipe_bar_nsf.py)
+NSF_RECIPE_BAR = (1.558778, 1.609962)
+# each twin of examples_torch/ (its flags beyond --device and --iters),
+# the port kernels it must launch, and whether its loss must fall (an
+# annealed reverse KLD's objective changes with beta, so its loss is only
+# held finite); the first, NSF_RECIPE, runs its full recipe
+NSF_RECIPE = "neural_spline_flow"
+EXAMPLE_TWINS = (
+    (NSF_RECIPE, [], ("rqs_fwd", "rqs_bwd"), True),
+    ("neural_spline_flow --autoregressive", ["--autoregressive"],
+     ("rqs_fwd", "rqs_bwd"), True),
+    ("conditional_flow", [], ("rqs_fwd", "head_rqs_fwd", "rqs_bwd"), True),
+    ("circular_nsf", [], ("rqs_fwd", "rqs_bwd"), True),
+    ("paper_example_nsf", [], ("rqs_fwd", "rqs_bwd"), True),
+    ("serving_inference", [], ("rqs_fwd", "rqs_bwd"), True),
+    ("multichip_training", [], ("rqs_fwd", "rqs_bwd"), True),
+    ("image_nsf", [], ("rqs_fwd", "rqs_bwd"), True),
+    ("real_nvp", [], (), False),
+    ("planar", [], (), True),
+    ("comparison_plan_rad_aff", [], (), False),
+    ("augmented_flow", [], (), False),
+    ("change_base_distribution", [], (), True),
+    ("residual", [], (), True),
+    ("stochastic_nf", [], (), False),
+    ("hais_sampling", [], (), False),
+    ("vae", [], (), True),
+    ("image", [], (), True),
+    ("glow", [], (), True),
+)
+# multichip_training's histories that train one objective (its reverse
+# KLD is annealed; its pipeline takes 8 steps)
+MULTICHIP_FALLS = ("forward_kld",)
+# runs whose loss leaves float32 in the JAX example too
+# (examples/comparison_plan_rad_aff.py, affine on smiley: non-finite by
+# iteration 50 at its defaults and by iteration 10 at 100 iterations, on
+# the CPU); only their first DIVERGED_FINITE losses are held finite
+DIVERGES_IN_JAX = {("comparison_plan_rad_aff", "affine on smiley")}
+DIVERGED_FINITE = 5
+# the residual recipe's rate is 3e-4: 100 of its 3000 iterations moved the
+# loss 0.094 nats on the CPU, so its fall is held to half of LOSS_MARGIN
+EXAMPLE_MARGINS = {"residual": LOSS_MARGIN / 2}
+
+
+def _histories(out):
+    """``{label: History}`` of a twin's result."""
+    hist = out.get("hist")
+    if hist is None:
+        return {}
+    return dict(hist) if isinstance(hist, dict) else {"": hist}
+
+
+def _check_losses(name, hists, falls):
+    """Every loss finite; where ``falls``, the mean of the last 10 below
+    the first 10's by LOSS_MARGIN. Returns ``{label: (first 10, last
+    10)}``."""
+    means = {}
+    for label, h in hists.items():
+        v = h.losses.cpu().numpy()
+        what = f"{name} {label}".strip()
+        if (name, label) in DIVERGES_IN_JAX:
+            bad = np.flatnonzero(~np.isfinite(v))
+            if not (len(v) and np.all(np.isfinite(v[:DIVERGED_FINITE]))):
+                raise RuntimeError(f"examples {what}: a loss of the first "
+                                   f"{DIVERGED_FINITE} is not finite: {v}")
+            print(f"phase examples {what}: first non-finite loss at "
+                  f"iteration {bad[0] if len(bad) else 'none'} (the JAX "
+                  f"example's run leaves float32 on the CPU)", flush=True)
+            continue
+        if not (len(v) and np.all(np.isfinite(v))):
+            raise RuntimeError(f"examples {what}: a loss is not finite: {v}")
+        means[label] = (float(v[:10].mean()), float(v[-10:].mean()))
+        want = falls and (name != "multichip_training"
+                          or label in MULTICHIP_FALLS)
+        margin = EXAMPLE_MARGINS.get(name, LOSS_MARGIN)
+        if want and not means[label][1] < means[label][0] - margin:
+            raise RuntimeError(
+                f"examples {what}: loss {means[label][0]:.4f} (first 10) -> "
+                f"{means[label][1]:.4f} (last 10), falling by {margin} "
+                f"expected")
+    return means
+
+
+def recipe_draw_ms(dev, batch=512, reps=200):
+    """Wall ms of one draw of the full recipe's batch from TwoMoons (a
+    rejection sampler that reads the device once per round), synchronised,
+    mean of ``reps``."""
+    import nf_tpu_torch as nt
+
+    target = nt.TwoMoons()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 700)
+    target.sample(batch, generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        target.sample(batch, generator=gen)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def run_twin(name, argv):
+    """One twin's ``main(argv)`` on the card with the counters at 0 before
+    it: (its result, the launches it counted, wall seconds, its last
+    output lines)."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"examples_torch.{name}")
+    text = io.StringIO()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        out = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, read_counts(), wall, text.getvalue().strip().splitlines()
+
+
+def phase_examples(dev):
+    """Phase 30: every twin of ``examples_torch/`` (the example scripts on
+    ``nf_tpu_torch``) through its ``main()`` in this process on the card,
+    at its default widths and batch, its iterations capped at
+    EXAMPLE_ITERS but for ``neural_spline_flow.py``'s full recipe (2000),
+    its output files in a temporary directory: losses finite, falling
+    where the objective is fixed; the launches each run counted; the full
+    recipe's mean of its last 100 losses held to NSF_RECIPE_BAR;
+    ``serving_inference.py``'s served ``log_prob`` and ``sample``
+    (B = 4096) through kernel B. Returns {path: (launches, the kernels it
+    must launch)}."""
+    import importlib
+    import tempfile
+
+    from examples_torch import _utils
+
+    t_phase = time.perf_counter()
+    paths = {}
+    rows = []
+    saved = _utils.OUT_DIR
+    with tempfile.TemporaryDirectory() as d:
+        _utils.OUT_DIR = d
+        try:
+            for spec, extra, needed, falls in EXAMPLE_TWINS:
+                name = spec.split()[0]
+                mod = importlib.import_module(f"examples_torch.{name}")
+                argv = ["--device", "cuda"] + extra
+                default = mod.parser().get_default("iters")
+                if default is not None and spec != NSF_RECIPE:
+                    argv += ["--iters", str(min(default, EXAMPLE_ITERS))]
+                out, counts, wall, lines = run_twin(name, argv)
+                hists = _histories(out)
+                means = _check_losses(name, hists, falls)
+                label = f"{spec} (full recipe)" if spec == NSF_RECIPE else spec
+                paths[f"examples: {label}"] = (counts, needed)
+                iters = sum(len(h.losses) for h in hists.values())
+                loop_s = sum(h.seconds for h in hists.values())
+                rows.append((label, wall, iters, loop_s, means, counts,
+                             lines))
+                if spec == NSF_RECIPE:
+                    recipe = recipe_check(dev, hists[""])
+                if name == "serving_inference":
+                    served_check(out)
+                if name == "hais_sampling" and not (
+                        np.isfinite(out["log_z"]) and out["ess"] > 0):
+                    raise RuntimeError(f"examples hais_sampling: log Z "
+                                       f"{out['log_z']}, ESS {out['ess']}")
+        finally:
+            _utils.OUT_DIR = saved
+    for label, wall, iters, loop_s, means, counts, lines in rows:
+        rate = f"{iters / loop_s:.1f} it/s" if iters and loop_s else "—"
+        loss = "; ".join(f"{k or 'loss'} {a:+.4f} -> {b:+.4f}"
+                         for k, (a, b) in means.items())
+        print(f"phase examples {label}: {wall:.1f} s wall, {iters} "
+              f"iterations in {loop_s:.2f} s ({rate}); first 10 -> last 10: "
+              f"{loss or '—'}; launches {_nonzero(counts)}; output: "
+              + " | ".join(lines[-3:]), flush=True)
+    print(recipe, flush=True)
+    print(f"phase timing phase 30 (examples): "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths
+
+
+def recipe_check(dev, hist):
+    """The full recipe's final loss (the mean of its last 100 iterations'
+    losses) within NSF_RECIPE_BAR; returns the line that states it, its
+    ms per iteration and the target's draw alone (printed last, so the
+    tail of the output holds it)."""
+    final = hist.final_loss(100)
+    lo, hi = NSF_RECIPE_BAR
+    if not lo <= final <= hi:
+        raise RuntimeError(
+            f"examples {NSF_RECIPE}: the full recipe's final loss (mean of "
+            f"the last 100 of {len(hist.losses)}) {final:.4f} is outside "
+            f"the bar [{lo:.4f}, {hi:.4f}]")
+    return (f"phase examples {NSF_RECIPE} full recipe (build_nsf dim 2, K 4, "
+            f"hidden 64, 8 bins; {len(hist.losses)} iterations at batch "
+            f"512, Adam 3e-3): final loss (mean of the last 100 iterations) "
+            f"{final:.6f}, bar [{lo:.6f}, {hi:.6f}] (tests/recipe_bar_nsf.py "
+            f"on the CPU); {1e3 * hist.seconds / len(hist.losses):.3f} ms "
+            f"per iteration, the target's draw alone "
+            f"{recipe_draw_ms(dev):.3f} ms")
+
+
+def served_check(out):
+    """``serving_inference``'s served ``log_prob`` and ``sample``: each
+    replay launches kernel B (their captures are in the twin's counts)."""
+    served = out["served"]
+    for call in ("log_prob", "sample"):
+        if not served[call].get("head_rqs_fwd"):
+            raise RuntimeError(f"examples serving_inference: the served "
+                               f"{call} launched no kernel B: "
+                               f"{served[call]}")
+    print(f"phase examples serving_inference: served launches per replay "
+          f"log_prob {_nonzero(served['log_prob'])}, sample "
+          f"{_nonzero(served['sample'])}, the reloaded artifact "
+          f"{_nonzero(served['exported log_prob'])}; sample vs log_prob "
+          f"{out['sample_log_prob_err']:.3g}, artifact vs compiled "
+          f"{out['artifact_err']:.3g}, {out['samples_per_s']:.0f} "
+          f"samples/s", flush=True)
+
+
 def dispatch_turns(parent):
     """``python3 chip_smoke.py --dispatch-turns PARENT``: the eager
     ``build_nsf`` ``log_prob`` and forward-KLD step at B = 65536 of the
@@ -7507,6 +7747,7 @@ def main():
           f"infrastructure): {time.perf_counter() - t_new:.1f} s", flush=True)
     paths.update(phase_training_binary(dev))
     paths.update(phase_export(dev, flush, peaks))
+    paths.update(phase_examples(dev))
     print("launches: " + "; ".join(f"{k} {v[0]}" for k, v in paths.items()),
           flush=True)
     for path, (counts, needed) in paths.items():
