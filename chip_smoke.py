@@ -222,8 +222,9 @@ toolkit. Phases, one line each:
     in this process: (a) ``--model nsf --loss forward_kld`` on two moons
     at ``build_nsf``'s width, B = 65536, 200 steps with checkpoints and a
     JSONL log (the loss falls; A, B, C, E in every replay), ms per step
-    in turns with the bare captured step, the target's draw alone, the
-    idle share of a profiled step, then re-entered on its directory (the
+    in turns with the bare captured step, the binary's draw alone and its
+    host syncs (at most 2), the idle share of a profiled step, then
+    re-entered on its directory (the
     restored state bitwise the saved one, 100 more steps as a graph); (b)
     the annealed reverse-KLD binary on TwoModes at 16384 samples (the
     reverse KLD at beta 1 falls); (c) the image NSF binary at
@@ -296,11 +297,24 @@ toolkit. Phases, one line each:
     objective is fixed (no annealed beta), the last 10 below the first 10
     by LOSS_MARGIN (the residual recipe, at Adam 3e-4, by half of it);
     ``neural_spline_flow.py`` once at its full recipe (2000 iterations at
-    batch 512, A and C), the mean of its last 100 losses within
-    NSF_RECIPE_BAR (``tests/recipe_bar_nsf.py``: the JAX example on the CPU
-    over seeds 0-2), its ms per iteration beside the target's draw alone;
+    batch 512, A and C, its batch drawn inside the captured step), the
+    mean of its last 100 losses within NSF_RECIPE_BAR
+    (``tests/recipe_bar_nsf.py``: the JAX example on the CPU over seeds
+    0-2), its ms per iteration beside the target's eager draw alone;
     ``serving_inference.py``'s served ``log_prob`` and ``sample`` at
-    B = 4096 through kernel B; the kernel-free twins launch no port kernel.
+    B = 4096 through kernel B; the kernel-free twins launch no port kernel;
+31. target draw (run before phase 30): the targets' rejection draw
+    (``distributions/target.py``) on TwoMoons at 512 and 65536 and on an
+    ``ImagePrior`` (a ``procedural_image_classes`` image) and Smiley at
+    512: the eager loop's host syncs per draw (median of 50, at most 2)
+    and wall ms; the sync-free draw captured in a CUDA
+    graph with its generator registered (0 host syncs per replay, two
+    replays differ, a replay bitwise the eager sync-free draw from the
+    same generator state, a pool of N flags ``full`` false) and its
+    replay ms; the eager draw under deterministic algorithms bitwise the
+    default's; card against CPU at 65536: means, covariances and quadrant
+    shares within 4 sigma of their sampling error, the acceptance rate
+    within 4 sigma of the CPU's; no port kernel.
 
 ``python3 chip_smoke.py --dispatch-turns PARENT`` times the eager
 ``build_nsf`` ``log_prob`` and step of the checkout ``PARENT`` against
@@ -5658,7 +5672,9 @@ def binary_forward(dev, d):
     step = state.run_step.step
     turns = in_turns(lambda: state.run_step(state, 0),
                      lambda: step(state, x))
-    draw = host_ms(lambda: nt.TwoMoons().sample(BATCH, generator=gen))
+    # the binary's own draw
+    draw = host_ms(state.run_step.draw)
+    draw_syncs = len(host_syncs(state.run_step.draw))
     wall, busy, top = profile_call(lambda: state.run_step(state, 0))
     report = replay_report(lambda: step(state, x), "build_nsf step")
     (b1, b2), (g1, g2) = turns
@@ -5670,11 +5686,14 @@ def binary_forward(dev, d):
           f"turns binary, bare, bare, binary): the binary's step (the "
           f"target's draw included) {b1:.3f} / {b2:.3f}, the bare captured "
           f"step on a drawn batch {g1:.3f} / {g2:.3f}; the target's draw "
-          f"alone {draw:.3f} ms; one profiled binary step: wall "
+          f"alone {draw:.3f} ms ({draw_syncs} host syncs); one profiled "
+          f"binary step: wall "
           f"{wall:.3f} ms, device busy {busy:.3f} ms, idle "
           f"{1 - busy / wall:.1%}; the bare step's " + _report_text(report),
           flush=True)
     del step
+    if draw_syncs > DRAW_SYNC_LIMIT:
+        raise RuntimeError(f"binary: its draw made {draw_syncs} host syncs")
     return state, saved, counts, dict(turns=turns, draw=draw,
                                       idle=1 - busy / wall, report=report)
 
@@ -7428,9 +7447,9 @@ def _check_losses(name, hists, falls):
 
 
 def recipe_draw_ms(dev, batch=512, reps=200):
-    """Wall ms of one draw of the full recipe's batch from TwoMoons (a
-    rejection sampler that reads the device once per round), synchronised,
-    mean of ``reps``."""
+    """Wall ms of one eager draw of the full recipe's batch from TwoMoons
+    (the rejection loop, one host read per round; the recipe itself draws
+    inside its captured step), synchronised, mean of ``reps``."""
     import nf_tpu_torch as nt
 
     target = nt.TwoMoons()
@@ -7564,6 +7583,207 @@ def served_check(out):
           f"{out['sample_log_prob_err']:.3g}, artifact vs compiled "
           f"{out['artifact_err']:.3g}, {out['samples_per_s']:.0f} "
           f"samples/s", flush=True)
+
+
+# --- phase 31: the targets' rejection draw ----------------------------------
+
+DRAW_REPS = 50  # eager draws of each target: host syncs and wall ms
+DRAW_SYNC_LIMIT = 2  # the median host syncs of an eager draw, at most
+DRAW_BATCHES = (512, BATCH)  # the NSF recipe's batch, the binary's
+DRAW_SIGMAS = 4.0  # card against CPU: moments and shares, in sampling sigmas
+DRAW_SEEDS = (SEED + 3100, SEED + 3200)  # two replays' generator seeds
+
+
+def draw_targets(dev):
+    """Phase 31's targets on ``dev``: TwoMoons, an ``ImagePrior`` on the
+    first channel of ``procedural_image_classes(0, 1)``'s image, Smiley."""
+    from nf_tpu_torch.data import procedural_image_classes
+    from nf_tpu_torch.distributions import ImagePrior, Smiley, TwoMoons
+
+    image = procedural_image_classes(SEED, 1)[0][0, 0].astype(np.float32)
+    return {"TwoMoons": TwoMoons(), "ImagePrior": ImagePrior(
+        image / 255, device=dev), "Smiley": Smiley()}
+
+
+def law_gap(a, b):
+    """The largest gap between two draws' means, covariances and quadrant
+    shares (about their pooled mean), in sigmas of its sampling error."""
+    a, b = (np.asarray(t.detach().cpu(), np.float64) for t in (a, b))
+    gaps = []
+    for x, y in ((a, b), (a - a.mean(0), b - b.mean(0))):
+        if x is not a:  # the centred products: the covariances
+            x = (x[:, :, None] * x[:, None, :]).reshape(len(x), -1)
+            y = (y[:, :, None] * y[:, None, :]).reshape(len(y), -1)
+        sigma = np.sqrt(x.var(0) / len(x) + y.var(0) / len(y))
+        gaps.append(np.abs(x.mean(0) - y.mean(0)) / sigma)
+    centre = np.concatenate([a, b]).mean(0)
+    sa, sb = (np.bincount((x[:, 0] > centre[0]) * 2 + (x[:, 1] > centre[1]),
+                          minlength=4) / len(x) for x in (a, b))
+    p = (sa + sb) / 2
+    gaps.append(np.abs(sa - sb) / np.sqrt(p * (1 - p) * (1 / len(a)
+                                                         + 1 / len(b))))
+    return float(max(np.max(g) for g in gaps))
+
+
+def rate_gap(card, cpu):
+    """The gap between two acceptance counts' rates, in sigmas."""
+    p1, p2 = (r.accepted / r.proposed for r in (card, cpu))
+    p = (card.accepted + cpu.accepted) / (card.proposed + cpu.proposed)
+    return abs(p1 - p2) / np.sqrt(p * (1 - p) * (1 / card.proposed
+                                                 + 1 / cpu.proposed))
+
+
+def measured_draw(target, n, gen):
+    """An eager draw of ``n`` from ``target`` and the
+    ``AcceptanceRate`` that its rounds counted."""
+    from nf_tpu_torch.distributions.target import (
+        AcceptanceRate,
+        rejection_loop,
+    )
+
+    rate = AcceptanceRate()
+    x = rejection_loop(target._acceptance(), n, target.n_dims, gen,
+                       torch.float32, target._device(gen, None), rate=rate)
+    return x, rate
+
+
+def eager_draw_check(label, target, n, gen):
+    """DRAW_REPS eager draws of ``n`` from ``target``: host syncs per draw
+    (the median at most DRAW_SYNC_LIMIT), then the wall ms of one
+    synchronised draw (median of DRAW_REPS) and the pool that one eager
+    draw sizes."""
+    syncs = [len(host_syncs(lambda: target.sample(n, gen)))
+             for _ in range(DRAW_REPS)]
+    median = float(np.median(syncs))
+    if median > DRAW_SYNC_LIMIT:
+        raise RuntimeError(f"target draw {label} ({n}): host syncs per "
+                           f"eager draw {syncs}, median {median} > "
+                           f"{DRAW_SYNC_LIMIT}")
+    ms = host_ms(lambda: target.sample(n, gen), reps=DRAW_REPS)
+    return dict(syncs=syncs, median=median, ms=ms,
+                pool=target.pool_size(n, gen))
+
+
+def captured_draw_check(label, target, n, pool, dev):
+    """The sync-free draw of ``n`` captured in a CUDA graph with its
+    generator registered: a replay makes no host sync, two replays differ,
+    a replay is bitwise the eager sync-free draw from the same generator
+    state (which makes no host sync either), and a graph whose pool is
+    ``n`` (short at these targets' rates) flags ``full`` false. Returns
+    the replay's wall ms, its batch and the numbers."""
+    from nf_tpu_torch._graphs import capture, warm_up
+
+    gen, short_gen = (torch.Generator(device=dev) for _ in range(2))
+
+    def draw(pool=pool, g=gen):
+        return target.sample_pool(n, pool, g)
+
+    warm_up(draw, dev, 1)
+    graph, (x, full), _ = capture(draw, dev, generators=(gen,))
+    gen.manual_seed(DRAW_SEEDS[0])
+    graph.replay()
+    first, first_full = x.clone(), bool(full)
+    gen.manual_seed(DRAW_SEEDS[1])
+    replay_syncs = host_syncs(graph.replay)
+    differ = not torch.equal(first, x)
+    gen.manual_seed(DRAW_SEEDS[0])
+    eager = []
+    eager_syncs = host_syncs(lambda: eager.append(draw()))
+    bitwise = torch.equal(eager[0][0], first) and bool(eager[0][1])
+    warm_up(lambda: draw(n, short_gen), dev, 1)
+    short, (_, short_full), _ = capture(lambda: draw(n, short_gen), dev,
+                                        generators=(short_gen,))
+    short.replay()
+    ms = host_ms(graph.replay, reps=DRAW_REPS)
+    ok = (first_full and not replay_syncs and differ and bitwise
+          and not eager_syncs and not bool(short_full))
+    if not ok:
+        raise RuntimeError(
+            f"target draw {label} ({n}), captured: full {first_full}, "
+            f"host syncs of a replay {replay_syncs}, two replays differ "
+            f"{differ}, bitwise the eager sync-free draw {bitwise}, its "
+            f"host syncs {eager_syncs}, a pool of {n} flags full "
+            f"{bool(short_full)} (false expected)")
+    return dict(pool=pool, ms=ms, x=first)
+
+
+def deterministic_check(target, n, pool, dev):
+    """The eager draw under ``torch.use_deterministic_algorithms(True)``
+    (``index_put_`` with repeated indices into the drop row) against the
+    default: 'bitwise', or what it raised."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(DRAW_SEEDS[0])
+    want = target.sample(n, gen, round_size=pool)
+    gen.manual_seed(DRAW_SEEDS[0])
+    torch.use_deterministic_algorithms(True)
+    try:
+        got = target.sample(n, gen, round_size=pool)
+    except RuntimeError as e:
+        return f"raises ({str(e).splitlines()[0][:120]})"
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not torch.equal(got, want):
+        raise RuntimeError("target draw: the eager draw under deterministic "
+                           "algorithms differs from the default's")
+    return "bitwise the default's"
+
+
+def phase_target_draw(dev):
+    """Phase 31: the targets' rejection draw (``distributions/target.py``)
+    on the card: TwoMoons at 512 and 65536, ``ImagePrior`` and Smiley at
+    512; the eager loop's host syncs per draw and wall ms, the captured
+    sync-free draw's checks and replay ms, the eager draw under
+    deterministic algorithms, and the law card against CPU at 65536
+    (means, covariances, quadrant shares, the acceptance rate; the
+    captured TwoMoons draw too). No port kernel runs. Returns
+    {path: (launches, ())}."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3000)
+    law = []
+    targets = draw_targets(dev)
+    cpu_targets = draw_targets("cpu")
+    for label, target in targets.items():
+        for n in DRAW_BATCHES if label == "TwoMoons" else DRAW_BATCHES[:1]:
+            eager = eager_draw_check(label, target, n, gen)
+            graph = captured_draw_check(label, target, n, eager["pool"], dev)
+            rows.append((label, n, eager, graph))
+        x_cpu, cpu_rate = measured_draw(
+            cpu_targets[label], BATCH,
+            torch.Generator().manual_seed(SEED + 3300))
+        x_card, card_rate = measured_draw(target, BATCH, gen)
+        law.append((label, law_gap(x_card, x_cpu),
+                    rate_gap(card_rate, cpu_rate),
+                    card_rate.accepted / card_rate.proposed,
+                    cpu_rate.accepted / cpu_rate.proposed))
+        if label == "TwoMoons":
+            law.append(("TwoMoons captured", law_gap(graph["x"], x_cpu),
+                        0.0, float("nan"), float("nan")))
+            determinism = deterministic_check(target, BATCH, graph["pool"],
+                                              dev)
+    bad = [(k, g, r) for k, g, r, _, _ in law
+           if not (g <= DRAW_SIGMAS and r <= DRAW_SIGMAS)]
+    if bad:
+        raise RuntimeError(f"target draw: card against CPU beyond "
+                           f"{DRAW_SIGMAS} sigma (label, law, rate): {bad}")
+    counts = read_counts()
+    text = "; ".join(
+        f"{label} {n}: eager {e['ms']:.3f} ms, host syncs per draw median "
+        f"{e['median']:g} (min {min(e['syncs'])}, max {max(e['syncs'])}); "
+        f"captured replay {g['ms']:.3f} ms (pool {g['pool']})"
+        for label, n, e, g in rows)
+    print(f"phase target draw (wall ms per synchronised draw, median of "
+          f"{DRAW_REPS}): {text}; captured: 0 host syncs per replay, "
+          f"replays differ, bitwise the eager sync-free draw, a short pool "
+          f"flags full false; under deterministic algorithms "
+          f"{determinism}; card against CPU at {BATCH} (max sigma of means, "
+          f"covariances, quadrant shares; acceptance rate card / CPU): "
+          + ", ".join(f"{k} {g:.2f} sigma" + (
+              f", rate {p1:.5f} / {p2:.5f} ({r:.2f} sigma)"
+              if np.isfinite(p1) else "") for k, g, r, p1, p2 in law)
+          + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"target draw": (counts, ())}
 
 
 def dispatch_turns(parent):
@@ -7747,6 +7967,7 @@ def main():
           f"infrastructure): {time.perf_counter() - t_new:.1f} s", flush=True)
     paths.update(phase_training_binary(dev))
     paths.update(phase_export(dev, flush, peaks))
+    paths.update(phase_target_draw(dev))
     paths.update(phase_examples(dev))
     print("launches: " + "; ".join(f"{k} {v[0]}" for k, v in paths.items()),
           flush=True)

@@ -7,12 +7,15 @@ it raises (``nf_tpu_torch.resolve_device``). Figures and CSVs go to
 
 :func:`train` is the JAX helper's loop on the port's steps
 (``nf_tpu_torch.parallel.make_forward_kld_step`` /
-``make_reverse_kld_step``), each one CUDA graph on the card. What a step
-draws from the target happens outside it: a forward-KLD objective's
-``batch(generator, it)`` draws the iteration's batch on the device before
-the step (a rejection sampler reads the device once per round, which a
-captured step cannot), and the step takes it as its input. The loss is
-read to the host only at the log points (10 per run).
+``make_reverse_kld_step``), each one CUDA graph on the card. A
+forward-KLD objective whose batch is a draw from a distribution
+(``ForwardKLD(draw=...)``) draws it inside the captured step from the
+step's own generator, reseeded every iteration, as the JAX helper's
+jitted step draws from its per-iteration key (a rejection sampler's
+sync-free form, whose pool was fixed before the capture). A host-fed
+objective's ``batch(generator, it)`` runs before the step, which takes
+the batch as its input. The loss is read to the host only at the log
+points (10 per run).
 """
 
 from __future__ import annotations
@@ -86,17 +89,25 @@ def log_every(args):
 
 @dataclasses.dataclass(frozen=True)
 class ForwardKLD:
-    """The maximum-likelihood objective of :func:`train`:
-    ``batch(generator, it)`` draws iteration ``it``'s batch on the device
-    (a tensor, or a tuple such as ``(x, context)`` or ``(x, y)``), and the
-    step's loss is ``loss_fn(model, batch)`` (None:
-    ``model.forward_kld(*batch)``). ``keyed``: the loss draws (a residual
-    flow's stochastic log-det), as ``loss_fn(model, batch, generator)``
-    from the step's own generator, reseeded for every iteration."""
+    """The maximum-likelihood objective of :func:`train`, its batch a
+    tensor, or a tuple such as ``(x, context)`` or ``(x, y)``, and its
+    loss ``loss_fn(model, batch)`` (None: ``model.forward_kld(*batch)``).
 
-    batch: Callable
+    ``draw(generator) -> (batch, full)``: the batch is drawn inside the
+    captured step from the step's own generator, reseeded from ``(seed,
+    it)`` every iteration; ``full`` is a device bool, false when a
+    rejection sampler's fixed pool fell short (None: the draw cannot), and
+    :func:`train` raises at its next read if any draw fell short.
+    ``batch(generator, it)``: the batch is drawn or fed on the host's
+    side, before the step. ``keyed`` (with ``batch``): the loss draws too
+    (a residual flow's stochastic log-det), as ``loss_fn(model, batch,
+    generator)`` from the step's own generator, reseeded for every
+    iteration."""
+
+    batch: Optional[Callable] = None
     loss_fn: Optional[Callable] = None
     keyed: bool = False
+    draw: Optional[Callable] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +137,14 @@ class History(list):
     def final_loss(self, last=100):
         """The mean of the last ``last`` iterations' losses."""
         return float(torch.mean(self.losses[-last:]))
+
+
+def target_draw(target, args, device):
+    """The in-step draw of ``args.num_samples`` points from a target
+    sampled by rejection, for ``ForwardKLD(draw=...)``: its sync-free
+    form, the pool fixed by an eager draw from the seed's data stream."""
+    return target.sampler(args.num_samples,
+                          generator(device, args.seed, DATA_STREAM))
 
 
 def keyed_seed(seed, it):
@@ -168,6 +187,7 @@ def train(model, loss, args, weight_decay=0.0, post_update=None,
     opt = optimizer(model, lr, weight_decay)
     state = init_train_state(model, opt)
     gen = generator(dev, args.seed, TRAIN_STREAM)
+    short = None
     if isinstance(loss, ReverseKLD):
         step = make_reverse_kld_step(opt, loss.num_samples,
                                      beta_schedule=loss.beta,
@@ -175,6 +195,12 @@ def train(model, loss, args, weight_decay=0.0, post_update=None,
 
         def run(it):
             return step(state, gen)
+    elif loss.draw is not None:
+        step, short = _drawing_step(loss, opt, post_update, dev)
+        inputs = torch.empty(0, device=dev)  # the step draws its own
+
+        def run(it):
+            return step(state, inputs, keyed_seed(args.seed, it))
     else:
         step = make_forward_kld_step(opt, loss_fn=loss.loss_fn,
                                      with_key=loss.keyed,
@@ -196,12 +222,45 @@ def train(model, loss, args, weight_decay=0.0, post_update=None,
         hist.record(it, value)
         if it % every == 0 or it == args.iters - 1:
             value = float(value)
+            _check_draws(short, it)
             hist.append((it, value))
             print(f"iter {it:6d}  loss {value:+.4f}", flush=True)
     sync(dev)
+    _check_draws(short, args.iters - 1)
     hist.seconds = time.time() - t0
     print(f"{args.iters} iters in {hist.seconds:.1f}s on {dev.type}")
     return model, hist
+
+
+def _drawing_step(loss, opt, post_update, device):
+    """The forward-KLD step of a ``ForwardKLD(draw=...)`` objective: a
+    keyed step whose loss draws its batch from the step's generator, and
+    the device count of the draws that fell short, which the step adds
+    to."""
+    short = torch.zeros((), dtype=torch.int64, device=device)
+
+    def drawn_loss(model, _, generator):
+        batch, full = loss.draw(generator)
+        if full is not None:
+            short.add_(torch.logical_not(full))
+        if loss.loss_fn is not None:
+            return loss.loss_fn(model, batch)
+        if isinstance(batch, (tuple, list)):
+            return model.forward_kld(*batch)
+        return model.forward_kld(batch)
+
+    return make_forward_kld_step(opt, loss_fn=drawn_loss, with_key=True,
+                                 post_update=post_update), short
+
+
+def _check_draws(short, it):
+    """Raise if a draw of the first ``it + 1`` iterations fell short (one
+    host read)."""
+    if short is not None and int(short):
+        raise RuntimeError(
+            f"{int(short)} of the first {it + 1} iterations' draws fell "
+            f"short of their batch: the sampler's pool was sized from a "
+            f"rate that overstated the acceptance")
 
 
 def cosine_decay(lr, steps):

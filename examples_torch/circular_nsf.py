@@ -56,10 +56,10 @@ def main(argv=None):
     dev = device_of(args)
     model = build_model(args, dev)
 
-    def batch(gen, it):
-        return sample_target(gen, args.num_samples)
+    def draw(gen):
+        return sample_target(gen, args.num_samples), None
 
-    model, hist = train(model, ForwardKLD(batch), args)
+    model, hist = train(model, ForwardKLD(draw=draw), args)
     gen = generator(dev, args.seed, EVAL_STREAM)
     with torch.no_grad():
         z, _ = model.sample(8192, generator=gen)

@@ -45,12 +45,12 @@ def main(argv=None):
     model = build_model(args, dev)
     target = model.p
 
-    def batch(gen, it):
+    def draw(gen):
         context = sample_context(gen, args.num_samples)
         x = target.sample(args.num_samples, generator=gen, context=context)
-        return x, context
+        return (x, context), None
 
-    model, hist = train(model, ForwardKLD(batch), args)
+    model, hist = train(model, ForwardKLD(draw=draw), args)
 
     # check: conditional samples should track the requested moments
     ctx = torch.tensor([[0.3, 0.9, 0.6, 0.6]], device=dev).repeat(4096, 1)

@@ -18,6 +18,7 @@ from examples_torch._utils import (
     device_of,
     out_path,
     plot_density,
+    target_draw,
     train,
 )
 
@@ -53,10 +54,8 @@ def main(argv=None):
     dev = device_of(args)
     model = build_model(args, dev)
 
-    def batch(gen, it):
-        return model.p.sample(args.num_samples, generator=gen)
-
-    model, hist = train(model, ForwardKLD(batch), args)
+    draw = target_draw(model.p, args, dev)
+    model, hist = train(model, ForwardKLD(draw=draw), args)
     if args.plot:
         kind = "ar" if args.autoregressive else "coupled"
         plot_density(model.log_prob, out_path(f"nsf_{kind}_model.png"), dev,

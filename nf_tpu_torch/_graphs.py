@@ -57,12 +57,19 @@ def capture(run, device, pool=None, generators=()):
     ``generators`` are CUDA generators the captured work draws from: each
     is registered with the graph, and a replay draws from its seed and
     offset as they stand then (and advances the offset as eager calls
-    would). ``pool`` is a memory pool shared with other graphs."""
+    would). ``pool`` is a memory pool shared with other graphs.
+
+    The capture mode is ``thread_local``: only this thread's calls that
+    are unsafe during a capture fail it. Under ``global`` (PyTorch's
+    default) a ``cudaMalloc`` or ``cudaHostAlloc`` in another thread, such
+    as ``data.prefetch_to_device``'s worker pinning and copying the next
+    batch, invalidates a capture running here."""
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
     before = launch_counts()
-    with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool):
+    with torch.cuda.device(device), torch.cuda.graph(
+            graph, pool=pool, capture_error_mode="thread_local"):
         out = run()
     after = launch_counts()
     return graph, out, {k: after[k] - before[k] for k in after}

@@ -11,11 +11,11 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
-from .target import rejection_sample
+from .target import RejectionSampled, _device_of, _uniform_acceptance
 
-# rounds of ImagePrior.sample before it gives up: each round proposes
-# num_samples points, and an image whose mean intensity (relative to its
-# brightest pixel) is a, accepts a of them on average
+# rounds of ImagePrior.sample before it gives up (JAX's loop has no limit):
+# an image whose mean intensity, relative to its brightest pixel, is a
+# accepts a of the proposals on average
 IMAGE_PRIOR_MAX_ROUNDS = 10000
 
 
@@ -26,13 +26,19 @@ class PriorDistribution(nn.Module):
         raise NotImplementedError
 
 
-class ImagePrior(PriorDistribution):
+class ImagePrior(RejectionSampled, PriorDistribution):
     """A 2D density drawn by an image's intensities (``prior.py:22-77``;
     reference ``prior.py:20-104``): pixel ``(i, j)`` of the flipped,
     transposed image covers a cell of ``x_range`` x ``y_range``.
     ``log_prob`` looks up the pixel; ``sample`` is rejection sampling on
-    the device. ``device`` places the buffers ``image`` and ``density``
-    (None: CUDA)."""
+    the device, the targets' loop (``target.py``'s notes) with JAX's
+    acceptance: a uniform point of the unit square is kept where its
+    pixel's intensity exceeds a uniform draw. ``device`` places the
+    buffers ``image`` and ``density`` (None: CUDA); the draws lie there
+    too."""
+
+    n_dims = 2
+    max_rounds = IMAGE_PRIOR_MAX_ROUNDS
 
     def __init__(self, image, x_range=(-3.0, 3.0), y_range=(-3.0, 3.0),
                  eps=1e-10, device=None):
@@ -65,32 +71,14 @@ class ImagePrior(PriorDistribution):
         z_ = torch.clamp((z - self.shift) / self.scale, 0.0, 1.0)
         return self.density[self._pixels(z_)]
 
-    def sample(self, num_samples=1, generator=None):
-        """Rejection sampling as the JAX package's ``lax.while_loop`` does
-        it: each round proposes ``num_samples`` uniform points, accepts a
-        point where its pixel's intensity exceeds a uniform draw, and
-        scatters the accepted ones after those already taken, on the
-        device. The host reads the count once per round (the loop's
-        test) and raises after ``IMAGE_PRIOR_MAX_ROUNDS`` rounds."""
-        dev = self.image.device
-        buf = torch.zeros((num_samples + 1, 2), device=dev)  # + a drop row
-        count = torch.zeros((), dtype=torch.int64, device=dev)
-        for _ in range(IMAGE_PRIOR_MAX_ROUNDS):
-            z_ = torch.rand((num_samples, 2), generator=generator,
-                            device=dev)
-            prob = torch.rand((num_samples,), generator=generator,
-                              device=dev)
-            accept = self.image[self._pixels(z_)] > prob
-            slots = torch.where(accept, count + torch.cumsum(accept, 0) - 1,
-                                num_samples)
-            buf.index_put_((torch.clamp_max(slots, num_samples),),
-                           z_ * self.scale + self.shift)
-            count = torch.clamp_max(count + torch.sum(accept), num_samples)
-            if int(count) >= num_samples:
-                return buf[:num_samples]
-        raise RuntimeError(f"ImagePrior.sample: {int(count)} of "
-                           f"{num_samples} samples accepted after "
-                           f"{IMAGE_PRIOR_MAX_ROUNDS} rounds")
+    def _acceptance(self):
+        def accept(eps, prob):
+            return (eps * self.scale + self.shift,
+                    self.image[self._pixels(eps)] > prob)
+        return accept
+
+    def _device(self, generator, device):
+        return self.image.device
 
 
 class TwoModes(PriorDistribution):
@@ -174,12 +162,14 @@ class Sinusoidal_split(_SinusoidalShifted):
         return 3.0 * torch.sigmoid((z0 - 1.0) / 0.3)
 
 
-class Smiley(PriorDistribution):
+class Smiley(RejectionSampled, PriorDistribution):
     """Smiley-face density (``prior.py:161-167``; reference
     ``prior.py:302-327``). ``sample`` is rejection sampling on the
     targets' proposal (``[-3, 3]^2``; the density's maximum is 0). The
     JAX package's ``sample`` reads proposal attributes its prior does not
     carry, so there it raises; here it samples."""
+
+    n_dims = 2
 
     def __init__(self, scale=0.2):
         super().__init__()
@@ -192,6 +182,8 @@ class Smiley(PriorDistribution):
                 - 0.5 * ((torch.abs(z_[1] + 0.8) - 1.2)
                          / (2 * self.scale)) ** 2)
 
-    def sample(self, num_samples=1, generator=None, device=None):
-        return rejection_sample(self.log_prob, num_samples, 2, generator,
-                                device=device)
+    def _acceptance(self):
+        return _uniform_acceptance(self.log_prob, 6.0, -3.0, 0.0)
+
+    def _device(self, generator, device):
+        return _device_of(generator, device)

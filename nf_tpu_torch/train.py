@@ -22,6 +22,7 @@ and writes the checkpoints.
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -122,11 +123,14 @@ def _restore(cfg, state, generator=None):
 
 class _Run:
     """The binary's step: ``run(state, *args) -> loss``, ``launches`` the
-    kernel launches of one replay of its captured step."""
+    kernel launches of one replay of its captured step; ``draw()`` the
+    forward-KLD step's draw of its global batch (None: the step draws
+    nothing on the host's side)."""
 
-    def __init__(self, fn, step):
+    def __init__(self, fn, step, draw=None):
         self.fn = fn
         self.step = step
+        self.draw = draw
 
     def __call__(self, state, *args):
         return self.fn(state, *args)
@@ -323,11 +327,14 @@ def main(argv=None, device=None):
     model = build_model(cfg, dev)
     if cfg.loss == "reverse_kld":
         model.init_from_samples(min(cfg.num_samples, 1024), generator=gen)
+        draw = None
     else:
         # ActNorm's data-dependent init from a target batch (the density
         # direction)
         x0 = model.p.sample(min(cfg.batch_size, 1024), generator=gen)
         model.init_from_data(x0, generator=gen)
+        draw = functools.partial(model.p.sample, cfg.batch_size,
+                                 generator=gen)
 
     is_residual = cfg.model == "residual"
     use_ema = cfg.ema_decay > 0
@@ -360,15 +367,13 @@ def main(argv=None, device=None):
         def run(state, it):
             return step_fn(state, gen)
     else:
-        target = model.p
         step_fn = make_forward_kld_step(state.optimizer,
                                         with_key=is_residual, **common)
 
         def run(state, it):
             # every rank draws the same global batch from the same
             # generator and keeps its shard
-            x = _shard_host_batch(mesh, target.sample(cfg.batch_size,
-                                                      generator=gen), cfg)
+            x = _shard_host_batch(mesh, draw(), cfg)
             if is_residual:
                 return step_fn(state, x, _keyed_seed(cfg.seed, it))
             return step_fn(state, x)
@@ -380,7 +385,7 @@ def main(argv=None, device=None):
             if logger is not None:
                 logger.log(it, loss=loss_f, it_per_s=rate)
 
-    state.run_step = _Run(run, step_fn)
+    state.run_step = _Run(run, step_fn, draw)
     return _loop(cfg, state, state.run_step, ckpt, start_step, log,
                  generator=gen)
 

@@ -1830,6 +1830,39 @@ def test_prefetch_orders_its_copies_before_the_consumer(cuda):
                                rtol=1e-9)
 
 
+def test_capture_survives_a_prefetch_worker_allocating(cuda):
+    """A step captured while ``prefetch_to_device``'s worker pins and
+    copies the next batch (``cudaHostAlloc`` and ``cudaMalloc`` in another
+    thread, each batch larger than the last so the caching allocators
+    miss): the capture holds (``_graphs.capture`` captures thread-local;
+    under CUDA's global mode the worker's calls invalidate it), a replay
+    gives the captured value, and the worker's batches arrive whole."""
+    import time
+
+    from nf_tpu_torch._graphs import capture
+
+    def batches():
+        for i in range(4):
+            if i:
+                time.sleep(0.05)  # the worker allocates inside the capture
+            yield np.full((1 << (20 + i),), float(i + 1), np.float32)
+
+    it = nt.data.prefetch_to_device(batches(), size=1)
+    first = next(it)
+    w = torch.arange(4.0, device=cuda)
+
+    def step():
+        time.sleep(0.3)  # hold the capture open while the worker runs
+        return (first[:4] * w).sum()
+
+    graph, out, _ = capture(step, cuda)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert float(out) == float((first[:4] * w).sum())
+    rest = [float(b[0]) for b in it]
+    assert rest == [2.0, 3.0, 4.0]
+
+
 def test_checkpoint_round_trip_of_a_captured_step(cuda, tmp_path):
     """A ``CheckpointManager`` save of a captured reverse-KLD step's state
     (model, capturable Adam, the step's generator), restored in place: the
