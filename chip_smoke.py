@@ -314,7 +314,28 @@ toolkit. Phases, one line each:
     replay ms; the eager draw under deterministic algorithms bitwise the
     default's; card against CPU at 65536: means, covariances and quadrant
     shares within 4 sigma of their sampling error, the acceptance rate
-    within 4 sigma of the CPU's; no port kernel.
+    within 4 sigma of the CPU's; no port kernel;
+32. spline_family_bf16 (run right after phase 29): the bfloat16
+    autoregressive and circular spline models from the public layers:
+    ``examples/neural_spline_flow.py --autoregressive``'s AR NSF (4 x
+    [``AutoregressiveRationalQuadraticSpline`` (2 blocks, hidden 64, 8
+    bins), ``LULinearPermute``] on a ``DiagGaussian``), the circular NSF
+    (``build_circular_nsf``'s stack) and phase 17's circular coupled
+    model, each with ``dtype=torch.bfloat16``, perturbed: kernels A, C and
+    D in bfloat16 on the MADE's K-major planes at linear and per-feature
+    circular tails, B, E and C's shared path at the coupled model's
+    circular operands, each element within one bfloat16 ulp of its plain
+    version and timed in turns with float32; each model's ``log_prob``
+    and ``sample`` at B = 65536 card against CPU (4096 rows), by the
+    round trip and ``forward(inverse(x))`` (the angle modulo 2 pi) at the
+    bfloat16 bar; the AR NSF's forward-KLD step under "analytic" and
+    "autodiff" and the circular models' reverse-KLD step on the
+    Gauss-von Mises target, card against CPU at B = 4096; then
+    ``compile_log_prob``, ``compile_sampler`` and the captured steps
+    (B = 65536; the reverse steps 16384) bitwise eager, every port launch
+    bfloat16, a captured call read by kernel name (no cast but the AR
+    NSF's LU solves in float32), each timed in turns with the same layers
+    in float32, the circular NSF also with ``mixed_precision=True``.
 
 ``python3 chip_smoke.py --dispatch-turns PARENT`` times the eager
 ``build_nsf`` ``log_prob`` and step of the checkout ``PARENT`` against
@@ -330,6 +351,7 @@ it exits 1 before printing any result.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import subprocess
 import sys
@@ -354,7 +376,7 @@ TIMING_REPS = 30
 CIRC_BATCH = 65536  # circular NSF serving
 CIRC_TRAIN_BATCH = 16384  # 2^14, the paper example's reverse-KLD batch
 CIRC_CHECK_BATCH = 4096  # one step, card against CPU
-CIRC_CPU_BATCH = 16384  # log_prob, card against CPU
+CIRC_CPU_BATCH = 4096  # log_prob, card against CPU
 CIRC_STEPS = 50
 TIE_TOL = 1e-5  # kernel D at x = ±tb: half of kernel C's x-gradient
 
@@ -1858,6 +1880,16 @@ PATH_KERNELS = {"build_nsf serving": ("rqs_fwd", "head_rqs_fwd"),
                 "bf16 coupled step (autodiff)": ("rqs_fwd", "head_rqs_fwd",
                                                  "rqs_bwd_autodiff",
                                                  "head_rqs_bwd"),
+                "bf16 ar_nsf serving": ("rqs_fwd",),
+                "bf16 ar_nsf step": ("rqs_fwd", "rqs_bwd"),
+                "bf16 ar_nsf step (autodiff)": ("rqs_fwd",
+                                                "rqs_bwd_autodiff"),
+                "bf16 circular_nsf serving": ("rqs_fwd",),
+                "bf16 circular_nsf step": ("rqs_fwd", "rqs_bwd"),
+                "bf16 circular_coupled serving": ("rqs_fwd",
+                                                  "head_rqs_fwd"),
+                "bf16 circular_coupled step": ("rqs_fwd", "head_rqs_fwd",
+                                               "rqs_bwd", "head_rqs_bwd"),
                 "glow serving": (), "glow step": (),
                 "circular_coupled serving": ("rqs_fwd", "head_rqs_fwd"),
                 "circular_coupled step": ("rqs_fwd", "head_rqs_fwd",
@@ -3413,12 +3445,12 @@ def _angle_err(a, b):
     return float(d.abs().max())
 
 
-def cc_kernel_operands(model, dev, batch=BATCH):
+def cc_kernel_operands(model, dev, batch=BATCH, dtype=torch.float32):
     """Kernels B's and E's operands at an angle-transforming layer of the
     circular coupled model: its transformed feature x_t (1, B) (a
     transposed view), its trunk's h_t (512, B) with the periodic features,
     the 3K+1 head's effective rows (3K = 30 circular), the tail bound pi;
-    cotangents N(0, 1)."""
+    cotangents N(0, 1); all in ``dtype`` (the model's)."""
     from nf_tpu_torch.flows.neural_spline.feed import _effective_rows
     from nf_tpu_torch.ops import spline_head_fused as shf
 
@@ -3429,7 +3461,7 @@ def cc_kernel_operands(model, dev, batch=BATCH):
     rng = np.random.default_rng(SEED + 171)
     x = torch.stack([torch.from_numpy(rng.uniform(-np.pi, np.pi, batch)),
                      torch.from_numpy(rng.standard_normal(batch) * 1.5)],
-                    dim=1).float().to(dev)
+                    dim=1).to(dev, dtype)
     with torch.no_grad():
         id_split, t_split = prqct._split(x)
         h_t = net.features_transposed(id_split).contiguous()
@@ -3439,8 +3471,8 @@ def cc_kernel_operands(model, dev, batch=BATCH):
                                   tails="circular",
                                   softmax_scale=prqct.softmax_scale)
     tb = prqct.tail_bound_arr.contiguous()
-    cty = _normal(rng, (batch, 1), 1.0, dev).T
-    ctl = _normal(rng, (1, batch), 1.0, dev)
+    cty = _normal(rng, (batch, 1), 1.0, dev).to(dtype).T
+    ctl = _normal(rng, (1, batch), 1.0, dev).to(dtype)
     return (t_split.T, h_t, w.contiguous(), b.contiguous(), tb, cty, ctl)
 
 
@@ -6454,24 +6486,43 @@ def bf16_bar_ratio(got, want):
     return float(((g - w).abs() / (BF16_TOL * (1 + w.abs()))).max())
 
 
-def _bf16_calls(ops, inverse):
+def _bf16_calls(ops, inverse, tb=3.0):
     """The three bfloat16 kernels and their plain versions on ``ops`` (x,
-    w, h, d, cty, ctl): {name: (kernel call, plain call, gradients?)}."""
+    w, h, d, cty, ctl) with tail bound ``tb``: {name: (kernel call, plain
+    call, gradients?)}."""
     from nf_tpu_torch.ops import splines_kernel as tk
 
     x, w, h, d, cty, ctl = ops
-    return {"rqs_fwd": (lambda: tk.rqs_fwd(x, w, h, d, 3.0, inverse=inverse),
-                        lambda: tk.rqs_plain(x, w, h, d, 3.0,
+    return {"rqs_fwd": (lambda: tk.rqs_fwd(x, w, h, d, tb, inverse=inverse),
+                        lambda: tk.rqs_plain(x, w, h, d, tb,
                                              inverse=inverse), False),
-            "rqs_bwd": (lambda: tk.rqs_bwd(x, w, h, d, 3.0, cty, ctl,
+            "rqs_bwd": (lambda: tk.rqs_bwd(x, w, h, d, tb, cty, ctl,
                                            inverse=inverse),
-                        lambda: tk.rqs_bwd_plain(x, w, h, d, 3.0, cty, ctl,
+                        lambda: tk.rqs_bwd_plain(x, w, h, d, tb, cty, ctl,
                                                  inverse=inverse), True),
             "rqs_bwd_autodiff": (
-                lambda: tk.rqs_bwd_autodiff(x, w, h, d, 3.0, cty, ctl,
+                lambda: tk.rqs_bwd_autodiff(x, w, h, d, tb, cty, ctl,
                                             inverse=inverse),
-                lambda: tk.rqs_vjp_plain(x, w, h, d, 3.0, cty, ctl,
+                lambda: tk.rqs_vjp_plain(x, w, h, d, tb, cty, ctl,
                                          inverse=inverse), True)}
+
+
+def _one_bf16_node(calls, what):
+    """Fail unless one captured call of each kernel of ``calls``
+    (:func:`_bf16_calls`) is one graph node, that kernel's bfloat16
+    instantiation, while its bfloat16 count rises by its warm-up and its
+    capture (no cast kernel around it)."""
+    for name, (kernel, _, _) in calls.items():
+        before = _bf16_counts()[name]
+        nodes = captured_kernel_names(kernel)
+        counted = _bf16_counts()[name] - before
+        if (len(nodes) != 1 or kernel_of(nodes[0]) != name
+                or "__nv_bfloat16" not in nodes[0] or counted != 2):
+            raise RuntimeError(f"{name} on {what}: a captured call holds "
+                               f"graph nodes {nodes}, its warm-up and "
+                               f"capture counted {counted} bfloat16 "
+                               f"launches; one bfloat16 kernel and nothing "
+                               f"else expected")
 
 
 def parity_image_kernels_bf16(dev):
@@ -6517,19 +6568,7 @@ def parity_image_kernels_bf16(dev):
                         max_err(a.float(), b.float())
                         for a, b in zip(got, want)))
                 cases += 1
-    launches = {}
-    for name, (kernel, _, _) in _bf16_calls(ops, True).items():
-        before = _bf16_counts()[name]
-        nodes = captured_kernel_names(kernel)
-        launches[name] = (nodes, _bf16_counts()[name] - before)
-        if (len(nodes) != 1 or kernel_of(nodes[0]) != name
-                or "__nv_bfloat16" not in nodes[0]
-                or launches[name][1] != 2):
-            raise RuntimeError(f"{name} on bfloat16 views: a captured call "
-                               f"holds graph nodes {nodes}, its warm-up and "
-                               f"capture counted {launches[name][1]} "
-                               f"bfloat16 launches; one bfloat16 kernel and "
-                               f"nothing else expected")
+    _one_bf16_node(_bf16_calls(ops, True), "bfloat16 views")
     if not all(v <= 1.0 for v in worst.values()):
         raise RuntimeError(f"bf16 kernels against their plain versions: "
                            f"worst |kernel - plain| / one bf16 ulp {worst}"
@@ -6544,6 +6583,23 @@ def parity_image_kernels_bf16(dev):
           + "; one captured call of each is one graph node, a kernel, its "
           "bfloat16 instantiation (no cast around it)", flush=True)
     return abs_err
+
+
+def _in_turns_ms(k32, k16, flush, reps=TIMING_REPS):
+    """Device ms (median of ``reps``) of a float32 and a bfloat16 call in
+    turns (f32, bf16, bf16, f32): ((f32 a, f32 b), (bf16 a, bf16 b))."""
+    t32a = device_ms(k32, flush, reps)
+    t16a = device_ms(k16, flush, reps)
+    t16b = device_ms(k16, flush, reps)
+    t32b = device_ms(k32, flush, reps)
+    return (t32a, t32b), (t16a, t16b)
+
+
+def _turns_row(label, t32, t16, plain, b16, b32):
+    return (f"{label}: bf16 kernel_ms {t16[0]:.4f} / {t16[1]:.4f}, f32 "
+            f"{t32[0]:.4f} / {t32[1]:.4f} (in turns f32, bf16, bf16, f32); "
+            f"bf16 plain_ms {plain:.4f}; bound_ms bf16 {b16[0]:.5f} "
+            f"({b16[1]}), f32 {b32[0]:.5f} ({b32[1]})")
 
 
 def timing_image_kernels_bf16(dev, flush, peaks):
@@ -6570,10 +6626,7 @@ def timing_image_kernels_bf16(dev, flush, peaks):
         for inverse in directions:
             k32 = _bf16_calls(ops32, inverse)[name][0]
             k16, plain16, _ = _bf16_calls(ops16, inverse)[name]
-            t32a = device_ms(k32, flush)
-            t16a = device_ms(k16, flush)
-            t16b = device_ms(k16, flush)
-            t32b = device_ms(k32, flush)
+            t32, t16 = _in_turns_ms(k32, k16, flush)
             plain = device_ms(plain16, flush)
             n_out = 2 if name == "rqs_fwd" else 3 * K_BINS + 2
             x, w, h, d = ops16[:4]
@@ -6587,14 +6640,10 @@ def timing_image_kernels_bf16(dev, flush, peaks):
                         torch.bfloat16)
             b32 = bound(_spline_bytes(ops32[0], ops32[1:4], n_out)
                         + cot * 4, ops_n, peaks)
-            out[name][inverse] = ((t16a + t16b) / 2, plain) + b16
-            rows.append(
+            out[name][inverse] = ((t16[0] + t16[1]) / 2, plain) + b16
+            rows.append(_turns_row(
                 f"{name} {'inverse' if inverse else 'forward'} x ({batch}, "
-                f"{ct}, {side}, {side}): bf16 kernel_ms {t16a:.4f} / "
-                f"{t16b:.4f}, f32 {t32a:.4f} / {t32b:.4f} (in turns f32, "
-                f"bf16, bf16, f32); bf16 plain_ms {plain:.4f}; bound_ms "
-                f"bf16 {b16[0]:.5f} ({b16[1]}), f32 {b32[0]:.5f} "
-                f"({b32[1]})")
+                f"{ct}, {side}, {side})", t32, t16, plain, b16, b32))
     print("phase timing bf16 image kernels (device ms after the flush): "
           + "; ".join(rows), flush=True)
     return out
@@ -6919,9 +6968,11 @@ def _shared_operands(rng, dev, batch, dtype):
     return [x.to(dtype)] + small + [cty.to(dtype), ctl.to(dtype)]
 
 
-def _bf16_head_calls(ops_h, ops_c, inverse, tails="linear", order=None):
+def _bf16_head_calls(ops_h, ops_c, inverse, tails="linear", order=None,
+                     shared_tb=3.0):
     """{kernel: (kernel call, plain call in the kernel's order, plain
-    call)} for B, E and C's shared path on ``ops_h`` and ``ops_c``.
+    call)} for B, E and C's shared path on ``ops_h`` (B and E take its
+    tail bound) and ``ops_c`` (with ``shared_tb``).
     ``order``: the head product summed in the kernels' order
     (``spline_head_fused._params_in_kernel_order`` of the widened
     operands), shared by both directions' plain calls in that order, which
@@ -6934,10 +6985,10 @@ def _bf16_head_calls(ops_h, ops_c, inverse, tails="linear", order=None):
     K = (w.shape[0] // x_t.shape[0] + (1 if tails == "linear" else 0)) // 3
     kw = dict(num_bins=K, tails=tails, inverse=inverse)
     x, uw, uh, ud, cy, cl = ops_c
-    shared = (lambda: tk.rqs_bwd_shared(x, uw, uh, ud, 3.0, cy, cl,
+    shared = (lambda: tk.rqs_bwd_shared(x, uw, uh, ud, shared_tb, cy, cl,
                                         inverse=inverse))
     shared_plain = (lambda: tk.rqs_bwd_shared_plain(
-        x, uw, uh, ud, 3.0, cy, cl, inverse=inverse))
+        x, uw, uh, ud, shared_tb, cy, cl, inverse=inverse))
     f32 = [t.float() for t in ops_h]
 
     def fwd_order():
@@ -6953,7 +7004,7 @@ def _bf16_head_calls(ops_h, ops_c, inverse, tails="linear", order=None):
 
     return {
         "head_rqs_fwd": (
-            lambda: shf.fused_head_rqs(x_t, h_t, w, b, tail_bound=3.0, **kw),
+            lambda: shf.fused_head_rqs(x_t, h_t, w, b, tail_bound=tb, **kw),
             fwd_order, lambda: shf.head_rqs_plain(x_t, h_t, w, b, tb, **kw)),
         "head_rqs_bwd": (
             lambda: shf.fused_head_rqs_bwd(x_t, h_t, w, b, tb, cty, ctl,
@@ -6962,6 +7013,60 @@ def _bf16_head_calls(ops_h, ops_c, inverse, tails="linear", order=None):
             lambda: shf.head_rqs_bwd_plain(x_t, h_t, w, b, tb, cty, ctl,
                                            **kw)),
         "rqs_bwd_shared": (shared, shared_plain, shared_plain)}
+
+
+def _head_parity_bf16(ops_h, ops_c, tails, worst, matmul, abs_err,
+                      shared_tb=3.0):
+    """B, E and C's shared path in bfloat16 on ``ops_h`` and ``ops_c``,
+    both directions, against their plain versions: the worst ratios to one
+    bfloat16 ulp in the kernel's summation order into ``worst``, against
+    ``torch.matmul``'s order into ``matmul``, the largest abs difference
+    into ``abs_err`` (each {kernel: value}, raised to the new maxima)."""
+    from nf_tpu_torch.ops import spline_head_fused as shf
+
+    summed = shf._params_in_kernel_order(*(t.float() for t in ops_h[1:4]))
+    for inverse in (False, True):
+        for name, (kernel, order, plain) in _bf16_head_calls(
+                ops_h, ops_c, inverse, tails, summed, shared_tb).items():
+            grad = name != "head_rqs_fwd"
+            got, want, want_mm = kernel(), order(), plain()
+            torch.cuda.synchronize()
+            if any(t.dtype != torch.bfloat16 for t in got):
+                raise RuntimeError(f"{name} on bfloat16 operands gave "
+                                   f"{[t.dtype for t in got]}")
+            worst[name] = max(worst[name], *(
+                bf16_ulp_ratio(a, c, grad) for a, c in zip(got, want)))
+            matmul[name] = max(matmul[name], *(
+                bf16_ulp_ratio(a, c, grad) for a, c in zip(got, want_mm)))
+            abs_err[name] = max(abs_err[name], *(
+                max_err(a.float(), c.float()) for a, c in zip(got, want)))
+
+
+def _head_nodes_bf16(ops_h, ops_c, tails, shared_tb=3.0):
+    """One call of B, E and C's shared path on ``ops_h`` and ``ops_c``,
+    each captured into a kept graph: fails unless the graph holds that
+    kernel's bfloat16 launches (E and C's shared path: two) and no cast;
+    returns {kernel: graph nodes}."""
+    nodes = {}
+    want_nodes = {"head_rqs_fwd": {"head_rqs_fwd": 1},
+                  "head_rqs_bwd": {"head_rqs_bwd": 2},
+                  "rqs_bwd_shared": {"rqs_bwd": 2}}
+    for name, (kernel, _, _) in _bf16_head_calls(
+            ops_h, ops_c, False, tails, shared_tb=shared_tb).items():
+        names = captured_kernel_names(kernel)
+        ours = {}
+        for n in names:
+            k = kernel_of(n)
+            if k is not None:
+                ours[k] = ours.get(k, 0) + ("__nv_bfloat16" in n)
+        nodes[name] = len(names)
+        if ours != want_nodes[name] or any("direct_copy_kernel" in n
+                                           for n in names):
+            raise RuntimeError(f"{name} on bfloat16 operands: a captured "
+                               f"call's kernels {names}; expected its "
+                               f"bfloat16 instantiation "
+                               f"{want_nodes[name]} and no cast")
+    return nodes
 
 
 def parity_head_kernels_bf16(dev):
@@ -6979,50 +7084,12 @@ def parity_head_kernels_bf16(dev):
                               "rqs_bwd_shared")}
     matmul, abs_err = dict(worst), dict(worst)
     cases = 0
-    from nf_tpu_torch.ops import spline_head_fused as shf
-
     for d, hidden, K, tails, batch in BF16_HEAD_CASES:
         ops_h = _head_operands(rng, dev, d, hidden, K, tails, batch, bf)
         ops_c = _shared_operands(rng, dev, batch, bf)
-        summed = shf._params_in_kernel_order(*(t.float()
-                                               for t in ops_h[1:4]))
-        for inverse in (False, True):
-            for name, (kernel, order, plain) in _bf16_head_calls(
-                    ops_h, ops_c, inverse, tails, summed).items():
-                grad = name != "head_rqs_fwd"
-                got, want, want_mm = kernel(), order(), plain()
-                torch.cuda.synchronize()
-                if any(t.dtype != bf for t in got):
-                    raise RuntimeError(f"{name} on bfloat16 operands gave "
-                                       f"{[t.dtype for t in got]}")
-                worst[name] = max(worst[name], *(
-                    bf16_ulp_ratio(a, c, grad) for a, c in zip(got, want)))
-                matmul[name] = max(matmul[name], *(
-                    bf16_ulp_ratio(a, c, grad)
-                    for a, c in zip(got, want_mm)))
-                abs_err[name] = max(abs_err[name], *(
-                    max_err(a.float(), c.float())
-                    for a, c in zip(got, want)))
-            cases += 1
-    nodes = {}
-    want_nodes = {"head_rqs_fwd": {"head_rqs_fwd": 1},
-                  "head_rqs_bwd": {"head_rqs_bwd": 2},
-                  "rqs_bwd_shared": {"rqs_bwd": 2}}
-    for name, (kernel, _, _) in _bf16_head_calls(ops_h, ops_c, False,
-                                                 tails).items():
-        names = captured_kernel_names(kernel)
-        ours = {}
-        for n in names:
-            k = kernel_of(n)
-            if k is not None:
-                ours[k] = ours.get(k, 0) + ("__nv_bfloat16" in n)
-        nodes[name] = len(names)
-        if ours != want_nodes[name] or any("direct_copy_kernel" in n
-                                           for n in names):
-            raise RuntimeError(f"{name} on bfloat16 operands: a captured "
-                               f"call's kernels {names}; expected its "
-                               f"bfloat16 instantiation "
-                               f"{want_nodes[name]} and no cast")
+        _head_parity_bf16(ops_h, ops_c, tails, worst, matmul, abs_err)
+        cases += 1
+    nodes = _head_nodes_bf16(ops_h, ops_c, tails)
     if not all(v <= 1.0 for v in worst.values()):
         raise RuntimeError(f"bf16 B, E, C shared against their plain "
                            f"versions in the kernels' order: worst |kernel - "
@@ -7080,23 +7147,16 @@ def timing_head_kernels_bf16(dev, flush, peaks):
             k32 = _bf16_head_calls(*out[torch.float32], inverse)[name][0]
             k16, _, plain16 = _bf16_head_calls(*out[torch.bfloat16],
                                                inverse)[name]
-            t32a = device_ms(k32, flush)
-            t16a = device_ms(k16, flush)
-            t16b = device_ms(k16, flush)
-            t32b = device_ms(k32, flush)
+            t32, t16 = _in_turns_ms(k32, k16, flush)
             plain = device_ms(plain16, flush)
             ops16, bytes16 = cost_of(name, *out[torch.bfloat16], inverse)
             ops32, bytes32 = cost_of(name, *out[torch.float32], inverse)
             b16 = bound(bytes16, ops16, peaks, torch.bfloat16)
             b32 = bound(bytes32, ops32, peaks)
-            times[name][inverse] = ((t16a + t16b) / 2, plain) + b16
-            rows.append(
-                f"{name} {'inverse' if inverse else 'forward'}: bf16 "
-                f"kernel_ms {t16a:.4f} / {t16b:.4f}, f32 {t32a:.4f} / "
-                f"{t32b:.4f} (in turns f32, bf16, bf16, f32); bf16 plain_ms "
-                f"{plain:.4f}; bound_ms bf16 {b16[0]:.5f} ({b16[1]}, "
-                f"{bytes16} bytes), f32 {b32[0]:.5f} ({b32[1]}, {bytes32} "
-                f"bytes)")
+            times[name][inverse] = ((t16[0] + t16[1]) / 2, plain) + b16
+            rows.append(_turns_row(
+                f"{name} {'inverse' if inverse else 'forward'}", t32, t16,
+                plain, b16, b32) + f" ({bytes16} and {bytes32} bytes)")
     print(f"phase timing bf16 head kernels (device ms after the flush; B "
           f"and E at D 1, H {HIDDEN}, K {K_BINS}, linear, B {BATCH}; C's "
           f"shared path at x ({BATCH}, 1)): " + "; ".join(rows), flush=True)
@@ -7182,11 +7242,41 @@ def bf16_nsf_checks(model, x):
              for k in bf16["log_prob"]})
 
 
-def _graph_kernels_bf16(fn, warm, want, what):
+_SAME_DTYPE_COPIES = []
+
+
+def same_dtype_copies():
+    """The names of the kernels PyTorch's copies within one dtype
+    (bfloat16 to bfloat16, float32 to float32) run on this card, read from
+    captured calls: a strided read (``.T.contiguous()``) and a strided
+    write (``torch.diag``'s ``diagonal().copy_``). Any other copy kernel
+    (``*copy_kernel*`` in its name) in a graph changes a dtype: a cast.
+    PyTorch names a cast's kernel after its copy too
+    (``direct_copy_kernel_cuda``), through another instance."""
+    if not _SAME_DTYPE_COPIES:
+        names = set()
+        for dtype in (torch.float32, torch.bfloat16):
+            t = torch.ones(64, 64, device="cuda", dtype=dtype)
+            v = torch.ones(64, device="cuda", dtype=dtype)
+            for fn in (lambda: t.T.contiguous(), lambda: torch.diag(v)):
+                names.update(n for n in captured_kernel_names(fn)
+                             if "copy_kernel" in n)
+        _SAME_DTYPE_COPIES.append(names)
+    return _SAME_DTYPE_COPIES[0]
+
+
+def _casts(names):
+    """The copy kernels among ``names`` that change a dtype."""
+    same = same_dtype_copies()
+    return [n for n in names if "copy_kernel" in n and n not in same]
+
+
+def _graph_kernels_bf16(fn, warm, want, what, casts=0):
     """Capture one call of ``fn`` into a kept graph and read its kernel
     nodes: every port kernel among them a bfloat16 instantiation, their
-    count by kernel ``want``, and no cast (``direct_copy_kernel``).
-    Returns (port kernels by kernel, nodes)."""
+    count by kernel ``want``, and ``casts`` casts (:func:`_casts`; none
+    but where a layer computes in float32 on purpose). Returns (port
+    kernels by kernel, nodes, copies within one dtype)."""
     names = captured_kernel_names(fn, warm)
     ours = {}
     for n in names:
@@ -7196,11 +7286,13 @@ def _graph_kernels_bf16(fn, warm, want, what):
                 raise RuntimeError(f"{what}: the graph holds {n[:90]}, a "
                                    f"port kernel that is not bfloat16")
             ours[k] = ours.get(k, 0) + 1
-    casts = [n for n in names if "direct_copy_kernel" in n]
-    if ours != want or casts:
+    found = _casts(names)
+    if ours != want or len(found) != casts:
         raise RuntimeError(f"{what}: the graph's port kernels {ours} "
-                           f"(expected {want}), casts {casts[:3]}")
-    return ours, len(names)
+                           f"(expected {want}), {len(found)} casts "
+                           f"(expected {casts}) {found[:3]}")
+    copies = sum("copy_kernel" in n for n in names) - len(found)
+    return ours, len(names), copies
 
 
 def phase_coupled_nsf_bf16(dev, flush, peaks):
@@ -7327,8 +7419,8 @@ def phase_coupled_nsf_bf16(dev, flush, peaks):
         finally:
             tk.set_pallas_bwd_kernel("analytic")
     print(f"phase bf16 coupled graphs: port kernels of a captured call by "
-          f"name, all bfloat16, no cast (kernels, graph nodes): {nodes}",
-          flush=True)
+          f"name, all bfloat16, no cast (kernels, graph nodes, copies "
+          f"within one dtype): {nodes}", flush=True)
     # the float32 twin's graphs in turns
     lp32 = nt.compile_log_prob(m32, (BATCH, 2))
     bf16_turns(f"compile_log_prob (B = {BATCH})", lambda: lp32(x32),
@@ -7357,6 +7449,721 @@ def phase_coupled_nsf_bf16(dev, flush, peaks):
     rows = {name: (abs_err[base], times[base])
             for name, base, _, _ in BF16_HEAD_KERNELS}
     return paths, rows
+
+
+# phase 32: the bfloat16 autoregressive and circular spline models, from
+# the public layers: the AR NSF of examples/neural_spline_flow.py
+# --autoregressive, the circular NSF (build_circular_nsf's stack) and the
+# circular coupled model (phase 17's)
+SF_AR_LAYERS, SF_AR_HIDDEN = 4, 64  # examples/neural_spline_flow.py
+SF_AR_LR = 3e-3  # its Adam rate
+SF_CIRC_LR = 5e-4  # examples/paper_example_nsf.py's, phase 9's
+# the weights' perturbation (perturb's size) of each bfloat16 model: the
+# largest that keeps it within the bfloat16 bar of its float32 twin by a
+# margin (the CPU at B = 65536, two seeds: at 0.1 the circular coupled
+# model's sampler round trip reached 1.23 times the bar, the AR NSF's
+# 0.83, the circular NSF's 0.55)
+SF_PERTURB = {"ar_nsf": 0.05, "circular_nsf": 0.1, "circular_coupled": 0.05}
+SF_CPU_ROWS = 4096  # rows of a pass held against the CPU
+# phase 32's kernel times are medians of 10: each timed call waits ~25 ms
+# behind device_ms's spin kernel, and at 30 eight rows of A, C and D in
+# turns took 31.7 s on the card
+SF_TIMING_REPS = 10
+SF_CHECK_BATCH = 4096  # each step, card against CPU
+# the layouts kernels A, C and D meet on this phase's models: the
+# autoregressive layers' K-major (K, 2, B) planes (the MADE's head) at
+# linear tails (the AR NSF: K 8, bound 3) and at per-feature (circular,
+# linear) tails (the circular NSF: K 10, bounds (pi, 3))
+SF_KMAJOR = (("ar_nsf", K_BINS, "linear"), ("circular_nsf", CC_BINS, "mixed"))
+
+
+def sf_kmajor_operands(rng, dev, K, tails, batch, dtype):
+    """Kernels A's, C's and D's operands as an autoregressive layer's feed
+    hands them over (``feed.kmajor_spline_feed``), :func:`_path_operands`
+    in ``dtype`` with x (2, B) the transposed view of (B, 2) inputs; the
+    tail bound 3 for "linear" tails (the AR NSF's), the per-feature (2, 1)
+    bounds (pi, 3) for "mixed" ones (the circular NSF's). Returns (x, w,
+    h, d, cty, ctl) and the bound."""
+    x, w, h, d, tb, cty, ctl = _path_operands(rng, K, tails, dev, batch)
+    x = x.T.contiguous().T
+    ops = tuple(t.to(dtype) for t in (x, w, h, d, cty, ctl))
+    return ops, 3.0 if tails == "linear" else tb.to(dtype)
+
+
+def parity_kmajor_bf16(dev):
+    """Kernels A, C and D in bfloat16 at :data:`SF_KMAJOR`'s layouts, at
+    B = 65536 and 4099, both directions: each element within one bfloat16
+    ulp of its plain version, bfloat16 out; one captured call of each is
+    one graph node, its bfloat16 instantiation."""
+    rng = np.random.default_rng(SEED + 320)
+    worst = {k: 0.0 for k in ("rqs_fwd", "rqs_bwd", "rqs_bwd_autodiff")}
+    abs_err = dict(worst)
+    cases = 0
+    for _, K, tails in SF_KMAJOR:
+        for batch in (BATCH, 4099):
+            ops, tb = sf_kmajor_operands(rng, dev, K, tails, batch,
+                                         torch.bfloat16)
+            for inverse in (False, True):
+                for name, (kernel, plain, grad) in _bf16_calls(
+                        ops, inverse, tb).items():
+                    got, want = kernel(), plain()
+                    torch.cuda.synchronize()
+                    if any(t.dtype != torch.bfloat16 for t in got):
+                        raise RuntimeError(f"{name} on bfloat16 K-major "
+                                           f"planes gave "
+                                           f"{[t.dtype for t in got]}")
+                    worst[name] = max(worst[name], *(
+                        bf16_ulp_ratio(a, b, grad)
+                        for a, b in zip(got, want)))
+                    abs_err[name] = max(abs_err[name], *(
+                        max_err(a.float(), b.float())
+                        for a, b in zip(got, want)))
+                cases += 1
+        _one_bf16_node(_bf16_calls(ops, True, tb),
+                       f"bfloat16 K-major planes ({tails} tails)")
+    if not all(v <= 1.0 for v in worst.values()):
+        raise RuntimeError(f"bf16 A, C, D on K-major planes against their "
+                           f"plain versions: worst |kernel - plain| / one "
+                           f"bf16 ulp {worst} (limit 1)")
+    print(f"phase spline_family_bf16 kernels A, C, D ({cases} cases: x (2, "
+          f"B) a transposed view, K-major planes at "
+          + ", ".join(f"{label}'s K {K} {tails} tails"
+                      for label, K, tails in SF_KMAJOR)
+          + f", B = {BATCH} and 4099, both directions, ties at +-tb): "
+          f"worst |kernel - plain| in bf16 ulps "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + " (limit 1); max abs "
+          + ", ".join(f"{k} {v:.3g}" for k, v in abs_err.items())
+          + "; one captured call of each is one graph node, its bfloat16 "
+          "instantiation", flush=True)
+
+
+# the timed rows of kernels A, C and D at those layouts, each in the
+# direction its model's path runs most: (model, kernel, B, inverse): the
+# AR NSF's log_prob and step (the spline's forward, B = 65536), the
+# circular NSF's sampler and step (its inverse; the step at B = 16384)
+SF_KMAJOR_TIMED = (("ar_nsf", "rqs_fwd", BATCH, False),
+                   ("ar_nsf", "rqs_bwd", BATCH, False),
+                   ("ar_nsf", "rqs_bwd_autodiff", BATCH, False),
+                   ("circular_nsf", "rqs_fwd", BATCH, True),
+                   ("circular_nsf", "rqs_bwd", CIRC_TRAIN_BATCH, True))
+
+
+def timing_kmajor_bf16(dev, flush, peaks):
+    """Kernels A, C and D at :data:`SF_KMAJOR_TIMED`'s rows, in bfloat16
+    and float32 in turns, with the bfloat16 plain version's time and each
+    dtype's bound: one printed line."""
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    layouts = {label: (K, tails) for label, K, tails in SF_KMAJOR}
+    rows = []
+    for label, name, batch, inverse in SF_KMAJOR_TIMED:
+        K, tails = layouts[label]
+        ops = {dtype: sf_kmajor_operands(np.random.default_rng(SEED + 321),
+                                         dev, K, tails, batch, dtype)
+               for dtype in (torch.float32, torch.bfloat16)}
+        (o32, tb32), (o16, tb16) = ops[torch.float32], ops[torch.bfloat16]
+        k32 = _bf16_calls(o32, inverse, tb32)[name][0]
+        k16, plain16, _ = _bf16_calls(o16, inverse, tb16)[name]
+        t32, t16 = _in_turns_ms(k32, k16, flush, SF_TIMING_REPS)
+        plain = device_ms(plain16, flush, SF_TIMING_REPS)
+        n_out = 2 if name == "rqs_fwd" else 3 * K + 2
+        ops_n = {"rqs_fwd": tk.rqs_ops_per_element,
+                 "rqs_bwd": tk.rqs_bwd_ops_per_element,
+                 "rqs_bwd_autodiff": tk.rqs_vjp_ops_per_element}[name](
+            K, inverse)
+        bounds = []
+        for dtype in (torch.bfloat16, torch.float32):
+            (x, w, h, d, _, _), tb = ops[dtype]
+            cot = 0 if name == "rqs_fwd" else 2 * x.numel()
+            planes = (w, h, d) + ((tb,) if isinstance(tb, torch.Tensor)
+                                  else ())
+            bounds.append(bound(_spline_bytes(x, planes, n_out)
+                                + cot * x.element_size(),
+                                ops_n * x.numel(), peaks, dtype))
+        rows.append(_turns_row(
+            f"{label} {name} {'inverse' if inverse else 'forward'} x (2, "
+            f"{batch}) K {K}", t32, t16, plain, *bounds))
+    print(f"phase timing spline_family_bf16 kernels A, C, D (device ms after "
+          f"the flush, median of {SF_TIMING_REPS}): " + "; ".join(rows),
+          flush=True)
+
+
+def sf_ar_model(dtype=torch.bfloat16):
+    """``examples/neural_spline_flow.py --autoregressive``'s model from the
+    public layers: SF_AR_LAYERS x [``AutoregressiveRationalQuadraticSpline``
+    (2 blocks, hidden 64, 8 bins, linear tails, bound 3),
+    ``LULinearPermute``] on a ``DiagGaussian(2, trainable=False)``, all in
+    ``dtype``, weights from ``torch.Generator().manual_seed(SEED)``,
+    perturbed, on the card."""
+    import nf_tpu_torch as nt
+
+    gen = torch.Generator().manual_seed(SEED)
+    flows = []
+    for _ in range(SF_AR_LAYERS):
+        flows += [nt.flows.AutoregressiveRationalQuadraticSpline(
+            2, 2, SF_AR_HIDDEN, num_bins=K_BINS, tail_bound=3.0,
+            generator=gen, dtype=dtype),
+            nt.flows.LULinearPermute(2, generator=gen, dtype=dtype)]
+    model = nt.NormalizingFlow(
+        nt.distributions.DiagGaussian(2, trainable=False, dtype=dtype),
+        flows).to("cuda")
+    perturb(model, SEED + 322, size=SF_PERTURB["ar_nsf"])
+    return model
+
+
+def _circular_tail(nt, dtype):
+    """``PeriodicWrap`` and the ``UniformGaussian`` base of the circular
+    models, in ``dtype``."""
+    return (nt.flows.PeriodicWrap([0], bound=np.pi, dtype=dtype),
+            nt.distributions.UniformGaussian(2, [0], scale=[2 * np.pi, 1.0],
+                                             dtype=dtype))
+
+
+def sf_circular_model(dtype=torch.bfloat16):
+    """``build_circular_nsf``'s stack from the public layers, in
+    ``dtype``: 12 ``CircularAutoregressiveRationalQuadraticSpline`` (dim 2,
+    ind_circ [0], one block of hidden 512, 10 bins, tail bounds (pi, 3),
+    ``permute_mask``), ``PeriodicWrap``, a ``UniformGaussian`` base of
+    scale (2 pi, 1): the builder's weights and masks at seed SEED,
+    perturbed, the Gauss-von Mises target, on the card."""
+    import nf_tpu_torch as nt
+
+    gen = torch.Generator().manual_seed(SEED)
+    flows = [nt.flows.CircularAutoregressiveRationalQuadraticSpline(
+        2, 1, CC_HIDDEN, ind_circ=[0], num_bins=CC_BINS,
+        tail_bound=np.asarray(CC_TAIL_BOUND, np.float32), permute_mask=True,
+        generator=gen, dtype=dtype) for _ in range(CC_LAYERS)]
+    wrap, base = _circular_tail(nt, dtype)
+    model = nt.NormalizingFlow(base, flows + [wrap],
+                               p=GaussVonMises()).to("cuda")
+    perturb(model, SEED + 323, size=SF_PERTURB["circular_nsf"])
+    return model
+
+
+def sf_coupled_model(dtype=torch.bfloat16):
+    """Phase 17's circular coupled model (:func:`circular_coupled_model`)
+    in ``dtype``, perturbed, the Gauss-von Mises target, on the card."""
+    import nf_tpu_torch as nt
+
+    gen = torch.Generator().manual_seed(SEED)
+    flows = [nt.flows.CircularCoupledRationalQuadraticSpline(
+        num_input_channels=2, num_blocks=1, num_hidden_channels=CC_HIDDEN,
+        ind_circ=[0], num_bins=CC_BINS, tail_bound=CC_TAIL_BOUND,
+        reverse_mask=(i % 2 == 1), generator=gen, dtype=dtype)
+        for i in range(CC_LAYERS)]
+    wrap, base = _circular_tail(nt, dtype)
+    model = nt.NormalizingFlow(base, flows + [wrap],
+                               p=GaussVonMises()).to("cuda")
+    perturb(model, SEED + 324, size=SF_PERTURB["circular_coupled"])
+    return model
+
+
+# model: (builder, launches per log_prob, per sample, per step (at
+# B*D >= the fused-head gate), the step's kind, the angle's column)
+SF_MODELS = {
+    "ar_nsf": (sf_ar_model, {"rqs_fwd": SF_AR_LAYERS},
+               {"rqs_fwd": 2 * SF_AR_LAYERS},
+               {"rqs_fwd": SF_AR_LAYERS, "rqs_bwd": SF_AR_LAYERS},
+               "forward", None),
+    "circular_nsf": (sf_circular_model, {"rqs_fwd": CC_LAYERS},
+                     {"rqs_fwd": 2 * CC_LAYERS},
+                     {"rqs_fwd": 2 * CC_LAYERS, "rqs_bwd": 2 * CC_LAYERS},
+                     "reverse", 0),
+    "circular_coupled": (sf_coupled_model,
+                         {"rqs_fwd": CC_LAYERS, "head_rqs_fwd": CC_LAYERS},
+                         {"rqs_fwd": CC_LAYERS, "head_rqs_fwd": CC_LAYERS},
+                         {"rqs_fwd": CC_LAYERS, "head_rqs_fwd": CC_LAYERS,
+                          "rqs_bwd": CC_LAYERS, "head_rqs_bwd": CC_LAYERS},
+                         "reverse", 0)}
+
+
+def sf_inputs(name, n, seed, dev):
+    """``n`` bfloat16 inputs of ``name``'s model: two moons (the AR NSF's
+    target, drawn in float32 and cast once), or (angle uniform on [-pi,
+    pi), N(0, 1.5²))."""
+    import nf_tpu_torch as nt
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if SF_MODELS[name][5] is None:
+        return nt.TwoMoons().sample(n, generator=gen).to(torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    x = np.stack([rng.uniform(-np.pi, np.pi, n),
+                  rng.standard_normal(n) * 1.5], axis=1)
+    return torch.from_numpy(x.astype(np.float32)).to(dev, torch.bfloat16)
+
+
+def sf_serving_checks(name, model, x):
+    """A bfloat16 model at B = len(x), eagerly: ``log_prob`` card against
+    CPU on SF_CPU_ROWS rows, ``log_prob(sample)`` against ``log_q`` and
+    ``forward(inverse(x))`` against x (the angle modulo 2 pi), each at the
+    bfloat16 bar; finite bfloat16 values of the right shapes, the angle in
+    [-pi, pi]; the launches per pass (:data:`SF_MODELS`), all bfloat16,
+    B at circular tails on half the coupled model's layers. Returns the
+    passes' counts with their bfloat16 ones, and the errors over the
+    bar."""
+    _, per_lp, per_sample, _, _, col = SF_MODELS[name]
+    batch, rows = x.shape[0], SF_CPU_ROWS
+    cpu = copy.deepcopy(model).to("cpu")
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 325)
+    counts, bf16, circ = {}, {}, {}
+
+    def counted(label, fn):  # every count is 0 before fn (_counted)
+        out = _counted(counts, label, fn)
+        bf16[label] = _bf16_counts()
+        circ[label] = _circular_counts()[0]
+        _all_bf16(counts[label], bf16[label], f"bf16 {name} {label}")
+        return out
+
+    with torch.inference_mode():
+        lp = counted("log_prob", lambda: model.log_prob(x))
+        z, log_q = counted("sample", lambda: model.sample(batch,
+                                                          generator=gen))
+        lp_z = model.log_prob(z)
+        back = model.forward(model.inverse(x))
+        lp_cpu = cpu.log_prob(x[:rows].cpu())
+    _expect(counts, {"log_prob": per_lp, "sample": per_sample},
+            f"bf16 {name} serving")
+    if name == "circular_coupled" and set(circ.values()) != {CC_LAYERS // 2}:
+        raise RuntimeError(f"bf16 circular_coupled: kernel B at circular "
+                           f"tails {circ}, expected {CC_LAYERS // 2} a pass")
+    for t in (lp, z, log_q, lp_z, back):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"non-finite values on the bf16 {name} path")
+    if not (z.dtype == lp.dtype == log_q.dtype == torch.bfloat16
+            and z.shape == x.shape and lp.shape == (batch,)):
+        raise RuntimeError(f"bf16 {name}: sample {z.dtype} "
+                           f"{tuple(z.shape)}, log_prob {lp.dtype} "
+                           f"{tuple(lp.shape)}")
+    d = back.double() - x.double()
+    if col is not None:
+        if float(z[:, col].abs().max()) > np.pi:
+            raise RuntimeError(f"bf16 {name}: the sample's angle left "
+                               f"[-pi, pi]")
+        d[:, col] = torch.remainder(d[:, col] + np.pi, 2 * np.pi) - np.pi
+    errs = {f"log_prob cuda vs cpu (first {rows})": bf16_bar_ratio(
+                lp[:rows].cpu(), lp_cpu),
+            "log_prob(sample) vs log_q": bf16_bar_ratio(lp_z, log_q),
+            "forward(inverse(x)) vs x" + (" (angle mod 2 pi)" if col
+                                          is not None else ""):
+                float((d.abs() / (BF16_TOL * (1 + x.double().abs())))
+                      .max())}
+    if not all(v <= 1.0 for v in errs.values()):
+        raise RuntimeError(f"bf16 {name} at the bf16 bar ({BF16_TOL} abs "
+                           f"+ {BF16_TOL} relative): {errs} (limit 1)")
+    print(f"phase spline_family_bf16 {name} serving (B = {batch}): "
+          f"launches per pass {counts}, of them bfloat16 {bf16}"
+          + (f", B at circular tails {circ}" if name == "circular_coupled"
+             else "") + "; errors over the bf16 bar "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (limit 1; max |log_prob cuda - cpu| "
+          f"{max_err(lp[:rows].cpu().float(), lp_cpu.float()):.4g} at "
+          f"|log p| up to {float(lp_cpu.float().abs().max()):.4g})",
+          flush=True)
+    return ({k: counts["log_prob"][k] + counts["sample"][k]
+             for k in counts["log_prob"]},
+            {k: bf16["log_prob"][k] + bf16["sample"][k]
+             for k in bf16["log_prob"]})
+
+
+def sf_reverse_check(name, model, dev):
+    """One SGD step (lr 0) of the reverse-KLD step of a bfloat16 circular
+    model on the same base draws (B = SF_CHECK_BATCH, rounded to
+    bfloat16), card against CPU: the loss at the bf16 bar, the gradients
+    within BF16_GRAD_TOL relative L2; the launches per step
+    (:data:`SF_MODELS`), all bfloat16. Returns (counts, bfloat16
+    counts)."""
+    per_step = SF_MODELS[name][3]
+    rng = np.random.default_rng(SEED + 326)
+    z0 = np.stack([rng.uniform(-np.pi, np.pi, SF_CHECK_BATCH),
+                   rng.standard_normal(SF_CHECK_BATCH)], axis=1)
+    z0 = torch.from_numpy(z0.astype(np.float32)).to(torch.bfloat16)
+    loss, grads, launches = _circular_step_result(model, z0.to(dev),
+                                                  "analytic")
+    bf16 = _bf16_counts()
+    _expect({"step": launches}, {"step": per_step},
+            f"bf16 {name} reverse-KLD step")
+    _all_bf16(launches, bf16, f"bf16 {name} reverse-KLD step")
+    cpu = copy.deepcopy(model).to("cpu")
+    loss_cpu, grads_cpu, _ = _circular_step_result(cpu, z0, "analytic")
+    loss_err = bf16_bar_ratio(torch.tensor(loss), torch.tensor(loss_cpu))
+    grad_err = _grad_l2(grads, grads_cpu)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    if not (finite and loss_err <= 1.0 and grad_err <= BF16_GRAD_TOL):
+        raise RuntimeError(f"bf16 {name} reverse-KLD step, card vs CPU: "
+                           f"loss {loss} vs {loss_cpu} ({loss_err:.3g} of "
+                           f"the bar), gradients {grad_err:.3g} relative L2 "
+                           f"(limit {BF16_GRAD_TOL}), finite {finite}")
+    print(f"phase spline_family_bf16 {name} reverse-KLD step: card vs CPU "
+          f"on {SF_CHECK_BATCH} base draws: loss {loss:.4f} vs "
+          f"{loss_cpu:.4f} ({loss_err:.3g} of the bf16 bar), gradients "
+          f"{grad_err:.3g} relative L2 (limit {BF16_GRAD_TOL}); launches "
+          f"per step {launches}, of them bfloat16 {bf16}", flush=True)
+    return launches, bf16
+
+
+def sf_head_kernels(dev, flush, peaks, model, m32):
+    """Kernels B and E at the bfloat16 circular coupled model's operands
+    (an angle-transforming layer: circular tails, H 512, K 10, D 1,
+    B = 65536) and C's shared path at its identity half's CDF where that
+    half is the angle (circular tails, tail bound pi as a bfloat16
+    tensor), both directions: each element within one bfloat16 ulp of its
+    plain version in the kernel's order, one captured call holding only
+    its bfloat16 kernels; then each in the inverse direction (the
+    sampler's and the step's) in turns with the float32 twin's operands,
+    with the bfloat16 plain version's time and the bounds: one printed
+    line."""
+    from nf_tpu_torch.ops import cost, splines
+
+    ops, ops_c, tbs = {}, {}, {}
+    for dtype, m in ((torch.bfloat16, model), (torch.float32, m32)):
+        ops[dtype] = cc_kernel_operands(m, dev, BATCH, dtype)
+        cdf = next(f.prqct.unconditional_transform
+                   for f in m.flows[:CC_LAYERS]
+                   if f.prqct.unconditional_transform.tails == ("circular",))
+        rng = np.random.default_rng(SEED + 327)
+        x = torch.from_numpy(rng.uniform(-np.pi, np.pi, (BATCH, 1)).astype(
+            np.float32)).to(dev, dtype)
+        with torch.no_grad():
+            planes = [t[None].detach().movedim(-1, 0) for t in (
+                cdf.unnormalized_widths, cdf.unnormalized_heights,
+                splines.pad_derivatives(cdf.unnormalized_derivatives,
+                                        list(cdf.tails), cdf.min_derivative,
+                                        axis=-1))]
+        cty, ctl = (_normal(rng, (BATCH, 1), 1.0, dev).to(dtype)
+                    for _ in range(2))
+        ops_c[dtype] = [x] + planes + [cty, ctl]
+        tbs[dtype] = cdf.tail_bound_arr.reshape(())
+    worst = {k: 0.0 for k in ("head_rqs_fwd", "head_rqs_bwd",
+                              "rqs_bwd_shared")}
+    matmul, abs_err = dict(worst), dict(worst)
+    bf = torch.bfloat16
+    _head_parity_bf16(ops[bf], ops_c[bf], "circular", worst, matmul,
+                      abs_err, tbs[bf])
+    nodes = _head_nodes_bf16(ops[bf], ops_c[bf], "circular", tbs[bf])
+    if not all(v <= 1.0 for v in worst.values()):
+        raise RuntimeError(f"bf16 B, E, C shared at the circular coupled "
+                           f"model's operands: worst |kernel - plain in the "
+                           f"kernel's order| / one bf16 ulp {worst} (limit "
+                           f"1)")
+    minima = (1e-3, 1e-3, 1e-3)
+    rows = []
+    for name in worst:  # the inverse: the sampler's and the step's
+        calls = {dtype: _bf16_head_calls(
+            ops[dtype], ops_c[dtype], True, "circular",
+            shared_tb=tbs[dtype])[name] for dtype in (bf, torch.float32)}
+        t32, t16 = _in_turns_ms(calls[torch.float32][0], calls[bf][0],
+                                flush, SF_TIMING_REPS)
+        plain = device_ms(calls[bf][2], flush, SF_TIMING_REPS)
+        bounds = []
+        for dtype in (bf, torch.float32):
+            x_t, h_t, w, b, tb, cty, ctl = ops[dtype]
+            if name == "head_rqs_fwd":
+                n_ops, nbytes = cost.head_rqs_fwd(
+                    x_t, h_t, w, b, tb, CC_BINS, True, True, *minima)
+            elif name == "head_rqs_bwd":
+                n_ops, nbytes = cost.head_rqs_bwd(
+                    x_t, h_t, w, b, tb, CC_BINS, True, cty, ctl, True,
+                    *minima)
+            else:
+                x, uw, uh, ud, cy, cl = ops_c[dtype]
+                n_ops, nbytes = cost.rqs_bwd_shared(
+                    x, uw, uh, ud, tbs[dtype].expand(x.shape), 0.0, cy, cl,
+                    True, *minima)
+            bounds.append(bound(nbytes, n_ops, peaks, dtype))
+        rows.append(_turns_row(f"{name} inverse", t32, t16, plain, *bounds))
+    print(f"phase spline_family_bf16 kernels B, E, C shared (the bf16 "
+          f"circular coupled model's operands: B and E at H {CC_HIDDEN}, K "
+          f"{CC_BINS}, circular tails, B = {BATCH}; C's shared path at its "
+          f"angle CDF, x ({BATCH}, 1), tail bound pi in bf16; both "
+          f"directions): worst |kernel - plain in the kernel's order| in "
+          f"bf16 ulps " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + " (limit 1); against torch.matmul's order "
+          + ", ".join(f"{k} {v:.3g}" for k, v in matmul.items())
+          + "; max abs " + ", ".join(f"{k} {v:.3g}"
+                                     for k, v in abs_err.items())
+          + f"; captured calls hold only their bfloat16 kernels (graph "
+          f"nodes {nodes}); device ms after the flush, median of "
+          f"{SF_TIMING_REPS}: " + "; ".join(rows), flush=True)
+
+
+def _sf_step_fn(name, model, lr, batches=None, gen=None):
+    """A captured step of ``name``'s kind on a copy of ``model`` (Adam
+    ``lr``, capturable): the forward-KLD step cycling through ``batches``,
+    or the reverse-KLD step at CIRC_TRAIN_BATCH drawing from ``gen``.
+    Returns a call taking no arguments."""
+    import nf_tpu_torch as nt
+
+    m = copy.deepcopy(model)
+    opt = torch.optim.Adam(m.parameters(), lr=lr, capturable=True)
+    state = nt.init_train_state(m, opt)
+    if SF_MODELS[name][4] == "forward":
+        step = nt.make_forward_kld_step(opt)
+        i = [0]
+
+        def call():
+            i[0] += 1
+            return step(state, batches[i[0] % len(batches)])
+        return call
+    step = nt.make_reverse_kld_step(opt, num_samples=CIRC_TRAIN_BATCH)
+    return lambda: step(state, gen)
+
+
+def sf_graphs(name, model, m32, x, dev):
+    """``name``'s bfloat16 model as CUDA graphs: ``compile_log_prob`` and
+    ``compile_sampler`` at B = 65536 against eager (bitwise), the captured
+    step against the eager one (bitwise after five steps; the AR NSF under
+    "analytic" and "autodiff"), every port launch bfloat16; a captured
+    call of ``log_prob``, ``sample`` and the step read by kernel name:
+    only bfloat16 port kernels and no cast (the AR NSF's sampler: the
+    casts of its LU layers' float32 solves, as many as one
+    ``LULinearPermute``'s sampling pass holds times the layers); then each
+    graph in turns
+    with the float32 twin's, and the circular NSF's also with
+    ``mixed_precision=True`` on the same weights. Returns {path: (counts
+    with their ``<kernel>_bf16``, kernels it must launch)}."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch.ops import splines_kernel as tk
+
+    _, per_lp, per_sample, per_step, kind, _ = SF_MODELS[name]
+    paths = {}
+    label = f"bf16 {name}"
+    ours = ("rqs_fwd", "head_rqs_fwd", "rqs_bwd", "rqs_bwd_autodiff",
+            "head_rqs_bwd")
+    served = _launching_bf16(lambda: serving_graphs(
+        label, model, x, BATCH, per_lp, f"{label} serving",
+        dtype=torch.bfloat16), f"{label} serving graphs")
+    lp_fn, sampler = served["log_prob"]["fn"], served["sample"]["fn"]
+    if served["log_prob"]["err"] != 0.0:
+        raise RuntimeError(f"{label} log_prob: graph vs eager "
+                           f"{served['log_prob']['err']:.3g}, not bitwise")
+    _expect_launches(sampler.launches, per_sample, f"{label} sampler graph")
+    counts = _captured_counts(served)
+    paths[f"graphs: {label} serving"] = (
+        _with_bf16(counts, {k: counts.get(k, 0) for k in ours}),
+        PATH_KERNELS[f"{label} serving"]
+        + tuple(k + "_bf16" for k in PATH_KERNELS[f"{label} serving"]))
+
+    def eager_lp():
+        with torch.inference_mode():
+            return model.log_prob(x)
+
+    def eager_sample():
+        with torch.inference_mode():
+            return model.sample(BATCH)
+
+    casts = 0
+    if name == "ar_nsf":
+        # the LU layers' float32 solves, on the layout they meet in the
+        # sampler (an autoregressive layer's output)
+        with torch.inference_mode():
+            z, _ = model.q0.forward(BATCH)
+            z, _ = model.flows[0].forward(z)
+        mix = model.flows[1]
+
+        def mix_forward():
+            with torch.inference_mode():
+                return mix.forward(z)
+        casts = SF_AR_LAYERS * len(_casts(captured_kernel_names(
+            mix_forward)))
+    nodes = {"log_prob": _graph_kernels_bf16(
+        eager_lp, 1, per_lp, f"{label} log_prob graph"),
+        "sample": _graph_kernels_bf16(eager_sample, 1, per_sample,
+                                      f"{label} sample graph", casts)}
+    modes = ("analytic", "autodiff") if kind == "forward" else ("analytic",)
+    lr = SF_AR_LR if kind == "forward" else SF_CIRC_LR
+    xs = ([sf_inputs(name, BATCH, SEED + 330 + i, dev)
+           for i in range(GRAPH_STEPS + 30)] if kind == "forward" else None)
+    gens = [torch.Generator(device=dev).manual_seed(SEED + 331)
+            for _ in range(2)]
+    for mode in modes:
+        bwd = "rqs_bwd" if mode == "analytic" else "rqs_bwd_autodiff"
+        want = {k: v for k, v in per_step.items() if k != "rqs_bwd"}
+        want[bwd] = per_step["rqs_bwd"]
+        path = f"{label} step" + (" (autodiff)" if mode == "autodiff"
+                                  else "")
+        if kind == "forward":
+            st = _launching_bf16(lambda: step_graphs(
+                f"{label} forward-KLD step ({mode}, B = {BATCH})", model,
+                nt.make_forward_kld_step,
+                lambda i, which: (xs[i % len(xs)],), path, dict(lr=lr),
+                mode=mode), f"{label} step graph ({mode})")
+        else:
+            st = _launching_bf16(lambda: step_graphs(
+                f"{label} reverse-KLD step ({mode}, B = "
+                f"{CIRC_TRAIN_BATCH})", model,
+                lambda opt: nt.make_reverse_kld_step(
+                    opt, num_samples=CIRC_TRAIN_BATCH),
+                lambda i, which: (gens[which],), path, dict(lr=lr),
+                mode=mode), f"{label} step graph ({mode})")
+        if st["err"] != (0.0, 0.0):
+            raise RuntimeError(f"{label} step graph ({mode}): graph vs "
+                               f"eager {st['err']}, not bitwise")
+        _expect_launches(st["launches"], want, f"{label} step graph "
+                                               f"({mode})")
+        # every bf16 launch of C in the window took the shared path on the
+        # coupled model (its CDFs), none on the autoregressive models
+        win = _bf16_counts()
+        shared = win["rqs_bwd"] if name == "circular_coupled" else 0
+        if win["rqs_bwd_shared"] != shared:
+            raise RuntimeError(f"{label} step graph ({mode}): "
+                               f"{win['rqs_bwd_shared']} of C's "
+                               f"{win['rqs_bwd']} bf16 launches took its "
+                               f"shared path, expected {shared}")
+        l16 = {k: st["launches"].get(k, 0) for k in ours}
+        l16["rqs_bwd_shared"] = l16["rqs_bwd"] if shared else 0
+        need = PATH_KERNELS[path] + tuple(
+            k + "_bf16" for k in PATH_KERNELS[path] if k != "rqs_bwd")
+        need += (("rqs_bwd_shared_bf16",) if shared
+                 else ("rqs_bwd_bf16",)) if mode == "analytic" else ()
+        paths[f"graphs: {path}"] = (_with_bf16(st["launches"], l16), need)
+        # the step's body captured once, its kernel nodes by name (E and
+        # C's shared path are two launches each); the reverse step's with
+        # the device beta its own graph reads, on the default generator
+        m_ = copy.deepcopy(model)
+        opt = torch.optim.Adam(m_.parameters(), lr=lr, capturable=True)
+        state = nt.init_train_state(m_, opt)
+        if kind == "forward":
+            eager = nt.make_forward_kld_step(opt).eager
+            args = (xs[0],)
+        else:
+            step = nt.make_reverse_kld_step(opt,
+                                            num_samples=CIRC_TRAIN_BATCH)
+            gen = torch.Generator(device=dev).manual_seed(SEED + 333)
+            for _ in range(3):  # two eager calls, then the capture
+                step(state, gen)
+            eager = functools.partial(step.eager, beta=step._last.beta)
+            args = (None,)
+        node_want = dict(want)
+        if "head_rqs_bwd" in node_want:
+            node_want["head_rqs_bwd"] *= 2
+            node_want["rqs_bwd"] *= 2
+        tk.set_pallas_bwd_kernel(mode)
+        try:
+            nodes[f"step ({mode})"] = _graph_kernels_bf16(
+                lambda: eager(state, *args), 2, node_want,
+                f"{label} step graph ({mode})")
+        finally:
+            tk.set_pallas_bwd_kernel("analytic")
+    print(f"phase spline_family_bf16 {name} graphs: port kernels of a "
+          f"captured call by name, all bfloat16 (kernels, graph nodes, "
+          f"copies within one dtype): {nodes}; casts: none but the "
+          f"sampler's {casts} (the LU layers' float32 solves)", flush=True)
+    # the float32 twin's graphs in turns (and mixed precision's)
+    x32 = x.float()
+    lp32 = nt.compile_log_prob(m32, (BATCH, 2))
+    bf16_turns(f"compile_log_prob (B = {BATCH})", lambda: lp32(x32),
+               lambda: lp_fn(x), name)
+    s32 = nt.compile_sampler(m32, BATCH)
+    bf16_turns(f"compile_sampler (B = {BATCH})", lambda: s32(SEED),
+               lambda: sampler(SEED), name)
+    if kind == "forward":
+        fns = [_sf_step_fn(name, m, lr, batches=[t.to(m_dtype)
+                                                 for t in xs[:4]])
+               for m, m_dtype in ((m32, torch.float32),
+                                  (model, torch.bfloat16))]
+    else:
+        fns = [_sf_step_fn(name, m, lr, gen=torch.Generator(
+            device=dev).manual_seed(SEED + 332)) for m in (m32, model)]
+    for f in fns:  # two eager warm-up steps, then the capture
+        for _ in range(3):
+            f()
+    bf16_turns(f"captured {kind} KLD step (B = "
+               f"{BATCH if kind == 'forward' else CIRC_TRAIN_BATCH})", *fns,
+               name)
+    if name == "circular_nsf":
+        mixed = nt.build_circular_nsf(K=CC_LAYERS, hidden=CC_HIDDEN,
+                                      num_bins=CC_BINS, seed=SEED,
+                                      mixed_precision=True, device=dev)
+        sd = m32.state_dict()
+        mixed.load_state_dict({k: sd[k.replace(".net.", ".")]
+                               for k in mixed.state_dict()})
+        mixed.p = GaussVonMises()
+        lpm = nt.compile_log_prob(mixed, (BATCH, 2))
+        sm = nt.compile_sampler(mixed, BATCH)
+        stm = _sf_step_fn(name, mixed, lr, gen=torch.Generator(
+            device=dev).manual_seed(SEED + 332))
+        for _ in range(3):
+            stm()
+        rows = []
+        for what, a, b in (("compile_log_prob", lambda: lpm(x32),
+                            lambda: lp_fn(x)),
+                           ("compile_sampler", lambda: sm(SEED),
+                            lambda: sampler(SEED)),
+                           ("captured reverse KLD step", stm, fns[1])):
+            (m1, m2), (b1, b2) = in_turns(a, b)
+            rows.append(f"{what}: mixed {m1:.3f} / {m2:.3f}, bf16 "
+                        f"{b1:.3f} / {b2:.3f}")
+        print(f"phase timing bf16 vs mixed_precision=True circular_nsf "
+              f"(graphs, wall ms per call, median of 10, in turns mixed, "
+              f"bf16, bf16, mixed): " + "; ".join(rows), flush=True)
+    return paths
+
+
+def phase_spline_family_bf16(dev, flush, peaks):
+    """Phase 32: the bfloat16 autoregressive and circular spline models
+    (:data:`SF_MODELS`) on the card: kernels A, C and D in bfloat16 at
+    the MADE's K-major planes (linear and per-feature circular tails),
+    B, E and C's shared path at the circular coupled model's circular
+    operands, each against its plain version and timed in turns with
+    float32; each model's ``log_prob`` and ``sample`` at B = 65536, card
+    against CPU and by the round trip at the bf16 bar; each step at
+    B = 4096 card against CPU (the AR NSF's forward-KLD step under
+    "analytic" and "autodiff", the circular models' reverse-KLD step);
+    then the graphs (:func:`sf_graphs`). Returns {path: (counts with
+    their ``<kernel>_bf16``, kernels it must launch)}."""
+    t0 = time.perf_counter()
+    parity_kmajor_bf16(dev)
+    t_parity = time.perf_counter() - t0
+    timing_kmajor_bf16(dev, flush, peaks)
+    t_kernels = time.perf_counter() - t0
+    paths = {}
+    for name, (build, per_lp, _, per_step, kind, _) in SF_MODELS.items():
+        t1 = time.perf_counter()
+        model = build()
+        dtypes = {str(t.dtype) for t in list(model.parameters())
+                  + list(model.buffers()) if t.is_floating_point()}
+        if dtypes != {"torch.bfloat16"}:
+            raise RuntimeError(f"bf16 {name} holds {dtypes}")
+        m32 = build(torch.float32)
+        m32.load_state_dict(model.state_dict())
+        if name == "circular_coupled":
+            sf_head_kernels(dev, flush, peaks, model, m32)
+        x = sf_inputs(name, BATCH, SEED + 328, dev)
+        need = tuple(per_lp) + tuple(k + "_bf16" for k in per_lp)
+        counts, bf16 = sf_serving_checks(name, model, x)
+        paths[f"bf16 {name} serving"] = (_with_bf16(counts, bf16), need)
+        if kind == "forward":
+            cpu = None
+            for mode in ("analytic", "autodiff"):
+                bwd = "rqs_bwd" if mode == "analytic" else "rqs_bwd_autodiff"
+                want = {"rqs_fwd": per_step["rqs_fwd"],
+                        bwd: per_step["rqs_bwd"]}
+                counts, bf16, _, cpu = bf16_step_check(
+                    model, x, mode, label=name, per_step=want,
+                    rows=SF_CHECK_BATCH, cpu=cpu)
+                paths[f"bf16 {name} step ({mode})"] = (
+                    _with_bf16(counts, bf16),
+                    need + (bwd, bwd + "_bf16"))
+        else:
+            counts, bf16 = sf_reverse_check(name, model, dev)
+            more = tuple(k for k in per_step if k not in per_lp)
+            c_bf16 = ("rqs_bwd_shared_bf16" if name == "circular_coupled"
+                      else "rqs_bwd_bf16")
+            paths[f"bf16 {name} step"] = (
+                _with_bf16(counts, bf16),
+                need + more + tuple(k + "_bf16" for k in more
+                                    if k != "rqs_bwd") + (c_bf16,))
+        t2 = time.perf_counter()
+        paths.update(sf_graphs(name, model, m32, x, dev))
+        print(f"phase timing phase 32 {name}: "
+              f"{time.perf_counter() - t1:.1f} s, the graphs "
+              f"{time.perf_counter() - t2:.1f} s of it", flush=True)
+        del model, m32
+    print(f"phase timing phase 32 (spline_family_bf16): "
+          f"{time.perf_counter() - t0:.1f} s, kernels A, C, D "
+          f"{t_kernels:.1f} s of it (parity {t_parity:.1f} s)", flush=True)
+    return paths
 
 
 EXAMPLE_ITERS = 100  # phase 30: a twin's iterations, at most (its default)
@@ -7949,6 +8756,8 @@ def main():
         # the forward direction: the log_prob's and the step's
         results[name] = dict(err=err, t=t[False], source=source,
                              replaces=replaces)
+    # phase 32, the bfloat16 autoregressive and circular spline models
+    paths.update(phase_spline_family_bf16(dev, flush, peaks))
     cc_paths, _ = phase_circular_coupled(dev, flush, peaks)
     paths.update(cc_paths)
     paths.update(phase_residual(dev, flush))

@@ -289,11 +289,14 @@ class LULinear(Flow):
             out = (z - self.bias) @ self.cache_inverse.T
             ld = -self.cache_logabsdet
         else:
-            lower, upper = self._create_lower_upper()
-            rhs = (z - self.bias).T
+            # a bfloat16 layer solves in float32 (neither device has a
+            # bfloat16 triangular solve) and rounds the solution once
+            lower, upper = (_f32(t) for t in self._create_lower_upper())
+            rhs = _f32(z - self.bias).T
             sol = torch.linalg.solve_triangular(lower, rhs, upper=False,
                                                 unitriangular=True)
-            out = torch.linalg.solve_triangular(upper, sol, upper=True).T
+            out = torch.linalg.solve_triangular(upper, sol,
+                                                upper=True).T.to(z.dtype)
             ld = -self.logabsdet()
         return out, torch.broadcast_to(ld, (z.shape[0],)).to(z.dtype)
 
@@ -301,13 +304,15 @@ class LULinear(Flow):
 class LULinearPermute(Flow):
     """Fixed random permutation composed with an LU linear transform, the
     NSF mixing layer (reference ``mixing.py:535-563``). ``forward``
-    applies ``linear.inverse`` then ``permutation.inverse``."""
+    applies ``linear.inverse`` then ``permutation.inverse``. ``dtype`` is
+    the LU parameters' (the JAX package's ``LULinear.create(dtype=)``);
+    a bfloat16 layer's solves run in float32."""
 
-    def __init__(self, num_channels, generator=None):
+    def __init__(self, num_channels, generator=None, dtype=torch.float32):
         super().__init__()
         self.permutation = _RandomPermutation(num_channels,
                                               generator=generator)
-        self.linear = LULinear(num_channels)
+        self.linear = LULinear(num_channels, dtype=dtype)
 
     def forward(self, z, context=None, generator=None):
         z, log_det = self.linear.inverse(

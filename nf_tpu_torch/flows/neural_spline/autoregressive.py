@@ -94,7 +94,7 @@ class MaskedPiecewiseRationalQuadraticAutoregressive(Autoregressive):
             made = MixedPrecision(made)
         super().__init__(made)
 
-        tb_arr = _tail_bound_tensor(tail_bound)
+        tb_arr = _tail_bound_tensor(tail_bound, dtype)
         self.register_buffer("tail_bound_arr", tb_arr, persistent=False)
         self.tail_bound = 1.0 if tb_arr is not None else float(tail_bound)
         self.features = features

@@ -119,10 +119,15 @@ def _reshape_params(inputs, transform_params):
     return transform_params.reshape(inputs.shape[0], inputs.shape[1], -1)
 
 
-def _tail_bound_tensor(tail_bound):
+def _tail_bound_tensor(tail_bound, dtype=torch.float32):
+    """Per-feature tail bounds as a tensor in the layer's ``dtype`` (the
+    JAX package's ``jnp.asarray(tail_bound, dtype)``: in bfloat16 pi is
+    3.140625), or None for a scalar bound."""
     if isinstance(tail_bound, (int, float)):
         return None
-    return torch.as_tensor(np.asarray(tail_bound), dtype=torch.float32)
+    if isinstance(tail_bound, torch.Tensor):
+        return tail_bound.to(dtype)
+    return torch.as_tensor(np.asarray(tail_bound, np.float32), dtype=dtype)
 
 
 class PiecewiseRationalQuadraticCDF(Flow):
@@ -152,7 +157,7 @@ class PiecewiseRationalQuadraticCDF(Flow):
         self.unnormalized_derivatives = nn.Parameter(torch.full(
             shape + (num_derivatives,),
             splines.linear_tail_constant(min_derivative), dtype=dtype))
-        tb_arr = _tail_bound_tensor(tail_bound)
+        tb_arr = _tail_bound_tensor(tail_bound, dtype)
         self.register_buffer("tail_bound_arr", tb_arr, persistent=False)
         self.tail_bound = 1.0 if tb_arr is not None else float(tail_bound)
         self.tails = tuple(tails) if isinstance(tails, (list, tuple)) \
@@ -209,7 +214,7 @@ class PiecewiseRationalQuadraticCoupling(Coupling):
             tails_id = tuple(tails[i] for i in identity)
         else:
             tails_t = tails_id = tails
-        tb_arr = _tail_bound_tensor(tail_bound)
+        tb_arr = _tail_bound_tensor(tail_bound, dtype)
         if tb_arr is not None:
             tb_t = tb_arr[list(transform)]
             tb_id = tb_arr[list(identity)]

@@ -642,7 +642,7 @@ def make_reverse_kld_step(optimizer, num_samples: int, beta_schedule=None,
 
     def body(state: TrainState, generator, beta=None):
         if beta is None:
-            beta = beta_schedule(state.step)
+            beta = _beta_value(beta_schedule(state.step), state.model)
         return _step_body(
             state, optimizer,
             lambda model, i: model.reverse_kld(
@@ -661,6 +661,17 @@ def make_reverse_kld_step(optimizer, num_samples: int, beta_schedule=None,
 
     return _ReverseStep(optimizer, eager, beta_schedule, body=body,
                         streams=streams)
+
+
+def _beta_value(beta, model):
+    """``beta`` (a Python number) rounded to the dtype of ``model``'s
+    parameters, as the captured step holds it: a device scalar of that
+    dtype (a float32 one would promote a bfloat16 model's loss to
+    float32, a cast in its graph), and as the JAX package's weakly typed
+    ``beta`` takes its loss's dtype. A float32 model's beta is the float32
+    value its loss computes with either way."""
+    dtype = next(model.parameters()).dtype
+    return float(torch.tensor(beta, dtype=dtype))
 
 
 def _reducer(mesh, axis="data"):
@@ -913,9 +924,8 @@ class _ReverseStep(_GraphedStep):
 
     def _load(self, entry, state, args, first):
         if first:
-            entry.beta = torch.empty(
-                (), dtype=torch.float32,
-                device=next(state.model.parameters()).device)
+            p = next(state.model.parameters())
+            entry.beta = torch.empty((), dtype=p.dtype, device=p.device)
         entry.beta.fill_(self.beta_schedule(state.step))
 
     def _before_replay(self, entry, state, args):
