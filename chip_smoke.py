@@ -29,7 +29,11 @@ toolkit. Phases, one line each:
    float64 sums of the plain planes, two calls bitwise equal); its
    per-element path there has a line of its own, and so has the CDF's
    backward as autograd runs it (device ms, the kernels it launches by the
-   profiler, at most two);
+   profiler, at most two); kernel F (the residual fixed point's loop
+   condition) against ``fixed_point_go`` and JAX's decision on edge
+   planes (the exact threshold, NaN, +-inf, counts 1000 and 1001, an empty
+   batch) at 8 and 131072 elements in float32 and bfloat16 and on planes
+   one element at the threshold, and its time at (65536, 2);
 4. gate: one coupling's transform half through kernel B and through the
    unfused feed, at B*D from 1024 to 65536 (where the fused-head gate
    belongs);
@@ -150,17 +154,23 @@ toolkit. Phases, one line each:
     and ``sample`` at B = 65536 against the CPU (4096 rows, the sample as
     the push-forward of the same base draws), against ``log_q`` and by a
     round trip, the fixed point's iterations per layer and the eager
-    loop's host syncs; both as graphs (the fixed point a masked fixed
-    count, ``flows.residual.FIXED_POINT_GRAPH_ITERATIONS``; fails if any
-    layer's flag says it stopped unconverged); the forward-KLD step with
+    loop's host syncs; both as graphs (each fixed point a WHILE node with
+    kernel F; a sampler replay bitwise eager with the same counts per
+    layer and no flag; its time beside the parent's masked count's); the
+    forward-KLD step with
     ``with_key`` and ``post_update=update_lipschitz(m, 50)`` (Adam 3e-4,
     weight decay 1e-5, B = 512 on two moons): one step card against CPU
     on injected probes, five captured steps against five eager (loss,
     parameters, u and v within 1e-5); one eager reverse-KLD step on
     TwoModes, card against CPU at B = 1024, its gradient through the
-    implicit VJP; an iResBlock over a LipschitzCNN on (8, 4, 8, 8)
-    inputs, its exact-trace ``log_prob`` card against CPU; no port kernel
-    launched;
+    implicit VJP, then five captured reverse-KLD steps (both solves WHILE
+    nodes) against five eager (1e-5, the same counts per layer);
+    ``build_residual`` at ``lipschitz_const=0.99`` with closed-form
+    weights (K cut to 4), whose eager fixed points take over 32 passes,
+    served as a graph bitwise eager with the same counts, timed in turns
+    and profiled; an iResBlock over a LipschitzCNN on (8, 4, 8, 8)
+    inputs, its exact-trace ``log_prob`` card against CPU; kernel F in the
+    captured samplers and the captured reverse step only;
 19. planar_radial: ``build_planar_stack`` and ``build_radial_stack`` at
     their defaults (dim 2, K 16) with TwoModes, perturbed: ``sample`` at
     B = 65536 against the CPU's push-forward of the same base draws and
@@ -223,8 +233,9 @@ toolkit. Phases, one line each:
     at ``build_nsf``'s width, B = 65536, 200 steps with checkpoints and a
     JSONL log (the loss falls; A, B, C, E in every replay), ms per step
     in turns with the bare captured step, the binary's draw alone and its
-    host syncs (at most 2), the idle share of a profiled step, then
-    re-entered on its directory (the
+    host syncs (at most 2), the idle share of a profiled step, its loop
+    with a checkpoint every 5 steps, synchronous against asynchronous
+    saves in turns, then re-entered on its directory (the
     restored state bitwise the saved one, 100 more steps as a graph); (b)
     the annealed reverse-KLD binary on TwoModes at 16384 samples (the
     reverse KLD at beta 1 falls); (c) the image NSF binary at
@@ -500,7 +511,7 @@ def phase_build():
     # in parallel
     names = (["rqs_fwd", "head_rqs_fwd", "rqs_bwd"]
              + [f"head_rqs_bwd@{k}" for k in SUPPORTED_BINS]
-             + ["rqs_bwd_autodiff"])
+             + ["rqs_bwd_autodiff", "fixed_point_cond"])
     t0 = time.perf_counter()
     _build.build(names)
     secs = time.perf_counter() - t0
@@ -1344,6 +1355,11 @@ def phase_gate(model, dev, flush):
           + "; ".join(rows), flush=True)
 
 
+# the five spline kernels' counters, in the order A, B, C, E, D
+SPLINE_KERNELS = ("rqs_fwd", "head_rqs_fwd", "rqs_bwd", "head_rqs_bwd",
+                  "rqs_bwd_autodiff")
+
+
 def reset_counts():
     from nf_tpu_torch.ops import reset_launch_counts
 
@@ -1511,7 +1527,7 @@ def phase_training(dev):
     _, _, per_step[BATCH] = _step_result(model, pool[:BATCH])
     expect[BATCH] = (layers,) * 4 + (0,)
     for batch, want in expect.items():
-        got = tuple(per_step[batch].values())
+        got = tuple(per_step[batch][k] for k in SPLINE_KERNELS)
         if got != want:
             raise RuntimeError(f"B={batch}: launches per step (A, B, C, E, D) "
                                f"{got}, expected {want}")
@@ -1574,7 +1590,7 @@ def phase_training(dev):
               f"{e[1]:.3g} relative (limit {TRAIN_TOL})"
               for b, e in grad_errs.items())
           + f"; launches per step (A, B, C, E, D): "
-          + ", ".join(f"B={b} {tuple(c.values())}"
+          + ", ".join(f"B={b} {tuple(c[k] for k in SPLINE_KERNELS)}"
                       for b, c in per_step.items())
           + f"; skip_nonfinite: NaN batch rolled back bitwise ({len(after)} "
           f"tensors), step counter {gstate.step}, host syncs in that step "
@@ -1895,6 +1911,8 @@ PATH_KERNELS = {"build_nsf serving": ("rqs_fwd", "head_rqs_fwd"),
                 "circular_coupled step": ("rqs_fwd", "head_rqs_fwd",
                                           "rqs_bwd", "head_rqs_bwd"),
                 "residual serving": (), "residual step": (),
+                "residual sampler": ("fixed_point_cond",),
+                "residual reverse step": ("fixed_point_cond",),
                 "planar serving": (), "planar step": (),
                 "radial serving": (), "radial step": (),
                 "change_base serving": (), "change_base step": (),
@@ -1923,6 +1941,8 @@ def kernel_of(name):
         return "rqs_bwd"
     if "rqs_fwd" in name:
         return "rqs_fwd"
+    if "fixed_point_cond" in name:
+        return "fixed_point_cond"
     return None
 
 
@@ -1981,9 +2001,9 @@ def in_turns(eager, graph, reps=10):
     return (e1, e2), (g1, g2)
 
 
-def _turns_text(t, what="call"):
+def _turns_text(t, what="call", reps=10):
     (e1, e2), (g1, g2) = t
-    return (f"wall ms per {what} (median of 10, in turns eager, graph, "
+    return (f"wall ms per {what} (median of {reps}, in turns eager, graph, "
             f"graph, eager): eager {e1:.3f} / {e2:.3f}, graph {g1:.3f} / "
             f"{g2:.3f}")
 
@@ -2022,14 +2042,15 @@ def _expect_launches(got, want, what):
 
 
 def serving_graphs(label, model, x, batch, per_pass, path, context=None,
-                   dtype=torch.float32):
+                   dtype=torch.float32, sample_path=None):
     """``compile_log_prob`` and ``compile_sampler`` of ``model`` at
     ``batch`` against eager calls: log_prob within GRAPH_TOL, the sampler
     bitwise; times in turns; a profiled replay of each. ``per_pass``: the
     launches the log_prob capture must count (the sampler's: twice A for
     the circular NSF, as its eager pass). ``context``: a conditional
     model's, an input of both graphs. ``dtype``: the log_prob graph's
-    input's."""
+    input's. ``sample_path``: the sampler's ``PATH_KERNELS`` entry where
+    it launches other port kernels than ``log_prob`` (None: ``path``)."""
     import nf_tpu_torch as nt
 
     ctx = () if context is None else (context,)
@@ -2070,7 +2091,8 @@ def serving_graphs(label, model, x, batch, per_pass, path, context=None,
 
     out["sample"] = dict(err=0.0, turns=in_turns(
         eager_sample, lambda: sampler(SEED, *ctx)),
-        report=replay_report(lambda: sampler(SEED, *ctx), path),
+        report=replay_report(lambda: sampler(SEED, *ctx),
+                             sample_path or path),
         launches=sampler.launches, fn=sampler)
     for what, r in out.items():
         err = "bitwise" if what == "sample" else f"{r['err']:.3g}"
@@ -2150,12 +2172,15 @@ def bucket_graphs(label, model, batch, context=None):
     return ladder
 
 
-def step_graphs(label, base, make_step, args_of, path, opt_kw, mode=None):
+def step_graphs(label, base, make_step, args_of, path, opt_kw, mode=None,
+                check=None, reps=10):
     """A captured step against the eager step on twin copies of ``base``:
     GRAPH_STEPS steps each on the same inputs (``args_of(i, which)``), the
     loss every step and the parameters and float buffers (a residual
-    flow's power-iteration vectors) after within STEP_TOL; then wall ms
-    per step in turns and a profiled replay."""
+    flow's power-iteration vectors) after within STEP_TOL, and
+    ``check(graphed model, eager model)`` where given (it raises or
+    returns a note); then wall ms per step in turns (``reps`` steps a
+    turn) and a profiled replay."""
     from nf_tpu_torch.ops import splines_kernel as tk
     import nf_tpu_torch as nt
 
@@ -2186,6 +2211,7 @@ def step_graphs(label, base, make_step, args_of, path, opt_kw, mode=None):
                                f"(all finite: {finite}), "
                                f"parameters {param_err:.3g} (limit "
                                f"{STEP_TOL})")
+        note = "" if check is None else "; " + check(*models)
         i = [GRAPH_STEPS]
 
         def run(step, state, which):
@@ -2194,14 +2220,15 @@ def step_graphs(label, base, make_step, args_of, path, opt_kw, mode=None):
                 return step(state, *args_of(i[0], which))
             return call
 
-        t = in_turns(run(eager, states[1], 1), run(graphed, states[0], 0))
+        t = in_turns(run(eager, states[1], 1), run(graphed, states[0], 0),
+                     reps)
         report = replay_report(run(graphed, states[0], 0), path)
     finally:
         tk.set_pallas_bwd_kernel("analytic")
     print(f"phase graphs {label}: graph vs eager after {GRAPH_STEPS} "
           f"steps: loss {loss_err:.3g}, parameters {param_err:.3g} (limit "
-          f"{STEP_TOL}); capture counted {graphed.launches}; "
-          + _turns_text(t, "step") + "; " + _report_text(report),
+          f"{STEP_TOL}){note}; capture counted {graphed.launches}; "
+          + _turns_text(t, "step", reps) + "; " + _report_text(report),
           flush=True)
     return dict(turns=t, report=report, launches=graphed.launches,
                 err=(loss_err, param_err))
@@ -3698,6 +3725,242 @@ def phase_circular_coupled(dev, flush, peaks):
     return out, kernels
 
 
+# --- kernel F: the residual fixed point's loop condition --------------------
+
+F_ELEMENTS = 2 * BATCH  # the residual sampler's x: (65536, 2)
+F_EDGE_CASES = ("threshold", "below", "nan", "nan_and_moving", "inf",
+                "neg_inf", "inf_tol", "cap", "past_cap", "empty")
+# JAX's decision on each edge plane (its ``cond``: a NaN compares false)
+F_EXPECTED_GO = {"threshold": True, "below": False, "nan": False,
+                 "nan_and_moving": True, "inf": True, "neg_inf": True,
+                 "inf_tol": False, "cap": True, "past_cap": False,
+                 "empty": False}
+F_THRESHOLD_TRIALS = 32  # random planes with one element at d^2 / tol == 1
+
+
+def edge_planes(case, n=8, rng=None):
+    """``(x, x_prev, tol, count)`` of one edge case of the fixed-point
+    loop's test, float32 numpy planes of ``n`` elements, every element
+    settled but those the case names, at indices drawn from ``rng`` (None:
+    fixed ones): ``threshold`` (one element at exactly ``d^2 / tol ==
+    1``), ``below`` (the same with ``tol`` one ulp up), ``nan`` (NaN
+    elements, settled in JAX), ``nan_and_moving``, ``inf`` and ``neg_inf``
+    (an infinite step), ``inf_tol`` (every element moving by 1 against an
+    infinite tolerance), ``cap`` and ``past_cap`` (a moving element at
+    counts 1000 and 1001), ``empty`` (no element). Counts 7 elsewhere."""
+    idx = (rng.choice(n, 2, replace=False) if rng is not None
+           else np.array([3, 6]))
+    x = np.zeros(n, np.float32)
+    x_prev = np.zeros(n, np.float32)
+    tol = np.full(n, 1e-5, np.float32)
+    count = 7
+    if case in ("threshold", "below"):
+        x[idx[0]], tol[idx[0]] = 0.5, 0.25
+        if case == "below":
+            tol[idx[0]] = np.nextafter(np.float32(0.25), np.float32(1))
+    elif case == "nan":
+        x[idx] = np.nan
+    elif case == "nan_and_moving":
+        x[idx[0]], x[idx[1]] = np.nan, 1.0
+    elif case in ("inf", "neg_inf"):
+        x[idx[0]] = np.inf if case == "inf" else -np.inf
+    elif case == "inf_tol":
+        x[:] = 1.0
+        tol[:] = np.inf
+    elif case in ("cap", "past_cap"):
+        x[idx[0]] = 1.0
+        count = 1000 if case == "cap" else 1001
+    elif case == "empty":
+        x, x_prev, tol = (a[:0] for a in (x, x_prev, tol))
+    return x, x_prev, tol, count
+
+
+def _f_against_plain(planes, count, dev, dtype=torch.float32):
+    """Kernel F and its plain version on the same planes: F's test before
+    a first pass (count set to 0) and after one (``count - 1`` bumped),
+    each against ``fixed_point_go``. Returns the number of disagreements
+    (go, count or the state's reset slots) and F's go after the pass."""
+    from nf_tpu_torch.flows.residual import fixed_point_go
+    from nf_tpu_torch.ops.fixed_point import fixed_point_cond
+
+    x, xp, tol = (torch.from_numpy(a).to(dev, dtype) for a in planes)
+    c = torch.zeros((), dtype=torch.int32, device=dev)
+    state = torch.zeros(3, dtype=torch.int32, device=dev)
+    bad = 0
+    for after_pass, start in ((False, 0), (True, count)):
+        c.fill_(start - 1 if after_pass else 12345)
+        fixed_point_cond(x, xp, tol, c, state, after_pass)
+        want = fixed_point_go(x, xp, tol, torch.full_like(c, start))
+        got = state.tolist()
+        bad += (int(c) != start) + (bool(got[2]) != bool(want)) \
+            + (got[:2] != [0, 0])
+    return bad, bool(got[2])
+
+
+def f_edge_cases(dev, dtype, n, rng):
+    """Kernel F against its plain version on every edge plane of ``n``
+    elements (the special ones at places drawn from ``rng``); in float32
+    also against JAX's decision (``F_EXPECTED_GO``: bfloat16 has no "one
+    float32 ulp up"). Returns the disagreements."""
+    bad = 0
+    for case in F_EDGE_CASES:
+        *planes, count = edge_planes(case, n, rng)
+        b, go = _f_against_plain(planes, count, dev, dtype)
+        bad += b + (dtype == torch.float32 and go != F_EXPECTED_GO[case])
+    return bad
+
+
+def f_threshold_trials(dev, rng):
+    """``F_THRESHOLD_TRIALS`` planes of the residual sampler's size with
+    one element at exactly ``d^2 / tol == 1`` (go) and the same with
+    ``tol`` one ulp up (stop), d log-normal: kernel F against its plain
+    version and the expected decision. Returns the disagreements."""
+    bad = 0
+    for _ in range(F_THRESHOLD_TRIALS):
+        x = np.zeros(F_ELEMENTS, np.float32)
+        tol = np.full(F_ELEMENTS, 1e-5, np.float32)
+        i = int(rng.integers(F_ELEMENTS))
+        d = np.float32(np.exp(rng.normal(0.0, 3.0)))
+        x[i] = d
+        tol[i] = d * d  # float32: fl(d^2) / fl(d^2) == 1
+        for up in (False, True):
+            if up:
+                tol[i] = np.nextafter(tol[i], np.float32(np.inf))
+            b, go = _f_against_plain((x, np.zeros_like(x), tol), 5, dev)
+            bad += b + (go == up)
+    return bad
+
+
+def parity_kernel_f(dev):
+    """Kernel F against ``fixed_point_go`` (its plain version, JAX's
+    ``cond``): the edge planes at 8 elements and at the residual
+    sampler's 131072, in float32 and bfloat16 (:func:`f_edge_cases`),
+    and the threshold trials (:func:`f_threshold_trials`). Returns
+    (disagreements, cases)."""
+    rng = np.random.default_rng(SEED + 1800)
+    bad = sum(f_edge_cases(dev, dtype, n, rng)
+              for dtype in (torch.float32, torch.bfloat16)
+              for n in (8, F_ELEMENTS))
+    bad += f_threshold_trials(dev, rng)
+    torch.cuda.synchronize()
+    return bad, 4 * len(F_EDGE_CASES) + 2 * F_THRESHOLD_TRIALS
+
+
+def timing_kernel_f(dev, flush, peaks):
+    """Kernel F after a pass at the residual sampler's planes (x, x_prev,
+    tol (65536, 2) float32, every element settled, so it reads all three
+    planes) against its plain version (``fixed_point_go`` and the count's
+    increment); the bound is ``ops.cost.fixed_point_cond``'s."""
+    from nf_tpu_torch.flows.residual import fixed_point_go
+    from nf_tpu_torch.ops import cost
+    from nf_tpu_torch.ops.fixed_point import fixed_point_cond
+
+    rng = np.random.default_rng(SEED + 1801)
+    x = _normal(rng, (BATCH, 2), 1.0, dev)
+    xp = x + 1e-4
+    tol = 1e-5 + x.abs() * 1e-5
+    c = torch.zeros((), dtype=torch.int32, device=dev)
+    state = torch.zeros(3, dtype=torch.int32, device=dev)
+
+    def plain():
+        c.add_(1)
+        return fixed_point_go(x, xp, tol, c)
+
+    ms = device_ms(lambda: fixed_point_cond(x, xp, tol, c, state, True),
+                   flush)
+    plain_ms = device_ms(plain, flush)
+    ops, nbytes = cost.fixed_point_cond(x, xp, tol, c, state, True, None)
+    return (ms, plain_ms) + bound(nbytes, ops, peaks)
+
+
+def phase_kernel_f(dev, flush, peaks):
+    """Kernel F's parity and time (the ``results`` row of the JSON
+    line)."""
+    bad, cases = parity_kernel_f(dev)
+    if bad:
+        raise RuntimeError(f"fixed_point_cond disagrees with its plain "
+                           f"version or JAX's decision in {bad} places "
+                           f"over {cases} cases")
+    t = timing_kernel_f(dev, flush, peaks)
+    ms, plain, bound_ms, by = t
+    print(f"phase parity fixed_point_cond: {cases} cases (the edge planes "
+          f"at 8 and {F_ELEMENTS} elements in float32 and bfloat16, "
+          f"{F_THRESHOLD_TRIALS} planes at the exact threshold and one ulp "
+          f"past it), every go and count equal to the plain version's and "
+          f"JAX's; x (65536, 2): kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+          f"bound_ms {bound_ms:.5f} ({by}); the parity launches count no "
+          f"path", flush=True)
+    return dict(err=0.0, t=t, source="nf_tpu_torch/csrc/fixed_point_cond.cu",
+                replaces="nf_tpu/flows/residual.py:47")
+
+
+# --- phase 18: residual flows --------------------------------------------------
+
+RES_STIFF_LIP = 0.99  # build_residual(lipschitz_const=0.99)
+RES_STIFF_K = 4  # its depth, cut from build_residual's 16 for time
+RES_STIFF_NOISE = 1e-3  # on its closed-form weights
+RES_OLD_FIXED_COUNT = 32  # the masked count the parent's graphs ran
+RES_STIFF_TURNS = 3  # calls per turn of its timed sampler
+# steps per turn of the residual steps' timing (their eager steps take
+# 1-2 s each: the script's time limit)
+RES_STEP_TURNS = 3
+
+
+def stiff_layers(dims, lip, noise_seed, noise):
+    """``[(weight, bias)]`` of the dense layers of a ``LipschitzMLP(dims)``
+    near its Lipschitz bound: ``lip`` times an identity block (the first
+    ``dims[0]`` channels carried through), each hidden bias putting those
+    channels at the steepest point of Swish (``x sigmoid(softplus(0.5) x)
+    / 1.1``, slope 1.0 at ``x* = 2.4 / softplus(0.5)``) for inputs at
+    ``x*``, plus N(0, noise²) numpy noise on everything. Near ``x*`` each
+    pass of the fixed point shrinks the error by about ``lip`` to the
+    number of layers; random weights contract far faster."""
+    rng = np.random.default_rng(noise_seed)
+    beta = np.log1p(np.exp(0.5))
+    x_star = 2.4 / beta
+    h_star = x_star / (1.0 + np.exp(-beta * x_star)) / 1.1
+    d = dims[0]
+    out = []
+    for i, (n_in, n_out) in enumerate(zip(dims[:-1], dims[1:])):
+        w = np.zeros((n_out, n_in), np.float32)
+        k = min(n_in, n_out)
+        w[:k, :k] = lip * np.eye(k)
+        b = np.zeros(n_out, np.float32)
+        if i < len(dims) - 2:
+            b[:d] = x_star - lip * h_star
+        w += noise * rng.standard_normal(w.shape).astype(np.float32)
+        b += noise * rng.standard_normal(b.shape).astype(np.float32)
+        out.append((w, b))
+    return out
+
+
+def stiff_residual_model(dev):
+    """``build_residual`` at its widths with ``lipschitz_const=0.99`` and
+    ``RES_STIFF_K`` blocks, each net's dense layers set by
+    :func:`stiff_layers` (so its fixed points need far more than 32
+    passes), power iterations advanced 200 steps, the exact 2D log-det
+    on, ActNorms set on 4096 two-moons points."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import flows as tflows
+    from nf_tpu_torch.nets import InducedNormLinear
+    from nf_tpu_torch.utils import update_lipschitz
+
+    model = nt.build_residual(K=RES_STIFF_K, lipschitz_const=RES_STIFF_LIP,
+                              seed=SEED, device=dev)
+    dims = [2, 128, 128, 128, 2]
+    with torch.no_grad():
+        for i, block in enumerate(_blocks(model)):
+            dense = [m for m in block.nnet.net
+                     if isinstance(m, InducedNormLinear)]
+            for m, (w, b) in zip(dense, stiff_layers(
+                    dims, RES_STIFF_LIP, SEED + 1900 + i, RES_STIFF_NOISE)):
+                m.weight.copy_(torch.from_numpy(w))
+                m.bias.copy_(torch.from_numpy(b))
+    update_lipschitz(model, 200)
+    tflows.set_exact_logdet(model)
+    return model.init_from_data(moons(4096, SEED + 1901, dev))
+
+
 def moons(n, seed, dev):
     """Two-moons data (``examples/residual.py``'s ``make_moons``, noise
     0.1) drawn on the card from ``seed``."""
@@ -3816,15 +4079,95 @@ def residual_reverse_check(model, dev):
     return abs(l1 - l2), grad_err, st
 
 
+def sampler_loop_check(label, model, sampler, batch, seed):
+    """One replay of the captured sampler ``sampler`` at ``seed`` against
+    eager ``model.sample`` from the same seed: ``z`` and ``log_q``
+    bitwise, the same fixed-point count per layer (the graph's written by
+    kernel F), no unconverged flag. Returns the per-layer counts."""
+    from nf_tpu_torch import flows as tflows
+
+    z, log_q = sampler(seed)
+    graph = [(s[0], s[2]) for s in tflows.fixed_point_stats(
+        sampler._compiled.weights.model)]
+    with torch.inference_mode():
+        ze, lqe = model.sample(batch, generator=torch.Generator(
+            "cuda").manual_seed(seed))
+    eager = [(s[0], s[2]) for s in tflows.fixed_point_stats(model)]
+    if not (torch.equal(z, ze) and torch.equal(log_q, lqe)):
+        raise RuntimeError(f"{label}: the sampler graph's draws differ from "
+                           f"eager ({max_err(z, ze):.3g}, log_q "
+                           f"{max_err(log_q, lqe):.3g})")
+    if graph != eager or any(flag for _, flag in eager):
+        raise RuntimeError(f"{label}: fixed-point counts and flags per "
+                           f"layer, graph {graph}, eager {eager}")
+    return [c for c, _ in eager]
+
+
+def stiff_residual_sampler(dev):
+    """The ``lipschitz_const=0.99`` model of :func:`stiff_residual_model`
+    served at B = 65536: eager per-layer counts (their maximum must pass
+    the parent's fixed count of 32), the sampler graph bitwise eager with
+    the same counts, both timed in turns, and a profiled replay (kernel
+    F's device launches against the layers plus the passes)."""
+    import nf_tpu_torch as nt
+    from nf_tpu_torch import flows as tflows
+
+    model = stiff_residual_model(dev)
+    seed = SEED + 1902
+    with torch.inference_mode():
+        model.sample(BATCH, generator=torch.Generator(dev).manual_seed(seed))
+    counts = [s[0] for s in tflows.fixed_point_stats(model)]
+    print(f"phase residual stiff model (build_residual, lipschitz_const "
+          f"{RES_STIFF_LIP}, K {RES_STIFF_K}, closed-form weights, B = "
+          f"{BATCH}): eager fixed-point passes per layer {counts}, max "
+          f"{max(counts)} (the parent's graph ran {RES_OLD_FIXED_COUNT})",
+          flush=True)
+    if not max(counts) > RES_OLD_FIXED_COUNT:
+        raise RuntimeError(f"the stiff residual model's eager fixed points "
+                           f"took {counts} passes, none above "
+                           f"{RES_OLD_FIXED_COUNT}")
+    sampler = nt.compile_sampler(model, BATCH)
+    _expect_launches(sampler.launches,
+                     {"fixed_point_cond": 2 * RES_STIFF_K},
+                     "stiff residual sampler graph")
+    got = sampler_loop_check("stiff residual sampler", model, sampler,
+                             BATCH, seed)
+    if got != counts:
+        raise RuntimeError(f"stiff residual sampler: counts {got} at the "
+                           f"seed of the first eager draw's {counts}")
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def eager():
+        with torch.inference_mode():
+            return model.sample(BATCH, generator=gen)
+
+    turns = in_turns(eager, lambda: sampler(seed), reps=RES_STIFF_TURNS)
+    report = replay_report(lambda: sampler(seed), "residual sampler")
+    f_seen = report["kernels"].get("fixed_point_cond", 0)
+    print(f"phase residual stiff sampler graph: bitwise eager, passes per "
+          f"layer {got} equal, no flag; capture counted "
+          f"{sampler.launches}; " + _turns_text(turns, reps=RES_STIFF_TURNS)
+          + "; kernel F's "
+          f"device launches by the profiler {f_seen} (layers + passes = "
+          f"{RES_STIFF_K + sum(got)}); " + _report_text(report),
+          flush=True)
+    return sampler.launches
+
+
 def phase_residual(dev, flush):
     """Phase 18: ``build_residual`` at its defaults (K 16, LipschitzMLP
     [2, 128, 128, 128, 2], L 0.9, ActNorm): serving under the exact 2D
-    log-det eagerly and as graphs (the fixed point of ``sample`` a masked
-    fixed count in the graph), the forward-KLD step with ``with_key`` and
+    log-det eagerly and as graphs (the fixed point of ``sample`` a WHILE
+    node with kernel F, bitwise eager with the same counts), the
+    forward-KLD step with ``with_key`` and
     ``post_update=update_lipschitz(50)`` (Adam 3e-4, weight decay 1e-5,
     B = 512 on two moons) card against CPU and eager against graph, one
-    eager reverse-KLD step through the implicit VJP, and a LipschitzCNN
-    block. No port kernel runs. Returns {path: launches}."""
+    eager reverse-KLD step through the implicit VJP card against CPU, the
+    reverse-KLD step captured against eager (both solves WHILE nodes), the
+    ``lipschitz_const=0.99`` model whose fixed points take over 32 passes
+    (:func:`stiff_residual_sampler`), and a LipschitzCNN block. Kernel F
+    runs in the captured samplers and the captured reverse step only.
+    Returns {path: launches}."""
     import nf_tpu_torch as nt
     from nf_tpu_torch import flows as tflows
     from nf_tpu_torch.flows import residual as res
@@ -3877,32 +4220,32 @@ def phase_residual(dev, flush):
           f"{iters}, max {max(iters)}; host syncs in one eager sample "
           f"{len(sample_syncs)} (the convergence test read every "
           f"{res.FIXED_POINT_CHECK_EVERY} steps)", flush=True)
-    if max(iters) + 1 > res.FIXED_POINT_GRAPH_ITERATIONS:
-        raise RuntimeError(f"the eager fixed point took {max(iters)} "
-                           f"iterations, past the graph's count "
-                           f"{res.FIXED_POINT_GRAPH_ITERATIONS}")
     out = {"residual serving": (
         {k: counts["log_prob"][k] + counts["sample"][k]
          for k in counts["log_prob"]}, ())}
     served = serving_graphs("residual", model, x, BATCH, {},
-                            "residual serving")
-    # the flags of the model copy the sampler's graph runs
-    stats = tflows.fixed_point_stats(
-        served["sample"]["fn"]._compiled.weights.model)
-    if not stats or any(s[2] for s in stats):
-        raise RuntimeError(f"the residual sampler graph left a fixed point "
-                           f"unconverged or reported none: {stats}")
+                            "residual serving",
+                            sample_path="residual sampler")
+    sampler = served["sample"]["fn"]
+    _expect_launches(sampler.launches, {"fixed_point_cond": 2 * len(iters)},
+                     "residual sampler graph")
+    got = sampler_loop_check("residual sampler", model, sampler, BATCH,
+                             SEED + 7)
     t_graph = min(served["sample"]["turns"][1])
-    print(f"phase residual fixed point: design (b), a masked fixed count of "
-          f"{res.FIXED_POINT_GRAPH_ITERATIONS} steps per layer in the graph "
-          f"(the eager loop stops at JAX's count, max {max(iters)} here); "
-          f"every layer converged within it after the timed replays "
-          f"({len(stats)} layers, last counts "
-          f"{[s[0] for s in stats]}); graph sample {t_graph:.3f} ms against "
-          f"eager {sample_ms:.3f} ms; the graph runs "
-          f"{len(stats) * res.FIXED_POINT_GRAPH_ITERATIONS} masked steps "
-          f"where JAX's rule needs {sum(s[0] for s in stats)}", flush=True)
-    out["graphs: residual serving"] = (_captured_counts(served), ())
+    report = served["sample"]["report"]
+    print(f"phase residual fixed point: a WHILE node per solve, kernel F "
+          f"its condition; the replay at seed {SEED + 7} bitwise eager with "
+          f"the same passes per layer {got} and no flag; graph sample "
+          f"{t_graph:.3f} ms against eager {sample_ms:.3f} ms (a graph of "
+          f"32 masked steps per layer took 345.99 / 346.13 ms and 46251 "
+          f"launches on an H100 80GB HBM3 at 700 W); this replay "
+          f"{report['launches']} device launches, kernel F "
+          f"{report['kernels'].get('fixed_point_cond', 0)} of them "
+          f"(layers + passes = {len(got) + sum(got)}), device busy "
+          f"{report['busy']:.3f} of {report['wall']:.3f} ms (idle "
+          f"{report['idle']:.1%}); {nvidia_smi_line()}", flush=True)
+    out["graphs: residual serving"] = (_captured_counts(served),
+                                       ("fixed_point_cond",))
 
     loss_err, grad_err, uv_err = residual_step_check(model, dev)
     if not (loss_err <= MODEL_TOL and grad_err <= TRAIN_TOL
@@ -3926,7 +4269,8 @@ def phase_residual(dev, flush):
             post_update=lambda m: update_lipschitz(m, RES_POWER_ITERS)),
         lambda i, which: (pool[(i % 20) * RES_BATCH:
                                (i % 20 + 1) * RES_BATCH], 1000 + i),
-        "residual step", dict(lr=RES_LR, weight_decay=RES_WD))
+        "residual step", dict(lr=RES_LR, weight_decay=RES_WD),
+        reps=RES_STEP_TURNS)
     _expect_launches(step["launches"], {}, "residual step graph")
     out["graphs: residual step"] = (step["launches"], ())
 
@@ -3942,6 +4286,36 @@ def phase_residual(dev, flush):
           f"gradients through the implicit VJP {grad_err:.3g} relative "
           f"(limits {MODEL_TOL}, {TRAIN_TOL}); fixed-point / VJP "
           f"iterations per layer {[(s[0], s[1]) for s in st]}", flush=True)
+    rev = copy.deepcopy(model)
+    rev.p = nt.TwoModes()
+    gens = [torch.Generator(device=dev).manual_seed(SEED + 1903)
+            for _ in range(2)]
+
+    def same_counts(graphed, eager):
+        a, b = (tflows.fixed_point_stats(m) for m in (graphed, eager))
+        if a != b or any(s[2] for s in a):
+            raise RuntimeError(f"residual reverse-KLD step: fixed-point / "
+                               f"VJP counts and flags, graph {a}, eager {b}")
+        return (f"fixed-point / VJP passes per layer equal "
+                f"{[(s[0], s[1]) for s in a]}, no flag")
+
+    step = step_graphs(
+        f"residual reverse-KLD step (TwoModes, exact log-det, "
+        f"post_update, B = {RES_REVERSE_BATCH})", rev,
+        lambda opt: nt.make_reverse_kld_step(
+            opt, RES_REVERSE_BATCH,
+            post_update=lambda m: update_lipschitz(m, RES_POWER_ITERS)),
+        lambda i, which: (gens[which],), "residual reverse step",
+        dict(lr=RES_LR, weight_decay=RES_WD), check=same_counts,
+        reps=RES_STEP_TURNS)
+    # a WHILE node per solve, two launches of F each: the sampling pass's
+    # fixed points and their implicit VJPs
+    _expect_launches(step["launches"], {"fixed_point_cond": 4 * len(iters)},
+                     "residual reverse step graph")
+    out["graphs: residual reverse step"] = (step["launches"],
+                                            ("fixed_point_cond",))
+    out["graphs: residual stiff sampler"] = (stiff_residual_sampler(dev),
+                                             ("fixed_point_cond",))
 
     gen_cpu = torch.Generator().manual_seed(SEED + 189)
     cnn = nt.NormalizingFlow(
@@ -5611,6 +5985,8 @@ def phase_infrastructure(dev, flush, snf):
 
 BIN_ITERS = 200  # path a: build_nsf's forward-KLD binary, then resumed
 BIN_CKPT_EVERY = 100
+BIN_ASYNC_ITERS = 60  # path a's loop, timed with saves every BIN_ASYNC_EVERY
+BIN_ASYNC_EVERY = 5
 BIN_RESUME_ITERS = 300
 BIN_REV_SAMPLES = 16384  # path b: B*D = 32768, past the fused-head gate
 BIN_REV_ITERS = 100
@@ -5728,6 +6104,57 @@ def binary_forward(dev, d):
         raise RuntimeError(f"binary: its draw made {draw_syncs} host syncs")
     return state, saved, counts, dict(turns=turns, draw=draw,
                                       idle=1 - busy / wall, report=report)
+
+
+def binary_checkpoint_turns(dev, d, state):
+    """Path a's loop (``train._loop``, the binary's step on its state)
+    with a checkpoint every ``BIN_ASYNC_EVERY`` steps, its saves forced
+    synchronous against the binary's asynchronous ones, in turns (sync,
+    async, async, sync), each run ``BIN_ASYNC_ITERS`` steps into a fresh
+    directory and waited for; the files of the last run of each kind are
+    the same size."""
+    import contextlib
+    import io
+    import os
+    import types
+
+    from nf_tpu_torch import train
+    from nf_tpu_torch.utils import CheckpointManager
+
+    class SyncSaves(CheckpointManager):
+        def save(self, step, state, generator=None, wait=True):
+            super().save(step, state, generator=generator, wait=True)
+
+    cfg = types.SimpleNamespace(log_path=None, iters=BIN_ASYNC_ITERS,
+                                log_every=10 ** 9,
+                                checkpoint_every=BIN_ASYNC_EVERY)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 401)
+    ms, sizes = {}, {}
+    for n, kind in enumerate(("sync", "async", "async", "sync")):
+        path = f"{d}/turns_{n}"
+        ckpt = (SyncSaves if kind == "sync" else CheckpointManager)(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train._loop(cfg, state, state.run_step, ckpt, 0,
+                        lambda *a: None, generator=gen)
+        torch.cuda.synchronize()
+        ms.setdefault(kind, []).append(
+            (time.perf_counter() - t0) * 1e3 / BIN_ASYNC_ITERS)
+        sizes[kind] = sorted(
+            os.path.getsize(os.path.join(path, f"step_{s}", "state.pt"))
+            for s in ckpt.all_steps())
+    if sizes["sync"] != sizes["async"]:
+        raise RuntimeError(f"binary checkpoints: synchronous files "
+                           f"{sizes['sync']} bytes, asynchronous "
+                           f"{sizes['async']}")
+    (s1, s2), (a1, a2) = ms["sync"], ms["async"]
+    print(f"phase binary (a) checkpoints every {BIN_ASYNC_EVERY} steps, "
+          f"{BIN_ASYNC_ITERS} steps per run, wall ms per step in turns "
+          f"(sync, async, async, sync): synchronous saves {s1:.3f} / "
+          f"{s2:.3f}, asynchronous (the binary's) {a1:.3f} / {a2:.3f}; "
+          f"{len(sizes['async'])} files kept of {sizes['async'][-1]} bytes; "
+          f"{nvidia_smi_line()}", flush=True)
 
 
 def binary_resume(dev, d, saved):
@@ -6088,6 +6515,7 @@ def phase_training_binary(dev):
         state, saved, counts, _ = binary_forward(dev, d)
         paths["binary forward KLD"] = (counts, a_kernels)
         export_check(dev, state)
+        binary_checkpoint_turns(dev, d, state)
         del state
         paths["binary forward KLD resumed"] = (binary_resume(dev, d, saved),
                                                a_kernels)
@@ -8711,6 +9139,8 @@ def main():
     yardstick_kernel_e(dev)
     timing_path_a_c(dev, flush, peaks)
     launch_floor(flush)
+    # kernel F, the residual fixed point's loop condition (phase 18's path)
+    results["fixed_point_cond"] = phase_kernel_f(dev, flush, peaks)
 
     # each main path, with the kernels it must launch
     paths = {"build_nsf serving": (phase_serving(dev, flush),

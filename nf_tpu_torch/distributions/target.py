@@ -198,17 +198,20 @@ class RejectionSampled:
     max_rounds = None
 
     def sample(self, num_samples=1, generator=None, device=None,
-               round_size=None):
+               round_size=None, context=None):
         """``num_samples`` draws by the eager loop, its rounds sized from
-        the rate they measure (or ``round_size`` points each)."""
+        the rate they measure (or ``round_size`` points each).
+        ``context`` is taken and ignored, as the JAX package's targets take
+        it (``target.py:61``)."""
         return rejection_loop(self._acceptance(), num_samples, self.n_dims,
                               generator, torch.float32,
                               self._device(generator, device), round_size,
                               self.max_rounds)
 
-    def sample_pool(self, num_samples, pool, generator=None, device=None):
+    def sample_pool(self, num_samples, pool, generator=None, device=None,
+                    context=None):
         """``(samples, full)`` from one round of ``pool`` proposals, with
-        no host read (:func:`rejection_pool`)."""
+        no host read (:func:`rejection_pool`); ``context`` is ignored."""
         return rejection_pool(self._acceptance(), num_samples, self.n_dims,
                               pool, generator, torch.float32,
                               self._device(generator, device))
@@ -317,7 +320,9 @@ class CircularGaussianMixture(nn.Module):
         return (-math.log(2 * math.pi * self.scale ** 2 * self.n_modes)
                 + torch.logsumexp(-d, dim=1))
 
-    def sample(self, num_samples=1, generator=None, device=None):
+    def sample(self, num_samples=1, generator=None, device=None,
+               context=None):
+        """Exact draws; ``context`` is ignored (``target.py:96``)."""
         if device is None and generator is not None:
             device = generator.device
         dev = resolve_device(device)
@@ -363,10 +368,10 @@ class TwoIndependent(Target):
         return self.target1.log_prob(z1) + self.target2.log_prob(z2)
 
     def sample(self, num_samples=1, generator=None, device=None,
-               round_size=None):
+               round_size=None, context=None):
         """Each half drawn by its own target (``target.py:133-137``);
         ``round_size``, a pair, fixes the rounds of halves drawn by
-        rejection (None: as they size them)."""
+        rejection (None: as they size them); ``context`` is ignored."""
         sizes = round_size or (None, None)
         return torch.cat([
             t.sample(num_samples, generator, device=device) if r is None
@@ -374,9 +379,11 @@ class TwoIndependent(Target):
                                            round_size=r)
             for t, r in zip((self.target1, self.target2), sizes)], dim=1)
 
-    def sample_pool(self, num_samples, pool, generator=None, device=None):
+    def sample_pool(self, num_samples, pool, generator=None, device=None,
+                    context=None):
         """Each half from its own pool (``pool``: a pair); full when both
-        are. Both halves must be drawn by rejection."""
+        are. Both halves must be drawn by rejection. ``context`` is
+        ignored."""
         (x1, f1), (x2, f2) = (
             _rejection_half(t).sample_pool(num_samples, p, generator, device)
             for t, p in zip((self.target1, self.target2), pool))

@@ -43,19 +43,22 @@ power-series log-det estimators (``nf_tpu/flows/residual.py``; reference
   ``v <- u - J_g^T v`` by the same iteration, then ``theta_bar =
   -(dg/dtheta)^T v``.
 
-**The fixed-point loop.** JAX's rule: starting from ``x = y - g(y)``,
-iterate while *any* element of the batch moves by ``(x - x_prev)^2 >=
-atol + |y| rtol`` (1e-5 and 1e-5; 1e-6 and 1e-6 for the backward) and at
-most 1000 times. A CUDA graph cannot branch on device data, so the port
-iterates a masked body: each step computes ``y - g(x)`` and the
-convergence test, and a converged state stays frozen. Eagerly the host
-reads the test every ``FIXED_POINT_CHECK_EVERY`` steps (one host sync
-each) and stops at JAX's count, exactly JAX's result. Under a capture the
-body runs ``FIXED_POINT_GRAPH_ITERATIONS`` times, which gives JAX's
-result whenever that covers JAX's count; each block then sets its
-``fixed_point_unconverged`` flag on the device (sticky) if it would have
-gone on, and :func:`fixed_point_stats` reads the flags and the counts.
-Nothing falls back to the eager loop.
+**The fixed-point loop.** JAX's rule (``while_loop``'s ``cond``,
+:func:`fixed_point_go`): starting from ``x = y - g(y)``, iterate while
+*any* element of the batch moves by ``(x - x_prev)^2 / tol >= 1`` (``tol =
+atol + |y| rtol``, 1e-5 and 1e-5; 1e-6 and 1e-6 for the backward) and the
+count is at most 1000. Eagerly the port iterates a masked body, a
+converged state staying frozen, and the host reads the test every
+``FIXED_POINT_CHECK_EVERY`` steps (one host sync each): it stops at JAX's
+count, exactly JAX's result. Under a CUDA graph the loop is a device-side
+loop (``_graphs.while_loop``): a WHILE conditional node whose body is one
+step of JAX's body, ``x_prev, x <- x, body(x)``, followed by kernel F
+(``ops.fixed_point``), which evaluates the same test on the device, writes
+the count and sets the node's condition. A replay stops where JAX stops,
+at any count, and is bitwise the eager call. Each block writes its last
+counts into device buffers and sets its ``fixed_point_unconverged`` flag
+(sticky) where a solve stopped at the cap of 1000 still moving, where JAX
+stops silently; :func:`fixed_point_stats` reads them.
 """
 
 from __future__ import annotations
@@ -74,12 +77,6 @@ from .base import Flow
 FIXED_POINT_MAX_ITER = 1000
 # eager: masked steps between two host reads of the convergence test
 FIXED_POINT_CHECK_EVERY = 4
-# captured: the fixed count of masked steps of every fixed-point solve,
-# the forward's and the implicit VJP's. build_residual's nets are
-# contractions with Lip(g) <= 0.9^4 (four layers at coeff 0.9), so a
-# first step of size up to 10 settles below the tolerance's sqrt(1e-5) in
-# 20 steps; 32 leaves half again as margin (PERF.md, section 6)
-FIXED_POINT_GRAPH_ITERATIONS = 32
 
 
 @contextlib.contextmanager
@@ -105,30 +102,74 @@ def _batch_dot(a, b):
                      dim=1)
 
 
-def _iterate(body, x, x_prev, tol):
-    """JAX's Banach loop (``residual.py:42-58``) from ``(x, x_prev)``:
-    ``x_prev, x <- x, body(x)`` while any element moves by
-    ``(x - x_prev)^2 >= tol`` and the count is at most 1000. Returns
-    ``(x, count, unconverged)``, the last two device scalars."""
-    def unsettled(a, b):
-        return torch.any((a - b) ** 2 / tol >= 1)
+def _moving(x, x_prev, tol):
+    """Whether any element still moves by ``(x - x_prev)^2 / tol >= 1``
+    (a device bool; a NaN compares false, as in JAX)."""
+    return torch.any((x - x_prev) ** 2 / tol >= 1)
 
-    capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
-    count = torch.zeros((), dtype=torch.int32, device=x.device)
-    done = ~unsettled(x, x_prev)
-    # ``done`` turns true by the count's cap at the latest, so the eager
-    # loop ends
-    while capturing or not bool(done):
-        for _ in range(FIXED_POINT_GRAPH_ITERATIONS if capturing
-                       else FIXED_POINT_CHECK_EVERY):
+
+def fixed_point_go(x, x_prev, tol, count):
+    """JAX's ``cond`` of the fixed-point ``while_loop`` (``residual.py:
+    47-50``, ``:86-89``): whether any element moves by ``(x - x_prev)^2 /
+    tol >= 1`` and ``count`` is at most 1000, as a device bool, with no
+    host read. A NaN element counts as settled; an empty batch stops at
+    once. Kernel F's plain version (``ops.fixed_point``)."""
+    return _moving(x, x_prev, tol) & (count <= FIXED_POINT_MAX_ITER)
+
+
+def _iterate(body, x, x_prev, tol, count):
+    """JAX's Banach loop (``residual.py:42-58``) from ``(x, x_prev)``:
+    ``x_prev, x <- x, body(x)`` while :func:`fixed_point_go`. Writes the
+    number of passes into ``count`` (a block's int32 buffer) and returns
+    ``(x, unconverged)``, the latter a device bool: stopped at the cap
+    still moving. Under a capture the loop is a WHILE node
+    (:func:`_iterate_captured`); it takes ``x`` as its own and writes it
+    in place."""
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        return _iterate_captured(body, x, x_prev, tol, count)
+    if x.is_cuda:
+        # a capture cannot load the library: the warm-up loads it
+        from ..ops import fixed_point
+
+        fixed_point.library()
+    c = torch.zeros((), dtype=torch.int32, device=x.device)
+    go = fixed_point_go(x, x_prev, tol, c)
+    # ``go`` turns false by the count's cap at the latest, so the loop ends
+    while bool(go):
+        for _ in range(FIXED_POINT_CHECK_EVERY):
             x_new = body(x)
-            x_prev = torch.where(done, x_prev, x)
-            x = torch.where(done, x, x_new)
-            count = count + (~done).to(count.dtype)
-            done = ~unsettled(x, x_prev) | (count > FIXED_POINT_MAX_ITER)
-        if capturing:
-            break
-    return x, count, unsettled(x, x_prev)
+            x_prev = torch.where(go, x, x_prev)
+            x = torch.where(go, x_new, x)
+            c = c + go.to(c.dtype)
+            go = fixed_point_go(x, x_prev, tol, c)
+    count.copy_(c)
+    return x, _moving(x, x_prev, tol)
+
+
+def _iterate_captured(body, x, x_prev, tol, count):
+    """:func:`_iterate` inside a CUDA-graph capture: a WHILE node whose
+    body is one step of JAX's body, then kernel F, which writes ``count``
+    and sets the node's condition; kernel F also tests before the node,
+    as JAX tests before its first pass. No masking: the loop stops where
+    JAX's stops."""
+    from .. import _graphs
+    from ..ops.fixed_point import fixed_point_cond
+
+    x = x.contiguous()
+    x_prev = x_prev.clone(memory_format=torch.contiguous_format)
+    tol = tol.contiguous()
+    state = torch.zeros(3, dtype=torch.int32, device=x.device)
+
+    def go(handle, after_pass):
+        fixed_point_cond(x, x_prev, tol, count, state, after_pass, handle)
+
+    def step():
+        t = body(x)
+        x_prev.copy_(x)
+        x.copy_(t)
+
+    _graphs.while_loop(go, step)
+    return x, _moving(x, x_prev, tol)
 
 
 class _FixedPointInverse(torch.autograd.Function):
@@ -141,9 +182,9 @@ class _FixedPointInverse(torch.autograd.Function):
     @staticmethod
     def forward(ctx, block, y, *params):
         tol = 1e-5 + torch.abs(y) * 1e-5
-        x, count, unconverged = _iterate(lambda x: y - block.nnet(x),
-                                         y - block.nnet(y), y, tol)
-        block.fixed_point_iterations.copy_(count)
+        x, unconverged = _iterate(lambda x: y - block.nnet(x),
+                                  y - block.nnet(y), y, tol,
+                                  block.fixed_point_iterations)
         block.fixed_point_unconverged.logical_or_(unconverged)
         ctx.block = block
         ctx.save_for_backward(x)
@@ -161,10 +202,22 @@ class _FixedPointInverse(torch.autograd.Function):
         def vjp_x(v):
             return torch.autograd.grad(g, x_, v, retain_graph=True)[0]
 
+        def vjp_in_pass(v):
+            # a loop body under capture records its own g from a leaf of
+            # its own: autograd runs each backward op on the stream of its
+            # forward op (and accumulates into a leaf on the stream the
+            # leaf was first used on), so a g or a leaf from outside the
+            # body would tie the body's stream to the parent graph's
+            with torch.enable_grad():
+                xb = x.detach().requires_grad_(True)
+                gb = block.nnet(xb)
+            return torch.autograd.grad(gb, xb, v)[0]
+
+        capturing = u.is_cuda and torch.cuda.is_current_stream_capturing()
+        vjp_pass = vjp_in_pass if capturing else vjp_x
         tol = 1e-6 + torch.abs(u) * 1e-6
-        v, count, unconverged = _iterate(lambda v: u - vjp_x(v),
-                                         u - vjp_x(u), u, tol)
-        block.vjp_iterations.copy_(count)
+        v, unconverged = _iterate(lambda v: u - vjp_pass(v), u - vjp_x(u),
+                                  u, tol, block.vjp_iterations)
         block.fixed_point_unconverged.logical_or_(unconverged)
         want = [p for p, need in zip(params, ctx.needs_input_grad[2:])
                 if need]
@@ -227,8 +280,9 @@ class iResBlock(nn.Module):
         self.n_dist = n_dist
         self.neumann_grad = neumann_grad
         self.grad_in_forward = grad_in_forward
-        # the fixed-point solves' last counts and a sticky flag set when
-        # one stopped unconverged (the module's notes)
+        # the fixed-point solves' last counts (written on the device) and
+        # a sticky flag set when one stopped at the cap still moving (the
+        # module's notes)
         for name, dt in (("fixed_point_iterations", torch.int32),
                          ("vjp_iterations", torch.int32),
                          ("fixed_point_unconverged", torch.bool)):
@@ -435,7 +489,8 @@ def set_exact_logdet(model, exact=True):
 def fixed_point_stats(model):
     """``[(iterations, implicit-VJP iterations, unconverged)]`` of every
     iResBlock of ``model``, in module order: the last fixed-point solves'
-    counts and the sticky flag (the module's notes). Reads the device."""
+    counts (a captured solve's as its last replay wrote them) and the
+    sticky flag (the module's notes). Reads the device."""
     blocks = [m for m in model.modules() if isinstance(m, iResBlock)]
     if not blocks:
         return []

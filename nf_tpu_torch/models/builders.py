@@ -202,9 +202,10 @@ def build_residual(dim=2, K=16, hidden=128, n_hidden_layers=3,
     checkpointed. Its ``log_prob`` / ``forward_kld`` take a ``generator``
     (or :func:`~nf_tpu_torch.flows.set_exact_logdet` for the exact 2D
     log-det); train it with ``make_forward_kld_step(with_key=True,
-    post_update=lambda m: update_lipschitz(m, n))``. No port kernel runs:
-    the flow is products, their vector-Jacobian products and elementwise
-    glue."""
+    post_update=lambda m: update_lipschitz(m, n))``. No spline kernel
+    runs: the flow is products, their vector-Jacobian products and
+    elementwise glue; under a CUDA graph each fixed point's condition is
+    kernel F (``ops.fixed_point``)."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     flows = []

@@ -9,6 +9,7 @@ from .splines import (
     unconstrained_rational_quadratic_spline,
     unconstrained_rational_quadratic_spline_kmajor,
 )
+from .fixed_point import fixed_point_cond
 from .splines_kernel import (
     fused_unconstrained_rqs,
     fused_unconstrained_rqs_kmajor,
@@ -16,8 +17,8 @@ from .splines_kernel import (
 )
 
 
-def _counted_wrappers():
-    """``{kernel: wrapper}`` for the five CUDA kernels, by the name of
+def _spline_wrappers():
+    """``{kernel: wrapper}`` for the five spline kernels, by the name of
     their source in ``csrc/``: kernel A ``rqs_fwd``, B ``head_rqs_fwd``, C
     ``rqs_bwd``, D ``rqs_bwd_autodiff``, E ``head_rqs_bwd``. Each wrapper
     adds one to its ``launches`` where it launches its kernel (C's
@@ -30,13 +31,23 @@ def _counted_wrappers():
             "rqs_bwd_autodiff": rqs_bwd_autodiff}
 
 
-# the ops of the five kernels (``torch.ops.nf_tpu_torch.<name>``), by the
+def _counted_wrappers():
+    """The five spline kernels' wrappers and kernel F's,
+    ``fixed_point_cond`` (the residual fixed point's loop condition)."""
+    from .fixed_point import fixed_point_cond
+
+    return dict(_spline_wrappers(), fixed_point_cond=fixed_point_cond)
+
+
+# the ops of the six kernels (``torch.ops.nf_tpu_torch.<name>``), by the
 # kernel each launches: A rqs_fwd, B head_rqs_fwd, C rqs_bwd and its
-# shared-parameter path rqs_bwd_shared, D rqs_bwd_autodiff, E head_rqs_bwd
+# shared-parameter path rqs_bwd_shared, D rqs_bwd_autodiff, E head_rqs_bwd,
+# F fixed_point_cond
 KERNEL_OPS = {"rqs_fwd": "rqs_fwd", "head_rqs_fwd": "head_rqs_fwd",
               "rqs_bwd": "rqs_bwd", "rqs_bwd_shared": "rqs_bwd",
               "rqs_bwd_autodiff": "rqs_bwd_autodiff",
-              "head_rqs_bwd": "head_rqs_bwd"}
+              "head_rqs_bwd": "head_rqs_bwd",
+              "fixed_point_cond": "fixed_point_cond"}
 
 
 @contextlib.contextmanager
@@ -59,7 +70,7 @@ def cpu_through_ops():
 
 
 def launch_counts():
-    """``{kernel: launches recorded so far}`` for the five CUDA kernels.
+    """``{kernel: launches recorded so far}`` for the six CUDA kernels.
     The counts are kept on the host: a CUDA graph records a launch once,
     at its capture, and its replays add nothing; a captured function
     carries the counts of its capture instead (``launches``)."""
@@ -68,13 +79,13 @@ def launch_counts():
 
 def bf16_launch_counts():
     """``{kernel: launches of its bfloat16 instantiation so far}`` for the
-    five kernels, kept as :func:`launch_counts` keeps its counts, which
-    include these; and ``rqs_bwd_shared``, those of kernel C's bfloat16
-    launches that took its shared-parameter path (counted in
+    five spline kernels, kept as :func:`launch_counts` keeps its counts,
+    which include these; and ``rqs_bwd_shared``, those of kernel C's
+    bfloat16 launches that took its shared-parameter path (counted in
     ``rqs_bwd``'s too)."""
     from .splines_kernel import rqs_bwd
 
-    out = {k: fn.bf16_launches for k, fn in _counted_wrappers().items()}
+    out = {k: fn.bf16_launches for k, fn in _spline_wrappers().items()}
     out["rqs_bwd_shared"] = rqs_bwd.shared_bf16_launches
     return out
 
@@ -97,6 +108,7 @@ __all__ = [
     "DEFAULT_MIN_DERIVATIVE",
     "bf16_launch_counts",
     "cpu_through_ops",
+    "fixed_point_cond",
     "fused_unconstrained_rqs",
     "fused_unconstrained_rqs_kmajor",
     "launch_counts",

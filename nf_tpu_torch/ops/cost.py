@@ -100,8 +100,15 @@ def head_rqs_bwd(x_t, h_t, w, b, tb, num_bins, circular, cty, ctl, inverse,
     return ops, nbytes
 
 
+def fixed_point_cond(x, x_prev, tol, count, state, bump, handle):
+    """Kernel F: a subtraction, a square and a division per element; the
+    three planes in, the count read and written, the state's three slots
+    written."""
+    return 3 * x.numel(), 3 * stored_bytes(x) + 2 * 4 + 3 * 4
+
+
 # op name -> its count
 COSTS = {"rqs_fwd": rqs_fwd, "rqs_bwd": rqs_bwd,
          "rqs_bwd_autodiff": rqs_bwd_autodiff,
          "rqs_bwd_shared": rqs_bwd_shared, "head_rqs_fwd": head_rqs_fwd,
-         "head_rqs_bwd": head_rqs_bwd}
+         "head_rqs_bwd": head_rqs_bwd, "fixed_point_cond": fixed_point_cond}

@@ -143,7 +143,8 @@ class _Run:
 def _loop(cfg, state, run, ckpt, start_step, log, generator=None):
     """Steps ``start_step .. cfg.iters - 1``: a log line every
     ``log_every`` steps and at the last, a checkpoint every
-    ``checkpoint_every`` steps and at the end (rank 0 writes them)."""
+    ``checkpoint_every`` steps, written while the next steps run, and one
+    at the end, waited for (rank 0 writes them)."""
     is_main = world()[0] == 0
     logger = MetricLogger(cfg.log_path) if cfg.log_path and is_main \
         else None
@@ -157,9 +158,11 @@ def _loop(cfg, state, run, ckpt, start_step, log, generator=None):
                 log(it, loss_f, rate, logger)
             if (ckpt is not None and is_main
                     and (it + 1) % cfg.checkpoint_every == 0):
-                ckpt.save(it + 1, state, generator=generator)
+                # the write overlaps the next steps (nf_tpu/train.py:209)
+                ckpt.save(it + 1, state, generator=generator, wait=False)
         if ckpt is not None and is_main:
             ckpt.save(cfg.iters, state, generator=generator)
+            ckpt.wait_until_finished()
     finally:
         if logger is not None:
             logger.close()

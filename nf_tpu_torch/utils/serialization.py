@@ -12,7 +12,10 @@ offers ``torch.save(state_dict)`` of a model's weights, ``core.py:
   package writes with orbax; the port's files are ``torch.save``'s, read
   back with ``weights_only=True``. A restore copies into the state's
   tensors in place, so a CUDA graph captured on them (a captured training
-  step) replays on the restored values.
+  step) replays on the restored values. ``save(..., wait=False)`` returns
+  once the state is copied to the host and writes on one worker thread,
+  as the JAX package's orbax saves overlap the next steps
+  (:meth:`CheckpointManager.wait_until_finished`).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import os
 import re
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -127,6 +131,9 @@ class CheckpointManager:
     def __init__(self, directory, max_to_keep=3):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = int(max_to_keep)
+        # one writer, so pending writes land in the order of their saves
+        self._writer = None
+        self._pending = []
         os.makedirs(self.directory, exist_ok=True)
         # a write that was cut left its temporary directory behind
         for name in os.listdir(self.directory):
@@ -152,11 +159,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step, state, generator=None):
+    def save(self, step, state, generator=None, wait=True):
         """Write ``state`` (a ``parallel.TrainState``) and, when given,
         ``generator``'s state as checkpoint ``step``; the oldest steps
         beyond ``max_to_keep`` are removed. Reads the device once, to copy
-        the tensors to the host."""
+        the tensors to the host: that copy is synchronous, so a captured
+        step replayed next, which rewrites the tensors in place, cannot
+        change what is written. ``wait=False`` returns after the copy and
+        leaves the write to the worker thread
+        (:meth:`wait_until_finished`); a write's error is raised by the
+        next ``save``, ``restore`` or ``wait_until_finished``."""
         payload = _to_cpu({
             "step": int(state.step),
             "model": state.model.state_dict(),
@@ -164,6 +176,17 @@ class CheckpointManager:
             "ema": None if state.ema is None else state.ema.state_dict(),
             "generator": None if generator is None
             else generator.get_state()})
+        if wait:
+            self.wait_until_finished()
+            self._write(step, payload)
+            return
+        self._reap()
+        if self._writer is None:
+            self._writer = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="checkpoint")
+        self._pending.append(self._writer.submit(self._write, step, payload))
+
+    def _write(self, step, payload):
         tmp = os.path.join(self.directory, f".tmp_step_{int(step)}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -175,12 +198,28 @@ class CheckpointManager:
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self._dir(old))
 
+    def _reap(self):
+        """Drop the finished writes, raising the first one's error."""
+        done = [f for f in self._pending if f.done()]
+        self._pending = [f for f in self._pending if not f.done()]
+        for f in done:
+            f.result()
+
+    def wait_until_finished(self):
+        """Block until every pending write is on disk (``orbax``'s
+        ``wait_until_finished``); raises a failed write's error."""
+        pending, self._pending = self._pending, []
+        for f in pending:
+            f.result()
+
     def restore(self, state, step=None, generator=None):
         """Load checkpoint ``step`` (None: the latest) into ``state`` and
         ``generator`` in place; returns ``(state, step)``, or ``(None,
         None)`` when there is no checkpoint. The parameters, buffers and
         the optimizer's state tensors keep their addresses when their
-        layout matches (a captured step goes on replaying on them)."""
+        layout matches (a captured step goes on replaying on them).
+        Waits for the pending writes first."""
+        self.wait_until_finished()
         if step is None:
             step = self.latest_step()
         if step is None:

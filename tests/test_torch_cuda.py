@@ -1064,8 +1064,8 @@ def test_captured_step_with_post_update_raises_on_a_loaded_optimizer_state(
 
 def test_residual_graphs_match_eager(cuda):
     """Under the exact 2D log-det: the captured ``log_prob`` against eager
-    and the sampler (its fixed point a masked fixed count) bitwise against
-    eager, every layer's fixed point converged within the count."""
+    and the sampler (each fixed point a WHILE node with kernel F) bitwise
+    against eager, no layer's flag set."""
     from nf_tpu_torch import flows as tflows
 
     model = tflows.set_exact_logdet(_residual(cuda))
@@ -1082,6 +1082,70 @@ def test_residual_graphs_match_eager(cuda):
     assert torch.equal(z, ze) and torch.equal(log_q, lqe)
     stats = tflows.fixed_point_stats(sampler._compiled.weights.model)
     assert len(stats) == 2 and not any(s[2] for s in stats)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [8, 131072])
+def test_kernel_f_matches_plain_on_edge_planes(cuda, n, dtype):
+    """Kernel F (the fixed-point loop's condition) against
+    ``fixed_point_go`` on every edge plane of ``chip_smoke.edge_planes``
+    (exact threshold, NaN, +-inf, counts 1000 and 1001, empty): the count
+    set and bumped, go, the state's reset slots; in float32 also JAX's
+    decision."""
+    cs = _chip_smoke()
+    assert cs.f_edge_cases(cuda, getattr(torch, dtype), n,
+                           np.random.default_rng(n)) == 0
+
+
+def test_kernel_f_at_the_exact_threshold(cuda):
+    """``chip_smoke.f_threshold_trials``: random full planes with one
+    element at ``d^2 / tol == 1`` and one ulp past it; each test is two
+    counted launches of F."""
+    cs = _chip_smoke()
+    before = tops.launch_counts()["fixed_point_cond"]
+    assert cs.f_threshold_trials(cuda, np.random.default_rng(5)) == 0
+    assert tops.launch_counts()["fixed_point_cond"] - before \
+        == 4 * cs.F_THRESHOLD_TRIALS
+
+
+def test_residual_sampler_graph_past_32_passes(cuda):
+    """``build_residual(lipschitz_const=0.99)`` with phase 18's
+    closed-form weights (``chip_smoke.stiff_residual_model``) at B =
+    4096: eager fixed points of over 32 passes, and the sampler graph
+    (WHILE nodes, kernel F, two launches per layer at its capture)
+    bitwise eager with the same counts per layer and no flag."""
+    cs = _chip_smoke()
+    model = cs.stiff_residual_model(cuda)
+    sampler = nt.compile_sampler(model, 4096)
+    assert sampler.launches["fixed_point_cond"] == 2 * cs.RES_STIFF_K
+    counts = cs.sampler_loop_check("stiff sampler", model, sampler, 4096, 3)
+    assert max(counts) > 32
+
+
+def test_captured_residual_reverse_step_matches_eager(cuda):
+    """The residual reverse-KLD step on TwoModes under the exact 2D
+    log-det (its fixed points and their implicit VJPs WHILE nodes): five
+    captured steps against five eager ones from twin generators, the loss
+    and the parameters within 1e-5, the same fixed-point and VJP counts
+    per layer, no flag."""
+    from nf_tpu_torch import flows as tflows
+
+    base = tflows.set_exact_logdet(_residual(cuda))
+    base.p = nt.TwoModes()
+    models = [copy.deepcopy(base) for _ in range(2)]
+    opts = [_adam(m) for m in models]
+    states = [nt.init_train_state(m, o) for m, o in zip(models, opts)]
+    gens = [torch.Generator("cuda").manual_seed(4) for _ in range(2)]
+    graphed = nt.make_reverse_kld_step(opts[0], 512)
+    eager = nt.make_reverse_kld_step(opts[1], 512).eager
+    for _ in range(5):
+        lg, le = graphed(states[0], gens[0]), eager(states[1], gens[1])
+        torch.testing.assert_close(lg, le, atol=STEP_TOL, rtol=0)
+    for a, b in zip(models[0].parameters(), models[1].parameters()):
+        torch.testing.assert_close(a, b, atol=STEP_TOL, rtol=0)
+    stats = [tflows.fixed_point_stats(m) for m in models]
+    assert stats[0] == stats[1] and not any(s[2] for s in stats[0])
+    assert graphed.launches["fixed_point_cond"] == 4 * 2
 
 
 def _chip_smoke():
@@ -1930,7 +1994,8 @@ def test_spline_ops_match_their_plain_twins_on_cuda(cuda, inverse):
         assert _max_err(a, b) <= SUM_TOL * max(float(b.abs().max()), 1.0)
     assert tops.launch_counts() == {"rqs_fwd": 1, "head_rqs_fwd": 0,
                                     "rqs_bwd": 2, "head_rqs_bwd": 0,
-                                    "rqs_bwd_autodiff": 1}
+                                    "rqs_bwd_autodiff": 1,
+                                    "fixed_point_cond": 0}
 
 
 def _max_err(a, b):
