@@ -65,26 +65,51 @@
 // count alone (ops/_build.py builds the three counts as three libraries,
 // in parallel); without it, for every supported count.
 //
-// Storage types. The kernel is a template on the storage type T of every
-// operand and output, float (head_rqs_bwd_launch) or __nv_bfloat16
-// (head_rqs_bwd_launch_bf16, the coupled layers built with
-// dtype=bfloat16): x_t, h_t, the cotangents, gx and gh move 2 bytes per
-// element in bfloat16. W_eff, the bias and the tail bound are widened as
-// they are loaded, gp and every sum stay float32, and each output is
-// rounded once. The gW/gb partials stay float32 too (gW sums B columns;
-// reduce_partials rounds the total once into T). gW's h_t chunks are
-// staged as T (16-byte copies of 8 columns at a row stride of 40, 80
-// bytes, where every row of h_t starts on 16 bytes; element loads
-// otherwise: cp.async has no 2-byte copy) and widened per 4 columns from
-// one 8-byte load (load4). A bfloat16 thread sums gh 8 rows at a time in
-// phase 4 (4 per column in the split phase), half the float32 kernel's,
-// so that no bfloat16 instantiation spills more than its float32 twin.
+// bfloat16 (head_rqs_bwd_launch_bf16: the coupled layers built with
+// dtype=bfloat16) has a kernel of its own, head_rqs_bwd_bf16_kernel below;
+// the template above serves float32 alone. Its bound on the H100: reading
+// h_t and writing gh, 2 bytes an element; its three products (~6 GFLOP at
+// H 512, K 10, B = 65536) run on the tensor cores in ~6 us against a byte
+// bound of 40 us. Design: a block of W = 8 warps (4 where the layout does
+// not fit in 227 KB: many features) owns 32 W columns of every feature, a
+// warp 32, a thread one (plan_bf16 picks W and the W_eff tile width;
+// ops/spline_head_fused.py kernel_e_bf16_plan is its twin, and raises
+// where no layout fits).
+//   0. W_eff's rows for every feature, [d*PM + p][j] (P padded to PM, a
+//      multiple of 16; H to 32) as bfloat16 by 16-byte cp.async copies,
+//      all of H where it fits, else in tiles staged again at the tile.
+//   1. Per feature: kernel B's head product, head_product_rows over the
+//      warp's ring of 3 chunks of h_t, in B's order and fragments, so the
+//      parameters are B's bit for bit; + bias, rqs_bwd_element; gx out. The
+//      float32 cotangents gp go to shared memory as two bfloat16 planes,
+//      gp_hi = bf16(gp) and gp_lo = bf16(gp - gp_hi) (split_bf16_pair): the
+//      products below see ~16 bits of gp, where JAX's bfloat16 scratch
+//      (spline_head_fused.py:258) holds 8. gb's share: a fixed xor-shuffle
+//      tree per warp, the warps in order.
+//   2. gh[:, warp's columns] = W_eff^T gp_hi + W_eff^T gp_lo, 16 rows of H
+//      at a time (W_eff^T and gp by ldmatrix.trans), summed in float32,
+//      rounded through the warp's scratch and stored in 16-byte pieces.
+//   3. gW = gp_hi h_t^T + gp_lo h_t^T over the block's columns, warp tiles
+//      of 16 head rows x 32 rows of H, from chunks of 8 W rows of h_t
+//      staged again (two buffers, the first in flight during 2): h_t is read
+//      twice at every H, the second time mostly from L2 (holding a block's
+//      h_t tile for gW measured slower: it halves the blocks an SM holds).
+// The gW/gb partials stay float32, one row per block, and reduce_partials
+// sums them in a fixed order and rounds once: two calls are bitwise equal.
+// What is left above the bound (PERF.md): gh's 2-byte stores and their
+// phase (dropping it saves 7 us at H 128, 38 at H 512), the second launch
+// and the partials it reads (4.6 / 13.6 us at 4 warps a block), the
+// flush's dirty lines. Tests: tests/test_torch_head_bf16_mma.py on the CPU
+// (the split, the planner); on the card python -m pytest --noconftest -p
+// no:cacheprovider tests/test_torch_cuda.py -k bf16, which holds gx, gh,
+// gW and gb against head_rqs_bwd_plain on the kernel's own head sums
+// (head_params_bf16.cu).
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
+#include "head_mma_bf16.cuh"
 #include "rqs_bwd_math.cuh"
 
 namespace {
@@ -96,7 +121,6 @@ constexpr int kG = 16;         // rows of gh a thread holds per step
 constexpr int kG2 = 8;         // the same for each of two columns
 constexpr int kChunk = 32;     // batch columns of h_t staged per gW step
 constexpr int kRowPad = 4;     // pad of an h_s row (stride 36 floats)
-constexpr int kRowPadBf16 = 8;  // the same in bfloat16 (stride 40, 80 bytes)
 constexpr int kMaxSharedBytes = 232448;  // what a block may opt into
 constexpr int kWarps = kThreads / 32;
 constexpr int kGpStride = kThreads + kColPad;
@@ -110,7 +134,7 @@ static_assert(kThreads / 2 == 128, "gw_sync's bar.sync counts 128 threads");
 // the gW product's reads free of bank conflicts and every row on 16 bytes
 template <class T>
 __host__ __device__ constexpr int h_stride() {
-  return kChunk + (sizeof(T) == 4 ? kRowPad : kRowPadBf16);
+  return kChunk + kRowPad;
 }
 
 __host__ __device__ constexpr int padded_params(int p) {
@@ -204,13 +228,9 @@ __device__ void gw_product(const float* gp, T* h_s, int nbuf,
       const bool in = bb < B;
       const T* src = h_t + (in ? bb : 0);
       for (int j = wi; j < H; j += NW) {
-        if constexpr (std::is_same<T, float>::value)
-          __pipeline_memcpy_async(buf + j * kHS + lane,
-                                  src + static_cast<long long>(j) * B, 4,
-                                  in ? 0 : 4);
-        else  // no 2-byte cp.async: a load (gw_sync publishes it)
-          buf[j * kHS + lane] =
-              in ? src[static_cast<long long>(j) * B] : nf::from_f32<T>(0.0f);
+        __pipeline_memcpy_async(buf + j * kHS + lane,
+                                src + static_cast<long long>(j) * B, 4,
+                                in ? 0 : 4);
       }
     }
     __pipeline_commit();
@@ -294,12 +314,9 @@ __global__ void __launch_bounds__(kThreads, 2) head_rqs_bwd_kernel(
   const int wrows = w_rows(H);
   const int ntiles = (H + kJ - 1) / kJ;
   // rows of gh a thread sums per step (phase 4, and each of the two columns
-  // of the split phase): bfloat16 takes half of float32's, which keeps every
-  // bfloat16 instantiation within its float32 twin's spills at the 128
-  // registers two blocks per SM allow (at kG, kG2 some spilled 4-8 bytes
-  // more, the conversions of its loads and stores taking a register or two)
-  constexpr int GS = std::is_same<T, float>::value ? kG : kG / 2;
-  constexpr int GS2 = std::is_same<T, float>::value ? kG2 : kG2 / 2;
+  // of the split phase)
+  constexpr int GS = kG;
+  constexpr int GS2 = kG2;
   extern __shared__ __align__(16) float smem[];
   float* gp = smem;                  // [gp_rows][kGpStride]
   float* w_s = gp + gp_rows(M) * kGpStride;  // [wrows][D][PP]
@@ -586,15 +603,17 @@ int launch(const T* x_t, long long x_rs, long long x_cs, const T* h_t,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The body of both C entry points: see head_rqs_bwd_launch.
-template <class T>
-int dispatch(const T* x_t, long long x_rs, long long x_cs, const T* h_t,
-             const T* w, const T* bias, const T* tb, const T* cty,
-             long long cty_rs, long long cty_cs, const T* ctl,
-             long long ctl_rs, long long ctl_cs, int D, long long B, int H,
-             int num_bins, int circular, int inverse, float edge,
-             float min_bin_width, float min_bin_height, float min_derivative,
-             T* gx, T* gh, T* gw, T* gb, float* partials, void* stream) {
+// The body of the float32 C entry point: see head_rqs_bwd_launch.
+int dispatch(const float* x_t, long long x_rs, long long x_cs,
+             const float* h_t, const float* w, const float* bias,
+             const float* tb, const float* cty, long long cty_rs,
+             long long cty_cs, const float* ctl, long long ctl_rs,
+             long long ctl_cs, int D, long long B, int H, int num_bins,
+             int circular, int inverse, float edge, float min_bin_width,
+             float min_bin_height, float min_derivative, float* gx,
+             float* gh, float* gw, float* gb, float* partials,
+             void* stream) {
+  using T = float;
   if (D == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int P = 2 * num_bins + (circular ? num_bins : num_bins - 1);
@@ -645,6 +664,507 @@ int dispatch(const T* x_t, long long x_rs, long long x_cs, const T* h_t,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- bfloat16: the tensor-core kernel ------------------------------------
+
+using nf::mma::bf16;
+constexpr int kStagesBf16 = 3;  // chunks of h_t in a warp's ring
+
+// A block of W warps (4 or 8) owns 32 W batch columns; gp's rows and the
+// gW chunks of h_t are 32 W columns and the pad wide, and a gW chunk holds
+// 8 W rows of H.
+__host__ __device__ constexpr int col_row_bf16(int warps) {
+  return 32 * warps + nf::mma::kPad;
+}
+__host__ __device__ constexpr int j_rows_bf16(int warps) { return 8 * warps; }
+
+// the region of h_t: the warps' rings (phase 1), then two chunks for gW
+__host__ __device__ constexpr size_t h_bytes_bf16(int warps) {
+  return sizeof(bf16) * warps * kStagesBf16 * nf::mma::kRK * nf::mma::kRowW >
+                 sizeof(bf16) * 2 * j_rows_bf16(warps) * col_row_bf16(warps)
+             ? sizeof(bf16) * warps * kStagesBf16 * nf::mma::kRK *
+                   nf::mma::kRowW
+             : sizeof(bf16) * 2 * j_rows_bf16(warps) * col_row_bf16(warps);
+}
+static_assert(kStagesBf16 * nf::mma::kRK * nf::mma::kRowW * 2 >= 32 * 17 * 4,
+              "a warp's ring holds its column scratch");
+static_assert(j_rows_bf16(4) * col_row_bf16(4) >= 4 * 16 * nf::mma::kRowW &&
+                  j_rows_bf16(8) * col_row_bf16(8) >= 8 * 16 * nf::mma::kRowW,
+              "a gW chunk buffer holds the warps' gh scratch");
+
+// How a block of the bfloat16 kernel lays out its shared memory for P
+// parameters per feature, D features and hidden width H: its warps (8
+// where they fit, else 4), the W_eff tile's width wj (all of H padded to
+// 32 where it fits) and the bytes; wj == 0: the shape does not fit.
+// ops/spline_head_fused.py kernel_e_bf16_plan is its twin.
+struct PlanBf16 {
+  int warps;
+  int wj;
+  size_t bytes;
+};
+
+__host__ __device__ inline PlanBf16 plan_bf16(int P, int D, int H) {
+  using nf::mma::kPad;
+  using nf::mma::kRK;
+  const int rows = D * nf::mma::param_rows(P);
+  const int hp = nf::mma::padded_hidden(H);
+  for (int warps = 8; warps >= 4; warps -= 4) {
+    // gp's two planes, h_t's region, the warps' gb shares
+    const size_t used =
+        sizeof(bf16) * 2 * static_cast<size_t>(rows) * col_row_bf16(warps) +
+        h_bytes_bf16(warps) +
+        sizeof(float) * warps * static_cast<size_t>(rows);
+    if (used >= static_cast<size_t>(kMaxSharedBytes)) continue;
+    const long long cols =
+        static_cast<long long>((kMaxSharedBytes - used) / (2 * rows)) - kPad;
+    int wj = static_cast<int>(cols < 0 ? 0 : cols / kRK * kRK);
+    if (wj > hp) wj = hp;
+    if (wj < kRK) continue;
+    return {warps, wj,
+            used + sizeof(bf16) * static_cast<size_t>(rows) * (wj + kPad)};
+  }
+  return {0, 0, 0};
+}
+
+// Kernel E in bfloat16. A block of W warps owns 32 W columns b0 + tid of
+// every feature, a warp 32 of them (head_mma_bf16.cuh); 128 registers a
+// thread, so that 4 blocks of 4 warps or 2 of 8 share an SM.
+template <int K, bool CIRCULAR, bool INVERSE, int W>
+__global__ void __launch_bounds__(32 * W, 16 / W) head_rqs_bwd_bf16_kernel(
+    const bf16* __restrict__ x_t, long long x_rs, long long x_cs,
+    const bf16* __restrict__ h_t, const bf16* __restrict__ w,
+    const bf16* __restrict__ bias, const bf16* __restrict__ tb,
+    const bf16* __restrict__ cty, long long cty_rs, long long cty_cs,
+    const bf16* __restrict__ ctl, long long ctl_rs, long long ctl_cs, int D,
+    long long B, int H, int wj, bool hquads, bool wquads, bool gquads,
+    float edge, float min_bin_width, float min_bin_height,
+    float min_derivative, bf16* __restrict__ gx, bf16* __restrict__ gh,
+    float* __restrict__ partials) {
+  using nf::mma::column_params;
+  using nf::mma::head_product_rows;
+  using nf::mma::kPad;
+  using nf::mma::kRK;
+  using nf::mma::kRowW;
+  using nf::mma::kWarpCols;
+  using nf::mma::ldsm_x4;
+  using nf::mma::ldsm_x4_t;
+  using nf::mma::mma_16816;
+  using nf::mma::padded_hidden;
+  using nf::mma::param_rows;
+  using nf::mma::split_bf16_pair;
+  using nf::mma::stage_h_warp;
+  using nf::mma::stage_w_rows;
+  using nf::mma::tile_f1;
+  using nf::mma::tile_f2;
+  constexpr int ND = CIRCULAR ? K : K - 1;
+  constexpr int P = 2 * K + ND;
+  constexpr int PM = param_rows(P);
+  constexpr int MT = PM / 16;
+  constexpr int kRing = kStagesBf16 * kRK * kRowW;  // one warp's ring
+  constexpr int kThreadsW = 32 * W;  // threads = batch columns of a block
+  constexpr int kColRow = col_row_bf16(W);
+  constexpr int kJRows = j_rows_bf16(W);
+  const int rows = D * PM;  // staged head rows, feature-major: d*PM + p
+  const int ws = wj + kPad;
+  const int hp = padded_hidden(H);
+  const int chunks = hp / kRK;
+  const int ntiles = (hp + wj - 1) / wj;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* w_s = reinterpret_cast<bf16*>(smem_raw);  // [rows][ws]
+  bf16* gp_hi = w_s + rows * ws;                  // [rows][kColRow]
+  bf16* gp_lo = gp_hi + rows * kColRow;           // [rows][kColRow]
+  bf16* h_s = gp_lo + rows * kColRow;  // rings, then two gW chunks
+  float* gbw = reinterpret_cast<float*>(
+      h_s + h_bytes_bf16(W) / sizeof(bf16));  // [warps][rows]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long b0 = static_cast<long long>(blockIdx.x) * kThreadsW;
+  const long long bw = b0 + warp * kWarpCols;
+  const long long b = b0 + tid;
+  const bool active = b < B;
+  const int MH = P * D * H;
+  float* out = partials + static_cast<long long>(blockIdx.x) * (MH + P * D);
+  bf16* ring_w = h_s + warp * kRing;
+
+  int staged = 0;  // the W_eff tile in w_s (the same on every thread)
+  auto ensure_tile = [&](int t) {
+    if (t == staged) return;
+    __syncthreads();
+    stage_w_rows(w_s, ws, w, D, 0, D, P, PM, H, t * wj, wj, wquads, tid,
+                 kThreadsW);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    staged = t;
+  };
+  // 0. W_eff's first tile (its own commit group, the oldest)
+  stage_w_rows(w_s, ws, w, D, 0, D, P, PM, H, 0, wj, wquads, tid,
+               kThreadsW);
+  __pipeline_commit();
+
+  // 1. per feature: the head product (kernel B's, bit for bit), + bias,
+  // the spline's backward; gx out, gp split into gp_hi / gp_lo, and the
+  // warp's share of gb
+  for (int d = 0; d < D; ++d) {
+    auto stage = [&](int s) {  // chunk s -> the warp's ring slot
+      if (s < chunks)
+        stage_h_warp(ring_w + (s % kStagesBf16) * (kRK * kRowW), kRowW, h_t,
+                     B, H, s * kRK, bw, hquads, lane);
+      __pipeline_commit();
+    };
+#pragma unroll
+    for (int s = 0; s < kStagesBf16 - 1; ++s) stage(s);
+    float acc[MT][4][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+    for (int s = 0; s < chunks; ++s) {
+      const int j0 = s * kRK;
+      ensure_tile(j0 / wj);
+      __pipeline_wait_prior(kStagesBf16 - 2);
+      if (d == 0 && s == 0)
+        __syncthreads();  // every thread's share of W_eff's first tile
+      else
+        __syncwarp();
+      stage(s + kStagesBf16 - 1);
+      head_product_rows<MT>(w_s + d * PM * ws + j0 % wj, ws,
+                            ring_w + (s % kStagesBf16) * (kRK * kRowW),
+                            kRowW, lane, acc);
+    }
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    float pv[PM];  // this lane's column, through the warp's drained ring
+    column_params<MT>(acc, reinterpret_cast<float*>(ring_w), lane, pv);
+    float c[PM];  // an inactive column keeps 0: no share in gW or gb
+#pragma unroll
+    for (int p = 0; p < PM; ++p) c[p] = 0.0f;
+    if (active) {
+      float uw[K], uh[K], ud[K + 1];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        uw[k] = pv[k] + nf::to_f32(bias[k * D + d]);
+        uh[k] = pv[K + k] + nf::to_f32(bias[(K + k) * D + d]);
+      }
+      if (CIRCULAR) {
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          ud[k] = pv[2 * K + k] + nf::to_f32(bias[(2 * K + k) * D + d]);
+        ud[K] = ud[0];
+      } else {
+        ud[0] = edge;
+        ud[K] = edge;
+#pragma unroll
+        for (int k = 0; k < K - 1; ++k)
+          ud[k + 1] = pv[2 * K + k] + nf::to_f32(bias[(2 * K + k) * D + d]);
+      }
+      float gxv, gwv[K], ghv[K], gdv[K + 1];
+      nf::rqs_bwd_element<K, INVERSE>(
+          nf::to_f32(x_t[d * x_rs + b * x_cs]), nf::to_f32(tb[d]), uw, uh,
+          ud, nf::to_f32(cty[d * cty_rs + b * cty_cs]),
+          nf::to_f32(ctl[d * ctl_rs + b * ctl_cs]), min_bin_width,
+          min_bin_height, min_derivative, gxv, gwv, ghv, gdv);
+      gx[d * B + b] = nf::from_f32<bf16>(gxv);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        c[k] = gwv[k];
+        c[K + k] = ghv[k];
+      }
+      if (CIRCULAR) {
+        c[2 * K] = gdv[0] + gdv[K];
+#pragma unroll
+        for (int k = 1; k < K; ++k) c[2 * K + k] = gdv[k];
+      } else {
+#pragma unroll
+        for (int k = 0; k < K - 1; ++k) c[2 * K + k] = gdv[k + 1];
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < PM; ++p) {
+      bf16 hi, lo;
+      split_bf16_pair(c[p], hi, lo);
+      gp_hi[(d * PM + p) * kColRow + tid] = hi;
+      gp_lo[(d * PM + p) * kColRow + tid] = lo;
+    }
+    // the warp's share of gb: a fixed xor-shuffle tree over its columns
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      float v = c[p];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) gbw[warp * rows + d * PM + p] = v;
+    }
+  }
+  __syncthreads();  // gp and gb's shares are in place; the rings are free
+
+  // 2. this block's share of gb: the warps' shares in order
+  for (int m = tid; m < P * D; m += kThreadsW) {
+    const int r = (m % D) * PM + m / D;  // head row m = p*D + d
+    float v = gbw[r];
+#pragma unroll
+    for (int i = 1; i < W; ++i) v += gbw[i * rows + r];
+    out[MH + m] = v;
+  }
+
+  // 4's chunks of h_t, staged again (two buffers over the rings): the
+  // first in flight during 3
+  const int nchunks = (hp + kJRows - 1) / kJRows;
+  auto stage_chunk = [&](int c) {  // rows [c kJRows, +kJRows) -> buffer c % 2
+    if (c < nchunks) {
+      bf16* buf = h_s + (c & 1) * (kJRows * kColRow) + warp * kWarpCols;
+      for (int r = 0; r < kJRows; r += kRK)
+        stage_h_warp(buf + r * kColRow, kColRow, h_t, B, H, c * kJRows + r,
+                     bw, hquads, lane);
+    }
+    __pipeline_commit();
+  };
+  stage_chunk(0);
+
+  // 3. gh[:, warp's columns] = W_eff^T (gp_hi + gp_lo), 16 rows of H at a
+  // time (A: W_eff^T by ldmatrix.trans; B: gp by ldmatrix.trans), each
+  // 16 x 32 tile rounded into the warp's scratch (in chunk buffer 1, not
+  // yet staged) and stored as 16-byte pieces of rows
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  bf16* stg = h_s + kJRows * kColRow + warp * (16 * kRowW);  // [16][kRowW]
+  // one k16 step of the 16 x 32 tile: acc += A (hi + lo)
+  auto gh_step = [&](float (&acc)[4][4], const uint32_t (&a)[4],
+                     const uint32_t (&bh)[2][4], const uint32_t (&bl)[2][4]) {
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {
+      mma_16816(acc[2 * n2], a, bh[n2][0], bh[n2][1]);
+      mma_16816(acc[2 * n2], a, bl[n2][0], bl[n2][1]);
+      mma_16816(acc[2 * n2 + 1], a, bh[n2][2], bh[n2][3]);
+      mma_16816(acc[2 * n2 + 1], a, bl[n2][2], bl[n2][3]);
+    }
+  };
+  auto gp_frags = [&](int k, uint32_t (&bh)[2][4], uint32_t (&bl)[2][4]) {
+    const int go = k * kColRow + warp * kWarpCols + tile_f1(lane, kColRow);
+    ldsm_x4_t(bh[0], gp_hi + go);
+    ldsm_x4_t(bh[1], gp_hi + go + 16);
+    ldsm_x4_t(bl[0], gp_lo + go);
+    ldsm_x4_t(bl[1], gp_lo + go + 16);
+  };
+  // the warp's gp fragments are the same for every row of H: with at most
+  // two k16 steps of head rows (one feature, or two at PM 16) they stay in
+  // registers, and a tile loads only W_eff^T
+  const bool hoist = rows <= 32;
+  uint32_t hh[2][2][4], hl[2][2][4];
+  if (hoist) {
+    gp_frags(0, hh[0], hl[0]);
+    if (rows > 16) gp_frags(16, hh[1], hl[1]);
+  }
+  for (int t = ntiles - 1; t >= 0; --t) {  // the staged tile first
+    ensure_tile(t);
+    const int jt_end = min(t * wj + wj, H);
+    for (int jt = t * wj; jt < jt_end; jt += 16) {
+      float acc[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][i] = 0.0f;
+      const bf16* wt = w_s + (jt - t * wj) + tile_f2(lane, ws);
+      if (hoist) {
+        uint32_t a[4];
+        ldsm_x4_t(a, wt);
+        gh_step(acc, a, hh[0], hl[0]);
+        if (rows > 16) {
+          ldsm_x4_t(a, wt + 16 * ws);
+          gh_step(acc, a, hh[1], hl[1]);
+        }
+      } else {
+        for (int k = 0; k < rows; k += 16) {
+          uint32_t a[4], bh[2][4], bl[2][4];
+          ldsm_x4_t(a, wt + k * ws);
+          gp_frags(k, bh, bl);
+          gh_step(acc, a, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<__nv_bfloat162*>(
+              stg + (g + 8 * half) * kRowW + 8 * nt + 2 * tq) =
+              __floats2bfloat162_rn(acc[nt][2 * half], acc[nt][2 * half + 1]);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // 16 rows x 4 pieces of 8 columns
+        const int e = i * 32 + lane;
+        const int j = jt + (e >> 2);
+        const int c = (e & 3) * 8;
+        const bf16* src = stg + (e >> 2) * kRowW + c;
+        if (j >= H) continue;
+        bf16* dst = gh + static_cast<long long>(j) * B + bw + c;
+        if (gquads && bw + c + 8 <= B) {
+          *reinterpret_cast<uint4*>(dst) =
+              *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int q = 0; q < 8 && bw + c + q < B; ++q) dst[q] = src[q];
+        }
+      }
+      __syncwarp();
+    }
+  }
+
+  // 4. this block's share of gW = (gp_hi + gp_lo) h_t^T over its columns:
+  // warp tiles of 16 head rows x 32 rows of H (A: gp by ldmatrix; B: the
+  // chunk [j][column] by ldmatrix), chunk by chunk, the next in flight
+  const int mtiles = rows / 16;
+  for (int c = 0; c < nchunks; ++c) {
+    __syncthreads();  // chunk c - 1's readers (3's scratch at c == 0)
+    stage_chunk(c + 1);
+    __pipeline_wait_prior(1);
+    __syncthreads();  // chunk c is in place
+    const bf16* hb = h_s + (c & 1) * (kJRows * kColRow);
+    for (int it = warp; it < mtiles * (kJRows / 32); it += W) {
+      const int m0 = (it % mtiles) * 16;
+      const int n0 = (it / mtiles) * 32;
+      float acc[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][i] = 0.0f;
+#pragma unroll 2
+      for (int k = 0; k < kThreadsW; k += 16) {
+        uint32_t ah[4], al[4], bq[2][4];
+        ldsm_x4(ah, gp_hi + m0 * kColRow + k + tile_f1(lane, kColRow));
+        ldsm_x4(al, gp_lo + m0 * kColRow + k + tile_f1(lane, kColRow));
+        ldsm_x4(bq[0], hb + n0 * kColRow + k + tile_f2(lane, kColRow));
+        ldsm_x4(bq[1], hb + (n0 + 16) * kColRow + k + tile_f2(lane, kColRow));
+#pragma unroll
+        for (int n2 = 0; n2 < 2; ++n2) {
+          mma_16816(acc[2 * n2], ah, bq[n2][0], bq[n2][1]);
+          mma_16816(acc[2 * n2], al, bq[n2][0], bq[n2][1]);
+          mma_16816(acc[2 * n2 + 1], ah, bq[n2][2], bq[n2][3]);
+          mma_16816(acc[2 * n2 + 1], al, bq[n2][2], bq[n2][3]);
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + g + 8 * half;  // staged row d*PM + p
+        const int p = r % PM;
+        if (p >= P) continue;
+        float* orow = out + static_cast<long long>(p * D + r / PM) * H;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int j = c * kJRows + n0 + 8 * nt + 2 * tq;
+          if (j < H) orow[j] = acc[nt][2 * half];
+          if (j + 1 < H) orow[j + 1] = acc[nt][2 * half + 1];
+        }
+      }
+    }
+  }
+}
+
+template <int K, bool CIRCULAR, bool INVERSE, int W>
+int launch_bf16_w(const bf16* x_t, long long x_rs, long long x_cs,
+                  const bf16* h_t, const bf16* w, const bf16* bias,
+                  const bf16* tb, const bf16* cty, long long cty_rs,
+                  long long cty_cs, const bf16* ctl, long long ctl_rs,
+                  long long ctl_cs, int D, long long B, int H, float edge,
+                  float mbw, float mbh, float md, bf16* gx, bf16* gh,
+                  float* partials, const PlanBf16& plan,
+                  cudaStream_t stream) {
+  auto kernel = head_rqs_bwd_bf16_kernel<K, CIRCULAR, INVERSE, W>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(plan.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = static_cast<unsigned>((B + 32 * W - 1) / (32 * W));
+  const bool hquads =
+      B % 8 == 0 && reinterpret_cast<std::uintptr_t>(h_t) % 16 == 0;
+  const bool wquads =
+      H % 8 == 0 && reinterpret_cast<std::uintptr_t>(w) % 16 == 0;
+  const bool gquads =
+      B % 8 == 0 && reinterpret_cast<std::uintptr_t>(gh) % 16 == 0;
+  kernel<<<blocks, 32 * W, plan.bytes, stream>>>(
+      x_t, x_rs, x_cs, h_t, w, bias, tb, cty, cty_rs, cty_cs, ctl, ctl_rs,
+      ctl_cs, D, B, H, plan.wj, hquads, wquads, gquads, edge, mbw, mbh, md,
+      gx, gh, partials);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int K, bool CIRCULAR, bool INVERSE>
+int launch_bf16(const bf16* x_t, long long x_rs, long long x_cs,
+                const bf16* h_t, const bf16* w, const bf16* bias,
+                const bf16* tb, const bf16* cty, long long cty_rs,
+                long long cty_cs, const bf16* ctl, long long ctl_rs,
+                long long ctl_cs, int D, long long B, int H, float edge,
+                float mbw, float mbh, float md, bf16* gx, bf16* gh,
+                float* partials, const PlanBf16& plan, cudaStream_t stream) {
+  return (plan.warps == 8 ? launch_bf16_w<K, CIRCULAR, INVERSE, 8>
+                          : launch_bf16_w<K, CIRCULAR, INVERSE, 4>)(
+      x_t, x_rs, x_cs, h_t, w, bias, tb, cty, cty_rs, cty_cs, ctl, ctl_rs,
+      ctl_cs, D, B, H, edge, mbw, mbh, md, gx, gh, partials, plan, stream);
+}
+
+// The body of the bfloat16 C entry point: see head_rqs_bwd_launch_bf16.
+int dispatch_bf16(const bf16* x_t, long long x_rs, long long x_cs,
+                  const bf16* h_t, const bf16* w, const bf16* bias,
+                  const bf16* tb, const bf16* cty, long long cty_rs,
+                  long long cty_cs, const bf16* ctl, long long ctl_rs,
+                  long long ctl_cs, int D, long long B, int H, int num_bins,
+                  int circular, int inverse, float edge, float min_bin_width,
+                  float min_bin_height, float min_derivative, bf16* gx,
+                  bf16* gh, bf16* gw, bf16* gb, float* partials,
+                  void* stream) {
+  if (D == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int P = 2 * num_bins + (circular ? num_bins : num_bins - 1);
+  const int M = P * D;
+  const PlanBf16 plan = plan_bf16(P, D, H);
+  if (plan.wj == 0) return -2;
+  const int blocks =
+      static_cast<int>((B + 32 * plan.warps - 1) / (32 * plan.warps));
+  if (B == 0) {
+    // no columns: every gradient of the head is zero
+    cudaMemsetAsync(gw, 0, sizeof(bf16) * M * H, st);
+    cudaMemsetAsync(gb, 0, sizeof(bf16) * M, st);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int err = 0;
+#define NF_HEAD_BWD_LAUNCH(KK, CC, II)                                      \
+  err = launch_bf16<KK, CC, II>(                                            \
+      x_t, x_rs, x_cs, h_t, w, bias, tb, cty, cty_rs, cty_cs, ctl, ctl_rs,  \
+      ctl_cs, D, B, H, edge, min_bin_width, min_bin_height, min_derivative, \
+      gx, gh, partials, plan, st)
+#define NF_HEAD_BWD_CASE(KK)                                                \
+  case KK:                                                                  \
+    if (circular) {                                                         \
+      if (inverse) NF_HEAD_BWD_LAUNCH(KK, true, true);                      \
+      else NF_HEAD_BWD_LAUNCH(KK, true, false);                             \
+    } else {                                                                \
+      if (inverse) NF_HEAD_BWD_LAUNCH(KK, false, true);                     \
+      else NF_HEAD_BWD_LAUNCH(KK, false, false);                            \
+    }                                                                       \
+    break;
+  switch (num_bins) {
+#if !defined(NF_BINS) || NF_BINS == 4
+    NF_HEAD_BWD_CASE(4)
+#endif
+#if !defined(NF_BINS) || NF_BINS == 8
+    NF_HEAD_BWD_CASE(8)
+#endif
+#if !defined(NF_BINS) || NF_BINS == 10
+    NF_HEAD_BWD_CASE(10)
+#endif
+    default:
+      return -1;
+  }
+#undef NF_HEAD_BWD_CASE
+#undef NF_HEAD_BWD_LAUNCH
+  if (err != 0) return err;
+  const int width = M * H + M;
+  reduce_partials<bf16><<<(width + 31) / 32, dim3(32, 32), 0, st>>>(
+      partials, blocks, M * H, M, gw, gb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C interface for ctypes. x_t, cty, ctl (D, B) with their (row, column)
@@ -664,11 +1184,10 @@ extern "C" int head_rqs_bwd_launch(
     int inverse, float edge, float min_bin_width, float min_bin_height,
     float min_derivative, float* gx, float* gh, float* gw, float* gb,
     float* partials, void* stream) {
-  return dispatch<float>(x_t, x_rs, x_cs, h_t, w, bias, tb, cty, cty_rs,
-                         cty_cs, ctl, ctl_rs, ctl_cs, D, B, H, num_bins,
-                         circular, inverse, edge, min_bin_width,
-                         min_bin_height, min_derivative, gx, gh, gw, gb,
-                         partials, stream);
+  return dispatch(x_t, x_rs, x_cs, h_t, w, bias, tb, cty, cty_rs, cty_cs,
+                  ctl, ctl_rs, ctl_cs, D, B, H, num_bins, circular, inverse,
+                  edge, min_bin_width, min_bin_height, min_derivative, gx,
+                  gh, gw, gb, partials, stream);
 }
 
 // The same with every operand and output in bfloat16; the partials stay
@@ -683,10 +1202,9 @@ extern "C" int head_rqs_bwd_launch_bf16(
     float min_bin_width, float min_bin_height, float min_derivative,
     __nv_bfloat16* gx, __nv_bfloat16* gh, __nv_bfloat16* gw,
     __nv_bfloat16* gb, float* partials, void* stream) {
-  return dispatch<__nv_bfloat16>(x_t, x_rs, x_cs, h_t, w, bias, tb, cty,
-                                 cty_rs, cty_cs, ctl, ctl_rs, ctl_cs, D, B,
-                                 H, num_bins, circular, inverse, edge,
-                                 min_bin_width, min_bin_height,
-                                 min_derivative, gx, gh, gw, gb, partials,
-                                 stream);
+  return dispatch_bf16(x_t, x_rs, x_cs, h_t, w, bias, tb, cty, cty_rs,
+                       cty_cs, ctl, ctl_rs, ctl_cs, D, B, H, num_bins,
+                       circular, inverse, edge, min_bin_width,
+                       min_bin_height, min_derivative, gx, gh, gw, gb,
+                       partials, stream);
 }

@@ -52,25 +52,44 @@
 // spline at the end and the part of the product that the loads do not
 // hide are latency-bound at the ~8 warps per SM that B = 65536 gives.
 //
-// Storage types. The kernel is a template on the storage type T of every
-// operand and output, float (head_rqs_fwd_launch) or __nv_bfloat16
-// (head_rqs_fwd_launch_bf16, the coupled layers built with
-// dtype=bfloat16). In bfloat16, x_t, h_t, y and ld move 2 bytes per
-// element: h_t's ring holds bfloat16 (16-byte copies of 8 columns when B
-// is a multiple of 8 and h_t starts on 16 bytes, else element loads), and
-// a thread widens its 4 columns from one 8-byte load (load4). W_eff, the
-// bias and the tail bound are widened as they are staged (element loads:
-// cp.async has no 2-byte copy), so W_eff's tiles stay float32 in shared
-// memory. The product and the spline are the float32 kernel's, and y and
-// ld are rounded once. At H = 128, K = 8 a column then moves 256 bytes of
-// h_t against 5888 flops, ~23 flop/byte: past the f32 CUDA-core ridge, so
-// the bfloat16 kernel's bound is its arithmetic.
+// bfloat16 (head_rqs_fwd_launch_bf16: the coupled layers built with
+// dtype=bfloat16) has a kernel of its own, head_rqs_fwd_bf16_kernel below;
+// the template above serves float32 alone. Its bound on the H100: h_t
+// moves 2 bytes an element and the product runs on the tensor cores (at
+// H 512, K 10 its 2.1 GFLOP take ~2 us at 989 TFLOP/s, against 20 us to
+// read h_t), so reading h_t bounds it. Design: a block of 4 warps owns 128
+// columns of one feature, a warp 32, a thread one.
+//   0. The feature's W_eff rows (P padded with zeros to PM, a multiple of
+//      16; H to a multiple of 32) are staged as bfloat16 by 16-byte
+//      cp.async copies (element loads where H % 8 != 0), up to
+//      kMaxTileCols = 256 columns of H at a time: at H 512 two tiles, so a
+//      block takes 47 KB, four share an SM and B = 65536 is one wave.
+//   1. Each warp streams its 32 columns of h_t through a ring of 3 chunks
+//      of 32 rows, by 16-byte cp.async copies where B % 8 == 0 (else
+//      element loads); rows of 80 bytes keep ldmatrix free of bank
+//      conflicts. No operand is widened in shared memory.
+//   2. head_mma_bf16.cuh's head_product_rows, chunk by chunk:
+//      mma.sync.m16n8k16 bf16 x bf16 -> f32, W_eff by ldmatrix, h_t by
+//      ldmatrix.trans. Kernel E's recompute calls the same function in the
+//      same order, so it differentiates these very parameters.
+//   3. column_params hands each lane its column's PM sums (through the
+//      drained ring); + bias in float32, the spline of rqs_math.cuh, y and
+//      ld rounded once.
+// The tensor cores round each k16 step their own way, so the sums are not
+// torch.matmul's: tests/test_torch_cuda.py holds y and ld against the
+// plain version on the kernel's own sums (head_params_bf16.cu), and the
+// sums against float64's. What is left above the bound (PERF.md): the
+// write-back of the dirty lines the timing's L2 flush leaves (reading h_t
+// evicts as many bytes) and the launch floor; dropping the product or the
+// spline saves 0.6-1.8 us each. Tests: tests/test_torch_head_bf16_mma.py
+// on the CPU; on the card, python -m pytest --noconftest -p no:cacheprovider
+// tests/test_torch_cuda.py -k bf16.
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
+#include "head_mma_bf16.cuh"
 #include "rqs_math.cuh"
 
 namespace {
@@ -127,7 +146,6 @@ __global__ void __launch_bounds__(kThreads, 3) head_rqs_fwd_kernel(
     long long B, int H, bool quads, float edge, float min_bin_width,
     float min_bin_height, float min_derivative, T* __restrict__ y,
     T* __restrict__ ld) {
-  constexpr bool F32 = std::is_same<T, float>::value;
   constexpr int ND = CIRCULAR ? K : K - 1;
   constexpr int P = 2 * K + ND;
   constexpr int PP = padded_params(P);
@@ -159,9 +177,7 @@ __global__ void __launch_bounds__(kThreads, 3) head_rqs_fwd_kernel(
 
   // 0. W_eff columns [j0, j0 + kJ) of feature d -> tile buffer (j0 / kJ)
   // % 2, zero past H and P. Thread tid copies column j0 + tid: the reads
-  // of a row coalesce. In bfloat16 each element is loaded and widened (the
-  // block barrier at the tile's first stage publishes it, as it publishes
-  // the float32 copies).
+  // of a row coalesce.
   auto stage_w = [&](int j0) {
     float* dst = w_s + ((j0 / kJ) & 1) * (kJ * PP) + tid * PP;
     const bool col = j0 + tid < H;
@@ -170,10 +186,7 @@ __global__ void __launch_bounds__(kThreads, 3) head_rqs_fwd_kernel(
       const bool in = col && p < P;
       const T* src =
           w + (in ? static_cast<long long>(p * D + d) * H + j0 + tid : 0);
-      if constexpr (F32)
-        __pipeline_memcpy_async(dst + p, src, 4, in ? 0 : 4);
-      else
-        dst[p] = in ? nf::to_f32(*src) : 0.0f;
+      __pipeline_memcpy_async(dst + p, src, 4, in ? 0 : 4);
     }
   };
   // 1. rows [s*kR, s*kR + kR) of the warp's columns of h_t -> its ring
@@ -209,11 +222,8 @@ __global__ void __launch_bounds__(kThreads, 3) head_rqs_fwd_kernel(
           const bool in = j + r < H && bw + c < B;
           const T* src =
               h_t + (in ? static_cast<long long>(j + r) * B + bw + c : 0);
-          if constexpr (F32)
-            __pipeline_memcpy_async(dst + r * kWarpCols + c, src, 4,
-                                    in ? 0 : 4);
-          else  // no 2-byte cp.async: a load (the warp barrier publishes it)
-            dst[r * kWarpCols + c] = in ? *src : nf::from_f32<T>(0.0f);
+          __pipeline_memcpy_async(dst + r * kWarpCols + c, src, 4,
+                                  in ? 0 : 4);
         }
       }
       if (j % kJ == 0) stage_w(j);
@@ -230,10 +240,7 @@ __global__ void __launch_bounds__(kThreads, 3) head_rqs_fwd_kernel(
   if (tid < PP) {  // the bias, with the first stage
     const bool in = tid < P;
     const T* src = bias + (in ? tid * D + d : 0);
-    if constexpr (F32)
-      __pipeline_memcpy_async(b_s + tid, src, 4, in ? 0 : 4);
-    else
-      b_s[tid] = in ? nf::to_f32(*src) : 0.0f;
+    __pipeline_memcpy_async(b_s + tid, src, 4, in ? 0 : 4);
   }
 #pragma unroll
   for (int s = 0; s < kS - 1; ++s) stage_h(s);
@@ -335,19 +342,223 @@ int launch(const T* x_t, long long x_rs, long long x_cs, const T* h_t,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The body of both C entry points: see head_rqs_fwd_launch.
-template <class T>
-int dispatch(const T* x_t, long long x_rs, long long x_cs, const T* h_t,
-             const T* w, const T* bias, const T* tb, int D, long long B,
-             int H, int num_bins, int circular, int inverse, float edge,
-             float min_bin_width, float min_bin_height, float min_derivative,
-             T* y, T* ld, void* stream) {
+// The body of the float32 C entry point: see head_rqs_fwd_launch.
+int dispatch(const float* x_t, long long x_rs, long long x_cs,
+             const float* h_t, const float* w, const float* bias,
+             const float* tb, int D, long long B, int H, int num_bins,
+             int circular, int inverse, float edge, float min_bin_width,
+             float min_bin_height, float min_derivative, float* y,
+             float* ld, void* stream) {
   if (B == 0 || D == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NF_HEAD_LAUNCH(KK, CC, II)                                          \
-  return launch<T, KK, CC, II>(x_t, x_rs, x_cs, h_t, w, bias, tb, D, B, H,  \
-                               edge, min_bin_width, min_bin_height,         \
-                               min_derivative, y, ld, st)
+  return launch<float, KK, CC, II>(x_t, x_rs, x_cs, h_t, w, bias, tb, D, B, \
+                                   H, edge, min_bin_width, min_bin_height,  \
+                                   min_derivative, y, ld, st)
+#define NF_HEAD_CASE(KK)                                                    \
+  case KK:                                                                  \
+    if (circular) {                                                         \
+      if (inverse) NF_HEAD_LAUNCH(KK, true, true);                          \
+      NF_HEAD_LAUNCH(KK, true, false);                                      \
+    }                                                                       \
+    if (inverse) NF_HEAD_LAUNCH(KK, false, true);                           \
+    NF_HEAD_LAUNCH(KK, false, false);
+  switch (num_bins) {
+    NF_HEAD_CASE(4)
+    NF_HEAD_CASE(8)
+    NF_HEAD_CASE(10)
+  }
+#undef NF_HEAD_CASE
+#undef NF_HEAD_LAUNCH
+  return -1;
+}
+
+// ---- bfloat16: the tensor-core kernel ------------------------------------
+
+using nf::mma::bf16;
+constexpr int kThreadsBf16 = 128;  // 4 warps of 32 columns; one per thread
+constexpr int kStagesBf16 = 3;     // chunks of h_t in a warp's ring
+constexpr int kMaxTileCols = 256;  // columns of H per staged W_eff tile
+static_assert(kThreadsBf16 == 4 * nf::mma::kWarpCols, "a warp's columns");
+
+// W_eff's tile width: all of H (padded) up to kMaxTileCols
+__host__ __device__ inline int tile_cols_bf16(int H) {
+  const int hp = nf::mma::padded_hidden(H);
+  return hp < kMaxTileCols ? hp : kMaxTileCols;
+}
+
+// dynamic shared memory: the warps' rings (their column scratch after the
+// product), the W_eff tile, the bias (float32)
+__host__ __device__ inline size_t shared_bytes_bf16(int pm, int wj) {
+  return sizeof(bf16) * (static_cast<size_t>(kThreadsBf16 / 32) *
+                             kStagesBf16 * nf::mma::kRK * nf::mma::kRowW +
+                         static_cast<size_t>(pm) * (wj + nf::mma::kPad)) +
+         sizeof(float) * pm;
+}
+
+template <int K, bool CIRCULAR, bool INVERSE>
+__global__ void __launch_bounds__(kThreadsBf16, 4) head_rqs_fwd_bf16_kernel(
+    const bf16* __restrict__ x_t, long long x_rs, long long x_cs,
+    const bf16* __restrict__ h_t, const bf16* __restrict__ w,
+    const bf16* __restrict__ bias, const bf16* __restrict__ tb, int D,
+    long long B, int H, int wj, bool hquads, bool wquads, float edge,
+    float min_bin_width, float min_bin_height, float min_derivative,
+    bf16* __restrict__ y, bf16* __restrict__ ld) {
+  // block-scope names of head_mma_bf16.cuh: they hide this file's float32
+  // layout (kWarpCols there is 64)
+  using nf::mma::column_params;
+  using nf::mma::head_product_rows;
+  using nf::mma::kPad;
+  using nf::mma::kRK;
+  using nf::mma::kRowW;
+  using nf::mma::kWarpCols;
+  using nf::mma::padded_hidden;
+  using nf::mma::param_rows;
+  using nf::mma::stage_h_warp;
+  using nf::mma::stage_w_rows;
+  constexpr int ND = CIRCULAR ? K : K - 1;
+  constexpr int P = 2 * K + ND;
+  constexpr int PM = param_rows(P);
+  constexpr int MT = PM / 16;
+  constexpr int kRing = kStagesBf16 * kRK * kRowW;  // one warp's ring
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [warps][kRing]
+  bf16* w_s = ring + (kThreadsBf16 / 32) * kRing;  // [PM][wj + kPad]
+  float* b_s = reinterpret_cast<float*>(w_s + PM * (wj + kPad));  // [PM]
+  const int ws = wj + kPad;
+
+  const int d = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long bw =
+      static_cast<long long>(blockIdx.x) * kThreadsBf16 + warp * kWarpCols;
+  const long long b = bw + lane;
+  bf16* ring_w = ring + warp * kRing;
+  const int chunks = padded_hidden(H) / kRK;
+
+  // 0. W_eff's first tile (its own commit group, the oldest)
+  stage_w_rows(w_s, ws, w, D, d, 1, P, PM, H, 0, wj, wquads, tid,
+               kThreadsBf16);
+  __pipeline_commit();
+  // 1. chunk s of the warp's columns of h_t -> ring slot s % kStagesBf16;
+  // one commit per call, empty past H
+  auto stage = [&](int s) {
+    if (s < chunks)
+      stage_h_warp(ring_w + (s % kStagesBf16) * (kRK * kRowW), kRowW, h_t, B,
+                   H, s * kRK, bw, hquads, lane);
+    __pipeline_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kStagesBf16 - 1; ++s) stage(s);
+  // the spline's operands (a column past B reads column B - 1 and stores
+  // nothing) and the bias, while the copies are in flight
+  const long long bc = b < B ? b : B - 1;
+  const float xv = nf::to_f32(x_t[d * x_rs + bc * x_cs]);
+  const float t = nf::to_f32(tb[d]);
+  if (tid < PM) b_s[tid] = tid < P ? nf::to_f32(bias[tid * D + d]) : 0.0f;
+
+  // 2. the head product, chunk by chunk (head_mma_bf16.cuh)
+  float acc[MT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+  for (int s = 0; s < chunks; ++s) {
+    const int j0 = s * kRK;
+    if (j0 > 0 && j0 % wj == 0) {  // the next W_eff tile (H > kMaxTileCols)
+      __syncthreads();
+      stage_w_rows(w_s, ws, w, D, d, 1, P, PM, H, j0, wj, wquads, tid,
+                   kThreadsBf16);
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncthreads();
+    }
+    // the warp's chunk s (and W_eff's first tile) is in place, and the slot
+    // of chunk s - 1 is free
+    __pipeline_wait_prior(kStagesBf16 - 2);
+    if (s == 0)
+      __syncthreads();  // every thread's share of the tile, and the bias
+    else
+      __syncwarp();
+    stage(s + kStagesBf16 - 1);
+    head_product_rows<MT>(w_s + j0 % wj, ws,
+                          ring_w + (s % kStagesBf16) * (kRK * kRowW), kRowW,
+                          lane, acc);
+  }
+  __pipeline_wait_prior(0);
+  __syncwarp();
+
+  // 3. this lane's column: its PM sums (through the warp's ring), + bias,
+  // the spline, y and ld rounded once
+  float pv[PM];
+  column_params<MT>(acc, reinterpret_cast<float*>(ring_w), lane, pv);
+  float uw[K], uh[K], ud[K + 1];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    uw[k] = pv[k] + b_s[k];
+    uh[k] = pv[K + k] + b_s[K + k];
+  }
+  if (CIRCULAR) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) ud[k] = pv[2 * K + k] + b_s[2 * K + k];
+    ud[K] = ud[0];
+  } else {
+    ud[0] = edge;
+    ud[K] = edge;
+#pragma unroll
+    for (int k = 0; k < K - 1; ++k) ud[k + 1] = pv[2 * K + k] + b_s[2 * K + k];
+  }
+  float yv, lv;
+  nf::rqs_element<K, INVERSE>(xv, t, uw, uh, ud, min_bin_width,
+                              min_bin_height, min_derivative, yv, lv);
+  if (b < B) {
+    y[d * B + b] = nf::from_f32<bf16>(yv);
+    ld[d * B + b] = nf::from_f32<bf16>(lv);
+  }
+}
+
+template <int K, bool CIRCULAR, bool INVERSE>
+int launch_bf16(const bf16* x_t, long long x_rs, long long x_cs,
+                const bf16* h_t, const bf16* w, const bf16* bias,
+                const bf16* tb, int D, long long B, int H, float edge,
+                float mbw, float mbh, float md, bf16* y, bf16* ld,
+                cudaStream_t stream) {
+  constexpr int P = 2 * K + (CIRCULAR ? K : K - 1);
+  const int wj = tile_cols_bf16(H);
+  const size_t smem = shared_bytes_bf16(nf::mma::param_rows(P), wj);
+  auto kernel = head_rqs_fwd_bf16_kernel<K, CIRCULAR, INVERSE>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool hquads =
+      B % 8 == 0 && reinterpret_cast<std::uintptr_t>(h_t) % 16 == 0;
+  const bool wquads =
+      H % 8 == 0 && reinterpret_cast<std::uintptr_t>(w) % 16 == 0;
+  dim3 grid(static_cast<unsigned>((B + kThreadsBf16 - 1) / kThreadsBf16),
+            static_cast<unsigned>(D));
+  kernel<<<grid, kThreadsBf16, smem, stream>>>(
+      x_t, x_rs, x_cs, h_t, w, bias, tb, D, B, H, wj, hquads, wquads, edge,
+      mbw, mbh, md, y, ld);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The body of the bfloat16 C entry point: see head_rqs_fwd_launch_bf16.
+int dispatch_bf16(const bf16* x_t, long long x_rs, long long x_cs,
+                  const bf16* h_t, const bf16* w, const bf16* bias,
+                  const bf16* tb, int D, long long B, int H, int num_bins,
+                  int circular, int inverse, float edge, float min_bin_width,
+                  float min_bin_height, float min_derivative, bf16* y,
+                  bf16* ld, void* stream) {
+  if (B == 0 || D == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NF_HEAD_LAUNCH(KK, CC, II)                                          \
+  return launch_bf16<KK, CC, II>(x_t, x_rs, x_cs, h_t, w, bias, tb, D, B,   \
+                                 H, edge, min_bin_width, min_bin_height,    \
+                                 min_derivative, y, ld, st)
 #define NF_HEAD_CASE(KK)                                                    \
   case KK:                                                                  \
     if (circular) {                                                         \
@@ -379,9 +590,9 @@ extern "C" int head_rqs_fwd_launch(
     int H, int num_bins, int circular, int inverse, float edge,
     float min_bin_width, float min_bin_height, float min_derivative,
     float* y, float* ld, void* stream) {
-  return dispatch<float>(x_t, x_rs, x_cs, h_t, w, bias, tb, D, B, H,
-                         num_bins, circular, inverse, edge, min_bin_width,
-                         min_bin_height, min_derivative, y, ld, stream);
+  return dispatch(x_t, x_rs, x_cs, h_t, w, bias, tb, D, B, H, num_bins,
+                  circular, inverse, edge, min_bin_width, min_bin_height,
+                  min_derivative, y, ld, stream);
 }
 
 // The same with every operand and output in bfloat16 (edge and the minima
@@ -393,8 +604,7 @@ extern "C" int head_rqs_fwd_launch_bf16(
     int H, int num_bins, int circular, int inverse, float edge,
     float min_bin_width, float min_bin_height, float min_derivative,
     __nv_bfloat16* y, __nv_bfloat16* ld, void* stream) {
-  return dispatch<__nv_bfloat16>(x_t, x_rs, x_cs, h_t, w, bias, tb, D, B, H,
-                                 num_bins, circular, inverse, edge,
-                                 min_bin_width, min_bin_height,
-                                 min_derivative, y, ld, stream);
+  return dispatch_bf16(x_t, x_rs, x_cs, h_t, w, bias, tb, D, B, H, num_bins,
+                       circular, inverse, edge, min_bin_width,
+                       min_bin_height, min_derivative, y, ld, stream);
 }

@@ -16,15 +16,16 @@
 // log1pf and sqrtf are the accurate ones and every operation rounds on its
 // own, so the kernels agree with the plain PyTorch version to rounding.
 //
-// Storage types. Kernels A-E are instantiated for float and for
-// __nv_bfloat16 operands (the JAX package's Pallas kernels take any dtype,
-// and build_image_nsf(dtype=bfloat16) and the coupled layers built with
-// dtype=bfloat16 run them in bfloat16). Whatever the
-// storage, the math is this file's float32: a bfloat16 operand is widened
-// on load (to_f32, exact) and a result rounded to nearest even on store
-// (from_f32, as torch's .to(torch.bfloat16)), so the reads and writes move
-// 2 bytes per element and the values are the float32 kernel's on the
-// widened inputs, rounded once.
+// Storage types. Kernels A, C and D are instantiated for float and for
+// __nv_bfloat16 operands, and B and E have bfloat16 kernels of their own
+// (head_mma_bf16.cuh: the head products on the tensor cores); the JAX
+// package's Pallas kernels take any dtype, and build_image_nsf and the
+// spline layers built with dtype=bfloat16 run them in bfloat16. Whatever
+// the storage, the spline's math is this file's float32: a bfloat16
+// operand is widened on load (to_f32, exact) and a result rounded to
+// nearest even on store (from_f32, as torch's .to(torch.bfloat16)), so the
+// reads and writes move 2 bytes per element and the values are the
+// float32 math's on the widened inputs, rounded once.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,19 +48,11 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Four consecutive elements (shared memory, aligned to their size) as a
-// float4: one 16-byte load, or one 8-byte load of four bfloat16 widened in
-// registers (exact: a bfloat16 is the upper half of its float32). Kernels
-// B and E read their staged h_t through it.
+// Four consecutive float32 (shared memory, aligned to 16 bytes) as one
+// 16-byte load; the float32 kernels B and E read their staged h_t through
+// it.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(v.x << 16),
-                     __uint_as_float(v.x & 0xffff0000u),
-                     __uint_as_float(v.y << 16),
-                     __uint_as_float(v.y & 0xffff0000u));
 }
 
 // jax.nn.softplus: logaddexp(v, 0) = max(v, 0) + log1p(exp(-|v|))

@@ -23,7 +23,11 @@ Beside the kernels:
   ``chip_smoke.py`` hold the kernels against both;
   :func:`head_rqs_plain_in_kernel_order` and
   :func:`head_rqs_bwd_plain_in_kernel_order` sum the head product in the
-  kernels' order;
+  float32 kernels' order, and :func:`head_rqs_plain_on_sums` and
+  :func:`head_rqs_bwd_plain_on_sums` take it given: the bfloat16 kernels'
+  own sums, from :func:`head_params_bf16` (the shared tensor-core product
+  alone, ``csrc/head_params_bf16.cu``), the yardstick of their card
+  checks;
 * :func:`fused_head_rqs`, the wrapper: CUDA -> the op
   ``torch.ops.nf_tpu_torch.head_rqs_fwd`` (kernel B; its registered
   backward calls ``head_rqs_bwd``, kernel E) or raise, CPU -> the plain
@@ -40,14 +44,27 @@ Beside the kernels:
 Kernels B and E take float32 or bfloat16 operands, every one of a call in
 the same dtype (the JAX package's kernels take any dtype; its coupled
 layers built with ``dtype=bfloat16`` run them in bfloat16, W_eff formed in
-bfloat16 by :func:`effective_head` as there). A bfloat16 kernel reads and
-writes 2-byte batch planes (x_t, h_t, y, ld, the cotangents, gx, gh),
-widens W_eff, the bias and the tail bound as it stages them, computes in
-float32 and rounds each result once; kernel E's gW/gb partials stay
-float32 and its gW and gb are rounded once from their float32 totals. The
-plain versions compute a bfloat16 call the same way
-(``splines._in_float32``), so kernel and plain version meet element by
-element, and the float32 plain versions are unchanged.
+bfloat16 by :func:`effective_head` as there). A bfloat16 call runs kernels
+of their own (``csrc/head_mma_bf16.cuh``): they read and write 2-byte
+batch planes (x_t, h_t, y, ld, the cotangents, gx, gh) and keep W_eff and
+h_t in bfloat16 in shared memory, and their head products run on the
+tensor cores, bfloat16 x bfloat16 with float32 sums, as the JAX kernels
+run theirs on the MXU. The spline and its backward compute in float32,
+and each result is rounded once. Kernel E's parameter cotangents gp are
+float32 (JAX holds them in bfloat16, ``spline_head_fused.py:258``); its
+products ``gh = W_eff^T gp`` and ``gW = gp h_t^T`` take them as two
+bfloat16 planes, ``hi + lo`` (:func:`split_bf16_pair`), ~16 bits of each,
+and the gW/gb partials stay float32, gW and gb rounded once from their
+float32 totals. The plain versions compute a bfloat16 call in float32 on
+the widened operands (``splines._in_float32``), and the float32 plain
+versions are unchanged; on the kernels' own head sums they meet the
+kernels within one bfloat16 ulp (y, ld and gx bit for bit). On
+``torch.matmul``'s sums they need not: the tensor cores round each k16
+step their own way, and where a log-det sits near 0 or a column near a
+knot the last bits of a parameter move y and ld by a few bfloat16 ulps
+and gx by hundreds. ``head_rqs_bwd_plain(..., split_gp=True)`` routes gp
+through the split as kernel E does (the CPU tests hold it against the
+unsplit version and JAX's float32 VJP).
 """
 
 from __future__ import annotations
@@ -126,19 +143,37 @@ def head_rqs_plain(x_t, h_t, head_weight, head_bias, tb, *, num_bins, tails,
                      min_derivative=min_derivative)
 
 
+def split_bf16_pair(gp):
+    """float32 ``gp`` -> bfloat16 ``(hi, lo)``: ``hi`` is ``gp`` rounded
+    to nearest even (toward zero where that would overflow a finite
+    value), ``lo`` is ``gp - hi`` (exact in float32) rounded. ``hi + lo``
+    lies within ``max(2^-16 |gp|, 2^-134)`` of ``gp`` (2^-134: half of
+    bfloat16's smallest subnormal, where ``lo`` underflows). The twin of kernel E's device split
+    (``csrc/head_mma_bf16.cuh`` ``split_bf16_pair``)."""
+    hi = gp.to(torch.bfloat16)
+    top = torch.full_like(hi, torch.finfo(torch.bfloat16).max)
+    top = torch.where(gp.signbit(), -top, top)
+    hi = torch.where(hi.isinf() & ~gp.isinf(), top, hi)
+    return hi, (gp - hi.float()).to(torch.bfloat16)
+
+
 @_in_float32
 def head_rqs_bwd_plain(x_t, h_t, head_weight, head_bias, tb, cty, ctl, *,
                        num_bins, tails, inverse,
                        min_bin_width=DEFAULT_MIN_BIN_WIDTH,
                        min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
-                       min_derivative=DEFAULT_MIN_DERIVATIVE):
+                       min_derivative=DEFAULT_MIN_DERIVATIVE,
+                       split_gp=False):
     """Plain version of kernel E: the operands of :func:`head_rqs_plain`
     plus the cotangents ``cty``, ``ctl`` (D, B) of ``(y, ld)`` -> ``(gx (D,
     B), gh (H, B), gW (M, H), gb (M,))`` (``spline_head_fused.py:129``).
     The derivative cotangents fold into head rows: linear tails drop the
     two synthesised edge planes, circular tails add ``gd[K]`` into row 0.
     The tail bound gets no gradient. A bfloat16 ``x_t``: float32 math on
-    the widened operands, each gradient rounded once."""
+    the widened operands, each gradient rounded once. ``split_gp``: gh
+    and gW take the parameter cotangents as :func:`split_bf16_pair`'s two
+    planes, each product summed in float32 over both, as the bfloat16
+    kernel E does (gb sums them unsplit)."""
     K, D = num_bins, x_t.shape[0]
     nd = _dplanes(K, tails)
     params = torch.matmul(head_weight, h_t) + head_bias[:, None]
@@ -154,6 +189,11 @@ def head_rqs_bwd_plain(x_t, h_t, head_weight, head_bias, tb, cty, ctl, *,
         gd_eff = [gd[0] + gd[K]] + [gd[j] for j in range(1, K)]
     gparams = torch.cat([gw.reshape(K * D, -1), gh.reshape(K * D, -1)]
                         + gd_eff)
+    if split_gp:
+        planes = [t.float() for t in split_bf16_pair(gparams)]
+        return (gx, sum(torch.matmul(head_weight.T, t) for t in planes),
+                sum(torch.matmul(t, h_t.T) for t in planes),
+                torch.sum(gparams, dim=1))
     return (gx, torch.matmul(head_weight.T, gparams),
             torch.matmul(gparams, h_t.T), torch.sum(gparams, dim=1))
 
@@ -178,26 +218,34 @@ def fmaf(a, b, c):
     return torch.where(tie, fixed, r)
 
 
+def _identity_head(params):
+    """``params`` (the head rows' values, bias included) as the ``h_t`` of
+    an identity head with zero bias, whose product is exact: the plain
+    versions then run on exactly these parameters."""
+    m = params.shape[0]
+    eye = torch.eye(m, dtype=params.dtype, device=params.device)
+    return params, eye, torch.zeros(m, dtype=params.dtype,
+                                    device=params.device)
+
+
 def _params_in_kernel_order(h_t, head_weight, head_bias):
-    """``head_weight @ h_t + head_bias[:, None]`` summed as kernels B and E
-    sum it: j ascending from 0 with :func:`fmaf`, then the bias; and the
-    identity head under which the plain versions take these parameters as
-    their ``h_t`` (its product is exact)."""
-    m = head_weight.shape[0]
-    acc = torch.zeros((m, h_t.shape[1]), dtype=h_t.dtype, device=h_t.device)
+    """``head_weight @ h_t + head_bias[:, None]`` summed as the float32
+    kernels B and E sum it: j ascending from 0 with :func:`fmaf`, then the
+    bias; as an identity head (:func:`_identity_head`)."""
+    acc = torch.zeros((head_weight.shape[0], h_t.shape[1]), dtype=h_t.dtype,
+                      device=h_t.device)
     for j in range(h_t.shape[0]):
         acc = fmaf(head_weight[:, j, None], h_t[j], acc)
-    eye = torch.eye(m, dtype=h_t.dtype, device=h_t.device)
-    return acc + head_bias[:, None], eye, torch.zeros_like(head_bias)
+    return _identity_head(acc + head_bias[:, None])
 
 
 @_in_float32
 def head_rqs_plain_in_kernel_order(x_t, h_t, head_weight, head_bias, tb,
                                    **kw):
-    """:func:`head_rqs_plain` with the head product summed in kernel B's
-    order (:func:`_params_in_kernel_order`): the yardstick that holds B's
-    bits, which kernel E's recompute repeats, apart from the order in which
-    ``torch.matmul`` sums."""
+    """:func:`head_rqs_plain` with the head product summed in the float32
+    kernel B's order (:func:`_params_in_kernel_order`): the yardstick that
+    holds B's bits, which kernel E's recompute repeats, apart from the
+    order in which ``torch.matmul`` sums."""
     return head_rqs_plain(
         x_t, *_params_in_kernel_order(h_t, head_weight, head_bias), tb, **kw)
 
@@ -205,16 +253,77 @@ def head_rqs_plain_in_kernel_order(x_t, h_t, head_weight, head_bias, tb,
 @_in_float32
 def head_rqs_bwd_plain_in_kernel_order(x_t, h_t, head_weight, head_bias, tb,
                                        cty, ctl, **kw):
-    """:func:`head_rqs_bwd_plain` with the head product summed as kernels B
-    and E sum it (:func:`_params_in_kernel_order`). The spline's
-    derivatives carry a rounding of the parameters into gx, so where
-    ``torch.matmul``'s order moves gx past the 1e-4 bar this is the
+    """:func:`head_rqs_bwd_plain` with the head product summed as the
+    float32 kernels B and E sum it (:func:`_params_in_kernel_order`). The
+    spline's derivatives carry a rounding of the parameters into gx, so
+    where ``torch.matmul``'s order moves gx past the 1e-4 bar this is the
     yardstick that tells the kernel's arithmetic from its order."""
-    gx, gparams, _, gb = head_rqs_bwd_plain(
-        x_t, *_params_in_kernel_order(h_t, head_weight, head_bias), tb,
-        cty, ctl, **kw)
+    return _bwd_on_params(
+        x_t, h_t, head_weight, head_bias, tb, cty, ctl,
+        _params_in_kernel_order(h_t, head_weight, head_bias), kw)
+
+
+def _bwd_on_params(x_t, h_t, head_weight, head_bias, tb, cty, ctl, ident,
+                   kw):
+    """The plain backward through the identity head ``ident`` (the
+    parameters given), then gh, gW and gb from its parameter cotangents."""
+    gx, gparams, _, gb = head_rqs_bwd_plain(x_t, *ident, tb, cty, ctl, **kw)
     return (gx, torch.matmul(head_weight.T, gparams),
             torch.matmul(gparams, h_t.T), gb)
+
+
+@_in_float32
+def head_rqs_plain_on_sums(x_t, sums, head_bias, tb, **kw):
+    """:func:`head_rqs_plain` on the head product ``sums`` (float32 (M, B),
+    the bias not yet added) given: the yardstick of the bfloat16 kernel B
+    on its own sums (:func:`head_params_bf16`). The tensor cores round
+    each k16 step their own way, and where a log-det sits near 0 or a
+    column near a knot the last bits of a parameter move y, ld (or E's gx)
+    by several bfloat16 ulps; on the same sums the plain version gives the
+    kernel's bits."""
+    return head_rqs_plain(
+        x_t, *_identity_head(sums + head_bias[:, None]), tb, **kw)
+
+
+@_in_float32
+def head_rqs_bwd_plain_on_sums(x_t, h_t, head_weight, head_bias, tb, cty,
+                               ctl, sums, **kw):
+    """:func:`head_rqs_bwd_plain` on the head product ``sums`` given (see
+    :func:`head_rqs_plain_on_sums`): gx from the spline at those
+    parameters, gh, gW and gb from its float32 parameter cotangents by
+    ``torch.matmul``; the yardstick of the bfloat16 kernel E."""
+    return _bwd_on_params(x_t, h_t, head_weight, head_bias, tb, cty, ctl,
+                          _identity_head(sums + head_bias[:, None]), kw)
+
+
+def head_params_bf16(h_t, head_weight, *, feats):
+    """The head product of the bfloat16 kernels B and E alone, on the card:
+    ``head_weight @ h_t`` (bfloat16 ``(M, H)`` and ``(H, B)``, M = P *
+    ``feats``) -> float32 ``(M, B)``, bit for bit the sums those kernels
+    add the bias to (``csrc/head_params_bf16.cu``). For the parity checks
+    only: no float32 sum in another order gives them, and the plain
+    versions' ``torch.matmul`` is one. Raises unless both are bfloat16 on
+    CUDA."""
+    from . import _build
+
+    if (h_t.device.type != "cuda" or h_t.dtype != torch.bfloat16
+            or head_weight.dtype != torch.bfloat16
+            or head_weight.device != h_t.device):
+        raise ValueError("head_params_bf16 takes bfloat16 CUDA tensors")
+    h_t, head_weight = h_t.contiguous(), head_weight.contiguous()
+    (H, B), m = h_t.shape, head_weight.shape[0]
+    lib = _build.load("head_params_bf16")
+    fn = lib.head_params_bf16_launch
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    out = torch.empty((m, B), dtype=torch.float32, device=h_t.device)
+    err = fn(h_t.data_ptr(), head_weight.data_ptr(), feats, B, H,
+             m // feats, out.data_ptr(),
+             torch.cuda.current_stream(h_t.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"head_params_bf16 launch failed: error {err}")
+    return out
 
 
 def _launch(x_t, h_t, w, b, tb, *, num_bins, tails, inverse, mbw, mbh, md):
@@ -244,40 +353,86 @@ def _launch(x_t, h_t, w, b, tb, *, num_bins, tails, inverse, mbw, mbh, md):
     return y, ld
 
 
-# kernel E's layout (csrc/head_rqs_bwd.cu kThreads, kColPad, kJ, kG,
-# kChunk, kRowPad, kRowPadBf16, kTileM, kTileJ)
-# and the shared memory a block may use on the H100
+# kernel B's bfloat16 layout (csrc/head_rqs_fwd.cu kThreadsBf16,
+# kStagesBf16, kMaxTileCols)
+_B16_THREADS, _B16_STAGES, _B16_TILE_COLS = 128, 3, 256
+
+
+def kernel_b_bf16_shared_bytes(p, hidden):
+    """Dynamic shared memory of one block of the bfloat16 kernel B at
+    ``p`` parameters per feature (rounded up to 16) and hidden width
+    ``hidden`` (``shared_bytes_bf16`` of ``csrc/head_rqs_fwd.cu``): the
+    warps' rings of h_t chunks, the W_eff tile (all of H padded to 32, at
+    most 256 columns; rows padded by 8) and the bias in float32."""
+    pm = -(-p // 16) * 16
+    wj = min(-(-max(hidden, 1) // _MMA_RK) * _MMA_RK, _B16_TILE_COLS)
+    rings = _B16_THREADS // 32 * _B16_STAGES * _MMA_RK * (32 + _MMA_PAD)
+    return 2 * (rings + pm * (wj + _MMA_PAD)) + 4 * pm
+
+
+# kernel E's float32 layout (csrc/head_rqs_bwd.cu kThreads, kColPad, kJ,
+# kG, kChunk, kRowPad, kTileM, kTileJ) and the shared memory a block may
+# use on the H100
 _E_THREADS, _E_COL_PAD, _E_WTILE, _E_GH_ROWS = 256, 4, 128, 16
-_E_CHUNK, _E_ROW_PAD, _E_ROW_PAD_BF16 = 32, 4, 8
+_E_CHUNK, _E_ROW_PAD = 32, 4
 _E_TILE_M, _E_TILE_J = 24, 32
 _MAX_SHARED_BYTES = 232448
+# the bfloat16 kernel's (csrc/head_rqs_bwd.cu kStagesBf16, col_row_bf16,
+# j_rows_bf16; csrc/head_mma_bf16.cuh kRK, kPad)
+_E16_STAGES = 3
+_MMA_RK, _MMA_PAD = 32, 8
 
 
-def kernel_e_shared_bytes(m, feats, hidden, itemsize=4):
-    """Dynamic shared memory of one block of kernel E at ``m`` head rows
-    over ``feats`` features and h_t elements of ``itemsize`` bytes (4
-    float32, 2 bfloat16): the block's parameter cotangents (float32, m
-    rounded up to 24, 256 + 4), the staged W_eff tile (float32, rows,
-    feats, P rounded up to 4; rows = hidden rounded up to 16, at most 128)
-    and the chunks of h_t in its own dtype (hidden rounded up to 32, 32 + 4
-    float32 or 32 + 8 bfloat16, rows of 144 or 80 bytes), two where they
-    fit and else one. At one feature and hidden <= 128 the tile and the
-    chunks sit side by side (gW and gh run at once on separate warps);
-    otherwise they share one region."""
+def kernel_e_shared_bytes(m, feats, hidden):
+    """Dynamic shared memory of one block of the float32 kernel E at ``m``
+    head rows over ``feats`` features: the block's parameter cotangents
+    (m rounded up to 24, 256 + 4), the staged W_eff tile (rows, feats, P
+    rounded up to 4; rows = hidden rounded up to 16, at most 128) and the
+    chunks of h_t (hidden rounded up to 32, 32 + 4), two where they fit
+    and else one. At one feature and hidden <= 128 the tile and the chunks
+    sit side by side (gW and gh run at once on separate warps); otherwise
+    they share one region."""
     pp = (m // feats + 3) // 4 * 4
     rows = min(_E_WTILE, -(-hidden // _E_GH_ROWS) * _E_GH_ROWS)
     split = feats == 1 and hidden <= _E_WTILE
-    row_pad = _E_ROW_PAD if itemsize == 4 else _E_ROW_PAD_BF16
 
     def total(buffers):
         w = 4 * rows * feats * pp
-        h = (itemsize * buffers * -(-hidden // _E_TILE_J) * _E_TILE_J
-             * (_E_CHUNK + row_pad))
+        h = (4 * buffers * -(-hidden // _E_TILE_J) * _E_TILE_J
+             * (_E_CHUNK + _E_ROW_PAD))
         return (4 * -(-m // _E_TILE_M) * _E_TILE_M
                 * (_E_THREADS + _E_COL_PAD)
                 + (w + h if split else max(w, h)))
 
     return total(2) if total(2) <= _MAX_SHARED_BYTES else total(1)
+
+
+def kernel_e_bf16_plan(m, feats, hidden):
+    """The bfloat16 kernel E's block layout at ``m`` head rows over
+    ``feats`` features and hidden width ``hidden`` (``plan_bf16`` of
+    ``csrc/head_rqs_bwd.cu``): ``(warps, wj, bytes)``, the block's warps (8
+    where the layout fits, else 4; 32 batch columns each), the columns of
+    H per staged W_eff tile (all of H padded to 32 where they fit) and its
+    dynamic shared memory: W_eff's tile and gp's two planes (P rounded up
+    to 16 per feature, rows padded by 8 bfloat16), the region of h_t (the
+    warps' rings of chunks, then two chunks of 8 rows of H per warp staged
+    again for gW) and the warps' gb shares. Raises ValueError where no
+    layout fits."""
+    rows = feats * -(-(m // feats) // 16) * 16
+    hp = -(-max(hidden, 1) // _MMA_RK) * _MMA_RK
+    for warps in (8, 4):
+        col_row = 32 * warps + _MMA_PAD
+        h = max(2 * warps * _E16_STAGES * _MMA_RK * (32 + _MMA_PAD),
+                2 * 2 * 8 * warps * col_row)
+        used = 2 * 2 * rows * col_row + h + 4 * warps * rows
+        cols = (_MAX_SHARED_BYTES - used) // (2 * rows) - _MMA_PAD
+        wj = min(hp, max(cols, 0) // _MMA_RK * _MMA_RK)
+        if used < _MAX_SHARED_BYTES and wj >= _MMA_RK:
+            return warps, wj, used + 2 * rows * (wj + _MMA_PAD)
+    raise ValueError(f"kernel E (bfloat16) has no layout for {m} head rows "
+                     f"over {feats} features at hidden {hidden} within the "
+                     f"H100's {_MAX_SHARED_BYTES} bytes of shared memory "
+                     f"per block")
 
 
 def _launch_bwd(x_t, h_t, w, b, tb, cty, ctl, *, num_bins, tails, inverse,
@@ -307,11 +462,16 @@ def _launch_bwd(x_t, h_t, w, b, tb, cty, ctl, *, num_bins, tails, inverse,
                             f"all of one dtype, on {x_t.device}; x_t is "
                             f"{x_t.dtype}, an operand {t.dtype} on "
                             f"{t.device}")
-    smem = kernel_e_shared_bytes(m, D, H, h_t.element_size())
-    if smem > _MAX_SHARED_BYTES:
-        raise ValueError(f"kernel E needs {smem} bytes of shared memory per "
-                         f"block at {m} head rows over {D} features and "
-                         f"hidden {H}; the H100 gives {_MAX_SHARED_BYTES}")
+    if x_t.dtype == torch.bfloat16:  # raises where no layout fits
+        threads = 32 * kernel_e_bf16_plan(m, D, H)[0]
+    else:
+        smem = kernel_e_shared_bytes(m, D, H)
+        if smem > _MAX_SHARED_BYTES:
+            raise ValueError(f"kernel E needs {smem} bytes of shared memory "
+                             f"per block at {m} head rows over {D} features "
+                             f"and hidden {H}; the H100 gives "
+                             f"{_MAX_SHARED_BYTES}")
+        threads = _E_THREADS
     lib = _build.load(f"head_rqs_bwd@{num_bins}")
     fn = getattr(lib, "head_rqs_bwd_launch" + KERNEL_DTYPES[x_t.dtype])
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
@@ -321,7 +481,7 @@ def _launch_bwd(x_t, h_t, w, b, tb, cty, ctl, *, num_bins, tails, inverse,
                    + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
                    + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 6)
     fn.restype = ctypes.c_int
-    blocks = (B + _E_THREADS - 1) // _E_THREADS
+    blocks = (B + threads - 1) // threads
     gx = torch.empty((D, B), dtype=x_t.dtype, device=x_t.device)
     gh = torch.empty((H, B), dtype=x_t.dtype, device=x_t.device)
     gw = torch.empty((m, H), dtype=x_t.dtype, device=x_t.device)

@@ -2168,9 +2168,14 @@ def test_bf16_spline_gradients_run_the_bf16_kernels(cuda):
 # --- the bfloat16 instantiations of kernels B, E and C's shared path --------
 
 # (D, H, K, tails): build_nsf's coupling, the circular coupled model's
-# trunk width and bins, a dim-4 coupling (E's all-warps layout)
+# trunk width and bins, a dim-4 coupling (two features), a width that is
+# not a multiple of 16 (the tensor-core kernels pad H with zeros), 4 bins
+# (P = 11 padded to 16 parameter rows), six features (E's blocks of 4
+# warps) and four at H 1024 (E's W_eff in 16 tiles of 64 columns, B's in 4)
 BF16_HEAD_SHAPES = [(1, 128, 8, "linear"), (1, 512, 10, "circular"),
-                    (2, 64, 8, "linear")]
+                    (2, 64, 8, "linear"), (1, 100, 8, "linear"),
+                    (1, 64, 4, "linear"), (6, 32, 10, "circular"),
+                    (4, 1024, 10, "circular")]
 
 
 def _bf16_head_operands(rng, cuda, D, H, K, tails, B):
@@ -2185,26 +2190,42 @@ def _bf16_head_operands(rng, cuda, D, H, K, tails, B):
     return x_t, h_t, w, b, tb, cty, ctl
 
 
+# the tensor-core head sums against float64's, over sum_j |w_j h_j|: the
+# worst measured on the H100 2^-21.9 (torch.matmul's float32 sums 2^-22.1)
+MMA_SUMS_TOL = 2.0 ** -20
+
+
 @pytest.mark.parametrize("B", [65536, 4099])
 @pytest.mark.parametrize("shape", BF16_HEAD_SHAPES,
                          ids=lambda s: f"D{s[0]}-H{s[1]}-K{s[2]}-{s[3]}")
 def test_bf16_head_kernels_match_their_plain_versions(cuda, shape, B):
     """B and E on bfloat16 operands (B = 4099: rows of h_t that start off
     16 bytes, the kernels' element-load staging) against their plain
-    versions in the kernels' summation order, each element of y, ld, gx,
-    gh, gW and gb within one bfloat16 ulp; bfloat16 out, the bfloat16
-    instantiations counted."""
+    versions, each element of y, ld, gx, gh, gW and gb within one bfloat16
+    ulp; bfloat16 out, the bfloat16 launches counted. The plain versions
+    run on the kernels' own head sums (``head_params_bf16``, the shared
+    tensor-core product alone; ``head_rqs_plain_on_sums``): the tensor
+    cores round each k16 step their own way, and where a log-det sits near
+    0 or a column near a knot, the last bits of a parameter move y and ld
+    by up to 6 bfloat16 ulps and E's gx by up to 338 (the H100, against
+    ``torch.matmul``'s sums, whose own distance from float64's is the
+    same). The sums themselves are held against float64's."""
     D, H, K, tails = shape
     x_t, h_t, w, b, tb, cty, ctl = _bf16_head_operands(
         np.random.default_rng(200 + H + B % 7), cuda, D, H, K, tails, B)
+    sums = tshf.head_params_bf16(h_t, w, feats=D)
+    exact = w.double() @ h_t.double()
+    scale = (w.double().abs() @ h_t.double().abs()).clamp_min(1e-30)
+    assert float(((sums.double() - exact).abs() / scale).max()) \
+        <= MMA_SUMS_TOL
     for inverse in (False, True):
         kw = dict(num_bins=K, tails=tails, inverse=inverse)
         before = tops.bf16_launch_counts()
         got = tshf.fused_head_rqs(x_t, h_t, w, b, tail_bound=3.0, **kw)
-        want = tshf.head_rqs_plain_in_kernel_order(x_t, h_t, w, b, tb, **kw)
+        want = tshf.head_rqs_plain_on_sums(x_t, sums, b, tb, **kw)
         gotb = tshf.fused_head_rqs_bwd(x_t, h_t, w, b, tb, cty, ctl, **kw)
-        wantb = tshf.head_rqs_bwd_plain_in_kernel_order(
-            x_t, h_t, w, b, tb, cty, ctl, **kw)
+        wantb = tshf.head_rqs_bwd_plain_on_sums(x_t, h_t, w, b, tb, cty,
+                                                ctl, sums, **kw)
         torch.cuda.synchronize()
         after = tops.bf16_launch_counts()
         assert after["head_rqs_fwd"] - before["head_rqs_fwd"] == 1
@@ -2215,6 +2236,29 @@ def test_bf16_head_kernels_match_their_plain_versions(cuda, shape, B):
         for a, c in zip(gotb, wantb):
             assert a.dtype == torch.bfloat16
             assert _bf16_ulps(a, c, True) <= 1.0
+
+
+@pytest.mark.parametrize("B", [65536, 4099])
+@pytest.mark.parametrize("shape", [(1, 128, 8, "linear"),
+                                   (1, 512, 10, "circular"),
+                                   (2, 100, 4, "circular")],
+                         ids=lambda s: f"D{s[0]}-H{s[1]}-K{s[2]}-{s[3]}")
+def test_bf16_head_kernels_are_bitwise_from_call_to_call(cuda, shape, B):
+    """Two calls of the bfloat16 B and of E on the same operands give the
+    same bits: the tensor-core products run one fixed sequence of
+    instructions, and E's gW and gb sum the blocks' float32 partials in a
+    fixed order (no atomics)."""
+    D, H, K, tails = shape
+    x_t, h_t, w, b, tb, cty, ctl = _bf16_head_operands(
+        np.random.default_rng(230 + H + B % 7), cuda, D, H, K, tails, B)
+    for inverse in (False, True):
+        kw = dict(num_bins=K, tails=tails, inverse=inverse)
+        calls = [(tshf.fused_head_rqs(x_t, h_t, w, b, tail_bound=3.0, **kw),
+                  tshf.fused_head_rqs_bwd(x_t, h_t, w, b, tb, cty, ctl,
+                                          **kw)) for _ in range(2)]
+        torch.cuda.synchronize()
+        for one, two in zip(*(f + g for f, g in calls)):
+            assert one.dtype == torch.bfloat16 and torch.equal(one, two)
 
 
 @pytest.mark.parametrize("B", [65536, 4099])
@@ -2294,3 +2338,25 @@ def test_bf16_coupled_graphs_launch_only_bf16_kernels(cuda):
                 ours[k] = ours.get(k, 0) + 1
         assert ours == want[what], (what, ours)
         assert not [n for n in names if "direct_copy_kernel" in n], what
+
+
+def test_bf16_coupled_step_runs_the_tensor_core_kernels(cuda):
+    """A captured forward-KLD step of a bfloat16 coupled NSF holds the
+    tensor-core kernels B and E (``head_rqs_fwd_bf16_kernel``,
+    ``head_rqs_bwd_bf16_kernel`` and the partials' sum), one of each per
+    coupling, and no launch of the float32 kernels' template."""
+    chip = _chip_smoke()
+    model = _bf16_coupled(cuda, hidden=128)
+    x = _normal(np.random.default_rng(222), (8192, 2), 1.5).to(
+        cuda, torch.bfloat16)
+    opt = _adam(model)
+    state = nt.init_train_state(model, opt)
+    step = nt.make_forward_kld_step(opt)
+    names = chip.captured_kernel_names(lambda: step.eager(state, x), 2)
+    count = {k: sum(k in n for n in names) for k in (
+        "head_rqs_fwd_bf16_kernel", "head_rqs_bwd_bf16_kernel",
+        "reduce_partials", "head_rqs_fwd_kernel", "head_rqs_bwd_kernel")}
+    assert count == {"head_rqs_fwd_bf16_kernel": 2,
+                     "head_rqs_bwd_bf16_kernel": 2, "reduce_partials": 2,
+                     "head_rqs_fwd_kernel": 0,
+                     "head_rqs_bwd_kernel": 0}, count

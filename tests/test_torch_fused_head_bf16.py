@@ -283,8 +283,8 @@ def test_ops_take_bfloat16_and_one_dtype():
     """The ops of B, E and C's shared path: their CPU implementations (the
     twins) and fake implementations give bfloat16 on bfloat16 operands; the
     wrappers raise on mixed dtypes and on float16; kernel E's shared
-    memory counts its bfloat16 chunks at 2 bytes, with the row pad of the
-    CUDA source. (On the CPU a float16
+    memory in float32 and in bfloat16 (its own layout) follows the
+    constants of the CUDA source. (On the CPU a float16
     call takes the plain path, as kernel A's wrapper does.)"""
     ops = _head_operands(8, 1, "linear", seed=63)
     x_t, h_t, w, b, cty, ctl = (torch.from_numpy(
@@ -321,14 +321,18 @@ def test_ops_take_bfloat16_and_one_dtype():
     src = (Path(tshf.__file__).parent.parent / "csrc"
            / "head_rqs_bwd.cu").read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
-    assert int(consts["kRowPadBf16"]) == tshf._E_ROW_PAD_BF16
-    # build_nsf's kernel E (M 23, H 128): 4 * 24 * 260 bytes of gp, the
-    # 128 x 24 float32 W_eff tile, two chunks of h_t at 128 x 36 floats
-    # or 128 x 40 bfloat16
+    assert int(consts["kStagesBf16"]) == tshf._E16_STAGES
+    # build_nsf's kernel E (M 23, H 128): float32, 4 * 24 * 260 bytes of
+    # gp, the 128 x 24 float32 W_eff tile, two chunks of h_t at 128 x 36
+    # floats; bfloat16, a block of 8 warps: gp's two planes at 32 rows of
+    # 264, the region of h_t (two gW chunks of 64 rows of 264, over the
+    # warps' rings of 3 x 32 x 40), the warps' gb shares and the W_eff tile
+    # at 32 rows of 136: two blocks to an SM
     gp, wt = 4 * 24 * 260, 4 * 128 * 24
     assert tshf.kernel_e_shared_bytes(23, 1, 128) == gp + wt + 2 * 4 * 128 * 36
-    assert tshf.kernel_e_shared_bytes(23, 1, 128, 2) \
-        == gp + wt + 2 * 2 * 128 * 40
+    assert tshf.kernel_e_bf16_plan(23, 1, 128) == (
+        8, 128, 2 * 2 * 32 * 264 + 2 * 2 * 64 * 264 + 4 * 8 * 32
+        + 2 * 32 * 136)
 
 
 def test_costs_halve_the_batch_planes():
