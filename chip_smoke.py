@@ -10,7 +10,9 @@ toolkit. Phases, one line each:
 2. build: ``nvcc`` builds every kernel from ``nf_tpu_torch/csrc``, one
    process per source, all started together; registers and spills per
    instantiation, failing if a bfloat16 instantiation of B or E spills
-   more than its float32 twin;
+   or holds no tensor-core instruction, or if any per-element
+   instantiation of A, C or D spills (by K, direction and offset width:
+   24 each, and D's ring another 24);
 3. parity: each kernel against its plain PyTorch version on the same CUDA
    inputs (kernels A and B: 1e-5 abs on outputs, 1e-4 abs on log-dets;
    backward kernels C, D and E: 1e-4 abs on per-element gradients, 1e-4
@@ -33,7 +35,11 @@ toolkit. Phases, one line each:
    condition) against ``fixed_point_go`` and JAX's decision on edge
    planes (the exact threshold, NaN, +-inf, counts 1000 and 1001, an empty
    batch) at 8 and 131072 elements in float32 and bfloat16 and on planes
-   one element at the threshold, and its time at (65536, 2);
+   one element at the threshold, and its time at (65536, 2); at the end
+   of the run, the per-element A, C and D times at their design bars'
+   shapes (PER_ELEMENT_BARS: the image views, the K-major planes, the
+   circular NSF's (2, 16384); f32 and bf16 in turns) against each bar,
+   met or not, beside the bound and the launch floor;
 4. gate: one coupling's transform half through kernel B and through the
    unfused feed, at B*D from 1024 to 65536 (where the fused-head gate
    belongs);
@@ -581,24 +587,51 @@ def phase_build():
         raise RuntimeError(f"bfloat16 B and E kernels that spill "
                            f"{spilling} or hold no tensor-core instruction "
                            f"{without}")
+    spilled = []
     for n in ("rqs_fwd", "rqs_bwd", "rqs_bwd_autodiff"):
-        print(f"phase build {n} by kernel (K, direction: registers, bytes "
-              f"spilled): " + "; ".join(
+        by_kernel = ptxas_kernels(_build.BUILD_LOGS.get(n, ""))
+        print(f"phase build {n} by kernel (K, direction[/offset bits]: "
+              f"registers, bytes spilled): "
+              + "; ".join(
                   f"{kernel} " + ", ".join(
-                      f"K{k}{'i' if flags[:1] == '1' else 'f'} {regs}"
-                      + (f" +{spill}" if spill else "")
+                      f"K{k}{'i' if flags[:1] == '1' else 'f'}{flags[1:]} "
+                      f"{regs}" + (f" +{spill}" if spill else "")
                       for k, flags, regs, spill in rows)
-                  for kernel, rows in ptxas_kernels(
-                      _build.BUILD_LOGS.get(n, "")).items()), flush=True)
+                  for kernel, rows in by_kernel.items()), flush=True)
+        # per element: 2 dtypes x 3 K x 2 directions x 2 offset widths of
+        # the one-tile kernel, and in D's library as many of its ring
+        per_element = {kernel: rows for kernel, rows in by_kernel.items()
+                       if kernel.startswith(("rqs_fwd_kernel",
+                                             "rqs_bwd_kernel",
+                                             "rqs_bwd_ring_kernel"))}
+        spilled += [(kernel, k, flags, spill)
+                    for kernel, rows in per_element.items()
+                    for k, flags, _, spill in rows if spill]
+        found = sum(len(rows) for rows in per_element.values())
+        want = 48 if n == "rqs_bwd_autodiff" else 24
+        if n in _build.BUILD_LOGS and found != want:
+            raise RuntimeError(f"phase build: {found} per-element "
+                               f"instantiations of {n} in the ptxas log, "
+                               f"expected {want}")
+    # the one-thread-per-element kernels these replace spilled nothing at
+    # any instantiation; the shared paths' kernels are unchanged (C's first
+    # launch spills 16 bytes at K 4) and only printed
+    if spilled:
+        raise RuntimeError(f"per-element kernels A, C or D spill: {spilled}")
 
 
 def template_flags(symbol):
-    """A kernel's template bools in order, as "0"/"1", and an int after
-    them as "w<n>" (the bfloat16 kernel E's warps per block), from its
+    """A kernel's template bools in order, as "0"/"1", an int after them
+    as "w<n>" (the bfloat16 kernel E's warps per block), and an offset
+    type after them as "/32" or "/64" (the per-element A, C and D:
+    unsigned or unsigned long long, after the direction), from its
     mangled name."""
     flags = "".join(re.findall(r"Lb([01])E", symbol))
     warps = re.search(r"Lb[01]ELi(\d+)EE", symbol)
-    return flags + (f"w{warps.group(1)}" if warps else "")
+    offsets = re.search(r"Lb[01]E([jy])E", symbol)
+    return (flags + (f"w{warps.group(1)}" if warps else "")
+            + ({"j": "/32", "y": "/64"}[offsets.group(1)] if offsets
+               else ""))
 
 
 def ptxas_kernels(log):
@@ -1060,38 +1093,56 @@ def timing_kernel_d(dev, flush, peaks):
                   + 4 * 2 * x.numel())
         ops_n = tk.rqs_vjp_ops_per_element(10, inverse) * x.numel()
         out[inverse] = (ms, plain) + bound(nbytes, ops_n, peaks)
+        PER_ELEMENT_MS[("D", "f32", "(2, 16384) K 10", inverse)] = (
+            ms, out[inverse][2])
     return out
 
 
 def timing_path_a_c(dev, flush, peaks):
     """Kernels A and C at the circular NSF's shapes (those of
-    :func:`timing_kernel_d`): one printed line, both directions."""
+    :func:`timing_kernel_d`), float32 and bfloat16 in turns (f32, bf16,
+    bf16, f32), each dtype's bound beside: one printed line, both
+    directions, the times recorded in :data:`PER_ELEMENT_MS`."""
     from nf_tpu_torch.ops import splines_kernel as tk
 
-    x, w, h, d, tb, cty, ctl = _path_operands(
-        np.random.default_rng(SEED + 13), 10, "mixed", dev)
+    ops32 = _path_operands(np.random.default_rng(SEED + 13), 10, "mixed",
+                           dev)
+    ops16 = [t.to(torch.bfloat16) for t in ops32]
     rows = []
     for inverse in (False, True):
-        a_ms = device_ms(lambda: tk.rqs_fwd(x, w, h, d, tb,
-                                            inverse=inverse), flush)
-        a_plain = device_ms(lambda: tk.rqs_plain(x, w, h, d, tb,
-                                                 inverse=inverse), flush)
-        a_bound = bound(_spline_bytes(x, (w, h, d, tb), 2),
-                        tk.rqs_ops_per_element(10, inverse) * x.numel(),
-                        peaks)
-        c_ms = device_ms(lambda: tk.rqs_bwd(x, w, h, d, tb, cty, ctl,
-                                            inverse=inverse), flush)
-        c_plain = device_ms(lambda: tk.rqs_bwd_plain(
-            x, w, h, d, tb, cty, ctl, inverse=inverse), flush)
-        c_bound = bound(_spline_bytes(x, (w, h, d, tb), 3 * 10 + 2)
-                        + 4 * 2 * x.numel(),
-                        tk.rqs_bwd_ops_per_element(10, inverse) * x.numel(),
-                        peaks)
-        rows.append(f"{'inverse' if inverse else 'forward'}: A kernel_ms "
-                    f"{a_ms:.4f} plain_ms {a_plain:.4f} bound_ms "
-                    f"{a_bound[0]:.5f} ({a_bound[1]}); C kernel_ms "
-                    f"{c_ms:.4f} plain_ms {c_plain:.4f} bound_ms "
-                    f"{c_bound[0]:.5f} ({c_bound[1]})")
+        for kernel in ("A", "C"):
+            def call(ops, kernel=kernel):
+                x, w, h, d, tb, cty, ctl = ops
+                if kernel == "A":
+                    return lambda: tk.rqs_fwd(x, w, h, d, tb,
+                                              inverse=inverse)
+                return lambda: tk.rqs_bwd(x, w, h, d, tb, cty, ctl,
+                                          inverse=inverse)
+            x, w, h, d, tb, cty, ctl = ops32
+            plain = device_ms(
+                (lambda: tk.rqs_plain(x, w, h, d, tb, inverse=inverse))
+                if kernel == "A" else (lambda: tk.rqs_bwd_plain(
+                    x, w, h, d, tb, cty, ctl, inverse=inverse)), flush)
+            t32, t16 = _in_turns_ms(call(ops32), call(ops16), flush)
+            n_out = 2 if kernel == "A" else 3 * 10 + 2
+            ops_n = (tk.rqs_ops_per_element if kernel == "A"
+                     else tk.rqs_bwd_ops_per_element)(10, inverse)
+            bounds = {}
+            for name, ops, dtype in (("f32", ops32, torch.float32),
+                                     ("bf16", ops16, torch.bfloat16)):
+                x = ops[0]
+                cot = 0 if kernel == "A" else 2 * x.numel() * x.element_size()
+                bounds[name] = bound(_spline_bytes(x, ops[1:5], n_out) + cot,
+                                     ops_n * x.numel(), peaks, dtype)
+            for name, t in (("f32", t32), ("bf16", t16)):
+                PER_ELEMENT_MS[(kernel, name, "(2, 16384) K 10", inverse)] = (
+                    (t[0] + t[1]) / 2, bounds[name][0])
+            rows.append(f"{'inverse' if inverse else 'forward'} {kernel}: "
+                        f"f32 kernel_ms {t32[0]:.4f} / {t32[1]:.4f}, bf16 "
+                        f"{t16[0]:.4f} / {t16[1]:.4f} (in turns f32, bf16, "
+                        f"bf16, f32), f32 plain_ms {plain:.4f}, bound_ms f32 "
+                        f"{bounds['f32'][0]:.5f} ({bounds['f32'][1]}), bf16 "
+                        f"{bounds['bf16'][0]:.5f} ({bounds['bf16'][1]})")
     print(f"phase timing circular path shapes (x (2, {CIRC_TRAIN_BATCH}), "
           f"K = 10 full planes, mixed tails, tb (2, 1)): "
           + "; ".join(rows), flush=True)
@@ -1173,7 +1224,60 @@ def launch_floor(flush):
     ms = device_ms(lambda: torch.cuda._sleep(0), flush)
     print(f"phase launch floor: device_ms of an empty launch "
           f"(torch.cuda._sleep(0)) {ms:.4f}", flush=True)
+    PER_ELEMENT_MS["floor"] = ms
     return ms
+
+
+# kernel times at the shapes of the per-element bars, recorded by the
+# timing functions as they run: {(kernel, dtype, shape, inverse): (mean ms
+# of the two turns, bound ms)}, and the launch floor under "floor"
+PER_ELEMENT_MS = {}
+# The per-element path's design bars (csrc/rqs_per_element.cuh): (kernel,
+# dtype, shape, inverse, the previous design's kernel_ms, rule). The
+# previous design, one thread per element with 64-bit indexing, was timed
+# at these shapes on an H100 80GB HBM3 at 700 W (PERF.md section 6);
+# "half": the bar is the launch floor plus the bound plus half of what
+# that design spent above the two, the floor measured in this run;
+# "0.95x": 0.95 times that design's time, at the small grids.
+PER_ELEMENT_BARS = (
+    ("A", "f32", "image (1536, 256)", False, 0.0276, "half"),
+    ("A", "bf16", "image (1536, 256)", False, 0.0215, "half"),
+    ("A", "bf16", "K-major (2, 65536) K 8", False, 0.0116, "half"),
+    ("A", "bf16", "K-major (2, 65536) K 10", True, 0.0123, "half"),
+    ("C", "bf16", "K-major (2, 65536) K 8", False, 0.0154, "half"),
+    ("C", "bf16", "image (384, 256)", True, 0.0125, "half"),
+    ("A", "f32", "(2, 16384) K 10", False, 0.0096, "0.95x"),
+    ("C", "f32", "(2, 16384) K 10", False, 0.0106, "0.95x"),
+    ("C", "bf16", "K-major (2, 16384) K 10", True, 0.0094, "0.95x"),
+)
+
+
+def per_element_bars():
+    """One printed line: each bar of :data:`PER_ELEMENT_BARS` against the
+    time this run recorded at its shape, met or not (a report: nothing
+    fails on it), and every other recorded per-element time beside its
+    bound."""
+    floor = PER_ELEMENT_MS.get("floor")
+    rows, barred = [], set()
+    for kernel, dt, shape, inverse, before, rule in PER_ELEMENT_BARS:
+        key = (kernel, dt, shape, inverse)
+        barred.add(key)
+        if key not in PER_ELEMENT_MS or floor is None:
+            rows.append(f"{kernel} {dt} {shape} not timed")
+            continue
+        ms, bound_ms = PER_ELEMENT_MS[key]
+        bar = (floor + bound_ms + 0.5 * (before - floor - bound_ms)
+               if rule == "half" else 0.95 * before)
+        rows.append(f"{kernel} {dt} {shape} {'inv' if inverse else 'fwd'} "
+                    f"kernel_ms {ms:.4f} (before {before}, bound "
+                    f"{bound_ms:.5f}) bar {bar:.4f} ({rule}) "
+                    f"{'met' if ms <= bar else 'not met'}")
+    others = [f"{k[0]} {k[1]} {k[2]} {'inv' if k[3] else 'fwd'} "
+              f"{v[0]:.4f} (bound {v[1]:.5f})"
+              for k, v in PER_ELEMENT_MS.items()
+              if k != "floor" and k not in barred]
+    print(f"phase per-element bars (floor {floor}): " + "; ".join(rows)
+          + "; other per-element times: " + "; ".join(others), flush=True)
 
 
 def timing_kernel_b(dev, flush, peaks, d=1, hidden=HIDDEN):
@@ -7126,6 +7230,12 @@ def timing_image_kernels_bf16(dev, flush, peaks):
             b32 = bound(_spline_bytes(ops32[0], ops32[1:4], n_out)
                         + cot * 4, ops_n, peaks)
             out[name][inverse] = ((t16[0] + t16[1]) / 2, plain) + b16
+            shape = f"image ({batch * ct}, {side * side})"
+            kernel = {"rqs_fwd": "A", "rqs_bwd": "C",
+                      "rqs_bwd_autodiff": "D"}[name]
+            for dt, t, b in (("f32", t32, b32), ("bf16", t16, b16)):
+                PER_ELEMENT_MS[(kernel, dt, shape, inverse)] = (
+                    (t[0] + t[1]) / 2, b[0])
             rows.append(_turns_row(
                 f"{name} {'inverse' if inverse else 'forward'} x ({batch}, "
                 f"{ct}, {side}, {side})", t32, t16, plain, b16, b32))
@@ -8084,6 +8194,11 @@ def timing_kmajor_bf16(dev, flush, peaks):
             bounds.append(bound(_spline_bytes(x, planes, n_out)
                                 + cot * x.element_size(),
                                 ops_n * x.numel(), peaks, dtype))
+        kernel = {"rqs_fwd": "A", "rqs_bwd": "C",
+                  "rqs_bwd_autodiff": "D"}[name]
+        for dt, t, b in (("bf16", t16, bounds[0]), ("f32", t32, bounds[1])):
+            PER_ELEMENT_MS[(kernel, dt, f"K-major (2, {batch}) K {K}",
+                            inverse)] = ((t[0] + t[1]) / 2, b[0])
         rows.append(_turns_row(
             f"{label} {name} {'inverse' if inverse else 'forward'} x (2, "
             f"{batch}) K {K}", t32, t16, plain, *bounds))
@@ -9290,6 +9405,7 @@ def main():
     paths.update(phase_export(dev, flush, peaks))
     paths.update(phase_target_draw(dev))
     paths.update(phase_examples(dev))
+    per_element_bars()
     print("launches: " + "; ".join(f"{k} {v[0]}" for k, v in paths.items()),
           flush=True)
     for path, (counts, needed) in paths.items():

@@ -12,9 +12,10 @@
 //
 // * Per element (any strides; rqs_bwd_launch, and rqs_bwd_launch_bf16 for
 //   bfloat16 operands and outputs with float32 math inside, half the
-//   bytes): one thread per element,
-//   the launch, strides and output layout of rqs_bwd_kernel.cuh, shared
-//   with kernel D. Per element it reads x, cty, ctl and the parameter
+//   bytes): the launch, strides and output layout of rqs_bwd_kernel.cuh,
+//   shared with kernel D, on rqs_per_element.cuh's schedule (a warp a
+//   tile of 32 elements, 32-bit offsets where the call fits; C launches
+//   its one-tile kernel at every shape). Per element it reads x, cty, ctl and the parameter
 //   planes, and writes gx and 3K+1 planes: (3K+5) * 4 bytes, 116 at
 //   K = 8, against ~450 flops, below the f32 ridge of ~20 flop/byte: the
 //   loads and stores bound it.
@@ -82,11 +83,12 @@ extern "C" int rqs_bwd_launch(const float* x, const float* uw,
                               long long cols, int num_bins, int inverse,
                               float min_bin_width, float min_bin_height,
                               float min_derivative, float* gx, float* gw,
-                              float* gh, float* gd, void* stream) {
-  return nf::rqs_bwd_dispatch<AnalyticMath>(
+                              float* gh, float* gd, int offsets32,
+                              void* stream) {
+  return nf::rqs_bwd_dispatch<AnalyticMath, nf::OneTileLaunch>(
       x, uw, uh, ud, tb, cty, ctl, tb_scalar, strides, rows, cols, num_bins,
       inverse, min_bin_width, min_bin_height, min_derivative, gx, gw, gh, gd,
-      stream);
+      offsets32, 0, stream);
 }
 
 // The per-element path for bfloat16 operands, cotangents and outputs
@@ -98,11 +100,11 @@ extern "C" int rqs_bwd_launch_bf16(
     const long long* strides, long long rows, long long cols, int num_bins,
     int inverse, float min_bin_width, float min_bin_height,
     float min_derivative, __nv_bfloat16* gx, __nv_bfloat16* gw,
-    __nv_bfloat16* gh, __nv_bfloat16* gd, void* stream) {
-  return nf::rqs_bwd_dispatch<AnalyticMath>(
+    __nv_bfloat16* gh, __nv_bfloat16* gd, int offsets32, void* stream) {
+  return nf::rqs_bwd_dispatch<AnalyticMath, nf::OneTileLaunch>(
       x, uw, uh, ud, tb, cty, ctl, tb_scalar, strides, rows, cols, num_bins,
       inverse, min_bin_width, min_bin_height, min_derivative, gx, gw, gh, gd,
-      stream);
+      offsets32, 0, stream);
 }
 
 namespace {

@@ -23,14 +23,22 @@
 // (splines_kernel.rqs_vjp_ops_per_element), still below the f32 ridge of
 // ~20 flop/byte on full planes, so the stores and loads bound it.
 //
-// Where the time goes at the circular NSF's reverse-KLD shape (x (2,
-// 16384), K = 10; chip_smoke.py --turns, variants of rqs_bwd_kernel.cuh):
-// the launch with its loads and stores alone takes ~0.77x of the whole,
+// Where the time went at the circular NSF's reverse-KLD shape (x (2,
+// 16384), K = 10; variants of the earlier one-thread-per-element launch):
+// the launch with its loads and stores alone took ~0.77x of the whole,
 // the math without the stores ~0.97x. One wave of one element per thread
-// leaves each thread's chain to run after its 34 loads arrive; two or four
-// elements per thread lengthen that chain (1.2x and 1.8x), and block sizes
-// of 64 to 256 threads move it by about 1%.
-#include "rqs_bwd_kernel.cuh"
+// left each thread's chain to run after its 34 loads arrived; two or four
+// elements per thread lengthened that chain (1.2x and 1.8x), and block
+// sizes of 64 to 256 threads moved it by about 1%. The launch is now
+// rqs_bwd_kernel.cuh's (kernel C's), with a second form of D's own: at K 8
+// and 10 the adjoint's ~106-128 registers leave 4 blocks of 4 warps an
+// SM, too few to hide each other's loads, so where one wave does not hold
+// every block the launch takes the ring (rqs_ring.cuh, instantiated in
+// this library alone), each warp's next tile of operands arriving in
+// shared memory while it runs this one's adjoint, with registers still
+// holding one element's operands (chip_smoke.py's build phase prints
+// registers and spills, none). Its math is not redesigned.
+#include "rqs_ring.cuh"
 #include "rqs_vjp_math.cuh"
 
 struct AutodiffMath {
@@ -45,19 +53,21 @@ struct AutodiffMath {
   }
 };
 
-// C interface for ctypes: the arguments of rqs_bwd_launch (rqs_bwd.cu);
-// see nf::rqs_bwd_dispatch.
+// C interface for ctypes: the arguments of rqs_bwd_launch (rqs_bwd.cu),
+// and `routes` (splines_kernel.ring_routes) before the stream: bit o
+// (rqs_per_element.cuh's operand order) for an operand whose tiles come
+// into the ring by 16-byte copies. See nf::rqs_bwd_dispatch.
 extern "C" int rqs_bwd_autodiff_launch(
     const float* x, const float* uw, const float* uh, const float* ud,
     const float* tb, const float* cty, const float* ctl, float tb_scalar,
     const long long* strides, long long rows, long long cols, int num_bins,
     int inverse, float min_bin_width, float min_bin_height,
     float min_derivative, float* gx, float* gw, float* gh, float* gd,
-    void* stream) {
-  return nf::rqs_bwd_dispatch<AutodiffMath>(
+    int offsets32, unsigned routes, void* stream) {
+  return nf::rqs_bwd_dispatch<AutodiffMath, nf::ring::RingLaunch>(
       x, uw, uh, ud, tb, cty, ctl, tb_scalar, strides, rows, cols, num_bins,
       inverse, min_bin_width, min_bin_height, min_derivative, gx, gw, gh, gd,
-      stream);
+      offsets32, routes, stream);
 }
 
 // The same for bfloat16 operands, cotangents and outputs: the float32
@@ -70,9 +80,10 @@ extern "C" int rqs_bwd_autodiff_launch_bf16(
     const long long* strides, long long rows, long long cols, int num_bins,
     int inverse, float min_bin_width, float min_bin_height,
     float min_derivative, __nv_bfloat16* gx, __nv_bfloat16* gw,
-    __nv_bfloat16* gh, __nv_bfloat16* gd, void* stream) {
-  return nf::rqs_bwd_dispatch<AutodiffMath>(
+    __nv_bfloat16* gh, __nv_bfloat16* gd, int offsets32, unsigned routes,
+    void* stream) {
+  return nf::rqs_bwd_dispatch<AutodiffMath, nf::ring::RingLaunch>(
       x, uw, uh, ud, tb, cty, ctl, tb_scalar, strides, rows, cols, num_bins,
       inverse, min_bin_width, min_bin_height, min_derivative, gx, gw, gh, gd,
-      stream);
+      offsets32, routes, stream);
 }

@@ -21,9 +21,23 @@
 // time, and the operations take a few hundred nanoseconds, so there the
 // launch itself and the latency of one element's chain dominate.
 //
+// What holds the per-element path (PERF.md, section 6): the loads. Its
+// time is the launch floor plus the reads of 3K+3 planes at the memory's
+// pace; timed without the chain it kept 81-93% of its time, without the
+// stores 98-100%, so the chain mostly hides behind other warps' loads.
+//
 // Design: two paths, both kernel A.
-//   * Per element (any strides): one thread per element loads its 3K+1
-//     parameters and runs rqs_math.cuh's rqs_element.
+//   * Per element (any strides): rqs_per_element.cuh's schedule. Each
+//     warp takes a tile of 32 consecutive elements, a lane's row and
+//     column from one 32-bit division (no 64-bit division or offsets where
+//     the call fits 32 bits), loads each lane's 3K+3 operands into
+//     registers, runs rqs_math.cuh's rqs_element, as before, and stores y
+//     and ld (a warp's stores one run of 32 elements each). A keeps 9-16
+//     blocks of 4 warps an SM, enough that warps hide each other's loads;
+//     a ring of shared-memory stages (rqs_ring.cuh, kernel D's) was timed
+//     for A at every shape of chip_smoke.py's PER_ELEMENT_BARS and was
+//     slower (its stages cost occupancy and its reads a pass through
+//     shared memory).
 //   * Shared parameters: when w, h and d have row stride 0, tb is a float
 //     or has row stride 0 too (the knots depend on it), and there are at
 //     most kMaxSharedCols columns (the CDF's call), every element of a
@@ -45,13 +59,14 @@
 // widened, run through the same float32 math and rounded once on store
 // (rqs_math.cuh), so the bfloat16 kernel moves half the float32 one's
 // bytes and computes the float32 function of its widened inputs. The loads
-// are scalar, one element per thread per plane, so a row that starts at an
-// odd element (a (B*C, H*W) view) needs no alignment.
+// are one element a lane, so a row that starts at an odd element (a
+// (B*C, H*W) view) needs no alignment.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "rqs_math.cuh"
+#include "rqs_per_element.cuh"
 
 namespace {
 
@@ -66,40 +81,31 @@ struct Strides {
   long long x[2], w[3], h[3], d[3], tb[2];
 };
 
-template <class T, int K, bool INVERSE>
-__global__ void rqs_fwd_kernel(const T* __restrict__ x,
-                               const T* __restrict__ uw,
-                               const T* __restrict__ uh,
-                               const T* __restrict__ ud,
-                               const T* __restrict__ tb, float tb_scalar,
-                               Strides s, long long rows, long long cols,
-                               float min_bin_width, float min_bin_height,
-                               float min_derivative, T* __restrict__ y,
-                               T* __restrict__ ld) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= rows * cols) return;
-  const long long r = i / cols;
-  const long long c = i - r * cols;
+// The per-element path: rqs_per_element.cuh's schedule over the operands
+// x, w, h, d and tb (kPerElementOps), then rqs_element and two stores.
+constexpr int kPerElementOps = nf::tile::kTb + 1;
 
-  float w[K], h[K], d[K + 1];
-  const long long ow = r * s.w[1] + c * s.w[2];
-  const long long oh = r * s.h[1] + c * s.h[2];
-  const long long od = r * s.d[1] + c * s.d[2];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    w[k] = nf::to_f32(uw[ow + k * s.w[0]]);
-    h[k] = nf::to_f32(uh[oh + k * s.h[0]]);
-  }
-#pragma unroll
-  for (int k = 0; k < K + 1; ++k) d[k] = nf::to_f32(ud[od + k * s.d[0]]);
-  const float t =
-      tb ? nf::to_f32(tb[r * s.tb[0] + c * s.tb[1]]) : tb_scalar;
-  const float xv = nf::to_f32(x[r * s.x[0] + c * s.x[1]]);
-
+// The launch bound keeps A at 32-56 registers (the previous kernel's 40 at
+// K 8): without it, an earlier form of this kernel took 46-56 at K 8 and
+// ran 3-6% slower on the one-wave K-major launches. C and D take none
+// (their policies spill under it).
+template <class T, int K, bool INVERSE, class I>
+__global__ void __launch_bounds__(nf::tile::kThreads) rqs_fwd_kernel(
+    const __grid_constant__ nf::tile::Operands<T, I> a, float tb_scalar,
+    float min_bin_width, float min_bin_height, float min_derivative,
+    T* __restrict__ y, T* __restrict__ ld) {
+  namespace P = nf::tile;
+  I i, r, c;
+  if (!P::element_of(a.rows, a.cols, i, r, c)) return;
+  float w[K], h[K], d[K + 1], xv[1], tv[1] = {tb_scalar};
+  P::operand_direct<P::kW>(a, r, c, w);
+  P::operand_direct<P::kH>(a, r, c, h);
+  P::operand_direct<P::kD>(a, r, c, d);
+  P::operand_direct<P::kX>(a, r, c, xv);
+  if (a.op[P::kTb].p) P::operand_direct<P::kTb>(a, r, c, tv);
   float yv, lv;
-  nf::rqs_element<K, INVERSE>(xv, t, w, h, d, min_bin_width, min_bin_height,
-                              min_derivative, yv, lv);
+  nf::rqs_element<K, INVERSE>(xv[0], tv[0], w, h, d, min_bin_width,
+                              min_bin_height, min_derivative, yv, lv);
   y[i] = nf::from_f32<T>(yv);
   ld[i] = nf::from_f32<T>(lv);
 }
@@ -175,19 +181,43 @@ __global__ void __launch_bounds__(kThreads) rqs_fwd_shared_kernel(
   ld[i] = nf::from_f32<T>(lv);
 }
 
+template <class T, int K, bool INVERSE, class I>
+void launch_per_element(const nf::tile::Operands<T, I>& a, float tb_scalar,
+                        float mbw, float mbh, float md, T* y, T* ld,
+                        cudaStream_t stream) {
+  rqs_fwd_kernel<T, K, INVERSE, I>
+      <<<nf::tile::blocks_of(static_cast<long long>(a.rows) * a.cols),
+         nf::tile::kThreads, 0, stream>>>(a, tb_scalar, mbw, mbh, md, y,
+                                           ld);
+}
+
 template <class T, int K, bool INVERSE>
 void launch(const T* x, const T* uw, const T* uh, const T* ud, const T* tb,
-            float tb_scalar, const Strides& s, long long rows,
-            long long cols, float mbw, float mbh, float md, T* y, T* ld,
-            cudaStream_t stream) {
-  const long long n = rows * cols;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+            float tb_scalar, const Strides& s, const long long* strides,
+            long long rows, long long cols, float mbw, float mbh, float md,
+            T* y, T* ld, int offsets32, cudaStream_t stream) {
   const bool shared = cols <= kMaxSharedCols && s.w[1] == 0 &&
                       s.h[1] == 0 && s.d[1] == 0 && (!tb || s.tb[0] == 0);
-  auto kernel = shared ? rqs_fwd_shared_kernel<T, K, INVERSE>
-                       : rqs_fwd_kernel<T, K, INVERSE>;
-  kernel<<<blocks, kThreads, 0, stream>>>(x, uw, uh, ud, tb, tb_scalar, s,
-                                          rows, cols, mbw, mbh, md, y, ld);
+  if (shared) {
+    const long long n = rows * cols;
+    const unsigned blocks =
+        static_cast<unsigned>((n + kThreads - 1) / kThreads);
+    rqs_fwd_shared_kernel<T, K, INVERSE><<<blocks, kThreads, 0, stream>>>(
+        x, uw, uh, ud, tb, tb_scalar, s, rows, cols, mbw, mbh, md, y, ld);
+    return;
+  }
+  const T* const p[nf::tile::kOperands] = {x, uw, uh, ud, tb, nullptr,
+                                           nullptr};
+  if (offsets32)
+    launch_per_element<T, K, INVERSE>(
+        nf::tile::operands<T, unsigned>(p, kPerElementOps, strides, rows,
+                                        cols),
+        tb_scalar, mbw, mbh, md, y, ld, stream);
+  else
+    launch_per_element<T, K, INVERSE>(
+        nf::tile::operands<T, unsigned long long>(p, kPerElementOps,
+                                                  strides, rows, cols),
+        tb_scalar, mbw, mbh, md, y, ld, stream);
 }
 
 // The body of both C entry points: see rqs_fwd_launch.
@@ -196,7 +226,7 @@ int dispatch(const T* x, const T* uw, const T* uh, const T* ud, const T* tb,
              float tb_scalar, const long long* strides, long long rows,
              long long cols, int num_bins, int inverse, float min_bin_width,
              float min_bin_height, float min_derivative, T* y, T* ld,
-             void* stream) {
+             int offsets32, void* stream) {
   Strides s;
   const long long* p = strides;
   for (int j = 0; j < 2; ++j) s.x[j] = *p++;
@@ -209,13 +239,13 @@ int dispatch(const T* x, const T* uw, const T* uh, const T* ud, const T* tb,
 #define NF_RQS_CASE(KK)                                                     \
   case KK:                                                                  \
     if (inverse)                                                            \
-      launch<T, KK, true>(x, uw, uh, ud, tb, tb_scalar, s, rows, cols,      \
-                          min_bin_width, min_bin_height, min_derivative, y, \
-                          ld, st);                                          \
+      launch<T, KK, true>(x, uw, uh, ud, tb, tb_scalar, s, strides, rows,   \
+                          cols, min_bin_width, min_bin_height,              \
+                          min_derivative, y, ld, offsets32, st);    \
     else                                                                    \
-      launch<T, KK, false>(x, uw, uh, ud, tb, tb_scalar, s, rows, cols,     \
-                           min_bin_width, min_bin_height, min_derivative,   \
-                           y, ld, st);                                      \
+      launch<T, KK, false>(x, uw, uh, ud, tb, tb_scalar, s, strides, rows,  \
+                           cols, min_bin_width, min_bin_height,             \
+                           min_derivative, y, ld, offsets32, st);   \
     break;
   switch (num_bins) {
     NF_RQS_CASE(4)
@@ -231,8 +261,10 @@ int dispatch(const T* x, const T* uw, const T* uh, const T* ud, const T* tb,
 }  // namespace
 
 // C interface for ctypes. `strides` points to 13 int64: x(2), w(3), h(3),
-// d(3), tb(2). Returns cudaGetLastError() after the launch; -1 for a bin
-// count that has no instantiation.
+// d(3), tb(2). `offsets32` (splines_kernel.per_element_offsets32) nonzero
+// for the per-element path's 32-bit element offsets: every offset of the
+// call, the outputs' included, fits. Returns cudaGetLastError() after the
+// launch; -1 for a bin count that has no instantiation.
 extern "C" int rqs_fwd_launch(const float* x, const float* uw,
                               const float* uh, const float* ud,
                               const float* tb, float tb_scalar,
@@ -240,10 +272,10 @@ extern "C" int rqs_fwd_launch(const float* x, const float* uw,
                               long long cols, int num_bins, int inverse,
                               float min_bin_width, float min_bin_height,
                               float min_derivative, float* y, float* ld,
-                              void* stream) {
+                              int offsets32, void* stream) {
   return dispatch<float>(x, uw, uh, ud, tb, tb_scalar, strides, rows, cols,
                          num_bins, inverse, min_bin_width, min_bin_height,
-                         min_derivative, y, ld, stream);
+                         min_derivative, y, ld, offsets32, stream);
 }
 
 // The same for bfloat16 operands and outputs (tb_scalar and the minima stay
@@ -254,9 +286,9 @@ extern "C" int rqs_fwd_launch_bf16(
     const long long* strides, long long rows, long long cols, int num_bins,
     int inverse, float min_bin_width, float min_bin_height,
     float min_derivative, __nv_bfloat16* y, __nv_bfloat16* ld,
-    void* stream) {
+    int offsets32, void* stream) {
   return dispatch<__nv_bfloat16>(x, uw, uh, ud, tb, tb_scalar, strides, rows,
                                  cols, num_bins, inverse, min_bin_width,
                                  min_bin_height, min_derivative, y, ld,
-                                 stream);
+                                 offsets32, stream);
 }

@@ -76,6 +76,7 @@ per element into fresh ``(K, rows, cols)`` planes, reduced with
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -101,6 +102,26 @@ SHARED_BWD_SLOTS = 6
 # the operand dtypes kernels A-E are instantiated for, and the C entry
 # point's suffix of each
 KERNEL_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+# the per-element path of kernels A, C and D (csrc/rqs_per_element.cuh): a
+# warp takes RING_TILE consecutive elements, one a lane (kTile), in blocks
+# of RING_WARPS warps (kWarps). Kernel D's ring (csrc/rqs_ring.cuh),
+# launched where its one-tile form keeps at most RING_MAX_WARPS_PER_SM
+# warps an SM and needs more than one wave (kRingWarps), holds RING_STAGES
+# tiles of a warp in shared memory (kStages), and an operand whose every
+# full tile is one run starting on RING_VECTOR_BYTES bytes (kVectorBytes)
+# comes into it in copies of that size
+RING_TILE = 32
+RING_STAGES = 2
+RING_WARPS = 4
+RING_MAX_WARPS_PER_SM = 16
+RING_VECTOR_BYTES = 16
+# the operands in the order of the ring routes' bits (rqs_per_element.cuh's
+# enum)
+RING_OPERANDS = ("x", "w", "h", "d", "tb", "cty", "ctl")
+# the largest element offset a call takes in 32-bit arithmetic: int32's
+# limit less a margin for the tile indices a warp of D's ring steps past
+# the end (at most two steps of every resident thread)
+OFFSETS32_LIMIT = 2 ** 31 - 2 ** 22
 
 
 # --- plain versions ----------------------------------------------------------
@@ -613,6 +634,83 @@ def kernel_strides(x, w, h, d, tb):
     return out
 
 
+def largest_offset(shape, stride):
+    """The largest element offset of a view, 0 for an empty one."""
+    if 0 in tuple(shape):
+        return 0
+    return sum((n - 1) * abs(st) for n, st in zip(shape, stride))
+
+
+def vector_copies(shape, stride, address, itemsize, rows, cols):
+    """Whether kernel D's ring copies an operand view of ``shape`` and
+    ``stride`` ((rows, cols), or (planes, rows, cols)) starting at byte
+    ``address`` in RING_VECTOR_BYTES pieces: each plane holds every full
+    tile of RING_TILE consecutive elements (row-major over (rows, cols)) as
+    one unit-stride run starting on RING_VECTOR_BYTES bytes. That is so
+    when the plane is contiguous over (rows, cols), or when its columns are
+    and every tile lies in one row (cols a multiple of RING_TILE) whose
+    start is aligned. Else each lane copies its element (the 4-byte
+    route)."""
+    return (address % RING_VECTOR_BYTES == 0
+            and _layout(tuple(shape), tuple(stride), itemsize, rows,
+                        cols)[1])
+
+
+@functools.lru_cache(maxsize=4096)
+def _layout(shape, stride, itemsize, rows, cols):
+    """``(largest_offset, vector_copies at an aligned address)`` of a view:
+    what does not depend on where the view starts, kept per layout (a
+    launch asks for it once per operand)."""
+    *lead, rs, cs = stride
+    v = RING_VECTOR_BYTES
+    unit = cols == 1 or cs == 1
+    linear = unit and (rows == 1 or rs == cols)
+    in_row = (cs == 1 and cols % RING_TILE == 0
+              and (rows == 1 or rs * itemsize % v == 0))
+    vec = ((linear or in_row)
+           and not (lead and shape[0] > 1 and lead[0] * itemsize % v))
+    return largest_offset(shape, stride), vec
+
+
+def _operands(x2, planes, tb, cotangents):
+    """The per-element operands in :data:`RING_OPERANDS` order, None for a
+    float tail bound."""
+    return (x2, *planes, tb if isinstance(tb, torch.Tensor) else None,
+            *cotangents)
+
+
+def per_element_offsets32(x2, planes, tb, cotangents=(), out_planes=1):
+    """Whether a per-element launch of kernel A (no ``cotangents``) or C /
+    D (``cotangents`` ``(cty, ctl)``, (rows, cols) views) on the kernel
+    views of :func:`kernel_views` (the planes expanded to (P, rows, cols),
+    ``tb`` a (rows, cols) view or a float) takes 32-bit element offsets:
+    every element offset of the call fits :data:`OFFSETS32_LIMIT`, the
+    outputs' too (``out_planes`` planes of rows * cols, K + 1 for the
+    backward's derivative gradients). The CUDA source takes it as given."""
+    rows, cols = x2.shape
+    largest = out_planes * rows * cols - 1
+    for t in _operands(x2, planes, tb, cotangents):
+        if t is not None:
+            largest = max(largest, _layout(tuple(t.shape), t.stride(),
+                                           t.element_size(), rows, cols)[0])
+    return largest < OFFSETS32_LIMIT
+
+
+def ring_routes(x2, planes, tb, cotangents):
+    """Kernel D's ring routes on the same views: bit o
+    (:data:`RING_OPERANDS` order) set where operand o comes in 16-byte
+    copies (:func:`vector_copies`); a float tail bound leaves its bit
+    clear. The CUDA source takes them as given: it inspects no pointer or
+    stride to choose."""
+    rows, cols = x2.shape
+    routes = 0
+    for bit, t in enumerate(_operands(x2, planes, tb, cotangents)):
+        if t is not None and vector_copies(t.shape, t.stride(), t.data_ptr(),
+                                           t.element_size(), rows, cols):
+            routes |= 1 << bit
+    return routes
+
+
 def _check(x, planes, tb, num_bins):
     if num_bins not in SUPPORTED_BINS:
         raise ValueError(f"the CUDA spline kernel is built for K in "
@@ -638,18 +736,20 @@ def _launch(x2, w, h, d, tb, inverse, mbw, mbh, md):
     fn.argtypes = ([ctypes.c_void_p] * 5
                    + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     rows, cols = x2.shape
     tb_t = tb if isinstance(tb, torch.Tensor) else None
     tb_scalar = 0.0 if tb_t is not None else float(tb)
     strides = (ctypes.c_longlong * 13)(*kernel_strides(x2, w, h, d, tb_t))
+    offsets32 = per_element_offsets32(x2, (w, h, d), tb)
     y = torch.empty((rows, cols), dtype=x2.dtype, device=x2.device)
     ld = torch.empty_like(y)
     err = fn(x2.data_ptr(), w.data_ptr(), h.data_ptr(), d.data_ptr(),
              tb_t.data_ptr() if tb_t is not None else None, tb_scalar,
              strides, rows, cols, w.shape[0], int(bool(inverse)), mbw, mbh,
-             md, y.data_ptr(), ld.data_ptr(),
+             md, y.data_ptr(), ld.data_ptr(), int(offsets32),
              torch.cuda.current_stream(x2.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rqs_fwd kernel launch failed: CUDA error {err}")
@@ -691,11 +791,18 @@ def _launch_bwd(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md,
     name = _BWD_KERNELS[mode]
     fn = getattr(_build.load(name),
                  name + "_launch" + KERNEL_DTYPES[x2.dtype])
-    fn.argtypes = _BWD_ARGTYPES + [ctypes.c_void_p] * 5
+    # kernel D's entries take its ring routes after offsets32
+    ring = (ctypes.c_uint,) if mode == "autodiff" else ()
+    fn.argtypes = (_BWD_ARGTYPES + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int, *ring, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     rows, cols = x2.shape
     K = w.shape[0]
     tb_t, tb_scalar, strides = _bwd_operands(name, x2, w, h, d, tb, cty, ctl)
+    offsets32 = per_element_offsets32(x2, (w, h, d), tb, (cty, ctl),
+                                      out_planes=K + 1)
+    routes = ((ring_routes(x2, (w, h, d), tb, (cty, ctl)),) if ring
+              else ())
     gx = torch.empty((rows, cols), dtype=x2.dtype, device=x2.device)
     gw = torch.empty((K, rows, cols), dtype=x2.dtype, device=x2.device)
     gh = torch.empty_like(gw)
@@ -704,7 +811,7 @@ def _launch_bwd(x2, w, h, d, tb, cty, ctl, inverse, mbw, mbh, md,
              tb_t.data_ptr() if tb_t is not None else None, cty.data_ptr(),
              ctl.data_ptr(), tb_scalar, strides, rows, cols, K,
              int(bool(inverse)), mbw, mbh, md, gx.data_ptr(), gw.data_ptr(),
-             gh.data_ptr(), gd.data_ptr(),
+             gh.data_ptr(), gd.data_ptr(), int(offsets32), *routes,
              torch.cuda.current_stream(x2.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

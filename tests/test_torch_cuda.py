@@ -426,6 +426,247 @@ def test_kernel_d_is_deterministic(cuda):
         assert torch.equal(a, b)
 
 
+# --- the per-element path (csrc/rqs_per_element.cuh) and D's ring ----------
+# (csrc/rqs_ring.cuh)
+
+RING_DTYPES = [torch.float32, torch.bfloat16]
+_PER_ELEMENT = {"A": tk.rqs_fwd, "C": tk.rqs_bwd, "D": tk.rqs_bwd_autodiff}
+
+
+def _materialised(rng, K, D, B, dtype, cuda):
+    """x (B, D), (1, D, K)-shaped parameters (the CDF's) and the same
+    parameters as full contiguous (K, B, D) planes, a float tail bound,
+    cotangents (B, D): the shared paths take the former, the per-element
+    path the latter."""
+    x = _normal(rng, (B, D), 2.0).to(cuda, dtype)
+    params = [_normal(rng, (1, D, n), 0.5).to(cuda, dtype)
+              for n in (K, K, K + 1)]
+    full = [t.expand(B, D, t.shape[-1]).movedim(-1, 0).contiguous()
+            for t in params]
+    cty, ctl = (_normal(rng, (B, D)).to(cuda, dtype) for _ in range(2))
+    return x, params, full, cty, ctl
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("K", tk.SUPPORTED_BINS)
+@pytest.mark.parametrize("dtype", RING_DTYPES)
+def test_kernel_a_per_element_is_bitwise_its_shared_path(cuda, dtype, K,
+                                                         inverse):
+    """The per-element path on full planes materialised from (1, D, K)
+    parameters gives the shared path's y and ld bit for bit (the shared
+    path is bitwise the plain version): the schedule changes where
+    operands come from, not the math."""
+    x, params, full, _, _ = _materialised(np.random.default_rng(K), K, 4,
+                                          65536 + 77, dtype, cuda)
+    shared = tk.fused_unconstrained_rqs(x, *params, 3.0, inverse=inverse)
+    per_element = tk.rqs_fwd(x, *full, 3.0, inverse=inverse)
+    torch.cuda.synchronize()
+    for a, b in zip(per_element, shared):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("K", tk.SUPPORTED_BINS)
+@pytest.mark.parametrize("dtype", RING_DTYPES)
+def test_kernel_c_gx_is_bitwise_its_shared_path(cuda, dtype, K, inverse):
+    """Kernel C's per-element gx on materialised planes is its shared
+    path's gx bit for bit: both run rqs_bwd_map on the same values."""
+    x, params, full, cty, ctl = _materialised(
+        np.random.default_rng(10 + K), K, 4, 65536 + 77, dtype, cuda)
+    shared = tk.rqs_bwd_shared(x, *(t.movedim(-1, 0) for t in params), 3.0,
+                               cty, ctl, inverse=inverse)
+    per_element = tk.rqs_bwd(x, *full, 3.0, cty, ctl, inverse=inverse)
+    torch.cuda.synchronize()
+    assert torch.equal(per_element[0], shared[0])
+
+
+def _offset_copy(t):
+    """``t``'s values in a fresh buffer one element in: the same operand
+    off 16 bytes (the by-lanes route; in bfloat16 off 4 bytes too)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("kernel", ["A", "C", "D"])
+@pytest.mark.parametrize("dtype", RING_DTYPES)
+def test_per_element_routes_agree_to_the_bit(cuda, dtype, kernel, inverse):
+    """The same operands through 16-byte aligned views and through views
+    one element into their buffers give the same bits, for A, C and D, and
+    two calls are bitwise equal. At this size D takes its ring (its
+    one-tile form would need a second wave), and ``ring_routes`` sends the
+    two views down different routes (16-byte copies, each lane its
+    element)."""
+    rng = np.random.default_rng(30)
+    K, D, B = 8, 3, 65536 + 64
+    x = _normal(rng, (D, B), 2.0).to(cuda, dtype)
+    planes = [_normal(rng, (n, D, B), 0.5).to(cuda, dtype)
+              for n in (K, K, K + 1)]
+    tb = torch.tensor([[1.5], [2.5], [3.0]], device=cuda, dtype=dtype)
+    cts = [_normal(rng, (D, B)).to(cuda, dtype) for _ in range(2)]
+    aligned = [x, *planes, tb] + (cts if kernel != "A" else [])
+    moved = [_offset_copy(t) for t in aligned]
+    fn = _PER_ELEMENT[kernel]
+    got = [fn(*ops[:5], *ops[5:], inverse=inverse)
+           for ops in (aligned, moved, aligned)]
+    torch.cuda.synchronize()
+    for a, b, c in zip(*got):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    if kernel == "D":
+        routes = [tk.ring_routes(ops[0], ops[1:4], ops[4], tuple(ops[5:]))
+                  for ops in (aligned, moved)]
+        assert routes[0] & 0b1111 == 0b1111 and routes[1] == 0
+
+
+def _ring_operands(case, rng, cuda, dtype, K=8):
+    """(x, w, h, d, tb, cty, ctl, small): kernel D's operands in a layout
+    the ring copies by lanes, at ~100k elements (past the one wave of D's
+    one-tile kernel at K 8), and ``small(t)``: an operand or output cut to
+    its first rows or columns, few enough for the one-tile kernel (a
+    one-column operand keeps its column)."""
+    if case == "bin_minor":  # (B, 1, K) parameters, x (B, 1): cols 1
+        B = 100000
+        x = _normal(rng, (B, 1), 2.0).to(cuda, dtype)
+        tb = torch.linspace(1.5, 3.0, B, device=cuda).to(dtype)[:, None]
+        cut = (slice(None, 1000), slice(None))
+    elif case == "broadcast_over_columns":  # (B, 1, K) over x (B, 4)
+        B = 25000
+        x = _normal(rng, (B, 4), 2.0).to(cuda, dtype)
+        tb = 3.0
+        cut = (slice(None, 250), slice(None))
+    else:  # K-major (K, D, B) planes with D * B odd, x = inputs.T
+        D, B = 3, 33333
+        x = _normal(rng, (B, D), 2.0).to(cuda, dtype).T
+        tb = torch.tensor([[1.5], [2.5], [3.0]], device=cuda, dtype=dtype)
+        cut = (slice(None), slice(None, 333))
+    if case == "kmajor_odd_bin_stride":
+        planes = [_normal(rng, (n, D, B), 0.5).to(cuda, dtype)
+                  for n in (K, K, K + 1)]
+    else:  # bin-minor, as a coupling without a bin-major head hands them
+        planes = [_normal(rng, (B, 1, n), 0.5).to(cuda, dtype).movedim(-1, 0)
+                  for n in (K, K, K + 1)]
+    cty, ctl = (_normal(rng, tuple(x.shape)).to(cuda, dtype)
+                for _ in range(2))
+
+    def small(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        return t[..., cut[0], slice(None) if t.shape[-1] == 1 else cut[1]]
+    return x, *planes, tb, cty, ctl, small
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("case", ["bin_minor", "broadcast_over_columns",
+                                  "kmajor_odd_bin_stride"])
+@pytest.mark.parametrize("dtype", RING_DTYPES)
+def test_kernel_d_ring_by_lanes_is_bitwise_its_one_tile_form(
+        cuda, dtype, case, inverse):
+    """Kernel D's ring on operands that it copies by lanes, at a size that
+    takes it: bin-minor (B, 1, K) parameters (bin stride 1, column stride
+    K, one column), (B, 1, K) parameters over x (B, 4) (column stride 0)
+    and K-major planes with an odd bin stride (D * B odd: in bfloat16 the
+    odd planes' elements in the other half of their words). Its outputs
+    are bit for bit those of the same operands cut to a size that takes
+    the one-tile kernel, and ``ring_routes`` copies none of the parameter
+    planes by 16 bytes."""
+    x, w, h, d, tb, cty, ctl, small = _ring_operands(
+        case, np.random.default_rng(40), cuda, dtype)
+    assert tk.ring_routes(x, (w, h, d), tb, (cty, ctl)) & 0b1110 == 0
+    big = tk.rqs_bwd_autodiff(x, w, h, d, tb, cty, ctl, inverse=inverse)
+    cut = tk.rqs_bwd_autodiff(*(small(t) for t in (x, w, h, d, tb, cty,
+                                                   ctl)), inverse=inverse)
+    torch.cuda.synchronize()
+    for a, b in zip(big, cut):
+        assert torch.equal(small(a), b)
+
+
+def _edge_operands(case, rng, cuda, K=8):
+    """(x, w, h, d, tb, plain planes, plain tb) for the route's edges; the
+    kernels take the first five, the plain versions the planes broadcast
+    to x."""
+    tb = 3.0
+    if case.startswith("cols_"):
+        cols = int(case[5:])
+        rows = 3 if cols < 1000 else 2
+        x = _normal(rng, (rows, cols), 2.0).to(cuda)
+        if cols == 1:  # bin-minor (B, 1, K), as a coupling without a head
+            rows = 301
+            x = _normal(rng, (rows, 1), 2.0).to(cuda)
+            bm = [_normal(rng, (rows, 1, n), 0.5).to(cuda)
+                  for n in (K, K, K + 1)]
+            planes = [t.movedim(-1, 0) for t in bm]
+        else:
+            planes = [_normal(rng, (n, rows, cols), 0.5).to(cuda)
+                      for n in (K, K, K + 1)]
+        return (x, *planes, tb, planes, tb)
+    if case == "kmajor_transposed_x":
+        inputs = _normal(rng, (65536 + 5, 2), 2.0).to(cuda)
+        planes = [_normal(rng, (n, 2, 65536 + 5), 0.5).to(cuda)
+                  for n in (K, K, K + 1)]
+        tb = torch.tensor([[np.pi], [3.0]], device=cuda)
+        return (inputs.T, *planes, tb, planes, tb)
+    if case == "broadcast_over_columns":  # (B, 1, K) over x (B, 4)
+        x = _normal(rng, (1000, 4), 2.0).to(cuda)
+        bm = [_normal(rng, (1000, 1, n), 0.5).to(cuda) for n in (K, K, K + 1)]
+        planes = [t.movedim(-1, 0) for t in bm]
+        return (x, *planes, tb, [p.expand(-1, 1000, 4) for p in planes], tb)
+    # a tail bound per row
+    x = _normal(rng, (999, 5), 2.0).to(cuda)
+    planes = [_normal(rng, (n, 999, 5), 0.5).to(cuda) for n in (K, K, K + 1)]
+    tb = torch.linspace(1.5, 3.0, 999, device=cuda)[:, None]
+    return (x, *planes, tb, planes, tb.expand(999, 5))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("case", ["cols_1", "cols_31", "cols_33",
+                                  "cols_257", "cols_65613",
+                                  "kmajor_transposed_x",
+                                  "broadcast_over_columns",
+                                  "per_row_tail_bound"])
+def test_per_element_route_edges_match_plain(cuda, case, inverse):
+    """Ragged tiles (cols 31, 33, 257, 65613; one column with bin-minor
+    (B, 1, K) parameters), K-major x as ``inputs.T``, (B, 1, K) parameters
+    over x (B, 4) (column stride 0) and a tail bound per row: A against
+    ``rqs_plain`` (1e-5 / 1e-4), C and D against their plain versions
+    (1e-4 per element)."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    x, w, h, d, tb, planes, tb_p = _edge_operands(case, rng, cuda)
+    full = [p.expand(p.shape[0], *x.shape) for p in planes]
+    y, ld = tk.rqs_fwd(x, w, h, d, tb, inverse=inverse)
+    yp, lp = tk.rqs_plain(x, *full, tb_p, inverse=inverse)
+    cty, ctl = (_normal(rng, tuple(x.shape)).to(cuda) for _ in range(2))
+    gc = tk.rqs_bwd(x, *full, tb, cty, ctl, inverse=inverse)
+    gcp = tk.rqs_bwd_plain(x, *full, tb_p, cty, ctl, inverse=inverse)
+    gd = tk.rqs_bwd_autodiff(x, *full, tb, cty, ctl, inverse=inverse)
+    gdp = tk.rqs_vjp_plain(x, *full, tb_p, cty, ctl, inverse=inverse)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yp, atol=Y_TOL, rtol=0)
+    torch.testing.assert_close(ld, lp, atol=LD_TOL, rtol=0)
+    for got, want in ((gc, gcp), (gd, gdp)):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=G_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", RING_DTYPES)
+def test_per_element_kernels_are_deterministic(cuda, dtype):
+    """A, C and D at a shape where every warp walks several tiles of the
+    ring: two calls give the same bits."""
+    rng = np.random.default_rng(8)
+    K, rows, cols = 10, 1536, 256
+    x = _normal(rng, (rows, cols), 2.0).to(cuda, dtype)
+    planes = [_normal(rng, (n, rows, cols), 0.5).to(cuda, dtype)
+              for n in (K, K, K + 1)]
+    cts = [_normal(rng, (rows, cols)).to(cuda, dtype) for _ in range(2)]
+    for fn, extra in ((tk.rqs_fwd, []), (tk.rqs_bwd, cts),
+                      (tk.rqs_bwd_autodiff, cts)):
+        first = fn(x, *planes, 3.0, *extra, inverse=True)
+        second = fn(x, *planes, 3.0, *extra, inverse=True)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("mode", ["analytic", "autodiff"])
 def test_reverse_kld_step_on_cuda_matches_cpu(cuda, mode):
     """One ``make_reverse_kld_step`` with SGD on the circular NSF (K = 2,
